@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--frames N]
+    python3 chip_smoke.py [--seed N] [--frames N] [--sessions N]
 
 Phases (each prints its findings; any failure exits non-zero):
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
 2. build: the hand-written kernels from ``rstnet_tpu_torch/csrc``;
-3. kernels: K1 (depformer micro-step) and K3 (RVQ encode) against their
-   plain PyTorch versions on the card, at the full-width shapes of the
-   serving path (Moshi 7B's depformer, Mimi's quantizer), with timings;
-4. small slice: a small Mimi + Moshi serving frame on the card (kernels)
-   against the same weights on the CPU (plain versions), teacher-forced;
-5. full slice: Mimi 24 kHz (f32) + Moshi 7B (bf16) with seeded random
-   weights, driven through ``ServerState.handle_frame_array`` for a few
-   80 ms frames, counting each kernel's launches.
+3. kernels: K1 (depformer micro-step), K2 (per-step gated FFN) and K3 (RVQ
+   encode, both of its paths) against their plain PyTorch versions on the
+   card, at the full-width shapes of the serving paths (Moshi 7B's
+   depformer, Mimi's quantizer), with device times and bounds;
+4. small slices: a small Mimi + Moshi serving frame (solo, K1) and a small
+   batched tick (``SessionBatcher`` at B=4, K2) on the card against the same
+   weights on the CPU (plain versions), teacher-forced;
+5. full slices, on one build of Mimi 24 kHz (f32) + Moshi 7B (bf16) with
+   seeded random weights: the solo frame through
+   ``ServerState.handle_frame_array``, then ``SessionBatcher.step_once``
+   with ``--sessions`` sessions; each path's kernel launches are counted
+   from zero just before it runs and read just after.
 
+Kernel times are device times: a device sleep holds the stream while the
+host enqueues the timed calls, so the host's launch cost is not in them.
 The line before the last is the card's ``nvidia-smi`` name and power limit
 again, before it a ``{"kernels": [...]}`` JSON line, and the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -27,7 +33,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -39,6 +44,10 @@ import torch
 # the normalized activations, the attention output and the gated hidden can
 # differ by one bf16 ulp between two summation orders.
 K1_ATOL = K1_RTOL = 2e-2
+# K2: float32 outputs are the same float32 sums in another order (1e-4
+# relative, 1e-5 absolute); bf16 outputs may round those sums to neighbouring
+# bf16 values, one step of 2**-7 relative.
+K2_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0**-7, 1e-5)}  # (rtol, atol)
 # K3: a differing code is allowed only at a near-tie (the two candidates'
 # squared distances, in float64, within this fraction of each other); rows
 # whose codes agree add the same codewords in the same order, so their
@@ -49,6 +58,9 @@ K3_QUANT_ATOL = 1e-5
 # summation orders on each side
 SLICE_LOGIT_TOL = 5e-2
 SLICE_AUDIO_TOL = 1e-3
+# NVIDIA H100 SXM data sheet: HBM bandwidth and dense peak rates (at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 
 
 def log(*args) -> None:
@@ -62,17 +74,34 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()``, after a warm-up."""
+    """Device time of one ``fn()``: CUDA events around ``reps`` calls, after
+    a warm-up. A device sleep first holds the stream until the host has
+    enqueued every call, so host launch cost does not enter the time; keep
+    ``reps`` times the launches per call to a few hundred, or the launch
+    queue fills and the host's pace returns."""
     fn()
-    times = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1000
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6 * (2 * reps * host_ms + 20)))  # >= 1 ms per 2e6 cycles
+    start.record()
     for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: float, n_ops: float, kind: str) -> tuple[float, str]:
+    """(least time in ms, what bounds it): each input read once and each
+    output written once at the HBM rate, against the operations at the peak
+    rate of their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_environment() -> str:
@@ -155,15 +184,66 @@ def check_k1(g, card: str) -> dict:
         if bad.any() or not torch.isfinite(a).all():
             raise AssertionError(f"K1 {name} disagrees with depformer_step_reference")
     heads = dims["heads"]
-    ms = time_ms(lambda: _k1_frame(depformer_step, ops, xs, zeros(), zeros(), heads), 20) / S
+    ms = time_ms(lambda: _k1_frame(depformer_step, ops, xs, zeros(), zeros(), heads), 4) / S
     plain = time_ms(lambda: _k1_frame(depformer_step_reference, ops, xs, zeros(), zeros(),
-                                      heads), 5) / S
+                                      heads), 2) / S
+    # one micro-step, averaged over the frame's S: the step's weight slices
+    # and head, the norms, x, the cache rows read (cb of them, f32 K and V)
+    # and written (one), the logits
+    H, card_n = ops["gout"].shape[-1], ops["head_w"].shape[1]
+    weights = L * (3 * C * C + C * C + 2 * H * C + C * H) + card_n * C
+    n_bytes = (2 * weights + 4 * (2 * L * C + card_n) + 2 * C
+               + 8 * L * C * (sum(range(S)) / S + 1) + 4 * card_n)
+    bound_ms, bound_by = bound(n_bytes, 2 * weights, "bf16")
     log(f"K1 one micro-step (L=6, C=1024, H=2816, card=2048): kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms [{card}]")
+        f"plain {plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
     return {"name": "depformer_step", "route": "cuda",
             "source": "rstnet_tpu_torch/csrc/depformer_step.cu",
             "replaces": "rstnet_tpu/ops/pallas_depformer.py:167",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def check_k2(g, card: str, sessions: int) -> dict:
+    """K2 at Moshi 7B's depformer shapes (S=8, C=1024, H=2816, bf16
+    weights), B in {2, 16, 64} and the sessions' B, x in bf16 and f32,
+    steps 0 and 7."""
+    from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn_step, gating_ffn_step_reference
+
+    S, C, H = 8, 1024, 2816
+    lin_in = ((torch.rand((S, 2 * H, C), device="cuda", generator=g) * 2 - 1) * C**-0.5
+              ).to(torch.bfloat16)
+    lin_out = ((torch.rand((S, C, H), device="cuda", generator=g) * 2 - 1) * H**-0.5
+               ).to(torch.bfloat16)
+    err, result = 0.0, None
+    for B in sorted({2, 16, 64, sessions}):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((B, C), device="cuda", generator=g).to(dtype)
+            rtol, atol = K2_TOL[dtype]
+            for step in (0, 7):
+                got = gating_ffn_step(x, lin_in, lin_out, step)
+                want = gating_ffn_step_reference(x, lin_in, lin_out, step)
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                bad = int((diff > atol + rtol * want.float().abs()).sum())
+                err = max(err, diff.max().item())
+                if bad or not torch.isfinite(got).all():
+                    raise AssertionError(f"K2 B={B} {dtype} step={step}: {bad} elements outside "
+                                         f"rtol={rtol} atol={atol} (max err {diff.max().item():.3e})")
+            ms = time_ms(lambda: gating_ffn_step(x, lin_in, lin_out, 7), 100)
+            plain = time_ms(lambda: gating_ffn_step_reference(x, lin_in, lin_out, 7), 50)
+            xb = x.element_size()
+            bound_ms, bound_by = bound(2 * 3 * H * C + 2 * B * C * xb, 2 * B * 3 * H * C, "bf16")
+            log(f"K2 B={B} x {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+            if B == sessions and dtype == torch.bfloat16:  # the batched tick's shape
+                result = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                          "bound_by": bound_by}
+    log(f"K2 max |kernel - plain| {err:.3e} over B, dtypes and steps")
+    return {"name": "gating_ffn_step", "route": "cuda",
+            "source": "rstnet_tpu_torch/csrc/gating_ffn_step.cu",
+            "replaces": "rstnet_tpu/ops/pallas_ffn.py:230", "max_abs_err": err, **result,
+            "library_ms": None}
 
 
 def _k3_mismatches(x, cbs, codes_k, codes_r):
@@ -184,34 +264,61 @@ def _k3_mismatches(x, cbs, codes_k, codes_r):
     return ties, other, agree
 
 
-def check_k3(g, card: str) -> dict:
+@contextlib.contextmanager
+def rvq_split_rows(n: int):
+    """Let K3's wrapper take the split-over-K path up to ``n`` rows."""
+    from rstnet_tpu_torch.ops import cuda_rvq
+
+    saved, cuda_rvq.SPLIT_MAX_ROWS = cuda_rvq.SPLIT_MAX_ROWS, n
+    try:
+        yield
+    finally:
+        cuda_rvq.SPLIT_MAX_ROWS = saved
+
+
+def check_k3(g, card: str, sessions: int) -> dict:
+    """K3 at Mimi's quantizer shapes, both paths where both apply; the
+    entry for the kernels line is the wrapper's own choice at Q=7 and the
+    batched tick's N (one row per session)."""
+    from rstnet_tpu_torch.ops import cuda_rvq
     from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode, rvq_encode_reference
 
     D, K = 256, 2048
     books = torch.randn((7, K, D), device="cuda", generator=g)
-    err, timings = 0.0, {}
+    err, result = 0.0, None
     for Q in (1, 7):
-        for N in (1, 4096):
+        cbs = books[:Q].contiguous()
+        for N in sorted({1, 8, 16, 32, 64, 4096, sessions}):
             x = torch.randn((N, D), device="cuda", generator=g)
-            cbs = books[:Q].contiguous()
-            codes_k, quant_k = rvq_encode(x, cbs)
             codes_r, quant_r = rvq_encode_reference(x, cbs)
-            torch.cuda.synchronize()
-            ties, other, agree = _k3_mismatches(x, cbs, codes_k, codes_r)
-            qerr = (quant_k[agree] - quant_r[agree]).abs().max().item() if agree.any() else 0.0
-            err = max(err, qerr)
-            log(f"K3 Q={Q} N={N}: {int(agree.sum())}/{N} rows with equal codes, {ties} near-tie "
-                f"rows, {other} other mismatches; quant max abs err {qerr:.3e}")
-            if other or qerr > K3_QUANT_ATOL:
-                raise AssertionError(f"K3 disagrees with rvq_encode_reference at Q={Q} N={N}")
-            timings[(Q, N)] = (time_ms(lambda: rvq_encode(x, cbs), 50),
-                               time_ms(lambda: rvq_encode_reference(x, cbs), 50))
-            log(f"K3 Q={Q} N={N}: kernel {timings[(Q, N)][0]:.4f} ms, "
-                f"plain {timings[(Q, N)][1]:.4f} ms [{card}]")
-    ms, plain = timings[(7, 1)]
+            plain = time_ms(lambda: rvq_encode_reference(x, cbs), 20)
+            paths = {"tiled": 0, "split": 64} if N <= 64 else {"tiled": 0}
+            times = {}
+            for path, rows in paths.items():
+                with rvq_split_rows(rows):
+                    codes_k, quant_k = rvq_encode(x, cbs)
+                    torch.cuda.synchronize()
+                    ties, other, agree = _k3_mismatches(x, cbs, codes_k, codes_r)
+                    qerr = ((quant_k[agree] - quant_r[agree]).abs().max().item()
+                            if agree.any() else 0.0)
+                    err = max(err, qerr)
+                    if other or qerr > K3_QUANT_ATOL:
+                        raise AssertionError(f"K3 {path} disagrees with rvq_encode_reference at "
+                                             f"Q={Q} N={N}: {other} rows, quant err {qerr:.3e}")
+                    times[path] = time_ms(lambda: rvq_encode(x, cbs), 30)
+            n_bytes = 4 * (N * D + Q * K * D + N * Q + N * D)
+            bound_ms, bound_by = bound(n_bytes, 2 * N * Q * K * D, "f32")
+            chosen = "split" if N <= cuda_rvq.SPLIT_MAX_ROWS else "tiled"
+            log(f"K3 Q={Q} N={N}: " + ", ".join(f"{p} {t:.4f} ms" for p, t in times.items())
+                + f" (wrapper takes {chosen}), plain {plain:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}); {int(agree.sum())}/{N} rows with equal codes, {ties} near-tie "
+                f"[{card}]")
+            if Q == 7 and N == sessions:
+                result = {"ms": times[chosen], "plain_ms": plain, "bound_ms": bound_ms,
+                          "bound_by": bound_by}
     return {"name": "rvq_encode", "route": "cuda", "source": "rstnet_tpu_torch/csrc/rvq_encode.cu",
-            "replaces": "rstnet_tpu/ops/pallas_rvq.py:67", "max_abs_err": err,
-            "ms": ms, "plain_ms": plain}
+            "replaces": "rstnet_tpu/ops/pallas_rvq.py:67", "max_abs_err": err, **result,
+            "library_ms": None}
 
 
 @contextlib.contextmanager
@@ -285,39 +392,109 @@ def check_small_slice(seed: int, n_frames: int = 6) -> None:
         raise AssertionError("the small slice on the card disagrees with the CPU")
 
 
-def run_full_slice(seed: int, n_frames: int, card: str) -> dict:
-    from rstnet_tpu_torch.ops.cuda_depformer import depformer_kernel_operands, depformer_step
+def check_small_batched_slice(seed: int, sessions: int = 4, n_ticks: int = 6) -> None:
+    """``SessionBatcher`` at B=4 on the small models (depformer 128 wide,
+    gating hidden dim 128: inside K2's envelope), float32 state, greedy; the
+    card is teacher-forced on the CPU's tokens."""
+    from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn_step
     from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode
-    from rstnet_tpu_torch.serving.server import ServerState, build_models
+    from rstnet_tpu_torch.serving.batcher import SessionBatcher
+
+    pcm = np.random.default_rng(seed + 1).normal(0, 0.1, (n_ticks, sessions, 1920))
+    runs = {}
+    for device in ("cpu", "cuda"):
+        mimi, gen = _small_models(device, seed)
+        batcher = SessionBatcher(mimi, gen, max_sessions=sessions, dtype=torch.float32, seed=seed)
+        active = [batcher.acquire() for _ in range(sessions)]
+        forced = None if device == "cpu" else [tok for _, tok in runs["cpu"][0]]
+        k2, k3 = gating_ffn_step.launches, rvq_encode.launches
+        with recorded_sampling(forced) as record:
+            for t in range(n_ticks):
+                for i, sess in enumerate(active):
+                    sess.inputs.put_nowait(pcm[t, i].astype(np.float32))
+                batcher.step_once()
+        audio = [[sess.outputs.get_nowait()[0] for _ in range(sess.outputs.qsize())]
+                 for sess in active]
+        runs[device] = (record, audio, gating_ffn_step.launches - k2, rvq_encode.launches - k3)
+    (rec_c, audio_c, _, _), (rec_g, audio_g, k2, k3) = runs["cpu"], runs["cuda"]
+    layers = gen.model.depformer.num_layers
+    if k2 != 8 * layers * n_ticks or k3 != 2 * n_ticks:
+        raise AssertionError(f"small batched slice launched K2 {k2} and K3 {k3} times, expected "
+                             f"{8 * layers * n_ticks} and {2 * n_ticks}")
+    logit_err = max((a - b).abs().max().item() for (a, _), (b, _) in zip(rec_c, rec_g))
+    scale = max(a.abs().max().item() for a, _ in rec_c)
+    flips = 0
+    for (a, tok), (b, _) in zip(rec_c, rec_g):
+        top2 = a.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * SLICE_LOGIT_TOL * max(1.0, scale)
+        flips += int(((b.argmax(-1) != tok) & clear).sum())
+    if [len(a) for a in audio_c] != [len(a) for a in audio_g] or not audio_c[0]:
+        raise AssertionError("the card and the CPU delivered different frame counts")
+    audio_err = max(float(np.abs(a - b).max()) for sa, sb in zip(audio_c, audio_g)
+                    for a, b in zip(sa, sb))
+    log(f"small batched slice (B={sessions}), card vs CPU over {n_ticks} ticks: logits max abs "
+        f"err {logit_err:.3e} (max |logit| {scale:.3e}), {flips} greedy flips past the margin, "
+        f"audio max abs err {audio_err:.3e}; K2 launches {k2}, K3 {k3}")
+    if logit_err > SLICE_LOGIT_TOL * max(1.0, scale) or flips or audio_err > SLICE_AUDIO_TOL:
+        raise AssertionError("the small batched slice on the card disagrees with the CPU")
+
+
+def build_full_models(seed: int):
+    """Mimi 24 kHz + Moshi 7B as the server builds them, with seeded normal
+    codebooks: the default init leaves every codebook at zero, where every
+    code is a tie won by 0."""
+    from rstnet_tpu_torch.ops.cuda_depformer import depformer_kernel_operands
+    from rstnet_tpu_torch.serving.server import build_models
 
     t0 = time.perf_counter()
-    device = torch.device("cuda")
-    mimi, lm_gen = build_models(False, device, seed)
-    g = torch.Generator(device=device).manual_seed(seed + 1)
-    # the default init leaves every codebook at zero, where every code is a
-    # tie won by 0; seeded normal codebooks make K3's choices real
+    mimi, lm_gen = build_models(False, torch.device("cuda"), seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
     for rvq in (mimi.quantizer.rvq_first, mimi.quantizer.rvq_rest):
         rvq.layers.embedding_sum.normal_(generator=g)
-    model = lm_gen.model
-    if depformer_kernel_operands(model) is None:
+    if depformer_kernel_operands(lm_gen.model) is None:
         raise AssertionError("Moshi 7B's depformer is outside K1's envelope")
-    n_params = sum(p.numel() for p in model.parameters()) + sum(
-        p.numel() for p in mimi.parameters())
+    n_params = sum(p.numel() for m in (mimi, lm_gen.model) for p in m.parameters())
+    log(f"full models: Mimi 24 kHz + Moshi 7B, {n_params / 1e9:.2f} B params, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return mimi, lm_gen
+
+
+def _signal(seed: int, n_samples: int, freq: float = 220.0) -> np.ndarray:
+    t = np.arange(n_samples) / 24000.0
+    rng = np.random.default_rng(seed)
+    return (0.3 * np.sin(2 * np.pi * freq * t) * np.sin(2 * np.pi * 1.5 * t)
+            + 0.05 * rng.standard_normal(t.shape)).astype(np.float32)
+
+
+def _percentiles(times: list) -> str:
+    ts = sorted(times)
+    return (f"p50 {ts[len(ts) // 2]:.2f} ms, p99 {ts[min(len(ts) - 1, int(0.99 * len(ts)))]:.2f} "
+            f"ms")
+
+
+def _launch_counts() -> dict:
+    from rstnet_tpu_torch.ops.cuda_depformer import depformer_step
+    from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn_step
+    from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode
+
+    return {f.__name__: f for f in (depformer_step, gating_ffn_step, rvq_encode)}
+
+
+def run_full_slice(mimi, lm_gen, seed: int, n_frames: int, card: str) -> dict:
+    from rstnet_tpu_torch.serving.server import ServerState
+
+    t0 = time.perf_counter()
     state = ServerState(mimi, lm_gen, seed=seed)
     state.warmup()
     torch.cuda.synchronize()
-    log(f"full slice: Mimi 24 kHz + Moshi 7B, {n_params / 1e9:.2f} B params, built and "
-        f"warmed up in {time.perf_counter() - t0:.1f} s; "
+    log(f"full solo slice: warmed up in {time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak")
+    frames = _signal(seed, n_frames * state.frame_size).reshape(n_frames, state.frame_size)
+    n_text = lm_gen.model.text_card + lm_gen.model._extra_text
 
-    t = np.arange(n_frames * state.frame_size) / 24000.0
-    rng = np.random.default_rng(seed)
-    signal = (0.3 * np.sin(2 * np.pi * 220.0 * t) * np.sin(2 * np.pi * 1.5 * t)
-              + 0.05 * rng.standard_normal(t.shape)).astype(np.float32)
-    frames = signal.reshape(n_frames, state.frame_size)
-    n_text = model.text_card + model._extra_text
-
-    rvq_encode.launches = depformer_step.launches = 0
+    kernels = _launch_counts()
+    for fn in kernels.values():
+        fn.launches = 0
     times, valid = [], 0
     for pcm in frames:
         t0 = time.perf_counter()
@@ -332,34 +509,92 @@ def run_full_slice(seed: int, n_frames: int, card: str) -> dict:
                                  f"{np.isfinite(audio).all()}")
         if not 0 <= tok < n_text:
             raise AssertionError(f"frame {len(times)}: text token {tok} outside [0, {n_text})")
-    k1, k3 = depformer_step.launches, rvq_encode.launches
-    log(f"full slice: {n_frames} frames, {valid} valid; K1 launches {k1} "
-        f"({k1 / n_frames:g}/frame), K3 launches {k3} ({k3 / n_frames:g}/frame)")
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    log(f"full solo slice: {n_frames} frames, {valid} valid; launches {counts}")
     if valid != n_frames - lm_gen.max_delay:
         raise AssertionError(f"{valid} valid frames, expected {n_frames - lm_gen.max_delay}")
-    if k1 != 8 * n_frames or k3 != 2 * n_frames:
-        raise AssertionError("a frame did not go through both kernels as expected")
-    ts = sorted(times)
-    log(f"full slice frame time: p50 {ts[len(ts) // 2]:.2f} ms, "
-        f"p99 {ts[min(len(ts) - 1, int(0.99 * len(ts)))]:.2f} ms over {n_frames} frames "
+    if counts != {"depformer_step": 8 * n_frames, "gating_ffn_step": 0,
+                  "rvq_encode": 2 * n_frames}:
+        raise AssertionError("a frame did not go through K1 and K3 as expected")
+    log(f"full solo slice frame time: {_percentiles(times)} over {n_frames} frames "
         f"(host clock, informational) [{card}]")
-    return {"depformer_step": k1, "rvq_encode": k3}
+    return counts
+
+
+def run_full_batched_slice(mimi, lm_gen, seed: int, sessions: int, n_ticks: int,
+                           card: str) -> dict:
+    """``sessions`` sessions through ``SessionBatcher.step_once`` (bf16 LM
+    state, pipeline depth 1), each fed its own seeded signal."""
+    from rstnet_tpu_torch.serving.batcher import SessionBatcher
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    batcher = SessionBatcher(mimi, lm_gen, max_sessions=sessions, seed=seed)
+    batcher.warmup()
+    active = [batcher.acquire() for _ in range(sessions)]
+    torch.cuda.synchronize()
+    log(f"full batched slice: {sessions} sessions, warmed up in {time.perf_counter() - t0:.1f} s")
+    frame = batcher.frame_size
+    signals = np.stack([_signal(seed + i, n_ticks * frame, 110.0 + 20.0 * i)
+                        for i in range(sessions)]).reshape(sessions, n_ticks, frame)
+    n_text = lm_gen.model.text_card + lm_gen.model._extra_text
+
+    kernels = _launch_counts()
+    for fn in kernels.values():
+        fn.launches = 0
+    times = []
+    for t in range(n_ticks):
+        for i, sess in enumerate(active):
+            sess.inputs.put_nowait(signals[i, t])
+        t0 = time.perf_counter()
+        batcher.step_once()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000)
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, sess in enumerate(active):
+        got = [sess.outputs.get_nowait() for _ in range(sess.outputs.qsize())]
+        if len(got) != n_ticks - lm_gen.max_delay:
+            raise AssertionError(f"session {i}: {len(got)} frames, expected "
+                                 f"{n_ticks - lm_gen.max_delay}")
+        for audio, tok in got:
+            if audio.shape != (frame,) or not np.isfinite(audio).all():
+                raise AssertionError(f"session {i}: audio {audio.shape}, finite "
+                                     f"{np.isfinite(audio).all()}")
+            if not 0 <= tok < n_text:
+                raise AssertionError(f"session {i}: text token {tok} outside [0, {n_text})")
+    layers = lm_gen.model.depformer.num_layers
+    log(f"full batched slice: {n_ticks} ticks x {sessions} sessions; launches {counts}")
+    if counts != {"depformer_step": 0, "gating_ffn_step": 8 * layers * n_ticks,
+                  "rvq_encode": 2 * n_ticks}:
+        raise AssertionError("a tick did not go through K2 and K3 as expected")
+    log(f"full batched slice tick time: {_percentiles(times)} over {n_ticks} ticks "
+        f"(host clock, informational); peak memory {peak:.1f} GiB [{card}]")
+    return counts
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--frames", type=int, default=16)
+    parser.add_argument("--frames", type=int, default=16,
+                        help="frames of the solo slice and ticks of the batched one")
+    parser.add_argument("--sessions", type=int, default=16)
     args = parser.parse_args(argv)
 
     card = phase_environment()
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(args.seed)
-    kernels = [check_k1(g, card), check_k3(g, card)]
+    kernels = [check_k1(g, card), check_k2(g, card, args.sessions),
+               check_k3(g, card, args.sessions)]
     check_small_slice(args.seed)
-    launches = run_full_slice(args.seed, args.frames, card)
+    check_small_batched_slice(args.seed)
+    mimi, lm_gen = build_full_models(args.seed)
+    solo = run_full_slice(mimi, lm_gen, args.seed, args.frames, card)
+    batched = run_full_batched_slice(mimi, lm_gen, args.seed, args.sessions, args.frames, card)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        paths = {"solo_frame": solo[k["name"]], "batched_tick": batched[k["name"]]}
+        k["launches"] = sum(paths.values())
+        k["launches_by_path"] = paths
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,9 @@
 
 The JAX package ``rstnet_tpu`` stays the reference. This package mirrors its
 layout (``ops``, ``modules``, ``quantization``, ``models``, ``inference``,
-``serving``) and its public tensor layouts, so each module's counterpart is
-easy to find and the parity tests compare like with like. It imports
+``serving``, ``utils``) and its public tensor layouts, so each module's
+counterpart is easy to find and the parity tests compare like with like. It
+imports
 ``torch`` and never ``jax``.
 
 Idiom: parameters live in ``nn.Module``s whose ``state_dict()`` keys are the

@@ -12,8 +12,9 @@
 // frame) is bound by how many SMs read the 2 MB of each level: one SM alone
 // takes about 0.2 ms a level.
 //
-// What the design does about it, in two paths:
-// - N > kSmallRows (tiled, one launch): each block owns a tile of kRows
+// What the design does about it, in two paths, chosen by the caller (the
+// wrapper picks from N):
+// - tiled (one launch): each block owns a tile of kRows
 //   residual rows, kept in shared memory for the whole level sweep (with the
 //   running quantized sum), so residuals never go back to device memory
 //   between levels. Each level's codebook streams through shared memory in
@@ -22,12 +23,13 @@
 //   kRowsPerThread FMAs x4. Row padding of 4 floats keeps the float4 reads of
 //   a quarter-warp on distinct banks. ||e||^2 per codeword is a separate small
 //   warp-per-codeword kernel.
-// - N <= kSmallRows (split over K, 2 launches a level): the rows are too few
-//   to fill the card, so each level's codebook is split across K/16 blocks
-//   (128 at Mimi's K), a warp per codeword with the lanes splitting D, every
-//   row in shared memory. Each block writes its best (distance, index) per
-//   row; a second kernel picks the winner across blocks and updates the
-//   residual and the quantized sum in device memory for the next level.
+// - split over K (2 launches a level, N <= kSplitMaxRows): for a few rows a
+//   row tile cannot fill the card, so each level's codebook is split across
+//   K/16 blocks (128 at Mimi's K), a warp per codeword with the lanes
+//   splitting D, every row in shared memory, scored in register chunks of
+//   kSmallRows rows. Each block writes its best (distance, index) per row; a
+//   second kernel picks the winner across blocks and updates the residual
+//   and the quantized sum in device memory for the next level.
 // Both paths visit codewords in increasing order with a strict '<' and break
 // equal distances by index wherever partial results merge, so the lowest
 // index wins a tie. Later work: cp.async double-buffering of the tiled path,
@@ -45,7 +47,8 @@ constexpr int kThreads = kTileK * (kRows / kRowsPerThread);  // 256
 constexpr int kWarps = kThreads / 32;
 constexpr int kPad = 4;            // floats of padding per shared row
 
-constexpr int kSmallRows = 8;      // N up to this takes the split-over-K path
+constexpr int kSmallRows = 8;      // rows the split path scores per register chunk
+constexpr int kSplitMaxRows = 64;  // most rows the split path takes
 constexpr int kSplitThreads = 256;
 constexpr int kSplitWarps = kSplitThreads / 32;
 constexpr int kCodesPerWarp = 2;
@@ -212,10 +215,11 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ cb,
   }
 }
 
-// One level's search for N <= kSmallRows rows, split over K. Block b scores
-// codewords [b*kCodesPerBlock, (b+1)*kCodesPerBlock) against every row, a warp
-// per codeword with the lanes splitting D, and writes its best (distance,
-// index) per row to part_d/part_i [gridDim.x][N].
+// One level's search for N <= kSplitMaxRows rows, split over K. Block b
+// scores codewords [b*kCodesPerBlock, (b+1)*kCodesPerBlock) against every row,
+// a warp per codeword with the lanes splitting D, kSmallRows rows at a time,
+// and writes its best (distance, index) per row to part_d/part_i
+// [gridDim.x][N].
 __global__ void __launch_bounds__(kSplitThreads)
 rvq_search_split(const float* __restrict__ res, const float* __restrict__ cbq,
                  float* __restrict__ part_d, int* __restrict__ part_i, int N, int D, int K) {
@@ -228,74 +232,79 @@ rvq_search_split(const float* __restrict__ res, const float* __restrict__ cbq,
   }
   __syncthreads();
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  float best_d[kSmallRows];
-  int best_i[kSmallRows];
-#pragma unroll
-  for (int j = 0; j < kSmallRows; ++j) {
-    best_d[j] = INFINITY;
-    best_i[j] = K;
-  }
   const int k_begin = blockIdx.x * kCodesPerBlock + warp * kCodesPerWarp;
-  for (int c = 0; c < kCodesPerWarp; ++c) {
-    const int k = k_begin + c;
-    if (k >= K) break;  // uniform across the warp
-    const float4* e4 = reinterpret_cast<const float4*>(cbq + static_cast<size_t>(k) * D);
-    float esq = 0.f;
-    float dot[kSmallRows];
+  for (int r0 = 0; r0 < N; r0 += kSmallRows) {
+    const int nr = min(kSmallRows, N - r0);
+    const float4* rows = rows4 + r0 * D4;
+    float best_d[kSmallRows];
+    int best_i[kSmallRows];
 #pragma unroll
-    for (int j = 0; j < kSmallRows; ++j) dot[j] = 0.f;
-    for (int d = lane; d < D4; d += 32) {
-      const float4 e = e4[d];
-      esq = fmaf(e.x, e.x, esq);
-      esq = fmaf(e.y, e.y, esq);
-      esq = fmaf(e.z, e.z, esq);
-      esq = fmaf(e.w, e.w, esq);
+    for (int j = 0; j < kSmallRows; ++j) {
+      best_d[j] = INFINITY;
+      best_i[j] = K;
+    }
+    for (int c = 0; c < kCodesPerWarp; ++c) {
+      const int k = k_begin + c;
+      if (k >= K) break;  // uniform across the warp
+      const float4* e4 = reinterpret_cast<const float4*>(cbq + static_cast<size_t>(k) * D);
+      float esq = 0.f;
+      float dot[kSmallRows];
+#pragma unroll
+      for (int j = 0; j < kSmallRows; ++j) dot[j] = 0.f;
+      for (int d = lane; d < D4; d += 32) {
+        const float4 e = e4[d];
+        esq = fmaf(e.x, e.x, esq);
+        esq = fmaf(e.y, e.y, esq);
+        esq = fmaf(e.z, e.z, esq);
+        esq = fmaf(e.w, e.w, esq);
+#pragma unroll
+        for (int j = 0; j < kSmallRows; ++j) {
+          if (j < nr) {
+            const float4 r = rows[j * D4 + d];
+            dot[j] = fmaf(r.x, e.x, dot[j]);
+            dot[j] = fmaf(r.y, e.y, dot[j]);
+            dot[j] = fmaf(r.z, e.z, dot[j]);
+            dot[j] = fmaf(r.w, e.w, dot[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        esq += __shfl_xor_sync(0xffffffffu, esq, o);
+#pragma unroll
+        for (int j = 0; j < kSmallRows; ++j) dot[j] += __shfl_xor_sync(0xffffffffu, dot[j], o);
+      }
 #pragma unroll
       for (int j = 0; j < kSmallRows; ++j) {
-        if (j < N) {
-          const float4 r = rows4[j * D4 + d];
-          dot[j] = fmaf(r.x, e.x, dot[j]);
-          dot[j] = fmaf(r.y, e.y, dot[j]);
-          dot[j] = fmaf(r.z, e.z, dot[j]);
-          dot[j] = fmaf(r.w, e.w, dot[j]);
+        const float dist = esq - 2.0f * dot[j];
+        if (j < nr && dist < best_d[j]) {
+          best_d[j] = dist;
+          best_i[j] = k;
         }
       }
     }
+    if (lane == 0) {  // after the butterfly every lane holds the same values
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      esq += __shfl_xor_sync(0xffffffffu, esq, o);
-#pragma unroll
-      for (int j = 0; j < kSmallRows; ++j) dot[j] += __shfl_xor_sync(0xffffffffu, dot[j], o);
-    }
-#pragma unroll
-    for (int j = 0; j < kSmallRows; ++j) {
-      const float dist = esq - 2.0f * dot[j];
-      if (j < N && dist < best_d[j]) {
-        best_d[j] = dist;
-        best_i[j] = k;
+      for (int j = 0; j < kSmallRows; ++j) {
+        red_d[warp][j] = best_d[j];
+        red_i[warp][j] = best_i[j];
       }
     }
-  }
-  if (lane == 0) {  // after the butterfly every lane holds the same values
-#pragma unroll
-    for (int j = 0; j < kSmallRows; ++j) {
-      red_d[warp][j] = best_d[j];
-      red_i[warp][j] = best_i[j];
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < N) {
-    const int j = threadIdx.x;
-    float d = red_d[0][j];
-    int i = red_i[0][j];
-    for (int w = 1; w < kSplitWarps; ++w) {
-      if (better(red_d[w][j], red_i[w][j], d, i)) {
-        d = red_d[w][j];
-        i = red_i[w][j];
+    __syncthreads();
+    if (threadIdx.x < nr) {
+      const int j = threadIdx.x;
+      float d = red_d[0][j];
+      int i = red_i[0][j];
+      for (int w = 1; w < kSplitWarps; ++w) {
+        if (better(red_d[w][j], red_i[w][j], d, i)) {
+          d = red_d[w][j];
+          i = red_i[w][j];
+        }
       }
+      part_d[blockIdx.x * N + r0 + j] = d;
+      part_i[blockIdx.x * N + r0 + j] = i;
     }
-    part_d[blockIdx.x * N + j] = d;
-    part_i[blockIdx.x * N + j] = i;
+    __syncthreads();  // red_d/red_i are reused by the next chunk
   }
 }
 
@@ -359,28 +368,35 @@ rvq_pick_update(const float* __restrict__ part_d, const int* __restrict__ part_i
 
 }  // namespace
 
-// Floats of scratch that rvq_encode needs for these sizes.
-extern "C" long long rvq_encode_scratch_floats(int N, int D, int Q, int K) {
-  if (N <= kSmallRows) return static_cast<long long>(N) * D + 2LL * split_blocks(K) * N;
+// Floats of scratch that rvq_encode needs for these sizes and path.
+extern "C" long long rvq_encode_scratch_floats(int N, int D, int Q, int K, int split) {
+  if (split) return static_cast<long long>(N) * D + 2LL * split_blocks(K) * N;
   return static_cast<long long>(Q) * K;
 }
 
 // x [N, D] f32, codebooks [Q, K, D] f32 -> codes [N, Q] int32, quant [N, D]
-// f32; scratch holds rvq_encode_scratch_floats(N, D, Q, K) floats. N >= 1,
-// D % 4 == 0, D <= 512; all pointers 16-byte aligned. Returns the
-// cudaGetLastError() status.
+// f32; scratch holds rvq_encode_scratch_floats(N, D, Q, K, split) floats.
+// split != 0 takes the split-over-K path (N <= kSplitMaxRows), else the tiled
+// one. N >= 1, D % 4 == 0, D <= 512; all pointers 16-byte aligned. Returns
+// the cudaGetLastError() status.
 extern "C" int rvq_encode(const void* x, const void* codebooks, void* codes, void* quant,
-                          void* scratch, int N, int D, int Q, int K, void* stream) {
+                          void* scratch, int N, int D, int Q, int K, int split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* cb = static_cast<const float*>(codebooks);
   float* work = static_cast<float*>(scratch);
-  if (N <= kSmallRows) {
+  if (split) {
+    if (N > kSplitMaxRows) return static_cast<int>(cudaErrorInvalidValue);
     const int splits = split_blocks(K);
     float* res = work;  // [N, D]
     float* part_d = res + static_cast<size_t>(N) * D;  // [splits, N]
     int* part_i = reinterpret_cast<int*>(part_d + static_cast<size_t>(splits) * N);
     const size_t smem = static_cast<size_t>(N) * D * sizeof(float);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          rvq_search_split, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     for (int q = 0; q < Q; ++q) {
       const float* cbq = cb + static_cast<size_t>(q) * K * D;
       const float* res_in = q == 0 ? xf : res;

@@ -114,26 +114,82 @@ class MimiModel(nn.Module):
             s["upsample"] = self.upsample.init_state(batch_size, dtype, device)
         return s
 
-    def encode_step(self, state: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
-        """One streaming chunk: [B, C, frame_size*n] -> [B, K, n] codes."""
+    def _session_min_pos(self, tr_state: dict, session_age: torch.Tensor | None):
+        """Global transformer position where each slot's session started.
+
+        ``session_age`` [B]: codec frames each slot has already processed
+        (batched serving). Keys written before a slot joined fall below its
+        floor and are masked out of attention."""
+        if session_age is None:
+            return None
+        return tr_state["offset"] - session_age * self._transformer_steps_per_frame
+
+    def encode_step(self, state: dict, x: torch.Tensor, session_age: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, dict]:
+        """One streaming chunk: [B, C, frame_size*n] -> [B, K, n] codes.
+        ``session_age`` ([B], optional): per-slot frame count for batched
+        serving (see ``reset_encode_slots``)."""
         new_state = dict(state)
         emb, new_state["encoder"] = self.encoder.step(state["encoder"], x)
         (emb,), new_state["encoder_transformer"] = self.encoder_transformer.step(
-            state["encoder_transformer"], emb)
+            state["encoder_transformer"], emb,
+            min_pos=self._session_min_pos(state["encoder_transformer"], session_age))
         if self.downsample is not None:
             emb, new_state["downsample"] = self.downsample.step(state["downsample"], emb)
         return self.quantizer.encode(emb, self.num_codebooks), new_state
 
-    def decode_step(self, state: dict, codes: torch.Tensor) -> tuple[torch.Tensor, dict]:
-        """One streaming chunk: [B, K, n] codes -> [B, C, frame_size*n]."""
+    def decode_step(self, state: dict, codes: torch.Tensor,
+                    session_age: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+        """One streaming chunk: [B, K, n] codes -> [B, C, frame_size*n].
+        ``session_age`` ([B], optional): as for ``encode_step``."""
         new_state = dict(state)
         emb = self.decode_latent(codes)
         if self.upsample is not None:
             emb, new_state["upsample"] = self.upsample.step(state["upsample"], emb)
         (emb,), new_state["decoder_transformer"] = self.decoder_transformer.step(
-            state["decoder_transformer"], emb)
+            state["decoder_transformer"], emb,
+            min_pos=self._session_min_pos(state["decoder_transformer"], session_age))
         out, new_state["decoder"] = self.decoder.step(state["decoder"], emb)
         return out, new_state
+
+    # -- multi-session slot management (batched serving) --------------------
+
+    @staticmethod
+    def _zero_slot_rows(tree, slots: torch.Tensor):
+        """Reset the batch rows ``slots`` of conv/resample carries to a fresh
+        stream: carries to zero (the causal pad of constant pad mode),
+        ``first`` flags to True (other pad modes re-derive their left pad)."""
+
+        def walk(node, name=""):
+            if isinstance(node, dict):
+                return {k: walk(v, k) for k, v in node.items()}
+            if isinstance(node, list):
+                return [walk(v, name) for v in node]
+            if isinstance(node, torch.Tensor) and node.dim() >= 1:
+                return node.index_fill(0, slots.to(node.device), name == "first")
+            return node
+
+        return walk(tree)
+
+    def reset_encode_slots(self, state: dict, slots) -> dict:
+        """Reset batch slots of an encode state for new sessions. The
+        encoder transformer's ring needs no clearing: the per-slot
+        ``session_age`` floor given to ``encode_step`` masks stale keys."""
+        slots = torch.as_tensor(slots, dtype=torch.long)
+        new_state = dict(state)
+        new_state["encoder"] = self._zero_slot_rows(state["encoder"], slots)
+        if "downsample" in state:
+            new_state["downsample"] = self._zero_slot_rows(state["downsample"], slots)
+        return new_state
+
+    def reset_decode_slots(self, state: dict, slots) -> dict:
+        """Reset batch slots of a decode state for new sessions."""
+        slots = torch.as_tensor(slots, dtype=torch.long)
+        new_state = dict(state)
+        new_state["decoder"] = self._zero_slot_rows(state["decoder"], slots)
+        if "upsample" in state:
+            new_state["upsample"] = self._zero_slot_rows(state["upsample"], slots)
+        return new_state
 
     @staticmethod
     def _mask_slot_rows(tree, mask: torch.Tensor):

@@ -7,8 +7,12 @@ them. ``weights_per_step > 0`` gives every time step its own projections and
 FFN (the depth transformer over codebooks). Streaming state is
 ``{"kv": ring buffers, "offset": int}``; ``step`` writes the ring in place.
 
-The JAX package's opt-in Pallas FFN branch (``use_pallas_ffn``) and the int8
-weights are not ported yet (ROADMAP kernel queue K2, int8 serving).
+A per-step FFN at T == 1 inside K2's envelope (plain weights, hidden and
+d_model multiples of 128, SiLU gating) goes through
+:func:`~rstnet_tpu_torch.ops.cuda_ffn.gating_ffn_step`: the CUDA kernel on
+the card, its plain version on CPU tensors. The JAX package gates that
+branch behind ``RSTNET_PALLAS_FFN=1``; the port takes it whenever the shapes
+allow. int8 weights are not ported yet (ROADMAP queue 1, int8 serving).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from rstnet_tpu_torch.ops.attention import (
     ring_kv_buffers,
     ring_kv_update,
 )
+from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn_step
 from rstnet_tpu_torch.ops.gating import ActivationGating, gated_ffn, get_activation
 from rstnet_tpu_torch.ops.norms import LayerScale, Norm
 from rstnet_tpu_torch.ops.rope import apply_rope_interleaved
@@ -43,6 +48,31 @@ def create_sin_embedding(positions: torch.Tensor, dim: int, max_period: float = 
 def resolve_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The weight in the activation dtype (int8 serving weights wait)."""
     return w.to(dtype)
+
+
+@torch.no_grad()
+def pad_codecformer_gating(transformer: "StreamingTransformer", multiple: int = 128
+                           ) -> "StreamingTransformer":
+    """Pad the per-step gating hidden dim to a multiple of ``multiple`` so
+    that K2 applies, in place (counterpart of the JAX function on a
+    transformer's params). Zero rows are inert: the value half multiplies
+    the gate half to zero, so nothing changes numerically on either FFN
+    path. ``linear_in [L, S, 2H, C]`` becomes ``[gate; 0; value; 0]`` and
+    ``linear_out [L, S, C, H]`` gains zero columns."""
+    gating = getattr(transformer.layers, "gating", None)
+    if gating is None or not transformer.weights_per_step:
+        return transformer
+    lin_in, lin_out = gating.linear_in, gating.linear_out
+    H = lin_in.shape[-2] // 2
+    pad = (-H) % multiple
+    if pad == 0:
+        return transformer
+    zrow = lin_in.new_zeros(lin_in.shape[:-2] + (pad, lin_in.shape[-1]))
+    gating.linear_in = new_param(torch.cat([lin_in[..., :H, :], zrow, lin_in[..., H:, :], zrow],
+                                           dim=-2))
+    gating.linear_out = new_param(torch.nn.functional.pad(lin_out, (0, pad)))
+    gating.hidden = H + pad
+    return transformer
 
 
 class StreamingTransformer(nn.Module):
@@ -139,13 +169,20 @@ class StreamingTransformer(nn.Module):
             update = act(h @ w1.T) @ w2.T
         elif self.weights_per_step:
             T = x.shape[1]
-            steps = (torch.arange(T, device=x.device) + offset).clamp(
-                0, self.weights_per_step - 1)
-            w_in = resolve_weight(layers.gating.linear_in[i], h.dtype)[steps]
-            w_out = resolve_weight(layers.gating.linear_out[i], h.dtype)[steps]
-            gate, val = torch.einsum("btd,thd->bth", h, w_in).chunk(2, dim=-1)
-            gated = get_activation(self.gating)(gate) * val
-            update = torch.einsum("bth,tdh->btd", gated, w_out)
+            lin_in, lin_out = layers.gating.linear_in[i], layers.gating.linear_out[i]
+            hidden = lin_in.shape[-2] // 2
+            if (T == 1 and self.gating == "silu" and hidden % 128 == 0
+                    and self.d_model % 128 == 0):
+                # K2 reads only the step's weight slice: no gather of the stack
+                update = gating_ffn_step(h[:, 0, :], lin_in, lin_out, offset)[:, None, :]
+            else:
+                steps = (torch.arange(T, device=x.device) + offset).clamp(
+                    0, self.weights_per_step - 1)
+                w_in = resolve_weight(lin_in[steps], h.dtype)
+                w_out = resolve_weight(lin_out[steps], h.dtype)
+                gate, val = torch.einsum("btd,thd->bth", h, w_in).chunk(2, dim=-1)
+                gated = get_activation(self.gating)(gate) * val
+                update = torch.einsum("bth,tdh->btd", gated, w_out)
         else:
             update = gated_ffn(h, resolve_weight(layers.gating.linear_in[i], h.dtype),
                                resolve_weight(layers.gating.linear_out[i], h.dtype),

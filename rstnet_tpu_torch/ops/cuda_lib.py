@@ -33,9 +33,10 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 # C signatures (argtypes, restype): every pointer and the stream as void*, so
 # ctypes never cuts them to 32 bits
 SIGNATURES = {
-    "rvq_encode": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "rvq_encode_scratch_floats": ([_I] * 4, _LL),
+    "rvq_encode": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    "rvq_encode_scratch_floats": ([_I] * 5, _LL),
     "depformer_step": ([_P] * 16 + [_I] * 8 + [_F, _P], _I),
+    "gating_ffn_step": ([_P] * 5 + [_I] * 5 + [_P], _I),
 }
 
 

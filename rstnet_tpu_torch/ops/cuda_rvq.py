@@ -16,6 +16,11 @@ import torch
 from rstnet_tpu_torch.ops import cuda_lib
 
 MAX_DIM = 512  # shared-memory tile limit of the kernel
+# The kernel's split-over-K path takes up to 64 rows, the tiled path any
+# number. The wrapper takes the split path up to 64 rows: there a few row
+# tiles of 16 leave the card idle, and the split path was faster at every N
+# measured up to 64 (PERF.md, K3).
+SPLIT_MAX_ROWS = 64
 
 
 def rvq_encode_reference(x: torch.Tensor, codebooks: torch.Tensor
@@ -61,13 +66,14 @@ def rvq_encode(x: torch.Tensor, codebooks: torch.Tensor) -> tuple[torch.Tensor, 
     quant = torch.empty((N, D), dtype=torch.float32, device=x.device)
     if N == 0:
         return codes, quant
+    split = int(N <= SPLIT_MAX_ROWS)
     lib = cuda_lib.kernel_library()
-    scratch = torch.empty(lib.rvq_encode_scratch_floats(N, D, Q, K), dtype=torch.float32,
-                          device=x.device)
+    scratch = torch.empty(lib.rvq_encode_scratch_floats(N, D, Q, K, split),
+                          dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         status = lib.rvq_encode(
             x.data_ptr(), codebooks.data_ptr(), codes.data_ptr(), quant.data_ptr(),
-            scratch.data_ptr(), N, D, Q, K, torch.cuda.current_stream().cuda_stream)
+            scratch.data_ptr(), N, D, Q, K, split, torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(status, "rvq_encode")
     rvq_encode.launches += 1
     return codes, quant

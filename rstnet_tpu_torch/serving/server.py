@@ -1,20 +1,21 @@
-"""Full-duplex streaming voice server, solo session (counterpart of
-``rstnet_tpu/serving/server.py``: ``ServerState``, the chat handler and
-``main``).
+"""Full-duplex streaming voice server (counterpart of
+``rstnet_tpu/serving/server.py``: ``ServerState``, the chat handlers, the
+apps and ``main``).
 
 Per 80 ms frame: audio in -> Mimi ``encode_step`` -> ``LMGen.step`` -> Mimi
-``decode_step`` -> audio out + a text token. Mimi and the LM state run in
-float32 and the LM weights in bf16, as in the reference. One connection at a
-time; its streaming state is reset when it opens. Wire protocol and codec
-handshake are the JAX server's (``b"\\x01"`` audio, ``b"\\x02"`` text as the
-token id, Opus or PCM16 via ``rstnet_tpu.serving.opus``, which imports no
-JAX). The connection handlers import that module when they run, so importing
-this one, or driving ``ServerState``, leaves the JAX package out.
+``decode_step`` -> audio out + a text token. Solo (the default), one
+connection at a time owns a ``ServerState`` whose streaming state is reset
+when it opens; Mimi and the LM state run in float32 and the LM weights in
+bf16, as in the reference. With ``--batch N``, up to N connections share one
+``SessionBatcher`` (``serving/batcher.py``) whose LM state is bf16. Wire
+protocol and codec handshake are the JAX server's (``b"\\x01"`` audio,
+``b"\\x02"`` text as the token id, Opus or PCM16 via ``serving/opus.py``).
+``/api/stats`` reports the frame-latency tail.
 
-Run: ``python -m rstnet_tpu_torch.serving.server [--tiny] [--device cuda]``.
-The JAX server's batching and int8 options raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item; its checkpoint and tokenizer options come
-with checkpoint loading (``ROADMAP.md`` queue 1).
+Run: ``python -m rstnet_tpu_torch.serving.server [--tiny] [--device cuda]
+[--batch N]``. The JAX server's int8 and scan options raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item; its checkpoint and
+tokenizer options come with checkpoint loading (``ROADMAP.md`` queue 1).
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ import numpy as np
 import torch
 
 from rstnet_tpu_torch.inference.generate import LMGen
+from rstnet_tpu_torch.serving import opus
+from rstnet_tpu_torch.utils.latency import FrameLatencyTracker
 
 TAG_AUDIO = b"\x01"
 TAG_TEXT = b"\x02"
@@ -101,8 +104,6 @@ class ServerState:
 
 def _handshake_reply(raw: str, frame_size: int) -> tuple[object, str]:
     """Negotiate the audio codec from the client's JSON offer."""
-    from rstnet_tpu.serving import opus
-
     try:
         offer = json.loads(raw).get("codec", "pcm16")
     except (ValueError, AttributeError):
@@ -121,8 +122,6 @@ async def handle_chat(state: ServerState, request):
     """Per-connection duplex loop: one session at a time."""
     from aiohttp import WSMsgType, web
 
-    from rstnet_tpu.serving import opus
-
     ws = web.WebSocketResponse()
     await ws.prepare(request)
     async with state.lock:
@@ -130,6 +129,8 @@ async def handle_chat(state: ServerState, request):
         logging.info("chat session started")
         buffered = np.zeros((0,), np.float32)
         transport = None
+        tracker = FrameLatencyTracker()  # this session's frame-latency tail
+        state.last_latency_summary = tracker.summary
         async for msg in ws:
             if msg.type == WSMsgType.TEXT and transport is None:
                 transport, reply = _handshake_reply(msg.data, state.frame_size)
@@ -148,30 +149,144 @@ async def handle_chat(state: ServerState, request):
                 buffered = buffered[state.frame_size :]
                 t0 = time.perf_counter()
                 audio, text_token = state.handle_frame_array(frame)
-                logging.info("frame handled in %.1f ms", (time.perf_counter() - t0) * 1000)
+                ms = (time.perf_counter() - t0) * 1000
+                logging.info("frame handled in %.1f ms", ms)
+                tracker.record(ms)
                 if audio is not None:
                     await _send_frame(ws, audio, text_token, transport)
-        logging.info("chat session ended")
+        logging.info("chat session ended; frame latency: %s", tracker.summary())
     return ws
+
+
+async def handle_chat_batched(batcher, request):
+    """Per-connection duplex loop on the shared batched pipeline: the
+    connection owns one batch slot; its audio is framed into the slot's
+    input queue while the slot's output queue streams back."""
+    from aiohttp import WSMsgType, web
+
+    ws = web.WebSocketResponse()
+    await ws.prepare(request)
+    # the slot is acquired only once the codec is decided (handshake reply
+    # sent, or a legacy client's first binary frame): the batcher steps an
+    # acquired slot at once, and no frame may be packed with a transport the
+    # client did not negotiate, nor precede the handshake reply
+    holder = {"transport": None}
+    sess = None
+    out_task = None
+
+    async def pump_outputs(sess):
+        try:
+            while True:
+                item = await sess.outputs.get()
+                if item is None:  # the batcher failed the session: close loudly
+                    logging.error("slot %d terminated by a step failure", sess.slot)
+                    await ws.close(code=1011, message=b"server step failed")
+                    return
+                audio, text_token = item
+                await _send_frame(ws, audio, text_token, holder["transport"])
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:  # noqa: BLE001 - a dead client must free the slot
+            logging.info("slot %d output stream closed (%s)", sess.slot, e)
+            await ws.close()
+
+    async def start_session():
+        nonlocal sess, out_task
+        sess = batcher.acquire()
+        if sess is None:
+            await ws.close(code=1013, message=b"server full")
+            return False
+        logging.info("chat session started (slot %d)", sess.slot)
+        out_task = asyncio.get_running_loop().create_task(pump_outputs(sess))
+        return True
+
+    try:
+        buffered = np.zeros((0,), np.float32)
+        frame_size = batcher.frame_size
+        async for msg in ws:
+            if msg.type == WSMsgType.TEXT and holder["transport"] is None:
+                holder["transport"], reply = _handshake_reply(msg.data, frame_size)
+                await ws.send_str(reply)
+                if not await start_session():
+                    break
+                continue
+            if msg.type != WSMsgType.BINARY:
+                continue
+            data = bytes(msg.data)
+            if not data or data[0:1] != TAG_AUDIO:
+                continue
+            if holder["transport"] is None:  # legacy client: PCM16, no handshake
+                holder["transport"] = opus.Pcm16Transport()
+            if sess is None and not await start_session():
+                break
+            buffered = np.concatenate([buffered, holder["transport"].unpack(data[1:])])
+            while buffered.shape[0] >= frame_size:
+                frame, buffered = buffered[:frame_size], buffered[frame_size:]
+                await sess.inputs.put(frame)
+    finally:
+        if out_task is not None:
+            out_task.cancel()
+        if sess is not None:
+            batcher.release(sess)
+            logging.info("chat session ended (slot %d)", sess.slot)
+    return ws
+
+
+async def handle_index(request):
+    """The minimal browser client."""
+    from aiohttp import web
+
+    return web.FileResponse(os.path.join(os.path.dirname(__file__), "static", "index.html"))
 
 
 def build_app(state: ServerState):
     from aiohttp import web
 
-    from rstnet_tpu.serving import opus
-
-    async def handle_index(request):
-        return web.FileResponse(os.path.join(os.path.dirname(opus.__file__), "static",
-                                             "index.html"))
-
     app = web.Application()
     app.router.add_get("/", handle_index)
     app.router.add_get("/api/chat", lambda req: handle_chat(state, req))
+
+    async def stats(request):
+        # the frame-latency tail of the current or most recent session
+        summary = getattr(state, "last_latency_summary", None)
+        return web.json_response(summary() if summary else {"n_frames": 0})
+
+    app.router.add_get("/api/stats", stats)
+    return app
+
+
+def build_batched_app(batcher):
+    """App serving up to ``batcher.max_sessions`` concurrent duplex chats
+    through one batched frame step."""
+    from aiohttp import web
+
+    app = web.Application()
+    app.router.add_get("/", handle_index)
+    app.router.add_get("/api/chat", lambda req: handle_chat_batched(batcher, req))
+
+    async def stats(request):
+        # every tick is one frame for every active session, so the tick
+        # distribution is the per-session frame-latency tail; "delivery" is
+        # the dispatch->delivery tail of each frame
+        return web.json_response({
+            "active_sessions": len(batcher.sessions),
+            "pipeline_depth": batcher.pipeline_depth,
+            "fetch_pool": batcher.fetch_pool,
+            "async_fetch": batcher._async_fetch,
+            "delivery": batcher.delivery_latency.summary(),
+            **batcher.latency.summary(),
+        })
+
+    app.router.add_get("/api/stats", stats)
+
+    async def start_clock(app):
+        batcher.start()
+
+    app.on_startup.append(start_clock)
     return app
 
 
 _NOT_YET = {
-    "batch": "queue 1: the session batcher (--batch/--pipeline/--wire)",
     "scan_frames": "queue 1: LMGen.step_scan as a CUDA-graph replay (--scan-frames)",
     "int8": "queue 1: int8 K1 (--int8/--int8-dep/--int8-head)",
     "int8_dep": "queue 1: int8 K1 (--int8/--int8-dep/--int8-head)",
@@ -182,9 +297,12 @@ _NOT_YET = {
 
 def build_models(tiny: bool, device, seed: int):
     """(mimi, lm_gen) with random weights drawn from ``seed``: the tiny demo
-    pair, or Mimi 24 kHz (f32) + Moshi 7B (bf16)."""
+    pair, or Mimi 24 kHz (f32) + Moshi 7B (bf16). The depformer's gating
+    hidden dim is padded to a multiple of 128 for K2 (a no-op for Moshi 7B,
+    whose hidden dim is 2816 = 22 x 128)."""
     from rstnet_tpu_torch.models.mimi import mimi_24k
     from rstnet_tpu_torch.models.moshi_lm import MoshiLMModel, moshi_7b
+    from rstnet_tpu_torch.modules.transformer import pad_codecformer_gating
 
     g = torch.Generator(device=device).manual_seed(seed)
     if tiny:
@@ -195,9 +313,11 @@ def build_models(tiny: bool, device, seed: int):
             num_heads=4, num_layers=2, hidden_scale=4.0, context=64,
             existing_text_padding_id=3, depformer_dim=32, depformer_dim_feedforward=64,
             depformer_num_heads=2, depformer_num_layers=1, device=device, generator=g)
+        pad_codecformer_gating(lm.depformer)
         return mimi, LMGen(lm, delays=lm.delays, top_k=32)
     mimi = mimi_24k(device=device, generator=g)
     lm = moshi_7b(device=device, dtype=torch.bfloat16, generator=g)
+    pad_codecformer_gating(lm.depformer)
     return mimi, LMGen(lm, delays=lm.delays)
 
 
@@ -212,7 +332,21 @@ def main(argv=None):
                         help="small random-weight models (demo/smoke)")
     parser.add_argument("--ssl", default="", metavar="DIR",
                         help="serve wss/https with DIR/cert.pem + DIR/key.pem")
-    parser.add_argument("--batch", type=int, default=0, metavar="N")
+    parser.add_argument("--batch", type=int, default=0, metavar="N",
+                        help="serve up to N concurrent sessions through one batched frame "
+                             "step (0: one session at a time)")
+    parser.add_argument("--pipeline", default="auto", metavar="DEPTH",
+                        help="batched pipeline depth: 1 fetches each frame in its tick, 2 "
+                             "fetches frame t-1 while frame t runs (+1 frame of latency); "
+                             "auto picks 2 only when a device->host round trip is a "
+                             "material slice of the 80 ms budget")
+    parser.add_argument("--wire", default="auto", choices=("auto", "pcm16", "f32"),
+                        help="host<->device PCM of the batched pipeline: pcm16 moves 16-bit "
+                             "samples and converts on the card; auto picks pcm16 when the "
+                             "pipeline depth is > 1")
+    parser.add_argument("--fetch-pool", default="auto", metavar="N",
+                        help="threads that wait for in-flight frames' device->host copies; "
+                             "auto = the pipeline depth when it is > 1, 0 turns it off")
     parser.add_argument("--scan-frames", type=int, default=0, metavar="N")
     parser.add_argument("--int8", action="store_true")
     parser.add_argument("--int8-dep", action="store_true")
@@ -238,11 +372,30 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     mimi, lm_gen = build_models(args.tiny, device, args.seed)
-    state = ServerState(mimi, lm_gen, seed=args.seed)
-    logging.info("warming up...")
-    state.warmup()
+    if args.batch:
+        from rstnet_tpu_torch.serving.batcher import SessionBatcher, auto_pipeline_depth
+
+        depth = (auto_pipeline_depth(device=device) if args.pipeline == "auto"
+                 else int(args.pipeline))
+        wire = {"auto": "int16" if depth > 1 else "float32", "pcm16": "int16",
+                "f32": "float32"}[args.wire]
+        batcher = SessionBatcher(
+            mimi, lm_gen, max_sessions=args.batch,
+            dtype=torch.float32 if args.tiny else torch.bfloat16, pipeline_depth=depth,
+            wire_dtype=wire,
+            fetch_pool=None if args.fetch_pool == "auto" else int(args.fetch_pool),
+            seed=args.seed)
+        logging.info("warming up (batch %d, pipeline depth %d, wire %s)...", args.batch, depth,
+                     wire)
+        batcher.warmup()
+        app = build_batched_app(batcher)
+    else:
+        state = ServerState(mimi, lm_gen, seed=args.seed)
+        logging.info("warming up...")
+        state.warmup()
+        app = build_app(state)
     logging.info("serving ws://%s:%d/api/chat", args.host, args.port)
-    web.run_app(build_app(state), host=args.host, port=args.port, ssl_context=ssl_context)
+    web.run_app(app, host=args.host, port=args.port, ssl_context=ssl_context)
 
 
 if __name__ == "__main__":

@@ -1,14 +1,16 @@
 """Where the time of one serving frame goes, on one GPU.
 
     python -m rstnet_tpu_torch.tools.profile_frame [--frames 10] [--profile-frames 4]
-                                                  [--seed 0] [--out FILE.json]
+                                                  [--batch N] [--seed 0] [--out FILE.json]
 
 Builds the full slice as ``chip_smoke.py`` does (Mimi 24 kHz in float32 +
 Moshi 7B in bf16, seeded random weights, seeded normal codebooks), warms it
-up, and then measures, all on the card:
+up, and then measures, all on the card, for the solo frame
+(``ServerState.handle_frame_array``) or, with ``--batch N``, for one tick of
+a ``SessionBatcher`` with N sessions, each fed the same signal:
 
-1. frame time, p50 and max, over ``--frames`` frames of
-   ``ServerState.handle_frame_array`` (host clock, a synchronize per frame);
+1. frame (tick) time, p50 and max, over ``--frames`` frames (host clock, a
+   synchronize per frame);
 2. stage times, medians over ``--frames`` more frames, each stage bracketed
    by ``torch.cuda.synchronize()``: Mimi encode, backbone step
    (``step_global``), depformer (the rest of ``LMGen.step``: 8 micro-steps,
@@ -41,7 +43,9 @@ def _signal(n_frames: int, frame_size: int, seed: int) -> np.ndarray:
     return sig.astype(np.float32).reshape(n_frames, frame_size)
 
 
-def _build(seed: int):
+def _build(seed: int, batch: int):
+    """(mimi, lm_gen, frame size, one frame: pcm [frame_size] -> None)."""
+    from rstnet_tpu_torch.serving.batcher import SessionBatcher
     from rstnet_tpu_torch.serving.server import ServerState, build_models
 
     device = torch.device("cuda")
@@ -49,9 +53,23 @@ def _build(seed: int):
     g = torch.Generator(device=device).manual_seed(seed + 1)
     for rvq in (mimi.quantizer.rvq_first, mimi.quantizer.rvq_rest):
         rvq.layers.embedding_sum.normal_(generator=g)  # zero codebooks make every code a tie
-    state = ServerState(mimi, lm_gen, seed=seed)
-    state.warmup()
-    return state
+    if not batch:
+        state = ServerState(mimi, lm_gen, seed=seed)
+        state.warmup()
+        return mimi, lm_gen, state.frame_size, state.handle_frame_array
+    batcher = SessionBatcher(mimi, lm_gen, max_sessions=batch, seed=seed)
+    batcher.warmup()
+    sessions = [batcher.acquire() for _ in range(batch)]
+
+    def tick(pcm):
+        for sess in sessions:
+            sess.inputs.put_nowait(pcm)
+        batcher.step_once()
+        for sess in sessions:
+            while not sess.outputs.empty():
+                sess.outputs.get_nowait()
+
+    return mimi, lm_gen, batcher.frame_size, tick
 
 
 def _timed(fn, record: list):
@@ -66,17 +84,16 @@ def _timed(fn, record: list):
     return run
 
 
-def stage_times(state, frames) -> dict:
+def stage_times(mimi, gen, run_frame, frames) -> dict:
     """Median ms per stage; the stage wrappers are removed afterwards."""
     rec = collections.defaultdict(list)
-    mimi, gen = state.mimi, state.lm_gen
     mimi.encode_step = _timed(mimi.encode_step, rec["encode"])
     mimi.decode_step = _timed(mimi.decode_step, rec["decode"])
     gen.model.step_global = _timed(gen.model.step_global, rec["backbone"])
     object.__setattr__(gen, "step", _timed(gen.step, rec["lm_step"]))  # LMGen is frozen
     try:
         for pcm in frames:
-            _timed(state.handle_frame_array, rec["frame"])(pcm)
+            _timed(run_frame, rec["frame"])(pcm)
     finally:
         del mimi.encode_step, mimi.decode_step, gen.model.step_global
         object.__delattr__(gen, "step")
@@ -95,14 +112,14 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def device_profile(state, frames) -> dict:
+def device_profile(run_frame, frames) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for pcm in frames:
-            state.handle_frame_array(pcm)
+            run_frame(pcm)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -125,6 +142,9 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--frames", type=int, default=10)
     parser.add_argument("--profile-frames", type=int, default=4)
+    parser.add_argument("--batch", type=int, default=0, metavar="N",
+                        help="profile a SessionBatcher tick with N sessions instead of the "
+                             "solo frame")
     parser.add_argument("--out", default="", help="also write the numbers here, as JSON")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -133,20 +153,25 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    state = _build(args.seed)
+    torch.cuda.reset_peak_memory_stats()
+    mimi, lm_gen, frame_size, run_frame = _build(args.seed, args.batch)
     n = args.frames
-    frames = _signal(2 * n + args.profile_frames, state.frame_size, args.seed)
+    frames = _signal(2 * n + args.profile_frames, frame_size, args.seed)
 
     times = []
     for pcm in frames[:n]:
-        _timed(state.handle_frame_array, times)(pcm)
-    stages = stage_times(state, frames[n : 2 * n])
-    prof = device_profile(state, frames[2 * n :])
+        _timed(run_frame, times)(pcm)
+    stages = stage_times(mimi, lm_gen, run_frame, frames[n : 2 * n])
+    prof = device_profile(run_frame, frames[2 * n :])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     result = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+              "batch": args.batch, "peak_memory_gib": peak_gib,
               "frame_ms": {"p50": statistics.median(times), "max": max(times), "n": n},
               "stage_ms": stages, "profile": prof}
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    what = f"batched tick, {args.batch} sessions" if args.batch else "solo frame"
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; {what}; "
+          f"peak memory {peak_gib:.1f} GiB")
     print(f"frame ms over {n} frames: p50 {statistics.median(times):.3f}, max {max(times):.3f}")
     print("stage ms (medians, synchronized per stage): " + ", ".join(
         f"{k} {stages[k]:.3f}" for k in ("encode", "backbone", "depformer", "decode", "frame")))

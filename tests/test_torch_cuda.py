@@ -6,8 +6,10 @@ none; there, skip the repository's conftest (which sets JAX up):
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
 Tolerances as in ``chip_smoke.py``: K1 2e-2 (bf16 rounding of GEMV inputs
-under two summation orders); K3 codes equal unless the reference's two
-candidates are a near-tie, quantized sums to float32 rounding."""
+under two summation orders); K2 1e-4 relative and 1e-5 absolute for float32
+outputs (float32 sums in two orders), plus one bf16 step (2**-7 relative) for
+bf16 outputs; K3 codes equal unless the reference's two candidates are a
+near-tie, quantized sums to float32 rounding."""
 
 import pytest
 import torch
@@ -24,9 +26,13 @@ def cuda():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("N", [1, 7, 8, 9, 300])  # 8 is the last split-over-K size
-def test_rvq_kernel_matches_plain(cuda, N):
+@pytest.mark.parametrize("N", [1, 7, 8, 9, 16, 32, 64, 300])
+@pytest.mark.parametrize("split_max_rows", [0, 64])  # the tiled path; the split path to 64 rows
+def test_rvq_kernel_matches_plain(cuda, monkeypatch, N, split_max_rows):
+    from rstnet_tpu_torch.ops import cuda_rvq
     from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode, rvq_encode_reference
+
+    monkeypatch.setattr(cuda_rvq, "SPLIT_MAX_ROWS", split_max_rows)
 
     books = torch.randn((5, 1000, 64), device="cuda", generator=cuda)
     x = torch.randn((N, 64), device="cuda", generator=cuda)
@@ -67,3 +73,74 @@ def test_depformer_kernel_matches_plain(cuda, cache_dtype):
     torch.testing.assert_close(caches[0].float(), caches[2].float(), rtol=2e-2, atol=2e-2)
     with pytest.raises(ValueError):
         depformer_step(xs[0].float(), 0, *ops, caches[0], caches[1], heads=heads)
+
+
+@pytest.mark.parametrize("B", [1, 9, 64])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+def test_gating_ffn_step_kernel_matches_plain(cuda, B, x_dtype, w_dtype):
+    from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn_step, gating_ffn_step_reference
+
+    S, C, H = 4, 256, 384
+    x = torch.randn((B, C), device="cuda", generator=cuda).to(x_dtype)
+    lin_in = (torch.rand((S, 2 * H, C), device="cuda", generator=cuda) * 2 - 1) * C**-0.5
+    lin_out = (torch.rand((S, C, H), device="cuda", generator=cuda) * 2 - 1) * H**-0.5
+    lin_in, lin_out = lin_in.to(w_dtype), lin_out.to(w_dtype)
+    for step in (0, 3, 7):  # 7 clamps to S - 1
+        before = gating_ffn_step.launches
+        got = gating_ffn_step(x, lin_in, lin_out, step)
+        assert gating_ffn_step.launches == before + 1
+        want = gating_ffn_step_reference(x, lin_in, lin_out, step)
+        assert got.dtype == x_dtype and got.shape == (B, C)
+        rtol = 1e-4 if x_dtype == torch.float32 else 2.0**-7
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-5)
+    with pytest.raises(ValueError):
+        gating_ffn_step(x[:, :100].contiguous(), lin_in[..., :100].contiguous(),
+                        lin_out[:, :100].contiguous(), 0)  # C % 8 != 0
+
+
+def _card_batcher(seed=0, **kwargs):
+    from rstnet_tpu_torch.inference.generate import LMGen
+    from rstnet_tpu_torch.serving.batcher import SessionBatcher
+    from rstnet_tpu_torch.serving.server import build_models
+
+    mimi, gen = build_models(True, torch.device("cuda"), seed)
+    gen = LMGen(gen.model, delays=gen.model.delays, use_sampling=False)
+    return SessionBatcher(mimi, gen, max_sessions=2, dtype=torch.float32, **kwargs)
+
+
+@pytest.mark.parametrize("depth,pool_env,async_env,wire", [
+    (2, None, None, "float32"),  # pinned copy + event at dispatch, waited in the pool
+    (2, "0", None, "float32"),  # pinned copy + event, waited in the tick thread
+    (2, None, "0", "float32"),  # the pool copies synchronously
+    (1, None, None, "int16"),  # PCM converted on the card both ways
+])
+def test_batcher_fetch_paths_on_card_match_depth1(cuda, monkeypatch, depth, pool_env, async_env,
+                                                  wire):
+    """The card's fetch paths deliver the frames of the synchronous depth-1
+    float32 clock: tokens equal, audio equal (within one pcm16 step for the
+    int16 wire, on silence)."""
+    import numpy as np
+
+    frames = np.random.default_rng(0).normal(0, 0.1, (6, 1920)).astype(np.float32)
+    if wire == "int16":
+        frames[:] = 0.0  # silence quantizes exactly: the same codes on both wires
+    streams = []
+    for case in ((1, None, None, "float32"), (depth, pool_env, async_env, wire)):
+        for name, val in zip(("RSTNET_BATCHER_FETCH_POOL", "RSTNET_BATCHER_ASYNC_FETCH"),
+                             case[1:3]):
+            if val is None:
+                monkeypatch.delenv(name, raising=False)
+            else:
+                monkeypatch.setenv(name, val)
+        b = _card_batcher(pipeline_depth=case[0], wire_dtype=case[3])
+        sess = b.acquire()
+        for i in range(len(frames) + case[0] - 1):  # depth - 1 flush ticks
+            if i < len(frames):
+                sess.inputs.put_nowait(frames[i])
+            b.step_once()
+        streams.append([sess.outputs.get_nowait() for _ in range(sess.outputs.qsize())])
+    assert len(streams[0]) == len(streams[1]) > 0
+    for (a0, t0), (a1, t1) in zip(*streams):
+        assert t0 == t1
+        np.testing.assert_allclose(a1, a0, rtol=0, atol=1.5 / 32767.0 if wire == "int16" else 0)

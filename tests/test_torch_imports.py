@@ -1,0 +1,34 @@
+"""The port stands alone: no module of ``rstnet_tpu_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package ``rstnet_tpu``, not even a
+module of it that imports no JAX. Checked on the source (AST), so a lazy
+import inside a function counts too."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "rstnet_tpu")
+SOURCES = sorted((ROOT / "rstnet_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+def test_scan_sees_a_forbidden_import(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text("def f():\n    from rstnet_tpu.serving import opus\n    import jax.numpy\n")
+    assert _imported_roots(bad) >= {"rstnet_tpu", "jax"}

@@ -199,7 +199,8 @@ def test_serving_frame_matches_jax_teacher_forced(monkeypatch):
 def test_server_options_not_ported_raise():
     from rstnet_tpu_torch.serving.server import main
 
-    for flag in (["--batch", "2"], ["--scan-frames", "4"], ["--int8"], ["--int8-dep"],
-                 ["--int8-head"], ["--kv-int8"]):
+    for flag in (["--scan-frames", "4"], ["--int8"], ["--int8-dep"], ["--int8-head"],
+                 ["--kv-int8"], ["--batch", "2", "--int8"], ["--batch", "2", "--kv-int8"],
+                 ["--batch", "2", "--scan-frames", "4"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(flag)

@@ -7,18 +7,24 @@ Phases (each prints its findings; any failure exits non-zero):
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
 2. build: the hand-written kernels from ``rstnet_tpu_torch/csrc``;
-3. kernels: K1 (depformer micro-step), K2 (per-step gated FFN) and K3 (RVQ
-   encode, both of its paths) against their plain PyTorch versions on the
-   card, at the full-width shapes of the serving paths (Moshi 7B's
-   depformer, Mimi's quantizer), with device times and bounds;
-4. small slices: a small Mimi + Moshi serving frame (solo, K1) and a small
-   batched tick (``SessionBatcher`` at B=4, K2) on the card against the same
-   weights on the CPU (plain versions), teacher-forced;
+3. kernels: K1 (depformer micro-step), its int8 variant K1-int8, K2
+   (per-step gated FFN) and K3 (RVQ encode, both of its paths) against their
+   plain PyTorch versions on the card, at the full-width shapes of the
+   serving paths (Moshi 7B's depformer, Mimi's quantizer), with device times
+   and bounds;
+4. small slices: a small Mimi + Moshi serving frame (solo, K1), the same
+   under ``--int8 --kv-int8`` (K1-int8) and a small batched tick
+   (``SessionBatcher`` at B=4, K2) on the card against the same weights on
+   the CPU (plain versions), teacher-forced;
 5. full slices, on one build of Mimi 24 kHz (f32) + Moshi 7B (bf16) with
    seeded random weights: the solo frame through
    ``ServerState.handle_frame_array``, then ``SessionBatcher.step_once``
-   with ``--sessions`` sessions; each path's kernel launches are counted
-   from zero just before it runs and read just after.
+   with ``--sessions`` sessions; then the same model quantized in place as
+   the server's ``--int8`` does, with an int8 ring (``--kv-int8``), through
+   both again. Each path's kernel launches are counted from zero just
+   before it runs and read just after.
+
+Every phase prints its wall time.
 
 Kernel times are device times: a device sleep holds the stream while the
 host enqueues the timed calls, so the host's launch cost is not in them.
@@ -32,6 +38,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import functools
+import gc
 import json
 import subprocess
 import sys
@@ -65,6 +74,13 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s wall")
 
 
 def card_line() -> str:
@@ -164,43 +180,70 @@ def _k1_frame(step, ops, xs, kc, vc, heads):
     return torch.stack(logits), kc, vc
 
 
-def check_k1(g, card: str) -> dict:
+def _quantized(ops: dict) -> tuple[dict, dict]:
+    """K1's weight stacks as int8 codes and their float32 row scales
+    [..., rows, 1], from the port's ``quantize_weight_int8``."""
+    from rstnet_tpu_torch.modules.transformer import quantize_weight_int8
+    from rstnet_tpu_torch.ops.cuda_depformer import WEIGHTS
+
+    q = {k: quantize_weight_int8(ops[k]) for k in WEIGHTS}
+    return ({**ops, **{k: w.w_int8 for k, w in q.items()}},
+            {k: w.scale[..., None] for k, w in q.items()})
+
+
+def check_k1(g, card: str, int8: bool = False) -> dict:
+    """K1 (bf16 weights) or K1-int8 at Moshi 7B's depformer width, a frame
+    of all 8 micro-steps, float32 caches (the solo path's) and bf16 caches."""
     from rstnet_tpu_torch.ops.cuda_depformer import depformer_step, depformer_step_reference
 
     ops, xs, dims = _k1_operands(g)
-    L, S, C = dims["L"], dims["S"], dims["C"]
+    scales = None
+    if int8:
+        ops, scales = _quantized(ops)
+    L, S, C, heads = dims["L"], dims["S"], dims["C"], dims["heads"]
+    name = "K1-int8" if int8 else "K1"
+    kernel = functools.partial(depformer_step, scales=scales)
+    plain = functools.partial(depformer_step_reference, scales=scales)
+    err = 0.0
+    for cache in (torch.float32, torch.bfloat16):
+        zeros = lambda: torch.zeros((L, S, C), device="cuda", dtype=cache)  # noqa: E731
+        got, kck, vck = _k1_frame(kernel, ops, xs, zeros(), zeros(), heads)
+        want, kcr, vcr = _k1_frame(plain, ops, xs, zeros(), zeros(), heads)
+        torch.cuda.synchronize()
+        err = max(err, (got - want).abs().max().item())
+        for what, a, b in (("logits", got, want), ("kc", kck, kcr), ("vc", vck, vcr)):
+            a, b = a.float(), b.float()
+            diff = (a - b).abs()
+            bad = diff > K1_ATOL + K1_RTOL * b.abs()
+            log(f"{name} {what}, {str(cache)[6:]} cache: max |kernel - plain| = "
+                f"{diff.max().item():.3e} (max |plain| {b.abs().max().item():.3e}), "
+                f"{int(bad.sum())} outside atol={K1_ATOL} rtol={K1_RTOL}")
+            if bad.any() or not torch.isfinite(a).all():
+                raise AssertionError(f"{name} {what} disagrees with depformer_step_reference")
     zeros = lambda: torch.zeros((L, S, C), device="cuda")  # noqa: E731 - the path's f32 cache
-    got, kck, vck = _k1_frame(depformer_step, ops, xs, zeros(), zeros(), dims["heads"])
-    want, kcr, vcr = _k1_frame(depformer_step_reference, ops, xs, zeros(), zeros(),
-                               dims["heads"])
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    for name, a, b in (("logits", got, want), ("kc", kck, kcr), ("vc", vck, vcr)):
-        diff = (a - b).abs()
-        bad = diff > K1_ATOL + K1_RTOL * b.abs()
-        log(f"K1 {name}: max |kernel - plain| = {diff.max().item():.3e} "
-            f"(max |plain| {b.abs().max().item():.3e}), {int(bad.sum())} outside "
-            f"atol={K1_ATOL} rtol={K1_RTOL}")
-        if bad.any() or not torch.isfinite(a).all():
-            raise AssertionError(f"K1 {name} disagrees with depformer_step_reference")
-    heads = dims["heads"]
-    ms = time_ms(lambda: _k1_frame(depformer_step, ops, xs, zeros(), zeros(), heads), 4) / S
-    plain = time_ms(lambda: _k1_frame(depformer_step_reference, ops, xs, zeros(), zeros(),
-                                      heads), 2) / S
+    ms = time_ms(lambda: _k1_frame(kernel, ops, xs, zeros(), zeros(), heads), 4) / S
+    plain_ms = time_ms(lambda: _k1_frame(plain, ops, xs, zeros(), zeros(), heads), 2) / S
     # one micro-step, averaged over the frame's S: the step's weight slices
-    # and head, the norms, x, the cache rows read (cb of them, f32 K and V)
-    # and written (one), the logits
+    # and head (and their row scales), the norms, x, the cache rows read (cb
+    # of them, f32 K and V) and written (one), the logits
     H, card_n = ops["gout"].shape[-1], ops["head_w"].shape[1]
     weights = L * (3 * C * C + C * C + 2 * H * C + C * H) + card_n * C
-    n_bytes = (2 * weights + 4 * (2 * L * C + card_n) + 2 * C
-               + 8 * L * C * (sum(range(S)) / S + 1) + 4 * card_n)
-    bound_ms, bound_by = bound(n_bytes, 2 * weights, "bf16")
-    log(f"K1 one micro-step (L=6, C=1024, H=2816, card=2048): kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
-    return {"name": "depformer_step", "route": "cuda",
+    rows = L * (3 * C + C + 2 * H + C) + card_n
+    n_bytes = (ops["in_proj"].element_size() * weights + (4 * rows if int8 else 0)
+               + 4 * (2 * L * C + card_n) + 2 * C + 8 * L * C * (sum(range(S)) / S + 1)
+               + 4 * card_n)
+    # bf16: a multiply and an add per weight at the bf16 rate; int8: the
+    # dequantizing multiply as well, all on the CUDA cores in float32
+    bound_ms, bound_by = (bound(n_bytes, 3 * weights, "f32") if int8
+                          else bound(n_bytes, 2 * weights, "bf16"))
+    log(f"{name} one micro-step (L=6, C=1024, H=2816, card=2048): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB) "
+        f"[{card}]")
+    return {"name": "depformer_step_int8" if int8 else "depformer_step", "route": "cuda",
             "source": "rstnet_tpu_torch/csrc/depformer_step.cu",
-            "replaces": "rstnet_tpu/ops/pallas_depformer.py:167",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "replaces": "rstnet_tpu/ops/pallas_depformer.py:167"
+                        + (" (int8 variant, scales set)" if int8 else ""),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
 
 
@@ -342,10 +385,14 @@ def recorded_sampling(forced=None):
         generate.sample_token = orig
 
 
-def _small_models(device, seed):
+def _small_models(device, seed, int8: bool = False):
+    """Small Mimi + Moshi (depformer 128 wide: inside K1's envelope), built
+    on the CPU from ``seed`` and moved to ``device``; ``int8`` quantizes as
+    the server's ``--int8`` and gives LMGen an int8 ring (``--kv-int8``)."""
     from rstnet_tpu_torch.inference.generate import LMGen
     from rstnet_tpu_torch.models.mimi import mimi_24k
     from rstnet_tpu_torch.models.moshi_lm import MoshiLMModel
+    from rstnet_tpu_torch.serving.server import quantize_for_serving
 
     g = torch.Generator(device="cpu").manual_seed(seed)
     mimi = mimi_24k(n_q_total=8, dimension=64, n_filters=8, num_layers=2, quantizer_dim=32,
@@ -357,25 +404,30 @@ def _small_models(device, seed):
         dim=64, num_heads=4, num_layers=2, hidden_scale=4.0, context=64, depformer_dim=128,
         depformer_dim_feedforward=192, depformer_num_heads=2, depformer_num_layers=2,
         dtype=torch.bfloat16, generator=g)
-    return mimi.to(device), LMGen(lm.to(device), delays=lm.delays, use_sampling=False)
+    quantize_for_serving(lm, int8=int8)
+    return mimi.to(device), LMGen(lm.to(device), delays=lm.delays, use_sampling=False,
+                                  kv_int8=int8)
 
 
-def check_small_slice(seed: int, n_frames: int = 6) -> None:
-    from rstnet_tpu_torch.ops.cuda_depformer import depformer_step
+def check_small_slice(seed: int, n_frames: int = 6, int8: bool = False) -> None:
+    """The small solo frame on the card against the CPU, teacher-forced on
+    the CPU's tokens; ``int8``: under ``--int8 --kv-int8``, through K1-int8."""
     from rstnet_tpu_torch.serving.server import ServerState
 
     frames = np.random.default_rng(seed).normal(0, 0.1, (n_frames, 1920)).astype(np.float32)
     runs = {}
     for device in ("cpu", "cuda"):
-        state = ServerState(*_small_models(device, seed), seed=seed)
+        state = ServerState(*_small_models(device, seed, int8), seed=seed)
         forced = None if device == "cpu" else [tok for _, tok in runs["cpu"][0]]
-        before = depformer_step.launches
+        reset_counts()
         with recorded_sampling(forced) as record:
             audio = [state.handle_frame_array(f)[0] for f in frames]
-        runs[device] = (record, audio, depformer_step.launches - before)
-    (rec_c, audio_c, _), (rec_g, audio_g, k1) = runs["cpu"], runs["cuda"]
-    if k1 != 8 * n_frames:
-        raise AssertionError(f"small slice launched K1 {k1} times, expected {8 * n_frames}")
+        runs[device] = (record, audio, read_counts())
+    (rec_c, audio_c, _), (rec_g, audio_g, counts) = runs["cpu"], runs["cuda"]
+    k1, other = ("depformer_step_int8", "depformer_step")[:: 1 if int8 else -1]
+    if counts[k1] != 8 * n_frames or counts[other]:
+        raise AssertionError(f"small slice launched {counts}, expected {k1} {8 * n_frames} "
+                             f"times and {other} none")
     logit_err = max((a - b).abs().max().item() for (a, _), (b, _) in zip(rec_c, rec_g))
     scale = max(a.abs().max().item() for a, _ in rec_c)
     flips = 0
@@ -385,7 +437,8 @@ def check_small_slice(seed: int, n_frames: int = 6) -> None:
         flips += int(((b.argmax(-1) != tok) & clear).sum())
     audio_err = max(float(np.abs(a - b).max()) for a, b in zip(audio_c, audio_g)
                     if a is not None)
-    log(f"small slice, card vs CPU over {n_frames} frames: logits max abs err {logit_err:.3e} "
+    log(f"small slice{' --int8 --kv-int8' if int8 else ''}, card vs CPU over {n_frames} frames: "
+        f"logits max abs err {logit_err:.3e} "
         f"(max |logit| {scale:.3e}), {flips} greedy flips past the margin, "
         f"audio max abs err {audio_err:.3e}")
     if logit_err > SLICE_LOGIT_TOL * max(1.0, scale) or flips or audio_err > SLICE_AUDIO_TOL:
@@ -396,8 +449,6 @@ def check_small_batched_slice(seed: int, sessions: int = 4, n_ticks: int = 6) ->
     """``SessionBatcher`` at B=4 on the small models (depformer 128 wide,
     gating hidden dim 128: inside K2's envelope), float32 state, greedy; the
     card is teacher-forced on the CPU's tokens."""
-    from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn_step
-    from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode
     from rstnet_tpu_torch.serving.batcher import SessionBatcher
 
     pcm = np.random.default_rng(seed + 1).normal(0, 0.1, (n_ticks, sessions, 1920))
@@ -407,7 +458,7 @@ def check_small_batched_slice(seed: int, sessions: int = 4, n_ticks: int = 6) ->
         batcher = SessionBatcher(mimi, gen, max_sessions=sessions, dtype=torch.float32, seed=seed)
         active = [batcher.acquire() for _ in range(sessions)]
         forced = None if device == "cpu" else [tok for _, tok in runs["cpu"][0]]
-        k2, k3 = gating_ffn_step.launches, rvq_encode.launches
+        reset_counts()
         with recorded_sampling(forced) as record:
             for t in range(n_ticks):
                 for i, sess in enumerate(active):
@@ -415,7 +466,8 @@ def check_small_batched_slice(seed: int, sessions: int = 4, n_ticks: int = 6) ->
                 batcher.step_once()
         audio = [[sess.outputs.get_nowait()[0] for _ in range(sess.outputs.qsize())]
                  for sess in active]
-        runs[device] = (record, audio, gating_ffn_step.launches - k2, rvq_encode.launches - k3)
+        counts = read_counts()
+        runs[device] = (record, audio, counts["gating_ffn_step"], counts["rvq_encode"])
     (rec_c, audio_c, _, _), (rec_g, audio_g, k2, k3) = runs["cpu"], runs["cuda"]
     layers = gen.model.depformer.num_layers
     if k2 != 8 * layers * n_ticks or k3 != 2 * n_ticks:
@@ -472,29 +524,44 @@ def _percentiles(times: list) -> str:
             f"ms")
 
 
-def _launch_counts() -> dict:
+def _counters() -> dict:
+    """Each kernel's launch counter, by the kernel line's name: (the
+    wrapper, the attribute it counts in)."""
     from rstnet_tpu_torch.ops.cuda_depformer import depformer_step
     from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn_step
     from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode
 
-    return {f.__name__: f for f in (depformer_step, gating_ffn_step, rvq_encode)}
+    return {"depformer_step": (depformer_step, "launches"),
+            "depformer_step_int8": (depformer_step, "launches_int8"),
+            "gating_ffn_step": (gating_ffn_step, "launches"),
+            "rvq_encode": (rvq_encode, "launches")}
 
 
-def run_full_slice(mimi, lm_gen, seed: int, n_frames: int, card: str) -> dict:
+def reset_counts() -> None:
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
+
+
+def run_full_slice(mimi, lm_gen, seed: int, n_frames: int, card: str, path: str,
+                   expected: dict) -> dict:
+    """The solo frame through ``ServerState.handle_frame_array`` for
+    ``n_frames`` frames; ``expected``: the launches of each kernel."""
     from rstnet_tpu_torch.serving.server import ServerState
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     state = ServerState(mimi, lm_gen, seed=seed)
     state.warmup()
     torch.cuda.synchronize()
-    log(f"full solo slice: warmed up in {time.perf_counter() - t0:.1f} s; "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak")
+    log(f"{path}: warmed up in {time.perf_counter() - t0:.1f} s")
     frames = _signal(seed, n_frames * state.frame_size).reshape(n_frames, state.frame_size)
     n_text = lm_gen.model.text_card + lm_gen.model._extra_text
 
-    kernels = _launch_counts()
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts()
     times, valid = [], 0
     for pcm in frames:
         t0 = time.perf_counter()
@@ -509,22 +576,23 @@ def run_full_slice(mimi, lm_gen, seed: int, n_frames: int, card: str) -> dict:
                                  f"{np.isfinite(audio).all()}")
         if not 0 <= tok < n_text:
             raise AssertionError(f"frame {len(times)}: text token {tok} outside [0, {n_text})")
-    counts = {name: fn.launches for name, fn in kernels.items()}
-    log(f"full solo slice: {n_frames} frames, {valid} valid; launches {counts}")
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{path}: {n_frames} frames, {valid} valid; launches {counts}")
     if valid != n_frames - lm_gen.max_delay:
         raise AssertionError(f"{valid} valid frames, expected {n_frames - lm_gen.max_delay}")
-    if counts != {"depformer_step": 8 * n_frames, "gating_ffn_step": 0,
-                  "rvq_encode": 2 * n_frames}:
-        raise AssertionError("a frame did not go through K1 and K3 as expected")
-    log(f"full solo slice frame time: {_percentiles(times)} over {n_frames} frames "
-        f"(host clock, informational) [{card}]")
+    if counts != expected:
+        raise AssertionError(f"{path}: launches {counts}, expected {expected}")
+    log(f"{path} frame time: {_percentiles(times)} over {n_frames} frames (host clock, "
+        f"informational); peak memory {peak:.1f} GiB [{card}]")
     return counts
 
 
 def run_full_batched_slice(mimi, lm_gen, seed: int, sessions: int, n_ticks: int,
-                           card: str) -> dict:
+                           card: str, path: str, expected: dict) -> dict:
     """``sessions`` sessions through ``SessionBatcher.step_once`` (bf16 LM
-    state, pipeline depth 1), each fed its own seeded signal."""
+    state, pipeline depth 1), each fed its own seeded signal; ``expected``:
+    the launches of each kernel."""
     from rstnet_tpu_torch.serving.batcher import SessionBatcher
 
     t0 = time.perf_counter()
@@ -533,15 +601,13 @@ def run_full_batched_slice(mimi, lm_gen, seed: int, sessions: int, n_ticks: int,
     batcher.warmup()
     active = [batcher.acquire() for _ in range(sessions)]
     torch.cuda.synchronize()
-    log(f"full batched slice: {sessions} sessions, warmed up in {time.perf_counter() - t0:.1f} s")
+    log(f"{path}: {sessions} sessions, warmed up in {time.perf_counter() - t0:.1f} s")
     frame = batcher.frame_size
     signals = np.stack([_signal(seed + i, n_ticks * frame, 110.0 + 20.0 * i)
                         for i in range(sessions)]).reshape(sessions, n_ticks, frame)
     n_text = lm_gen.model.text_card + lm_gen.model._extra_text
 
-    kernels = _launch_counts()
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts()
     times = []
     for t in range(n_ticks):
         for i, sess in enumerate(active):
@@ -550,7 +616,7 @@ def run_full_batched_slice(mimi, lm_gen, seed: int, sessions: int, n_ticks: int,
         batcher.step_once()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1000)
-    counts = {name: fn.launches for name, fn in kernels.items()}
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     for i, sess in enumerate(active):
         got = [sess.outputs.get_nowait() for _ in range(sess.outputs.qsize())]
@@ -563,13 +629,11 @@ def run_full_batched_slice(mimi, lm_gen, seed: int, sessions: int, n_ticks: int,
                                      f"{np.isfinite(audio).all()}")
             if not 0 <= tok < n_text:
                 raise AssertionError(f"session {i}: text token {tok} outside [0, {n_text})")
-    layers = lm_gen.model.depformer.num_layers
-    log(f"full batched slice: {n_ticks} ticks x {sessions} sessions; launches {counts}")
-    if counts != {"depformer_step": 0, "gating_ffn_step": 8 * layers * n_ticks,
-                  "rvq_encode": 2 * n_ticks}:
-        raise AssertionError("a tick did not go through K2 and K3 as expected")
-    log(f"full batched slice tick time: {_percentiles(times)} over {n_ticks} ticks "
-        f"(host clock, informational); peak memory {peak:.1f} GiB [{card}]")
+    log(f"{path}: {n_ticks} ticks x {sessions} sessions; launches {counts}")
+    if counts != expected:
+        raise AssertionError(f"{path}: launches {counts}, expected {expected}")
+    log(f"{path} tick time: {_percentiles(times)} over {n_ticks} ticks (host clock, "
+        f"informational); peak memory {peak:.1f} GiB [{card}]")
     return counts
 
 
@@ -577,24 +641,57 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--frames", type=int, default=16,
-                        help="frames of the solo slice and ticks of the batched one")
+                        help="frames of the solo slices and ticks of the batched ones")
     parser.add_argument("--sessions", type=int, default=16)
     args = parser.parse_args(argv)
+    t_start = time.perf_counter()
 
-    card = phase_environment()
-    phase_build()
+    with phase("environment"):
+        card = phase_environment()
+    with phase("build"):
+        phase_build()
     g = torch.Generator(device="cuda").manual_seed(args.seed)
-    kernels = [check_k1(g, card), check_k2(g, card, args.sessions),
-               check_k3(g, card, args.sessions)]
-    check_small_slice(args.seed)
-    check_small_batched_slice(args.seed)
-    mimi, lm_gen = build_full_models(args.seed)
-    solo = run_full_slice(mimi, lm_gen, args.seed, args.frames, card)
-    batched = run_full_batched_slice(mimi, lm_gen, args.seed, args.sessions, args.frames, card)
+    with phase("kernels"):
+        kernels = [check_k1(g, card), check_k1(g, card, int8=True),
+                   check_k2(g, card, args.sessions), check_k3(g, card, args.sessions)]
+    with phase("small slices"):
+        check_small_slice(args.seed)
+        check_small_slice(args.seed, int8=True)
+        check_small_batched_slice(args.seed)
+    with phase("full models"):
+        mimi, lm_gen = build_full_models(args.seed)
+    n, ticks = args.frames, args.frames
+    layers = lm_gen.model.depformer.num_layers
+    none = dict.fromkeys(_counters(), 0)
+    paths = {}
+    with phase("full solo slice"):
+        paths["solo_frame"] = run_full_slice(
+            mimi, lm_gen, args.seed, n, card, "full solo slice",
+            {**none, "depformer_step": 8 * n, "rvq_encode": 2 * n})
+    with phase("full batched slice"):
+        paths["batched_tick"] = run_full_batched_slice(
+            mimi, lm_gen, args.seed, args.sessions, ticks, card, "full batched slice",
+            {**none, "gating_ffn_step": 8 * layers * ticks, "rvq_encode": 2 * ticks})
+    with phase("int8 quantization"):
+        from rstnet_tpu_torch.serving.server import quantize_for_serving
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        quantize_for_serving(lm_gen.model, int8=True)  # the server's --int8, in place
+        lm_int8 = dataclasses.replace(lm_gen, kv_int8=True)  # --kv-int8
+        torch.cuda.synchronize()
+    with phase("full int8 solo slice"):
+        paths["solo_frame_int8"] = run_full_slice(
+            mimi, lm_int8, args.seed, n, card, "full int8 solo slice (--int8 --kv-int8)",
+            {**none, "depformer_step_int8": 8 * n, "rvq_encode": 2 * n})
+    with phase("full int8 batched slice"):
+        paths["batched_tick_int8"] = run_full_batched_slice(
+            mimi, lm_int8, args.seed, args.sessions, ticks, card,
+            "full int8 batched slice (--int8 --kv-int8)", {**none, "rvq_encode": 2 * ticks})
     for k in kernels:
-        paths = {"solo_frame": solo[k["name"]], "batched_tick": batched[k["name"]]}
-        k["launches"] = sum(paths.values())
-        k["launches_by_path"] = paths
+        k["launches_by_path"] = {p: counts[k["name"]] for p, counts in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
+    log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s wall")
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,15 +7,17 @@ one backbone step plus ``dep_q`` sequential depformer micro-steps, and a
 complete token frame is emitted once a slot's age exceeds ``max_delay``.
 
 At batch 1 the micro-steps go through :func:`depformer_step` (the CUDA kernel
-K1 on the card, its plain version on CPU tensors); batch > 1 runs the model's
-``step_codecformer``. ``step_scan`` (several frames per call) is not ported
-yet.
+K1 on the card, its int8 variant over int8 depformer weights, its plain
+version on CPU tensors); batch > 1 runs the model's ``step_codecformer``.
+K1's operands are taken from the weights at every frame, as JAX does, so an
+in-place change of the weights (padding, int8 quantization) reaches the
+kernel. ``step_scan`` (several frames per call) is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
+from typing import Optional
 
 import torch
 
@@ -33,17 +35,16 @@ class LMGen:
     temp_text: float = 0.7
     top_k: int = 250
     top_k_text: int = 25
+    # ban special ids >= audio_max_card when sampling audio; None: no clamp
+    audio_max_card: Optional[int] = None
+    # the backbone ring K/V as int8 with per-step scales (serving option)
+    kv_int8: bool = False
 
     def __post_init__(self):
         if not self.delays:
             object.__setattr__(self, "delays", (0,) * self.model.num_codebooks)
         if len(self.delays) != self.model.num_codebooks:
             raise ValueError(f"{len(self.delays)} delays for {self.model.num_codebooks} streams")
-
-    @functools.cached_property
-    def _dep_ops(self) -> dict | None:
-        """K1's operands, taken from the model's weights at the first step."""
-        return depformer_kernel_operands(self.model)
 
     @property
     def max_delay(self) -> int:
@@ -67,7 +68,7 @@ class LMGen:
             # per-slot frame count: bounds the slot's attention lookback
             # (min_pos) and drives its own delay warmup
             "age": torch.zeros((batch_size,), dtype=torch.long, device=device),
-            "lm": self.model.init_state(batch_size, dtype, device=device),
+            "lm": self.model.init_state(batch_size, dtype, device=device, kv_int8=self.kv_int8),
         }
 
     def reset_slots(self, state: dict, slots) -> dict:
@@ -115,7 +116,7 @@ class LMGen:
 
         # 4. depformer micro-steps; the per-codebook input views are one matmul
         dep_ins = model.codecformer_inputs(hidden)  # [B, dep_q, 1, C]
-        ops = self._dep_ops if B == 1 else None
+        ops = depformer_kernel_operands(model) if B == 1 else None
         prev = text_token[:, None]
         audio_tokens = []
         if ops is not None:
@@ -127,8 +128,9 @@ class LMGen:
                 logits, kc, vc = depformer_step(
                     x, cb, ops["norm1"], ops["in_proj"], ops["out_proj"], ops["norm2"],
                     ops["gin"], ops["gout"], ops["head_w"], ops["head_b"], kc, vc,
-                    heads=ops["heads"], eps=ops["eps"])
-                tok = sample_token(logits, generator, self.use_sampling, self.temp, self.top_k)
+                    heads=ops["heads"], eps=ops["eps"], scales=ops["scales"])
+                tok = sample_token(logits, generator, self.use_sampling, self.temp, self.top_k,
+                                   max_card=self.audio_max_card)
                 prev = tok[:, None]
                 audio_tokens.append(tok)
         else:
@@ -137,7 +139,7 @@ class LMGen:
                 logits, cf_state = model.step_codecformer(cf_state, cb, prev, hidden,
                                                           dep_in=dep_ins[:, cb])
                 tok = sample_token(logits[:, 0], generator, self.use_sampling, self.temp,
-                                   self.top_k)
+                                   self.top_k, max_card=self.audio_max_card)
                 prev = tok[:, None]
                 audio_tokens.append(tok)
         audio = torch.stack(audio_tokens, dim=1)  # [B, dep_q]

@@ -8,6 +8,12 @@ views) with per-codebook output heads. It exposes the step protocol that
 ``LMGen`` drives: ``initial_frame``, ``step_global``, ``codecformer_inputs``,
 ``codecformer_step_embedding``, ``step_codecformer``. The training forwards
 (``forward_text``, ``forward_local``, ``__call__``) are not ported yet.
+
+For int8 serving (``serving/server.py::quantize_for_serving``) the
+transformers' weights, ``depformer_in``, ``linears.weight`` and
+``text_linear.weight`` may be :class:`~rstnet_tpu_torch.modules.transformer.Int8Weight`.
+The first three dequantize through ``resolve_weight``; the int8 text head
+multiplies the raw codes and scales the logits, as the JAX head does.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from torch import nn
 
 from rstnet_tpu_torch.core import container, default_generator, new_param, normal, uniform
 from rstnet_tpu_torch.models.lm import ZERO_TOKEN_ID, scaled_embedding
-from rstnet_tpu_torch.modules.transformer import StreamingTransformer, resolve_weight
+from rstnet_tpu_torch.modules.transformer import StreamingTransformer, is_int8, resolve_weight
 from rstnet_tpu_torch.ops.norms import Norm
 
 
@@ -123,17 +129,24 @@ class MoshiLMModel(nn.Module):
         return emb.sum(1) + scaled_embedding(self.text_emb, sequence[:, 0, :])
 
     def _text_logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        logits = hidden @ self.text_linear.weight.T.to(hidden.dtype)
+        w = self.text_linear.weight
+        if is_int8(w):  # weight-only int8 head (--int8-head): scale after the product
+            logits = (hidden @ w.w_int8.T.to(hidden.dtype)) * w.scale.to(hidden.dtype)
+        else:
+            logits = hidden @ w.T.to(hidden.dtype)
         bias = self.text_linear._parameters.get("bias")
         return logits if bias is None else logits + bias.to(logits.dtype)
 
     # -- streaming protocol -----------------------------------------------------
 
-    def init_state(self, batch_size: int, dtype=torch.bfloat16, device=None) -> dict:
+    def init_state(self, batch_size: int, dtype=torch.bfloat16, device=None,
+                   kv_int8: bool = False) -> dict:
         """Backbone state with one ring buffer per layer: as in the JAX
         server (``kv_unstacked=True``), since a float32 state over bf16
-        weights makes the residual float32 after the first layer."""
-        return self.transformer.init_state(batch_size, dtype, kv_unstacked=True, device=device)
+        weights makes the residual float32 after the first layer.
+        ``kv_int8``: int8 ring K/V with per-step scales."""
+        return self.transformer.init_state(batch_size, dtype, kv_unstacked=True, device=device,
+                                           kv_int8=kv_int8)
 
     def step_global(self, state: dict, frame: torch.Tensor, min_pos=None):
         """One backbone step on a [B, 1+n_q, 1] frame -> (hidden, text
@@ -166,11 +179,12 @@ class MoshiLMModel(nn.Module):
         """One depformer micro-step -> ([B, 1, card] logits, state).
         ``dep_in``: this step's [B, 1, C] view from ``codecformer_inputs``."""
         if dep_in is None:
-            w = resolve_weight(self.depformer_in, hidden.dtype)
-            dep_in = hidden @ w[cb_index if self.depformer_multi_linear else 0].T
+            idx = cb_index if self.depformer_multi_linear else 0
+            dep_in = hidden @ resolve_weight(self.depformer_in[idx], hidden.dtype).T
         x = dep_in + self.codecformer_step_embedding(cb_index, prev_token)
         out, cf_state = self.depformer.step(cf_state, x)
-        logits = out @ resolve_weight(self.linears.weight, out.dtype)[cb_index].T
+        # the step's head only: the same values as resolving the whole stack
+        logits = out @ resolve_weight(self.linears.weight[cb_index], out.dtype).T
         bias = self.linears._parameters.get("bias")
         if bias is not None:
             logits = logits + bias[cb_index].to(logits.dtype)

@@ -12,12 +12,19 @@ d_model multiples of 128, SiLU gating) goes through
 :func:`~rstnet_tpu_torch.ops.cuda_ffn.gating_ffn_step`: the CUDA kernel on
 the card, its plain version on CPU tensors. The JAX package gates that
 branch behind ``RSTNET_PALLAS_FFN=1``; the port takes it whenever the shapes
-allow. int8 weights are not ported yet (ROADMAP queue 1, int8 serving).
+allow.
+
+Serving weights may be weight-only int8 (``quantize_transformer_int8``, in
+place): an :class:`Int8Weight` in a parameter's place, whose ``state_dict``
+keys are the JAX dict's paths (``...in_proj.w_int8``, ``...in_proj.scale``).
+``resolve_weight`` dequantizes it in the activation dtype, as JAX does; an
+int8 per-step FFN takes the gather path, not K2, as in JAX.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -45,9 +52,89 @@ def create_sin_embedding(positions: torch.Tensor, dim: int, max_period: float = 
     return torch.cat([torch.cos(phase), torch.sin(phase)], dim=-1)
 
 
-def resolve_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The weight in the activation dtype (int8 serving weights wait)."""
+class QuantizedSlice(NamedTuple):
+    """An index into an :class:`Int8Weight`: int8 rows and their scales."""
+
+    w_int8: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.w_int8.shape
+
+    def __getitem__(self, idx) -> "QuantizedSlice":
+        return QuantizedSlice(self.w_int8[idx], self.scale[idx])
+
+
+class Int8Weight(nn.Module):
+    """Weight-only int8 serving weight (the JAX ``{w_int8, scale}`` dict):
+    ``w_int8 [..., out, in]`` int8 and ``scale [..., out]`` float32 per
+    output row. Indexing slices both, as a stacked parameter is sliced."""
+
+    def __init__(self, w_int8: torch.Tensor, scale: torch.Tensor):
+        super().__init__()
+        self.w_int8 = new_param(w_int8)
+        self.scale = new_param(scale)
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.w_int8.shape
+
+    def __getitem__(self, idx) -> QuantizedSlice:
+        return QuantizedSlice(self.w_int8[idx], self.scale[idx])
+
+
+def is_int8(w) -> bool:
+    return isinstance(w, (Int8Weight, QuantizedSlice))
+
+
+def quantize_param_int8(module: nn.Module, name: str) -> None:
+    """Replace the plain weight ``module.<name>`` by its int8 serving form;
+    a name that holds no plain weight (absent, or already int8) stays."""
+    if name in module._parameters:
+        setattr(module, name, quantize_weight_int8(module._parameters.pop(name)))
+
+
+def resolve_weight(w, dtype: torch.dtype) -> torch.Tensor:
+    """The weight in the activation dtype. An int8 weight dequantizes as in
+    JAX: the scale is rounded to ``dtype`` first, the product taken in it.
+    One mixed-dtype multiply does it: the codes convert exactly to ``dtype``
+    inside the kernel, so no converted copy of the codes is written."""
+    if is_int8(w):
+        return w.w_int8 * w.scale.to(dtype)[..., None]
     return w.to(dtype)
+
+
+@torch.no_grad()
+def quantize_weight_int8(w: torch.Tensor) -> Int8Weight:
+    """Per-output-row symmetric int8 of ``[..., out, in]``, with the JAX
+    function's float32 operations, so codes and scales are equal. Done one
+    leading slice at a time, so a large stack needs no float32 copy."""
+    def rows(wf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        s = torch.clamp_min(wf.abs().amax(-1) / 127.0, 1e-8)
+        return torch.clamp(torch.round(wf / s[..., None]), -127, 127).to(torch.int8), s
+
+    if w.dim() <= 2:
+        return Int8Weight(*rows(w.float()))
+    w_int8 = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty(w.shape[:-1], dtype=torch.float32, device=w.device)
+    for i in range(w.shape[0]):
+        w_int8[i], scale[i] = rows(w[i].float())
+    return Int8Weight(w_int8, scale)
+
+
+@torch.no_grad()
+def quantize_transformer_int8(transformer: "StreamingTransformer") -> "StreamingTransformer":
+    """Quantize a transformer's projections and FFN weights for serving, in
+    place (counterpart of the JAX function on its params). Weights that are
+    already int8 stay as they are."""
+    layers = transformer.layers
+    for name in ("in_proj", "out_proj", "linear1", "linear2"):
+        quantize_param_int8(layers, name)
+    if hasattr(layers, "gating"):
+        quantize_param_int8(layers.gating, "linear_in")
+        quantize_param_int8(layers.gating, "linear_out")
+    return transformer
 
 
 @torch.no_grad()
@@ -60,7 +147,7 @@ def pad_codecformer_gating(transformer: "StreamingTransformer", multiple: int = 
     path. ``linear_in [L, S, 2H, C]`` becomes ``[gate; 0; value; 0]`` and
     ``linear_out [L, S, C, H]`` gains zero columns."""
     gating = getattr(transformer.layers, "gating", None)
-    if gating is None or not transformer.weights_per_step:
+    if gating is None or not transformer.weights_per_step or is_int8(gating.linear_in):
         return transformer
     lin_in, lin_out = gating.linear_in, gating.linear_out
     H = lin_in.shape[-2] // 2
@@ -172,7 +259,7 @@ class StreamingTransformer(nn.Module):
             lin_in, lin_out = layers.gating.linear_in[i], layers.gating.linear_out[i]
             hidden = lin_in.shape[-2] // 2
             if (T == 1 and self.gating == "silu" and hidden % 128 == 0
-                    and self.d_model % 128 == 0):
+                    and self.d_model % 128 == 0 and not is_int8(lin_in)):
                 # K2 reads only the step's weight slice: no gather of the stack
                 update = gating_ffn_step(h[:, 0, :], lin_in, lin_out, offset)[:, None, :]
             else:
@@ -207,7 +294,9 @@ class StreamingTransformer(nn.Module):
                 raise ValueError("streaming only for causal attention")
             kv_cache, pos_k, _ = ring_kv_update(kv_cache, offset, k, v)
             attn = masked_attention(q, kv_cache["k"], kv_cache["v"], pos_q, pos_k,
-                                    self.context, True, min_pos=min_pos)
+                                    self.context, True, min_pos=min_pos,
+                                    k_scale=kv_cache.get("k_scale"),
+                                    v_scale=kv_cache.get("v_scale"))
         attn = attn.transpose(1, 2).reshape(B, T, self.d_model)
         update = self._out_proj(i, attn, offset)
         if self.has_layer_scale:
@@ -237,16 +326,17 @@ class StreamingTransformer(nn.Module):
     # -- streaming ----------------------------------------------------------
 
     def init_state(self, batch_size: int, dtype=torch.bfloat16, chunk_size: int = 1,
-                   kv_unstacked: bool = False, device=None) -> dict:
+                   kv_unstacked: bool = False, device=None, kv_int8: bool = False) -> dict:
         """Ring of ``context + chunk_size - 1`` slots, so the earliest query
         of a chunk still sees its full window. ``kv_unstacked`` keeps one
-        ring per layer instead of a stacked ``[L, ...]`` pair."""
+        ring per layer instead of a stacked ``[L, ...]`` pair; ``kv_int8``
+        stores K/V as int8 codes with per-step scales."""
         cap = self.kv_capacity + chunk_size - 1
         shape = (batch_size, self.num_heads, cap, self.head_dim)
         if kv_unstacked:
-            kv = [ring_kv_buffers(shape, dtype, device) for _ in range(self.num_layers)]
+            kv = [ring_kv_buffers(shape, dtype, device, kv_int8) for _ in range(self.num_layers)]
         else:
-            kv = ring_kv_buffers((self.num_layers, *shape), dtype, device)
+            kv = ring_kv_buffers((self.num_layers, *shape), dtype, device, kv_int8)
         return {"kv": kv, "offset": 0}
 
     def step(self, state: dict, x: torch.Tensor, min_pos: torch.Tensor | None = None
@@ -264,7 +354,7 @@ class StreamingTransformer(nn.Module):
         offset = state["offset"]
         x = self._add_sin(x, offset)
         for i in range(self.num_layers):
-            layer_kv = kv[i] if unstacked else {"k": kv["k"][i], "v": kv["v"][i]}
+            layer_kv = kv[i] if unstacked else {name: buf[i] for name, buf in kv.items()}
             x = self._layer(i, x, offset, layer_kv, min_pos)
         return x, {"kv": kv, "offset": offset + T}
 

@@ -4,8 +4,9 @@
 The ring keeps every written slot valid: ``ring_positions`` gives each slot
 its true absolute position, so chunked streaming equals the offline windowed
 mask for any length (``ARCHITECTURE.md`` "ring KV"). Unlike the JAX version,
-``ring_kv_update`` writes the new steps into the cache in place. The int8 K/V
-variant is not ported yet.
+``ring_kv_update`` writes the new steps into the cache in place. An int8 ring
+(``kv_int8``) holds K/V codes with a bf16 scale per step and head;
+``masked_attention`` folds the scales into the logits and the weights.
 """
 
 from __future__ import annotations
@@ -22,9 +23,18 @@ def ring_positions(capacity: int, end: int, device=None) -> torch.Tensor:
     return torch.where(idx >= end, -1, pos)
 
 
-def ring_kv_buffers(shape: tuple, dtype=torch.bfloat16, device=None) -> dict:
+def ring_kv_buffers(shape: tuple, dtype=torch.bfloat16, device=None, kv_int8: bool = False
+                    ) -> dict:
     """Ring cache buffers ``[..., capacity, dim_per_head]`` (extra leading
-    axes, e.g. a stacked layer axis, are allowed)."""
+    axes, e.g. a stacked layer axis, are allowed). ``kv_int8``: int8 K/V and
+    bf16 ``k_scale``/``v_scale`` of shape ``[..., capacity]``."""
+    if kv_int8:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+            "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+        }
     if dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"ring KV in {dtype}: only float32 and bfloat16")
     return {
@@ -33,14 +43,30 @@ def ring_kv_buffers(shape: tuple, dtype=torch.bfloat16, device=None) -> dict:
     }
 
 
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the head dim, per step: [..., T, D] -> (int8
+    [..., T, D], bf16 scale [..., T]). The scale is ``max(max |x|, 1e-8) /
+    127`` (the weight quantizer divides first), codes use it unrounded."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(-1), 1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
 def ring_kv_update(
     cache: dict, end: int, k_new: torch.Tensor, v_new: torch.Tensor
 ) -> tuple[dict, torch.Tensor, int]:
     """Write T new steps ``[B, H, T, D]`` into the ring at ``(end + t) %
-    capacity``, in place. Returns (cache, positions[capacity], new_end)."""
+    capacity``, in place (quantized first for an int8 ring). Returns
+    (cache, positions[capacity], new_end)."""
     T = k_new.shape[2]
     capacity = cache["k"].shape[2]
     idx = (torch.arange(T, device=k_new.device) + end) % capacity
+    if "k_scale" in cache:
+        k_new, k_sc = quantize_kv(k_new)
+        v_new, v_sc = quantize_kv(v_new)
+        cache["k_scale"].index_copy_(2, idx, k_sc)
+        cache["v_scale"].index_copy_(2, idx, v_sc)
     cache["k"].index_copy_(2, idx, k_new.to(cache["k"].dtype))
     cache["v"].index_copy_(2, idx, v_new.to(cache["v"].dtype))
     new_end = end + T
@@ -49,8 +75,10 @@ def ring_kv_update(
 
 def _f32_dot_inputs(a: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``a`` rounded to the matmul input dtype, held in float32: a float32
-    product of these is the JAX ``preferred_element_type=float32`` einsum."""
-    return a.to(dtype).float()
+    product of these is the JAX ``preferred_element_type=float32`` einsum.
+    int8 codes convert exactly to any float dtype, so they go to float32 in
+    one copy."""
+    return a.float() if a.dtype == torch.int8 else a.to(dtype).float()
 
 
 def masked_attention(
@@ -62,12 +90,17 @@ def masked_attention(
     context: int | None,
     causal: bool = True,
     min_pos: torch.Tensor | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Scaled dot-product attention with a windowed-causal position mask.
 
     q: [B, H, Tq, D]; k, v: [B, Hkv, S, D]; pos_q: [Tq]; pos_k: [S]. Logits
     and softmax in float32; GQA when Hkv divides H. ``min_pos`` ([B], optional)
-    hides keys with ``pos_k < min_pos[b]`` from row b (per-session lookback)."""
+    hides keys with ``pos_k < min_pos[b]`` from row b (per-session lookback).
+    ``k_scale``/``v_scale`` ([B, Hkv, S]): k/v are int8 codes; as in JAX the
+    float32 logits take the float32 ``k_scale``, and the weights, cast to
+    ``q.dtype``, take ``v_scale`` in ``q.dtype`` before the value product."""
     B, H, Tq, D = q.shape
     Hkv = k.shape[1]
     if min_pos is not None and not causal:
@@ -79,6 +112,8 @@ def masked_attention(
         "bhgtd,bhsd->bhgts",
         _f32_dot_inputs(qg, q.dtype), _f32_dot_inputs(k, q.dtype),
     ) * (1.0 / D**0.5)
+    if k_scale is not None:
+        logits = logits * k_scale.float()[:, :, None, None, :]
     if causal:
         delta = pos_q[:, None] - pos_k[None, :]
         mask = (pos_k[None, :] >= 0) & (delta >= 0)
@@ -88,8 +123,11 @@ def masked_attention(
             mask = mask[None] & (pos_k[None, None, :] >= min_pos[:, None, None])
             mask = mask[:, None, None]
         logits = logits.masked_fill(~mask, float("-inf"))
-    att = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bhgts,bhsd->bhgtd", att, v)
+    av_dtype = q.dtype if v_scale is not None else v.dtype
+    att = torch.softmax(logits, dim=-1).to(av_dtype)
+    if v_scale is not None:
+        att = att * v_scale.to(av_dtype)[:, :, None, None, :]
+    out = torch.einsum("bhgts,bhsd->bhgtd", att, v.to(av_dtype))
     return out.reshape(B, H, Tq, D)
 
 

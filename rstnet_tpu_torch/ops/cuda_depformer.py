@@ -1,6 +1,6 @@
 """One depformer micro-step at batch 1: the CUDA kernel
 ``csrc/depformer_step.cu`` and its plain PyTorch version (counterpart of
-``rstnet_tpu/ops/pallas_depformer.py``, bf16 variant).
+``rstnet_tpu/ops/pallas_depformer.py``, bf16 and int8 variants).
 
 The micro-step runs every layer of the depth transformer for codebook ``cb``
 and then that codebook's audio head. Semantics match
@@ -12,19 +12,27 @@ softmax and the residual stream are float32. The per-frame cache ``kc``/
 place and take the new row in float32 for this step's attention, as the
 Pallas kernel does.
 
+int8 variant (``scales`` given, int8 serving): the five weight stacks are
+int8 with a float32 scale per output row, and each weight element is
+dequantized as ``bf16(float(q) * scale[row])`` before the bf16 GEMV, the
+Pallas kernel's ``wload`` rounding.
+
 :func:`depformer_step` launches the kernel on a CUDA tensor and runs
-:func:`depformer_step_reference` on a CPU tensor. The int8 variant of the
-TPU kernel is not ported yet.
+:func:`depformer_step_reference` on a CPU tensor. It counts bf16 launches in
+``depformer_step.launches`` and int8 launches in
+``depformer_step.launches_int8``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from rstnet_tpu_torch.modules.transformer import is_int8
 from rstnet_tpu_torch.ops import cuda_lib
 
 MAX_DIM = 8192  # largest C or H the kernel stages in shared memory
 MAX_STEPS = 32
+WEIGHTS = ("in_proj", "out_proj", "gin", "gout", "head_w")  # the stacks int8 serving quantizes
 
 
 def _rms(x: torch.Tensor, alpha: torch.Tensor, eps: float) -> torch.Tensor:
@@ -37,18 +45,37 @@ def _dot_t(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float().T
 
 
+def _wload(w: torch.Tensor, scale: torch.Tensor | None) -> torch.Tensor:
+    """A weight block as the kernel reads it: bf16, or int8 rows times their
+    float32 scales ``[rows, 1]`` rounded to bf16 (the Pallas ``wload``)."""
+    if scale is None:
+        return w.to(torch.bfloat16)
+    return (w.float() * scale.float()).to(torch.bfloat16)
+
+
 def depformer_step_reference(x, cb: int, norm1, in_proj, out_proj, norm2, gin, gout, head_w,
-                             head_b, kc, vc, heads: int, eps: float = 1e-8):
+                             head_b, kc, vc, heads: int, eps: float = 1e-8, scales=None):
     """Plain PyTorch micro-step. Shapes as :func:`depformer_step`; weights
-    of any float dtype are rounded to bf16 as the kernel reads them.
+    of any float dtype are rounded to bf16 as the kernel reads them, int8
+    weights dequantized with ``scales`` as the kernel does.
     Returns (logits [1, card] float32, kc, vc) with row ``cb`` written."""
     L, S, C = kc.shape
     H = gout.shape[3]
     dh = C // heads
+    sc = scales or {}
+    s_in, s_out, s_gin, s_gout, s_head = (sc.get(k) for k in WEIGHTS)
+
+    def block(w, s, *idx):  # the (layer, step) weight block and its row scales
+        return _wload(w[idx], None if s is None else s[idx])
+
+    in_proj = in_proj.reshape(L, S, 3 * C, C)
+    out_proj = out_proj.reshape(L, S, C, C)
+    if s_in is not None:
+        s_in, s_out = s_in.reshape(L, S, 3 * C, 1), s_out.reshape(L, S, C, 1)
     xs = x.float()
     for l in range(L):
         h = _rms(xs, norm1[l].float(), eps)
-        qkv = _dot_t(h, in_proj[l].reshape(S, 3 * C, C)[cb])
+        qkv = _dot_t(h, block(in_proj, s_in, l, cb))
         q, k_new, v_new = qkv[:, :C], qkv[:, C : 2 * C], qkv[:, 2 * C :]
         kc[l, cb] = k_new[0].to(kc.dtype)
         vc[l, cb] = v_new[0].to(vc.dtype)
@@ -57,29 +84,40 @@ def depformer_step_reference(x, cb: int, norm1, in_proj, out_proj, norm2, gin, g
         scores = (kf.reshape(cb + 1, heads, dh) * q.reshape(1, heads, dh)).sum(-1) / dh**0.5
         p = torch.softmax(scores, dim=0)  # [cb+1, heads]: positions > cb never enter
         attn = (p[:, :, None] * vf.reshape(cb + 1, heads, dh)).sum(0).reshape(1, C)
-        xs = xs + _dot_t(attn, out_proj[l].reshape(S, C, C)[cb])
-        gate, val = _dot_t(_rms(xs, norm2[l].float(), eps), gin[l, cb]).split(H, dim=-1)
-        xs = xs + _dot_t(gate * torch.sigmoid(gate) * val, gout[l, cb])
-    logits = _dot_t(xs, head_w[cb]) + head_b[cb].float()[None]
+        xs = xs + _dot_t(attn, block(out_proj, s_out, l, cb))
+        gate, val = _dot_t(_rms(xs, norm2[l].float(), eps), block(gin, s_gin, l, cb)).split(
+            H, dim=-1)
+        xs = xs + _dot_t(gate * torch.sigmoid(gate) * val, block(gout, s_gout, l, cb))
+    logits = _dot_t(xs, block(head_w, s_head, cb)) + head_b[cb].float()[None]
     return logits, kc, vc
 
 
 def _check_cuda_operands(x, cb, norm1, in_proj, out_proj, norm2, gin, gout, head_w, head_b,
-                         kc, vc, heads):
+                         kc, vc, heads, scales=None):
+    """The kernel's envelope: exact shapes and dtypes (bf16 weights, or int8
+    weights with float32 scales ``[..., rows, 1]``), every operand
+    contiguous and 16-byte aligned on x's device, and the dims below."""
     L, S, C = kc.shape
     H, card = gout.shape[-1], head_w.shape[1]
+    wt = torch.bfloat16 if scales is None else torch.int8
     expected = {
         "x": (x, (1, C), torch.bfloat16),
         "norm1": (norm1, (L, C), torch.float32),
-        "in_proj": (in_proj, (L, S * 3 * C, C), torch.bfloat16),
-        "out_proj": (out_proj, (L, S * C, C), torch.bfloat16),
+        "in_proj": (in_proj, (L, S * 3 * C, C), wt),
+        "out_proj": (out_proj, (L, S * C, C), wt),
         "norm2": (norm2, (L, C), torch.float32),
-        "gin": (gin, (L, S, 2 * H, C), torch.bfloat16),
-        "gout": (gout, (L, S, C, H), torch.bfloat16),
-        "head_w": (head_w, (S, card, C), torch.bfloat16),
+        "gin": (gin, (L, S, 2 * H, C), wt),
+        "gout": (gout, (L, S, C, H), wt),
+        "head_w": (head_w, (S, card, C), wt),
         "head_b": (head_b, (S, card), torch.float32),
         "vc": (vc, (L, S, C), kc.dtype),
     }
+    if scales is not None:
+        if set(scales) != set(WEIGHTS):
+            raise ValueError(f"scales for {sorted(scales)}, expected {sorted(WEIGHTS)}")
+        for name in WEIGHTS:  # one scale per weight row
+            rows = expected[name][1][:-1]
+            expected[f"{name} scale"] = (scales[name], (*rows, 1), torch.float32)
     if kc.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"depformer kernel caches are float32 or bfloat16, got {kc.dtype}")
     for name, (t, shape, dtype) in expected.items():
@@ -97,7 +135,7 @@ def _check_cuda_operands(x, cb, norm1, in_proj, out_proj, norm2, gin, gout, head
 
 
 def depformer_step(x, cb: int, norm1, in_proj, out_proj, norm2, gin, gout, head_w, head_b,
-                   kc, vc, heads: int, eps: float = 1e-8):
+                   kc, vc, heads: int, eps: float = 1e-8, scales: dict | None = None):
     """One fused depformer micro-step, batch 1.
 
     x [1, C] bf16 (dep_in + previous-token embedding); cb: micro-step index;
@@ -106,14 +144,18 @@ def depformer_step(x, cb: int, norm1, in_proj, out_proj, norm2, gin, gout, head_
     card); head_b [S, card] f32; kc/vc [L, S, C] (f32 or bf16), written at
     row cb in place. Returns (logits [1, card] f32, kc, vc).
 
+    ``scales`` (int8 variant): the five weights are int8 and ``scales`` maps
+    each of their names to float32 per-row scales shaped like the weight
+    with its last axis 1 (in_proj [L, S*3C, 1], ..., head_w [S, card, 1]).
+
     On a CUDA tensor it launches the kernel or raises; on a CPU tensor it
     runs :func:`depformer_step_reference`."""
     args = (x, cb, norm1, in_proj, out_proj, norm2, gin, gout, head_w, head_b, kc, vc, heads)
     if x.device.type == "cpu":
-        return depformer_step_reference(*args, eps=eps)
+        return depformer_step_reference(*args, eps=eps, scales=scales)
     if x.device.type != "cuda":
         raise NotImplementedError(f"depformer_step has no kernel for {x.device}")
-    _check_cuda_operands(*args)
+    _check_cuda_operands(*args, scales=scales)
     L, S, C = kc.shape
     H, card = gout.shape[-1], head_w.shape[1]
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -121,50 +163,69 @@ def depformer_step(x, cb: int, norm1, in_proj, out_proj, norm2, gin, gout, head_
     scratch = [torch.empty(n, **f32) for n in (C, 3 * C, C, H)]  # xs, qkv, attn, hid
     ptrs = [t.data_ptr() for t in (x, norm1, in_proj, out_proj, norm2, gin, gout, head_w,
                                    head_b, kc, vc, logits, *scratch)]
+    dims = (L, S, C, H, card, heads, cb, int(kc.dtype == torch.bfloat16), eps)
+    lib = cuda_lib.kernel_library()
     with torch.cuda.device(x.device):
-        status = cuda_lib.kernel_library().depformer_step(
-            *ptrs, L, S, C, H, card, heads, cb, int(kc.dtype == torch.bfloat16), eps,
-            torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(status, "depformer_step")
-    depformer_step.launches += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        if scales is None:
+            status = lib.depformer_step(*ptrs, *dims, stream)
+        else:
+            status = lib.depformer_step_int8(*ptrs, *(scales[k].data_ptr() for k in WEIGHTS),
+                                             *dims, stream)
+    cuda_lib.check(status, "depformer_step" if scales is None else "depformer_step_int8")
+    if scales is None:
+        depformer_step.launches += 1
+    else:
+        depformer_step.launches_int8 += 1
     return logits, kc, vc
 
 
-depformer_step.launches = 0  # kernel launches; reset freely by callers
+# kernel launches, bf16 and int8 variants; reset freely by callers
+depformer_step.launches = 0
+depformer_step.launches_int8 = 0
 
 
 def depformer_kernel_operands(model) -> dict | None:
     """The kernel's operands from a ``MoshiLMModel``'s depformer and heads,
     or None when the configuration is outside the kernel's envelope (no
     per-step weights, a positional embedding, non-RMS norm, non-SiLU gating,
-    misaligned dims); callers then keep the ``step_codecformer`` path."""
+    misaligned dims, some but not all five weight stacks int8); callers then
+    keep the ``step_codecformer`` path. When all five are int8 the operands
+    are their codes and ``scales`` their float32 row scales ``[..., rows,
+    1]``; otherwise ``scales`` is None. Cheap (views of the weights), so
+    callers take it afresh at every frame and follow in-place changes."""
     tf = model.depformer
     if not tf.weights_per_step or tf.positional_embedding != "none":
         return None
     if not tf.norm.startswith("rms_norm") or tf.gating != "silu":
         return None
     layers = tf.layers
+    weights = dict(zip(WEIGHTS, (layers.in_proj, layers.out_proj, layers.gating.linear_in,
+                                 layers.gating.linear_out, model.linears.weight)))
+    n_int8 = sum(is_int8(w) for w in weights.values())
+    scales = None
+    if n_int8 == len(weights):
+        scales = {k: w.scale.float()[..., None] for k, w in weights.items()}
+        weights = {k: w.w_int8 for k, w in weights.items()}
+    elif n_int8:  # mixed quantization: keep the step_codecformer path
+        return None
     C, S = tf.d_model, tf.weights_per_step
-    H = layers.gating.linear_in.shape[-2] // 2
-    head_w = model.linears.weight
-    card = head_w.shape[-2]
+    H = weights["gin"].shape[-2] // 2
+    card = weights["head_w"].shape[-2]
     if C % 128 or H % 128 or card % 128 or (C // tf.num_heads) % 8:
         return None
     head_b = model.linears._parameters.get("bias")
-    head_b = (torch.zeros((S, card), device=head_w.device) if head_b is None
+    head_b = (torch.zeros((S, card), device=weights["head_w"].device) if head_b is None
               else head_b.float())
     return {
         "norm1": layers.norm1.alpha.float(),
-        "in_proj": layers.in_proj,
-        "out_proj": layers.out_proj,
         "norm2": layers.norm2.alpha.float(),
-        "gin": layers.gating.linear_in,
-        "gout": layers.gating.linear_out,
-        "head_w": head_w,
         "head_b": head_b,
+        "scales": scales,
         "heads": tf.num_heads,
         "eps": tf.norm_eps,
         "L": tf.num_layers,
         "S": S,
         "C": C,
+        **weights,
     }

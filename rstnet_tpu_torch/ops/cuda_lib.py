@@ -2,9 +2,10 @@
 
 The sources are ``rstnet_tpu_torch/csrc/*.cu``, each with a plain C
 interface. At first use they are compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library under ``rstnet_tpu_torch/_build/``
-(git-ignored), named by a hash of the sources and flags so an edited source
-rebuilds, and loaded with ``ctypes``. Nothing here runs at import time, and
+(``sm_90a``), one ``nvcc`` per source, all started together, and linked into
+one shared library under ``rstnet_tpu_torch/_build/`` (git-ignored), named
+by a hash of the sources and flags so an edited source rebuilds, and loaded
+with ``ctypes``. Nothing here runs at import time, and
 nothing is built on a machine without a GPU: only the CUDA path of a kernel
 wrapper calls :func:`kernel_library`.
 
@@ -27,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signatures (argtypes, restype): every pointer and the stream as void*, so
@@ -36,6 +37,7 @@ SIGNATURES = {
     "rvq_encode": ([_P] * 5 + [_I] * 5 + [_P], _I),
     "rvq_encode_scratch_floats": ([_I] * 5, _LL),
     "depformer_step": ([_P] * 16 + [_I] * 8 + [_F, _P], _I),
+    "depformer_step_int8": ([_P] * 21 + [_I] * 8 + [_F, _P], _I),
     "gating_ffn_step": ([_P] * 5 + [_I] * 5 + [_P], _I),
 }
 
@@ -60,13 +62,32 @@ def build() -> tuple[Path, str]:
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                         for src, o in zip(sources, objs))]
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}")
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    out = []
+    try:
+        for cmd, proc in procs:
+            out.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out[-1]}")
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"link failed ({res.returncode}):\n{' '.join(link)}\n{res.stderr}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a library
-    return lib, res.stdout + res.stderr
+    return lib, "".join(out)
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,7 +15,10 @@ encode step + LM frame step + codec decode step) on an 80 ms frame clock:
 * The tick is one eager method (``_fused_step``) over a dict of device
   tensors that it updates in place under ``_state_lock``. At B > 1 every
   depformer micro-step's FFN runs kernel K2 (``ops/cuda_ffn.py``) and the
-  batched Mimi encode runs K3 on B rows.
+  batched Mimi encode runs K3 on B rows. Over int8 serving weights the FFN
+  takes the dequantizing gather path instead of K2, as in JAX, so the tick
+  runs K3 only; an int8 ring (``LMGen.kv_int8``) needs no slot clearing
+  either, since ``min_pos`` hides a slot's older keys.
 
 ``pipeline_depth > 1`` copies each frame's outputs to pinned host memory at
 dispatch and fetches frame ``t - depth + 1`` on tick ``t``, overlapping the

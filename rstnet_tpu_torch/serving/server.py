@@ -13,15 +13,23 @@ protocol and codec handshake are the JAX server's (``b"\\x01"`` audio,
 ``/api/stats`` reports the frame-latency tail.
 
 Run: ``python -m rstnet_tpu_torch.serving.server [--tiny] [--device cuda]
-[--batch N]``. The JAX server's int8 and scan options raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item; its checkpoint and
-tokenizer options come with checkpoint loading (``ROADMAP.md`` queue 1).
+[--batch N] [--int8] [--int8-dep] [--int8-head] [--kv-int8]``. The int8
+options follow the JAX ``main`` (``quantize_for_serving``): ``--int8``
+quantizes the depformer slice and the backbone, ``--int8-dep`` the depformer
+slice only, ``--int8-head`` the text head (only without ``--int8``), and
+``--kv-int8`` stores the backbone ring K/V as int8. One difference: the JAX
+server returns from its ``--tiny`` branch before its int8 block, so there the
+weight options do nothing on the tiny pair, while the port applies them to
+whichever pair it builds. ``--scan-frames`` raises ``NotImplementedError``
+naming its ``ROADMAP.md`` item; the checkpoint and tokenizer options come
+with checkpoint loading (``ROADMAP.md`` queue 1).
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
 import logging
 import os
@@ -288,11 +296,32 @@ def build_batched_app(batcher):
 
 _NOT_YET = {
     "scan_frames": "queue 1: LMGen.step_scan as a CUDA-graph replay (--scan-frames)",
-    "int8": "queue 1: int8 K1 (--int8/--int8-dep/--int8-head)",
-    "int8_dep": "queue 1: int8 K1 (--int8/--int8-dep/--int8-head)",
-    "int8_head": "queue 1: int8 K1 (--int8/--int8-dep/--int8-head)",
-    "kv_int8": "queue 1: int8 ring K/V (--kv-int8)",
 }
+
+
+@torch.no_grad()
+def quantize_for_serving(lm, int8: bool = False, int8_dep: bool = False,
+                         int8_head: bool = False):
+    """The JAX ``main``'s int8 serving options on a ``MoshiLMModel``, in
+    place, in its order (pad the depformer gating before this: padding works
+    on plain weights). ``int8`` and ``int8_dep`` quantize the depformer slice
+    (the depformer, ``depformer_in``, ``linears.weight``), which keeps it
+    inside K1-int8's envelope; ``int8`` also the backbone transformer, but
+    not the text head; ``int8_head`` the text head, only without ``int8``."""
+    from rstnet_tpu_torch.modules.transformer import (
+        quantize_param_int8,
+        quantize_transformer_int8,
+    )
+
+    if int8 or int8_dep:
+        quantize_transformer_int8(lm.depformer)
+        quantize_param_int8(lm, "depformer_in")
+        quantize_param_int8(lm.linears, "weight")
+    if int8:
+        quantize_transformer_int8(lm.transformer)
+    if int8_head and not int8:
+        quantize_param_int8(lm.text_linear, "weight")
+    return lm
 
 
 def build_models(tiny: bool, device, seed: int):
@@ -348,10 +377,15 @@ def main(argv=None):
                         help="threads that wait for in-flight frames' device->host copies; "
                              "auto = the pipeline depth when it is > 1, 0 turns it off")
     parser.add_argument("--scan-frames", type=int, default=0, metavar="N")
-    parser.add_argument("--int8", action="store_true")
-    parser.add_argument("--int8-dep", action="store_true")
-    parser.add_argument("--int8-head", action="store_true")
-    parser.add_argument("--kv-int8", action="store_true")
+    parser.add_argument("--int8", action="store_true",
+                        help="weight-only int8 for the backbone and the depformer slice (the "
+                             "text head stays)")
+    parser.add_argument("--int8-dep", action="store_true",
+                        help="weight-only int8 for the depformer slice only")
+    parser.add_argument("--int8-head", action="store_true",
+                        help="weight-only int8 text head (ignored with --int8)")
+    parser.add_argument("--kv-int8", action="store_true",
+                        help="the backbone ring K/V as int8 with per-step scales")
     args = parser.parse_args(argv)
     for name, item in _NOT_YET.items():
         if getattr(args, name):
@@ -372,6 +406,8 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     mimi, lm_gen = build_models(args.tiny, device, args.seed)
+    quantize_for_serving(lm_gen.model, args.int8, args.int8_dep, args.int8_head)
+    lm_gen = dataclasses.replace(lm_gen, kv_int8=args.kv_int8)
     if args.batch:
         from rstnet_tpu_torch.serving.batcher import SessionBatcher, auto_pipeline_depth
 

@@ -2,12 +2,15 @@
 
     python -m rstnet_tpu_torch.tools.profile_frame [--frames 10] [--profile-frames 4]
                                                   [--batch N] [--seed 0] [--out FILE.json]
+                                                  [--int8] [--int8-dep] [--int8-head]
+                                                  [--kv-int8]
 
 Builds the full slice as ``chip_smoke.py`` does (Mimi 24 kHz in float32 +
 Moshi 7B in bf16, seeded random weights, seeded normal codebooks), warms it
 up, and then measures, all on the card, for the solo frame
 (``ServerState.handle_frame_array``) or, with ``--batch N``, for one tick of
-a ``SessionBatcher`` with N sessions, each fed the same signal:
+a ``SessionBatcher`` with N sessions, each fed the same signal. The int8
+options are the server's (``serving/server.py::quantize_for_serving``):
 
 1. frame (tick) time, p50 and max, over ``--frames`` frames (host clock, a
    synchronize per frame);
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -43,13 +47,16 @@ def _signal(n_frames: int, frame_size: int, seed: int) -> np.ndarray:
     return sig.astype(np.float32).reshape(n_frames, frame_size)
 
 
-def _build(seed: int, batch: int):
+def _build(args):
     """(mimi, lm_gen, frame size, one frame: pcm [frame_size] -> None)."""
     from rstnet_tpu_torch.serving.batcher import SessionBatcher
-    from rstnet_tpu_torch.serving.server import ServerState, build_models
+    from rstnet_tpu_torch.serving.server import ServerState, build_models, quantize_for_serving
 
-    device = torch.device("cuda")
+    device, seed, batch = torch.device("cuda"), args.seed, args.batch
     mimi, lm_gen = build_models(False, device, seed)
+    quantize_for_serving(lm_gen.model, args.int8, args.int8_dep, args.int8_head)
+    lm_gen = dataclasses.replace(lm_gen, kv_int8=args.kv_int8)
+    torch.cuda.reset_peak_memory_stats()  # the serving peak, not the bf16 build's
     g = torch.Generator(device=device).manual_seed(seed + 1)
     for rvq in (mimi.quantizer.rvq_first, mimi.quantizer.rvq_rest):
         rvq.layers.embedding_sum.normal_(generator=g)  # zero codebooks make every code a tie
@@ -145,6 +152,11 @@ def main(argv=None) -> int:
     parser.add_argument("--batch", type=int, default=0, metavar="N",
                         help="profile a SessionBatcher tick with N sessions instead of the "
                              "solo frame")
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 backbone and depformer slice, as the server's --int8")
+    parser.add_argument("--int8-dep", action="store_true", help="int8 depformer slice only")
+    parser.add_argument("--int8-head", action="store_true", help="int8 text head")
+    parser.add_argument("--kv-int8", action="store_true", help="int8 backbone ring K/V")
     parser.add_argument("--out", default="", help="also write the numbers here, as JSON")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -153,8 +165,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    torch.cuda.reset_peak_memory_stats()
-    mimi, lm_gen, frame_size, run_frame = _build(args.seed, args.batch)
+    mimi, lm_gen, frame_size, run_frame = _build(args)
     n = args.frames
     frames = _signal(2 * n + args.profile_frames, frame_size, args.seed)
 
@@ -165,11 +176,14 @@ def main(argv=None) -> int:
     prof = device_profile(run_frame, frames[2 * n :])
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
+    options = [f"--{k.replace('_', '-')}" for k in ("int8", "int8_dep", "int8_head", "kv_int8")
+               if getattr(args, k)]
     result = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "batch": args.batch, "peak_memory_gib": peak_gib,
+              "batch": args.batch, "options": options, "peak_memory_gib": peak_gib,
               "frame_ms": {"p50": statistics.median(times), "max": max(times), "n": n},
               "stage_ms": stages, "profile": prof}
     what = f"batched tick, {args.batch} sessions" if args.batch else "solo frame"
+    what += "".join(f" {o}" for o in options)
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; {what}; "
           f"peak memory {peak_gib:.1f} GiB")
     print(f"frame ms over {n} frames: p50 {statistics.median(times):.3f}, max {max(times):.3f}")

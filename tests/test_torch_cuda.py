@@ -5,8 +5,8 @@ none; there, skip the repository's conftest (which sets JAX up):
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
-Tolerances as in ``chip_smoke.py``: K1 2e-2 (bf16 rounding of GEMV inputs
-under two summation orders); K2 1e-4 relative and 1e-5 absolute for float32
+Tolerances as in ``chip_smoke.py``: K1 and K1-int8 2e-2 (bf16 rounding of
+GEMV inputs under two summation orders); K2 1e-4 relative and 1e-5 absolute for float32
 outputs (float32 sums in two orders), plus one bf16 step (2**-7 relative) for
 bf16 outputs; K3 codes equal unless the reference's two candidates are a
 near-tie, quantized sums to float32 rounding."""
@@ -47,20 +47,29 @@ def test_rvq_kernel_matches_plain(cuda, monkeypatch, N, split_max_rows):
         rvq_encode(x[:, :63].contiguous(), books[..., :63].contiguous())  # D % 4 != 0
 
 
+def _k1_operands(gen, L, S, C, heads, H, card, init="normal"):
+    """K1's operands; ``init="uniform"`` draws the weights as the model
+    initializes them, U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    def w(*shape):
+        if init == "uniform":
+            u = torch.rand(shape, device="cuda", generator=gen) * 2 - 1
+            return (u * shape[-1] ** -0.5).bfloat16()
+        return (torch.randn(shape, device="cuda", generator=gen) * shape[-1] ** -0.5).bfloat16()
+
+    ops = [1 + 0.1 * torch.randn((L, C), device="cuda", generator=gen), w(L, S * 3 * C, C),
+           w(L, S * C, C), 1 + 0.1 * torch.randn((L, C), device="cuda", generator=gen),
+           w(L, S, 2 * H, C), w(L, S, C, H), w(S, card, C),
+           0.1 * torch.randn((S, card), device="cuda", generator=gen)]
+    xs = torch.randn((S, 1, C), device="cuda", generator=gen).bfloat16()
+    return ops, xs
+
+
 @pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
 def test_depformer_kernel_matches_plain(cuda, cache_dtype):
     from rstnet_tpu_torch.ops.cuda_depformer import depformer_step, depformer_step_reference
 
     L, S, C, heads, H, card = 2, 8, 256, 4, 384, 256
-
-    def w(*shape):
-        return (torch.randn(shape, device="cuda", generator=cuda) * shape[-1] ** -0.5).bfloat16()
-
-    ops = [1 + 0.1 * torch.randn((L, C), device="cuda", generator=cuda), w(L, S * 3 * C, C),
-           w(L, S * C, C), 1 + 0.1 * torch.randn((L, C), device="cuda", generator=cuda),
-           w(L, S, 2 * H, C), w(L, S, C, H), w(S, card, C),
-           0.1 * torch.randn((S, card), device="cuda", generator=cuda)]
-    xs = torch.randn((S, 1, C), device="cuda", generator=cuda).bfloat16()
+    ops, xs = _k1_operands(cuda, L, S, C, heads, H, card)
     caches = [torch.zeros((L, S, C), device="cuda", dtype=cache_dtype) for _ in range(4)]
     before = depformer_step.launches
     for cb in range(S):
@@ -73,6 +82,50 @@ def test_depformer_kernel_matches_plain(cuda, cache_dtype):
     torch.testing.assert_close(caches[0].float(), caches[2].float(), rtol=2e-2, atol=2e-2)
     with pytest.raises(ValueError):
         depformer_step(xs[0].float(), 0, *ops, caches[0], caches[1], heads=heads)
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", [(2, 8, 256, 4, 384, 256), (6, 8, 1024, 16, 2816, 2048)],
+                         ids=["small", "moshi7b"])
+def test_depformer_int8_kernel_matches_plain(cuda, cache_dtype, dims):
+    """K1-int8 at a small and at Moshi 7B's depformer width: weights drawn as
+    the model initializes them and quantized by the port's
+    quantize_weight_int8, a frame of S micro-steps, against the plain
+    version within K1's 2e-2; it counts in ``launches_int8`` only."""
+    from rstnet_tpu_torch.modules.transformer import quantize_weight_int8
+    from rstnet_tpu_torch.ops.cuda_depformer import depformer_step, depformer_step_reference
+
+    L, S, C, heads, H, card = dims
+    ops, xs = _k1_operands(cuda, L, S, C, heads, H, card, init="uniform")
+    names = ("norm1", "in_proj", "out_proj", "norm2", "gin", "gout", "head_w", "head_b")
+    ops = dict(zip(names, ops))
+    scales = {}
+    for k in ("in_proj", "out_proj", "gin", "gout", "head_w"):
+        q = quantize_weight_int8(ops[k])
+        ops[k], scales[k] = q.w_int8, q.scale[..., None]
+    ops = [ops[k] for k in names]
+    caches = [torch.zeros((L, S, C), device="cuda", dtype=cache_dtype) for _ in range(4)]
+    bf16, int8 = depformer_step.launches, depformer_step.launches_int8
+    for cb in range(S):
+        got, caches[0], caches[1] = depformer_step(xs[cb], cb, *ops, caches[0], caches[1],
+                                                   heads=heads, scales=scales)
+        want, caches[2], caches[3] = depformer_step_reference(
+            xs[cb], cb, *ops, caches[2], caches[3], heads=heads, scales=scales)
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    assert (depformer_step.launches, depformer_step.launches_int8) == (bf16, int8 + S)
+    for a, b in ((caches[0], caches[2]), (caches[1], caches[3])):
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
+    with pytest.raises(ValueError):  # int8 weights need their scales
+        depformer_step(xs[0], 0, *ops, caches[0], caches[1], heads=heads)
+
+
+def test_small_int8_slice_card_matches_cpu(cuda):
+    """The small solo frame under --int8 --kv-int8 on the card (K1-int8)
+    against the CPU, teacher-forced (``chip_smoke.check_small_slice``: logits
+    within 5e-2 of their scale, audio within 1e-3, K1-int8 8 times a frame)."""
+    import chip_smoke
+
+    chip_smoke.check_small_slice(0, n_frames=4, int8=True)
 
 
 @pytest.mark.parametrize("B", [1, 9, 64])

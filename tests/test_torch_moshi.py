@@ -114,38 +114,74 @@ def test_lmgen_batched_greedy_matches_jax():
     assert np.mean(np.stack(touts) == np.stack(jouts)) >= 0.9
 
 
-def _slice_pair(monkeypatch):
+def jax_main_quantize(params, int8=False, int8_dep=False, int8_head=False):
+    """The int8 block of the JAX server's ``main``
+    (``rstnet_tpu/serving/server.py:635-666``) on a Moshi params tree."""
+    from rstnet_tpu.modules.transformer import quantize_transformer_int8, quantize_weight_int8
+
+    def dep_slice(p):
+        p = dict(p)
+        p["depformer"] = quantize_transformer_int8(p["depformer"])
+        p["depformer_in"] = quantize_weight_int8(p["depformer_in"])
+        p["linears"] = dict(p["linears"])
+        p["linears"]["weight"] = quantize_weight_int8(p["linears"]["weight"])
+        return p
+
+    if int8:
+        params = dep_slice(params)
+        params["transformer"] = quantize_transformer_int8(params["transformer"])
+    elif int8_dep:
+        params = dep_slice(params)
+    if int8_head and not int8:
+        params = dict(params)
+        params["text_linear"] = dict(params["text_linear"])
+        params["text_linear"]["weight"] = quantize_weight_int8(params["text_linear"]["weight"])
+    return params
+
+
+def _slice_pair(monkeypatch, int8=False, int8_dep=False, int8_head=False, kv_int8=False):
     """JAX ServerState (K1 in Pallas interpret mode) and the port's, on the
     server's --tiny Mimi (random codebooks) and a Moshi config inside K1's
     envelope, both greedy, sharing weights. Per-layer ring KV, as the JAX
     server runs it: its stacked layer scan cannot carry the bf16 -> float32
-    residual of bf16 weights over a float32 state."""
+    residual of bf16 weights over a float32 state. The int8 options quantize
+    the JAX params as the JAX ``main`` does; the port's model takes the
+    quantized layout from ``quantize_for_serving`` and then the JAX-quantized
+    values through ``from_jax_params``."""
     from rstnet_tpu.inference.generate import LMGen as JGen
+    from rstnet_tpu.models.moshi_lm import MoshiLMModel as JM
     from rstnet_tpu.serving.server import ServerState as JState
     from rstnet_tpu_torch.inference.generate import LMGen
+    from rstnet_tpu_torch.models.moshi_lm import MoshiLMModel
     from rstnet_tpu_torch.ops.cuda_depformer import depformer_kernel_operands
-    from rstnet_tpu_torch.serving.server import ServerState
+    from rstnet_tpu_torch.serving.server import ServerState, quantize_for_serving
     from tests.test_torch_codec import _tiny_mimi_pair
 
     monkeypatch.setenv("RSTNET_PALLAS_DEP", "interpret")
     jmimi, mimi_params, tmimi = _tiny_mimi_pair()
-    jm, lm_params, tm = _lm_pair()
-    assert depformer_kernel_operands(tm) is not None  # B=1 runs K1's wrapper
-    jstate = JState(mimi=jmimi, mimi_params=mimi_params,
-                    lm_gen=JGen(jm, delays=jm.delays, use_sampling=False, kv_unstacked=True),
-                    lm_params=lm_params)
-    tstate = ServerState(tmimi, LMGen(tm, delays=tm.delays, use_sampling=False))
+    jm = JM(**MOSHI)
+    lm_params = jax_main_quantize(jm.init(jax.random.PRNGKey(1), jnp.bfloat16), int8, int8_dep,
+                                  int8_head)
+    tm = quantize_for_serving(MoshiLMModel(**MOSHI, dtype=torch.bfloat16), int8, int8_dep,
+                              int8_head)
+    tm = _load(lm_params, tm)
+    ops = depformer_kernel_operands(tm)
+    assert ops is not None  # B=1 runs K1's wrapper
+    assert (ops["scales"] is not None) == (int8 or int8_dep)
+    jgen = JGen(jm, delays=jm.delays, use_sampling=False, kv_unstacked=True, kv_int8=kv_int8)
+    jstate = JState(mimi=jmimi, mimi_params=mimi_params, lm_gen=jgen, lm_params=lm_params)
+    tstate = ServerState(tmimi, LMGen(tm, delays=tm.delays, use_sampling=False, kv_int8=kv_int8))
     return jstate, tstate
 
 
-def test_serving_frame_matches_jax_teacher_forced(monkeypatch):
-    """Six 80 ms frames through ServerState._fused_frame on both sides. The
-    port is teacher-forced on the JAX token stream; every sampled logits row
-    (text, then 8 audio codebooks, per frame) and the audio must agree."""
+def check_frames_teacher_forced(jstate, tstate, monkeypatch, n_frames=6):
+    """``n_frames`` 80 ms frames through ServerState._fused_frame on both
+    sides. The port is teacher-forced on the JAX token stream; every sampled
+    logits row (text, then 8 audio codebooks, per frame) and the audio must
+    agree."""
     import rstnet_tpu.inference.generate as jgen_mod
     import rstnet_tpu_torch.inference.generate as tgen_mod
 
-    jstate, tstate = _slice_pair(monkeypatch)
     traced = []
     jsample = jgen_mod.sample_token
 
@@ -172,7 +208,7 @@ def test_serving_frame_matches_jax_teacher_forced(monkeypatch):
     rng = np.random.default_rng(3)
     jst = jstate._state
     flips = 0
-    for t in range(6):
+    for t in range(n_frames):
         pcm = rng.normal(0, 0.1, 1920).astype(np.float32)
         jaudio, jout, jst, jlogits = jframe(jstate.mimi_params, jstate.lm_params, jst,
                                             jnp.asarray(pcm).reshape(1, 1, -1))
@@ -196,11 +232,18 @@ def test_serving_frame_matches_jax_teacher_forced(monkeypatch):
     assert flips == 0
 
 
+def test_serving_frame_matches_jax_teacher_forced(monkeypatch):
+    """Six 80 ms frames through ServerState._fused_frame on both sides
+    (``check_frames_teacher_forced``)."""
+    check_frames_teacher_forced(*_slice_pair(monkeypatch), monkeypatch)
+
+
 def test_server_options_not_ported_raise():
+    """Only --scan-frames is still refused, solo and batched, before any
+    model is built."""
     from rstnet_tpu_torch.serving.server import main
 
-    for flag in (["--scan-frames", "4"], ["--int8"], ["--int8-dep"], ["--int8-head"],
-                 ["--kv-int8"], ["--batch", "2", "--int8"], ["--batch", "2", "--kv-int8"],
-                 ["--batch", "2", "--scan-frames", "4"]):
+    for flag in (["--scan-frames", "4"], ["--batch", "2", "--scan-frames", "4"],
+                 ["--int8", "--kv-int8", "--scan-frames", "4"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(flag)

@@ -22,7 +22,17 @@ Phases (each prints its findings; any failure exits non-zero):
    with ``--sessions`` sessions; then the same model quantized in place as
    the server's ``--int8`` does, with an int8 ring (``--kv-int8``), through
    both again. Each path's kernel launches are counted from zero just
-   before it runs and read just after.
+   before it runs and read just after;
+6. training: K6 (flash attention forward, dQ and dK/dV) against its plain
+   versions at the training shapes (H=32 over 8 KV heads, T=1024, D=64;
+   causal and a 256 window; bf16 at B=2 and at the main path's B=4, float32
+   at B=2), with device, plain, bound and SDPA times; a small
+   ``SpeechTextLM`` trained through
+   ``rstnet_tpu_torch.training.trainer.main`` (float32, bucket 512) on the
+   card and on the CPU from the same weights and data, one epoch and then a
+   resumed second, per-step losses compared; then the full Llama-3.2-1B
+   speech config (2.01 B parameters, bf16) for ``TRAIN_STEPS`` steps on
+   synthetic data, K6 on every step whose bucket is 1024 and on no other.
 
 Every phase prints its wall time.
 
@@ -42,9 +52,12 @@ import dataclasses
 import functools
 import gc
 import json
+import math
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -67,6 +80,26 @@ K3_QUANT_ATOL = 1e-5
 # summation orders on each side
 SLICE_LOGIT_TOL = 5e-2
 SLICE_AUDIO_TOL = 1e-3
+# K6 against its plain versions (ops/cuda_flash.py), each output held to its
+# own scale: ||kernel - plain|| / ||plain|| over the tensor and over every
+# 64-row tile of every head (cuda_flash.relative_error_by_tile). bf16: 1e-2,
+# a few times what rounding gives (the bf16 operands of the P V and dS
+# products and the bf16 outputs, one rounding of ~2**-9 each on either
+# side); float32 inputs go through split-bf16 products (hi.hi + hi.lo +
+# lo.hi, a dropped term of ~2**-16): 1e-4, where a bf16-only product would
+# read ~2e-3. The float32 log-sum-exp: within 1e-3 (bf16 inputs) or 1e-4.
+K6_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+K6_LSE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
+# small training slice, card (K6 on float32 inputs, split-bf16 products)
+# against the CPU (masked path), float32, same weights and data: per-step
+# losses within 1e-5 relative (PR 4's runs read 1.7e-7; float32 sums in two
+# orders over a few steps), accuracies within 1e-2 (a near-tie argmax may
+# flip a token)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_ACC_ATOL = 1e-2
+# steps of the full training slice: five land on the 1024 bucket, one on a
+# shorter one
+TRAIN_STEPS = 6
 # NVIDIA H100 SXM data sheet: HBM bandwidth and dense peak rates (at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
@@ -527,6 +560,7 @@ def _percentiles(times: list) -> str:
 def _counters() -> dict:
     """Each kernel's launch counter, by the kernel line's name: (the
     wrapper, the attribute it counts in)."""
+    from rstnet_tpu_torch.ops import cuda_flash
     from rstnet_tpu_torch.ops.cuda_depformer import depformer_step
     from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn_step
     from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode
@@ -534,7 +568,10 @@ def _counters() -> dict:
     return {"depformer_step": (depformer_step, "launches"),
             "depformer_step_int8": (depformer_step, "launches_int8"),
             "gating_ffn_step": (gating_ffn_step, "launches"),
-            "rvq_encode": (rvq_encode, "launches")}
+            "rvq_encode": (rvq_encode, "launches"),
+            "flash_attention_fwd": (cuda_flash.flash_attention_fwd, "launches"),
+            "flash_attention_bwd_dq": (cuda_flash.flash_attention_bwd_dq, "launches"),
+            "flash_attention_bwd_dkv": (cuda_flash.flash_attention_bwd_dkv, "launches")}
 
 
 def reset_counts() -> None:
@@ -637,6 +674,325 @@ def run_full_batched_slice(mimi, lm_gen, seed: int, sessions: int, n_ticks: int,
     return counts
 
 
+def _visible_pairs(T: int, window: int) -> int:
+    """(query, key) pairs that a causal mask with this window leaves."""
+    return sum(min(i + 1, window) for i in range(T))
+
+
+def _check_k6_route(q, k, v, do, context: int, scale: float, err: dict) -> None:
+    """The differentiable route (GQA repeat, pre-scale, the three kernels)
+    against autograd of the plain reference, O and dQ/dK/dV, and the forward
+    kernel's log-sum-exp against its plain version; each within the limits
+    of q's dtype. Adds each kernel's max |kernel - plain| to ``err``."""
+    from rstnet_tpu_torch.ops import cuda_flash as cf
+    from rstnet_tpu_torch.ops.flash_attention import (
+        attention_window,
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    (B, H, T, D), dtype = q.shape, q.dtype
+    window = attention_window(T, context)
+    tol = K6_REL_TOL[dtype]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = flash_attention(*leaves, context, scale)
+    got_grads = torch.autograd.grad(got, leaves, do)
+    want = flash_attention_reference(*leaves, context, scale)
+    want_grads = torch.autograd.grad(want, leaves, do)
+    torch.cuda.synchronize()
+    what = f"K6 B={B} context {context} {str(dtype).split('.')[-1]}"
+    for name, a, b, kernel in (("o", got, want, "flash_attention_fwd"),
+                               ("dq", got_grads[0], want_grads[0], "flash_attention_bwd_dq"),
+                               ("dk", got_grads[1], want_grads[1], "flash_attention_bwd_dkv"),
+                               ("dv", got_grads[2], want_grads[2], "flash_attention_bwd_dkv")):
+        whole, tile = cf.relative_error_by_tile(a, b)
+        if dtype == torch.bfloat16:
+            err[kernel] = max(err[kernel], (a.float() - b.float()).abs().max().item())
+        log(f"{what} {name}: ||kernel - plain|| / ||plain|| {whole:.3e}, worst 64-row tile "
+            f"{tile:.3e} (limit {tol})")
+        if not (whole <= tol and tile <= tol and torch.isfinite(a).all()):
+            raise AssertionError(f"{what} {name} disagrees with the plain version")
+    qs = (q * scale).to(dtype)
+    kr, vr = (t.repeat_interleave(H // k.shape[1], dim=1).contiguous() for t in (k, v))
+    lse = cf.flash_attention_fwd(qs, kr, vr, window)[1]
+    lse_err = (lse - cf.flash_attention_fwd_reference(qs, kr, vr, window)[1]).abs().max().item()
+    log(f"{what} lse: max |kernel - plain| = {lse_err:.3e} (limit {K6_LSE_TOL[dtype]})")
+    if not lse_err <= K6_LSE_TOL[dtype]:
+        raise AssertionError(f"{what} lse disagrees with the plain version")
+
+
+def _time_k6(q, k, v, do, context: int, scale: float, card: str) -> dict:
+    """Device times of the three kernels, their plain versions and, causal
+    only, SDPA; bounds of the GQA function (K and V at their own head count,
+    as the attention that K6 replaces reads and writes them; the wrapper's
+    repeat to H is the kernels' own cost)."""
+    import torch.nn.functional as F
+
+    from rstnet_tpu_torch.ops import cuda_flash as cf
+    from rstnet_tpu_torch.ops.flash_attention import attention_window
+
+    (B, H, T, D), Hkv = q.shape, k.shape[1]
+    window = attention_window(T, context)
+    qs = (q * scale).to(q.dtype)
+    kr, vr = (t.repeat_interleave(H // Hkv, dim=1).contiguous() for t in (k, v))
+    o, lse = cf.flash_attention_fwd(qs, kr, vr, window)
+    dq, delta = cf.flash_attention_bwd_dq(qs, kr, vr, o, do, lse, window)
+    pairs = B * H * _visible_pairs(T, window)
+    # bytes of one [B, H, T, D] / [B, Hkv, T, D] bf16 tensor, of one [B, H, T] f32 row vector
+    row, kv, rows = B * H * T * D * 2, B * Hkv * T * D * 2, B * H * T * 4
+    runs = {
+        "flash_attention_fwd": (  # q, k, v -> o, lse
+            lambda: cf.flash_attention_fwd(qs, kr, vr, window),
+            lambda: cf.flash_attention_fwd_reference(qs, kr, vr, window),
+            2 * row + 2 * kv + rows, 4 * D * pairs),
+        "flash_attention_bwd_dq": (  # q, k, v, o, do, lse -> dq, delta
+            lambda: cf.flash_attention_bwd_dq(qs, kr, vr, o, do, lse, window),
+            lambda: cf.flash_attention_bwd_dq_reference(qs, kr, vr, o, do, lse, window),
+            4 * row + 2 * kv + 2 * rows, 6 * D * pairs),
+        "flash_attention_bwd_dkv": (  # q, k, v, do, lse, delta -> dk, dv
+            lambda: cf.flash_attention_bwd_dkv(qs, kr, vr, do, lse, delta, window),
+            lambda: cf.flash_attention_bwd_dkv_reference(qs, kr, vr, do, lse, delta, window),
+            2 * row + 4 * kv + 2 * rows, 8 * D * pairs),
+    }
+    library = {}
+    if window >= T:  # SDPA's causal route: the same pre-scaled, repeated inputs
+        sdpa = functools.partial(F.scaled_dot_product_attention, qs, kr, vr, is_causal=True,
+                                 scale=1.0)
+        library["fwd"] = time_ms(sdpa, 20)
+        leaves_l = [t.clone().requires_grad_() for t in (qs, kr, vr)]
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(*leaves_l, is_causal=True, scale=1.0)
+            torch.autograd.grad(out, leaves_l, do)
+
+        library["fwd_bwd"] = time_ms(sdpa_fwd_bwd, 10)
+    entries = {}
+    for name, (kernel, plain, n_bytes, n_ops) in runs.items():
+        ms = time_ms(kernel, 20)
+        plain_ms = time_ms(plain, 5)
+        bound_ms, bound_by = bound(n_bytes, n_ops, "bf16")
+        lib = library.get("fwd") if name == "flash_attention_fwd" else None
+        log(f"K6 {name} context {context} (B={B}, H={H} over {Hkv}, T={T}, D={D}, bf16): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"SDPA {'none' if lib is None else f'{lib:.4f} ms'} [{card}]")
+        entries[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": lib}
+    log(f"K6 B={B} context {context} forward + backward: kernels "
+        f"{sum(e['ms'] for e in entries.values()):.4f} ms, SDPA "
+        + (f"{library['fwd_bwd']:.4f} ms" if library else "none (no windowed SDPA route)")
+        + f" [{card}]")
+    return entries
+
+
+def check_k6(g, card: str) -> list[dict]:
+    """K6 at the training shapes (Llama-3.2-1B: 32 heads over 8 KV heads,
+    head dim 64, the T=1024 bucket), causal (context 3000 >= T) and local
+    (context 256), bf16 at B=2 and at the main path's B=4 (2 audio plus 2
+    text utterances a step), then on float32 inputs (the split-bf16 variant
+    that float32 training runs): correctness of every kernel, and times.
+    The kernels line carries the times of the main path's case, B=4 causal."""
+    H, Hkv, T, D = 32, 8, 1024, 64
+    scale = D**-0.5
+    err = {"flash_attention_fwd": 0.0, "flash_attention_bwd_dq": 0.0,
+           "flash_attention_bwd_dkv": 0.0}
+    entries = {}
+    for B, dtype in ((2, torch.bfloat16), (4, torch.bfloat16), (2, torch.float32)):
+        q, do = (torch.randn((B, H, T, D), device="cuda", generator=g).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn((B, Hkv, T, D), device="cuda", generator=g).to(dtype)
+                for _ in range(2))
+        for context in (3000, 256):
+            _check_k6_route(q, k, v, do, context, scale, err)
+            if dtype == torch.bfloat16:
+                times = _time_k6(q, k, v, do, context, scale, card)
+                if B == 4 and context >= T:
+                    entries = times
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return [{"name": name, "route": "cuda", "source": "rstnet_tpu_torch/csrc/flash_attention.cu",
+             "replaces": "rstnet_tpu/ops/flash_attention.py:46"
+                         + ("" if name == "flash_attention_fwd" else " (the splash VJP)"),
+             "max_abs_err": err[name], **entries[name]} for name in err]
+
+
+def write_training_data(root, seed: int, long_frames: tuple[int, int], n_long: int,
+                        short_frames: tuple[int, int], n_short: int,
+                        text_frames: tuple[int, int], n_text: int, audio_card: int,
+                        vocab: int) -> str:
+    """Synthetic offline-tokenized ``audio_only`` and ``text_only`` manifests
+    from ``seed`` (numpy .npz shards); returns the manifests' glob."""
+    rng = np.random.default_rng(seed)
+    lengths = list(rng.integers(*long_frames, n_long, endpoint=True)) + list(
+        rng.integers(*short_frames, n_short, endpoint=True))
+    audio = {f"a{i}": rng.integers(0, audio_card, (8, n)).astype(np.int16)
+             for i, n in enumerate(lengths)}
+    text = {f"t{i}": rng.integers(0, vocab, (int(n),)).astype(np.int32)
+            for i, n in enumerate(rng.integers(*text_frames, n_text, endpoint=True))}
+    np.savez(root / "audio.npz", **audio)
+    np.savez(root / "text.npz", **text)
+    for name, task, key, shard in (("a.json", "audio_only", "audio_seq", "audio.npz"),
+                                   ("t.json", "text_only", "text_seq", "text.npz")):
+        (root / name).write_text(json.dumps({"task": task, "keys": {key: str(root / shard)}}))
+    return str(root / "*.json")
+
+
+def expected_k6(steps: list, n_layer: int) -> dict:
+    """K6 launches of a training run under the trainer's default remat: on
+    each step whose bucket length qualifies, the forward twice per layer
+    (the backward recomputes each block) and each backward kernel once."""
+    from rstnet_tpu_torch.ops.flash_attention import flash_qualifies
+
+    n = sum(flash_qualifies(s["seq_len"], None, None, True) for s in steps)
+    return {"flash_attention_fwd": 2 * n_layer * n,
+            "flash_attention_bwd_dq": n_layer * n, "flash_attention_bwd_dkv": n_layer * n}
+
+
+SMALL_LM = dict(name="smoke-small", block_size=1024, vocab_size=512, padded_vocab_size=512,
+                n_layer=2, n_head=2, n_embd=128, n_query_groups=1, rotary_percentage=1.0,
+                parallel_residual=False, bias=False, norm_class_name="RMSNorm",
+                mlp_class_name="LLaMAMLP", intermediate_size=256, rope_base=500000,
+                rope_adjustments=[8.0, 1.0, 4.0, 256], context=256)
+
+
+def check_small_training_slice(seed: int) -> None:
+    """A small SpeechTextLM (2 layers, head dim 64, a 256 window) trained in
+    float32 by the trainer on the card and on the CPU: one epoch, then a
+    resumed second; bucket 512 (``--max_length 511``) and smaller ones."""
+    import tempfile
+
+    from rstnet_tpu_torch.models.config import write_flat_yaml
+    from rstnet_tpu_torch.training import trainer
+
+    root = Path(tempfile.mkdtemp(prefix="smoke_small_train_"))
+    try:
+        write_flat_yaml(root / "model.yaml", SMALL_LM)
+        data = write_training_data(root, seed, (487, 510), 6, (100, 300), 6, (20, 120), 6,
+                                   audio_card=60, vocab=500)
+        runs = {}
+        for device in ("cpu", "cuda"):
+            exp = root / f"exp_{device}"
+            args = ["--train_data_jsons", data, "--model_config", str(root / "model.yaml"),
+                    "--exp_dir", str(exp), "--batch_scale", "1200", "--max_length", "511",
+                    "--warmup_steps", "4", "--global_learning_rate", "1e-3", "--dtype",
+                    "float32", "--audio_card", "64", "--text_empty_token", "500",
+                    "--text_pad_token", "501", "--semantic_empty_token", "60",
+                    "--acoustic_empty_token", "60", "--semantic_pad_token", "61",
+                    "--acoustic_pad_token", "61", "--codecformer_dim", "64",
+                    "--codecformer_heads", "2", "--codecformer_layers", "2",
+                    "--codecformer_dim_feedforward", "128", "--grad_clip", "1.0",
+                    "--minibatch_debug", "4", "--print_freq", "100", "--seed", str(seed),
+                    "--device", device]
+            reset_counts()
+            first = trainer.main(args + ["--n_epoch", "1"])
+            resumed = trainer.main(args + ["--n_epoch", "2"])
+            counts = read_counts()
+            if not (exp / "ep2.checkpoint").is_dir() or {s["epoch"] for s in resumed["steps"]} != {2}:
+                raise AssertionError(f"small training slice on {device}: the second run did not "
+                                     "resume from the first epoch's checkpoint")
+            runs[device] = (first["steps"] + resumed["steps"], counts)
+        (steps_c, counts_c), (steps_g, counts_g) = runs["cpu"], runs["cuda"]
+        want = expected_k6(steps_g, SMALL_LM["n_layer"])
+        lengths = sorted({s["seq_len"] for s in steps_g})
+        if not any(n % 512 == 0 for n in lengths) or all(n % 512 == 0 for n in lengths):
+            raise AssertionError(f"small training slice buckets {lengths}: need both a 512 "
+                                 "bucket and another")
+        got = {k: counts_g[k] for k in want}
+        if got != want or any(counts_c[k] for k in want):
+            raise AssertionError(f"small training slice K6 launches: card {got} (expected {want}),"
+                                 f" CPU {[counts_c[k] for k in want]} (expected none)")
+        worst = {"loss": 0.0, "acc": 0.0}
+        for sc, sg in zip(steps_c, steps_g, strict=True):
+            if (sc["seq_len"], sc["batch_size"]) != (sg["seq_len"], sg["batch_size"]):
+                raise AssertionError("the card and the CPU saw different batches")
+            for key in ("loss", "loss_audio", "loss_text"):
+                rel = abs(sc[key] - sg[key]) / max(abs(sc[key]), 1e-6)
+                worst["loss"] = max(worst["loss"], rel)
+            for key in ("acc_audio", "acc_text", "acc_audio_tgt", "acc_text_tgt"):
+                worst["acc"] = max(worst["acc"], abs(sc[key] - sg[key]))
+            if not math.isfinite(sg["loss"]):
+                raise AssertionError("non-finite loss on the card")
+        log(f"small training slice (2 epochs, 2nd resumed), card vs CPU over {len(steps_g)} "
+            f"steps, buckets {lengths}: losses max rel err {worst['loss']:.3e} (limit "
+            f"{TRAIN_LOSS_RTOL}), accuracies max abs err {worst['acc']:.3e} (limit "
+            f"{TRAIN_ACC_ATOL}); card K6 launches {got}, CPU none; losses "
+            + ", ".join(f"{s['loss']:.4f}" for s in steps_g))
+        if worst["loss"] > TRAIN_LOSS_RTOL or worst["acc"] > TRAIN_ACC_ATOL:
+            raise AssertionError("the small training slice on the card disagrees with the CPU")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_full_training_slice(seed: int, n_steps: int, card: str) -> dict:
+    """``trainer.main`` on ``configs/llama_1b_speech.yaml`` (bf16, full width
+    and depth) for ``n_steps`` steps of synthetic data: long utterances on
+    the 1024 bucket (K6) and one batch of short ones (bucket 487, the masked
+    path); then the epoch checkpoint. Returns the path's launches."""
+    import tempfile
+
+    from rstnet_tpu_torch.models.config import Config
+    from rstnet_tpu_torch.training import trainer
+
+    cfg = Config.from_file("configs/llama_1b_speech.yaml")
+    root = Path(tempfile.mkdtemp(prefix="smoke_full_train_"))
+    # params + AdamW moments, bf16, 2.01 B parameters: ~12 GB on disk
+    need = 16 * 2**30
+    free = shutil.disk_usage(root).free
+    log(f"full training slice: {free / 2**30:.1f} GiB free under {root}")
+    if free < need:
+        raise RuntimeError(f"the full training slice's checkpoint needs {need / 2**30:.0f} GiB "
+                           f"free under {root}, {free / 2**30:.1f} GiB are")
+    try:
+        data = write_training_data(root, seed, (951, 1023), 2 * n_steps, (430, 470), 6,
+                                   (300, 600), 2 * n_steps, audio_card=2048, vocab=128000)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = trainer.main(["--train_data_jsons", data,
+                            "--model_config", "configs/llama_1b_speech.yaml",
+                            "--exp_dir", str(root / "exp"), "--max_length", "1023",
+                            "--batch_scale", "2500", "--dtype", "bfloat16", "--n_epoch", "1",
+                            "--minibatch_debug", str(n_steps), "--print_freq", "1",
+                            "--seed", str(seed), "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        steps = out["steps"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = expected_k6(steps, cfg.n_layer)
+        log(f"full training slice: {len(steps)} steps, buckets "
+            f"{[(s['batch_size'], s['seq_len']) for s in steps]}, launches {counts}")
+        if len(steps) != n_steps:
+            raise AssertionError(f"{len(steps)} train steps, expected {n_steps}")
+        if not all(math.isfinite(s[k]) for s in steps for k in ("loss", "loss_audio",
+                                                                  "loss_text")):
+            raise AssertionError(f"non-finite loss: {[s['loss'] for s in steps]}")
+        if not any(s["seq_len"] == 1024 for s in steps):
+            raise AssertionError("no step landed on the 1024 bucket: K6 never ran")
+        if {k: counts[k] for k in want} != want or any(
+                v for k, v in counts.items() if k not in want):
+            raise AssertionError(f"full training slice launches {counts}, expected {want}")
+        ckpt = Path(out["checkpoints"][-1]["path"])
+        size = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+        for s in steps:
+            log(f"  step: B={s['batch_size']} T={s['seq_len']} loss {s['loss']:.4f} (audio "
+                f"{s['loss_audio']:.4f}, text {s['loss_text']:.4f}), {s['step_time'] * 1e3:.1f} "
+                f"ms, {s['batch_size'] * s['seq_len'] / s['step_time']:.0f} frames/s "
+                "(padded, host clock)")
+        steady = [s for s in steps[1:] if s["seq_len"] == 1024]
+        if steady:
+            frames = sum(s["batch_size"] * s["seq_len"] for s in steady)
+            log(f"full training slice steady 1024-bucket steps: "
+                f"{frames / sum(s['step_time'] for s in steady):.0f} frames/s (padded frames over "
+                f"{len(steady)} steps, host clock, informational) [{card}]")
+        log(f"full training slice: {wall:.1f} s wall (init included), peak memory {peak:.1f} GiB, "
+            f"epoch checkpoint {size / 2**30:.2f} GiB saved in "
+            f"{out['checkpoints'][-1]['seconds']:.1f} s [{card}]")
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -653,11 +1009,14 @@ def main(argv=None) -> int:
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     with phase("kernels"):
         kernels = [check_k1(g, card), check_k1(g, card, int8=True),
-                   check_k2(g, card, args.sessions), check_k3(g, card, args.sessions)]
+                   check_k2(g, card, args.sessions), check_k3(g, card, args.sessions),
+                   *check_k6(g, card)]
     with phase("small slices"):
         check_small_slice(args.seed)
         check_small_slice(args.seed, int8=True)
         check_small_batched_slice(args.seed)
+    with phase("small training slice"):
+        check_small_training_slice(args.seed)
     with phase("full models"):
         mimi, lm_gen = build_full_models(args.seed)
     n, ticks = args.frames, args.frames
@@ -688,6 +1047,9 @@ def main(argv=None) -> int:
         paths["batched_tick_int8"] = run_full_batched_slice(
             mimi, lm_int8, args.seed, args.sessions, ticks, card,
             "full int8 batched slice (--int8 --kv-int8)", {**none, "rvq_encode": 2 * ticks})
+    del mimi, lm_gen, lm_int8  # free the card for training
+    with phase("full training slice"):
+        paths["train_step"] = run_full_training_slice(args.seed, TRAIN_STEPS, card)
     for k in kernels:
         k["launches_by_path"] = {p: counts[k["name"]] for p, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -7,7 +7,11 @@ exactly those paths, which makes the bridge a key-by-key copy.
 
 The bridge takes and gives numpy arrays and never imports JAX. JAX's bf16
 arrays reach numpy as ``ml_dtypes.bfloat16``; they cross bit for bit through a
-16-bit integer view, never through float32.
+16-bit integer view, never through float32. Where the port keeps one module
+per layer and JAX stacks the layers along a leading axis (the backbone's
+``blocks``), ``stacked`` names the prefixes whose JAX leaves are split
+(``blocks.attn.weight [L, ...]`` -> ``blocks.{i}.attn.weight``) on the way
+in and stacked again on the way out.
 """
 
 from __future__ import annotations
@@ -55,11 +59,42 @@ def _to_torch(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def from_jax_params(flat: dict[str, np.ndarray], module: nn.Module) -> nn.Module:
+def unstack_layers(flat: dict[str, np.ndarray], stacked=()) -> dict[str, np.ndarray]:
+    """Split the leaves under each ``stacked`` prefix along their first axis."""
+    out = {}
+    for name, a in flat.items():
+        prefix = next((p for p in stacked if name.startswith(p + ".")), None)
+        if prefix is None:
+            out[name] = a
+            continue
+        rest = name[len(prefix) + 1:]
+        for i in range(np.shape(a)[0]):
+            out[f"{prefix}.{i}.{rest}"] = a[i]
+    return out
+
+
+def stack_layers(flat: dict[str, np.ndarray], stacked=()) -> dict[str, np.ndarray]:
+    """Inverse of :func:`unstack_layers`."""
+    out, layers = {}, {}
+    for name, a in flat.items():
+        prefix = next((p for p in stacked if name.startswith(p + ".")), None)
+        if prefix is None:
+            out[name] = a
+            continue
+        index, rest = name[len(prefix) + 1:].split(".", 1)
+        layers.setdefault(f"{prefix}.{rest}", {})[int(index)] = a
+    for name, by_index in layers.items():
+        out[name] = np.stack([by_index[i] for i in range(len(by_index))])
+    return out
+
+
+def from_jax_params(flat: dict[str, np.ndarray], module: nn.Module, stacked=()) -> nn.Module:
     """Load ``{dotted JAX path: numpy array}`` into ``module`` in place.
 
-    Keys, shapes and dtypes must match the module's ``state_dict()`` exactly;
-    bf16 arrays are carried bit for bit."""
+    Keys, shapes and dtypes must match the module's ``state_dict()`` exactly
+    (after splitting the ``stacked`` prefixes per layer); bf16 arrays are
+    carried bit for bit."""
+    flat = unstack_layers(flat, stacked)
     own = module.state_dict()
     missing = sorted(set(own) - set(flat))
     extra = sorted(set(flat) - set(own))
@@ -77,16 +112,18 @@ def from_jax_params(flat: dict[str, np.ndarray], module: nn.Module) -> nn.Module
     return module
 
 
-def to_numpy(module: nn.Module) -> dict[str, np.ndarray]:
-    """``state_dict()`` as numpy arrays keyed by dotted path (bf16 arrays as
-    ``ml_dtypes.bfloat16``, bit for bit)."""
-    out = {}
-    for name, t in module.state_dict().items():
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            import ml_dtypes
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy (bf16 as ``ml_dtypes.bfloat16``, bit for bit)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
 
-            out[name] = t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
-        else:
-            out[name] = t.numpy()
-    return out
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def to_numpy(module: nn.Module, stacked=()) -> dict[str, np.ndarray]:
+    """``state_dict()`` as numpy arrays keyed by dotted JAX path (bf16 arrays
+    as ``ml_dtypes.bfloat16``, bit for bit; ``stacked`` prefixes restacked)."""
+    return stack_layers({name: tensor_to_numpy(t) for name, t in module.state_dict().items()},
+                        stacked)

@@ -1,10 +1,26 @@
-"""Token conventions and the scaled embedding shared by the LMs (the part of
-``rstnet_tpu/models/lm.py`` that the Moshi serving path uses; ``SpeechTextLM``
-itself is not ported yet)."""
+"""Token conventions, the scaled embedding shared by the LMs, and the
+flagship speech-text LM ``SpeechTextLM`` (counterpart of
+``rstnet_tpu/models/lm.py``): a pretrained-LLM backbone as the global
+transformer and a codecformer (depth transformer with per-step weights) over
+the ``dep_q`` audio codebooks.
+
+Ported here: ``SpeechTextLM``'s init, ``fuse_embeddings``,
+``forward_global``, ``forward_local`` and the training forward; the
+streaming generation pieces wait for the backbone's ``step``.
+"""
 
 from __future__ import annotations
 
+import math
+
 import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from rstnet_tpu_torch.core import container, default_generator, new_param, normal, uniform
+from rstnet_tpu_torch.models.backbone import Backbone
+from rstnet_tpu_torch.models.config import Config
+from rstnet_tpu_torch.modules.transformer import StreamingTransformer, resolve_weight
 
 ZERO_TOKEN_ID = -1
 UNGENERATED_TOKEN_ID = -2
@@ -28,3 +44,155 @@ def scaled_embedding(table: torch.Tensor, tokens: torch.Tensor, zero_idx: int = 
     if norm is not None:
         y = _emb_layer_norm(y, norm["weight"], norm["bias"])
     return torch.where(is_zero[..., None], torch.zeros((), dtype=y.dtype, device=y.device), y)
+
+
+class SpeechTextLM(nn.Module):
+    """Backbone + codecformer. Parameter names are the JAX pytree's paths
+    (``backbone.blocks.{i}...`` for the JAX package's stacked
+    ``backbone.blocks``: see ``STACKED``)."""
+
+    STACKED = ("backbone.blocks",)
+
+    def __init__(self, config: Config, *, device=None, dtype=torch.float32, generator=None):
+        super().__init__()
+        cfg = self.config = config
+        g = default_generator(generator, device)
+        self.backbone = Backbone(cfg, device=device, dtype=dtype, generator=g)
+        self.codecformer = StreamingTransformer(
+            d_model=cfg.codecformer_dim, num_heads=cfg.codecformer_heads,
+            num_layers=cfg.codecformer_layers, dim_feedforward=cfg.codecformer_dim_feedforward,
+            causal=True, context=None, gating="silu", norm=cfg.codecformer_norm,
+            positional_embedding="none", max_period=10000, layer_scale=None,
+            weights_per_step=cfg.dep_q if cfg.codecformer_weights_per_step else 0,
+            remat=cfg.remat and cfg.codecformer_remat, device=device, dtype=dtype, generator=g)
+        card1, D, C = cfg.audio_card + 1, cfg.n_embd, cfg.codecformer_dim
+        self.input_emb = new_param(normal((cfg.n_q, card1, D), g, device, dtype))
+        self.codecformer_text_emb = new_param(normal((cfg.padded_vocab_size, C), g, device,
+                                                     dtype))
+        self.codecformer_emb = new_param(normal((cfg.dep_q - 1, card1, C), g, device, dtype))
+        # one input view per codebook, or one shared view (multi_linear=False)
+        self.codecformer_in = new_param(uniform(
+            (cfg.dep_q if cfg.codecformer_multi_linear else 1, C, D), 1.0 / math.sqrt(D), g,
+            device, dtype))
+        heads = {"weight": uniform((cfg.dep_q, cfg.audio_card, C), 1.0 / math.sqrt(C), g, device,
+                                   dtype)}
+        if cfg.codecformer_bias_proj:
+            heads["bias"] = torch.zeros((cfg.dep_q, cfg.audio_card), device=device, dtype=dtype)
+        self.audio_linears = container(**heads)
+        if cfg.codecformer_norm_emb:
+            def ones_zeros(shape):
+                return container(weight=torch.ones(shape, device=device, dtype=dtype),
+                                 bias=torch.zeros(shape, device=device, dtype=dtype))
+
+            self.input_emb_norm = ones_zeros((cfg.n_q, 1, D))
+            self.codecformer_emb_norm = ones_zeros((cfg.dep_q - 1, C))
+            self.codecformer_text_emb_norm = ones_zeros((C,))
+
+    # -- special tokens -------------------------------------------------------
+
+    @property
+    def zero_token_id(self) -> int:
+        return ZERO_TOKEN_ID
+
+    @property
+    def initial_token_id(self) -> int:
+        return self.config.audio_card
+
+    @property
+    def text_initial_token_id(self) -> int:
+        # tokenizer-dependent reserved token (llama3: 128002, otherwise 3)
+        return 128002 if self.config.padded_vocab_size > 128000 else 3
+
+    @property
+    def num_codebooks(self) -> int:
+        return self.config.n_q + 1
+
+    def _norm(self, name: str, index: int | None = None) -> dict | None:
+        p = getattr(self, name, None)
+        if p is None:
+            return None
+        if index is None:
+            return {"weight": p.weight, "bias": p.bias}
+        return {"weight": p.weight[index], "bias": p.bias[index]}
+
+    # -- input fusion -----------------------------------------------------------
+
+    def initial_frame(self, batch_size: int, device=None) -> torch.Tensor:
+        """[B, 1 + n_q, 1] start-of-sequence frame."""
+        frame = torch.full((batch_size, self.num_codebooks, 1), self.initial_token_id,
+                           dtype=torch.int64, device=device)
+        frame[:, 0] = self.text_initial_token_id
+        return frame
+
+    def fuse_embeddings(self, sequence: torch.Tensor) -> torch.Tensor:
+        """Sum of the text and n_q audio embeddings: [B, 1 + n_q, T] -> [B, T, D],
+        one gather over the stacked [n_q, card + 1, D] table."""
+        cfg = self.config
+        card1 = cfg.audio_card + 1
+        audio = sequence[:, 1:, :]
+        flat = self.input_emb.reshape(cfg.n_q * card1, cfg.n_embd)
+        idx = audio.long().clamp(0, cfg.audio_card) + (
+            torch.arange(cfg.n_q, device=audio.device)[None, :, None] * card1)
+        emb = flat[idx]  # [B, n_q, T, D]
+        if hasattr(self, "input_emb_norm"):
+            p = self.input_emb_norm
+            emb = _emb_layer_norm(emb, p.weight[None], p.bias[None])
+        emb = torch.where((audio == ZERO_TOKEN_ID)[..., None],
+                          torch.zeros((), dtype=emb.dtype, device=emb.device), emb)
+        x = emb.sum(1) + scaled_embedding(self.backbone.wte, sequence[:, 0, :])
+        if cfg.scale_embeddings:
+            x = x * torch.tensor(cfg.n_embd**0.5, dtype=x.dtype)
+        return x
+
+    # -- training forward ---------------------------------------------------------
+
+    def forward_global(self, sequence: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """[B, 1 + n_q, T] -> (transformer_out [B, T, D], text_logits [B, T, V])."""
+        hidden = self.backbone(self.fuse_embeddings(sequence))
+        return hidden, self.backbone.logits(hidden)
+
+    def _codecformer_in_weight(self, dtype) -> torch.Tensor:
+        w = resolve_weight(self.codecformer_in, dtype)
+        if w.shape[0] == 1 and self.config.dep_q > 1:
+            w = w.expand(self.config.dep_q, *w.shape[1:])
+        return w
+
+    def forward_local(self, text_tokens: torch.Tensor, audio_targets: torch.Tensor,
+                      transformer_out: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced codecformer: text_tokens [B, T] (step-0
+        conditioning), audio_targets [B, dep_q, T] (step k > 0 embeds codebook
+        k - 1), transformer_out [B, T, D] -> audio logits [B, T, dep_q, card]."""
+        cfg = self.config
+        B, T, _ = transformer_out.shape
+        dep_in = torch.einsum("btd,kcd->btkc", transformer_out,
+                              self._codecformer_in_weight(transformer_out.dtype))
+        prev = [scaled_embedding(self.codecformer_text_emb, text_tokens,
+                                 norm=self._norm("codecformer_text_emb_norm"))]
+        for k in range(cfg.dep_q - 1):
+            prev.append(scaled_embedding(self.codecformer_emb[k], audio_targets[:, k, :],
+                                         norm=self._norm("codecformer_emb_norm", k)))
+        x = (dep_in + torch.stack(prev, dim=2)).reshape(B * T, cfg.dep_q, cfg.codecformer_dim)
+        out = self.codecformer(x)  # [B*T, dep_q, C]
+        logits = torch.einsum("nkc,kvc->nkv", out,
+                              resolve_weight(self.audio_linears.weight, out.dtype))
+        if "bias" in self.audio_linears._parameters:
+            logits = logits + self.audio_linears.bias.to(logits.dtype)
+        return logits.reshape(B, T, cfg.dep_q, cfg.audio_card)
+
+    def forward(self, sequence: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Training forward: sequence [B, 1 + n_q, S] (text row 0, audio rows
+        1..n_q) -> (audio_logits [B, S, dep_q, card], text_logits [B, S, V]).
+        With ``config.remat`` the codecformer forward is checkpointed whole,
+        as in JAX (and each of its layers again, ``codecformer_remat``)."""
+        B, K, S = sequence.shape
+        if K != self.num_codebooks:
+            raise ValueError(f"sequence has {K} rows, expected {self.num_codebooks}")
+        start = self.initial_frame(B, sequence.device).to(sequence.dtype)
+        transformer_out, text_logits = self.forward_global(
+            torch.cat([start, sequence[:, :, :-1]], dim=2))
+        args = (sequence[:, 0, :], sequence[:, 1:self.config.dep_q + 1, :], transformer_out)
+        if self.config.remat and torch.is_grad_enabled():
+            audio_logits = checkpoint(self.forward_local, *args, use_reentrant=False)
+        else:
+            audio_logits = self.forward_local(*args)
+        return audio_logits, text_logits

@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from rstnet_tpu_torch.core import default_generator, new_param, uniform
 from rstnet_tpu_torch.ops.attention import (
@@ -170,7 +171,7 @@ class StreamingTransformer(nn.Module):
                  gating: str = "none", norm: str = "layer_norm",
                  positional_embedding: str = "sin", max_period: float = 10_000.0,
                  positional_scale: float = 1.0, layer_scale: float | None = None,
-                 weights_per_step: int = 0, activation: str = "gelu",
+                 weights_per_step: int = 0, activation: str = "gelu", remat: bool = False,
                  *, device=None, dtype=torch.float32, generator=None):
         super().__init__()
         if d_model % num_heads:
@@ -185,6 +186,8 @@ class StreamingTransformer(nn.Module):
         self.positional_embedding, self.max_period = positional_embedding, max_period
         self.positional_scale, self.weights_per_step = positional_scale, weights_per_step
         self.activation = activation
+        # training forwards checkpoint each layer (recomputed in backward)
+        self.remat = remat
 
         g = default_generator(generator, device)
         d, L, mult = d_model, num_layers, max(1, weights_per_step)
@@ -317,10 +320,15 @@ class StreamingTransformer(nn.Module):
     # -- offline ------------------------------------------------------------
 
     def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
-        """Offline forward, [B, T, C] -> [B, T, C] (full causal mask)."""
+        """Offline forward, [B, T, C] -> [B, T, C] (full causal mask); with
+        ``remat`` and autograd on, each layer is checkpointed."""
         x = self._add_sin(x, offset)
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(self.num_layers):
-            x = self._layer(i, x, offset, None)
+            if remat:
+                x = checkpoint(self._layer, i, x, offset, None, use_reentrant=False)
+            else:
+                x = self._layer(i, x, offset, None)
         return x
 
     # -- streaming ----------------------------------------------------------

@@ -1,5 +1,7 @@
-"""Rotary position embedding, offset-aware for streaming (counterpart of
-``rstnet_tpu/ops/rope.py::apply_rope_interleaved``)."""
+"""Rotary position embedding (counterpart of ``rstnet_tpu/ops/rope.py``):
+the interleaved, offset-aware RoPE of the streaming transformers, and the
+litgpt half-split RoPE of the backbone with the Llama-3.1 frequency
+adjustment (``build_rope_cache``, ``apply_rope_halved``)."""
 
 from __future__ import annotations
 
@@ -35,3 +37,40 @@ def apply_rope_interleaved(
         return torch.stack([out_r.to(x.dtype), out_i.to(x.dtype)], dim=-1).reshape(x.shape)
 
     return rotate(q), rotate(k)
+
+
+def build_rope_cache(seq_len: int, n_elem: int, base: float = 10000.0, condense_ratio: int = 1,
+                     extra_config: dict | None = None, positions: torch.Tensor | None = None,
+                     device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """litgpt (cos, sin) cache ``[T, n_elem]`` in float32, with the optional
+    Llama-3.1 frequency adjustment; ``positions`` (float) replaces
+    ``arange(seq_len)``."""
+    if positions is not None:
+        device = positions.device
+    theta = 1.0 / (base ** (torch.arange(0, n_elem, 2, dtype=torch.float32, device=device)
+                            / n_elem))
+    if extra_config is not None:
+        orig_context = extra_config["original_max_seq_len"]
+        factor = extra_config["factor"]
+        low_freq_factor = extra_config["low_freq_factor"]
+        high_freq_factor = extra_config["high_freq_factor"]
+        wavelen = 2 * math.pi / theta
+        ratio = orig_context / wavelen
+        smooth = ((ratio - low_freq_factor) / (high_freq_factor - low_freq_factor)).clamp(0.0, 1.0)
+        adjusted = (1 - smooth) * theta / factor + smooth * theta
+        theta = torch.where(wavelen > orig_context / low_freq_factor, theta / factor, theta)
+        theta = torch.where((wavelen <= orig_context / low_freq_factor)
+                            & (wavelen >= orig_context / high_freq_factor), adjusted, theta)
+    if positions is None:
+        positions = torch.arange(seq_len, dtype=torch.float32, device=device)
+    idx_theta = torch.outer(positions.float() / condense_ratio, theta)  # [T, n_elem/2]
+    idx_theta = torch.cat([idx_theta, idx_theta], dim=-1)
+    return torch.cos(idx_theta), torch.sin(idx_theta)
+
+
+def apply_rope_halved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """litgpt convention, rotating halves ``[-x2, x1]``: x [B, H, T, D],
+    cos/sin [T, D]; computed in float32 and cast back to x's dtype."""
+    d = x.shape[-1]
+    rotated = torch.cat([-x[..., d // 2:], x[..., : d // 2]], dim=-1)
+    return (x.float() * cos + rotated.float() * sin).to(x.dtype)

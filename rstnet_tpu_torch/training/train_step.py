@@ -1,0 +1,226 @@
+"""The training step (counterpart of ``rstnet_tpu/training/train_step.py``):
+the loss, the optimizer, and the step with and without gradient
+accumulation, for full-parameter training on one device.
+
+Loss semantics as in JAX: audio CE over rows 1..dep_q with weights
+[2, 1, ...], text CE over row 0, summed.
+
+The optimizer is optax's, written out, not ``torch.optim.AdamW``:
+``optax.chain(clip_by_global_norm, adamw)`` optionally wrapped in
+``apply_if_finite``. So every parameter is decayed; the moments live in the
+parameter's dtype; eps is added outside the square root; the bias
+corrections ``1 - b**count`` are float32 and divide in the moment's dtype;
+the schedule is read at the update count before it is incremented; the clip
+scales by ``max_norm / norm`` only when ``norm >= max_norm`` (no epsilon);
+a rejected non-finite update leaves the parameters and the optimizer state
+(its count too) as they were, until more than ``skip_nonfinite`` in a row
+have been rejected, after which the update is applied anyway. Constants
+enter every product in the operand's dtype, as JAX's weakly typed Python
+scalars do. Gradients accumulate in the parameter's dtype (``p.grad``).
+
+The train state is ``{"model", "opt_state", "step"}`` (plus ``"micro"``
+under cross-batch accumulation); the model's parameters are updated in
+place. The partitioned PEFT step waits for LoRA.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from rstnet_tpu_torch.losses.ce import cross_entropy_and_accuracy
+
+TEXT_PAD_TOKEN = 128003
+ACOUSTIC_PAD_TOKEN = 2049
+
+
+def make_loss_fn(model: nn.Module, audio_loss_weights: Optional[tuple[float, ...]] = None,
+                 text_loss_weight: float = 1.0, audio_ignore_id: int = ACOUSTIC_PAD_TOKEN,
+                 text_ignore_id: int = TEXT_PAD_TOKEN) -> Callable:
+    """``loss_fn(batch) -> (loss, metrics)`` over ``batch = {"tokens": [B,
+    1 + n_q, S] int, "masks": [B, 1 + n_q, S] float}`` on the model's device."""
+    dep_q = model.config.dep_q
+    if audio_loss_weights is None:
+        audio_loss_weights = (2.0,) + (1.0,) * (dep_q - 1)
+
+    def loss_fn(batch: dict) -> tuple[torch.Tensor, dict]:
+        seqs = batch["tokens"]
+        masks = batch["masks"].float()
+        audio_logits, text_logits = model(seqs)
+        loss_audio, m_audio = cross_entropy_and_accuracy(
+            audio_logits, seqs[:, 1:dep_q + 1], masks[:, 1:dep_q + 1], audio_loss_weights,
+            (audio_ignore_id,) * dep_q)
+        loss_text, m_text = cross_entropy_and_accuracy(
+            text_logits[:, :, None, :], seqs[:, 0:1], masks[:, 0:1], (text_loss_weight,),
+            (text_ignore_id,))
+        loss = loss_audio + loss_text
+        return loss, {
+            "loss": loss, "loss_audio": loss_audio, "loss_text": loss_text,
+            "acc_audio": m_audio["acc_all"], "acc_text": m_text["acc_all"],
+            "acc_audio_tgt": m_audio["acc_target"], "acc_text_tgt": m_text["acc_target"],
+        }
+
+    return loss_fn
+
+
+def _const(x, like: torch.Tensor) -> torch.Tensor:
+    """A Python or numpy scalar in ``like``'s dtype (a JAX weak scalar)."""
+    return _scalar(float(x), like.dtype, like.device)
+
+
+@functools.lru_cache(maxsize=256)
+def _scalar(x: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor(x, dtype=dtype, device=device)
+
+
+class OptaxAdamW:
+    """``optax.chain(clip_by_global_norm(grad_clip), adamw(...))``, wrapped in
+    ``apply_if_finite(max_consecutive_errors=skip_nonfinite)`` when that is
+    > 0; parameters and gradients are ``{name: tensor}`` dicts."""
+
+    def __init__(self, schedule, betas: tuple[float, float] = (0.9, 0.95),
+                 weight_decay: float = 1e-3, eps: float = 1e-8,
+                 grad_clip: Optional[float] = None, skip_nonfinite: int = 0):
+        self.schedule, self.b1, self.b2 = schedule, betas[0], betas[1]
+        self.weight_decay, self.eps = weight_decay, eps
+        self.grad_clip, self.skip_nonfinite = grad_clip, skip_nonfinite
+
+    def init(self, params: dict[str, torch.Tensor]) -> dict:
+        return {"count": 0, "notfinite_count": 0, "total_notfinite": 0, "last_finite": True,
+                "mu": {n: torch.zeros_like(p) for n, p in params.items()},
+                "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
+
+    @torch.no_grad()
+    def update(self, grads: dict[str, torch.Tensor], state: dict,
+               params: dict[str, torch.Tensor]) -> dict:
+        """Apply one update to ``params`` in place; returns ``state``, also
+        updated in place."""
+        if self.skip_nonfinite > 0:
+            finite = bool(torch.stack([torch.isfinite(g).all() for g in grads.values()]).all())
+            state["notfinite_count"] = 0 if finite else state["notfinite_count"] + 1
+            state["total_notfinite"] += 0 if finite else 1
+            state["last_finite"] = finite
+            if not finite and state["notfinite_count"] <= self.skip_nonfinite:
+                return state  # rejected: zero updates, inner state unchanged
+        if self.grad_clip is not None:
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+            if not bool(norm < self.grad_clip):
+                grads = {n: (g / norm.to(g.dtype)) * _const(self.grad_clip, g)
+                         for n, g in grads.items()}
+        count = state["count"] + 1
+        bc1 = np.float32(1.0) - np.float32(self.b1) ** np.float32(count)
+        bc2 = np.float32(1.0) - np.float32(self.b2) ** np.float32(count)
+        step_size = -np.float32(self.schedule(state["count"]))
+        for name, p in params.items():
+            g, mu, nu = grads[name], state["mu"][name], state["nu"][name]
+            mu.copy_(_const(1 - self.b1, g) * g + _const(self.b1, mu) * mu)
+            nu.copy_(_const(1 - self.b2, g) * (g * g) + _const(self.b2, nu) * nu)
+            u = (mu / _const(bc1, mu)) / (torch.sqrt(nu / _const(bc2, nu)) + _const(self.eps, nu))
+            u = u + _const(self.weight_decay, p) * p
+            p.copy_((p + _const(step_size, u) * u).to(p.dtype))
+        state["count"] = count
+        return state
+
+
+def make_optimizer(learning_rate_schedule, betas: tuple[float, float] = (0.9, 0.95),
+                   weight_decay: float = 1e-3, eps: float = 1e-8,
+                   grad_clip: Optional[float] = None, skip_nonfinite: int = 0) -> OptaxAdamW:
+    """AdamW with the reference's hyperparameters; ``skip_nonfinite > 0``
+    drops updates with NaN/inf gradients, up to that many in a row."""
+    return OptaxAdamW(learning_rate_schedule, betas, weight_decay, eps, grad_clip,
+                      skip_nonfinite)
+
+
+def trainable_params(model: nn.Module) -> dict[str, torch.Tensor]:
+    return {n: p for n, p in model.named_parameters() if p.requires_grad}
+
+
+def init_train_state(model: nn.Module, tx: OptaxAdamW) -> dict:
+    """Make every floating parameter trainable (the port builds them for
+    inference, without autograd) and set up the optimizer state."""
+    for p in model.parameters():
+        if p.is_floating_point():
+            p.requires_grad_(True)
+    return {"model": model, "opt_state": tx.init(trainable_params(model)), "step": 0}
+
+
+def _detached(metrics: dict) -> dict:
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def _grads(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The accumulated ``.grad`` of each parameter; zeros for one the loss
+    did not reach (JAX's gradient of an unused leaf)."""
+    return {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in params.items()}
+
+
+def make_train_step(loss_fn: Callable, tx: OptaxAdamW, grad_accum: int = 1) -> Callable:
+    """``step(state, batch) -> (state, metrics)``. With ``grad_accum > 1``
+    the batch carries a leading microbatch axis ``[A, B, ...]``; gradients
+    and metrics are summed over it and divided by A (the JAX scan)."""
+
+    def step_fn(state: dict, batch: dict) -> tuple[dict, dict]:
+        params = trainable_params(state["model"])
+        for p in params.values():
+            p.grad = None
+        if grad_accum > 1:
+            msum = None
+            for a in range(grad_accum):
+                loss, metrics = loss_fn({k: v[a] for k, v in batch.items()})
+                loss.backward()
+                metrics = _detached(metrics)
+                msum = metrics if msum is None else {k: msum[k] + metrics[k] for k in msum}
+            grads = {n: g / grad_accum for n, g in _grads(params).items()}
+            metrics = {k: v / grad_accum for k, v in msum.items()}
+        else:
+            loss, metrics = loss_fn(batch)
+            loss.backward()
+            grads = _grads(params)
+            metrics = _detached(metrics)
+        tx.update(grads, state["opt_state"], params)
+        for p in params.values():
+            p.grad = None
+        state["step"] += 1
+        return state, metrics
+
+    return step_fn
+
+
+def make_grad_accum_steps(loss_fn: Callable, tx: OptaxAdamW) -> tuple[Callable, Callable]:
+    """Cross-batch accumulation, ``(accum_step, apply_step)``:
+    ``accum_step(state, batch)`` adds the batch's gradients into the
+    parameters' ``.grad`` (param dtype) and counts it in ``state["micro"]``;
+    ``apply_step(state)`` divides by the count, updates and clears. The
+    accumulator is not checkpointed: a resume restarts the window."""
+
+    def accum_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        loss, metrics = loss_fn(batch)
+        loss.backward()
+        state["micro"] = state.get("micro", 0) + 1
+        return state, _detached(metrics)
+
+    def apply_step(state: dict) -> dict:
+        params = trainable_params(state["model"])
+        n = max(state.get("micro", 0), 1)
+        grads = {name: g / torch.tensor(float(n), dtype=torch.float32, device=g.device)
+                 for name, g in _grads(params).items()}
+        tx.update(grads, state["opt_state"], params)
+        for p in params.values():
+            p.grad = None
+        state["step"] += 1
+        state["micro"] = 0
+        return state
+
+    return accum_step, apply_step
+
+
+def make_eval_step(loss_fn: Callable) -> Callable:
+    def eval_fn(batch: dict) -> dict:
+        with torch.no_grad():
+            return _detached(loss_fn(batch)[1])
+
+    return eval_fn

@@ -1,0 +1,262 @@
+"""Speech-text LM trainer CLI, one GPU, full parameters (counterpart of
+``rstnet_tpu/training/trainer.py``):
+
+    python -m rstnet_tpu_torch.training.trainer --model_config configs/llama_1b_speech.yaml \\
+        --train_data_jsons 'data/*.json' --max_length 1023 [--device cpu] ...
+
+It takes the JAX CLI's flags and defaults (``utils/arguments.py``) plus
+``--device`` (``cuda`` unless ``cpu`` is given). Per epoch, as in JAX: train
+with metric reporting, refresh the sampler, validate, save the epoch
+checkpoint (and intra-epoch ones every ``--save_interval`` steps); a rerun
+resumes from the newest checkpoint in ``--exp_dir``.
+
+Weights are drawn from ``1337 + --seed`` on the CPU, in the training dtype,
+and then moved to the device, so every device starts from the same weights.
+Training forwards take the flash kernel K6 when ``--flash_attention`` (the
+default) and the device is CUDA, and a batch's bucket length qualifies
+(a multiple of 512: ``--max_length 1023`` gives a top bucket of 1024; the
+default ``--max_length 1000`` gives none).
+
+Refused, each with the item that ports it (``ROADMAP.md``): LoRA
+(``--lora_r > 0``) and ``--base_int8``, the Moshi family's training forwards,
+``--checkpoint_path`` (the checkpoint converter), and any mesh axis above 1
+(parallelism).
+
+``main`` returns the train steps' records (one dict a step: epoch, batch
+shape, metrics, lr, step time) and the saved checkpoints with their save
+times.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from rstnet_tpu_torch.data.collate import SpecialTokens
+from rstnet_tpu_torch.data.dataloader import build_data_iterator, find_data_jsons
+from rstnet_tpu_torch.data.task_definition import load_data_for_all_tasks
+from rstnet_tpu_torch.models.config import Config, write_flat_yaml
+from rstnet_tpu_torch.models.lm import SpeechTextLM
+from rstnet_tpu_torch.training.checkpoint import maybe_resume, save_checkpoint
+from rstnet_tpu_torch.training.schedulers import warmup_lr
+from rstnet_tpu_torch.training.train_step import (
+    init_train_state,
+    make_eval_step,
+    make_grad_accum_steps,
+    make_loss_fn,
+    make_optimizer,
+    make_train_step,
+)
+from rstnet_tpu_torch.utils.arguments import get_args
+from rstnet_tpu_torch.utils.reporter import Reporter
+
+
+def setup_logging(exp_dir: str) -> None:
+    os.makedirs(f"{exp_dir}/logs", exist_ok=True)
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(levelname)s [%(filename)s:%(lineno)d] %(message)s",
+        handlers=[logging.FileHandler(f"{exp_dir}/logs/rank0.log"),
+                  logging.StreamHandler(sys.stdout)],
+        force=True,
+    )
+
+
+def refuse_unported(args) -> None:
+    """SystemExit for what this trainer does not port yet."""
+    if not 0.0 <= args.lora_dropout < 1.0:
+        raise SystemExit(f"--lora_dropout must be in [0, 1), got {args.lora_dropout}")
+    if args.lora_r > 0 or args.base_int8:
+        raise SystemExit("--lora_r > 0 and --base_int8 (LoRA fine-tuning) are not ported to "
+                         "rstnet_tpu_torch yet (ROADMAP.md queue 1, LoRA/PEFT item)")
+    if args.model_family == "moshi":
+        raise SystemExit("--model_family moshi: the Moshi training forwards are not ported to "
+                         "rstnet_tpu_torch yet (ROADMAP.md queue 1, item 7)")
+    if args.checkpoint_path:
+        raise SystemExit("--checkpoint_path: the checkpoint converter is not ported to "
+                         "rstnet_tpu_torch yet (ROADMAP.md queue 1, item 6)")
+    axes = {"dp": args.dp, "fsdp": args.fsdp, "tensor": args.tensor, "seq": args.seq,
+            "pipe": args.pipe, "expert": args.expert}
+    wide = {k: v for k, v in axes.items() if v > 1}
+    if wide:
+        raise SystemExit(f"mesh axes > 1 ({wide}): rstnet_tpu_torch trains on one device; "
+                         "parallelism is ROADMAP.md queue 1, item 10")
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name}: torch sees no CUDA device "
+                         "(pass --device cpu to train on the CPU)")
+    return device
+
+
+def build_model(args, device: torch.device, dtype: torch.dtype) -> SpeechTextLM:
+    overrides = dict(
+        audio_card=args.audio_card, n_q=args.n_q, dep_q=args.dep_q,
+        codecformer_dim=args.codecformer_dim, codecformer_heads=args.codecformer_heads,
+        codecformer_layers=args.codecformer_layers,
+        codecformer_dim_feedforward=args.codecformer_dim_feedforward,
+        use_flash_attention=args.flash_attention and device.type == "cuda",
+        remat=args.remat,
+    )
+    if args.model_config:
+        cfg = Config.from_file(args.model_config, **overrides)
+    elif args.model_name:
+        cfg = Config.from_name(args.model_name, **overrides)
+    else:
+        raise ValueError("need --model_config or --model_name")
+    g = torch.Generator().manual_seed(1337 + args.seed)
+    return SpeechTextLM(cfg, dtype=dtype, generator=g).to(device)
+
+
+class StoredTokens:
+    """Offline-tokenized data: tokens as stored, length = the last axis."""
+
+    def find_length(self, x) -> int:
+        return int(np.shape(x)[-1])
+
+    def tokenize2(self, x):
+        return np.asarray(x).astype("int64")
+
+
+def build_tokenizers(args) -> dict:
+    if args.audio_tokenizer and args.audio_tokenizer != "none":
+        return {"audio": StoredTokens(), "text": StoredTokens()}
+    return {}
+
+
+def device_batch(b: dict, device: torch.device) -> dict:
+    """Batch rows padded (zero loss mask) to the next power of two, as the
+    JAX trainer pads to a power-of-two multiple of its data axes (one here)."""
+    tokens, masks = b["tokens"], b["masks"]
+    B = tokens.shape[0]
+    target = 1
+    while target < B:
+        target *= 2
+    if target > B:
+        rem = target - B
+        tokens = np.concatenate([tokens, np.repeat(tokens[-1:], rem, 0)], 0)
+        masks = np.concatenate([masks, np.zeros((rem,) + masks.shape[1:], masks.dtype)], 0)
+    return {"tokens": torch.from_numpy(tokens).to(device),
+            "masks": torch.from_numpy(masks).to(device, torch.float32)}
+
+
+def synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None) -> dict:
+    args = get_args(argv)
+    refuse_unported(args)
+    device = resolve_device(args.device)
+    os.makedirs(args.exp_dir, exist_ok=True)
+    setup_logging(args.exp_dir)
+    np.random.seed(args.seed)
+    torch.manual_seed(args.seed)
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    model = build_model(args, device, dtype)
+    # the resolved model config (CLI overrides included) for later reuse
+    write_flat_yaml(f"{args.exp_dir}/config.yaml", dataclasses.asdict(model.config))
+    write_flat_yaml(f"{args.exp_dir}/train_args.yaml", vars(args))
+    n_params = sum(p.numel() for p in model.parameters())
+    logging.info(f"SpeechTextLM {model.config.name}: {n_params / 1e9:.3f} B params, {dtype}, "
+                 f"on {device}, flash attention {model.config.use_flash_attention}")
+
+    special = SpecialTokens(
+        text_empty=args.text_empty_token, text_pad=args.text_pad_token,
+        text_empty_pad=args.text_pad_token + 1, text_eos=args.text_pad_token + 2,
+        semantic_empty=args.semantic_empty_token, acoustic_empty=args.acoustic_empty_token,
+        semantic_pad=args.semantic_pad_token, acoustic_pad=args.acoustic_pad_token,
+    )
+    tokenizers = build_tokenizers(args)
+    iters = {}
+    for name, jsons in (("train", args.train_data_jsons), ("valid", args.valid_data_jsons)):
+        if not jsons:
+            continue
+        data, text = load_data_for_all_tasks(find_data_jsons(jsons))
+        iters[name] = build_data_iterator(
+            data, text, tokenizers, batch_scale=args.batch_scale, max_length=args.max_length,
+            min_length=args.min_length, parallel_number=args.parallel_number, seed=args.seed,
+            minibatch_debug=args.minibatch_debug, is_train=name == "train", rank=0,
+            special=special, rebalance_alpha=args.rebalance_alpha if name == "train" else 0.0,
+        )
+    train_iter, valid_iter = iters.get("train"), iters.get("valid")
+
+    schedule = warmup_lr(args.global_learning_rate, args.warmup_steps)
+    tx = make_optimizer(schedule, weight_decay=args.weight_decay,
+                        grad_clip=args.grad_clip if args.grad_clip > 0 else None,
+                        skip_nonfinite=args.skip_nan_updates)
+    loss_fn = make_loss_fn(model, audio_ignore_id=args.acoustic_pad_token,
+                           text_ignore_id=args.text_pad_token)
+    reporter = Reporter()
+    state = init_train_state(model, tx)
+    state, extras, resumed = maybe_resume(args.exp_dir, state)
+    if resumed is not None and "reporter" in extras:
+        reporter.load_state_dict(extras["reporter"])
+        logging.info(f"resumed from {resumed} at epoch {reporter.get_epoch()}")
+    accum_step = apply_step = None
+    if args.grad_accum > 1:
+        accum_step, apply_step = make_grad_accum_steps(loss_fn, tx)
+        state["micro"] = 0
+    train_step = make_train_step(loss_fn, tx)
+    eval_step = make_eval_step(loss_fn)
+
+    steps, saved = [], []
+
+    def save(path):
+        t0 = time.perf_counter()
+        save_checkpoint(path, state, {"reporter": reporter.state_dict()},
+                        keep_last=args.keep_last_ckpt)
+        saved.append({"path": path, "seconds": time.perf_counter() - t0})
+
+    for ep in range(reporter.get_epoch() + 1, args.n_epoch + 1):
+        reporter.set_epoch(ep)
+        with reporter.observe("train") as sub:
+            if train_iter is not None:
+                for b_idx, batch in enumerate(sub.measure_iter_time(train_iter, "iter_time"), 1):
+                    shape = {"batch_size": batch["tokens"].shape[0],
+                             "seq_len": batch["tokens"].shape[2]}
+                    sub.register(shape)
+                    t0 = time.perf_counter()
+                    with sub.measure_time("step_time"):
+                        if accum_step is not None:
+                            state, metrics = accum_step(state, device_batch(batch, device))
+                            if b_idx % args.grad_accum == 0:
+                                state = apply_step(state)
+                        else:
+                            state, metrics = train_step(state, device_batch(batch, device))
+                        synchronize(device)
+                    step_time = time.perf_counter() - t0
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                    lr = float(schedule(int(state["step"]) - 1))
+                    sub.register({**metrics, "lr": lr})
+                    sub.next()
+                    steps.append({"epoch": ep, **shape, **metrics, "lr": lr,
+                                  "step_time": step_time})
+                    if b_idx % args.print_freq == 0:
+                        logging.info(sub.log_message(-args.print_freq))
+                    if args.save_interval > 0 and b_idx % args.save_interval == 0:
+                        save(f"{args.exp_dir}/ep{ep}-iter{b_idx}.checkpoint")
+        if train_iter is not None:
+            train_iter.sampler.refresh()
+        with reporter.observe("valid") as sub:
+            if valid_iter is not None:
+                for batch in sub.measure_iter_time(valid_iter, "iter_time"):
+                    metrics = eval_step(device_batch(batch, device))
+                    sub.register({k: float(v) for k, v in metrics.items()})
+                    sub.next()
+        logging.info(reporter.log_message())
+        save(f"{args.exp_dir}/ep{ep}.checkpoint")
+    return {"steps": steps, "checkpoints": saved}
+
+
+if __name__ == "__main__":
+    main()

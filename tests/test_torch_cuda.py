@@ -197,3 +197,84 @@ def test_batcher_fetch_paths_on_card_match_depth1(cuda, monkeypatch, depth, pool
     for (a0, t0), (a1, t1) in zip(*streams):
         assert t0 == t1
         np.testing.assert_allclose(a1, a0, rtol=0, atol=1.5 / 32767.0 if wire == "int16" else 0)
+
+
+# K6: each output against its plain version at its own scale,
+# ||kernel - plain|| / ||plain|| over the tensor and over every 64-row tile of
+# every head (cuda_flash.relative_error_by_tile): 1e-2 on bf16 inputs (one
+# bf16 rounding of ~2**-9 in the P V and dS products and the outputs on
+# either side), 1e-4 on float32 inputs (split-bf16 products, a dropped term
+# of ~2**-16; a bf16-only product reads ~2e-3). The log-sum-exp is float32
+# on both sides: 1e-3 (bf16 inputs) or 1e-4; delta = rowsum(dO * O) is held
+# to 1e-4 of its scale against the same sum over the kernel's own O.
+K6_TOL = {torch.bfloat16: (1e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
+
+
+def _k6_case(gen, B, H, T, dtype, window):
+    from rstnet_tpu_torch.ops import cuda_flash as cf
+
+    q, k, v, do = (torch.randn((B, H, T, 64), device="cuda", generator=gen).to(dtype)
+                   for _ in range(4))
+    q = (q * 0.125).to(dtype)  # pre-scaled, as the wrapper passes it
+    counts = [cf.flash_attention_fwd.launches, cf.flash_attention_bwd_dq.launches,
+              cf.flash_attention_bwd_dkv.launches]
+    o, lse = cf.flash_attention_fwd(q, k, v, window)
+    dq, delta = cf.flash_attention_bwd_dq(q, k, v, o, do, lse, window)
+    dk, dv = cf.flash_attention_bwd_dkv(q, k, v, do, lse, delta, window)
+    torch.cuda.synchronize()
+    assert [cf.flash_attention_fwd.launches, cf.flash_attention_bwd_dq.launches,
+            cf.flash_attention_bwd_dkv.launches] == [c + 1 for c in counts]
+    o_r, lse_r = cf.flash_attention_fwd_reference(q, k, v, window)
+    dq_r, delta_r = cf.flash_attention_bwd_dq_reference(q, k, v, o_r, do, lse_r, window)
+    dk_r, dv_r = cf.flash_attention_bwd_dkv_reference(q, k, v, do, lse_r, delta_r, window)
+    rel, lse_tol = K6_TOL[dtype]
+    for name, got, want in (("o", o, o_r), ("dq", dq, dq_r), ("dk", dk, dk_r), ("dv", dv, dv_r)):
+        whole, tile = cf.relative_error_by_tile(got, want)
+        assert whole <= rel and tile <= rel, f"{name}: {whole:.3e} over the tensor, {tile:.3e} a tile"
+    assert (lse - lse_r).abs().max().item() <= lse_tol
+    delta_want = (do.float() * o.float()).sum(-1)  # from the kernel's own O
+    assert (delta - delta_want).abs().max().item() <= 1e-4 * max(1.0, delta_want.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,window", [(128, 128), (512, 512), (512, 100), (1024, 256)])
+def test_flash_kernels_match_plain(cuda, dtype, T, window):
+    _k6_case(cuda, 1, 3, T, dtype, window)
+
+
+def test_flash_kernels_at_training_shapes(cuda):
+    """B=2 and the main path's B=4, H=32, T=1024, bf16: causal (context 3000
+    >= T) and local (256)."""
+    for B in (2, 4):
+        for window in (1024, 256):
+            _k6_case(cuda, B, 32, 1024, torch.bfloat16, window)
+
+
+def test_flash_attention_route_matches_reference(cuda):
+    """The differentiable route (GQA repeat, pre-scale, three kernels)
+    against autograd of the plain reference."""
+    from rstnet_tpu_torch.ops.cuda_flash import relative_error_by_tile
+    from rstnet_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+
+    q = torch.randn((2, 8, 512, 64), device="cuda", generator=cuda).bfloat16().requires_grad_()
+    k = torch.randn((2, 2, 512, 64), device="cuda", generator=cuda).bfloat16().requires_grad_()
+    v = torch.randn((2, 2, 512, 64), device="cuda", generator=cuda).bfloat16().requires_grad_()
+    do = torch.randn((2, 8, 512, 64), device="cuda", generator=cuda).bfloat16()
+    for context in (3000, 200):
+        got = flash_attention(q, k, v, context, 0.125)
+        grads = torch.autograd.grad(got, (q, k, v), do)
+        want = flash_attention_reference(q, k, v, context, 0.125)
+        grads_r = torch.autograd.grad(want, (q, k, v), do)
+        for a, b in zip((got, *grads), (want, *grads_r)):
+            assert max(relative_error_by_tile(a, b)) <= K6_TOL[torch.bfloat16][0]
+
+
+def test_flash_kernels_refuse_outside_envelope(cuda):
+    from rstnet_tpu_torch.ops.cuda_flash import flash_attention_fwd
+
+    x = torch.zeros((1, 2, 128, 32), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(x, x, x, 128)  # head dim 32
+    y = torch.zeros((1, 2, 100, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(y, y, y, 100)  # T not a multiple of 64

@@ -1,0 +1,166 @@
+"""K6's plain versions (``rstnet_tpu_torch/ops/cuda_flash.py``,
+``ops/flash_attention.py``) against the JAX package on the CPU.
+
+The forward is held to jax's splash kernel run in interpret mode, as
+``tests/test_flash_attention.py`` runs it, within that test's 2e-3 (splash
+sums its blocks in its own order). Gradients through the port's autograd
+function (the kernels' plain dQ and dK/dV) and through autograd of
+``flash_attention_reference`` are held to ``jax.grad`` of the JAX masked
+reference within 1e-4: float32 sums over 512 keys in another order. Inputs
+come from numpy with a seed."""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import rstnet_tpu.ops.flash_attention as jax_flash
+from rstnet_tpu_torch.ops import cuda_flash
+from rstnet_tpu_torch.ops.flash_attention import (
+    attention_window,
+    flash_attention,
+    flash_attention_reference,
+    flash_qualifies,
+)
+
+SPLASH_TOL = 2e-3
+GRAD_TOL = 1e-4
+
+
+def _inputs(seed, B, H, Hkv, T, D=64):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, T, D)).astype(np.float32)
+    k = rng.standard_normal((B, Hkv, T, D)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, T, D)).astype(np.float32)
+    do = rng.standard_normal((B, H, T, D)).astype(np.float32)
+    return q, k, v, do
+
+
+def _jax_masked(q, k, v, context, scale):
+    """The backbone's masked path for one attention call, with splash's
+    pre-scale of q (``tests/test_flash_attention.py::_reference``)."""
+    H, Hkv, T = q.shape[1], k.shape[1], q.shape[2]
+    if Hkv != H:
+        k, v = jnp.repeat(k, H // Hkv, axis=1), jnp.repeat(v, H // Hkv, axis=1)
+    q = (q * scale).astype(q.dtype)
+    logits = jnp.einsum("bhtd,bhsd->bhts", q, k, preferred_element_type=jnp.float32)
+    pos = jnp.arange(T)
+    delta = pos[:, None] - pos[None, :]
+    mask = delta >= 0
+    if context is not None:
+        mask = mask & (delta < context)
+    att = jax.nn.softmax(jnp.where(mask[None, None], logits, -jnp.inf), axis=-1)
+    return jnp.einsum("bhts,bhsd->bhtd", att.astype(v.dtype), v)
+
+
+@pytest.mark.parametrize("context,heads", [(None, (2, 2)), (256, (2, 2)), (None, (4, 2))])
+def test_forward_matches_splash_interpret(context, heads):
+    H, Hkv = heads
+    q, k, v, _ = _inputs(0, 1, H, Hkv, 512)
+    scale = 1.0 / math.sqrt(64)
+    want = np.asarray(jax_flash.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                                context, scale, interpret=True))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = flash_attention(tq, tk, tv, context, scale)
+    np.testing.assert_allclose(got.numpy(), want, atol=SPLASH_TOL, rtol=SPLASH_TOL)
+    ref = flash_attention_reference(tq, tk, tv, context, scale)
+    np.testing.assert_allclose(ref.numpy(), want, atol=SPLASH_TOL, rtol=SPLASH_TOL)
+
+
+@pytest.mark.parametrize("context", [None, 256, 100])
+def test_gradients_match_jax_grad(context):
+    q, k, v, do = _inputs(1, 2, 4, 2, 512)
+    scale = 1.0 / math.sqrt(64)
+
+    def loss(q, k, v):
+        return jnp.sum(_jax_masked(q, k, v, context, scale) * do)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for fn in (flash_attention, flash_attention_reference):
+        leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        out = fn(*leaves, context, scale)
+        got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+def test_plain_lse_and_delta():
+    """The forward's log-sum-exp and the backward's delta = rowsum(dO * O),
+    as the kernels write them, against JAX."""
+    q, k, v, do = _inputs(2, 1, 2, 2, 128)
+    window = 40
+    o, lse = cuda_flash.flash_attention_fwd(*map(torch.from_numpy, (q, k, v)), window)
+    logits = np.einsum("bhtd,bhsd->bhts", q, k)
+    delta_pos = np.arange(128)[:, None] - np.arange(128)[None, :]
+    logits = np.where((delta_pos >= 0) & (delta_pos < window), logits, -np.inf)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jax.nn.logsumexp(logits, axis=-1)),
+                               atol=1e-5, rtol=1e-5)
+    _, delta = cuda_flash.flash_attention_bwd_dq(
+        *map(torch.from_numpy, (q, k, v)), o, torch.from_numpy(do), lse, window)
+    np.testing.assert_allclose(delta.numpy(), (do * o.numpy()).sum(-1), atol=1e-5, rtol=1e-5)
+
+
+def test_bf16_plain_forward_close_to_splash():
+    """bf16 inputs: the plain forward against splash in interpret mode on
+    the same bf16 values, within one bf16 step (2**-7) of the output scale."""
+    q, k, v, _ = _inputs(3, 1, 2, 2, 512)
+    bf = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    want = np.asarray(jax_flash.flash_attention(*bf, 256, 0.125, interpret=True), np.float32)
+    got = flash_attention(*[torch.from_numpy(np.asarray(a, np.float32)).bfloat16() for a in bf],
+                          256, 0.125)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2.0**-7 * max(1.0, float(np.abs(want).max())))
+
+
+def test_flash_qualifies_predicate():
+    """The JAX predicate with its TPU condition taken as met: the port's
+    ``enabled`` carries the device condition instead."""
+    cases = [(1024, 3000, None, True), (640, 3000, None, True), (1024, 3000, 50.0, True),
+             (1024, 3000, None, False), (256, 3000, None, True), (512, None, None, True),
+             (1536, 256, None, True)]
+    orig = jax_flash.splash_available
+    jax_flash.splash_available = lambda: True
+    try:
+        for case in cases:
+            assert flash_qualifies(*case) == jax_flash.flash_qualifies(*case), case
+    finally:
+        jax_flash.splash_available = orig
+    assert flash_qualifies(1024, 3000, None, True)
+    assert not flash_qualifies(1000, 3000, None, True)  # the --max_length 1000 buckets
+
+
+def test_attention_window():
+    assert attention_window(1024, 3000) == 1024  # causal: splash's CausalMask
+    assert attention_window(1024, None) == 1024
+    assert attention_window(1024, 256) == 256  # LocalMask window (255, 0)
+
+
+def test_relative_error_by_tile_sees_small_outputs():
+    """The card checks' measure: bf16 rounding of a causal O reads well
+    under their 1e-2 limit, and one late tile wrong by 10 % reads far over
+    it in that tile (not over the whole tensor), where a limit of 2e-2 x
+    max |O| would let it pass."""
+    q, k, v, _ = _inputs(5, 1, 2, 2, 1024)
+    o, _ = cuda_flash.flash_attention_fwd(*map(torch.from_numpy, (q * 0.125, k, v)), 1024)
+    whole, tile = cuda_flash.relative_error_by_tile(o.bfloat16(), o)
+    assert whole < 3e-3 and tile < 3e-3
+    bad = o.clone()
+    bad[0, 1, 960:1024] *= 1.1
+    assert float((bad - o).abs().max()) < 2e-2 * float(o.abs().max())
+    whole, tile = cuda_flash.relative_error_by_tile(bad, o)
+    assert tile > 5e-2 and whole < 1e-2
+
+
+def test_wrappers_take_the_plain_version_only_on_cpu():
+    """A tensor on another device gets the kernel or an error, never the
+    plain version."""
+    x = torch.zeros((1, 1, 64, 64), device="meta")
+    with pytest.raises(NotImplementedError):
+        cuda_flash.flash_attention_fwd(x, x, x, 64)
+    before = cuda_flash.flash_attention_fwd.launches
+    cuda_flash.flash_attention_fwd(*(torch.zeros((1, 1, 64, 64)) for _ in range(3)), 64)
+    assert cuda_flash.flash_attention_fwd.launches == before  # the plain version counts none

@@ -32,3 +32,14 @@ def test_scan_sees_a_forbidden_import(tmp_path):
     bad = tmp_path / "bad.py"
     bad.write_text("def f():\n    from rstnet_tpu.serving import opus\n    import jax.numpy\n")
     assert _imported_roots(bad) >= {"rstnet_tpu", "jax"}
+
+
+def test_scan_covers_the_training_slice():
+    """The scan reaches every module of the LM training slice."""
+    scanned = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("models/config.py", "models/backbone.py", "models/lm.py",
+                   "ops/flash_attention.py", "ops/cuda_flash.py", "losses/ce.py",
+                   "training/schedulers.py", "training/train_step.py", "training/checkpoint.py",
+                   "training/trainer.py", "utils/reporter.py", "utils/arguments.py",
+                   "data/task_definition.py", "data/collate.py", "data/dataloader.py"):
+        assert f"rstnet_tpu_torch/{module}" in scanned, module

@@ -32,7 +32,23 @@ Phases (each prints its findings; any failure exits non-zero):
    card and on the CPU from the same weights and data, one epoch and then a
    resumed second, per-step losses compared; then the full Llama-3.2-1B
    speech config (2.01 B parameters, bf16) for ``TRAIN_STEPS`` steps on
-   synthetic data, K6 on every step whose bucket is 1024 and on no other.
+   synthetic data, K6 on every step whose bucket is 1024 and on no other;
+   then, on that run's experiment, the inference CLIs ``lm_eval`` and
+   ``infer_cli`` (path ``speech_cli``: K4 in every backbone step);
+7. speech streaming: K4 and K5 (the fused gated FFN of the backbone's
+   LLaMAMLP, bf16 and int8 weights) against their plain versions at
+   Llama-3.2-1B's MLP (C=2048, H=8192; N in {1, 16, 64}, x in bf16 and
+   float32), with device, plain, bound and eager three-GEMM times (phase
+   ``kernels``); a small ``SpeechTextLM`` through ``teacher_forced_stream``
+   on the card and on the CPU from the same weights, bf16 and then
+   ``quantize_for_serving`` with an int8 ring; and the full flagship
+   (Llama-3.2-1B backbone, codecformer 1024 x 6, bf16, seeded random weights)
+   through ``LMGen.step`` at B=1 in four variants, each quantized in place
+   on top of the last: bf16, ``quantize_head_for_serving``, plus
+   ``quantize_dep_for_serving``, and ``quantize_for_serving`` with an int8
+   ring (paths ``speech_frame``, ``speech_frame_head_int8``,
+   ``speech_frame_mixed_int8``, ``speech_frame_int8``), each path's frames
+   timed on the host clock and 4 more under ``torch.profiler``.
 
 Every phase prints its wall time.
 
@@ -100,6 +116,32 @@ TRAIN_ACC_ATOL = 1e-2
 # steps of the full training slice: five land on the 1024 bucket, one on a
 # shorter one
 TRAIN_STEPS = 6
+# K4/K5 use K2's tolerances (K2_TOL): float32 sums in two orders, and for
+# bf16 outputs one bf16 step. The small speech slice, card against CPU from
+# the same bf16 weights: logits within SLICE_LOGIT_TOL of their scale, and
+# the mean CE (nats a token) within this: both sides round bf16 products and
+# activations in other places (cuBLAS against ATen on the CPU), a few bf16
+# ulps (2**-8 relative) of each logit, which move a mean over hundreds of
+# tokens by far less.
+SPEECH_CE_TOL = 2e-2
+# a small SpeechTextLM whose widths reach K4/K5's route (n_embd 256, MLP
+# 512); its codecformer (128 x 2, card 128, gating hidden 170) stays off K2
+SMALL_SPEECH = dict(name="smoke-speech", block_size=256, vocab_size=512, padded_vocab_size=512,
+                    n_layer=2, n_head=4, n_embd=256, n_query_groups=2, rotary_percentage=1.0,
+                    parallel_residual=False, bias=False, norm_class_name="RMSNorm",
+                    mlp_class_name="LLaMAMLP", intermediate_size=512, context=64,
+                    audio_card=128, n_q=8, dep_q=8, codecformer_dim=128, codecformer_heads=2,
+                    codecformer_layers=2, codecformer_dim_feedforward=256)
+# the JAX package's flagship (``__graft_entry__._flagship(tiny=False)``),
+# written out: Llama-3.2-1B backbone (16 x 2048, 32 heads over 8 KV groups,
+# MLP 8192, vocab 128256, context 3000), codecformer 1024 x 6 with weights
+# per step, 8 codebooks of 2048; RoPE at the Config defaults
+FLAGSHIP = dict(name="graft-entry", block_size=4096, vocab_size=128000, padded_vocab_size=128256,
+                n_layer=16, n_head=32, n_embd=2048, n_query_groups=8, rotary_percentage=1.0,
+                parallel_residual=False, bias=False, norm_class_name="RMSNorm",
+                mlp_class_name="LLaMAMLP", intermediate_size=8192, context=3000, audio_card=2048,
+                codecformer_dim=1024, n_q=8, dep_q=8, codecformer_heads=16, codecformer_layers=6,
+                codecformer_dim_feedforward=1024)
 # NVIDIA H100 SXM data sheet: HBM bandwidth and dense peak rates (at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
@@ -320,6 +362,97 @@ def check_k2(g, card: str, sessions: int) -> dict:
             "source": "rstnet_tpu_torch/csrc/gating_ffn_step.cu",
             "replaces": "rstnet_tpu/ops/pallas_ffn.py:230", "max_abs_err": err, **result,
             "library_ms": None}
+
+
+def check_k4_k5(g, card: str) -> list[dict]:
+    """K4 (bf16 weights) and K5 (the same weights quantized by the port's
+    ``quantize_weight_int8``) at Llama-3.2-1B's MLP (C=2048, H=8192, the
+    model's init scales), N in {1, 16, 64}, x in bf16 and float32. Timed
+    over three weight sets in turn, so no call finds its weights in the 50 MB
+    L2 (as a frame's 16 layers do not); beside each kernel its plain version
+    and the eager three-GEMM chain ``silu(x Wg^T) * (x Wv^T) Wo^T`` in x's
+    dtype (a yardstick: no single PyTorch call computes the function). The
+    kernels line carries the main path's case, N=1 with bf16 x."""
+    import torch.nn.functional as F
+
+    from rstnet_tpu_torch.modules.transformer import quantize_weight_int8
+    from rstnet_tpu_torch.ops.cuda_ffn import (
+        dequantize_rows,
+        gating_ffn,
+        gating_ffn_int8,
+        gating_ffn_int8_reference,
+        gating_ffn_reference,
+    )
+
+    C, H, n_sets = 2048, 8192, 3
+
+    def uniform(rows, cols):
+        return ((torch.rand((rows, cols), device="cuda", generator=g) * 2 - 1)
+                * cols**-0.5).to(torch.bfloat16)
+
+    sets = [[uniform(H, C), uniform(H, C), uniform(C, H)] for _ in range(n_sets)]
+    qsets = []
+    for ws in sets:
+        q = [quantize_weight_int8(w) for w in ws]
+        qsets.append([t for wq in q for t in (wq.w_int8.data, wq.scale.data)])
+    kernels = {
+        "gating_ffn": (gating_ffn, gating_ffn_reference, sets,
+                       "rstnet_tpu/ops/pallas_ffn.py:79", 2),
+        "gating_ffn_int8": (gating_ffn_int8, gating_ffn_int8_reference, qsets,
+                            "rstnet_tpu/ops/pallas_ffn.py:152", 1),
+    }
+    entries = []
+    for name, (kernel, plain, wsets, replaces, wbytes) in kernels.items():
+        err, result = 0.0, None
+        for N in (1, 16, 64):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((N, C), device="cuda", generator=g).to(dtype)
+                rtol, atol = K2_TOL[dtype]
+                got = kernel(x, *wsets[0])
+                want = plain(x, *wsets[0])
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                bad = int((diff > atol + rtol * want.float().abs()).sum())
+                err = max(err, diff.max().item())
+                if bad or not torch.isfinite(got).all() or got.dtype != dtype:
+                    raise AssertionError(f"{name} N={N} {dtype}: {bad} elements outside rtol={rtol}"
+                                         f" atol={atol} (max err {diff.max().item():.3e})")
+                turn = iter(range(1 << 30))
+                ms = time_ms(lambda: kernel(x, *wsets[next(turn) % n_sets]), 60)
+                plain_ms = time_ms(lambda: plain(x, *wsets[next(turn) % n_sets]), 10)
+                # the yardstick's weights in x's dtype (dequantized for K5), made before timing
+                chains = [[t.to(dtype) for t in ws] if name == "gating_ffn" else
+                          [dequantize_rows(*ws[i:i + 2]).to(dtype) for i in (0, 2, 4)]
+                          for ws in wsets]
+
+                def chain():
+                    wg, wv, wo = chains[next(turn) % n_sets]
+                    return (F.silu(x @ wg.T) * (x @ wv.T)) @ wo.T
+
+                chain_ms = time_ms(chain, 30)
+                del chains
+                xb = x.element_size()
+                n_bytes = wbytes * 3 * H * C + 2 * N * C * xb + (4 * (2 * H + C) if wbytes == 1
+                                                                   else 0)
+                # a multiply and an add a weight and row; K5 dequantizes each weight too.
+                # bf16 x on bf16 weights: exact products, the bf16 tensor-core rate;
+                # otherwise float32 products
+                n_ops = 3 * H * C * (2 * N + (wbytes == 1))
+                kind = "bf16" if name == "gating_ffn" and dtype == torch.bfloat16 else "f32"
+                bound_ms, bound_by = bound(n_bytes, n_ops, kind)
+                log(f"{name} N={N} x {str(dtype)[6:]} (C={C}, H={H}): kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+                    f"{n_bytes / 1e6:.1f} MB), eager three-GEMM chain {chain_ms:.4f} ms [{card}]")
+                if N == 1 and dtype == torch.bfloat16:  # the flagship frame's call
+                    result = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "three_gemm_ms": chain_ms}
+        log(f"{name} max |kernel - plain| {err:.3e} over N and dtypes")
+        entries.append({"name": name, "route": "cuda",
+                        "source": "rstnet_tpu_torch/csrc/gating_ffn.cu", "replaces": replaces,
+                        "max_abs_err": err, **result, "library_ms": None})
+    del sets, qsets
+    torch.cuda.empty_cache()
+    return entries
 
 
 def _k3_mismatches(x, cbs, codes_k, codes_r):
@@ -562,7 +695,7 @@ def _counters() -> dict:
     wrapper, the attribute it counts in)."""
     from rstnet_tpu_torch.ops import cuda_flash
     from rstnet_tpu_torch.ops.cuda_depformer import depformer_step
-    from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn_step
+    from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn, gating_ffn_int8, gating_ffn_step
     from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode
 
     return {"depformer_step": (depformer_step, "launches"),
@@ -571,7 +704,9 @@ def _counters() -> dict:
             "rvq_encode": (rvq_encode, "launches"),
             "flash_attention_fwd": (cuda_flash.flash_attention_fwd, "launches"),
             "flash_attention_bwd_dq": (cuda_flash.flash_attention_bwd_dq, "launches"),
-            "flash_attention_bwd_dkv": (cuda_flash.flash_attention_bwd_dkv, "launches")}
+            "flash_attention_bwd_dkv": (cuda_flash.flash_attention_bwd_dkv, "launches"),
+            "gating_ffn": (gating_ffn, "launches"),
+            "gating_ffn_int8": (gating_ffn_int8, "launches")}
 
 
 def reset_counts() -> None:
@@ -671,6 +806,203 @@ def run_full_batched_slice(mimi, lm_gen, seed: int, sessions: int, n_ticks: int,
         raise AssertionError(f"{path}: launches {counts}, expected {expected}")
     log(f"{path} tick time: {_percentiles(times)} over {n_ticks} ticks (host clock, "
         f"informational); peak memory {peak:.1f} GiB [{card}]")
+    return counts
+
+
+@contextlib.contextmanager
+def recorded_stream_logits():
+    """Record the logits ``teacher_forced_stream`` samples from (text, then
+    each codebook, every frame)."""
+    from rstnet_tpu_torch.evalsuite import quant_quality
+
+    orig, record = quant_quality.sample_token, []
+
+    def sample(logits, *args, **kwargs):
+        record.append(logits.float().cpu())
+        return orig(logits, *args, **kwargs)
+
+    quant_quality.sample_token = sample
+    try:
+        yield record
+    finally:
+        quant_quality.sample_token = orig
+
+
+def check_small_speech_slice(seed: int, n_frames: int = 8) -> None:
+    """A small ``SpeechTextLM`` (bf16, widths inside K4/K5's route) through
+    ``teacher_forced_stream`` on the card and on the CPU from the same
+    weights and grid: bf16, then ``quantize_for_serving`` (quantized on the
+    CPU, copied to the card) with an int8 ring. The card launches K4 (bf16)
+    or K5 (int8) once a layer a frame and nothing else."""
+    import copy
+
+    from rstnet_tpu_torch.evalsuite.quant_quality import teacher_forced_stream
+    from rstnet_tpu_torch.models.config import Config
+    from rstnet_tpu_torch.models.lm import SpeechTextLM, quantize_for_serving
+
+    cfg = Config(**SMALL_SPEECH)
+    cpu = SpeechTextLM(cfg, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    grid = np.concatenate([rng.integers(0, cfg.padded_vocab_size, (2, 1, n_frames)),
+                           rng.integers(0, cfg.audio_card - 2, (2, cfg.n_q, n_frames))], axis=1)
+    none = dict.fromkeys(_counters(), 0)
+    for label, kernel, int8 in (("bf16", "gating_ffn", False),
+                                ("int8 --kv-int8", "gating_ffn_int8", True)):
+        if int8:
+            quantize_for_serving(cpu)
+        runs = {}
+        for device, m in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).to("cuda"))):
+            reset_counts()
+            with recorded_stream_logits() as record:
+                r = teacher_forced_stream(m, grid, seed, kv_int8=int8)
+            runs[device] = (r, record, read_counts())
+        (rc, lc, counts_c), (rg, lg, counts_g) = runs["cpu"], runs["cuda"]
+        want = {**none, kernel: cfg.n_layer * n_frames}
+        if counts_g != want or counts_c != none:
+            raise AssertionError(f"small speech slice ({label}) launched {counts_g} on the card "
+                                 f"(expected {want}) and {counts_c} on the CPU (expected none)")
+        scale = max(a.abs().max().item() for a in lc)
+        logit_err = max((a - b).abs().max().item() for a, b in zip(lc, lg))
+        flips = 0
+        for a, b in zip(lc, lg):
+            top2 = a.topk(2, dim=-1).values
+            clear = (top2[..., 0] - top2[..., 1]) > 2 * SLICE_LOGIT_TOL * max(1.0, scale)
+            flips += int(((a.argmax(-1) != b.argmax(-1)) & clear).sum())
+        ce_err = max(abs(rc.ce_text - rg.ce_text), abs(rc.ce_audio - rg.ce_audio))
+        log(f"small speech slice ({label}), card vs CPU over {n_frames} frames at B=2: logits max "
+            f"abs err {logit_err:.3e} (max |logit| {scale:.3e}), CE text {rg.ce_text:.5f} / "
+            f"{rc.ce_text:.5f}, audio {rg.ce_audio:.5f} / {rc.ce_audio:.5f} (max diff "
+            f"{ce_err:.3e}, limit {SPEECH_CE_TOL}), greedy tokens differ at "
+            f"{int((rc.greedy != rg.greedy).sum())} of {rc.greedy.size} ({flips} past the "
+            f"near-tie margin); card {kernel} launches {counts_g[kernel]}")
+        if logit_err > SLICE_LOGIT_TOL * max(1.0, scale) or flips or ce_err > SPEECH_CE_TOL:
+            raise AssertionError(f"the small speech slice ({label}) on the card disagrees with "
+                                 "the CPU")
+
+
+def build_flagship(seed: int):
+    """The flagship in bf16 on the card from ``seed``, its codecformer's
+    gating padded to a multiple of 128 so that K1 takes its micro-steps."""
+    from rstnet_tpu_torch.models.config import Config
+    from rstnet_tpu_torch.models.lm import SpeechTextLM
+    from rstnet_tpu_torch.modules.transformer import pad_codecformer_gating
+    from rstnet_tpu_torch.ops.cuda_depformer import depformer_kernel_operands
+
+    t0 = time.perf_counter()
+    model = SpeechTextLM(Config(**FLAGSHIP), device="cuda", dtype=torch.bfloat16,
+                         generator=torch.Generator(device="cuda").manual_seed(seed))
+    pad_codecformer_gating(model.codecformer)
+    if depformer_kernel_operands(model) is None:
+        raise AssertionError("the flagship's codecformer is outside K1's envelope")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"flagship SpeechTextLM (Llama-3.2-1B backbone, codecformer 1024 x 6), "
+        f"{n_params / 1e9:.3f} B params, bf16, built in {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def run_speech_slice(model, seed: int, n_frames: int, card: str, path: str, expected: dict,
+                     kv_int8: bool = False) -> dict:
+    """``LMGen.step`` at B=1 over the flagship (bf16 ring, or int8 with
+    ``kv_int8``), the bench's delays, sampling from a seeded generator: two
+    warm-up frames, then ``n_frames`` counted and timed frames, then 4 frames
+    under ``torch.profiler`` (device busy time and its largest kernels)."""
+    from rstnet_tpu_torch.inference.generate import LMGen
+    from rstnet_tpu_torch.tools.profile_frame import device_profile
+
+    cfg = model.config
+    gen = LMGen(model, delays=(0,) + (1,) * cfg.n_q, kv_unstacked=True, kv_int8=kv_int8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = gen.init_state(1, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for _ in range(2):
+        gen.step(state, g)
+    torch.cuda.synchronize()
+    reset_counts()
+    times, valid = [], 0
+    for t in range(n_frames):
+        t0 = time.perf_counter()
+        out, ok, state = gen.step(state, g)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000)
+        out = out.cpu()
+        valid += int(ok.all())
+        if not (0 <= out[:, 0].min() and out[:, 0].max() < cfg.padded_vocab_size
+                and 0 <= out[:, 1:].min() and out[:, 1:].max() < cfg.audio_card):
+            raise AssertionError(f"{path} frame {t}: tokens out of range: {out[0, :, 0].tolist()}")
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{path}: {n_frames} frames, {valid} valid; launches {counts}")
+    if valid != n_frames:
+        raise AssertionError(f"{path}: {valid} valid frames after the warm-up, expected {n_frames}")
+    if counts != expected:
+        raise AssertionError(f"{path}: launches {counts}, expected {expected}")
+    log(f"{path} frame time: {_percentiles(times)} over {n_frames} frames (host clock, "
+        f"informational); peak memory {peak:.2f} GiB [{card}]")
+    prof = device_profile(lambda _: gen.step(state, g), range(4))
+    if "device_ms" in prof:
+        top = ", ".join(f"{name[:48]} {ms / 4:.3f}" for name, ms in prof["by_kernel_ms"][:6])
+        log(f"{path} profiler over 4 frames: device busy {prof['device_ms'] / 4:.3f} ms a frame, "
+            f"{100 * prof['busy_share']:.1f} % of the wall ({prof['wall_ms'] / 4:.3f} ms a frame "
+            f"profiled), {prof['launches_per_frame']:.0f} device events a frame; largest (ms a "
+            f"frame): {top} [{card}]")
+    else:
+        log(f"{path} profiler: no device events recorded; device time not measured")
+    return counts
+
+
+def run_cli_chain(root: Path, data: str, exp: Path, n_layer: int, card: str) -> dict:
+    """``lm_eval`` and ``infer_cli`` (``--device cuda``) on the training
+    slice's experiment: finite CE and perplexity, two generated grids of
+    1 + n_q rows, and K4 once a layer in every backbone step (counted from
+    the run) with no other launch."""
+    from rstnet_tpu_torch.evalsuite import lm_eval
+    from rstnet_tpu_torch.inference import infer_cli
+    from rstnet_tpu_torch.models.lm import SpeechTextLM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    real = SpeechTextLM.step_global
+
+    def counted(self, *args, **kwargs):
+        steps.append(1)
+        return real(self, *args, **kwargs)
+
+    SpeechTextLM.step_global = counted
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        report = lm_eval.main(["--checkpoint_dir", str(exp), "--data_jsons", data,
+                               "--device", "cuda"])
+        t_eval = time.perf_counter() - t0
+        written = infer_cli.main(["--exp_dir", str(exp), "--data_jsons", data, "--output_dir",
+                                  str(root / "gen"), "--prefix_frames", "8", "--max_new_frames",
+                                  "8", "--max_examples", "2", "--device", "cuda"])
+        torch.cuda.synchronize()
+        t_infer = time.perf_counter() - t0 - t_eval
+        counts = read_counts()
+    finally:
+        SpeechTextLM.step_global = real
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    grids = [np.load(p) for p in written]
+    log(f"speech_cli: lm_eval {t_eval:.1f} s (loss audio {report['loss_audio']:.4f}, text "
+        f"{report['loss_text']:.4f}, ppl audio {report['ppl_audio']:.3f}, text "
+        f"{report['ppl_text']:.3f} over {report['n_batches']} batches); infer_cli {t_infer:.1f} s, "
+        f"{len(written)} grids {[g.shape for g in grids]}, {len(steps)} backbone steps; launches "
+        f"{counts}; peak memory {peak:.2f} GiB [{card}]")
+    if not all(math.isfinite(report[k]) for k in ("loss_audio", "loss_text", "ppl_audio",
+                                                  "ppl_text")) or report["n_batches"] < 1:
+        raise AssertionError(f"lm_eval report {report}")
+    if len(grids) != 2 or any(g.ndim != 2 or g.shape[0] != 9 for g in grids):
+        raise AssertionError(f"infer_cli wrote {[g.shape for g in grids]}, expected two grids of "
+                             "9 rows")
+    want = {**dict.fromkeys(_counters(), 0), "gating_ffn": n_layer * len(steps)}
+    if not steps or counts != want:
+        raise AssertionError(f"speech_cli launches {counts}, expected {want}")
     return counts
 
 
@@ -922,11 +1254,13 @@ def check_small_training_slice(seed: int) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def run_full_training_slice(seed: int, n_steps: int, card: str) -> dict:
+def run_full_training_slice(seed: int, n_steps: int, card: str) -> tuple[dict, dict]:
     """``trainer.main`` on ``configs/llama_1b_speech.yaml`` (bf16, full width
     and depth) for ``n_steps`` steps of synthetic data: long utterances on
     the 1024 bucket (K6) and one batch of short ones (bucket 487, the masked
-    path); then the epoch checkpoint. Returns the path's launches."""
+    path); then the epoch checkpoint, and the inference CLIs on it
+    (``run_cli_chain``). Returns the launches of the training path and of
+    the CLI path."""
     import tempfile
 
     from rstnet_tpu_torch.models.config import Config
@@ -988,7 +1322,8 @@ def run_full_training_slice(seed: int, n_steps: int, card: str) -> dict:
         log(f"full training slice: {wall:.1f} s wall (init included), peak memory {peak:.1f} GiB, "
             f"epoch checkpoint {size / 2**30:.2f} GiB saved in "
             f"{out['checkpoints'][-1]['seconds']:.1f} s [{card}]")
-        return counts
+        del out
+        return counts, run_cli_chain(root, data, root / "exp", cfg.n_layer, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1010,11 +1345,12 @@ def main(argv=None) -> int:
     with phase("kernels"):
         kernels = [check_k1(g, card), check_k1(g, card, int8=True),
                    check_k2(g, card, args.sessions), check_k3(g, card, args.sessions),
-                   *check_k6(g, card)]
+                   *check_k6(g, card), *check_k4_k5(g, card)]
     with phase("small slices"):
         check_small_slice(args.seed)
         check_small_slice(args.seed, int8=True)
         check_small_batched_slice(args.seed)
+        check_small_speech_slice(args.seed)
     with phase("small training slice"):
         check_small_training_slice(args.seed)
     with phase("full models"):
@@ -1047,9 +1383,41 @@ def main(argv=None) -> int:
         paths["batched_tick_int8"] = run_full_batched_slice(
             mimi, lm_int8, args.seed, args.sessions, ticks, card,
             "full int8 batched slice (--int8 --kv-int8)", {**none, "rvq_encode": 2 * ticks})
-    del mimi, lm_gen, lm_int8  # free the card for training
+    del mimi, lm_gen, lm_int8  # free the card for the speech LM
+    with phase("flagship"):
+        from rstnet_tpu_torch.models.lm import (
+            quantize_dep_for_serving,
+            quantize_for_serving as quantize_speech_lm,
+            quantize_head_for_serving,
+        )
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        flagship = build_flagship(args.seed)
+        L = flagship.config.n_layer
+    with phase("flagship bf16 frames"):
+        paths["speech_frame"] = run_speech_slice(
+            flagship, args.seed, n, card, "speech_frame (bf16)",
+            {**none, "gating_ffn": L * n, "depformer_step": 8 * n})
+    with phase("flagship head-int8 frames"):
+        quantize_head_for_serving(flagship)
+        paths["speech_frame_head_int8"] = run_speech_slice(
+            flagship, args.seed, n, card, "speech_frame_head_int8",
+            {**none, "gating_ffn": L * n, "depformer_step": 8 * n})
+    with phase("flagship mixed-int8 frames"):
+        quantize_dep_for_serving(flagship)
+        paths["speech_frame_mixed_int8"] = run_speech_slice(
+            flagship, args.seed, n, card, "speech_frame_mixed_int8 (int8 head and depformer)",
+            {**none, "gating_ffn": L * n, "depformer_step_int8": 8 * n})
+    with phase("flagship int8 frames"):
+        quantize_speech_lm(flagship)
+        paths["speech_frame_int8"] = run_speech_slice(
+            flagship, args.seed, n, card, "speech_frame_int8 (quantize_for_serving, int8 ring)",
+            {**none, "gating_ffn_int8": L * n, "depformer_step_int8": 8 * n}, kv_int8=True)
+    del flagship  # free the card for training
     with phase("full training slice"):
-        paths["train_step"] = run_full_training_slice(args.seed, TRAIN_STEPS, card)
+        paths["train_step"], paths["speech_cli"] = run_full_training_slice(
+            args.seed, TRAIN_STEPS, card)
     for k in kernels:
         k["launches_by_path"] = {p: counts[k["name"]] for p, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

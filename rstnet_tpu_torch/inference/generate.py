@@ -6,9 +6,14 @@ stream; user streams are written at delayed positions; each 80 ms frame runs
 one backbone step plus ``dep_q`` sequential depformer micro-steps, and a
 complete token frame is emitted once a slot's age exceeds ``max_delay``.
 
-At batch 1 the micro-steps go through :func:`depformer_step` (the CUDA kernel
-K1 on the card, its int8 variant over int8 depformer weights, its plain
-version on CPU tensors); batch > 1 runs the model's ``step_codecformer``.
+It drives any model with the step protocol: ``MoshiLMModel`` or
+``SpeechTextLM`` (whose backbone step runs its MLP through K4/K5). At batch 1
+the micro-steps go through :func:`depformer_step` (the CUDA kernel K1 on the
+card, its int8 variant over int8 depformer weights, its plain version on CPU
+tensors) when the depth transformer is inside K1's envelope; otherwise, and
+at batch > 1, they run the model's ``step_codecformer``. Unlike the JAX
+``LMGen``, which takes K1 only under ``RSTNET_PALLAS_DEP``, the port takes it
+wherever the shapes allow.
 K1's operands are taken from the weights at every frame, as JAX does, so an
 in-place change of the weights (padding, int8 quantization) reaches the
 kernel. ``step_scan`` (several frames per call) is not ported yet.
@@ -28,7 +33,7 @@ from rstnet_tpu_torch.ops.sampling import sample_token
 
 @dataclasses.dataclass(frozen=True)
 class LMGen:
-    model: torch.nn.Module  # MoshiLMModel
+    model: torch.nn.Module  # MoshiLMModel or SpeechTextLM
     delays: tuple[int, ...] = ()  # len 1+n_q; default all-zero
     use_sampling: bool = True
     temp: float = 0.8
@@ -39,6 +44,9 @@ class LMGen:
     audio_max_card: Optional[int] = None
     # the backbone ring K/V as int8 with per-step scales (serving option)
     kv_int8: bool = False
+    # one ring per layer instead of stacked [L, ...] buffers (the model's
+    # init_state; the same values either way)
+    kv_unstacked: bool = False
 
     def __post_init__(self):
         if not self.delays:
@@ -68,7 +76,8 @@ class LMGen:
             # per-slot frame count: bounds the slot's attention lookback
             # (min_pos) and drives its own delay warmup
             "age": torch.zeros((batch_size,), dtype=torch.long, device=device),
-            "lm": self.model.init_state(batch_size, dtype, device=device, kv_int8=self.kv_int8),
+            "lm": self.model.init_state(batch_size, dtype, device=device, kv_int8=self.kv_int8,
+                                        kv_unstacked=self.kv_unstacked),
         }
 
     def reset_slots(self, state: dict, slots) -> dict:

@@ -1,5 +1,5 @@
-"""Decoder-only LLM backbone, offline forward (counterpart of
-``rstnet_tpu/models/backbone.py``).
+"""Decoder-only LLM backbone, offline forward and streaming step (counterpart
+of ``rstnet_tpu/models/backbone.py``).
 
 MHA/GQA/MQA in one packed QKV layout, partial rotary with the Llama-3.1
 adjustment, per-layer sliding windows, attention and final logit softcaps,
@@ -17,8 +17,23 @@ restacks the JAX leaves. ``remat`` checkpoints every block
 block from its input, as ``jax.checkpoint`` does; what is saved differs, the
 values do not.
 
-Not ported yet: the streaming ``step`` and ring KV, MoE, LoRA and its
-dropout, int8 linears, sequence and pipeline parallelism.
+Streaming: ``init_state`` builds the ring KV (stacked ``[L, ...]`` or one ring
+per layer, float or int8 with per-step scales) and ``step`` runs a chunk
+through it, looping over the layers in both layouts and writing the rings in
+place. A residual that turns float32 after layer 0 (bf16 weights over a
+float32 ring) is carried as in the JAX per-layer loop. In ``step`` only, a
+LLaMAMLP inside the envelope of the fused gated-FFN kernels (no bias, N = B*T
+<= 64 rows, C and H multiples of 128, all three weights float or all three
+int8) goes through K4 (``ops/cuda_ffn.py::gating_ffn``) or K5
+(``gating_ffn_int8``): on every device, the kernel on the card and its plain
+version on the CPU. They keep the gate, value and hidden in float32 where the
+JAX ``_mlp`` rounds them to the activation dtype (see ``ops/cuda_ffn.py``).
+
+int8 serving (``quantize_backbone_int8``, in place): a linear's ``weight``
+becomes ``w_int8`` and ``scale``, the JAX dict's names; ``linear``
+dequantizes in x's dtype, as JAX does.
+
+Not ported yet: MoE, LoRA and its dropout, sequence and pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -32,18 +47,55 @@ from torch.utils.checkpoint import checkpoint
 
 from rstnet_tpu_torch.core import container, default_generator, new_param, normal, uniform
 from rstnet_tpu_torch.models.config import Config, rope_extra_config
+from rstnet_tpu_torch.modules.transformer import quantize_weight_int8
+from rstnet_tpu_torch.ops.attention import ring_kv_buffers, ring_kv_update
+from rstnet_tpu_torch.ops.cuda_ffn import FFN_MAX_ROWS, gating_ffn, gating_ffn_int8
 from rstnet_tpu_torch.ops.flash_attention import flash_attention, flash_qualifies
 from rstnet_tpu_torch.ops.rope import apply_rope_halved, build_rope_cache
 
 STACKED = ("blocks",)
+_FLOAT = (torch.float32, torch.bfloat16)
 
 
 def linear(p: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """``x W^T (+ b)`` with the weight taken in x's dtype."""
-    y = x @ p.weight.T.to(x.dtype)
+    """``x W^T (+ b)`` with the weight taken in x's dtype; an int8 linear
+    (``w_int8`` and a per-row ``scale``) dequantizes in x's dtype first."""
+    if "w_int8" in p._parameters:
+        y = x @ (p.w_int8 * p.scale.to(x.dtype)[:, None]).T
+    else:
+        y = x @ p.weight.T.to(x.dtype)
     if "bias" in p._parameters:
         y = y + p.bias.to(x.dtype)
     return y
+
+
+QUANTIZED_LINEARS = ("attn", "proj", "fc", "fc_1", "fc_2", "lm_head", "gate")
+
+
+@torch.no_grad()
+def quantize_linear_int8(p: nn.Module) -> nn.Module:
+    """Per-output-row symmetric int8 of a linear, in place: ``weight``
+    becomes ``w_int8`` and float32 ``scale`` (codes and scales equal to the
+    JAX function's); a bias stays as it is, and so does a linear that is
+    already int8."""
+    if "weight" in p._parameters:
+        q = quantize_weight_int8(p._parameters.pop("weight"))
+        p.w_int8, p.scale = q.w_int8, q.scale
+    return p
+
+
+@torch.no_grad()
+def quantize_backbone_int8(module: nn.Module) -> nn.Module:
+    """Quantize the backbone's big linears (attention, projections, MLP,
+    ``lm_head``) for serving, in place, by the JAX function's name walk;
+    norms, embeddings and biases keep their dtype."""
+    for name, child in module.named_children():
+        weight = child._parameters.get("weight")
+        if name in QUANTIZED_LINEARS and weight is not None and weight.dim() >= 2:
+            quantize_linear_int8(child)
+        else:
+            quantize_backbone_int8(child)
+    return module
 
 
 def _linear(out_dim, in_dim, use_bias, g, device, dtype) -> nn.Module:
@@ -154,10 +206,14 @@ class Backbone(nn.Module):
         k = torch.cat([apply_rope_halved(k[..., :n], cos, sin), k[..., n:]], -1)
         return q, k
 
-    def _attention(self, q, k, v, pos_q, pos_k, window: int, allow_flash: bool = False):
+    def _attention(self, q, k, v, pos_q, pos_k, window: int, allow_flash: bool = False,
+                   min_pos=None, kv_scales=(None, None)):
         """Windowed-causal attention with GQA, float32 softmax and optional
         logit softcap. Training forwards take K6 when the config enables it
-        and the shape qualifies."""
+        and the shape qualifies. ``min_pos`` ([B], optional) hides keys at
+        positions below ``min_pos[b]`` from row b; ``kv_scales`` are an int8
+        ring's per-step scales, folded into the float32 logits (K) and into
+        the weights in q's dtype (V), as in JAX."""
         cfg = self.cfg
         scale = 1.0 / math.sqrt(cfg.attention_scores_scalar or cfg.head_size)
         if allow_flash and cfg.sliding_window_size is None and flash_qualifies(
@@ -166,9 +222,12 @@ class Backbone(nn.Module):
             return flash_attention(q, k, v, cfg.context, scale)
         B, H, Tq, D = q.shape
         Hkv = k.shape[1]
+        k_scale, v_scale = kv_scales
         # GQA as a grouped contraction: the repeated K/V are never built
         qg = q.reshape(B, Hkv, H // Hkv, Tq, D)
         logits = torch.einsum("bhgtd,bhsd->bhgts", qg.float(), k.to(q.dtype).float()) * scale
+        if k_scale is not None:
+            logits = logits * k_scale.float()[:, :, None, None, :]
         if cfg.attention_logit_softcapping is not None:
             cap = cfg.attention_logit_softcapping
             logits = torch.tanh(logits / cap) * cap
@@ -178,13 +237,46 @@ class Backbone(nn.Module):
             mask = mask & (delta < cfg.context)
         if window > 0:
             mask = mask & (delta < window)
-        att = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1).to(v.dtype)
-        return torch.einsum("bhgts,bhsd->bhgtd", att, v).reshape(B, H, Tq, D)
+        if min_pos is not None:
+            mask = (mask[None] & (pos_k[None, None, :] >= min_pos[:, None, None]))[:, None, None]
+        av_dtype = q.dtype if v_scale is not None else v.dtype
+        att = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1).to(av_dtype)
+        if v_scale is not None:
+            att = att * v_scale.to(av_dtype)[:, :, None, None, :]
+        return torch.einsum("bhgts,bhsd->bhgtd", att, v.to(av_dtype)).reshape(B, H, Tq, D)
 
     # -- block ------------------------------------------------------------------
 
-    def _mlp(self, mlp: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    def _fused_mlp(self, mlp: nn.Module, x: torch.Tensor) -> torch.Tensor | None:
+        """The decode MLP through K4 (float weights) or K5 (int8 weights)
+        when it lies in their envelope, else None. The choice depends on the
+        config, shapes and dtypes only, never on the device."""
+        if self.cfg.mlp_class_name != "LLaMAMLP":
+            return None
+        B, T, C = x.shape
+        lins = (mlp.fc_1, mlp.fc_2, mlp.proj)
+        int8 = ["w_int8" in p._parameters for p in lins]
+        H = (lins[0].w_int8 if int8[0] else lins[0].weight).shape[0]
+        if (B * T > FFN_MAX_ROWS or C % 128 or H % 128 or x.dtype not in _FLOAT
+                or any("bias" in p._parameters for p in lins)):
+            return None
+        rows = x.reshape(B * T, C)
+        if all(int8):
+            out = gating_ffn_int8(rows, *(t for p in lins for t in (p.w_int8, p.scale)))
+        elif any(int8) or any(p.weight.dtype not in _FLOAT for p in lins):
+            return None
+        else:
+            out = gating_ffn(rows, *(p.weight for p in lins))
+        return out.reshape(B, T, C)
+
+    def _mlp(self, mlp: nn.Module, x: torch.Tensor, decode: bool = False) -> torch.Tensor:
+        """The block's MLP; ``decode`` (the streaming step) tries the fused
+        kernels first."""
         cfg = self.cfg
+        if decode:
+            out = self._fused_mlp(mlp, x)
+            if out is not None:
+                return out
         approx = "tanh" if cfg.gelu_approximate != "none" else "none"
         if cfg.mlp_class_name == "GptNeoxMLP":
             return linear(mlp.proj, F.gelu(linear(mlp.fc, x), approximate=approx))
@@ -194,22 +286,32 @@ class Backbone(nn.Module):
             h = F.gelu(linear(mlp.fc_1, x), approximate=approx) * linear(mlp.fc_2, x)
         return linear(mlp.proj, h)
 
-    def _block(self, block: Block, x, cos, sin, pos, window: int) -> torch.Tensor:
+    def _block(self, block: Block, x, cos, sin, pos, window: int, kv_cache: dict | None = None,
+               offset: int = 0, min_pos=None) -> torch.Tensor:
+        """One block; with ``kv_cache`` (the streaming step) the new keys and
+        values go into the layer's ring in place and attention reads it."""
         cfg = self.cfg
         B, T, _ = x.shape
         x_normed = norm_apply(cfg, block.norm_1, x)
         q, k, v = self._qkv(block, x_normed)
         q, k = self._rope_qk(q, k, cos, sin)
-        y = self._attention(q, k, v, pos, pos, window, allow_flash=True)
+        pos_k, kv_scales = pos, (None, None)
+        if kv_cache is not None:
+            kv_cache, pos_k, _ = ring_kv_update(kv_cache, offset, k, v)
+            k, v = kv_cache["k"], kv_cache["v"]
+            kv_scales = (kv_cache.get("k_scale"), kv_cache.get("v_scale"))
+        y = self._attention(q, k, v, pos, pos_k, window, allow_flash=kv_cache is None,
+                            min_pos=min_pos, kv_scales=kv_scales)
         y = y.transpose(1, 2).reshape(B, T, cfg.head_size * cfg.n_head)
         attn_out = linear(block.proj, y)
         if cfg.post_attention_norm:
             attn_out = norm_apply(cfg, block.post_attention_norm, attn_out)
+        decode = kv_cache is not None
         if cfg.parallel_residual:
             mlp_in = x_normed if cfg.shared_attention_norm else norm_apply(cfg, block.norm_2, x)
-            return self._mlp(block.mlp, mlp_in) + attn_out + x
+            return self._mlp(block.mlp, mlp_in, decode) + attn_out + x
         x = attn_out + x
-        h = self._mlp(block.mlp, norm_apply(cfg, block.norm_2, x))
+        h = self._mlp(block.mlp, norm_apply(cfg, block.norm_2, x), decode)
         if cfg.post_mlp_norm:
             h = norm_apply(cfg, block.post_mlp_norm, h)
         return h + x
@@ -246,3 +348,43 @@ class Backbone(nn.Module):
 
     def forward_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.logits(self(self.embed(tokens)))
+
+    # -- streaming ----------------------------------------------------------------
+
+    def init_state(self, batch_size: int, dtype=torch.bfloat16, chunk_size: int = 1,
+                   kv_int8: bool = False, kv_unstacked: bool = False, device=None) -> dict:
+        """Ring KV of ``context + chunk_size - 1`` slots: stacked ``[L, B, G,
+        cap, hs]`` buffers, or one ring per layer (``kv_unstacked``);
+        ``kv_int8`` stores K/V as int8 codes with per-step scales."""
+        cfg = self.cfg
+        if cfg.context is None:
+            raise ValueError("streaming needs config.context to bound the KV ring")
+        shape = (batch_size, cfg.n_query_groups, cfg.context + chunk_size - 1, cfg.head_size)
+        if kv_unstacked:
+            kv = [ring_kv_buffers(shape, dtype, device, kv_int8) for _ in range(cfg.n_layer)]
+        else:
+            kv = ring_kv_buffers((cfg.n_layer, *shape), dtype, device, kv_int8)
+        return {"kv": kv, "offset": 0}
+
+    def step(self, state: dict, x: torch.Tensor, min_pos: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, dict]:
+        """Streaming chunk over embeddings [B, T, D] -> ([B, T, D] post ln_f,
+        state), the rings written in place. ``min_pos`` ([B]): per-row floor
+        on the attended key positions (multi-session batched decode)."""
+        cfg = self.cfg
+        T = x.shape[1]
+        kv = state["kv"]
+        unstacked = isinstance(kv, list)
+        cap = (kv[0] if unstacked else kv)["k"].shape[-2]
+        if T > cap - cfg.context + 1:
+            raise ValueError(
+                f"chunk of {T} steps exceeds the ring's chunk_size ({cap - cfg.context + 1}): "
+                "older in-window keys would be evicted; init_state with a larger chunk_size")
+        offset = state["offset"]
+        positions = torch.arange(T, device=x.device) + offset
+        cos, sin = self.rope(positions)
+        cos, sin = cos.to(x.dtype), sin.to(x.dtype)
+        for i, (block, window) in enumerate(zip(self.blocks, self.layer_windows())):
+            layer_kv = kv[i] if unstacked else {name: buf[i] for name, buf in kv.items()}
+            x = self._block(block, x, cos, sin, positions, window, layer_kv, offset, min_pos)
+        return norm_apply(cfg, self.ln_f, x), {"kv": kv, "offset": offset + T}

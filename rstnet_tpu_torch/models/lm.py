@@ -4,9 +4,16 @@ flagship speech-text LM ``SpeechTextLM`` (counterpart of
 transformer and a codecformer (depth transformer with per-step weights) over
 the ``dep_q`` audio codebooks.
 
-Ported here: ``SpeechTextLM``'s init, ``fuse_embeddings``,
-``forward_global``, ``forward_local`` and the training forward; the
-streaming generation pieces wait for the backbone's ``step``.
+``SpeechTextLM`` has the training forward (``fuse_embeddings``,
+``forward_global``, ``forward_local``) and the streaming step protocol that
+``LMGen``, ``OfflineInference`` and ``quant_quality`` drive: ``init_state``,
+``step_global`` (the backbone's ring-KV ``step``, its LLaMAMLP through the
+fused kernels K4/K5), ``codecformer_inputs``, ``codecformer_step_embedding``,
+``init_codecformer_state`` and ``step_codecformer``. The serving
+quantizations (``quantize_for_serving``, ``quantize_dep_for_serving``,
+``quantize_head_for_serving``) work in place on the model and leave weights
+that are already int8 as they are, so they compose in any order; their
+``state_dict`` keys are the JAX trees' paths.
 """
 
 from __future__ import annotations
@@ -18,9 +25,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from rstnet_tpu_torch.core import container, default_generator, new_param, normal, uniform
-from rstnet_tpu_torch.models.backbone import Backbone
+from rstnet_tpu_torch.models.backbone import Backbone, quantize_backbone_int8, quantize_linear_int8
 from rstnet_tpu_torch.models.config import Config
-from rstnet_tpu_torch.modules.transformer import StreamingTransformer, resolve_weight
+from rstnet_tpu_torch.modules.transformer import (
+    StreamingTransformer,
+    quantize_param_int8,
+    quantize_transformer_int8,
+    resolve_weight,
+)
 
 ZERO_TOKEN_ID = -1
 UNGENERATED_TOKEN_ID = -2
@@ -99,9 +111,19 @@ class SpeechTextLM(nn.Module):
         return self.config.audio_card
 
     @property
+    def codec_card(self) -> int:
+        # the trainer's audio_card counts the empty (card - 2) and pad
+        # (card - 1) specials: the real codec codes are the first card - 2 ids
+        return self.config.audio_card - 2
+
+    @property
     def text_initial_token_id(self) -> int:
         # tokenizer-dependent reserved token (llama3: 128002, otherwise 3)
         return 128002 if self.config.padded_vocab_size > 128000 else 3
+
+    @property
+    def ungenerated_token_id(self) -> int:
+        return UNGENERATED_TOKEN_ID
 
     @property
     def num_codebooks(self) -> int:
@@ -196,3 +218,82 @@ class SpeechTextLM(nn.Module):
         else:
             audio_logits = self.forward_local(*args)
         return audio_logits, text_logits
+
+    # -- streaming inference pieces ------------------------------------------------
+
+    def init_state(self, batch_size: int, dtype=torch.bfloat16, kv_int8: bool = False,
+                   kv_unstacked: bool = False, device=None) -> dict:
+        return self.backbone.init_state(batch_size, dtype, kv_int8=kv_int8,
+                                        kv_unstacked=kv_unstacked, device=device)
+
+    def step_global(self, state: dict, frame: torch.Tensor, min_pos=None):
+        """One temporal step: frame [B, 1 + n_q, 1] -> (hidden [B, 1, D],
+        text_logits [B, 1, V], state). ``min_pos`` [B]: per-slot attention
+        lookback floor (multi-session batched decode)."""
+        hidden, state = self.backbone.step(state, self.fuse_embeddings(frame), min_pos=min_pos)
+        return hidden, self.backbone.logits(hidden), state
+
+    def codecformer_inputs(self, transformer_out: torch.Tensor) -> torch.Tensor:
+        """All dep_q per-codebook views of the backbone output in one matmul:
+        [B, T, D] -> [B, dep_q, T, C]."""
+        w_in = self._codecformer_in_weight(transformer_out.dtype)
+        return torch.einsum("btd,kcd->bktc", transformer_out, w_in)
+
+    def step_codecformer(self, cf_state: dict, cb_index: int, prev_token: torch.Tensor,
+                         transformer_out: torch.Tensor, dep_in: torch.Tensor | None = None):
+        """One depth step: prev_token [B, 1], transformer_out [B, 1, D] ->
+        (logits [B, 1, card], cf_state). ``dep_in``: this step's [B, 1, C]
+        view from ``codecformer_inputs``."""
+        if dep_in is None:
+            k = cb_index if self.config.codecformer_multi_linear else 0
+            dep_in = transformer_out @ resolve_weight(self.codecformer_in[k],
+                                                      transformer_out.dtype).T
+        x = dep_in + self.codecformer_step_embedding(cb_index, prev_token)
+        out, cf_state = self.codecformer.step(cf_state, x)
+        # the step's head only: the same values as resolving the whole stack
+        logits = out @ resolve_weight(self.audio_linears.weight[cb_index], out.dtype).T
+        if "bias" in self.audio_linears._parameters:
+            logits = logits + self.audio_linears.bias[cb_index].to(logits.dtype)
+        return logits, cf_state
+
+    def codecformer_step_embedding(self, cb_index: int, prev_token: torch.Tensor) -> torch.Tensor:
+        """Previous-token embedding for micro-step ``cb_index``: step 0 embeds
+        the text token, later steps the previous codebook's token."""
+        if cb_index == 0:
+            return scaled_embedding(self.codecformer_text_emb, prev_token,
+                                    norm=self._norm("codecformer_text_emb_norm"))
+        return scaled_embedding(self.codecformer_emb[cb_index - 1], prev_token,
+                                norm=self._norm("codecformer_emb_norm", cb_index - 1))
+
+    def init_codecformer_state(self, batch_size: int, dtype=torch.bfloat16, device=None) -> dict:
+        return self.codecformer.init_state(batch_size, dtype, device=device)
+
+
+@torch.no_grad()
+def quantize_for_serving(model: SpeechTextLM) -> SpeechTextLM:
+    """Weight-only int8 of the decode path, in place: the backbone's linears
+    (``quantize_backbone_int8``) and the depformer slice
+    (``quantize_dep_for_serving``). Embeddings, norms and biases keep their
+    dtype."""
+    quantize_dep_for_serving(model)
+    quantize_backbone_int8(model.backbone)
+    return model
+
+
+@torch.no_grad()
+def quantize_dep_for_serving(model: SpeechTextLM) -> SpeechTextLM:
+    """int8 the depformer slice only, in place: the codecformer's projections
+    and gating, the per-codebook input views and the audio heads; the
+    backbone keeps its dtype."""
+    quantize_transformer_int8(model.codecformer)
+    quantize_param_int8(model, "codecformer_in")
+    quantize_param_int8(model.audio_linears, "weight")
+    return model
+
+
+@torch.no_grad()
+def quantize_head_for_serving(model: SpeechTextLM) -> SpeechTextLM:
+    """int8 the text head (``backbone.lm_head``, padded vocab x n_embd, the
+    largest single weight of a B=1 frame) only, in place."""
+    quantize_linear_int8(model.backbone.lm_head)
+    return model

@@ -101,6 +101,11 @@ class MoshiLMModel(nn.Module):
         return self.card
 
     @property
+    def codec_card(self) -> int:
+        # the audio logits span exactly ``card`` real codec codes
+        return self.card
+
+    @property
     def text_initial_token_id(self) -> int:
         return self.text_card
 
@@ -140,11 +145,13 @@ class MoshiLMModel(nn.Module):
     # -- streaming protocol -----------------------------------------------------
 
     def init_state(self, batch_size: int, dtype=torch.bfloat16, device=None,
-                   kv_int8: bool = False) -> dict:
-        """Backbone state with one ring buffer per layer: as in the JAX
-        server (``kv_unstacked=True``), since a float32 state over bf16
-        weights makes the residual float32 after the first layer.
-        ``kv_int8``: int8 ring K/V with per-step scales."""
+                   kv_int8: bool = False, kv_unstacked: bool = True) -> dict:
+        """Backbone state with one ring buffer per layer, whatever
+        ``kv_unstacked`` asks: the JAX server always asks for it (a float32
+        state over bf16 weights makes the residual float32 after the first
+        layer, which the JAX stacked scan cannot carry), and the port's layer
+        loop gives the same values in both layouts. ``kv_int8``: int8 ring
+        K/V with per-step scales."""
         return self.transformer.init_state(batch_size, dtype, kv_unstacked=True, device=device,
                                            kv_int8=kv_int8)
 

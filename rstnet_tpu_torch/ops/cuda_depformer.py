@@ -186,22 +186,27 @@ depformer_step.launches_int8 = 0
 
 
 def depformer_kernel_operands(model) -> dict | None:
-    """The kernel's operands from a ``MoshiLMModel``'s depformer and heads,
-    or None when the configuration is outside the kernel's envelope (no
+    """The kernel's operands from a model's depth transformer and heads: a
+    ``SpeechTextLM``'s ``codecformer`` and ``audio_linears`` or a
+    ``MoshiLMModel``'s ``depformer`` and ``linears``; or None when the
+    configuration is outside the kernel's envelope (no
     per-step weights, a positional embedding, non-RMS norm, non-SiLU gating,
     misaligned dims, some but not all five weight stacks int8); callers then
     keep the ``step_codecformer`` path. When all five are int8 the operands
     are their codes and ``scales`` their float32 row scales ``[..., rows,
     1]``; otherwise ``scales`` is None. Cheap (views of the weights), so
     callers take it afresh at every frame and follow in-place changes."""
-    tf = model.depformer
+    if hasattr(model, "codecformer"):
+        tf, head = model.codecformer, model.audio_linears
+    else:
+        tf, head = model.depformer, model.linears
     if not tf.weights_per_step or tf.positional_embedding != "none":
         return None
     if not tf.norm.startswith("rms_norm") or tf.gating != "silu":
         return None
     layers = tf.layers
     weights = dict(zip(WEIGHTS, (layers.in_proj, layers.out_proj, layers.gating.linear_in,
-                                 layers.gating.linear_out, model.linears.weight)))
+                                 layers.gating.linear_out, head.weight)))
     n_int8 = sum(is_int8(w) for w in weights.values())
     scales = None
     if n_int8 == len(weights):
@@ -214,7 +219,7 @@ def depformer_kernel_operands(model) -> dict | None:
     card = weights["head_w"].shape[-2]
     if C % 128 or H % 128 or card % 128 or (C // tf.num_heads) % 8:
         return None
-    head_b = model.linears._parameters.get("bias")
+    head_b = head._parameters.get("bias")
     head_b = (torch.zeros((S, card), device=weights["head_w"].device) if head_b is None
               else head_b.float())
     return {

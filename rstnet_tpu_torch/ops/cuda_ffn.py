@@ -1,23 +1,40 @@
-"""The per-step gated FFN of a depformer micro-step at batch B: the CUDA
-kernel ``csrc/gating_ffn_step.cu`` (K2) and its plain PyTorch version
-(counterpart of ``rstnet_tpu/ops/pallas_ffn.py::gating_ffn_pallas_step``).
+"""The fused gated FFNs: the CUDA kernels and their plain PyTorch versions.
 
-``out = (silu(x Wg[s]^T) * (x Wv[s]^T)) Wo[s]^T`` with ``lin_in [S, 2H, C]``
-(gate rows, then value rows) and ``lin_out [S, C, H]``, as the JAX call site
-in ``StreamingTransformer._ffn`` feeds the Pallas kernel: the step index is
+K2, ``csrc/gating_ffn_step.cu`` (counterpart of
+``rstnet_tpu/ops/pallas_ffn.py::gating_ffn_pallas_step``): the per-step
+gated FFN of a depformer micro-step at batch B. ``out = (silu(x Wg[s]^T) *
+(x Wv[s]^T)) Wo[s]^T`` with ``lin_in [S, 2H, C]`` (gate rows, then value
+rows) and ``lin_out [S, C, H]``, as the JAX call site in
+``StreamingTransformer._ffn`` feeds the Pallas kernel: the step index is
 clamped to ``[0, S-1]``; the weights are taken in x's dtype (an exact
 widening for bf16 weights and f32 x, a rounding to bf16 for f32 weights and
 bf16 x), then x and the weights are widened to float32, the sums and the
 hidden ``silu(gate) * val`` stay float32, and the output is cast to x's
 dtype.
 
-:func:`gating_ffn_step` launches the kernel on a CUDA tensor and runs
-:func:`gating_ffn_step_reference` on a CPU tensor.
+K4 and K5, ``csrc/gating_ffn.cu`` (counterparts of ``gating_ffn_pallas`` and
+``gating_ffn_pallas_int8``): the same function over separate ``w_gate``,
+``w_val [H, C]`` and ``w_out [C, H]``, the backbone LLaMAMLP's ``fc_1``,
+``fc_2`` and ``proj`` read in place, for N <= 64 decode rows. K4 takes the
+weights in x's dtype first, as ``models/backbone.py::linear`` does; K5 takes
+int8 weights with float32 row scales and dequantizes each element as
+``float(q) * scale[row]`` in float32, as the Pallas body does. Both keep the
+sums and the hidden in float32 and cast the output once to x's dtype.
+``Backbone.step`` routes its MLP through them. The JAX ``_mlp`` instead
+rounds ``fc_1``'s and ``fc_2``'s outputs and the hidden to x's dtype (and its
+int8 ``linear`` dequantizes in x's dtype): with float32 activations the two
+agree up to summation order, with bf16 activations they differ by those
+bf16 roundings. That difference is deliberate: the kernels keep the Pallas
+kernels' precision.
+
+Each wrapper launches its kernel on a CUDA tensor (or raises) and runs its
+plain version on a CPU tensor; it counts launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from rstnet_tpu_torch.ops import cuda_lib
 from rstnet_tpu_torch.ops.gating import get_activation
@@ -94,3 +111,124 @@ def gating_ffn_step(x: torch.Tensor, lin_in: torch.Tensor, lin_out: torch.Tensor
 
 
 gating_ffn_step.launches = 0  # kernel launches; reset freely by callers
+
+
+FFN_MAX_ROWS = 64  # K4/K5's decode envelope: the Pallas docstring's batch-1..64
+
+
+def gating_ffn_reference(x: torch.Tensor, w_gate: torch.Tensor, w_val: torch.Tensor,
+                         w_out: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4: x [N, C]; w_gate, w_val [H, C]; w_out [C, H]
+    -> [N, C] in x's dtype. The weights are taken in x's dtype, then widened
+    to float32 with x; sums and hidden in float32."""
+    xf = x.float()
+    wg, wv, wo = (w.to(x.dtype).float() for w in (w_gate, w_val, w_out))
+    return ((F.silu(xf @ wg.T) * (xf @ wv.T)) @ wo.T).to(x.dtype)
+
+
+def dequantize_rows(w_int8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``float(q) * scale[row]`` in float32, as K5 (and its Pallas body)
+    dequantizes each element."""
+    return w_int8.float() * scale.float().reshape(-1, 1)
+
+
+def gating_ffn_int8_reference(x: torch.Tensor, w_gate: torch.Tensor, gate_scale: torch.Tensor,
+                              w_val: torch.Tensor, val_scale: torch.Tensor, w_out: torch.Tensor,
+                              out_scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5: int8 w_gate, w_val [H, C] with float32 scales
+    [H], int8 w_out [C, H] with float32 scale [C] -> [N, C] in x's dtype."""
+    xf = x.float()
+    wg, wv = dequantize_rows(w_gate, gate_scale), dequantize_rows(w_val, val_scale)
+    wo = dequantize_rows(w_out, out_scale)
+    return ((F.silu(xf @ wg.T) * (xf @ wv.T)) @ wo.T).to(x.dtype)
+
+
+def _check_ffn_operands(name, x, weights, wtypes, scales=()):
+    """The K4/K5 envelope: x [N, C] float32 or bf16; w_gate, w_val [H, C] and
+    w_out [C, H] of one dtype in ``wtypes``; scales [H], [H], [C] float32;
+    all contiguous, 16-byte aligned on x's device; C and H multiples of 8."""
+    w_gate, w_val, w_out = weights
+    if x.dim() != 2 or w_gate.dim() != 2:
+        raise ValueError(f"{name}: x {tuple(x.shape)}, w_gate {tuple(w_gate.shape)}")
+    N, C = x.shape
+    H = w_gate.shape[0]
+    if (tuple(w_gate.shape) != (H, C) or tuple(w_val.shape) != (H, C)
+            or tuple(w_out.shape) != (C, H)):
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, w_gate {tuple(w_gate.shape)}, "
+                         f"w_val {tuple(w_val.shape)}, w_out {tuple(w_out.shape)}")
+    if x.dtype not in _DTYPES or w_gate.dtype not in wtypes or {
+            w_val.dtype, w_out.dtype} != {w_gate.dtype}:
+        raise TypeError(f"{name}: x {x.dtype}, weights {w_gate.dtype}, {w_val.dtype}, "
+                        f"{w_out.dtype}")
+    for s, rows in zip(scales, (H, H, C)):
+        if tuple(s.shape) != (rows,) or s.dtype != torch.float32:
+            raise ValueError(f"{name}: scales must be float32 [{H}], [{H}], [{C}], got "
+                             f"{[(str(t.dtype), tuple(t.shape)) for t in scales]}")
+    if N < 1 or C % 8 or H % 8:
+        raise ValueError(f"{name}: outside the kernel envelope: N={N}, C={C}, H={H} (C and H "
+                         "multiples of 8)")
+    for t in (x, *weights, *scales):
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be contiguous, 16-byte aligned tensors on "
+                             f"{x.device}")
+
+
+def gating_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_val: torch.Tensor,
+               w_out: torch.Tensor) -> torch.Tensor:
+    """K4: fused ``(silu(x Wg^T) * (x Wv^T)) Wo^T`` for x [N, C] (float32 or
+    bf16) and float32 or bf16 weights -> [N, C] in x's dtype. Launches the
+    kernel on a CUDA tensor (or raises), runs the plain version on a CPU
+    tensor."""
+    if x.device.type == "cpu":
+        return gating_ffn_reference(x, w_gate, w_val, w_out)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"gating_ffn has no kernel for {x.device}")
+    weights = (w_gate, w_val, w_out)
+    _check_ffn_operands("gating_ffn", x, weights, _DTYPES)
+    if x.dtype == torch.bfloat16 and w_gate.dtype == torch.float32:
+        weights = tuple(w.to(torch.bfloat16) for w in weights)  # the weights in x's dtype
+    N, C = x.shape
+    H = w_gate.shape[0]
+    hid = torch.empty((N, H), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        status = cuda_lib.kernel_library().gating_ffn(
+            x.data_ptr(), *(w.data_ptr() for w in weights), hid.data_ptr(), out.data_ptr(),
+            N, C, H, int(x.dtype == torch.bfloat16), int(weights[0].dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(status, "gating_ffn")
+    gating_ffn.launches += 1
+    return out
+
+
+gating_ffn.launches = 0  # kernel launches; reset freely by callers
+
+
+def gating_ffn_int8(x: torch.Tensor, w_gate: torch.Tensor, gate_scale: torch.Tensor,
+                    w_val: torch.Tensor, val_scale: torch.Tensor, w_out: torch.Tensor,
+                    out_scale: torch.Tensor) -> torch.Tensor:
+    """K5: K4 over int8 weights with float32 row scales (``gate_scale``,
+    ``val_scale`` [H], ``out_scale`` [C], the ``scale`` that
+    ``quantize_linear_int8`` writes). Launches the kernel on a CUDA tensor
+    (or raises), runs the plain version on a CPU tensor."""
+    args = (x, w_gate, gate_scale, w_val, val_scale, w_out, out_scale)
+    if x.device.type == "cpu":
+        return gating_ffn_int8_reference(*args)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"gating_ffn_int8 has no kernel for {x.device}")
+    _check_ffn_operands("gating_ffn_int8", x, (w_gate, w_val, w_out), (torch.int8,),
+                        (gate_scale, val_scale, out_scale))
+    N, C = x.shape
+    H = w_gate.shape[0]
+    hid = torch.empty((N, H), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        status = cuda_lib.kernel_library().gating_ffn_int8(
+            *(t.data_ptr() for t in args), hid.data_ptr(), out.data_ptr(), N, C, H,
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(status, "gating_ffn_int8")
+    gating_ffn_int8.launches += 1
+    return out
+
+
+gating_ffn_int8.launches = 0  # kernel launches; reset freely by callers

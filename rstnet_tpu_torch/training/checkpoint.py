@@ -4,7 +4,10 @@
 A checkpoint is a directory ``<exp_dir>/ep{E}[-iter{I}].checkpoint`` holding
 ``state.pt`` (the model's ``state_dict``, the optimizer state and the step)
 and ``extras.json`` (the reporter). Resume finds the newest one, and old ones
-are rotated away, as in JAX.
+are rotated away, as in JAX. ``restore_checkpoint(..., partial=True)`` is
+the inference CLIs' params-only load: it maps the file (``mmap``) and reads
+only the params, so the optimizer moments of a large checkpoint are never
+read.
 """
 
 from __future__ import annotations
@@ -60,14 +63,24 @@ def _copy_into(target, saved, where: str):
     return saved
 
 
-def restore_checkpoint(path: str | Path, target_state: dict) -> tuple[dict, dict]:
+def restore_checkpoint(path: str | Path, target_state: dict, partial: bool = False
+                       ) -> tuple[dict, dict]:
     """Load a checkpoint into ``target_state`` in place (same structure,
-    shapes and dtypes); returns (state, extras)."""
+    shapes and dtypes); returns (state, extras). ``partial=True`` is the
+    params-only load (``target_state`` is ``{"model": m}``): the file is
+    mapped, only the params are read, and they keep their saved dtype, as
+    the JAX restore returns the stored arrays."""
     path = _ckpt_dir(path)
-    saved = torch.load(path / "state.pt", map_location="cpu", weights_only=True)
-    _copy_into(target_state["model"].state_dict(keep_vars=True), saved["params"], "params")
-    _copy_into(target_state["opt_state"], saved["opt_state"], "opt_state")
-    target_state["step"] = saved["step"]
+    saved = torch.load(path / "state.pt", map_location="cpu", weights_only=True, mmap=partial)
+    if partial:
+        model = target_state["model"]
+        own = model.state_dict(keep_vars=True)
+        model.load_state_dict({k: v.to(own[k].device) for k, v in saved["params"].items()},
+                              assign=True)
+    else:
+        _copy_into(target_state["model"].state_dict(keep_vars=True), saved["params"], "params")
+        _copy_into(target_state["opt_state"], saved["opt_state"], "opt_state")
+        target_state["step"] = saved["step"]
     extras = {}
     if (path / "extras.json").is_file():
         extras = json.loads((path / "extras.json").read_text())

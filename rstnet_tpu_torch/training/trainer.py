@@ -41,6 +41,7 @@ import torch
 from rstnet_tpu_torch.data.collate import SpecialTokens
 from rstnet_tpu_torch.data.dataloader import build_data_iterator, find_data_jsons
 from rstnet_tpu_torch.data.task_definition import load_data_for_all_tasks
+from rstnet_tpu_torch.data.tokenizers.abs_tokenizer import AbsTokenizer
 from rstnet_tpu_torch.models.config import Config, write_flat_yaml
 from rstnet_tpu_torch.models.lm import SpeechTextLM
 from rstnet_tpu_torch.training.checkpoint import maybe_resume, save_checkpoint
@@ -116,14 +117,11 @@ def build_model(args, device: torch.device, dtype: torch.dtype) -> SpeechTextLM:
     return SpeechTextLM(cfg, dtype=dtype, generator=g).to(device)
 
 
-class StoredTokens:
+class StoredTokens(AbsTokenizer):
     """Offline-tokenized data: tokens as stored, length = the last axis."""
 
     def find_length(self, x) -> int:
         return int(np.shape(x)[-1])
-
-    def tokenize2(self, x):
-        return np.asarray(x).astype("int64")
 
 
 def build_tokenizers(args) -> dict:

@@ -6,10 +6,11 @@ none; there, skip the repository's conftest (which sets JAX up):
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
 Tolerances as in ``chip_smoke.py``: K1 and K1-int8 2e-2 (bf16 rounding of
-GEMV inputs under two summation orders); K2 1e-4 relative and 1e-5 absolute for float32
-outputs (float32 sums in two orders), plus one bf16 step (2**-7 relative) for
-bf16 outputs; K3 codes equal unless the reference's two candidates are a
-near-tie, quantized sums to float32 rounding."""
+GEMV inputs under two summation orders); K2, K4 and K5 1e-4 relative and
+1e-5 absolute for float32 outputs (float32 sums in two orders), plus one bf16
+step (2**-7 relative) for bf16 outputs; K3 codes equal unless the
+reference's two candidates are a near-tie, quantized sums to float32
+rounding."""
 
 import pytest
 import torch
@@ -150,6 +151,46 @@ def test_gating_ffn_step_kernel_matches_plain(cuda, B, x_dtype, w_dtype):
     with pytest.raises(ValueError):
         gating_ffn_step(x[:, :100].contiguous(), lin_in[..., :100].contiguous(),
                         lin_out[:, :100].contiguous(), 0)  # C % 8 != 0
+
+
+@pytest.mark.parametrize("N", [1, 16, 64])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C,H", [(2048, 8192), (128, 384)], ids=["llama-1b", "small"])
+def test_gating_ffn_kernels_match_plain(cuda, N, x_dtype, C, H):
+    """K4 (bf16 weights) and K5 (int8 weights from the port's quantizer) at
+    Llama-3.2-1B's MLP and at a small width off the 256-column chunk, N in
+    {1, 16, 64}, x in bf16 and float32, each against its plain version."""
+    from rstnet_tpu_torch.modules.transformer import quantize_weight_int8
+    from rstnet_tpu_torch.ops.cuda_ffn import (
+        gating_ffn,
+        gating_ffn_int8,
+        gating_ffn_int8_reference,
+        gating_ffn_reference,
+    )
+
+    def uniform(rows, cols):
+        return (torch.rand((rows, cols), device="cuda", generator=cuda) * 2 - 1) * cols**-0.5
+
+    w = [uniform(H, C).bfloat16(), uniform(H, C).bfloat16(), uniform(C, H).bfloat16()]
+    q = [quantize_weight_int8(t) for t in w]
+    q_args = [t for wq in q for t in (wq.w_int8.data, wq.scale.data)]
+    x = torch.randn((N, C), device="cuda", generator=cuda).to(x_dtype)
+    rtol = 1e-4 if x_dtype == torch.float32 else 2.0**-7
+    for kernel, plain, args in ((gating_ffn, gating_ffn_reference, w),
+                                (gating_ffn_int8, gating_ffn_int8_reference, q_args)):
+        before = kernel.launches
+        got = kernel(x, *args)
+        assert kernel.launches == before + 1
+        want = plain(x, *args)
+        assert got.dtype == x_dtype and got.shape == (N, C)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-5)
+    # float32 weights under bf16 x: the wrapper takes them in x's dtype first
+    w32 = [t.float() for t in w]
+    torch.testing.assert_close(gating_ffn(x, *w32).float(),
+                               gating_ffn_reference(x, *w32).float(), rtol=rtol, atol=1e-5)
+    with pytest.raises(ValueError):
+        gating_ffn(x[:, :100].contiguous(), *(t[:, :100].contiguous() for t in w[:2]),
+                   w[2][:100].contiguous())  # C % 8 != 0
 
 
 def _card_batcher(seed=0, **kwargs):

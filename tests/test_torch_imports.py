@@ -43,3 +43,14 @@ def test_scan_covers_the_training_slice():
                    "training/trainer.py", "utils/reporter.py", "utils/arguments.py",
                    "data/task_definition.py", "data/collate.py", "data/dataloader.py"):
         assert f"rstnet_tpu_torch/{module}" in scanned, module
+
+
+def test_scan_covers_the_speech_inference_slice():
+    """The scan reaches every module of the SpeechTextLM streaming-inference
+    slice."""
+    scanned = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("ops/cuda_ffn.py", "models/backbone.py", "models/lm.py",
+                   "ops/cuda_depformer.py", "inference/generate.py", "inference/offline.py",
+                   "inference/infer_cli.py", "evalsuite/lm_eval.py", "evalsuite/quant_quality.py",
+                   "training/checkpoint.py", "data/tokenizers/abs_tokenizer.py"):
+        assert f"rstnet_tpu_torch/{module}" in scanned, module

@@ -1,10 +1,13 @@
 """The port's ``SpeechTextLM`` and its loss against the JAX package on the
-CPU (mirrors of ``tests/test_speech_lm.py``; its streaming-step test waits
-for the port's ``Backbone.step``).
+CPU (mirrors of ``tests/test_speech_lm.py``), its streaming pieces
+(``step_global``, ``codecformer_inputs``, ``step_codecformer``) and the
+three serving quantizations.
 
 The same params (JAX init, carried by the bridge), the same seeded token
 grids. float32 logits are held to 2e-5 (the same math in another summation
-order; observed ~6e-7); the loss and its metrics to 1e-6 relative."""
+order; observed ~6e-7); streamed logits against the training forward to
+3e-5, as the JAX test holds them; the loss and its metrics to 1e-6
+relative; int8 trees bit for bit."""
 
 import dataclasses
 
@@ -21,7 +24,12 @@ from rstnet_tpu.models.lm import SpeechTextLM as JaxLM
 from rstnet_tpu_torch.core import from_jax_params, to_numpy
 from rstnet_tpu_torch.losses.ce import cross_entropy_and_accuracy
 from rstnet_tpu_torch.models.config import Config
-from rstnet_tpu_torch.models.lm import SpeechTextLM
+from rstnet_tpu_torch.models.lm import (
+    SpeechTextLM,
+    quantize_dep_for_serving,
+    quantize_for_serving,
+    quantize_head_for_serving,
+)
 
 CFG = dict(
     name="test-tiny", block_size=128, vocab_size=160, padded_vocab_size=160,
@@ -182,3 +190,96 @@ def test_bridge_carries_the_whole_tree_bit_for_bit():
         assert got[k].dtype == w.dtype and got[k].shape == w.shape, k
         assert got[k].tobytes() == w.tobytes(), k
     assert {str(a.dtype) for a in want.values()} == {"bfloat16", "float32"}
+
+
+# n_embd 128 and an MLP of 256: the backbone step's MLP takes K4 (its plain
+# version on the CPU)
+STREAM = dict(n_embd=128, intermediate_size=256)
+
+
+@pytest.mark.parametrize("over", [{}, STREAM], ids=["tiny", "fused-mlp"])
+def test_streaming_step_matches_training_forward(over):
+    """Mirror of ``tests/test_speech_lm.py::test_streaming_step_matches_training_forward``:
+    stepping frame by frame, teacher-forced, reproduces the training
+    forward's logits."""
+    _, _, tm = lm_pair(**over)
+    S = 5
+    seq = torch.from_numpy(rand_sequence(1, 1, S, CFG, zero_frac=0.0))
+    with torch.no_grad():
+        audio_ref, text_ref = tm(seq)
+        state = tm.init_state(1, dtype=torch.float32)
+        frames = torch.cat([tm.initial_frame(1), seq[:, :, :-1]], dim=2)
+        audio, text = [], []
+        for t in range(S):
+            hidden, text_logits, state = tm.step_global(state, frames[:, :, t:t + 1])
+            text.append(text_logits)
+            cf_state = tm.init_codecformer_state(1, dtype=torch.float32)
+            prev, step_logits = seq[:, 0, t:t + 1], []
+            for cb in range(tm.config.dep_q):
+                logits, cf_state = tm.step_codecformer(cf_state, cb, prev, hidden)
+                step_logits.append(logits)
+                prev = seq[:, 1 + cb, t:t + 1]
+            audio.append(torch.stack(step_logits, dim=2))
+    torch.testing.assert_close(torch.cat(text, dim=1), text_ref, rtol=0, atol=3e-5)
+    torch.testing.assert_close(torch.cat(audio, dim=1), audio_ref, rtol=0, atol=3e-5)
+
+
+@pytest.mark.parametrize("over", [STREAM, dict(STREAM, codecformer_multi_linear=False,
+                                               codecformer_norm_emb=True,
+                                               codecformer_bias_proj=True)])
+def test_streaming_pieces_match_jax(over):
+    """``step_global`` (per-layer rings), ``codecformer_inputs``,
+    ``codecformer_step_embedding`` and ``step_codecformer`` (with and without
+    the precomputed view) against JAX over 3 frames at B=2."""
+    jm, params, tm = lm_pair(**over)
+    seq = rand_sequence(4, 2, 3, CFG)
+    jst = jm.init_state(2, jnp.float32, kv_unstacked=True)
+    tst = tm.init_state(2, torch.float32, kv_unstacked=True)
+    for t in range(3):
+        frame = seq[:, :, t:t + 1]
+        jh, jl, jst = jm.step_global(params, jst, jnp.asarray(frame))
+        with torch.no_grad():
+            th, tl, tst = tm.step_global(tst, torch.from_numpy(frame))
+        np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=LOGIT_TOL)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_TOL)
+        jd = jm.codecformer_inputs(params, jh)
+        with torch.no_grad():
+            td = tm.codecformer_inputs(th)
+        np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=LOGIT_TOL)
+        jcf = jm.init_codecformer_state(2, dtype=jnp.float32)
+        tcf = tm.init_codecformer_state(2, dtype=torch.float32)
+        for cb in range(tm.config.dep_q):
+            prev = seq[:, cb, t:t + 1]
+            dep_in = None if cb % 2 else jd[:, cb]
+            jlog, jcf = jm.step_codecformer(params, jcf, cb, jnp.asarray(prev), jh, dep_in=dep_in)
+            with torch.no_grad():
+                tlog, tcf = tm.step_codecformer(tcf, cb, torch.from_numpy(prev), th,
+                                                dep_in=None if cb % 2 else td[:, cb])
+            np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("which", ["full", "dep", "head", "head+dep"])
+def test_serving_quantizations_bit_equal_to_jax(which):
+    """``quantize_for_serving``, ``quantize_dep_for_serving`` and
+    ``quantize_head_for_serving`` (and the mixed head + dep mode) on a bf16
+    model: the port's tree through the bridge equals the JAX tree bit for
+    bit, and the JAX-quantized tree loads into the port's quantized model."""
+    from rstnet_tpu.models import lm as jlm
+
+    jm, params, tm = lm_pair(jnp.bfloat16, **STREAM)
+    steps = {"full": [lambda p: jlm.quantize_for_serving(jm, p)],
+             "dep": [jlm.quantize_dep_for_serving], "head": [jlm.quantize_head_for_serving],
+             "head+dep": [jlm.quantize_head_for_serving, jlm.quantize_dep_for_serving]}[which]
+    ports = {"full": [quantize_for_serving], "dep": [quantize_dep_for_serving],
+             "head": [quantize_head_for_serving],
+             "head+dep": [quantize_head_for_serving, quantize_dep_for_serving]}[which]
+    for fj, ft in zip(steps, ports):
+        params = fj(params)
+        assert ft(tm) is tm
+    want = {k: np.asarray(v) for k, v in flatten_dict(params)}
+    got = to_numpy(tm, stacked=tm.STACKED)
+    assert set(got) == set(want)
+    assert any(k.endswith("w_int8") for k in got)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and got[k].tobytes() == w.tobytes(), k
+    from_jax_params(want, tm, stacked=tm.STACKED)

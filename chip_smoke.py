@@ -23,10 +23,11 @@ Phases (each prints its findings; any failure exits non-zero):
    the server's ``--int8`` does, with an int8 ring (``--kv-int8``), through
    both again. Each path's kernel launches are counted from zero just
    before it runs and read just after;
-6. training: K6 (flash attention forward, dQ and dK/dV) against its plain
-   versions at the training shapes (H=32 over 8 KV heads, T=1024, D=64;
-   causal and a 256 window; bf16 at B=2 and at the main path's B=4, float32
-   at B=2), with device, plain, bound and SDPA times; a small
+6. training: K6 (flash attention: the forward and the one-launch backward,
+   GQA inside the kernels) against its plain versions at the training shapes
+   (H=32 over 8 KV heads, T=1024, D=64; causal and a 256 window; bf16 at B=2
+   and at the main path's B=4, float32 at B=2), two backward calls compared
+   bit for bit, with device, plain, bound and SDPA times; a small
    ``SpeechTextLM`` trained through
    ``rstnet_tpu_torch.training.trainer.main`` (float32, bucket 512) on the
    card and on the CPU from the same weights and data, one epoch and then a
@@ -703,8 +704,9 @@ def _counters() -> dict:
             "gating_ffn_step": (gating_ffn_step, "launches"),
             "rvq_encode": (rvq_encode, "launches"),
             "flash_attention_fwd": (cuda_flash.flash_attention_fwd, "launches"),
-            "flash_attention_bwd_dq": (cuda_flash.flash_attention_bwd_dq, "launches"),
-            "flash_attention_bwd_dkv": (cuda_flash.flash_attention_bwd_dkv, "launches"),
+            "flash_attention_bwd": (cuda_flash.flash_attention_bwd, "launches"),
+            "flash_attention_fwd_f32": (cuda_flash.flash_attention_fwd, "launches_f32"),
+            "flash_attention_bwd_f32": (cuda_flash.flash_attention_bwd, "launches_f32"),
             "gating_ffn": (gating_ffn, "launches"),
             "gating_ffn_int8": (gating_ffn_int8, "launches")}
 
@@ -1011,11 +1013,18 @@ def _visible_pairs(T: int, window: int) -> int:
     return sum(min(i + 1, window) for i in range(T))
 
 
+def _k6_names(dtype) -> tuple[str, str]:
+    """The kernels line's names of K6's forward and backward for a dtype."""
+    tag = "_f32" if dtype == torch.float32 else ""
+    return f"flash_attention_fwd{tag}", f"flash_attention_bwd{tag}"
+
+
 def _check_k6_route(q, k, v, do, context: int, scale: float, err: dict) -> None:
-    """The differentiable route (GQA repeat, pre-scale, the three kernels)
-    against autograd of the plain reference, O and dQ/dK/dV, and the forward
-    kernel's log-sum-exp against its plain version; each within the limits
-    of q's dtype. Adds each kernel's max |kernel - plain| to ``err``."""
+    """The differentiable route (pre-scale, the two kernels, K/V at their
+    own head count) against autograd of the plain reference, O and
+    dQ/dK/dV, the forward kernel's log-sum-exp against its plain version,
+    each within the limits of q's dtype; and two backward calls bit for bit.
+    Adds each kernel's max |kernel - plain| to ``err``."""
     from rstnet_tpu_torch.ops import cuda_flash as cf
     from rstnet_tpu_torch.ops.flash_attention import (
         attention_window,
@@ -1026,6 +1035,7 @@ def _check_k6_route(q, k, v, do, context: int, scale: float, err: dict) -> None:
     (B, H, T, D), dtype = q.shape, q.dtype
     window = attention_window(T, context)
     tol = K6_REL_TOL[dtype]
+    fwd, bwd = _k6_names(dtype)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     got = flash_attention(*leaves, context, scale)
     got_grads = torch.autograd.grad(got, leaves, do)
@@ -1033,86 +1043,94 @@ def _check_k6_route(q, k, v, do, context: int, scale: float, err: dict) -> None:
     want_grads = torch.autograd.grad(want, leaves, do)
     torch.cuda.synchronize()
     what = f"K6 B={B} context {context} {str(dtype).split('.')[-1]}"
-    for name, a, b, kernel in (("o", got, want, "flash_attention_fwd"),
-                               ("dq", got_grads[0], want_grads[0], "flash_attention_bwd_dq"),
-                               ("dk", got_grads[1], want_grads[1], "flash_attention_bwd_dkv"),
-                               ("dv", got_grads[2], want_grads[2], "flash_attention_bwd_dkv")):
+    for name, a, b, kernel in (("o", got, want, fwd), ("dq", got_grads[0], want_grads[0], bwd),
+                               ("dk", got_grads[1], want_grads[1], bwd),
+                               ("dv", got_grads[2], want_grads[2], bwd)):
         whole, tile = cf.relative_error_by_tile(a, b)
-        if dtype == torch.bfloat16:
-            err[kernel] = max(err[kernel], (a.float() - b.float()).abs().max().item())
+        err[kernel] = max(err.get(kernel, 0.0), (a.float() - b.float()).abs().max().item())
         log(f"{what} {name}: ||kernel - plain|| / ||plain|| {whole:.3e}, worst 64-row tile "
             f"{tile:.3e} (limit {tol})")
         if not (whole <= tol and tile <= tol and torch.isfinite(a).all()):
             raise AssertionError(f"{what} {name} disagrees with the plain version")
     qs = (q * scale).to(dtype)
-    kr, vr = (t.repeat_interleave(H // k.shape[1], dim=1).contiguous() for t in (k, v))
-    lse = cf.flash_attention_fwd(qs, kr, vr, window)[1]
-    lse_err = (lse - cf.flash_attention_fwd_reference(qs, kr, vr, window)[1]).abs().max().item()
+    o, lse = cf.flash_attention_fwd(qs, k, v, window)
+    lse_err = (lse - cf.flash_attention_fwd_reference(qs, k, v, window)[1]).abs().max().item()
     log(f"{what} lse: max |kernel - plain| = {lse_err:.3e} (limit {K6_LSE_TOL[dtype]})")
     if not lse_err <= K6_LSE_TOL[dtype]:
         raise AssertionError(f"{what} lse disagrees with the plain version")
+    first = cf.flash_attention_bwd(qs, k, v, o, do, lse, window)
+    second = cf.flash_attention_bwd(qs, k, v, o, do, lse, window)
+    same = [torch.equal(a, b) for a, b in zip(first, second)]
+    log(f"{what} backward twice: dq, dk, dv, delta bit-identical {same}")
+    if not all(same):
+        raise AssertionError(f"{what}: two backward calls differ")
 
 
 def _time_k6(q, k, v, do, context: int, scale: float, card: str) -> dict:
-    """Device times of the three kernels, their plain versions and, causal
-    only, SDPA; bounds of the GQA function (K and V at their own head count,
-    as the attention that K6 replaces reads and writes them; the wrapper's
-    repeat to H is the kernels' own cost)."""
+    """Device times of the two kernels and their plain versions, and,
+    causal only, of SDPA on the same pre-scaled inputs with K/V repeated to
+    the query heads (its forward; its backward alone, through autograd of
+    one forward; and both); bounds of the GQA function (K and V read and dK,
+    dV written at their own head count; the backward counts the five
+    products it needs, 10 D FLOPs a visible pair, whatever it recomputes)."""
     import torch.nn.functional as F
 
     from rstnet_tpu_torch.ops import cuda_flash as cf
     from rstnet_tpu_torch.ops.flash_attention import attention_window
 
-    (B, H, T, D), Hkv = q.shape, k.shape[1]
+    (B, H, T, D), Hkv, dtype = q.shape, k.shape[1], q.dtype
     window = attention_window(T, context)
-    qs = (q * scale).to(q.dtype)
-    kr, vr = (t.repeat_interleave(H // Hkv, dim=1).contiguous() for t in (k, v))
-    o, lse = cf.flash_attention_fwd(qs, kr, vr, window)
-    dq, delta = cf.flash_attention_bwd_dq(qs, kr, vr, o, do, lse, window)
+    qs = (q * scale).to(dtype)
+    o, lse = cf.flash_attention_fwd(qs, k, v, window)
     pairs = B * H * _visible_pairs(T, window)
-    # bytes of one [B, H, T, D] / [B, Hkv, T, D] bf16 tensor, of one [B, H, T] f32 row vector
-    row, kv, rows = B * H * T * D * 2, B * Hkv * T * D * 2, B * H * T * 4
+    # bytes of one [B, H, T, D] / [B, Hkv, T, D] tensor, of one [B, H, T] f32 row vector
+    size = q.element_size()
+    row, kv, rows = B * H * T * D * size, B * Hkv * T * D * size, B * H * T * 4
+    kind = "f32" if dtype == torch.float32 else "bf16"
+    fwd, bwd = _k6_names(dtype)
     runs = {
-        "flash_attention_fwd": (  # q, k, v -> o, lse
-            lambda: cf.flash_attention_fwd(qs, kr, vr, window),
-            lambda: cf.flash_attention_fwd_reference(qs, kr, vr, window),
+        fwd: (  # q, k, v -> o, lse
+            lambda: cf.flash_attention_fwd(qs, k, v, window),
+            lambda: cf.flash_attention_fwd_reference(qs, k, v, window),
             2 * row + 2 * kv + rows, 4 * D * pairs),
-        "flash_attention_bwd_dq": (  # q, k, v, o, do, lse -> dq, delta
-            lambda: cf.flash_attention_bwd_dq(qs, kr, vr, o, do, lse, window),
-            lambda: cf.flash_attention_bwd_dq_reference(qs, kr, vr, o, do, lse, window),
-            4 * row + 2 * kv + 2 * rows, 6 * D * pairs),
-        "flash_attention_bwd_dkv": (  # q, k, v, do, lse, delta -> dk, dv
-            lambda: cf.flash_attention_bwd_dkv(qs, kr, vr, do, lse, delta, window),
-            lambda: cf.flash_attention_bwd_dkv_reference(qs, kr, vr, do, lse, delta, window),
-            2 * row + 4 * kv + 2 * rows, 8 * D * pairs),
+        bwd: (  # q, k, v, o, do, lse -> dq, dk, dv, delta
+            lambda: cf.flash_attention_bwd(qs, k, v, o, do, lse, window),
+            lambda: cf.flash_attention_bwd_reference(qs, k, v, o, do, lse, window),
+            4 * row + 4 * kv + 2 * rows, 10 * D * pairs),
     }
     library = {}
-    if window >= T:  # SDPA's causal route: the same pre-scaled, repeated inputs
-        sdpa = functools.partial(F.scaled_dot_product_attention, qs, kr, vr, is_causal=True,
-                                 scale=1.0)
-        library["fwd"] = time_ms(sdpa, 20)
-        leaves_l = [t.clone().requires_grad_() for t in (qs, kr, vr)]
+    if window >= T:  # SDPA's causal route: the same pre-scaled inputs, K/V repeated
+        kr, vr = (t.contiguous() for t in cf.repeat_kv(qs, k, v))
+        library[fwd] = time_ms(functools.partial(
+            F.scaled_dot_product_attention, qs, kr, vr, is_causal=True, scale=1.0), 20)
+        leaves = [t.clone().requires_grad_() for t in (qs, kr, vr)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=1.0)
+        library[bwd] = time_ms(
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 20)
 
         def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(*leaves_l, is_causal=True, scale=1.0)
-            torch.autograd.grad(out, leaves_l, do)
+            y = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=1.0)
+            torch.autograd.grad(y, leaves, do)
 
         library["fwd_bwd"] = time_ms(sdpa_fwd_bwd, 10)
+        del out, leaves, kr, vr
     entries = {}
     for name, (kernel, plain, n_bytes, n_ops) in runs.items():
         ms = time_ms(kernel, 20)
         plain_ms = time_ms(plain, 5)
-        bound_ms, bound_by = bound(n_bytes, n_ops, "bf16")
-        lib = library.get("fwd") if name == "flash_attention_fwd" else None
-        log(f"K6 {name} context {context} (B={B}, H={H} over {Hkv}, T={T}, D={D}, bf16): kernel "
+        bound_ms, bound_by = bound(n_bytes, n_ops, kind)
+        lib = library.get(name)
+        log(f"K6 {name} context {context} (B={B}, H={H} over {Hkv}, T={T}, D={D}, {kind}): kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
             f"SDPA {'none' if lib is None else f'{lib:.4f} ms'} [{card}]")
         entries[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": lib}
-    log(f"K6 B={B} context {context} forward + backward: kernels "
-        f"{sum(e['ms'] for e in entries.values()):.4f} ms, SDPA "
+    total = entries[fwd]["ms"] + entries[bwd]["ms"]
+    log(f"K6 B={B} context {context} {kind} forward + backward: kernels {total:.4f} ms, SDPA "
         + (f"{library['fwd_bwd']:.4f} ms" if library else "none (no windowed SDPA route)")
         + f" [{card}]")
+    if library:
+        entries[bwd]["sdpa_fwd_bwd_ms"] = library["fwd_bwd"]
     return entries
 
 
@@ -1120,13 +1138,13 @@ def check_k6(g, card: str) -> list[dict]:
     """K6 at the training shapes (Llama-3.2-1B: 32 heads over 8 KV heads,
     head dim 64, the T=1024 bucket), causal (context 3000 >= T) and local
     (context 256), bf16 at B=2 and at the main path's B=4 (2 audio plus 2
-    text utterances a step), then on float32 inputs (the split-bf16 variant
-    that float32 training runs): correctness of every kernel, and times.
-    The kernels line carries the times of the main path's case, B=4 causal."""
+    text utterances a step), then on float32 inputs (the split-bf16 kernels
+    that float32 training runs): correctness of every kernel, determinism of
+    the backward, and times. The kernels line carries the times of B=4
+    causal for bf16 and of B=2 causal for float32."""
     H, Hkv, T, D = 32, 8, 1024, 64
     scale = D**-0.5
-    err = {"flash_attention_fwd": 0.0, "flash_attention_bwd_dq": 0.0,
-           "flash_attention_bwd_dkv": 0.0}
+    err: dict = {}
     entries = {}
     for B, dtype in ((2, torch.bfloat16), (4, torch.bfloat16), (2, torch.float32)):
         q, do = (torch.randn((B, H, T, D), device="cuda", generator=g).to(dtype)
@@ -1135,16 +1153,18 @@ def check_k6(g, card: str) -> list[dict]:
                 for _ in range(2))
         for context in (3000, 256):
             _check_k6_route(q, k, v, do, context, scale, err)
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 or context >= T:
                 times = _time_k6(q, k, v, do, context, scale, card)
-                if B == 4 and context >= T:
-                    entries = times
+                if context >= T and (B == 4 or dtype == torch.float32):
+                    entries.update(times)
         del q, k, v, do
         torch.cuda.empty_cache()
+    notes = {"flash_attention_fwd": "", "flash_attention_bwd": " (the splash VJP)",
+             "flash_attention_fwd_f32": " (float32 only)",
+             "flash_attention_bwd_f32": " (the splash VJP; float32 only)"}
     return [{"name": name, "route": "cuda", "source": "rstnet_tpu_torch/csrc/flash_attention.cu",
-             "replaces": "rstnet_tpu/ops/flash_attention.py:46"
-                         + ("" if name == "flash_attention_fwd" else " (the splash VJP)"),
-             "max_abs_err": err[name], **entries[name]} for name in err]
+             "replaces": "rstnet_tpu/ops/flash_attention.py:46" + note,
+             "max_abs_err": err[name], **entries[name]} for name, note in notes.items()]
 
 
 def write_training_data(root, seed: int, long_frames: tuple[int, int], n_long: int,
@@ -1168,15 +1188,15 @@ def write_training_data(root, seed: int, long_frames: tuple[int, int], n_long: i
     return str(root / "*.json")
 
 
-def expected_k6(steps: list, n_layer: int) -> dict:
+def expected_k6(steps: list, n_layer: int, dtype=torch.bfloat16) -> dict:
     """K6 launches of a training run under the trainer's default remat: on
     each step whose bucket length qualifies, the forward twice per layer
-    (the backward recomputes each block) and each backward kernel once."""
+    (the backward recomputes each block) and the backward once."""
     from rstnet_tpu_torch.ops.flash_attention import flash_qualifies
 
     n = sum(flash_qualifies(s["seq_len"], None, None, True) for s in steps)
-    return {"flash_attention_fwd": 2 * n_layer * n,
-            "flash_attention_bwd_dq": n_layer * n, "flash_attention_bwd_dkv": n_layer * n}
+    fwd, bwd = _k6_names(dtype)
+    return {fwd: 2 * n_layer * n, bwd: n_layer * n}
 
 
 SMALL_LM = dict(name="smoke-small", block_size=1024, vocab_size=512, padded_vocab_size=512,
@@ -1186,10 +1206,11 @@ SMALL_LM = dict(name="smoke-small", block_size=1024, vocab_size=512, padded_voca
                 rope_adjustments=[8.0, 1.0, 4.0, 256], context=256)
 
 
-def check_small_training_slice(seed: int) -> None:
+def check_small_training_slice(seed: int) -> dict:
     """A small SpeechTextLM (2 layers, head dim 64, a 256 window) trained in
     float32 by the trainer on the card and on the CPU: one epoch, then a
-    resumed second; bucket 512 (``--max_length 511``) and smaller ones."""
+    resumed second; bucket 512 (``--max_length 511``) and smaller ones.
+    Returns the card run's launches (the float32 kernels of K6)."""
     import tempfile
 
     from rstnet_tpu_torch.models.config import write_flat_yaml
@@ -1223,13 +1244,14 @@ def check_small_training_slice(seed: int) -> None:
                                      "resume from the first epoch's checkpoint")
             runs[device] = (first["steps"] + resumed["steps"], counts)
         (steps_c, counts_c), (steps_g, counts_g) = runs["cpu"], runs["cuda"]
-        want = expected_k6(steps_g, SMALL_LM["n_layer"])
+        want = expected_k6(steps_g, SMALL_LM["n_layer"], torch.float32)
         lengths = sorted({s["seq_len"] for s in steps_g})
         if not any(n % 512 == 0 for n in lengths) or all(n % 512 == 0 for n in lengths):
             raise AssertionError(f"small training slice buckets {lengths}: need both a 512 "
                                  "bucket and another")
         got = {k: counts_g[k] for k in want}
-        if got != want or any(counts_c[k] for k in want):
+        if got != want or any(counts_c[k] for k in want) or any(
+                v for k, v in counts_g.items() if k not in want):
             raise AssertionError(f"small training slice K6 launches: card {got} (expected {want}),"
                                  f" CPU {[counts_c[k] for k in want]} (expected none)")
         worst = {"loss": 0.0, "acc": 0.0}
@@ -1250,6 +1272,7 @@ def check_small_training_slice(seed: int) -> None:
             + ", ".join(f"{s['loss']:.4f}" for s in steps_g))
         if worst["loss"] > TRAIN_LOSS_RTOL or worst["acc"] > TRAIN_ACC_ATOL:
             raise AssertionError("the small training slice on the card disagrees with the CPU")
+        return counts_g
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1351,14 +1374,14 @@ def main(argv=None) -> int:
         check_small_slice(args.seed, int8=True)
         check_small_batched_slice(args.seed)
         check_small_speech_slice(args.seed)
+    paths = {}
     with phase("small training slice"):
-        check_small_training_slice(args.seed)
+        paths["small_train_step_f32"] = check_small_training_slice(args.seed)
     with phase("full models"):
         mimi, lm_gen = build_full_models(args.seed)
     n, ticks = args.frames, args.frames
     layers = lm_gen.model.depformer.num_layers
     none = dict.fromkeys(_counters(), 0)
-    paths = {}
     with phase("full solo slice"):
         paths["solo_frame"] = run_full_slice(
             mimi, lm_gen, args.seed, n, card, "full solo slice",

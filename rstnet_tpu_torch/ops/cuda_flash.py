@@ -3,18 +3,23 @@
 (counterpart of the splash kernel behind
 ``rstnet_tpu/ops/flash_attention.py::flash_attention`` and its VJP).
 
-Every function here takes q pre-scaled in its own dtype and k, v with q's
-head count, all ``[B, H, T, D]``; key j is visible to query i iff
-``0 <= i - j < window``. Three wrappers, one kernel each:
+Every function here takes q pre-scaled in its own dtype, ``[B, H, T, D]``,
+and k, v at their own head count, ``[B, Hkv, T, D]`` with ``H % Hkv == 0``:
+query head h reads KV head ``h // (H // Hkv)`` (GQA inside the kernels;
+the plain versions repeat K/V). Key j is visible to query i iff
+``0 <= i - j < window``. Two wrappers:
 
 - :func:`flash_attention_fwd` -> (o in q's dtype, float32 lse ``[B, H, T]``);
-- :func:`flash_attention_bwd_dq` -> (dq, float32 delta = rowsum(dO * O));
-- :func:`flash_attention_bwd_dkv` -> (dk, dv), after ``bwd_dq`` (it reads
-  delta).
+- :func:`flash_attention_bwd` -> (dq, dk, dv, float32 delta = rowsum(dO * O)),
+  dk and dv at the KV heads, summed over each group.
 
 Each launches its kernel on a CUDA tensor (or raises) and runs its plain
-version on a CPU tensor. :func:`flash_attention_kernel` is the autograd
-function over the three, the route of the backbone's training forwards.
+version on a CPU tensor. bf16 goes through the Hopper kernels (TMA,
+``wgmma``; the backward is one persistent launch after a row pre-pass for
+delta), float32 through the split-bf16 ``mma.sync`` kernels: the wrappers
+count the two apart (``launches`` and ``launches_f32``).
+:func:`flash_attention_kernel` is the autograd function over the two, the
+route of the backbone's training forwards.
 """
 
 from __future__ import annotations
@@ -24,12 +29,24 @@ import torch
 from rstnet_tpu_torch.ops import cuda_lib
 
 HEAD_DIM = 64  # the kernels' head dim
-TILE = 64  # rows of a kernel tile: T must be a multiple
+SEQ_TILE = 128  # T must be a multiple
+TILE = 64  # rows of a tile of the per-tile error measure
+DQ_TILE = 64  # query rows of a dQ turn counter of the backward
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+def repeat_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """k, v repeated from Hkv to q's H heads, each KV head's group of query
+    heads side by side (query head h reads KV head ``h // (H // Hkv)``)."""
+    if k.shape[1] != q.shape[1]:
+        rep = q.shape[1] // k.shape[1]
+        k, v = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+    return k, v
+
+
 def masked_logits(q: torch.Tensor, k: torch.Tensor, window: int) -> torch.Tensor:
-    """float32 logits ``q k^T`` with invisible pairs at -inf."""
+    """float32 logits ``q k^T`` with invisible pairs at -inf (k at q's
+    heads)."""
     pos = torch.arange(q.shape[2], device=q.device)
     delta = pos[:, None] - pos[None, :]
     s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float())
@@ -39,26 +56,26 @@ def masked_logits(q: torch.Tensor, k: torch.Tensor, window: int) -> torch.Tensor
 def flash_attention_fwd_reference(q, k, v, window: int):
     """Plain forward: float32 softmax, its weights rounded to v's dtype
     before the product with v (the splash reference's order)."""
+    k, v = repeat_kv(q, k, v)
     s = masked_logits(q, k, window)
     o = torch.einsum("bhts,bhsd->bhtd", torch.softmax(s, dim=-1).to(v.dtype), v)
     return o, torch.logsumexp(s, dim=-1)
 
 
-def flash_attention_bwd_dq_reference(q, k, v, o, do, lse, window: int):
-    """Plain dQ in float32: P = exp(S - lse), dS = P (dO V^T - delta)."""
+def flash_attention_bwd_reference(q, k, v, o, do, lse, window: int):
+    """Plain backward in float32: P = exp(S - lse), delta = rowsum(dO * O),
+    dS = P (dO V^T - delta); dQ = dS K, dK = dS^T Q and dV = P^T dO, dK and
+    dV summed over each KV head's group -> (dq, dk, dv, delta)."""
+    (B, H, T, D), Hkv = q.shape, k.shape[1]
+    kr, vr = repeat_kv(q, k, v)
     delta = (do.float() * o.float()).sum(-1)
-    p = torch.exp(masked_logits(q, k, window) - lse[..., None])
-    ds = p * (torch.einsum("bhtd,bhsd->bhts", do.float(), v.float()) - delta[..., None])
-    return torch.einsum("bhts,bhsd->bhtd", ds, k.float()).to(q.dtype), delta
-
-
-def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, window: int):
-    """Plain dK = dS^T Q and dV = P^T dO in float32."""
-    p = torch.exp(masked_logits(q, k, window) - lse[..., None])
-    ds = p * (torch.einsum("bhtd,bhsd->bhts", do.float(), v.float()) - delta[..., None])
-    dk = torch.einsum("bhts,bhtd->bhsd", ds, q.float()).to(k.dtype)
-    dv = torch.einsum("bhts,bhtd->bhsd", p, do.float()).to(v.dtype)
-    return dk, dv
+    p = torch.exp(masked_logits(q, kr, window) - lse[..., None])
+    ds = p * (torch.einsum("bhtd,bhsd->bhts", do.float(), vr.float()) - delta[..., None])
+    dq = torch.einsum("bhts,bhsd->bhtd", ds, kr.float()).to(q.dtype)
+    dk = torch.einsum("bhts,bhtd->bhsd", ds, q.float())
+    dv = torch.einsum("bhts,bhtd->bhsd", p, do.float())
+    dk, dv = (t.reshape(B, Hkv, H // Hkv, T, D).sum(2) for t in (dk, dv))
+    return dq, dk.to(k.dtype), dv.to(v.dtype), delta
 
 
 def relative_error_by_tile(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -76,24 +93,28 @@ def relative_error_by_tile(got: torch.Tensor, want: torch.Tensor) -> tuple[float
     return (d.norm() / w.norm()).item(), tiles.max().item()
 
 
-def _check_cuda_operands(window: int, *ts: torch.Tensor) -> tuple[int, int]:
-    """(B * H, T) after checking what the kernels take."""
-    q = ts[0]
-    if q.dim() != 4:
-        raise ValueError(f"q must be [B, H, T, D], got {tuple(q.shape)}")
+def _check_cuda_operands(window: int, q: torch.Tensor, q_like=(), kv=()) -> tuple:
+    """(B, H, Hkv, T) after checking what the kernels take: q and the
+    tensors of ``q_like`` ``[B, H, T, D]``, those of ``kv`` ``[B, Hkv, T, D]``."""
+    if q.dim() != 4 or not kv or kv[0].dim() != 4:
+        raise ValueError(f"q, k, v must be [B, H, T, D] / [B, Hkv, T, D], got {tuple(q.shape)}")
     B, H, T, D = q.shape
-    if D != HEAD_DIM or T % TILE or T < TILE or window < 1 or B * H > 65535:
-        raise ValueError(f"outside the flash kernels' envelope: B={B} H={H} T={T} D={D} "
-                         f"window={window} (D == {HEAD_DIM}, T a multiple of {TILE})")
+    Hkv = kv[0].shape[1]
+    if (D != HEAD_DIM or T % SEQ_TILE or T < SEQ_TILE or window < 1 or Hkv < 1 or H % Hkv
+            or B * H > 65535):
+        raise ValueError(f"outside the flash kernels' envelope: B={B} H={H} Hkv={Hkv} T={T} "
+                         f"D={D} window={window} (D == {HEAD_DIM}, T a multiple of {SEQ_TILE}, "
+                         "H a multiple of Hkv)")
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash kernels take float32 or bfloat16, got {q.dtype}")
-    for t in ts:
-        if (tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype or t.device != q.device
-                or not t.is_contiguous() or t.data_ptr() % 16):
-            raise ValueError(f"operands must be contiguous, 16-byte aligned {q.dtype} "
-                             f"{tuple(q.shape)} tensors on {q.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    return B * H, T
+    for shape, ts in (((B, H, T, D), (q, *q_like)), ((B, Hkv, T, D), kv)):
+        for t in ts:
+            if (tuple(t.shape) != shape or t.dtype != q.dtype or t.device != q.device
+                    or not t.is_contiguous() or t.data_ptr() % 16):
+                raise ValueError(f"operands must be contiguous, 16-byte aligned {q.dtype} "
+                                 f"{shape} tensors on {q.device}, got {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}")
+    return B, H, Hkv, T
 
 
 def _check_rows(t: torch.Tensor, q: torch.Tensor, name: str) -> None:
@@ -111,65 +132,61 @@ def _device_check(q: torch.Tensor, name: str) -> None:
         raise NotImplementedError(f"{name} has no kernel for {q.device}")
 
 
+def _count(fn, q: torch.Tensor) -> None:
+    if q.dtype == torch.float32:
+        fn.launches_f32 += 1
+    else:
+        fn.launches += 1
+
+
 def flash_attention_fwd(q, k, v, window: int):
     """-> (o [B, H, T, D] in q's dtype, lse [B, H, T] float32)."""
     if q.device.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, window)
     _device_check(q, "flash_attention_fwd")
-    bh, T = _check_cuda_operands(window, q, k, v)
+    B, H, Hkv, T = _check_cuda_operands(window, q, kv=(k, v))
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         status = cuda_lib.kernel_library().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, T,
-            window, int(q.dtype == torch.float32), _stream())
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, Hkv,
+            T, window, int(q.dtype == torch.float32), _stream())
     cuda_lib.check(status, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, q)
     return o, lse
 
 
-def flash_attention_bwd_dq(q, k, v, o, do, lse, window: int):
-    """-> (dq in q's dtype, delta [B, H, T] float32)."""
+def flash_attention_bwd(q, k, v, o, do, lse, window: int):
+    """-> (dq in q's dtype, dk, dv at the KV heads in k's and v's dtype,
+    delta [B, H, T] float32). The bf16 kernel sums dQ in a float32
+    workspace behind per-tile turn counters, both allocated here."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_dq_reference(q, k, v, o, do, lse, window)
-    _device_check(q, "flash_attention_bwd_dq")
-    bh, T = _check_cuda_operands(window, q, k, v, o, do)
+        return flash_attention_bwd_reference(q, k, v, o, do, lse, window)
+    _device_check(q, "flash_attention_bwd")
+    B, H, Hkv, T = _check_cuda_operands(window, q, q_like=(o, do), kv=(k, v))
     _check_rows(lse, q, "lse")
-    dq = torch.empty_like(q)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
+    f32 = q.dtype == torch.float32
+    dq_acc = None if f32 else torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    # one turn counter per (batch, head, query tile), then the work counter
+    counters = None if f32 else torch.zeros(B * H * (T // DQ_TILE) + 1, dtype=torch.int32,
+                                             device=q.device)
     with torch.cuda.device(q.device):
-        status = cuda_lib.kernel_library().flash_attention_bwd_dq(
+        status = cuda_lib.kernel_library().flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, T, window,
-            int(q.dtype == torch.float32), _stream())
-    cuda_lib.check(status, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
-    return dq, delta
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if f32 else dq_acc.data_ptr(), None if f32 else counters.data_ptr(), B, H, Hkv,
+            T, window, int(f32), _stream())
+    cuda_lib.check(status, "flash_attention_bwd")
+    _count(flash_attention_bwd, q)
+    return dq, dk, dv, delta
 
 
-def flash_attention_bwd_dkv(q, k, v, do, lse, delta, window: int):
-    """-> (dk, dv) in k's and v's dtype."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, window)
-    _device_check(q, "flash_attention_bwd_dkv")
-    bh, T = _check_cuda_operands(window, q, k, v, do)
-    _check_rows(lse, q, "lse")
-    _check_rows(delta, q, "delta")
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        status = cuda_lib.kernel_library().flash_attention_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, T, window,
-            int(q.dtype == torch.float32), _stream())
-    cuda_lib.check(status, "flash_attention_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
-    return dk, dv
-
-
-# kernel launches; reset freely by callers
-flash_attention_fwd.launches = 0
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+# kernel launches (bf16 Hopper kernels, float32 mma.sync kernels); reset
+# freely by callers
+flash_attention_fwd.launches = flash_attention_fwd.launches_f32 = 0
+flash_attention_bwd.launches = flash_attention_bwd.launches_f32 = 0
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -184,13 +201,13 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, ctx.window)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.window)
+        dq, dk, dv, _ = flash_attention_bwd(q, k, v, o, do, lse, ctx.window)
         return dq, dk, dv, None
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            window: int) -> torch.Tensor:
-    """Differentiable attention through the three wrappers: q (pre-scaled),
-    k, v ``[B, H, T, D]`` contiguous, same dtype -> o ``[B, H, T, D]``."""
+    """Differentiable attention through the two wrappers: q (pre-scaled)
+    ``[B, H, T, D]``, k, v ``[B, Hkv, T, D]``, contiguous, same dtype -> o
+    ``[B, H, T, D]``; the gradients of k and v come back at Hkv heads."""
     return _FlashAttention.apply(q, k, v, window)

@@ -50,8 +50,7 @@ from rstnet_tpu_torch.utils.arguments import get_args
 
 BATCH, SEQ = 4, 1024  # the shape the profile is defined on
 STEPS, PROFILE_STEPS = 5, 2
-K6 = (cuda_flash.flash_attention_fwd, cuda_flash.flash_attention_bwd_dq,
-      cuda_flash.flash_attention_bwd_dkv)
+K6 = (cuda_flash.flash_attention_fwd, cuda_flash.flash_attention_bwd)
 
 
 def synthetic_batch(model, B: int, T: int, seed: int, device) -> dict:
@@ -110,13 +109,13 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats()
     step()  # warm-up
     for fn in K6:
-        fn.launches = 0
+        fn.launches = fn.launches_f32 = 0
     times = []
     for _ in range(STEPS):
         t0 = time.perf_counter()
         step()
         times.append((time.perf_counter() - t0) * 1000)
-    k6 = [fn.launches / STEPS for fn in K6]
+    k6 = [(fn.launches + fn.launches_f32) / STEPS for fn in K6]
     stages: dict = {}
     for _ in range(STEPS):
         step(stages)
@@ -132,8 +131,7 @@ def main(argv=None) -> int:
               "step_ms": {"p50": statistics.median(times), "max": max(times), "n": STEPS},
               "frames_per_s": frames / statistics.median(times) * 1000,
               "stage_ms": stage_ms, "k6_launches_per_step": dict(zip(
-                  ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
-                  k6)), "profile": prof}
+                  ("flash_attention_fwd", "flash_attention_bwd"), k6)), "profile": prof}
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"{model.config.name} ({n_params / 1e9:.3f} B params, {targs.dtype}, remat "
           f"{targs.remat}), B={BATCH} T={SEQ}; peak memory "

@@ -251,23 +251,26 @@ def test_batcher_fetch_paths_on_card_match_depth1(cuda, monkeypatch, depth, pool
 K6_TOL = {torch.bfloat16: (1e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
 
 
-def _k6_case(gen, B, H, T, dtype, window):
+def _k6_inputs(gen, B, H, Hkv, T, dtype):
+    q, do = (torch.randn((B, H, T, 64), device="cuda", generator=gen).to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, Hkv, T, 64), device="cuda", generator=gen).to(dtype) for _ in range(2))
+    return (q * 0.125).to(dtype), k, v, do  # q pre-scaled, as the route passes it
+
+
+def _k6_case(gen, B, H, Hkv, T, dtype, window):
     from rstnet_tpu_torch.ops import cuda_flash as cf
 
-    q, k, v, do = (torch.randn((B, H, T, 64), device="cuda", generator=gen).to(dtype)
-                   for _ in range(4))
-    q = (q * 0.125).to(dtype)  # pre-scaled, as the wrapper passes it
-    counts = [cf.flash_attention_fwd.launches, cf.flash_attention_bwd_dq.launches,
-              cf.flash_attention_bwd_dkv.launches]
+    q, k, v, do = _k6_inputs(gen, B, H, Hkv, T, dtype)
+    fns = (cf.flash_attention_fwd, cf.flash_attention_bwd)
+    attr = "launches_f32" if dtype == torch.float32 else "launches"
+    counts = [getattr(f, attr) for f in fns]
     o, lse = cf.flash_attention_fwd(q, k, v, window)
-    dq, delta = cf.flash_attention_bwd_dq(q, k, v, o, do, lse, window)
-    dk, dv = cf.flash_attention_bwd_dkv(q, k, v, do, lse, delta, window)
+    dq, dk, dv, delta = cf.flash_attention_bwd(q, k, v, o, do, lse, window)
     torch.cuda.synchronize()
-    assert [cf.flash_attention_fwd.launches, cf.flash_attention_bwd_dq.launches,
-            cf.flash_attention_bwd_dkv.launches] == [c + 1 for c in counts]
+    assert [getattr(f, attr) for f in fns] == [c + 1 for c in counts]
+    assert dk.shape == dv.shape == k.shape
     o_r, lse_r = cf.flash_attention_fwd_reference(q, k, v, window)
-    dq_r, delta_r = cf.flash_attention_bwd_dq_reference(q, k, v, o_r, do, lse_r, window)
-    dk_r, dv_r = cf.flash_attention_bwd_dkv_reference(q, k, v, do, lse_r, delta_r, window)
+    dq_r, dk_r, dv_r, _ = cf.flash_attention_bwd_reference(q, k, v, o_r, do, lse_r, window)
     rel, lse_tol = K6_TOL[dtype]
     for name, got, want in (("o", o, o_r), ("dq", dq, dq_r), ("dk", dk, dk_r), ("dv", dv, dv_r)):
         whole, tile = cf.relative_error_by_tile(got, want)
@@ -278,21 +281,45 @@ def _k6_case(gen, B, H, T, dtype, window):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("T,window", [(128, 128), (512, 512), (512, 100), (1024, 256)])
-def test_flash_kernels_match_plain(cuda, dtype, T, window):
-    _k6_case(cuda, 1, 3, T, dtype, window)
+@pytest.mark.parametrize("T,window", [(128, 128), (128, 100), (512, 512), (512, 100),
+                                      (1024, 256), (1024, 1024)])
+@pytest.mark.parametrize("heads", [(4, 4), (4, 1)])
+def test_flash_kernels_match_plain(cuda, dtype, T, window, heads):
+    """H = Hkv, and H = 4 Hkv (GQA inside the kernels)."""
+    _k6_case(cuda, 1, *heads, T, dtype, window)
 
 
 def test_flash_kernels_at_training_shapes(cuda):
-    """B=2 and the main path's B=4, H=32, T=1024, bf16: causal (context 3000
-    >= T) and local (256)."""
+    """B=2 and the main path's B=4, 32 query heads over 8 KV heads, T=1024,
+    bf16: causal (context 3000 >= T) and local (256)."""
     for B in (2, 4):
         for window in (1024, 256):
-            _k6_case(cuda, B, 32, 1024, torch.bfloat16, window)
+            _k6_case(cuda, B, 32, 8, 1024, torch.bfloat16, window)
+
+
+def test_flash_kernels_smallest_grid(cuda):
+    """B=1, H=Hkv=1, T=128: one work item, one forward tile (the ordered dQ
+    must not wait on itself)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        _k6_case(cuda, 1, 1, 1, 128, dtype, 128)
+
+
+@pytest.mark.parametrize("window", [1024, 256])
+def test_flash_backward_is_bit_identical_across_calls(cuda, window):
+    """dQ is summed in a fixed order (no atomics): two calls agree bit for
+    bit."""
+    from rstnet_tpu_torch.ops import cuda_flash as cf
+
+    q, k, v, do = _k6_inputs(cuda, 2, 32, 8, 1024, torch.bfloat16)
+    o, lse = cf.flash_attention_fwd(q, k, v, window)
+    first = cf.flash_attention_bwd(q, k, v, o, do, lse, window)
+    second = cf.flash_attention_bwd(q, k, v, o, do, lse, window)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_route_matches_reference(cuda):
-    """The differentiable route (GQA repeat, pre-scale, three kernels)
+    """The differentiable route (pre-scale, two kernels, K/V unrepeated)
     against autograd of the plain reference."""
     from rstnet_tpu_torch.ops.cuda_flash import relative_error_by_tile
     from rstnet_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
@@ -311,11 +338,24 @@ def test_flash_attention_route_matches_reference(cuda):
 
 
 def test_flash_kernels_refuse_outside_envelope(cuda):
-    from rstnet_tpu_torch.ops.cuda_flash import flash_attention_fwd
+    from rstnet_tpu_torch.ops.cuda_flash import flash_attention_bwd, flash_attention_fwd
 
-    x = torch.zeros((1, 2, 128, 32), device="cuda", dtype=torch.bfloat16)
+    def zeros(*shape):
+        return torch.zeros(shape, device="cuda", dtype=torch.bfloat16)
+
+    x = zeros(1, 2, 128, 32)
     with pytest.raises(ValueError):
         flash_attention_fwd(x, x, x, 128)  # head dim 32
-    y = torch.zeros((1, 2, 100, 64), device="cuda", dtype=torch.bfloat16)
+    for T in (100, 64):  # T not a multiple of 128
+        y = zeros(1, 2, T, 64)
+        with pytest.raises(ValueError):
+            flash_attention_fwd(y, y, y, T)
+    q, kv = zeros(1, 3, 128, 64), zeros(1, 2, 128, 64)
     with pytest.raises(ValueError):
-        flash_attention_fwd(y, y, y, 100)  # T not a multiple of 64
+        flash_attention_fwd(q, kv, kv, 128)  # H not a multiple of Hkv
+    q, kv = zeros(1, 4, 128, 64), zeros(1, 2, 128, 64)
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, kv, kv, kv, q, torch.zeros((1, 4, 128), device="cuda"), 128)  # o at Hkv
+    with pytest.raises(TypeError):
+        h = q.half()
+        flash_attention_fwd(h, kv.half(), kv.half(), 128)

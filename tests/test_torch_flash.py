@@ -6,8 +6,9 @@ The forward is held to jax's splash kernel run in interpret mode, as
 sums its blocks in its own order). Gradients through the port's autograd
 function (the kernels' plain dQ and dK/dV) and through autograd of
 ``flash_attention_reference`` are held to ``jax.grad`` of the JAX masked
-reference within 1e-4: float32 sums over 512 keys in another order. Inputs
-come from numpy with a seed."""
+reference within 1e-4: float32 sums over 512 keys in another order; so is
+the plain backward, with K/V at fewer heads than Q (GQA: the plain versions
+repeat K/V, the kernels do not). Inputs come from numpy with a seed."""
 
 import math
 
@@ -89,18 +90,64 @@ def test_gradients_match_jax_grad(context):
 
 def test_plain_lse_and_delta():
     """The forward's log-sum-exp and the backward's delta = rowsum(dO * O),
-    as the kernels write them, against JAX."""
-    q, k, v, do = _inputs(2, 1, 2, 2, 128)
+    as the kernels write them, against JAX (K/V at half the query heads)."""
+    q, k, v, do = _inputs(2, 1, 4, 2, 128)
     window = 40
     o, lse = cuda_flash.flash_attention_fwd(*map(torch.from_numpy, (q, k, v)), window)
-    logits = np.einsum("bhtd,bhsd->bhts", q, k)
+    kr = np.repeat(k, 2, axis=1)
+    logits = np.einsum("bhtd,bhsd->bhts", q, kr)
     delta_pos = np.arange(128)[:, None] - np.arange(128)[None, :]
     logits = np.where((delta_pos >= 0) & (delta_pos < window), logits, -np.inf)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jax.nn.logsumexp(logits, axis=-1)),
                                atol=1e-5, rtol=1e-5)
-    _, delta = cuda_flash.flash_attention_bwd_dq(
+    *_, delta = cuda_flash.flash_attention_bwd(
         *map(torch.from_numpy, (q, k, v)), o, torch.from_numpy(do), lse, window)
     np.testing.assert_allclose(delta.numpy(), (do * o.numpy()).sum(-1), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("context,heads", [(None, (4, 1)), (256, (4, 2)), (100, (8, 2))])
+def test_plain_backward_matches_jax_grad_with_gqa(context, heads):
+    """``flash_attention_bwd_reference`` at Hkv < H (dK, dV summed over each
+    group, at the KV heads) against ``jax.grad`` of the JAX masked reference
+    on the same pre-scaled q."""
+    H, Hkv = heads
+    q, k, v, do = _inputs(6, 2, H, Hkv, 512)
+    q = q * 0.125
+    window = attention_window(512, context)
+
+    def loss(q, k, v):
+        return jnp.sum(_jax_masked(q, k, v, context, 1.0) * do)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    o, lse = cuda_flash.flash_attention_fwd_reference(tq, tk, tv, window)
+    *got, _ = cuda_flash.flash_attention_bwd_reference(tq, tk, tv, o, torch.from_numpy(do), lse,
+                                                       window)
+    assert got[1].shape == (2, Hkv, 512, 64) and got[2].shape == (2, Hkv, 512, 64)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+def test_kernel_route_passes_kv_unrepeated(monkeypatch):
+    """The route hands K/V to the wrappers at their own head count and gets
+    dK/dV back there; only the plain versions repeat."""
+    q, k, v, do = _inputs(7, 1, 4, 1, 512)
+    seen = []
+    fwd, bwd = cuda_flash.flash_attention_fwd, cuda_flash.flash_attention_bwd
+
+    def spy(fn):
+        def wrapped(q, k, v, *rest):
+            seen.append((fn.__name__, k.shape[1], v.shape[1]))
+            return fn(q, k, v, *rest)
+        return wrapped
+
+    monkeypatch.setattr(cuda_flash, "flash_attention_fwd", spy(fwd))
+    monkeypatch.setattr(cuda_flash, "flash_attention_bwd", spy(bwd))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = flash_attention(*leaves, None, 0.125)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    assert seen == [("flash_attention_fwd", 1, 1), ("flash_attention_bwd", 1, 1)]
+    assert grads[1].shape == grads[2].shape == (1, 1, 512, 64)
 
 
 def test_bf16_plain_forward_close_to_splash():
@@ -158,9 +205,14 @@ def test_relative_error_by_tile_sees_small_outputs():
 def test_wrappers_take_the_plain_version_only_on_cpu():
     """A tensor on another device gets the kernel or an error, never the
     plain version."""
-    x = torch.zeros((1, 1, 64, 64), device="meta")
+    x = torch.zeros((1, 1, 128, 64), device="meta")
     with pytest.raises(NotImplementedError):
         cuda_flash.flash_attention_fwd(x, x, x, 64)
-    before = cuda_flash.flash_attention_fwd.launches
-    cuda_flash.flash_attention_fwd(*(torch.zeros((1, 1, 64, 64)) for _ in range(3)), 64)
-    assert cuda_flash.flash_attention_fwd.launches == before  # the plain version counts none
+    with pytest.raises(NotImplementedError):
+        cuda_flash.flash_attention_bwd(x, x, x, x, x, torch.zeros((1, 1, 128), device="meta"), 64)
+    fns = (cuda_flash.flash_attention_fwd, cuda_flash.flash_attention_bwd)
+    before = [(f.launches, f.launches_f32) for f in fns]
+    t = [torch.zeros((1, 2, 128, 64)) for _ in range(5)]
+    o, lse = cuda_flash.flash_attention_fwd(t[0], t[1][:, :1], t[2][:, :1], 64)
+    cuda_flash.flash_attention_bwd(t[0], t[1][:, :1], t[2][:, :1], o, t[3], lse, 64)
+    assert [(f.launches, f.launches_f32) for f in fns] == before  # the plain versions count none

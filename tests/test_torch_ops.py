@@ -191,6 +191,69 @@ def test_sampling_greedy_matches_jax_and_draws_stay_in_support():
         assert set(draws[:, row].tolist()) <= set(nucleus.tolist())
 
 
+def _tied_logit_rows(seed, rows, card):
+    """bf16-rounded normal logits: many values share a bf16 step, so ties
+    straddle the k-th place of the top-k cases below."""
+    x = _rng(seed).normal(size=(rows, card)).astype(np.float32)
+    return np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+
+
+def _jax_top_k(logits, k):
+    """``rstnet_tpu/ops/sampling.py::sample_token``'s top-k selection."""
+    x = jnp.asarray(logits)
+    if logits.shape[-1] >= 4 * k:
+        return jax.lax.approx_max_k(x, k, recall_target=0.99)
+    return jax.lax.top_k(x, k)
+
+
+@pytest.mark.parametrize("card,k", [(2048, 250), (2048, 25), (64, 25)])
+def test_top_k_keeps_jax_indices_in_jax_order(card, k):
+    """Kept set and order equal JAX's on rows whose k-th place falls inside
+    a run of equal values (lower index first among ties)."""
+    from rstnet_tpu_torch.ops.sampling import select_top_k
+
+    logits = _tied_logit_rows(20 + k, 16, card)
+    want_v, want_i = _jax_top_k(logits, k)
+    kth = np.asarray(want_v)[:, -1:]
+    assert ((logits == kth).sum(-1) > 1).any()  # a tie at the k-th place
+    got_v, got_i = select_top_k(_t(logits), k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+
+
+def test_top_p_sort_order_matches_jax_argsort():
+    from rstnet_tpu_torch.ops.sampling import sort_descending
+
+    probs = np.asarray(jax.nn.softmax(jnp.asarray(_tied_logit_rows(21, 16, 2048)), axis=-1))
+    assert any(len(np.unique(r)) < r.size for r in probs)  # tied probabilities
+    _, got = sort_descending(_t(probs))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jnp.argsort(-jnp.asarray(probs), -1)))
+
+
+@pytest.mark.parametrize("mode", ["top_k_250", "top_k_25", "top_p"])
+def test_sample_token_picks_jax_entry_for_a_fixed_choice(monkeypatch, mode):
+    """With the categorical draw fixed, the port returns the entry JAX's
+    kept list holds at that place (``top_idx[choice]`` or
+    ``sort_idx[choice]``)."""
+    from rstnet_tpu_torch.ops import sampling
+
+    logits = _tied_logit_rows(22, 16, 2048)
+    temp = 0.8
+    if mode == "top_p":
+        probs = jax.nn.softmax(jnp.asarray(logits) / temp, axis=-1)
+        kept = np.asarray(jnp.argsort(-probs, axis=-1))
+        kwargs = dict(top_p=0.9)
+    else:
+        k = int(mode.rsplit("_", 1)[1])
+        kept = np.asarray(_jax_top_k(logits, k)[1])
+        kwargs = dict(top_k=k)
+    for choice in (0, 3, 24):
+        monkeypatch.setattr(sampling, "_categorical",
+                            lambda x, g, c=choice: torch.full(x.shape[:-1], c, dtype=torch.long))
+        got = sampling.sample_token(_t(logits), None, True, temp, **kwargs)
+        np.testing.assert_array_equal(got.numpy(), kept[:, choice])
+
+
 CONV_CASES = [
     dict(in_channels=3, out_channels=5, kernel_size=7),
     dict(in_channels=4, out_channels=6, kernel_size=4, stride=2),

@@ -10,8 +10,11 @@ Phases (each prints its findings; any failure exits non-zero):
 3. kernels: K1 (depformer micro-step), its int8 variant K1-int8, K2
    (per-step gated FFN) and K3 (RVQ encode, both of its paths) against their
    plain PyTorch versions on the card, at the full-width shapes of the
-   serving paths (Moshi 7B's depformer, Mimi's quantizer), with device times
-   and bounds;
+   serving paths (Moshi 7B's depformer and the flagship's codecformer for
+   K1, Mimi's quantizer), with device times and bounds; K1 and K2 are also
+   held to bit-identical results across two calls, a K1 micro-step to
+   exactly one device kernel under ``torch.profiler``, and K2 is timed
+   beside the eager three-call chain at B in {2, 16, 64};
 4. small slices: a small Mimi + Moshi serving frame (solo, K1), the same
    under ``--int8 --kv-int8`` (K1-int8) and a small batched tick
    (``SessionBatcher`` at B=4, K2) on the card against the same weights on
@@ -22,7 +25,8 @@ Phases (each prints its findings; any failure exits non-zero):
    with ``--sessions`` sessions; then the same model quantized in place as
    the server's ``--int8`` does, with an int8 ring (``--kv-int8``), through
    both again. Each path's kernel launches are counted from zero just
-   before it runs and read just after;
+   before it runs and read just after; two more ticks of each batched path
+   run under ``torch.profiler`` (device busy and K2's time a tick);
 6. training: K6 (flash attention: the forward and the one-launch backward,
    GQA inside the kernels) against its plain versions at the training shapes
    (H=32 over 8 KV heads, T=1024, D=64; causal and a 256 window; bf16 at B=2
@@ -224,8 +228,14 @@ def phase_build() -> None:
     cuda_lib.kernel_library()
 
 
+# K1's two shapes on the main paths: Moshi 7B's depformer (solo_frame*) and
+# the flagship's codecformer after pad_codecformer_gating (speech_frame*)
+K1_SHAPES = {"moshi": dict(H=2816), "flagship": dict(H=768)}
+
+
 def _k1_operands(g, L=6, S=8, C=1024, heads=16, H=2816, card=2048):
-    """Moshi 7B's depformer at full width, with the model's init scales."""
+    """K1's operands at full width (Moshi 7B's depformer by default), with
+    the model's init scales."""
     dev = "cuda"
 
     def uni(shape, fan_in):
@@ -268,65 +278,93 @@ def _quantized(ops: dict) -> tuple[dict, dict]:
 
 
 def check_k1(g, card: str, int8: bool = False) -> dict:
-    """K1 (bf16 weights) or K1-int8 at Moshi 7B's depformer width, a frame
-    of all 8 micro-steps, float32 caches (the solo path's) and bf16 caches."""
+    """K1 (bf16 weights) or K1-int8 at both of its shapes (``K1_SHAPES``), a
+    frame of all 8 micro-steps, float32 caches (the solo path's) and bf16
+    caches, against the plain version; two frames compared bit for bit; one
+    micro-step under ``torch.profiler`` must be exactly one device kernel.
+    The kernels line carries Moshi's shape, the flagship's under
+    ``"flagship"``."""
     from rstnet_tpu_torch.ops.cuda_depformer import depformer_step, depformer_step_reference
+    from rstnet_tpu_torch.tools.profile_frame import device_events
 
-    ops, xs, dims = _k1_operands(g)
-    scales = None
-    if int8:
-        ops, scales = _quantized(ops)
-    L, S, C, heads = dims["L"], dims["S"], dims["C"], dims["heads"]
     name = "K1-int8" if int8 else "K1"
-    kernel = functools.partial(depformer_step, scales=scales)
-    plain = functools.partial(depformer_step_reference, scales=scales)
-    err = 0.0
-    for cache in (torch.float32, torch.bfloat16):
-        zeros = lambda: torch.zeros((L, S, C), device="cuda", dtype=cache)  # noqa: E731
-        got, kck, vck = _k1_frame(kernel, ops, xs, zeros(), zeros(), heads)
-        want, kcr, vcr = _k1_frame(plain, ops, xs, zeros(), zeros(), heads)
-        torch.cuda.synchronize()
-        err = max(err, (got - want).abs().max().item())
-        for what, a, b in (("logits", got, want), ("kc", kck, kcr), ("vc", vck, vcr)):
-            a, b = a.float(), b.float()
-            diff = (a - b).abs()
-            bad = diff > K1_ATOL + K1_RTOL * b.abs()
-            log(f"{name} {what}, {str(cache)[6:]} cache: max |kernel - plain| = "
-                f"{diff.max().item():.3e} (max |plain| {b.abs().max().item():.3e}), "
-                f"{int(bad.sum())} outside atol={K1_ATOL} rtol={K1_RTOL}")
-            if bad.any() or not torch.isfinite(a).all():
-                raise AssertionError(f"{name} {what} disagrees with depformer_step_reference")
-    zeros = lambda: torch.zeros((L, S, C), device="cuda")  # noqa: E731 - the path's f32 cache
-    ms = time_ms(lambda: _k1_frame(kernel, ops, xs, zeros(), zeros(), heads), 4) / S
-    plain_ms = time_ms(lambda: _k1_frame(plain, ops, xs, zeros(), zeros(), heads), 2) / S
-    # one micro-step, averaged over the frame's S: the step's weight slices
-    # and head (and their row scales), the norms, x, the cache rows read (cb
-    # of them, f32 K and V) and written (one), the logits
-    H, card_n = ops["gout"].shape[-1], ops["head_w"].shape[1]
-    weights = L * (3 * C * C + C * C + 2 * H * C + C * H) + card_n * C
-    rows = L * (3 * C + C + 2 * H + C) + card_n
-    n_bytes = (ops["in_proj"].element_size() * weights + (4 * rows if int8 else 0)
-               + 4 * (2 * L * C + card_n) + 2 * C + 8 * L * C * (sum(range(S)) / S + 1)
-               + 4 * card_n)
-    # bf16: a multiply and an add per weight at the bf16 rate; int8: the
-    # dequantizing multiply as well, all on the CUDA cores in float32
-    bound_ms, bound_by = (bound(n_bytes, 3 * weights, "f32") if int8
-                          else bound(n_bytes, 2 * weights, "bf16"))
-    log(f"{name} one micro-step (L=6, C=1024, H=2816, card=2048): kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB) "
-        f"[{card}]")
+    result, err = {}, 0.0
+    for shape, dims_kw in K1_SHAPES.items():
+        ops, xs, dims = _k1_operands(g, **dims_kw)
+        scales = None
+        if int8:
+            ops, scales = _quantized(ops)
+        L, S, C, heads = dims["L"], dims["S"], dims["C"], dims["heads"]
+        kernel = functools.partial(depformer_step, scales=scales)
+        plain = functools.partial(depformer_step_reference, scales=scales)
+        for cache in (torch.float32, torch.bfloat16):
+            zeros = lambda: torch.zeros((L, S, C), device="cuda", dtype=cache)  # noqa: E731
+            got, kck, vck = _k1_frame(kernel, ops, xs, zeros(), zeros(), heads)
+            again = _k1_frame(kernel, ops, xs, zeros(), zeros(), heads)
+            want, kcr, vcr = _k1_frame(plain, ops, xs, zeros(), zeros(), heads)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip((got, kck, vck), again)):
+                raise AssertionError(f"{name} ({shape}): two frames are not bit-identical")
+            err = max(err, (got - want).abs().max().item())
+            for what, a, b in (("logits", got, want), ("kc", kck, kcr), ("vc", vck, vcr)):
+                a, b = a.float(), b.float()
+                diff = (a - b).abs()
+                bad = diff > K1_ATOL + K1_RTOL * b.abs()
+                log(f"{name} ({shape}) {what}, {str(cache)[6:]} cache: max |kernel - plain| = "
+                    f"{diff.max().item():.3e} (max |plain| {b.abs().max().item():.3e}), "
+                    f"{int(bad.sum())} outside atol={K1_ATOL} rtol={K1_RTOL}; two frames "
+                    "bit-identical")
+                if bad.any() or not torch.isfinite(a).all():
+                    raise AssertionError(f"{name} {what} disagrees with depformer_step_reference")
+        kc, vc = (torch.zeros((L, S, C), device="cuda") for _ in range(2))
+        events = device_events(lambda: kernel(xs[S - 1], S - 1, ops["norm1"], ops["in_proj"],
+                                              ops["out_proj"], ops["norm2"], ops["gin"],
+                                              ops["gout"], ops["head_w"], ops["head_b"], kc, vc,
+                                              heads=heads, eps=1e-8))
+        if len(events) != 1 or "dep_step_kernel" not in events[0]:
+            raise AssertionError(f"{name} ({shape}): a micro-step ran {len(events)} device "
+                                 f"events, not one kernel: {events}")
+        zeros = lambda: torch.zeros((L, S, C), device="cuda")  # noqa: E731 - the path's f32 cache
+        ms = time_ms(lambda: _k1_frame(kernel, ops, xs, zeros(), zeros(), heads), 8) / S
+        plain_ms = time_ms(lambda: _k1_frame(plain, ops, xs, zeros(), zeros(), heads), 2) / S
+        # one micro-step, averaged over the frame's S: the step's weight slices
+        # and head (and their row scales), the norms, x, the cache rows read (cb
+        # of them, f32 K and V) and written (one), the logits
+        H, card_n = ops["gout"].shape[-1], ops["head_w"].shape[1]
+        weights = L * (3 * C * C + C * C + 2 * H * C + C * H) + card_n * C
+        rows = L * (3 * C + C + 2 * H + C) + card_n
+        n_bytes = (ops["in_proj"].element_size() * weights + (4 * rows if int8 else 0)
+                   + 4 * (2 * L * C + card_n) + 2 * C + 8 * L * C * (sum(range(S)) / S + 1)
+                   + 4 * card_n)
+        # bf16: a multiply and an add per weight at the bf16 rate; int8: the
+        # dequantizing multiply as well, all three at the float32 rate
+        bound_ms, bound_by = (bound(n_bytes, 3 * weights, "f32") if int8
+                              else bound(n_bytes, 2 * weights, "bf16"))
+        log(f"{name} ({shape}) one micro-step (L={L}, C={C}, H={H}, card={card_n}): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{n_bytes / 1e6:.1f} MB); one device kernel a micro-step [{card}]")
+        result[shape] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+        del ops, xs
     return {"name": "depformer_step_int8" if int8 else "depformer_step", "route": "cuda",
             "source": "rstnet_tpu_torch/csrc/depformer_step.cu",
             "replaces": "rstnet_tpu/ops/pallas_depformer.py:167"
                         + (" (int8 variant, scales set)" if int8 else ""),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "max_abs_err": err, **result["moshi"], "library_ms": None,
+            "flagship": result["flagship"]}
 
 
 def check_k2(g, card: str, sessions: int) -> dict:
     """K2 at Moshi 7B's depformer shapes (S=8, C=1024, H=2816, bf16
     weights), B in {2, 16, 64} and the sessions' B, x in bf16 and f32,
-    steps 0 and 7."""
+    steps 0 and 7, against the plain version; two calls compared bit for
+    bit. Timed over the 8 steps in turn (138 MB of weights, beyond the 50 MB
+    L2, as a tick's 48 calls find them), beside the plain version and the
+    eager three-call chain ``silu(x Wg^T) * (x Wv^T) Wo^T`` on the same
+    slices in x's dtype (a yardstick: no single PyTorch call computes the
+    function, so it is not ``library_ms``)."""
+    import torch.nn.functional as F
+
     from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn_step, gating_ffn_step_reference
 
     S, C, H = 8, 1024, 2816
@@ -334,35 +372,52 @@ def check_k2(g, card: str, sessions: int) -> dict:
               ).to(torch.bfloat16)
     lin_out = ((torch.rand((S, C, H), device="cuda", generator=g) * 2 - 1) * H**-0.5
                ).to(torch.bfloat16)
-    err, result = 0.0, None
+    err, result, by_b = 0.0, None, {}
     for B in sorted({2, 16, 64, sessions}):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn((B, C), device="cuda", generator=g).to(dtype)
             rtol, atol = K2_TOL[dtype]
             for step in (0, 7):
                 got = gating_ffn_step(x, lin_in, lin_out, step)
+                again = gating_ffn_step(x, lin_in, lin_out, step)
                 want = gating_ffn_step_reference(x, lin_in, lin_out, step)
                 torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"K2 B={B} {dtype} step={step}: two calls differ")
                 diff = (got.float() - want.float()).abs()
                 bad = int((diff > atol + rtol * want.float().abs()).sum())
                 err = max(err, diff.max().item())
                 if bad or not torch.isfinite(got).all():
                     raise AssertionError(f"K2 B={B} {dtype} step={step}: {bad} elements outside "
                                          f"rtol={rtol} atol={atol} (max err {diff.max().item():.3e})")
-            ms = time_ms(lambda: gating_ffn_step(x, lin_in, lin_out, 7), 100)
-            plain = time_ms(lambda: gating_ffn_step_reference(x, lin_in, lin_out, 7), 50)
+            turn = iter(range(1 << 30))
+            ms = time_ms(lambda: gating_ffn_step(x, lin_in, lin_out, next(turn) % S), 96)
+            plain = time_ms(lambda: gating_ffn_step_reference(x, lin_in, lin_out,
+                                                              next(turn) % S), 48)
+            w_in, w_out = lin_in.to(dtype), lin_out.to(dtype)  # the chain's weights in x's dtype
+
+            def chain():
+                s = next(turn) % S
+                gate, val = (x @ w_in[s].T).chunk(2, dim=-1)
+                return (F.silu(gate) * val) @ w_out[s].T
+
+            chain_ms = time_ms(chain, 96)
+            del w_in, w_out
             xb = x.element_size()
             bound_ms, bound_by = bound(2 * 3 * H * C + 2 * B * C * xb, 2 * B * 3 * H * C, "bf16")
             log(f"K2 B={B} x {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+                f"bound {bound_ms:.4f} ms ({bound_by}), eager three-call chain {chain_ms:.4f} ms; "
+                f"two calls bit-identical [{card}]")
+            if dtype == torch.bfloat16:
+                by_b[B] = {"ms": ms, "chain_ms": chain_ms}
             if B == sessions and dtype == torch.bfloat16:  # the batched tick's shape
                 result = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
-                          "bound_by": bound_by}
+                          "bound_by": bound_by, "three_call_chain_ms": chain_ms}
     log(f"K2 max |kernel - plain| {err:.3e} over B, dtypes and steps")
     return {"name": "gating_ffn_step", "route": "cuda",
             "source": "rstnet_tpu_torch/csrc/gating_ffn_step.cu",
             "replaces": "rstnet_tpu/ops/pallas_ffn.py:230", "max_abs_err": err, **result,
-            "library_ms": None}
+            "library_ms": None, "by_batch_bf16": by_b}
 
 
 def check_k4_k5(g, card: str) -> list[dict]:
@@ -808,7 +863,40 @@ def run_full_batched_slice(mimi, lm_gen, seed: int, sessions: int, n_ticks: int,
         raise AssertionError(f"{path}: launches {counts}, expected {expected}")
     log(f"{path} tick time: {_percentiles(times)} over {n_ticks} ticks (host clock, "
         f"informational); peak memory {peak:.1f} GiB [{card}]")
+
+    def tick(_):
+        for i, sess in enumerate(active):
+            sess.inputs.put_nowait(signals[i, -1])
+        batcher.step_once()
+
+    busy, k2_ms = device_kernel_ms(lambda: [tick(t) for t in range(2)], K2_KERNEL_NAMES)
+    log(f"{path} profiler over 2 ticks: device busy {busy / 2:.3f} ms a tick, K2 "
+        f"{k2_ms / 2:.3f} ms a tick ({expected.get('gating_ffn_step', 0) // n_ticks} calls) "
+        f"[{card}]")
     return counts
+
+
+# the device kernels of one K2 call (csrc/gating_ffn_step.cu)
+K2_KERNEL_NAMES = ("gate_value_mma", "down_mma", "sum_splits", "gate_value_kernel", "down_kernel")
+
+
+def device_kernel_ms(fn, names) -> tuple[float, float]:
+    """(device busy ms, ms the device spent in events whose name holds one
+    of ``names``: the union of their spans, so kernels that overlap, as K2's
+    do, count once) over one ``fn()`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rstnet_tpu_torch.tools.profile_frame import _union_us
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _union_us([(e.time_range.start, e.time_range.end) for e in dev]) / 1000
+    matched = _union_us([(e.time_range.start, e.time_range.end) for e in dev
+                         if any(n in e.name for n in names)])
+    return busy, matched / 1000
 
 
 @contextlib.contextmanager

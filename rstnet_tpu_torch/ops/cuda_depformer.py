@@ -20,7 +20,12 @@ Pallas kernel's ``wload`` rounding.
 :func:`depformer_step` launches the kernel on a CUDA tensor and runs
 :func:`depformer_step_reference` on a CPU tensor. It counts bf16 launches in
 ``depformer_step.launches`` and int8 launches in
-``depformer_step.launches_int8``.
+``depformer_step.launches_int8``. On the card a micro-step is one cooperative
+launch of one block per SM; where the grid cannot be co-resident the launch
+fails and the wrapper raises (there is no other route). The kernel keeps a
+small scratch per device and stream (its launch count and its tagged
+activations), zeroed once: a launch resets nothing, so it can be captured in
+a CUDA graph.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from rstnet_tpu_torch.modules.transformer import is_int8
 from rstnet_tpu_torch.ops import cuda_lib
 
 MAX_DIM = 8192  # largest C or H the kernel stages in shared memory
-MAX_STEPS = 32
+MAX_STEPS = 32  # one warp lane per cache row in the kernel's softmax
+MAX_LAYERS = 63  # the kernel's activation tags name (launch, phase): 4L + 1 < 256
 WEIGHTS = ("in_proj", "out_proj", "gin", "gout", "head_w")  # the stacks int8 serving quantizes
 
 
@@ -128,8 +134,9 @@ def _check_cuda_operands(x, cb, norm1, in_proj, out_proj, norm2, gin, gout, head
             raise ValueError(f"{name}: must be a contiguous, 16-byte aligned tensor on {x.device}")
     if C % 128 or H % 128 or card % 128 or C % heads or (C // heads) % 8:
         raise ValueError(f"outside the kernel envelope: C={C}, H={H}, card={card}, heads={heads}")
-    if C > MAX_DIM or H > MAX_DIM or S > MAX_STEPS:
-        raise ValueError(f"C, H <= {MAX_DIM} and S <= {MAX_STEPS}: got {C}, {H}, {S}")
+    if C > MAX_DIM or H > MAX_DIM or S > MAX_STEPS or L > MAX_LAYERS:
+        raise ValueError(f"C, H <= {MAX_DIM}, S <= {MAX_STEPS} and L <= {MAX_LAYERS}: got "
+                         f"{C}, {H}, {S}, {L}")
     if not 0 <= cb < S:
         raise ValueError(f"micro-step {cb} outside [0, {S})")
 
@@ -158,15 +165,13 @@ def depformer_step(x, cb: int, norm1, in_proj, out_proj, norm2, gin, gout, head_
     _check_cuda_operands(*args, scales=scales)
     L, S, C = kc.shape
     H, card = gout.shape[-1], head_w.shape[1]
-    f32 = dict(dtype=torch.float32, device=x.device)
-    logits = torch.empty((1, card), **f32)
-    scratch = [torch.empty(n, **f32) for n in (C, 3 * C, C, H)]  # xs, qkv, attn, hid
-    ptrs = [t.data_ptr() for t in (x, norm1, in_proj, out_proj, norm2, gin, gout, head_w,
-                                   head_b, kc, vc, logits, *scratch)]
+    logits = torch.empty((1, card), dtype=torch.float32, device=x.device)
     dims = (L, S, C, H, card, heads, cb, int(kc.dtype == torch.bfloat16), eps)
     lib = cuda_lib.kernel_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        ptrs = [t.data_ptr() for t in (x, norm1, in_proj, out_proj, norm2, gin, gout, head_w,
+                                       head_b, kc, vc, logits, _scratch(x.device, stream, C, H))]
         if scales is None:
             status = lib.depformer_step(*ptrs, *dims, stream)
         else:
@@ -183,6 +188,20 @@ def depformer_step(x, cb: int, norm1, in_proj, out_proj, norm2, gin, gout, head_
 # kernel launches, bf16 and int8 variants; reset freely by callers
 depformer_step.launches = 0
 depformer_step.launches_int8 = 0
+
+_SCRATCH: dict = {}
+
+
+def _scratch(device: torch.device, stream: int, C: int, H: int) -> torch.Tensor:
+    """The kernel's scratch for this device and stream: the launch count,
+    then the tagged activations (16 + 4C + H 64-bit words). Zeroed once here
+    (a zero tag never matches), then left to the kernel, so a launch needs no
+    reset and stays capturable in a CUDA graph. One per stream, since two
+    launches in flight must not share it."""
+    key, n = (device, stream), 16 + 4 * C + H
+    if key not in _SCRATCH or _SCRATCH[key].numel() < n:
+        _SCRATCH[key] = torch.zeros(n, dtype=torch.int64, device=device)
+    return _SCRATCH[key]
 
 
 def depformer_kernel_operands(model) -> dict | None:

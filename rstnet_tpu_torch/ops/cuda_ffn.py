@@ -101,16 +101,29 @@ def gating_ffn_step(x: torch.Tensor, lin_in: torch.Tensor, lin_out: torch.Tensor
     hid = torch.empty((B, H), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        splits = down_splits(x.device, C, H)
+        partial = torch.empty((splits, B, C) if splits > 1 else (0,), dtype=torch.float32,
+                              device=x.device)
         status = cuda_lib.kernel_library().gating_ffn_step(
             x.data_ptr(), w_in.data_ptr(), w_out.data_ptr(), hid.data_ptr(), out.data_ptr(),
-            B, C, H, int(x.dtype == torch.bfloat16), int(w_in.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            partial.data_ptr(), splits, B, C, H, int(x.dtype == torch.bfloat16),
+            int(w_in.dtype == torch.bfloat16), stream)
     cuda_lib.check(status, "gating_ffn_step")
     gating_ffn_step.launches += 1
     return out
 
 
 gating_ffn_step.launches = 0  # kernel launches; reset freely by callers
+
+
+def down_splits(device: torch.device, C: int, H: int) -> int:
+    """Splits of H in K2's tensor-core down pass: blocks of 32 output rows x
+    one split, two for every SM (as many as stay resident at once), each
+    split at least one 128-column chunk of H; a third launch adds the
+    splits' partial sums in order."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(H // 128, 2 * sms // max(1, C // 32)))
 
 
 FFN_MAX_ROWS = 64  # K4/K5's decode envelope: the Pallas docstring's batch-1..64

@@ -36,9 +36,9 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 SIGNATURES = {
     "rvq_encode": ([_P] * 5 + [_I] * 5 + [_P], _I),
     "rvq_encode_scratch_floats": ([_I] * 5, _LL),
-    "depformer_step": ([_P] * 16 + [_I] * 8 + [_F, _P], _I),
-    "depformer_step_int8": ([_P] * 21 + [_I] * 8 + [_F, _P], _I),
-    "gating_ffn_step": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    "depformer_step": ([_P] * 13 + [_I] * 8 + [_F, _P], _I),
+    "depformer_step_int8": ([_P] * 18 + [_I] * 8 + [_F, _P], _I),
+    "gating_ffn_step": ([_P] * 6 + [_I] * 6 + [_P], _I),
     "gating_ffn": ([_P] * 6 + [_I] * 5 + [_P], _I),
     "gating_ffn_int8": ([_P] * 9 + [_I] * 4 + [_P], _I),
     "flash_attention_fwd": ([_P] * 5 + [_I] * 6 + [_P], _I),

@@ -119,6 +119,18 @@ def _union_us(intervals) -> float:
     return busy
 
 
+def device_events(fn) -> list[str]:
+    """The names of the device events (kernels, copies, fills) of one
+    ``fn()``, in the order the profiler lists them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def device_profile(run_frame, frames) -> dict:
     from torch.profiler import ProfilerActivity, profile
 

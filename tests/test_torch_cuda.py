@@ -7,7 +7,9 @@ none; there, skip the repository's conftest (which sets JAX up):
 
 Tolerances as in ``chip_smoke.py``: K1 and K1-int8 2e-2 (bf16 rounding of
 GEMV inputs under two summation orders); K2, K4 and K5 1e-4 relative and
-1e-5 absolute for float32 outputs (float32 sums in two orders), plus one bf16
+1e-5 absolute for float32 outputs (float32 sums in two orders; K2's
+tensor-core route adds the ~2**-17 its hi + lo bf16 split leaves out, which
+``tests/test_torch_ffn.py`` bounds against the Pallas kernel), plus one bf16
 step (2**-7 relative) for bf16 outputs; K3 codes equal unless the
 reference's two candidates are a near-tie, quantized sums to float32
 rounding."""
@@ -129,7 +131,95 @@ def test_small_int8_slice_card_matches_cpu(cuda):
     chip_smoke.check_small_slice(0, n_frames=4, int8=True)
 
 
-@pytest.mark.parametrize("B", [1, 9, 64])
+K1_SHAPES = {  # (L, S, C, heads, H, card)
+    "flagship": (6, 8, 1024, 16, 768, 2048),  # the codecformer after pad_codecformer_gating
+    "smallest": (1, 1, 128, 1, 128, 128),
+}
+
+
+def _k1_case(gen, dims, int8):
+    """K1's operands at ``dims`` (weights drawn as the model initializes
+    them; int8: quantized by the port's quantize_weight_int8) as a list in
+    the wrappers' order, and the scales (None for bf16)."""
+    from rstnet_tpu_torch.modules.transformer import quantize_weight_int8
+
+    L, S, C, heads, H, card = dims
+    ops, xs = _k1_operands(gen, L, S, C, heads, H, card, init="uniform")
+    names = ("norm1", "in_proj", "out_proj", "norm2", "gin", "gout", "head_w", "head_b")
+    ops = dict(zip(names, ops))
+    scales = None
+    if int8:
+        scales = {}
+        for k in ("in_proj", "out_proj", "gin", "gout", "head_w"):
+            q = quantize_weight_int8(ops[k])
+            ops[k], scales[k] = q.w_int8, q.scale[..., None]
+    return [ops[k] for k in names], xs, scales
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("shape", list(K1_SHAPES))
+def test_depformer_kernels_at_flagship_and_smallest_shapes(cuda, shape, int8, cache_dtype):
+    """K1 and K1-int8 over a frame of S micro-steps against the plain
+    version, logits and caches within 2e-2, at the flagship codecformer's
+    shape and at the smallest the kernel takes (one layer, step, head)."""
+    from rstnet_tpu_torch.ops.cuda_depformer import depformer_step, depformer_step_reference
+
+    dims = K1_SHAPES[shape]
+    L, S, C, heads = dims[:4]
+    ops, xs, scales = _k1_case(cuda, dims, int8)
+    caches = [torch.zeros((L, S, C), device="cuda", dtype=cache_dtype) for _ in range(4)]
+    for cb in range(S):
+        got, caches[0], caches[1] = depformer_step(xs[cb], cb, *ops, caches[0], caches[1],
+                                                   heads=heads, scales=scales)
+        want, caches[2], caches[3] = depformer_step_reference(
+            xs[cb], cb, *ops, caches[2], caches[3], heads=heads, scales=scales)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    for a, b in ((caches[0], caches[2]), (caches[1], caches[3])):
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_depformer_kernel_is_bit_identical_across_calls(cuda, int8):
+    """Two frames from the same inputs give the same logits and caches, bit
+    for bit: every output is summed by one warp in a fixed order."""
+    from rstnet_tpu_torch.ops.cuda_depformer import depformer_step
+
+    dims = K1_SHAPES["flagship"]
+    L, S, C, heads = dims[:4]
+    ops, xs, scales = _k1_case(cuda, dims, int8)
+    runs = []
+    for _ in range(2):
+        kc, vc = (torch.zeros((L, S, C), device="cuda") for _ in range(2))
+        logits = []
+        for cb in range(S):
+            lg, kc, vc = depformer_step(xs[cb], cb, *ops, kc, vc, heads=heads, scales=scales)
+            logits.append(lg)
+        runs.append((torch.stack(logits), kc, vc))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_depformer_micro_step_is_one_device_kernel(cuda, int8):
+    """A micro-step is one cooperative launch: the profiler sees exactly one
+    device event, the micro-step kernel."""
+    from rstnet_tpu_torch.ops.cuda_depformer import depformer_step
+    from rstnet_tpu_torch.tools.profile_frame import device_events
+
+    dims = K1_SHAPES["flagship"]
+    L, S, C, heads = dims[:4]
+    ops, xs, scales = _k1_case(cuda, dims, int8)
+    kc, vc = (torch.zeros((L, S, C), device="cuda") for _ in range(2))
+    step = lambda cb: depformer_step(xs[cb], cb, *ops, kc, vc, heads=heads, scales=scales)  # noqa: E731
+    step(0)  # warm-up: builds the library, allocates the barrier counter
+    for cb in (1, S - 1):
+        names = device_events(lambda: step(cb))
+        assert len(names) == 1 and "dep_step_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("B", [1, 9, 64, 300])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
 def test_gating_ffn_step_kernel_matches_plain(cuda, B, x_dtype, w_dtype):
@@ -151,6 +241,23 @@ def test_gating_ffn_step_kernel_matches_plain(cuda, B, x_dtype, w_dtype):
     with pytest.raises(ValueError):
         gating_ffn_step(x[:, :100].contiguous(), lin_in[..., :100].contiguous(),
                         lin_out[:, :100].contiguous(), 0)  # C % 8 != 0
+
+
+@pytest.mark.parametrize("B", [2, 16, 64])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_gating_ffn_step_kernel_is_bit_identical_across_calls(cuda, B, x_dtype):
+    """K2 at Moshi 7B's depformer width (the down pass split over H, its
+    partial sums added by the last block in split order): two calls give the
+    same output, bit for bit."""
+    from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn_step
+
+    S, C, H = 8, 1024, 2816
+    x = torch.randn((B, C), device="cuda", generator=cuda).to(x_dtype)
+    lin_in = ((torch.rand((S, 2 * H, C), device="cuda", generator=cuda) * 2 - 1)
+              * C**-0.5).bfloat16()
+    lin_out = ((torch.rand((S, C, H), device="cuda", generator=cuda) * 2 - 1)
+               * H**-0.5).bfloat16()
+    assert torch.equal(gating_ffn_step(x, lin_in, lin_out, 5), gating_ffn_step(x, lin_in, lin_out, 5))
 
 
 @pytest.mark.parametrize("N", [1, 16, 64])

@@ -62,6 +62,62 @@ def test_plain_matches_pallas_step_interpret(B, C, H, S, step, x_dtype, w_dtype)
     np.testing.assert_allclose(_np(got), _np(want), **(F32_TOL if x_dtype == "f32" else BF16_TOL))
 
 
+def _split_bf16(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 -> (hi, lo) bf16 parts, hi = bf16(v), lo = bf16(v - hi), as the
+    tensor-core route of K2 splits an f32 operand."""
+    hi = v.to(torch.bfloat16)
+    return hi, (v - hi.float()).to(torch.bfloat16)
+
+
+def _products(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [B, K] @ w [N, K]^T from bf16 parts: an f32 ``a`` as hi + lo, a
+    bf16 one as is; bf16 x bf16 products are exact in f32, summed in f32."""
+    parts = _split_bf16(a) if a.dtype == torch.float32 else (a,)
+    return sum(p.float() @ w.float().T for p in parts)
+
+
+def _k2_tensor_core_emulation(x, lin_in, lin_out, step):
+    """K2's tensor-core route (bf16 weights) in plain torch: x (hi + lo if
+    f32) against the bf16 weights, the f32 hidden silu(gate) * val split
+    into hi + lo for the down pass, the output cast to x's dtype."""
+    s = min(max(step, 0), lin_in.shape[0] - 1)
+    gate, val = _products(x, lin_in[s]).chunk(2, dim=-1)
+    hid = gate * torch.sigmoid(gate) * val
+    return _products(hid, lin_out[s]).to(x.dtype)
+
+
+# the card tests' tolerances for K2 (chip_smoke.K2_TOL, tests/test_torch_cuda.py):
+# float32 outputs 1e-4 relative + 1e-5 absolute, bf16 outputs one bf16 step
+K2_CARD_TOL = {"f32": dict(rtol=1e-4, atol=1e-5), "bf16": dict(rtol=2.0**-7, atol=1e-5)}
+
+
+@pytest.mark.parametrize("B,C,H,S,step", [
+    (1, 128, 128, 8, 0), (3, 256, 128, 4, 3), (9, 128, 256, 2, 1), (16, 256, 384, 8, 7),
+    (2, 128, 128, 4, 9),  # a step outside [0, S) clamps
+])
+@pytest.mark.parametrize("x_dtype", ["f32", "bf16"])
+def test_k2_tensor_core_rounding_matches_pallas_step(B, C, H, S, step, x_dtype):
+    """The rounding of K2's tensor-core route, emulated in plain torch,
+    against the Pallas kernel in interpret mode (bf16 weights, fed as the JAX
+    call site feeds it), within the tolerance the card tests hold the kernel
+    to: the split leaves ~2**-17 of each f32 operand out, well inside the
+    1e-4 that two f32 summation orders already take."""
+    from rstnet_tpu.ops.pallas_ffn import gating_ffn_pallas_step
+
+    rng = np.random.default_rng(B * 1000 + C + H + S)
+    x = rng.normal(size=(B, C)).astype(np.float32)
+    lin_in = (rng.uniform(-1, 1, (S, 2 * H, C)) / np.sqrt(C)).astype(np.float32)
+    lin_out = (rng.uniform(-1, 1, (S, C, H)) / np.sqrt(H)).astype(np.float32)
+    jx = jnp.asarray(x, DTYPES[x_dtype][0])
+    jw_in, jw_out = (jnp.asarray(w, jnp.bfloat16) for w in (lin_in, lin_out))
+    want = gating_ffn_pallas_step(jx, jw_in.astype(jx.dtype), jw_out.astype(jx.dtype),
+                                  jnp.int32(step), interpret=True)
+    got = _k2_tensor_core_emulation(_t(x, x_dtype), _t(lin_in, "bf16"), _t(lin_out, "bf16"),
+                                    step)
+    assert got.dtype == DTYPES[x_dtype][1] and tuple(got.shape) == (B, C)
+    np.testing.assert_allclose(_np(got), _np(want), **K2_CARD_TOL[x_dtype])
+
+
 def _depformer(ff=192, num_layers=2, S=4):
     return dict(d_model=128, num_heads=2, num_layers=num_layers, dim_feedforward=ff, causal=True,
                 context=None, gating="silu", norm="rms_norm_f32", positional_embedding="none",

@@ -42,18 +42,23 @@ Phases (each prints its findings; any failure exits non-zero):
    ``infer_cli`` (path ``speech_cli``: K4 in every backbone step);
 7. speech streaming: K4 and K5 (the fused gated FFN of the backbone's
    LLaMAMLP, bf16 and int8 weights) against their plain versions at
-   Llama-3.2-1B's MLP (C=2048, H=8192; N in {1, 16, 64}, x in bf16 and
-   float32), with device, plain, bound and eager three-GEMM times (phase
-   ``kernels``); a small ``SpeechTextLM`` through ``teacher_forced_stream``
-   on the card and on the CPU from the same weights, bf16 and then
-   ``quantize_for_serving`` with an int8 ring; and the full flagship
-   (Llama-3.2-1B backbone, codecformer 1024 x 6, bf16, seeded random weights)
-   through ``LMGen.step`` at B=1 in four variants, each quantized in place
-   on top of the last: bf16, ``quantize_head_for_serving``, plus
-   ``quantize_dep_for_serving``, and ``quantize_for_serving`` with an int8
-   ring (paths ``speech_frame``, ``speech_frame_head_int8``,
-   ``speech_frame_mixed_int8``, ``speech_frame_int8``), each path's frames
-   timed on the host clock and 4 more under ``torch.profiler``.
+   Llama-3.2-1B's MLP (C=2048, H=8192; N in {1, 4, 16, 64}, x in bf16 and
+   float32), two calls bit for bit, with device, plain, bound and eager
+   three-GEMM times (phase ``kernels``); a small ``SpeechTextLM`` through
+   ``teacher_forced_stream`` on the card and on the CPU from the same
+   weights, bf16 and then ``quantize_for_serving`` with an int8 ring; and
+   the full flagship (Llama-3.2-1B backbone, codecformer 1024 x 6, bf16,
+   seeded random weights) through ``LMGen.step`` at B=1 (path
+   ``speech_frame``), then with Mimi 24 kHz through
+   ``SessionBatcher.step_once`` with an int8 ring, 16 and then 64 sessions,
+   8 ticks each after 3 of warm-up (paths ``speech_batched_tick_16`` and
+   ``speech_batched_tick_64``: K4 at N = the sessions), then at B=1 again
+   in three more variants, each quantized in place on top of the last:
+   ``quantize_head_for_serving``, plus ``quantize_dep_for_serving``, and
+   ``quantize_for_serving`` with an int8 ring (paths
+   ``speech_frame_head_int8``, ``speech_frame_mixed_int8``,
+   ``speech_frame_int8``); each path's frames or ticks timed on the host
+   clock, and 4 frames or 2 ticks more under ``torch.profiler``.
 
 Every phase prints its wall time.
 
@@ -354,81 +359,115 @@ def check_k1(g, card: str, int8: bool = False) -> dict:
             "flagship": result["flagship"]}
 
 
+# K2's two shapes on the main paths (S=8 steps, C=1024): Moshi 7B's
+# depformer (batched_tick, at the sessions' B) and the flagship's
+# codecformer after pad_codecformer_gating (speech_batched_tick_16 and _64).
+# Timed over `layers` layers' 8 steps in turn, beyond the 50 MB L2 as a
+# tick's calls find them: Moshi's one layer is 138 MB, the codecformer's
+# six 226 MB.
+K2_SHAPES = {"moshi": dict(H=2816, batches=(2, 16, 64), layers=1),
+             "flagship": dict(H=768, batches=(16, 64), layers=6)}
+
+
 def check_k2(g, card: str, sessions: int) -> dict:
-    """K2 at Moshi 7B's depformer shapes (S=8, C=1024, H=2816, bf16
-    weights), B in {2, 16, 64} and the sessions' B, x in bf16 and f32,
-    steps 0 and 7, against the plain version; two calls compared bit for
-    bit. Timed over the 8 steps in turn (138 MB of weights, beyond the 50 MB
-    L2, as a tick's 48 calls find them), beside the plain version and the
-    eager three-call chain ``silu(x Wg^T) * (x Wv^T) Wo^T`` on the same
-    slices in x's dtype (a yardstick: no single PyTorch call computes the
-    function, so it is not ``library_ms``)."""
+    """K2 (bf16 weights) at both of its shapes (``K2_SHAPES``), x in bf16 and
+    f32, steps 0 and 7, against the plain version; two calls compared bit
+    for bit. Timed beside the plain version and the eager three-call chain
+    ``silu(x Wg^T) * (x Wv^T) Wo^T`` on the same slices in x's dtype (a
+    yardstick: no single PyTorch call computes the function, so it is not
+    ``library_ms``). The kernels line carries Moshi's shape at the sessions'
+    B, the codecformer's at B=16 under ``"flagship"``, and each shape's bf16
+    times by B."""
     import torch.nn.functional as F
 
     from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn_step, gating_ffn_step_reference
 
-    S, C, H = 8, 1024, 2816
-    lin_in = ((torch.rand((S, 2 * H, C), device="cuda", generator=g) * 2 - 1) * C**-0.5
-              ).to(torch.bfloat16)
-    lin_out = ((torch.rand((S, C, H), device="cuda", generator=g) * 2 - 1) * H**-0.5
-               ).to(torch.bfloat16)
-    err, result, by_b = 0.0, None, {}
-    for B in sorted({2, 16, 64, sessions}):
-        for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn((B, C), device="cuda", generator=g).to(dtype)
-            rtol, atol = K2_TOL[dtype]
-            for step in (0, 7):
-                got = gating_ffn_step(x, lin_in, lin_out, step)
-                again = gating_ffn_step(x, lin_in, lin_out, step)
-                want = gating_ffn_step_reference(x, lin_in, lin_out, step)
-                torch.cuda.synchronize()
-                if not torch.equal(got, again):
-                    raise AssertionError(f"K2 B={B} {dtype} step={step}: two calls differ")
-                diff = (got.float() - want.float()).abs()
-                bad = int((diff > atol + rtol * want.float().abs()).sum())
-                err = max(err, diff.max().item())
-                if bad or not torch.isfinite(got).all():
-                    raise AssertionError(f"K2 B={B} {dtype} step={step}: {bad} elements outside "
-                                         f"rtol={rtol} atol={atol} (max err {diff.max().item():.3e})")
-            turn = iter(range(1 << 30))
-            ms = time_ms(lambda: gating_ffn_step(x, lin_in, lin_out, next(turn) % S), 96)
-            plain = time_ms(lambda: gating_ffn_step_reference(x, lin_in, lin_out,
-                                                              next(turn) % S), 48)
-            w_in, w_out = lin_in.to(dtype), lin_out.to(dtype)  # the chain's weights in x's dtype
+    S, C = 8, 1024
+    err, result = 0.0, {}
+    for shape, dims in K2_SHAPES.items():
+        H, slices = dims["H"], 8 * dims["layers"]
+        lin_in = ((torch.rand((slices, 2 * H, C), device="cuda", generator=g) * 2 - 1) * C**-0.5
+                  ).to(torch.bfloat16)
+        lin_out = ((torch.rand((slices, C, H), device="cuda", generator=g) * 2 - 1) * H**-0.5
+                   ).to(torch.bfloat16)
+        headline = sessions if shape == "moshi" else 16
+        by_b = {}
+        for B in sorted({*dims["batches"], headline}):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((B, C), device="cuda", generator=g).to(dtype)
+                rtol, atol = K2_TOL[dtype]
+                for step in (0, 7):
+                    got = gating_ffn_step(x, lin_in, lin_out, step)
+                    again = gating_ffn_step(x, lin_in, lin_out, step)
+                    want = gating_ffn_step_reference(x, lin_in, lin_out, step)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"K2 ({shape}) B={B} {dtype} step={step}: two "
+                                             "calls differ")
+                    diff = (got.float() - want.float()).abs()
+                    bad = int((diff > atol + rtol * want.float().abs()).sum())
+                    err = max(err, diff.max().item())
+                    if bad or not torch.isfinite(got).all():
+                        raise AssertionError(
+                            f"K2 ({shape}) B={B} {dtype} step={step}: {bad} elements outside "
+                            f"rtol={rtol} atol={atol} (max err {diff.max().item():.3e})")
+                turn = iter(range(1 << 30))
+                ms = time_ms(lambda: gating_ffn_step(x, lin_in, lin_out, next(turn) % slices), 96)
+                plain = time_ms(lambda: gating_ffn_step_reference(x, lin_in, lin_out,
+                                                                  next(turn) % slices), 48)
+                w_in, w_out = lin_in.to(dtype), lin_out.to(dtype)  # the chain's, in x's dtype
 
-            def chain():
-                s = next(turn) % S
-                gate, val = (x @ w_in[s].T).chunk(2, dim=-1)
-                return (F.silu(gate) * val) @ w_out[s].T
+                def chain():
+                    s = next(turn) % slices
+                    gate, val = (x @ w_in[s].T).chunk(2, dim=-1)
+                    return (F.silu(gate) * val) @ w_out[s].T
 
-            chain_ms = time_ms(chain, 96)
-            del w_in, w_out
-            xb = x.element_size()
-            bound_ms, bound_by = bound(2 * 3 * H * C + 2 * B * C * xb, 2 * B * 3 * H * C, "bf16")
-            log(f"K2 B={B} x {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}), eager three-call chain {chain_ms:.4f} ms; "
-                f"two calls bit-identical [{card}]")
-            if dtype == torch.bfloat16:
-                by_b[B] = {"ms": ms, "chain_ms": chain_ms}
-            if B == sessions and dtype == torch.bfloat16:  # the batched tick's shape
-                result = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
-                          "bound_by": bound_by, "three_call_chain_ms": chain_ms}
-    log(f"K2 max |kernel - plain| {err:.3e} over B, dtypes and steps")
+                chain_ms = time_ms(chain, 96)
+                del w_in, w_out
+                xb = x.element_size()
+                bound_ms, bound_by = bound(2 * 3 * H * C + 2 * B * C * xb, 2 * B * 3 * H * C,
+                                           "bf16")
+                log(f"K2 ({shape}) B={B} x {str(dtype)[6:]} (C={C}, H={H}): kernel {ms:.4f} ms, "
+                    f"plain {plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), eager "
+                    f"three-call chain {chain_ms:.4f} ms; two calls bit-identical [{card}]")
+                if dtype == torch.bfloat16:
+                    by_b[B] = {"ms": ms, "chain_ms": chain_ms, "bound_ms": bound_ms}
+                    if B == headline:
+                        result[shape] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                                         "bound_by": bound_by, "three_call_chain_ms": chain_ms,
+                                         "H": H, "B": B}
+        result[shape]["by_batch_bf16"] = by_b
+        del lin_in, lin_out
+    log(f"K2 max |kernel - plain| {err:.3e} over shapes, B, dtypes and steps")
     return {"name": "gating_ffn_step", "route": "cuda",
             "source": "rstnet_tpu_torch/csrc/gating_ffn_step.cu",
-            "replaces": "rstnet_tpu/ops/pallas_ffn.py:230", "max_abs_err": err, **result,
-            "library_ms": None, "by_batch_bf16": by_b}
+            "replaces": "rstnet_tpu/ops/pallas_ffn.py:230", "max_abs_err": err,
+            **result["moshi"], "library_ms": None, "flagship": result["flagship"]}
+
+
+# K4/K5's rows on the paths: the flagship frame (1), the batched speech tick
+# (16 and 64 sessions), and 4 between
+K4_K5_ROWS = (1, 4, 16, 64)
+# the device kernels of one K4 or K5 call (csrc/gating_ffn.cu)
+K4_KERNEL_NAMES = ("gate_value_tc", "down_tc", "sum_down_splits", "split_rows",
+                   "core_gate_value", "core_down")
 
 
 def check_k4_k5(g, card: str) -> list[dict]:
     """K4 (bf16 weights) and K5 (the same weights quantized by the port's
     ``quantize_weight_int8``) at Llama-3.2-1B's MLP (C=2048, H=8192, the
-    model's init scales), N in {1, 16, 64}, x in bf16 and float32. Timed
-    over three weight sets in turn, so no call finds its weights in the 50 MB
-    L2 (as a frame's 16 layers do not); beside each kernel its plain version
-    and the eager three-GEMM chain ``silu(x Wg^T) * (x Wv^T) Wo^T`` in x's
-    dtype (a yardstick: no single PyTorch call computes the function). The
-    kernels line carries the main path's case, N=1 with bf16 x."""
+    model's init scales), N in ``K4_K5_ROWS``, x in bf16 and float32, each
+    against its plain version, two calls compared bit for bit; and K4 over
+    the same weights in float32 at N=1 (on no path of the main line: the
+    CUDA-core kernels under an f32 x, the wrapper's own bf16 copy under a
+    bf16 x). Timed over three weight sets in turn, so no call finds its
+    weights in the 50 MB L2 (as a frame's 16 layers do not); beside each
+    kernel its plain version and the eager three-GEMM chain ``silu(x Wg^T)
+    * (x Wv^T) Wo^T`` in x's dtype (a yardstick: no single PyTorch call
+    computes the function). Each kernels entry carries its first case (K4
+    and K5: the main path's N=1 with bf16 x) and under ``by_rows`` every N's
+    kernel, chain and bound times (bf16 x, and with an ``f32_`` prefix
+    float32 x); the float32-weights case goes under K4's ``f32_weights``."""
     import torch.nn.functional as F
 
     from rstnet_tpu_torch.modules.transformer import quantize_weight_int8
@@ -441,32 +480,41 @@ def check_k4_k5(g, card: str) -> list[dict]:
     )
 
     C, H, n_sets = 2048, 8192, 3
+    bf16, f32 = torch.bfloat16, torch.float32
 
     def uniform(rows, cols):
         return ((torch.rand((rows, cols), device="cuda", generator=g) * 2 - 1)
-                * cols**-0.5).to(torch.bfloat16)
+                * cols**-0.5).to(bf16)
 
     sets = [[uniform(H, C), uniform(H, C), uniform(C, H)] for _ in range(n_sets)]
     qsets = []
     for ws in sets:
         q = [quantize_weight_int8(w) for w in ws]
         qsets.append([t for wq in q for t in (wq.w_int8.data, wq.scale.data)])
+    k4 = "rstnet_tpu/ops/pallas_ffn.py:79"
+    # name: (kernel, plain, weight sets, replaces, N values, x dtypes)
     kernels = {
-        "gating_ffn": (gating_ffn, gating_ffn_reference, sets,
-                       "rstnet_tpu/ops/pallas_ffn.py:79", 2),
+        "gating_ffn": (gating_ffn, gating_ffn_reference, sets, k4, K4_K5_ROWS, (bf16, f32)),
         "gating_ffn_int8": (gating_ffn_int8, gating_ffn_int8_reference, qsets,
-                            "rstnet_tpu/ops/pallas_ffn.py:152", 1),
+                            "rstnet_tpu/ops/pallas_ffn.py:152", K4_K5_ROWS, (bf16, f32)),
+        "gating_ffn float32 weights": (gating_ffn, gating_ffn_reference,
+                                       [[t.float() for t in ws] for ws in sets], k4, (1,),
+                                       (f32, bf16)),
     }
     entries = []
-    for name, (kernel, plain, wsets, replaces, wbytes) in kernels.items():
-        err, result = 0.0, None
-        for N in (1, 16, 64):
-            for dtype in (torch.bfloat16, torch.float32):
+    for name, (kernel, plain, wsets, replaces, rows_list, dtypes) in kernels.items():
+        err, result, by_rows = 0.0, None, {}
+        wtype = wsets[0][0].dtype
+        for N in rows_list:
+            for dtype in dtypes:
                 x = torch.randn((N, C), device="cuda", generator=g).to(dtype)
                 rtol, atol = K2_TOL[dtype]
                 got = kernel(x, *wsets[0])
+                again = kernel(x, *wsets[0])
                 want = plain(x, *wsets[0])
                 torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name} N={N} {dtype}: two calls differ")
                 diff = (got.float() - want.float()).abs()
                 bad = int((diff > atol + rtol * want.float().abs()).sum())
                 err = max(err, diff.max().item())
@@ -477,7 +525,7 @@ def check_k4_k5(g, card: str) -> list[dict]:
                 ms = time_ms(lambda: kernel(x, *wsets[next(turn) % n_sets]), 60)
                 plain_ms = time_ms(lambda: plain(x, *wsets[next(turn) % n_sets]), 10)
                 # the yardstick's weights in x's dtype (dequantized for K5), made before timing
-                chains = [[t.to(dtype) for t in ws] if name == "gating_ffn" else
+                chains = [[t.to(dtype) for t in ws] if wtype != torch.int8 else
                           [dequantize_rows(*ws[i:i + 2]).to(dtype) for i in (0, 2, 4)]
                           for ws in wsets]
 
@@ -487,26 +535,40 @@ def check_k4_k5(g, card: str) -> list[dict]:
 
                 chain_ms = time_ms(chain, 30)
                 del chains
-                xb = x.element_size()
-                n_bytes = wbytes * 3 * H * C + 2 * N * C * xb + (4 * (2 * H + C) if wbytes == 1
-                                                                   else 0)
-                # a multiply and an add a weight and row; K5 dequantizes each weight too.
-                # bf16 x on bf16 weights: exact products, the bf16 tensor-core rate;
-                # otherwise float32 products
-                n_ops = 3 * H * C * (2 * N + (wbytes == 1))
-                kind = "bf16" if name == "gating_ffn" and dtype == torch.bfloat16 else "f32"
-                bound_ms, bound_by = bound(n_bytes, n_ops, kind)
+                xb, wb = x.element_size(), wsets[0][0].element_size()
+                n_bytes = wb * 3 * H * C + 2 * N * C * xb + (4 * (2 * H + C) if wb == 1 else 0)
+                if wtype == f32 and dtype == f32:
+                    # the CUDA-core kernels: an f32 multiply and add a weight and row
+                    bound_ms, bound_by = bound(n_bytes, 2 * N * 3 * H * C, "f32")
+                else:
+                    # the products as the tensor-core kernels run them: a multiply and
+                    # an add a weight and row, once for a bf16 x in the gate/value pass
+                    # and twice for an f32 one (hi + lo), twice in the down pass (the
+                    # f32 hidden as hi + lo); K5's int8 weights are widened exactly and
+                    # its row scales multiply row sums
+                    parts = 1 if dtype == bf16 else 2
+                    bound_ms, bound_by = bound(n_bytes, 2 * N * (2 * H * C * parts + C * H * 2),
+                                               "bf16")
                 log(f"{name} N={N} x {str(dtype)[6:]} (C={C}, H={H}): kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-                    f"{n_bytes / 1e6:.1f} MB), eager three-GEMM chain {chain_ms:.4f} ms [{card}]")
-                if N == 1 and dtype == torch.bfloat16:  # the flagship frame's call
+                    f"{n_bytes / 1e6:.1f} MB), eager three-GEMM chain {chain_ms:.4f} ms; two calls "
+                    f"bit-identical [{card}]")
+                prefix = "" if dtype == bf16 else "f32_"
+                row = by_rows.setdefault(str(N), {})
+                row.update({prefix + "ms": ms, prefix + "chain_ms": chain_ms,
+                            prefix + "bound_ms": bound_ms})
+                if result is None:  # the entry's first case
                     result = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                               "bound_by": bound_by, "three_gemm_ms": chain_ms}
         log(f"{name} max |kernel - plain| {err:.3e} over N and dtypes")
         entries.append({"name": name, "route": "cuda",
                         "source": "rstnet_tpu_torch/csrc/gating_ffn.cu", "replaces": replaces,
-                        "max_abs_err": err, **result, "library_ms": None})
-    del sets, qsets
+                        "max_abs_err": err, **result, "library_ms": None, "by_rows": by_rows})
+    f32_weights = entries.pop()
+    entries[0]["f32_weights"] = {k: f32_weights[k] for k in
+                                 ("ms", "plain_ms", "bound_ms", "bound_by", "three_gemm_ms",
+                                  "max_abs_err", "by_rows")}
+    del sets, qsets, kernels
     torch.cuda.empty_cache()
     return entries
 
@@ -1043,6 +1105,108 @@ def run_speech_slice(model, seed: int, n_frames: int, card: str, path: str, expe
     return counts
 
 
+def build_mimi(seed: int):
+    """Mimi 24 kHz (f32) on the card from ``seed``, with seeded normal
+    codebooks (the default init leaves them at zero, all ties)."""
+    from rstnet_tpu_torch.models.mimi import mimi_24k
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    mimi = mimi_24k(device="cuda", generator=g)
+    for rvq in (mimi.quantizer.rvq_first, mimi.quantizer.rvq_rest):
+        rvq.layers.embedding_sum.normal_(generator=g)
+    return mimi
+
+
+def speech_tick_expected(model, n_ticks: int) -> dict:
+    """A batched speech tick's launches: K4 once a backbone layer (N = the
+    sessions), K2 once a codecformer layer and micro-step where its gating
+    is on K2's route, K3 twice (Mimi's two quantizers)."""
+    cfg, cf = model.config, model.codecformer
+    hidden = cf.layers.gating.linear_in[0].shape[-2] // 2
+    on_k2 = cf.weights_per_step and hidden % 128 == 0 and cf.d_model % 128 == 0
+    k2 = cfg.dep_q * cf.num_layers if on_k2 else 0
+    return {**dict.fromkeys(_counters(), 0), "gating_ffn": cfg.n_layer * n_ticks,
+            "gating_ffn_step": k2 * n_ticks, "rvq_encode": 2 * n_ticks}
+
+
+def run_speech_batched_tick(mimi, model, seed: int, sessions: int, n_ticks: int, card: str,
+                            path: str) -> dict:
+    """``SessionBatcher.step_once`` over Mimi 24 kHz and the flagship (bf16
+    weights and state, an int8 ring: ``bench.py``'s sessions leg) with
+    ``sessions`` sessions, each fed its own seeded signal: 3 warm-up ticks,
+    then ``n_ticks`` counted and timed ticks, in which every K4 call must
+    take N = ``sessions`` rows, then 2 more under ``torch.profiler`` (device
+    busy, K4's device time a tick)."""
+    from rstnet_tpu_torch.inference.generate import LMGen
+    from rstnet_tpu_torch.models import backbone
+    from rstnet_tpu_torch.serving.batcher import SessionBatcher
+
+    cfg = model.config
+    gen = LMGen(model, delays=(0,) + (1,) * cfg.n_q, kv_int8=True, kv_unstacked=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batcher = SessionBatcher(mimi, gen, max_sessions=sessions, seed=seed)
+    active = [batcher.acquire() for _ in range(sessions)]
+    frame, warm = batcher.frame_size, 3
+    signals = np.stack([_signal(seed + i, (warm + n_ticks + 2) * frame, 110.0 + 20.0 * i)
+                        for i in range(sessions)]).reshape(sessions, -1, frame)
+
+    def tick(t):
+        for i, sess in enumerate(active):
+            sess.inputs.put_nowait(signals[i, t])
+        batcher.step_once()
+
+    for t in range(warm):
+        tick(t)
+    torch.cuda.synchronize()
+    for sess in active:
+        while not sess.outputs.empty():
+            sess.outputs.get_nowait()
+    real, k4_rows = backbone.gating_ffn, []  # each K4 call's N, as the CPU test records it
+    backbone.gating_ffn = lambda *a, **k: k4_rows.append(a[0].shape[0]) or real(*a, **k)
+    try:
+        reset_counts()
+        times = []
+        for t in range(warm, warm + n_ticks):
+            t0 = time.perf_counter()
+            tick(t)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1000)
+        counts = read_counts()
+    finally:
+        backbone.gating_ffn = real
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, sess in enumerate(active):
+        got = [sess.outputs.get_nowait() for _ in range(sess.outputs.qsize())]
+        if len(got) != n_ticks:
+            raise AssertionError(f"{path} session {i}: {len(got)} frames, expected {n_ticks}")
+        for audio, tok in got:
+            if audio.shape != (frame,) or not np.isfinite(audio).all():
+                raise AssertionError(f"{path} session {i}: audio {audio.shape}, finite "
+                                     f"{np.isfinite(audio).all()}")
+            if not 0 <= tok < cfg.padded_vocab_size:
+                raise AssertionError(f"{path} session {i}: text token {tok} outside "
+                                     f"[0, {cfg.padded_vocab_size})")
+    expected = speech_tick_expected(model, n_ticks)
+    log(f"{path}: {n_ticks} ticks x {sessions} sessions; launches {counts}")
+    if counts != expected:
+        raise AssertionError(f"{path}: launches {counts}, expected {expected}")
+    if k4_rows != [sessions] * expected["gating_ffn"]:
+        raise AssertionError(f"{path}: K4 calls took rows {sorted(set(k4_rows))} "
+                             f"({len(k4_rows)} calls), expected N={sessions} on each of "
+                             f"{expected['gating_ffn']}")
+    log(f"{path}: every one of the {len(k4_rows)} K4 calls took N={sessions} rows")
+    log(f"{path} tick time: {_percentiles(times)} over {n_ticks} ticks (host clock, "
+        f"informational); peak memory {peak:.2f} GiB [{card}]")
+    busy, k4_ms = device_kernel_ms(lambda: [tick(t) for t in range(warm + n_ticks,
+                                                                    warm + n_ticks + 2)],
+                                   K4_KERNEL_NAMES)
+    log(f"{path} profiler over 2 ticks: device busy {busy / 2:.3f} ms a tick, K4 {k4_ms / 2:.3f} "
+        f"ms a tick ({cfg.n_layer} calls at N={sessions}) [{card}]")
+    return counts
+
+
 def run_cli_chain(root: Path, data: str, exp: Path, n_layer: int, card: str) -> dict:
     """``lm_eval`` and ``infer_cli`` (``--device cuda``) on the training
     slice's experiment: finite CE and perplexity, two generated grids of
@@ -1510,6 +1674,13 @@ def main(argv=None) -> int:
         paths["speech_frame"] = run_speech_slice(
             flagship, args.seed, n, card, "speech_frame (bf16)",
             {**none, "gating_ffn": L * n, "depformer_step": 8 * n})
+    with phase("speech batched tick"):
+        mimi24 = build_mimi(args.seed)
+        for sessions in (16, 64):
+            paths[f"speech_batched_tick_{sessions}"] = run_speech_batched_tick(
+                mimi24, flagship, args.seed, sessions, 8, card,
+                f"speech_batched_tick_{sessions} (bf16, --kv-int8)")
+        del mimi24
     with phase("flagship head-int8 frames"):
         quantize_head_for_serving(flagship)
         paths["speech_frame_head_int8"] = run_speech_slice(

@@ -25,9 +25,10 @@ float32 ring) is carried as in the JAX per-layer loop. In ``step`` only, a
 LLaMAMLP inside the envelope of the fused gated-FFN kernels (no bias, N = B*T
 <= 64 rows, C and H multiples of 128, all three weights float or all three
 int8) goes through K4 (``ops/cuda_ffn.py::gating_ffn``) or K5
-(``gating_ffn_int8``): on every device, the kernel on the card and its plain
-version on the CPU. They keep the gate, value and hidden in float32 where the
-JAX ``_mlp`` rounds them to the activation dtype (see ``ops/cuda_ffn.py``).
+(``gating_ffn_int8``): on every device, the kernel on the card (one stream of
+the weights through the tensor cores for all N rows) and its plain version on
+the CPU. They keep the gate, value and hidden in float32 where the JAX
+``_mlp`` rounds them to the activation dtype (see ``ops/cuda_ffn.py``).
 
 int8 serving (``quantize_backbone_int8``, in place): a linear's ``weight``
 becomes ``w_int8`` and ``scale``, the JAX dict's names; ``linear``

@@ -17,9 +17,15 @@ K4 and K5, ``csrc/gating_ffn.cu`` (counterparts of ``gating_ffn_pallas`` and
 ``w_val [H, C]`` and ``w_out [C, H]``, the backbone LLaMAMLP's ``fc_1``,
 ``fc_2`` and ``proj`` read in place, for N <= 64 decode rows. K4 takes the
 weights in x's dtype first, as ``models/backbone.py::linear`` does; K5 takes
-int8 weights with float32 row scales and dequantizes each element as
-``float(q) * scale[row]`` in float32, as the Pallas body does. Both keep the
-sums and the hidden in float32 and cast the output once to x's dtype.
+int8 weights with float32 row scales. Both keep the sums and the hidden in
+float32 and cast the output once to x's dtype. On the card, bf16 or int8
+weights with C and H multiples of 128 run on the tensor cores: one stream of
+the weights (int8 as int8) for any N up to 64, x and the hidden as bf16
+parts (an f32 value as hi + lo), K5's row scale applied to each row's float32
+sum; the plain versions dequantize each element as ``float(q) * scale[row]``
+in float32, as the Pallas body does, one float32 rounding from the kernel.
+Float32 weights and other widths take the CUDA-core kernels of the same
+source.
 ``Backbone.step`` routes its MLP through them. The JAX ``_mlp`` instead
 rounds ``fc_1``'s and ``fc_2``'s outputs and the hidden to x's dtype (and its
 int8 ``linear`` dequantizes in x's dtype): with float32 activations the two
@@ -32,6 +38,8 @@ plain version on a CPU tensor; it counts launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -117,16 +125,40 @@ def gating_ffn_step(x: torch.Tensor, lin_in: torch.Tensor, lin_out: torch.Tensor
 gating_ffn_step.launches = 0  # kernel launches; reset freely by callers
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def down_splits(device: torch.device, C: int, H: int) -> int:
     """Splits of H in K2's tensor-core down pass: blocks of 32 output rows x
     one split, two for every SM (as many as stay resident at once), each
     split at least one 128-column chunk of H; a third launch adds the
     splits' partial sums in order."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(H // 128, 2 * sms // max(1, C // 32)))
+    return max(1, min(H // 128, 2 * _sm_count(device.index) // max(1, C // 32)))
 
 
-FFN_MAX_ROWS = 64  # K4/K5's decode envelope: the Pallas docstring's batch-1..64
+# K4/K5's decode envelope: the Pallas docstring's batch-1..64. On the H100
+# the tensor-core kernels stream the weights once for any N up to 64 and beat
+# the eager three-GEMM chain at every N measured there, 1, 4, 16 and 64 (by
+# ~1.2-2x; PERF.md section 6): the measurement this envelope rests on.
+FFN_MAX_ROWS = 64
+
+
+def ffn_splits(device: torch.device, C: int, H: int) -> int:
+    """Parts of H in K4/K5's tensor-core down pass: its C / 128 blocks of
+    128 output rows times the parts fill the SMs once, each part at least
+    one 128-column chunk of H."""
+    return max(1, min(H // 128, _sm_count(device.index) // max(1, C // 128)))
+
+
+def _ffn_scratch(x: torch.Tensor, C: int, H: int) -> tuple[torch.Tensor, int]:
+    """(K4/K5's float32 scratch, the down pass's parts of H): the hidden
+    [N, H] (as two bf16 planes on the tensor cores), an f32 x's bf16 planes
+    [N, C], and the down pass's partial sums [splits, N, C]."""
+    N = x.shape[0]
+    splits = ffn_splits(x.device, C, H)
+    return torch.empty(N * (H + C + splits * C), dtype=torch.float32, device=x.device), splits
 
 
 def gating_ffn_reference(x: torch.Tensor, w_gate: torch.Tensor, w_val: torch.Tensor,
@@ -191,23 +223,32 @@ def gating_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_val: torch.Tensor,
     """K4: fused ``(silu(x Wg^T) * (x Wv^T)) Wo^T`` for x [N, C] (float32 or
     bf16) and float32 or bf16 weights -> [N, C] in x's dtype. Launches the
     kernel on a CUDA tensor (or raises), runs the plain version on a CPU
-    tensor."""
+    tensor.
+
+    Precondition on the card: the kernels start streaming the weights
+    before the kernel launched just ahead of the call on the stream has
+    finished (programmatic dependent launch), so that kernel must not have
+    written them. Float32 weights under a bf16 x are the exception this
+    wrapper makes itself: it copies them to bf16 and then launches without
+    the overlap."""
     if x.device.type == "cpu":
         return gating_ffn_reference(x, w_gate, w_val, w_out)
     if x.device.type != "cuda":
         raise NotImplementedError(f"gating_ffn has no kernel for {x.device}")
     weights = (w_gate, w_val, w_out)
     _check_ffn_operands("gating_ffn", x, weights, _DTYPES)
-    if x.dtype == torch.bfloat16 and w_gate.dtype == torch.float32:
+    converted = x.dtype == torch.bfloat16 and w_gate.dtype == torch.float32
+    if converted:
         weights = tuple(w.to(torch.bfloat16) for w in weights)  # the weights in x's dtype
     N, C = x.shape
     H = w_gate.shape[0]
-    hid = torch.empty((N, H), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
+        scratch, splits = _ffn_scratch(x, C, H)
         status = cuda_lib.kernel_library().gating_ffn(
-            x.data_ptr(), *(w.data_ptr() for w in weights), hid.data_ptr(), out.data_ptr(),
-            N, C, H, int(x.dtype == torch.bfloat16), int(weights[0].dtype == torch.bfloat16),
+            x.data_ptr(), *(w.data_ptr() for w in weights), scratch.data_ptr(), out.data_ptr(),
+            N, C, H, splits, int(x.dtype == torch.bfloat16),
+            int(weights[0].dtype == torch.bfloat16), int(not converted),
             torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(status, "gating_ffn")
     gating_ffn.launches += 1
@@ -223,7 +264,9 @@ def gating_ffn_int8(x: torch.Tensor, w_gate: torch.Tensor, gate_scale: torch.Ten
     """K5: K4 over int8 weights with float32 row scales (``gate_scale``,
     ``val_scale`` [H], ``out_scale`` [C], the ``scale`` that
     ``quantize_linear_int8`` writes). Launches the kernel on a CUDA tensor
-    (or raises), runs the plain version on a CPU tensor."""
+    (or raises), runs the plain version on a CPU tensor. The precondition of
+    ``gating_ffn`` holds, with no exception: the kernel launched just ahead
+    of the call must not have written the int8 weights."""
     args = (x, w_gate, gate_scale, w_val, val_scale, w_out, out_scale)
     if x.device.type == "cpu":
         return gating_ffn_int8_reference(*args)
@@ -233,11 +276,11 @@ def gating_ffn_int8(x: torch.Tensor, w_gate: torch.Tensor, gate_scale: torch.Ten
                         (gate_scale, val_scale, out_scale))
     N, C = x.shape
     H = w_gate.shape[0]
-    hid = torch.empty((N, H), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
+        scratch, splits = _ffn_scratch(x, C, H)
         status = cuda_lib.kernel_library().gating_ffn_int8(
-            *(t.data_ptr() for t in args), hid.data_ptr(), out.data_ptr(), N, C, H,
+            *(t.data_ptr() for t in args), scratch.data_ptr(), out.data_ptr(), N, C, H, splits,
             int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(status, "gating_ffn_int8")
     gating_ffn_int8.launches += 1

@@ -8,8 +8,10 @@ The models are small: the JAX tests' Mimi (frame 24 samples, 4 codebooks of
 16, random codebooks so that codes are not all ties) and a Moshi LM whose
 depformer is 128 wide with a gating hidden dim of 128, so that every
 batched micro-step's FFN goes through K2's wrapper (its plain version on
-the CPU). Everything is float32 and greedy. Tolerances: codes and tokens
-equal; audio within 1e-5 (float32 rounding in other summation orders; the
+the CPU); for the fused step also a ``SpeechTextLM`` (4 codebooks, no user
+streams) whose backbone MLP is on K4's route (n_embd 256, MLP 512).
+Everything is float32 and greedy. Tolerances: codes and tokens equal;
+audio within 1e-5 (float32 rounding in other summation orders; the
 measured gap is ~1e-7)."""
 
 import asyncio
@@ -129,12 +131,24 @@ def test_mimi_slot_resets_and_session_age_match_jax():
         age += 1
 
 
-def test_fused_step_matches_jax_batcher(monkeypatch):
+def _speech_pair():
+    """A JAX and a port ``SpeechTextLM`` with the same params: 4 codebooks
+    (Mimi's), backbone MLP widths on K4's route (C=256, H=512)."""
+    from tests.test_torch_speech_lm import lm_pair
+
+    return lm_pair(n_embd=256, intermediate_size=512, n_q=4, dep_q=4, audio_card=16, context=16)
+
+
+@pytest.mark.parametrize("lm", ["moshi", "speech"])
+def test_fused_step_matches_jax_batcher(monkeypatch, lm):
     """Both batchers, three slots, greedy, the same inputs through
     ``_device_step``: two sessions join at once, a third joins later, and
     one leaves and a new session takes its slot. Tokens of every active
-    slot equal, audio of every valid frame within 1e-5; each tick runs K2's
-    wrapper once per depformer layer and micro-step."""
+    slot equal, audio of every valid frame within 1e-5. Each tick runs the
+    fused FFN's wrapper at N = 3, the batch's width (every slot is computed,
+    active or not): Moshi's K2 once per depformer layer and micro-step, the
+    ``SpeechTextLM``'s K4 once per backbone layer."""
+    import rstnet_tpu_torch.models.backbone as bmod
     import rstnet_tpu_torch.modules.transformer as tmod
     from rstnet_tpu.inference.generate import LMGen as JGen
     from rstnet_tpu.serving.batcher import SessionBatcher as JBatcher
@@ -142,14 +156,22 @@ def test_fused_step_matches_jax_batcher(monkeypatch):
     from rstnet_tpu_torch.serving.batcher import SessionBatcher
 
     jmimi, mimi_params, tmimi = _mimi_pair()
-    jlm, lm_params, tlm = _lm_pair()
-    jb = JBatcher(jmimi, mimi_params, JGen(jlm, delays=jlm.delays, use_sampling=False),
+    if lm == "moshi":
+        jlm, lm_params, tlm = _lm_pair()
+        delays = jlm.delays
+        module, wrapper, per_tick = tmod, "gating_ffn_step", tlm.dep_q * tlm.depformer.num_layers
+    else:
+        jlm, lm_params, tlm = _speech_pair()
+        delays = (0,) + (1,) * tlm.config.n_q
+        module, wrapper, per_tick = bmod, "gating_ffn", tlm.config.n_layer
+    jb = JBatcher(jmimi, mimi_params, JGen(jlm, delays=delays, use_sampling=False),
                   lm_params, max_sessions=3, dtype=jnp.float32)
-    tb = SessionBatcher(tmimi, LMGen(tlm, delays=tlm.delays, use_sampling=False),
+    tb = SessionBatcher(tmimi, LMGen(tlm, delays=delays, use_sampling=False),
                         max_sessions=3, dtype=torch.float32)
-    k2 = []
-    real = tmod.gating_ffn_step
-    monkeypatch.setattr(tmod, "gating_ffn_step", lambda *a, **k: k2.append(1) or real(*a, **k))
+    rows = []
+    real = getattr(module, wrapper)
+    monkeypatch.setattr(module, wrapper,
+                        lambda *a, **k: rows.append(a[0].shape[0]) or real(*a, **k))
 
     async def run():
         jsess = {0: jb.acquire(), 1: jb.acquire()}
@@ -168,10 +190,10 @@ def test_fused_step_matches_jax_batcher(monkeypatch):
             jpcm, jsnap = jb._gather_inputs()
             tpcm, tsnap = tb._gather_inputs()
             jpcm[:], tpcm[:] = pcm, pcm
-            k2.clear()
+            rows.clear()
             _, jaudio, jout, jvalid = jb._device_step(jpcm, jsnap)
             _, taudio, tout, tvalid = tb._device_step(tpcm, tsnap)
-            assert len(k2) == tlm.dep_q * tlm.depformer.num_layers
+            assert rows == [3] * per_tick
             np.testing.assert_array_equal(tvalid, jvalid)
             for slot in sorted(tsess):
                 np.testing.assert_array_equal(tout[slot], np.asarray(jout)[slot])

@@ -9,7 +9,8 @@ Tolerances as in ``chip_smoke.py``: K1 and K1-int8 2e-2 (bf16 rounding of
 GEMV inputs under two summation orders); K2, K4 and K5 1e-4 relative and
 1e-5 absolute for float32 outputs (float32 sums in two orders; K2's
 tensor-core route adds the ~2**-17 its hi + lo bf16 split leaves out, which
-``tests/test_torch_ffn.py`` bounds against the Pallas kernel), plus one bf16
+``tests/test_torch_ffn.py`` bounds against the Pallas kernel, and K4's and
+K5's likewise, bounded in ``tests/test_torch_gating_ffn.py``), plus one bf16
 step (2**-7 relative) for bf16 outputs; K3 codes equal unless the
 reference's two candidates are a near-tie, quantized sums to float32
 rounding."""
@@ -260,13 +261,16 @@ def test_gating_ffn_step_kernel_is_bit_identical_across_calls(cuda, B, x_dtype):
     assert torch.equal(gating_ffn_step(x, lin_in, lin_out, 5), gating_ffn_step(x, lin_in, lin_out, 5))
 
 
-@pytest.mark.parametrize("N", [1, 16, 64])
+@pytest.mark.parametrize("N", [1, 4, 16, 64, 100])
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("C,H", [(2048, 8192), (128, 384)], ids=["llama-1b", "small"])
+@pytest.mark.parametrize("C,H", [(2048, 8192), (128, 384), (136, 392)],
+                         ids=["llama-1b", "small", "off-grid"])
 def test_gating_ffn_kernels_match_plain(cuda, N, x_dtype, C, H):
     """K4 (bf16 weights) and K5 (int8 weights from the port's quantizer) at
-    Llama-3.2-1B's MLP and at a small width off the 256-column chunk, N in
-    {1, 16, 64}, x in bf16 and float32, each against its plain version."""
+    Llama-3.2-1B's MLP, at a small width on the tensor cores' 128 grid and
+    at one off it (the CUDA-core kernels), N from 1 to past the 64 rows of
+    one launch chain, x in bf16 and float32, each against its plain version;
+    two calls give the same bits."""
     from rstnet_tpu_torch.modules.transformer import quantize_weight_int8
     from rstnet_tpu_torch.ops.cuda_ffn import (
         gating_ffn,
@@ -288,6 +292,7 @@ def test_gating_ffn_kernels_match_plain(cuda, N, x_dtype, C, H):
         before = kernel.launches
         got = kernel(x, *args)
         assert kernel.launches == before + 1
+        assert torch.equal(kernel(x, *args), got)
         want = plain(x, *args)
         assert got.dtype == x_dtype and got.shape == (N, C)
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-5)

@@ -11,7 +11,12 @@ round to neighbouring bf16 values. Against the JAX ``_mlp`` in bf16 the
 kernels differ on purpose (the JAX MLP rounds the gate, the value and the
 hidden to bf16, the kernels keep them in float32): held there to 2e-2 of
 the output's norm, ||plain - jax|| / ||jax|| (a few bf16 roundings of ~2**-9
-each; observed 5.8e-3 for K4 and 7.5e-3 for K5)."""
+each; observed 5.8e-3 for K4 and 7.5e-3 for K5).
+
+The rounding of the kernels' tensor-core route (bf16 or int8 weights, C and
+H multiples of 128), emulated in plain torch, is held to the Pallas kernels
+within the card tolerances (``chip_smoke.K2_TOL``): float32 outputs 1e-4
+relative + 1e-5 absolute, bf16 outputs one bf16 step."""
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +32,7 @@ from rstnet_tpu_torch.ops.cuda_ffn import (
     gating_ffn_int8_reference,
     gating_ffn_reference,
 )
+from tests.test_torch_ffn import _products
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2.0**-7, atol=1e-5)
@@ -154,3 +160,60 @@ def test_wrappers_take_the_plain_version_on_cpu_only():
         gating_ffn(x.to("meta"), *(t.to("meta") for t in w))
     with pytest.raises(NotImplementedError):
         gating_ffn_int8(x.to("meta"), *(t.to("meta") for t in args))
+
+
+# the card tests' tolerances (chip_smoke.K2_TOL, tests/test_torch_cuda.py)
+CARD_TOL = {"f32": dict(rtol=1e-4, atol=1e-5), "bf16": dict(rtol=2.0**-7, atol=1e-5)}
+# (N, C, H): N from single-row decode to the route's largest, C and H on
+# the tensor-core route's 128 grid
+TC_SHAPES = [(1, 128, 256), (3, 256, 384), (16, 128, 512), (64, 256, 256)]
+
+
+def _tensor_core_ffn(x, w_gate, w_val, w_out, scales=(1.0, 1.0, 1.0)):
+    """K4's and K5's tensor-core route in plain torch (``_products``: an f32
+    operand as hi + lo bf16 parts, exact products, f32 sums): x against bf16
+    weights (K5: bf16(q), exact), each row's sum times its row scale, the
+    f32 hidden silu(gate) * val as the down pass's operand, the output cast
+    to x's dtype."""
+    gs, vs, os = scales
+    gate = _products(x, w_gate) * gs
+    val = _products(x, w_val) * vs
+    hid = gate * torch.sigmoid(gate) * val
+    return (_products(hid, w_out) * os).to(x.dtype)
+
+
+@pytest.mark.parametrize("N,C,H", TC_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_k4_tensor_core_rounding_matches_pallas(N, C, H, dtype):
+    """K4's tensor-core rounding against ``gating_ffn_pallas`` in interpret
+    mode (bf16 weights): the hi + lo split leaves ~2**-17 of each f32
+    operand out, inside the 1e-4 that two f32 summation orders take."""
+    from rstnet_tpu.ops.pallas_ffn import gating_ffn_pallas
+
+    x = np.random.default_rng(N + C + H).normal(size=(N, C))
+    (jx, tx), *ws = (_both(a, d) for a, d in zip((x, *_weights(C, H, 7)),
+                                                  (dtype, "bf16", "bf16", "bf16")))
+    want = gating_ffn_pallas(jx, *(j for j, _ in ws), interpret=True)
+    got = _tensor_core_ffn(tx, *(t for _, t in ws))
+    assert got.dtype == DTYPES[dtype][1] and tuple(got.shape) == (N, C)
+    np.testing.assert_allclose(_np(got), _np(want), **CARD_TOL[dtype])
+
+
+@pytest.mark.parametrize("N,C,H", TC_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_k5_tensor_core_rounding_matches_pallas(N, C, H, dtype):
+    """K5's tensor-core rounding against ``gating_ffn_pallas_int8`` in
+    interpret mode: exact bf16(x) . q products (hi + lo for an f32 x)
+    summed in f32, the row scale applied to the row's sum where the Pallas
+    body rounds float(q) * scale per element."""
+    from rstnet_tpu.ops.pallas_ffn import gating_ffn_pallas_int8
+
+    x = np.random.default_rng(N + C + H + 1).normal(size=(N, C))
+    jx, tx = _both(x, dtype)
+    q = [quantize_weight_int8(torch.from_numpy(w.astype(np.float32))) for w in _weights(C, H, 8)]
+    args = [t for w in q for t in (w.w_int8.data, w.scale.data)]
+    want = gating_ffn_pallas_int8(jx, *(jnp.asarray(a.numpy()) for a in args), interpret=True)
+    got = _tensor_core_ffn(tx, *(w.w_int8.data.to(torch.bfloat16) for w in q),
+                           scales=[w.scale.data.float() for w in q])
+    assert got.dtype == DTYPES[dtype][1] and tuple(got.shape) == (N, C)
+    np.testing.assert_allclose(_np(got), _np(want), **CARD_TOL[dtype])

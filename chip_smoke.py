@@ -11,14 +11,20 @@ Phases (each prints its findings; any failure exits non-zero):
    (per-step gated FFN) and K3 (RVQ encode, both of its paths) against their
    plain PyTorch versions on the card, at the full-width shapes of the
    serving paths (Moshi 7B's depformer and the flagship's codecformer for
-   K1, Mimi's quantizer), with device times and bounds; K1 and K2 are also
-   held to bit-identical results across two calls, a K1 micro-step to
-   exactly one device kernel under ``torch.profiler``, and K2 is timed
-   beside the eager three-call chain at B in {2, 16, 64};
+   K1, Mimi's quantizer), with device times and bounds; K1, K2 and K3 are
+   also held to bit-identical results across two calls, a K1 micro-step
+   and a K3 split-path call to exactly one device kernel under
+   ``torch.profiler``, and K2 is timed beside the eager three-call chain at
+   B in {2, 16, 64};
 4. small slices: a small Mimi + Moshi serving frame (solo, K1), the same
    under ``--int8 --kv-int8`` (K1-int8) and a small batched tick
    (``SessionBatcher`` at B=4, K2) on the card against the same weights on
-   the CPU (plain versions), teacher-forced;
+   the CPU (plain versions), teacher-forced; then Mimi 24 kHz alone: the
+   device time of one ``encode_step`` + ``decode_step`` with the centroids
+   kept across calls and with every level divided on every call (the call
+   site before), and path ``codec_encode``: ``MimiModel.encode`` over 8
+   seeded clips of 40.96 s (K3's tiled path at 4096 rows), held to the same
+   encode through K3's plain version;
 5. full slices, on one build of Mimi 24 kHz (f32) + Moshi 7B (bf16) with
    seeded random weights: the solo frame through
    ``ServerState.handle_frame_array``, then ``SessionBatcher.step_once``
@@ -154,7 +160,7 @@ FLAGSHIP = dict(name="graft-entry", block_size=4096, vocab_size=128000, padded_v
                 codecformer_dim_feedforward=1024)
 # NVIDIA H100 SXM data sheet: HBM bandwidth and dense peak rates (at 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 
 def log(*args) -> None:
@@ -604,15 +610,22 @@ def rvq_split_rows(n: int):
 
 
 def check_k3(g, card: str, sessions: int) -> dict:
-    """K3 at Mimi's quantizer shapes, both paths where both apply; the
-    entry for the kernels line is the wrapper's own choice at Q=7 and the
-    batched tick's N (one row per session)."""
+    """K3 at Mimi's quantizer shapes (D=256, K=2048), Q in {1, 7} x N in
+    {1, 8, 16, 32, 64, 4096, sessions}: both paths where both apply (the
+    split path up to 64 rows, the tiled path at every N), each held to
+    ``rvq_encode_reference`` by the near-tie rule and two calls compared bit
+    for bit, a split call asserted to be one device kernel; device times
+    beside plain and each path's bound (the split path's float32 FMAs at the
+    f32 rate; the tiled path's three TF32 products a product at the TF32
+    rate). The kernels line carries Q=7 at the sessions' N (the wrapper's
+    path), and the tiled path at Q=7, N=4096 under ``tiled_4096``."""
     from rstnet_tpu_torch.ops import cuda_rvq
     from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode, rvq_encode_reference
+    from rstnet_tpu_torch.tools.profile_frame import device_events
 
     D, K = 256, 2048
     books = torch.randn((7, K, D), device="cuda", generator=g)
-    err, result = 0.0, None
+    err, result, tiled_4096 = 0.0, None, None
     for Q in (1, 7):
         cbs = books[:Q].contiguous()
         for N in sorted({1, 8, 16, 32, 64, 4096, sessions}):
@@ -620,11 +633,14 @@ def check_k3(g, card: str, sessions: int) -> dict:
             codes_r, quant_r = rvq_encode_reference(x, cbs)
             plain = time_ms(lambda: rvq_encode_reference(x, cbs), 20)
             paths = {"tiled": 0, "split": 64} if N <= 64 else {"tiled": 0}
-            times = {}
+            times, notes = {}, []
             for path, rows in paths.items():
                 with rvq_split_rows(rows):
                     codes_k, quant_k = rvq_encode(x, cbs)
+                    codes_2, quant_2 = rvq_encode(x, cbs)
                     torch.cuda.synchronize()
+                    if not (torch.equal(codes_k, codes_2) and torch.equal(quant_k, quant_2)):
+                        raise AssertionError(f"K3 {path} Q={Q} N={N}: two calls differ")
                     ties, other, agree = _k3_mismatches(x, cbs, codes_k, codes_r)
                     qerr = ((quant_k[agree] - quant_r[agree]).abs().max().item()
                             if agree.any() else 0.0)
@@ -632,20 +648,145 @@ def check_k3(g, card: str, sessions: int) -> dict:
                     if other or qerr > K3_QUANT_ATOL:
                         raise AssertionError(f"K3 {path} disagrees with rvq_encode_reference at "
                                              f"Q={Q} N={N}: {other} rows, quant err {qerr:.3e}")
+                    if path == "split":
+                        events = device_events(lambda: rvq_encode(x, cbs))
+                        if len(events) != 1 or "rvq_split_kernel" not in events[0]:
+                            raise AssertionError(f"K3 split Q={Q} N={N}: {len(events)} device "
+                                                 f"events, not one kernel: {events}")
                     times[path] = time_ms(lambda: rvq_encode(x, cbs), 30)
+                    notes.append(f"{path} {int(agree.sum())}/{N} rows with equal codes, {ties} "
+                                 "near-tie")
             n_bytes = 4 * (N * D + Q * K * D + N * Q + N * D)
-            bound_ms, bound_by = bound(n_bytes, 2 * N * Q * K * D, "f32")
+            products = 2 * N * Q * K * D
+            bounds = {"split": bound(n_bytes, products, "f32"),
+                      "tiled": bound(n_bytes, 3 * products, "tf32")}
             chosen = "split" if N <= cuda_rvq.SPLIT_MAX_ROWS else "tiled"
-            log(f"K3 Q={Q} N={N}: " + ", ".join(f"{p} {t:.4f} ms" for p, t in times.items())
-                + f" (wrapper takes {chosen}), plain {plain:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}); {int(agree.sum())}/{N} rows with equal codes, {ties} near-tie "
+            log(f"K3 Q={Q} N={N}: " + ", ".join(
+                f"{p} {t:.4f} ms (bound {bounds[p][0]:.4f}, {bounds[p][1]})"
+                for p, t in times.items())
+                + f"; wrapper takes {chosen}; plain {plain:.4f} ms; " + "; ".join(notes)
+                + f"; two calls bit-identical{', a split call one kernel' if N <= 64 else ''} "
                 f"[{card}]")
+            entry = {"ms": times[chosen], "plain_ms": plain, "bound_ms": bounds[chosen][0],
+                     "bound_by": bounds[chosen][1]}
             if Q == 7 and N == sessions:
-                result = {"ms": times[chosen], "plain_ms": plain, "bound_ms": bound_ms,
-                          "bound_by": bound_by}
+                result = entry
+            if Q == 7 and N == 4096:
+                tiled_4096 = {"ms": times["tiled"], "plain_ms": plain,
+                              "bound_ms": bounds["tiled"][0], "bound_by": bounds["tiled"][1]}
     return {"name": "rvq_encode", "route": "cuda", "source": "rstnet_tpu_torch/csrc/rvq_encode.cu",
             "replaces": "rstnet_tpu/ops/pallas_rvq.py:67", "max_abs_err": err, **result,
-            "library_ms": None}
+            "library_ms": None, "tiled_4096": tiled_4096}
+
+
+def _all_levels_embedding(self, levels=None):
+    """The centroids as the call site built them before they were kept:
+    every level divided on every call, then sliced."""
+    emb = self.embedding_sum / self.cluster_usage.clamp_min(self.epsilon)[..., None]
+    return emb if levels is None else emb[:levels]
+
+
+def check_codec_centroids(mimi, seed: int, card: str) -> None:
+    """Device time of one Mimi ``encode_step`` + ``decode_step`` (B=1, one
+    80 ms frame) under ``torch.profiler``: with the centroids divided once
+    and kept (``EuclideanCodebook.embedding``), and with every level divided
+    on every call (``_all_levels_embedding`` patched in), in turns (kept,
+    all levels, all levels, kept; 4 profiled frames each after 2 of
+    warm-up). Both give the same codes."""
+    from rstnet_tpu_torch.quantization.codebook import EuclideanCodebook
+
+    pcm = torch.from_numpy(_signal(seed, 6 * 1920)).cuda().view(1, 1, -1)
+    kept = EuclideanCodebook.embedding
+    busy, div, first = {"kept": [], "all levels": []}, {"kept": [], "all levels": []}, {}
+    for mode in ("kept", "all levels", "all levels", "kept"):
+        EuclideanCodebook.embedding = kept if mode == "kept" else _all_levels_embedding
+        try:
+            state = {"enc": mimi.init_encode_state(1, device=pcm.device),
+                     "dec": mimi.init_decode_state(1, device=pcm.device)}
+
+            def frame(i):
+                codes, state["enc"] = mimi.encode_step(state["enc"],
+                                                       pcm[..., 1920 * i: 1920 * (i + 1)])
+                _, state["dec"] = mimi.decode_step(state["dec"], codes)
+                return codes
+
+            with torch.no_grad():
+                first.setdefault(mode, frame(0))
+                frame(1)
+                b, d = device_kernel_ms(lambda: [frame(i) for i in range(2, 6)], ("DivFunctor",))
+        finally:
+            EuclideanCodebook.embedding = kept
+        busy[mode].append(b / 4)
+        div[mode].append(d / 4)
+    if not torch.equal(first["kept"], first["all levels"]):
+        raise AssertionError("kept centroids change Mimi's codes")
+    for mode in busy:
+        log(f"Mimi encode_step + decode_step, centroids {mode}: device busy "
+            f"{', '.join(f'{t:.4f}' for t in busy[mode])} ms a frame, of which division "
+            f"{', '.join(f'{t:.4f}' for t in div[mode])} ms [{card}]")
+
+
+CODEC_CLIPS, CODEC_SECONDS = 8, 40.96  # 8 x 512 frames at 12.5 Hz: 4096 rows a K3 call
+
+
+def run_codec_encode(mimi, seed: int, card: str, expected: dict) -> dict:
+    """Path ``codec_encode``: ``MimiModel.encode`` (the non-streaming
+    encode) over ``CODEC_CLIPS`` seeded clips of ``CODEC_SECONDS`` s, one K3
+    call of 4096 rows a quantizer (the tiled path). Each call's codes are
+    held by the near-tie rule against ``rvq_encode_reference`` on the same
+    inputs, and the whole encode's codes against the same encode routed
+    through ``rvq_encode_reference`` on the card; wall and device time."""
+    from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode, rvq_encode_reference
+    from rstnet_tpu_torch.quantization import rvq as rvq_module
+
+    n = int(CODEC_SECONDS * 24000)
+    audio = torch.from_numpy(np.stack([_signal(seed + i, n, 110.0 * (i + 1))
+                                       for i in range(CODEC_CLIPS)])).cuda().view(CODEC_CLIPS, 1, n)
+    calls = []
+
+    def recorded(x, cbs):
+        codes, quant = rvq_encode(x, cbs)
+        calls.append((x, cbs, codes))
+        return codes, quant
+
+    with torch.no_grad():
+        mimi.encode(audio[:1, :, : 24000 * 2])  # warm-up
+        torch.cuda.synchronize()
+        rvq_module.rvq_encode = recorded
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            codes = mimi.encode(audio)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        finally:
+            rvq_module.rvq_encode = rvq_encode
+        rvq_module.rvq_encode = rvq_encode_reference
+        try:
+            codes_ref = mimi.encode(audio)
+        finally:
+            rvq_module.rvq_encode = rvq_encode
+        busy, k3 = device_kernel_ms(lambda: mimi.encode(audio), ("rvq_", "codeword_sq_norms"))
+    if counts != expected:
+        raise AssertionError(f"codec_encode launched {counts}, expected {expected}")
+    rows, ties = 0, 0
+    for x, cbs, ck in calls:
+        n_ties, other, _ = _k3_mismatches(x, cbs, ck, rvq_encode_reference(x, cbs)[0])
+        if other:
+            raise AssertionError(f"codec_encode: K3 disagrees with rvq_encode_reference on "
+                                 f"{other} rows")
+        rows, ties = rows + x.shape[0], ties + n_ties
+    differ = int((codes != codes_ref).any(1).sum())  # frames, each a row of a K3 call
+    if differ > ties:
+        raise AssertionError(f"codec_encode: {differ} frames differ from the reference route "
+                             f"with {ties} near-ties")
+    log(f"codec_encode: MimiModel.encode of {CODEC_CLIPS} x {CODEC_SECONDS} s, codes "
+        f"{tuple(codes.shape)} ({calls[0][0].shape[0]} rows a K3 call); {differ} frames differ "
+        f"from the encode through rvq_encode_reference, {ties} near-ties of {rows} rows; wall "
+        f"{wall:.3f} s, device busy {busy:.3f} ms, K3 {k3:.3f} ms; K3 launches "
+        f"{counts['rvq_encode']} [{card}]")
+    return counts
 
 
 @contextlib.contextmanager
@@ -1627,6 +1768,15 @@ def main(argv=None) -> int:
         check_small_batched_slice(args.seed)
         check_small_speech_slice(args.seed)
     paths = {}
+    with phase("codec"):
+        mimi = build_mimi(args.seed)
+        check_codec_centroids(mimi, args.seed, card)
+        none = dict.fromkeys(_counters(), 0)
+        paths["codec_encode"] = run_codec_encode(mimi, args.seed, card,
+                                                 {**none, "rvq_encode": 2})
+        del mimi
+        gc.collect()
+        torch.cuda.empty_cache()
     with phase("small training slice"):
         paths["small_train_step_f32"] = check_small_training_slice(args.seed)
     with phase("full models"):

@@ -35,7 +35,7 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 # ctypes never cuts them to 32 bits
 SIGNATURES = {
     "rvq_encode": ([_P] * 5 + [_I] * 5 + [_P], _I),
-    "rvq_encode_scratch_floats": ([_I] * 5, _LL),
+    "rvq_encode_scratch_bytes": ([_I] * 5, _LL),
     "depformer_step": ([_P] * 13 + [_I] * 8 + [_F, _P], _I),
     "depformer_step_int8": ([_P] * 18 + [_I] * 8 + [_F, _P], _I),
     "gating_ffn_step": ([_P] * 6 + [_I] * 6 + [_P], _I),

@@ -25,11 +25,26 @@ class EuclideanCodebook(nn.Module):
         self.cluster_usage = new_param(
             torch.ones((*stack, codebook_size), dtype=dtype, device=device))
         self.initialized = new_param(torch.zeros(stack, dtype=torch.float32, device=device))
+        self._centroids_state, self._centroids = None, {}  # embedding()'s results, by levels
 
-    def embedding(self) -> torch.Tensor:
-        """``[*stack, K, D]`` centroids."""
-        usage = self.cluster_usage.clamp_min(self.epsilon)
-        return self.embedding_sum / usage[..., None]
+    def embedding(self, levels: int | None = None) -> torch.Tensor:
+        """``[*stack, K, D]`` centroids, or only the first ``levels`` of a
+        stacked codebook. Each call divides only what it returns (IEEE
+        division is exact per element, so the result equals the same slice
+        of the full division) and the result is kept across calls until
+        ``embedding_sum`` or ``cluster_usage`` changes: in place (their
+        ``_version``), replaced, moved or reloaded (their storage)."""
+        state = (self.embedding_sum._version, self.cluster_usage._version,
+                 self.embedding_sum.data_ptr(), self.cluster_usage.data_ptr(),
+                 self.embedding_sum.device, self.embedding_sum.dtype, self.epsilon)
+        if self._centroids_state != state:
+            self._centroids_state, self._centroids = state, {}
+        if levels not in self._centroids:
+            emb_sum, usage = self.embedding_sum, self.cluster_usage
+            if levels is not None:
+                emb_sum, usage = emb_sum[:levels], usage[:levels]
+            self._centroids[levels] = emb_sum / usage.clamp_min(self.epsilon)[..., None]
+        return self._centroids[levels]
 
     @staticmethod
     def decode(emb: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:

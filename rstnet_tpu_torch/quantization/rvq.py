@@ -51,13 +51,13 @@ class ResidualVectorQuantizer(nn.Module):
         """[B, C, T] -> codes [B, K, T] (int32)."""
         h = self._project_in(x)
         B, T, D = h.shape
-        codebooks = self.layers.embedding()[: n_q or self.n_q]
+        codebooks = self.layers.embedding(n_q or self.n_q)
         codes, _ = rvq_encode(h.reshape(B * T, D).contiguous(), codebooks)
         return codes.reshape(B, T, -1).transpose(1, 2)
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         """codes [B, K, T] -> [B, C, T]; the levels are summed in order."""
-        emb = self.layers.embedding()
+        emb = self.layers.embedding(codes.shape[1])
         B, _, T = codes.shape
         q = torch.zeros((B, T, self.dimension), dtype=emb.dtype, device=emb.device)
         for k in range(codes.shape[1]):

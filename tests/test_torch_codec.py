@@ -250,3 +250,40 @@ def test_mimi_mask_decode_slots_matches_jax():
     for k in jflat:
         np.testing.assert_allclose(_np(tflat[k]), _np(jflat[k]), **TOL)
     assert float(np.abs(_np(tflat[k])[0]).max()) == 0.0
+
+
+def _negated_rest(params):
+    """``params`` with the acoustic quantizer's ``embedding_sum`` negated."""
+    q = dict(params["quantizer"])
+    rest = dict(q["rvq_rest"])
+    rest["layers"] = dict(rest["layers"], embedding_sum=-rest["layers"]["embedding_sum"])
+    q["rvq_rest"] = rest
+    return dict(params, quantizer=q)
+
+
+@pytest.mark.parametrize("change", ["in_place", "load_state_dict"])
+def test_mimi_centroids_follow_codebook_changes(change):
+    """The centroids are divided once and kept across calls: an in-place
+    change of ``embedding_sum`` and a ``load_state_dict`` are both seen by
+    the next encode and decode, which keep equal to the JAX package's."""
+    jm, params, tm = _tiny_mimi_pair(seed=5)
+    x = np.random.default_rng(11).normal(0, 0.1, (1, 1, 3 * 1920)).astype(np.float32)
+    encode, decode = jax.jit(jm.encode), jax.jit(jm.decode)
+    codes = tm.encode(_t(x))
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(encode(params, jnp.asarray(x))))
+    rest = tm.quantizer.rvq_rest.layers
+    assert rest.embedding(7) is rest.embedding(7)  # kept across calls
+    negated = _negated_rest(params)
+    if change == "in_place":
+        with torch.no_grad():
+            rest.embedding_sum.neg_()
+    else:
+        state = {k: v.clone() for k, v in tm.state_dict().items()}
+        state["quantizer.rvq_rest.layers.embedding_sum"].neg_()
+        tm.load_state_dict(state)
+    jcodes = np.asarray(encode(negated, jnp.asarray(x)))
+    after = tm.encode(_t(x))
+    assert not np.array_equal(after.numpy(), codes.numpy())  # the change reached the codes
+    np.testing.assert_array_equal(after.numpy(), jcodes)
+    np.testing.assert_allclose(_np(tm.decode(after)), _np(decode(negated, jnp.asarray(jcodes))),
+                               rtol=1e-3, atol=1e-3)

@@ -11,9 +11,9 @@ GEMV inputs under two summation orders); K2, K4 and K5 1e-4 relative and
 tensor-core route adds the ~2**-17 its hi + lo bf16 split leaves out, which
 ``tests/test_torch_ffn.py`` bounds against the Pallas kernel, and K4's and
 K5's likewise, bounded in ``tests/test_torch_gating_ffn.py``), plus one bf16
-step (2**-7 relative) for bf16 outputs; K3 codes equal unless the
-reference's two candidates are a near-tie, quantized sums to float32
-rounding."""
+step (2**-7 relative) for bf16 outputs; K3 codes equal on 99 % of the rows
+(the rest near-ties of the two summation orders), quantized sums of agreeing
+rows to float32 rounding, exact ties to the lower index."""
 
 import pytest
 import torch
@@ -49,6 +49,88 @@ def test_rvq_kernel_matches_plain(cuda, monkeypatch, N, split_max_rows):
     torch.testing.assert_close(quant[agree], want_quant[agree], rtol=0, atol=1e-5)
     with pytest.raises(ValueError):
         rvq_encode(x[:, :63].contiguous(), books[..., :63].contiguous())  # D % 4 != 0
+
+
+RVQ_PATHS = {"split": 64, "tiled": 0}  # SPLIT_MAX_ROWS that routes N <= 64 rows to each path
+
+
+def _rvq_agree(codes, quant, want_codes, want_quant):
+    agree = (codes == want_codes).all(1)
+    assert agree.float().mean() >= 0.99
+    torch.testing.assert_close(quant[agree], want_quant[agree], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("path", list(RVQ_PATHS))
+@pytest.mark.parametrize("D", [64, 256, 512])
+@pytest.mark.parametrize("Q", [1, 7, 8])
+def test_rvq_kernel_shapes_on_both_paths(cuda, monkeypatch, path, D, Q):
+    from rstnet_tpu_torch.ops import cuda_rvq
+    from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode, rvq_encode_reference
+
+    monkeypatch.setattr(cuda_rvq, "SPLIT_MAX_ROWS", RVQ_PATHS[path])
+    books = torch.randn((Q, 2048, D), device="cuda", generator=cuda)
+    x = torch.randn((48, D), device="cuda", generator=cuda)
+    _rvq_agree(*rvq_encode(x, books), *rvq_encode_reference(x, books))
+
+
+@pytest.mark.parametrize("path", list(RVQ_PATHS))
+@pytest.mark.parametrize("lo,hi", [(15, 16), (127, 128), (5, 1500), (1023, 1024)])
+def test_rvq_kernel_exact_tie_takes_lower_index(cuda, monkeypatch, path, lo, hi):
+    """A codeword duplicated at two indices: across a split-path block's
+    slice (16 codewords a block on 128 SMs or more), across a tiled-path
+    codebook tile (128) and across the two halves of a tiled cluster; the
+    lower index wins on both paths, at every row."""
+    from rstnet_tpu_torch.ops import cuda_rvq
+    from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode
+
+    monkeypatch.setattr(cuda_rvq, "SPLIT_MAX_ROWS", RVQ_PATHS[path])
+    books = torch.randn((2, 2048, 256), device="cuda", generator=cuda)
+    books[0, hi] = books[0, lo]
+    for n in (4, 64):
+        x = books[0, lo].repeat(n, 1) + 0.01 * torch.randn((n, 256), device="cuda", generator=cuda)
+        codes, _ = rvq_encode(x, books)
+        assert codes[:, 0].tolist() == [lo] * n
+
+
+@pytest.mark.parametrize("path", list(RVQ_PATHS))
+def test_rvq_kernel_is_bit_identical_across_calls(cuda, monkeypatch, path):
+    from rstnet_tpu_torch.ops import cuda_rvq
+    from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode
+
+    monkeypatch.setattr(cuda_rvq, "SPLIT_MAX_ROWS", RVQ_PATHS[path])
+    books = torch.randn((7, 2048, 256), device="cuda", generator=cuda)
+    for n in (1, 16, 64):
+        x = torch.randn((n, 256), device="cuda", generator=cuda)
+        (c1, q1), (c2, q2) = rvq_encode(x, books), rvq_encode(x, books)
+        assert torch.equal(c1, c2) and torch.equal(q1, q2)
+
+
+@pytest.mark.parametrize("path", list(RVQ_PATHS))
+def test_rvq_kernel_all_nan_row_gets_code_zero(cuda, monkeypatch, path):
+    from rstnet_tpu_torch.ops import cuda_rvq
+    from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode
+
+    monkeypatch.setattr(cuda_rvq, "SPLIT_MAX_ROWS", RVQ_PATHS[path])
+    books = torch.randn((7, 2048, 256), device="cuda", generator=cuda)
+    x = torch.randn((8, 256), device="cuda", generator=cuda)
+    x[3] = float("nan")
+    codes, _ = rvq_encode(x, books)
+    assert codes[3].tolist() == [0] * 7
+
+
+def test_rvq_split_call_is_one_device_kernel(cuda):
+    """A call up to SPLIT_MAX_ROWS rows is one cooperative launch: the
+    profiler sees exactly one device event (the scratch is set once, on the
+    first call of a stream)."""
+    from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode
+    from rstnet_tpu_torch.tools.profile_frame import device_events
+
+    books = torch.randn((7, 2048, 256), device="cuda", generator=cuda)
+    for n in (1, 16, 64):
+        x = torch.randn((n, 256), device="cuda", generator=cuda)
+        rvq_encode(x, books)  # warm-up: builds the library, sets the scratch
+        names = device_events(lambda: rvq_encode(x, books))
+        assert len(names) == 1 and "rvq_split_kernel" in names[0], names
 
 
 def _k1_operands(gen, L, S, C, heads, H, card, init="normal"):

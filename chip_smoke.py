@@ -35,17 +35,19 @@ Phases (each prints its findings; any failure exits non-zero):
    run under ``torch.profiler`` (device busy and K2's time a tick);
 6. training: K6 (flash attention: the forward and the one-launch backward,
    GQA inside the kernels) against its plain versions at the training shapes
-   (H=32 over 8 KV heads, T=1024, D=64; causal and a 256 window; bf16 at B=2
-   and at the main path's B=4, float32 at B=2), two backward calls compared
-   bit for bit, with device, plain, bound and SDPA times; a small
-   ``SpeechTextLM`` trained through
+   (H=32 over 8 KV heads, T=1024, D=64; causal and a 256 window; B=2 and the
+   main paths' B=4, bf16 and float32, the float32 route on split-bf16
+   operands), two backward calls compared bit for bit, with device, plain,
+   bound and SDPA times; a small ``SpeechTextLM`` trained through
    ``rstnet_tpu_torch.training.trainer.main`` (float32, bucket 512) on the
    card and on the CPU from the same weights and data, one epoch and then a
    resumed second, per-step losses compared; then the full Llama-3.2-1B
    speech config (2.01 B parameters, bf16) for ``TRAIN_STEPS`` steps on
    synthetic data, K6 on every step whose bucket is 1024 and on no other;
    then, on that run's experiment, the inference CLIs ``lm_eval`` and
-   ``infer_cli`` (path ``speech_cli``: K4 in every backbone step);
+   ``infer_cli`` (path ``speech_cli``: K4 in every backbone step); then the
+   same training run in float32 (path ``train_step_f32``: K6's float32
+   kernels, each step's loss held to the bf16 run's, one step profiled);
 7. speech streaming: K4 and K5 (the fused gated FFN of the backbone's
    LLaMAMLP, bf16 and int8 weights) against their plain versions at
    Llama-3.2-1B's MLP (C=2048, H=8192; N in {1, 4, 16, 64}, x in bf16 and
@@ -86,6 +88,7 @@ import gc
 import json
 import math
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -129,6 +132,11 @@ K6_LSE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
 # flip a token)
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_ACC_ATOL = 1e-2
+# the float32 run of the full training slice against the bf16 run, same
+# weights (the bf16 run's are the float32 ones rounded), data and batches:
+# each step's loss within 2e-2 relative, the slack of bf16 against float32
+# rounding of weights, activations and updates
+F32_LOSS_RTOL = 2e-2
 # steps of the full training slice: five land on the 1024 bucket, one on a
 # shorter one
 TRAIN_STEPS = 6
@@ -541,6 +549,16 @@ def check_k4_k5(g, card: str) -> list[dict]:
 
                 chain_ms = time_ms(chain, 30)
                 del chains
+                cast_ms = None
+                if wtype == f32 and dtype != f32:
+                    # the same function as the kernel's: the wrapper's cast of the float32
+                    # weights to x's dtype is part of every call
+
+                    def chain_cast():
+                        wg, wv, wo = (t.to(dtype) for t in wsets[next(turn) % n_sets])
+                        return (F.silu(x @ wg.T) * (x @ wv.T)) @ wo.T
+
+                    cast_ms = time_ms(chain_cast, 30)
                 xb, wb = x.element_size(), wsets[0][0].element_size()
                 n_bytes = wb * 3 * H * C + 2 * N * C * xb + (4 * (2 * H + C) if wb == 1 else 0)
                 if wtype == f32 and dtype == f32:
@@ -557,12 +575,16 @@ def check_k4_k5(g, card: str) -> list[dict]:
                                                "bf16")
                 log(f"{name} N={N} x {str(dtype)[6:]} (C={C}, H={H}): kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-                    f"{n_bytes / 1e6:.1f} MB), eager three-GEMM chain {chain_ms:.4f} ms; two calls "
-                    f"bit-identical [{card}]")
+                    f"{n_bytes / 1e6:.1f} MB), eager three-GEMM chain {chain_ms:.4f} ms"
+                    + ("" if cast_ms is None else f" on weights cast before timing, "
+                       f"{cast_ms:.4f} ms with the cast in the call")
+                    + f"; two calls bit-identical [{card}]")
                 prefix = "" if dtype == bf16 else "f32_"
                 row = by_rows.setdefault(str(N), {})
                 row.update({prefix + "ms": ms, prefix + "chain_ms": chain_ms,
                             prefix + "bound_ms": bound_ms})
+                if cast_ms is not None:
+                    row[prefix + "chain_cast_ms"] = cast_ms
                 if result is None:  # the entry's first case
                     result = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                               "bound_by": bound_by, "three_gemm_ms": chain_ms}
@@ -1465,7 +1487,9 @@ def _time_k6(q, k, v, do, context: int, scale: float, card: str) -> dict:
     the query heads (its forward; its backward alone, through autograd of
     one forward; and both); bounds of the GQA function (K and V read and dK,
     dV written at their own head count; the backward counts the five
-    products it needs, 10 D FLOPs a visible pair, whatever it recomputes)."""
+    products it needs, 10 D FLOPs a visible pair, whatever it recomputes).
+    Float32 inputs count the products the kernels run: three bf16 products
+    (hi.hi + hi.lo + lo.hi) a product, at the bf16 tensor-core rate."""
     import torch.nn.functional as F
 
     from rstnet_tpu_torch.ops import cuda_flash as cf
@@ -1480,6 +1504,7 @@ def _time_k6(q, k, v, do, context: int, scale: float, card: str) -> dict:
     size = q.element_size()
     row, kv, rows = B * H * T * D * size, B * Hkv * T * D * size, B * H * T * 4
     kind = "f32" if dtype == torch.float32 else "bf16"
+    products = 3 if dtype == torch.float32 else 1
     fwd, bwd = _k6_names(dtype)
     runs = {
         fwd: (  # q, k, v -> o, lse
@@ -1511,7 +1536,7 @@ def _time_k6(q, k, v, do, context: int, scale: float, card: str) -> dict:
     for name, (kernel, plain, n_bytes, n_ops) in runs.items():
         ms = time_ms(kernel, 20)
         plain_ms = time_ms(plain, 5)
-        bound_ms, bound_by = bound(n_bytes, n_ops, kind)
+        bound_ms, bound_by = bound(n_bytes, products * n_ops, "bf16")
         lib = library.get(name)
         log(f"K6 {name} context {context} (B={B}, H={H} over {Hkv}, T={T}, D={D}, {kind}): kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
@@ -1530,16 +1555,17 @@ def _time_k6(q, k, v, do, context: int, scale: float, card: str) -> dict:
 def check_k6(g, card: str) -> list[dict]:
     """K6 at the training shapes (Llama-3.2-1B: 32 heads over 8 KV heads,
     head dim 64, the T=1024 bucket), causal (context 3000 >= T) and local
-    (context 256), bf16 at B=2 and at the main path's B=4 (2 audio plus 2
-    text utterances a step), then on float32 inputs (the split-bf16 kernels
-    that float32 training runs): correctness of every kernel, determinism of
-    the backward, and times. The kernels line carries the times of B=4
-    causal for bf16 and of B=2 causal for float32."""
+    (context 256), at B=2 and at the main paths' B=4 (2 audio plus 2 text
+    utterances a step), on bf16 and then on float32 inputs (the split-bf16
+    route that float32 training runs): correctness of every kernel,
+    determinism of the backward, and times. The kernels line carries the
+    times of B=4 causal; the float32 entries add B=2's under ``B2``."""
     H, Hkv, T, D = 32, 8, 1024, 64
     scale = D**-0.5
     err: dict = {}
     entries = {}
-    for B, dtype in ((2, torch.bfloat16), (4, torch.bfloat16), (2, torch.float32)):
+    for B, dtype in ((2, torch.bfloat16), (4, torch.bfloat16), (2, torch.float32),
+                     (4, torch.float32)):
         q, do = (torch.randn((B, H, T, D), device="cuda", generator=g).to(dtype)
                  for _ in range(2))
         k, v = (torch.randn((B, Hkv, T, D), device="cuda", generator=g).to(dtype)
@@ -1548,8 +1574,12 @@ def check_k6(g, card: str) -> list[dict]:
             _check_k6_route(q, k, v, do, context, scale, err)
             if dtype == torch.bfloat16 or context >= T:
                 times = _time_k6(q, k, v, do, context, scale, card)
-                if context >= T and (B == 4 or dtype == torch.float32):
-                    entries.update(times)
+                if context >= T and B == 4:
+                    for name, t in times.items():
+                        entries.setdefault(name, {}).update(t)
+                elif context >= T and dtype == torch.float32:
+                    for name, t in times.items():
+                        entries.setdefault(name, {})["B2"] = t
         del q, k, v, do
         torch.cuda.empty_cache()
     notes = {"flash_attention_fwd": "", "flash_attention_bwd": " (the splash VJP)",
@@ -1670,13 +1700,37 @@ def check_small_training_slice(seed: int) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def run_full_training_slice(seed: int, n_steps: int, card: str) -> tuple[dict, dict]:
+def write_full_training_data(root: Path, seed: int, n_steps: int) -> str:
+    """The full training slices' synthetic data: long utterances on the
+    1024 bucket and short ones on bucket 487 (``n_steps`` steps under
+    ``FULL_TRAIN_FLAGS``)."""
+    return write_training_data(root, seed, (951, 1023), 2 * n_steps, (430, 470), 6,
+                               (300, 600), 2 * n_steps, audio_card=2048, vocab=128000)
+
+
+def full_train_args(data: str, exp: Path, dtype: str, n_steps: int, seed: int) -> list[str]:
+    """``trainer.main``'s flags for the full training slices."""
+    return ["--train_data_jsons", data, "--model_config", "configs/llama_1b_speech.yaml",
+            "--exp_dir", str(exp), "--max_length", "1023", "--batch_scale", "2500", "--dtype",
+            dtype, "--n_epoch", "1", "--minibatch_debug", str(n_steps), "--print_freq", "1",
+            "--seed", str(seed), "--device", "cuda"]
+
+
+def _check_disk(root: Path, need: int, what: str) -> None:
+    free = shutil.disk_usage(root).free
+    log(f"{what}: {free / 2**30:.1f} GiB free under {root}")
+    if free < need:
+        raise RuntimeError(f"{what}'s checkpoint needs {need / 2**30:.0f} GiB free under "
+                           f"{root}, {free / 2**30:.1f} GiB are")
+
+
+def run_full_training_slice(seed: int, n_steps: int, card: str) -> tuple[dict, dict, list]:
     """``trainer.main`` on ``configs/llama_1b_speech.yaml`` (bf16, full width
     and depth) for ``n_steps`` steps of synthetic data: long utterances on
     the 1024 bucket (K6) and one batch of short ones (bucket 487, the masked
     path); then the epoch checkpoint, and the inference CLIs on it
     (``run_cli_chain``). Returns the launches of the training path and of
-    the CLI path."""
+    the CLI path, and the steps' records."""
     import tempfile
 
     from rstnet_tpu_torch.models.config import Config
@@ -1685,26 +1739,15 @@ def run_full_training_slice(seed: int, n_steps: int, card: str) -> tuple[dict, d
     cfg = Config.from_file("configs/llama_1b_speech.yaml")
     root = Path(tempfile.mkdtemp(prefix="smoke_full_train_"))
     # params + AdamW moments, bf16, 2.01 B parameters: ~12 GB on disk
-    need = 16 * 2**30
-    free = shutil.disk_usage(root).free
-    log(f"full training slice: {free / 2**30:.1f} GiB free under {root}")
-    if free < need:
-        raise RuntimeError(f"the full training slice's checkpoint needs {need / 2**30:.0f} GiB "
-                           f"free under {root}, {free / 2**30:.1f} GiB are")
+    _check_disk(root, 16 * 2**30, "the full training slice")
     try:
-        data = write_training_data(root, seed, (951, 1023), 2 * n_steps, (430, 470), 6,
-                                   (300, 600), 2 * n_steps, audio_card=2048, vocab=128000)
+        data = write_full_training_data(root, seed, n_steps)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        out = trainer.main(["--train_data_jsons", data,
-                            "--model_config", "configs/llama_1b_speech.yaml",
-                            "--exp_dir", str(root / "exp"), "--max_length", "1023",
-                            "--batch_scale", "2500", "--dtype", "bfloat16", "--n_epoch", "1",
-                            "--minibatch_debug", str(n_steps), "--print_freq", "1",
-                            "--seed", str(seed), "--device", "cuda"])
+        out = trainer.main(full_train_args(data, root / "exp", "bfloat16", n_steps, seed))
         wall = time.perf_counter() - t0
         counts = read_counts()
         steps = out["steps"]
@@ -1739,8 +1782,118 @@ def run_full_training_slice(seed: int, n_steps: int, card: str) -> tuple[dict, d
             f"epoch checkpoint {size / 2**30:.2f} GiB saved in "
             f"{out['checkpoints'][-1]['seconds']:.1f} s [{card}]")
         del out
-        return counts, run_cli_chain(root, data, root / "exp", cfg.n_layer, card)
+        return counts, run_cli_chain(root, data, root / "exp", cfg.n_layer, card), steps
     finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# the float32 training slice: the step profiled under torch.profiler (a
+# 1024-bucket step after the first), and K6's float32 kernels by name
+F32_PROFILED_STEP = 4
+K6_F32_KERNEL_NAMES = ("flash_fwd_f32", "flash_bwd_f32", "flash_split_f32", "flash_bwd_prep_f32")
+
+
+def run_f32_training_slice(seed: int, n_steps: int, card: str, bf16_steps: list) -> dict:
+    """The full training slice again in float32 (``--dtype float32``): the
+    same config, flags, seed and synthetic data as ``run_full_training_slice``,
+    so that every step sees the bf16 run's batch (the trainer's batch order
+    depends on how many batches ``--minibatch_debug`` keeps, so the run
+    keeps the same count). K6's float32 kernels on every 1024-bucket step
+    and no bf16 launch; each step's loss within ``F32_LOSS_RTOL`` of the
+    bf16 run's at that step. One 1024-bucket step runs under
+    ``torch.profiler`` (K6's device time and the device's busy time a step);
+    step time p50 and frames/s over the other 1024-bucket steps after the
+    first. float32 matmuls stay in full float32 (no TF32, as the
+    environment phase set). Returns the launches."""
+    import tempfile
+
+    from rstnet_tpu_torch.models.config import Config
+    from rstnet_tpu_torch.training import trainer
+
+    cfg = Config.from_file("configs/llama_1b_speech.yaml")
+    root = Path(tempfile.mkdtemp(prefix="smoke_f32_train_"))
+    # params + AdamW moments, float32, 2.01 B parameters: ~22.5 GiB on disk
+    _check_disk(root, 26 * 2**30, "the float32 training slice")
+    make_train_step = trainer.make_train_step
+    profiled = {}
+
+    def make_profiled_train_step(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+        calls = [0]
+
+        def train_step(state, batch):
+            calls[0] += 1
+            if calls[0] != F32_PROFILED_STEP + 1:
+                return step(state, batch)
+            box = {}
+            profiled["busy_ms"], profiled["k6_ms"] = device_kernel_ms(
+                lambda: box.update(out=step(state, batch)), K6_F32_KERNEL_NAMES)
+            profiled["seq_len"] = batch["tokens"].shape[2]
+            return box["out"]
+
+        return train_step
+
+    try:
+        data = write_full_training_data(root, seed, n_steps)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        trainer.make_train_step = make_profiled_train_step
+        t0 = time.perf_counter()
+        out = trainer.main(full_train_args(data, root / "exp", "float32", n_steps, seed))
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        steps = out["steps"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = expected_k6(steps, cfg.n_layer, torch.float32)
+        log(f"float32 training slice: {len(steps)} steps, buckets "
+            f"{[(s['batch_size'], s['seq_len']) for s in steps]}, launches {counts}")
+        if len(steps) != len(bf16_steps):
+            raise AssertionError(f"{len(steps)} float32 steps, {len(bf16_steps)} bf16 ones")
+        if {k: counts[k] for k in want} != want or any(
+                v for k, v in counts.items() if k not in want):
+            raise AssertionError(f"float32 training slice launches {counts}, expected {want}")
+        if profiled.get("seq_len") != 1024:
+            raise AssertionError(f"the profiled float32 step was not a 1024-bucket step: "
+                                 f"{profiled}")
+        worst = 0.0
+        for i, (sb, sf) in enumerate(zip(bf16_steps, steps)):
+            if (sb["seq_len"], sb["batch_size"]) != (sf["seq_len"], sf["batch_size"]):
+                raise AssertionError(f"step {i}: the float32 run saw B={sf['batch_size']} "
+                                     f"T={sf['seq_len']}, the bf16 run B={sb['batch_size']} "
+                                     f"T={sb['seq_len']}")
+            rel = {k: abs(sf[k] - sb[k]) / max(abs(sb[k]), 1e-6)
+                   for k in ("loss", "loss_audio", "loss_text")}
+            worst = max(worst, rel["loss"])
+            log(f"  step {i}: B={sf['batch_size']} T={sf['seq_len']} float32 loss "
+                f"{sf['loss']:.5f} (audio {sf['loss_audio']:.5f}, text {sf['loss_text']:.5f}), "
+                f"bf16 {sb['loss']:.5f}; rel diff loss {rel['loss']:.2e}, audio "
+                f"{rel['loss_audio']:.2e}, text {rel['loss_text']:.2e}; "
+                f"{sf['step_time'] * 1e3:.1f} ms" + (" (profiled)" if i == F32_PROFILED_STEP
+                                                      else ""))
+            if not all(math.isfinite(sf[k]) for k in ("loss", "loss_audio", "loss_text")):
+                raise AssertionError(f"non-finite float32 loss at step {i}")
+        if worst > F32_LOSS_RTOL:
+            raise AssertionError(f"float32 losses {worst:.2e} from the bf16 run's (limit "
+                                 f"{F32_LOSS_RTOL})")
+        steady = [s for i, s in enumerate(steps)
+                  if 0 < i != F32_PROFILED_STEP and s["seq_len"] == 1024]
+        p50 = statistics.median(s["step_time"] for s in steady) * 1e3
+        frames = steady[0]["batch_size"] * 1024 / p50 * 1e3
+        ckpt = Path(out["checkpoints"][-1]["path"])
+        size = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+        log(f"float32 training slice: losses max rel diff from bf16 {worst:.2e} (limit "
+            f"{F32_LOSS_RTOL}); 1024-bucket step p50 {p50:.1f} ms over {len(steady)} steps "
+            f"(host clock), {frames:.0f} frames/s (padded); profiled step: device busy "
+            f"{profiled['busy_ms']:.1f} ms, K6 float32 {profiled['k6_ms']:.3f} ms "
+            f"({100 * profiled['k6_ms'] / profiled['busy_ms']:.2f} % of busy, "
+            f"{100 * profiled['k6_ms'] / p50:.2f} % of the p50 step); peak memory {peak:.1f} GiB; "
+            f"{wall:.1f} s wall (init included), epoch checkpoint {size / 2**30:.2f} GiB saved in "
+            f"{out['checkpoints'][-1]['seconds']:.1f} s [{card}]")
+        return counts
+    finally:
+        trainer.make_train_step = make_train_step
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -1848,8 +2001,12 @@ def main(argv=None) -> int:
             {**none, "gating_ffn_int8": L * n, "depformer_step_int8": 8 * n}, kv_int8=True)
     del flagship  # free the card for training
     with phase("full training slice"):
-        paths["train_step"], paths["speech_cli"] = run_full_training_slice(
+        paths["train_step"], paths["speech_cli"], bf16_steps = run_full_training_slice(
             args.seed, TRAIN_STEPS, card)
+    with phase("float32 training slice"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["train_step_f32"] = run_f32_training_slice(args.seed, TRAIN_STEPS, card, bf16_steps)
     for k in kernels:
         k["launches_by_path"] = {p: counts[k["name"]] for p, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

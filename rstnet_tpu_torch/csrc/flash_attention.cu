@@ -17,7 +17,8 @@
 // visible (query, key) pairs per call. The forward needs 4 D FLOPs a pair
 // (Q K^T and P V): 17.2 GFLOP, 0.0174 ms at the bf16 dense peak, against
 // ~21 MB of inputs and outputs (0.006 ms at 3.35 TB/s). The backward needs
-// 10 D a pair (the five products S, dP, dV, dK, dQ): 0.0435 ms.
+// 10 D a pair (the five products S, dP, dV, dK, dQ): 0.0435 ms. float32
+// inputs run three bf16 products a product (below): three times that.
 //
 // bf16 (the route of bf16 training), Hopper kernels; each block is three
 // warpgroups: two consumer warpgroups and one that loads (setmaxnreg hands
@@ -52,10 +53,10 @@
 //    warps take the partials from a staging ring, one pair each, and add
 //    them into a float32 workspace in key-tile order behind a per-(batch,
 //    head, query tile) turn counter (acquire on entry, release on exit); the
-//    last contributor writes dq in bf16. Items are handed out j-major, so
-//    the longest items start first and an item only ever waits on items
-//    that were handed out before it: progress does not rest on launch order
-//    or residency. Every sum runs in a fixed order, so the results are
+//    last contributor writes dq. Items are handed out j-major, so the
+//    longest items start first and an item only ever waits on items that
+//    were handed out before it: progress does not rest on launch order or
+//    residency. Every sum runs in a fixed order, so the results are
 //    bit-identical from call to call.
 // Measured at the training shape (PERF.md): the forward within 1.1x of
 // SDPA, the backward ~5x its bound, set by the elementwise phase between
@@ -63,15 +64,58 @@
 // handoffs.
 // Waits that last seconds can only be faults; they trap instead of hanging.
 //
-// float32 inputs (the float32 trainer and small slices) run the mma.sync
-// kernels below: one block of 4 warps per 64-row tile, every operand split
-// into two bf16 parts, hi = bf16(x) and lo = bf16(x - hi), and three products
-// per tile (hi.hi + hi.lo + lo.hi): about float32 accuracy. flash_fwd_kernel
-// is the forward; flash_bwd_dq_kernel (dQ and delta, over the key tiles) and
-// flash_bwd_dkv_kernel (dK and dV, a block per KV head's key tile, over the
-// group's query heads and their query tiles) the backward. Tiles are staged
-// through shared memory with plain loads, so latency, not the tensor cores,
-// sets their time (PERF.md).
+// float32 (the float32 trainer and small slices) runs the same pipeline on
+// split operands: every product is three bf16 wgmma products, hi.hi + hi.lo
+// + lo.hi, summed into the same float32 accumulator, with lo = bf16(x - hi)
+// and hi = bf16(x) rounded to nearest (the pre-passes' planes and Q) or x
+// cut to bf16 (P, P^T and dS^T, split in registers: one conversion for two
+// values instead of two, and the conversions bound the forward's softmax
+// phase). Either way x - hi - lo is within 2^-16 |x|, and the dropped lo.lo
+// term within 2^-16 of the product: about float32 accuracy (1e-4 of each
+// 64-row tile's scale, where a bf16-only product reads ~2e-3). bf16 wgmma and not TF32: TF32 wgmma takes K-major operands
+// only, and the products need MN-major B operands (V in P V, dO in
+// dV += P^T dO, Q in dK += dS^T Q, K in dQ = dS K), which only 16-bit
+// wgmma reads from shared memory. ptxas allocates every thread within the
+// launch's 168 registers, whatever setmaxnreg grants: the layouts below
+// keep the consumers there without spilling.
+// 4. flash_split_f32: the pre-pass of the forward, K and V into bf16 hi and
+//    lo planes ([rows, 64] each, taken by TMA with the 128-byte swizzle as
+//    the bf16 tiles are); memory-bound, 8 bytes read and 8 written an
+//    element. flash_bwd_prep_f32: the backward's pre-pass, delta and the
+//    planes of Q, dO, K and V in one launch.
+// 5. flash_fwd_f32: flash_fwd_wgmma's schedule over 128-row query tiles,
+//    with 64-key K/V tiles: Q is split in each consumer's registers (an A
+//    operand, loaded once per work tile), S = Q K^T reads K's two planes,
+//    P is split in registers after the online softmax, and O += P V reads
+//    V's two planes. A warpgroup passes over (waits for and releases,
+//    without computing) a key tile that none of its 64 rows sees: the last
+//    tile of the causal band for the upper half, the first under a window
+//    for the lower. Shared memory: kF32Stages = 6 stages of K (hi, lo) and
+//    V (hi, lo) tiles of 64 keys, 8 KB a plane: 6 x 32 KB = 192 KB; Q takes
+//    none. Registers a consumer thread: O 32, S 32, Q's parts 32, P's parts
+//    32 and the next tile's 32.
+// 6. flash_bwd_f32: flash_bwd_wgmma's items, pairs and dQ order, with the
+//    two consumer warpgroups decoupled: each computes, for its own 64 keys,
+//    S^T and dP^T (all operands' planes from shared memory), P^T and dS^T,
+//    dV += P^T dO (P^T's parts from registers), dK += dS^T Q and its half
+//    of the dQ partial, dS K over its 64 keys (dS^T's parts staged in its
+//    own rows of a shared buffer, a K-major A operand for dK and an
+//    MN-major one for dQ). No barrier ties the two warpgroups (in lockstep,
+//    as in flash_bwd_wgmma, both leave the tensor cores idle during their
+//    elementwise phases at once), so one's elementwise phase runs beside
+//    the other's products; they meet only at the ring's empty barriers and
+//    the staged halves, which the dQ writers add in a fixed order (half 0,
+//    then half 1), so results stay bit-identical. K's and V's planes are
+//    resident for the item (V as registers would be read again for every
+//    pair: 16 loads a thread, each across 8 rows, which held up the pair
+//    and the ring's mbarrier waits behind them). tools/k6_phase_marks.py
+//    splits a pair's time by phase.
+//    Shared memory: K and V planes 64 KB, dS^T planes 32 KB, a ring of
+//    kF32BwdStages = 2 stages of Q and dO planes (32 KB a stage) with LSE
+//    and delta, and kF32DqSlots = 2 staged dQ partials of two unpadded
+//    16 KB halves: 225 KB. Two writer warps (as many as the slots).
+//    Registers a consumer thread: dK and dV 64, S^T and dP^T 64, then P^T's
+//    parts 32 and the dQ half 32.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -83,132 +127,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 64;          // head dim
-constexpr int kTile = 64;       // rows of a query or key tile
-constexpr int kWarps = 4;       // 16 tile rows per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kStride = kD + 8; // bf16 elements per shared-memory row (no bank conflicts)
-constexpr float kNegInf = -INFINITY;
-
-// A [kTile][kStride] bf16 tile; P = 2 parts (hi, lo) for float32 inputs.
-using Tile = bf16[kTile][kStride];
-constexpr int kTileBytes = kTile * kStride * 2;
-
-template <typename T> struct Parts { static constexpr int value = 1; };
-template <> struct Parts<float> { static constexpr int value = 2; };
-
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// (x0, x1) as bf16 pairs: part 0 the rounded values, part 1 (P == 2) the
-// rounding remainders.
-template <int P>
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t (&r)[P]) {
-  const bf16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
-  r[0] = pack2(h0, h1);
-  if constexpr (P == 2) {
-    r[1] = pack2(__float2bfloat16_rn(x0 - __bfloat162float(h0)),
-                 __float2bfloat16_rn(x1 - __bfloat162float(h1)));
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b over the parts: hi.hi, then hi.lo and lo.hi for split operands.
-template <int P>
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[P][4],
-                                    const uint32_t (&b)[P][2]) {
-  mma_bf16(c, a[0], b[0]);
-  if constexpr (P == 2) {
-    mma_bf16(c, a[0], b[1]);
-    mma_bf16(c, a[1], b[0]);
-  }
-}
-
-__device__ __forceinline__ uint32_t lds32(const Tile& t, int r, int c) {
-  return *reinterpret_cast<const uint32_t*>(&t[r][c]);
-}
-
-// A operand (16 x 16, row-major) from tile rows [r0, r0 + 16), columns
-// [c0, c0 + 16).
-template <int P>
-__device__ __forceinline__ void load_a(uint32_t (&a)[P][4], const Tile* t, int r0, int c0) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    a[p][0] = lds32(t[p], r0 + g, c0 + 2 * tig);
-    a[p][1] = lds32(t[p], r0 + g + 8, c0 + 2 * tig);
-    a[p][2] = lds32(t[p], r0 + g, c0 + 2 * tig + 8);
-    a[p][3] = lds32(t[p], r0 + g + 8, c0 + 2 * tig + 8);
-  }
-}
-
-// B operand (16 x 8) with B[k][n] = tile[n0 + n][k0 + k]: a product with the
-// tile's transpose (Q K^T, dO V^T, K Q^T, V dO^T).
-template <int P>
-__device__ __forceinline__ void load_b_rows(uint32_t (&b)[P][2], const Tile* t, int n0, int k0) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    b[p][0] = lds32(t[p], n0 + g, k0 + 2 * tig);
-    b[p][1] = lds32(t[p], n0 + g, k0 + 2 * tig + 8);
-  }
-}
-
-// B operand (16 x 8) with B[k][n] = tile[k0 + k][n0 + n]: a product with the
-// tile itself (P V, dS K, P^T dO, dS^T Q).
-template <int P>
-__device__ __forceinline__ void load_b_cols(uint32_t (&b)[P][2], const Tile* t, int k0, int n0) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    b[p][0] = pack2(t[p][k0 + 2 * tig][n0 + g], t[p][k0 + 2 * tig + 1][n0 + g]);
-    b[p][1] = pack2(t[p][k0 + 2 * tig + 8][n0 + g], t[p][k0 + 2 * tig + 9][n0 + g]);
-  }
-}
-
-// A operand for k-step kk from a 16 x 64 accumulator tile held as 8
-// n-tiles of 16 x 8 (the mma C layout): n-tiles 2kk and 2kk + 1.
-template <int P>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[P][4], const float (&c)[8][4], int kk) {
-  uint32_t r[P];
-  split2<P>(c[2 * kk][0], c[2 * kk][1], r);
-#pragma unroll
-  for (int p = 0; p < P; ++p) a[p][0] = r[p];
-  split2<P>(c[2 * kk][2], c[2 * kk][3], r);
-#pragma unroll
-  for (int p = 0; p < P; ++p) a[p][1] = r[p];
-  split2<P>(c[2 * kk + 1][0], c[2 * kk + 1][1], r);
-#pragma unroll
-  for (int p = 0; p < P; ++p) a[p][2] = r[p];
-  split2<P>(c[2 * kk + 1][2], c[2 * kk + 1][3], r);
-#pragma unroll
-  for (int p = 0; p < P; ++p) a[p][3] = r[p];
-}
-
-// Rows [0, kTile) x [0, kD) of a row-major float32 [*, kD] matrix into a
-// split tile.
-__device__ __forceinline__ void load_tile(Tile* t, const float* __restrict__ src) {
-  for (int i = threadIdx.x; i < kTile * kD / 4; i += kThreads) {
-    const int r = i / (kD / 4), c = (i % (kD / 4)) * 4;
-    const float4 x = __ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(r) * kD + c));
-    uint32_t xy[2], zw[2];  // [0] rounded pair, [1] remainder pair
-    split2<2>(x.x, x.y, xy);
-    split2<2>(x.z, x.w, zw);
-    *reinterpret_cast<uint2*>(&t[0][r][c]) = make_uint2(xy[0], zw[0]);
-    *reinterpret_cast<uint2*>(&t[1][r][c]) = make_uint2(xy[1], zw[1]);
-  }
-}
-
+constexpr int kD = 64;  // head dim
 
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
@@ -226,278 +145,49 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-__device__ __forceinline__ bool visible(int i, int j, int window) {
-  const int d = i - j;
-  return d >= 0 && d < window;
+// Phase marks of the float32 backward (a build with RSTNET_K6_MARKS
+// defined: tools/k6_phase_marks.py). Thread 0 of each consumer warpgroup
+// writes its SM's clock64 at 8 points of each of the block's first
+// kMarkPairs pairs, k6_marks[block][warpgroup][pair][8]: [0] before the
+// ring's full wait, [1] after it, [2] S^T and dP^T done, [3] P^T's parts
+// formed, [4] dS^T's parts written and synced, [5] dV, dK, dQ done, [6] a
+// staging slot free, [7] the dQ half staged. Lane 0 of each dQ writer at 4
+// points of its pairs, k6_writer_marks[block][pair][4]: [0] before its turn,
+// [1] its turn, [2] both halves staged, [3] added and stored. Thread 0:
+// k6_span_marks[block] = {clock64 at start, at end, global timer (ns) at
+// start, at end}.
+#ifdef RSTNET_K6_MARKS
+constexpr int kMarkBlocks = 132, kMarkPairs = 160;
+__device__ long long k6_marks[kMarkBlocks * 2 * kMarkPairs * 8];
+__device__ long long k6_writer_marks[kMarkBlocks * kMarkPairs * 4];
+__device__ long long k6_span_marks[kMarkBlocks * 4];
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
-
-// First key tile that any row of the query tile at q0 can see.
-__device__ __forceinline__ int first_key_tile(int q0, int window) {
-  const int lo = q0 - window + 1;
-  return lo <= 0 ? 0 : (lo / kTile) * kTile;
-}
-
-// Column of accumulator element e (0..3) of n-tile nt; elements 0, 1 are in
-// the warp's row g, elements 2, 3 in row g + 8.
-__device__ __forceinline__ int acc_col(int nt, int e) { return nt * 8 + 2 * (threadIdx.x % 4) + (e & 1); }
-
-// S (16 x 64 per warp) = A-tile rows [r0, r0 + 16) times B-tile rows^T.
-template <int P>
-__device__ __forceinline__ void tile_product_t(float (&s)[8][4], const Tile* a_tile, int r0,
-                                               const Tile* b_tile) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    uint32_t a[P][4];
-    load_a<P>(a, a_tile, r0, kk * 16);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      uint32_t b[P][2];
-      load_b_rows<P>(b, b_tile, nt * 8, kk * 16);
-      mma<P>(s[nt], a, b);
-    }
-  }
-}
-
-// acc (16 x 64) += c (16 x 64, registers) times B-tile (64 x 64).
-template <int P>
-__device__ __forceinline__ void acc_product(float (&acc)[8][4], const float (&c)[8][4],
-                                            const Tile* b_tile) {
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    uint32_t a[P][4];
-    acc_to_a<P>(a, c, kk);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      uint32_t b[P][2];
-      load_b_cols<P>(b, b_tile, kk * 16, nt * 8);
-      mma<P>(acc[nt], a, b);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int seq, int window, int group) {
-  constexpr int P = Parts<T>::value;
-  extern __shared__ __align__(16) unsigned char smem[];
-  Tile* sQ = reinterpret_cast<Tile*>(smem);
-  Tile* sK = sQ + P;
-  Tile* sV = sK + P;
-  const int q0 = blockIdx.x * kTile;
-  const size_t base = static_cast<size_t>(blockIdx.y) * seq * kD;
-  const size_t kv_base = static_cast<size_t>(blockIdx.y / group) * seq * kD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2;
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-
-  load_tile(sQ, q + base + static_cast<size_t>(q0) * kD);
-  float acc[8][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-
-  for (int k0 = first_key_tile(q0, window); k0 <= q0; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(sK, k + kv_base + static_cast<size_t>(k0) * kD);
-    load_tile(sV, v + kv_base + static_cast<size_t>(k0) * kD);
-    __syncthreads();
-    float s[8][4];
-    tile_product_t<P>(s, sQ, warp * 16, sK);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (!visible(rows[e >> 1], k0 + acc_col(nt, e), window)) s[nt][e] = kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    float base_m[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      base_m[r] = m_new == kNegInf ? 0.f : m_new;  // a row with nothing visible yet
-      const float alpha = expf(m[r] - base_m[r]);
-      l[r] *= alpha;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        acc[nt][2 * r] *= alpha;
-        acc[nt][2 * r + 1] *= alpha;
-      }
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = expf(s[nt][e] - base_m[e >> 1]);
-        l[e >> 1] += s[nt][e];
-      }
-    acc_product<P>(acc, s, sV);
-  }
-
-  const int tig = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float total = quad_sum(l[r]);
-    const float inv = 1.f / total;
-    T* orow = o + base + static_cast<size_t>(rows[r]) * kD;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) store2(orow + nt * 8 + 2 * tig, acc[nt][2 * r] * inv,
-                                          acc[nt][2 * r + 1] * inv);
-    if (tig == 0) lse[static_cast<size_t>(blockIdx.y) * seq + rows[r]] = m[r] + logf(total);
-  }
-}
-
-// Shared memory of the backward kernels: four tiles, then two float vectors
-// (LSE and delta of the current query tile).
-template <int P>
-constexpr int bwd_smem_bytes() { return 4 * P * kTileBytes + 2 * kTile * 4; }
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ o, const T* __restrict__ dout,
-                    const float* __restrict__ lse, float* __restrict__ delta,
-                    T* __restrict__ dq, int seq, int window, int group) {
-  constexpr int P = Parts<T>::value;
-  extern __shared__ __align__(16) unsigned char smem[];
-  Tile* sQ = reinterpret_cast<Tile*>(smem);
-  Tile* sdO = sQ + P;
-  Tile* sK = sdO + P;
-  Tile* sV = sK + P;
-  float* sLse = reinterpret_cast<float*>(sV + P);
-  float* sDelta = sLse + kTile;
-  const int q0 = blockIdx.x * kTile;
-  const size_t base = static_cast<size_t>(blockIdx.y) * seq * kD;
-  const size_t kv_base = static_cast<size_t>(blockIdx.y / group) * seq * kD;
-  const size_t rbase = static_cast<size_t>(blockIdx.y) * seq;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, tig = lane & 3;
-
-  load_tile(sQ, q + base + static_cast<size_t>(q0) * kD);
-  load_tile(sdO, dout + base + static_cast<size_t>(q0) * kD);
-  // delta = rowsum(dO * O) in float32 from the stored values, a warp a row
-  for (int r = warp; r < kTile; r += kWarps) {
-    const size_t off = base + static_cast<size_t>(q0 + r) * kD;
-    float sum = 0.f;
-    for (int c = lane; c < kD; c += 32) sum += dout[off + c] * o[off + c];
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, s);
-    if (lane == 0) {
-      sDelta[r] = sum;
-      delta[rbase + q0 + r] = sum;
-      sLse[r] = lse[rbase + q0 + r];
-    }
-  }
-  __syncthreads();
-  const int lrow[2] = {warp * 16 + g, warp * 16 + g + 8};
-  float acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-
-  for (int k0 = first_key_tile(q0, window); k0 <= q0; k0 += kTile) {
-    __syncthreads();
-    load_tile(sK, k + kv_base + static_cast<size_t>(k0) * kD);
-    load_tile(sV, v + kv_base + static_cast<size_t>(k0) * kD);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    tile_product_t<P>(s, sQ, warp * 16, sK);
-    tile_product_t<P>(dp, sdO, warp * 16, sV);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int lr = lrow[e >> 1];
-        const float p = visible(q0 + lr, k0 + acc_col(nt, e), window)
-                            ? expf(s[nt][e] - sLse[lr]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - sDelta[lr]);  // dS
-      }
-    acc_product<P>(acc, s, sK);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    T* row = dq + base + static_cast<size_t>(q0 + lrow[r]) * kD;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) store2(row + nt * 8 + 2 * tig, acc[nt][2 * r],
-                                          acc[nt][2 * r + 1]);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int seq, int window, int group) {
-  constexpr int P = Parts<T>::value;
-  extern __shared__ __align__(16) unsigned char smem[];
-  Tile* sK = reinterpret_cast<Tile*>(smem);
-  Tile* sV = sK + P;
-  Tile* sQ = sV + P;
-  Tile* sdO = sQ + P;
-  float* sLse = reinterpret_cast<float*>(sdO + P);
-  float* sDelta = sLse + kTile;
-  const int k0 = blockIdx.x * kTile;
-  const size_t base = static_cast<size_t>(blockIdx.y) * seq * kD;  // this KV head's rows
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, tig = lane & 3;
-  const int krow[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-
-  load_tile(sK, k + base + static_cast<size_t>(k0) * kD);
-  load_tile(sV, v + base + static_cast<size_t>(k0) * kD);
-  float acc_k[8][4], acc_v[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[nt][e] = acc_v[nt][e] = 0.f;
-
-  // last query tile that sees a key of this tile: i <= k0 + kTile - 1 + window - 1
-  const int q_last = min(seq - kTile, ((k0 + kTile + window - 2) / kTile) * kTile);
-  // the group's query heads, one after another: dK and dV sum over them here
-  for (int qh = 0; qh < group; ++qh)
-  for (int q0 = k0; q0 <= q_last; q0 += kTile) {
-    const size_t rbase = (static_cast<size_t>(blockIdx.y) * group + qh) * seq;
-    const size_t qbase = rbase * kD;
-    __syncthreads();
-    load_tile(sQ, q + qbase + static_cast<size_t>(q0) * kD);
-    load_tile(sdO, dout + qbase + static_cast<size_t>(q0) * kD);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      sLse[i] = lse[rbase + q0 + i];
-      sDelta[i] = delta[rbase + q0 + i];
-    }
-    __syncthreads();
-    // transposed tiles: rows are this warp's keys, columns the tile's queries
-    float s[8][4], dp[8][4];
-    tile_product_t<P>(s, sK, warp * 16, sQ);
-    tile_product_t<P>(dp, sV, warp * 16, sdO);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = acc_col(nt, e);
-        const float p = visible(q0 + qc, krow[e >> 1], window)
-                            ? expf(s[nt][e] - sLse[qc]) : 0.f;
-        s[nt][e] = p;                             // P^T
-        dp[nt][e] = p * (dp[nt][e] - sDelta[qc]);  // dS^T
-      }
-    acc_product<P>(acc_v, s, sdO);
-    acc_product<P>(acc_k, dp, sQ);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const size_t off = base + static_cast<size_t>(krow[r]) * kD;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      store2(dk + off + nt * 8 + 2 * tig, acc_k[nt][2 * r], acc_k[nt][2 * r + 1]);
-      store2(dv + off + nt * 8 + 2 * tig, acc_v[nt][2 * r], acc_v[nt][2 * r + 1]);
-    }
-  }
-}
+#define K6_MARK(n)                                                                          \
+  do {                                                                                      \
+    if (threadIdx.x % 128 == 0 && slot < kMarkPairs && blockIdx.x < kMarkBlocks)           \
+      k6_marks[((blockIdx.x * 2 + wg) * kMarkPairs + slot) * 8 + (n)] = clock64();          \
+  } while (0)
+#define K6_WRITER_MARK(n)                                                                   \
+  do {                                                                                      \
+    if (Halves == 2 && lane == 0 && slot < kMarkPairs && blockIdx.x < kMarkBlocks)         \
+      k6_writer_marks[(blockIdx.x * kMarkPairs + slot) * 4 + (n)] = clock64();              \
+  } while (0)
+#define K6_SPAN_MARK(i)                                                                     \
+  do {                                                                                      \
+    if (threadIdx.x == 0 && blockIdx.x < kMarkBlocks) {                                     \
+      k6_span_marks[blockIdx.x * 4 + (i)] = clock64();                                      \
+      k6_span_marks[blockIdx.x * 4 + 2 + (i)] = global_ns();                                \
+    }                                                                                       \
+  } while (0)
+#else
+#define K6_MARK(n)
+#define K6_WRITER_MARK(n)
+#define K6_SPAN_MARK(i)
+#endif
 
 
 // ---------------------------------------------------------------------------
@@ -761,6 +451,8 @@ __device__ __forceinline__ void wg_wait1() {
 // n_qt - 1 - w / bh_count of batch x head w % bh_count. Block b takes the
 // tiles of rounds r = 0, 1, ... at r G + b, snaking (G - 1 - b on odd
 // rounds) so that the long and the short tiles of each round even out.
+// Keys: the width of a K/V tile.
+template <int Keys>
 struct FwdWork {
   int bh_count, n_qt, seq, window, group;
   __device__ int count() const { return bh_count * n_qt; }
@@ -770,21 +462,24 @@ struct FwdWork {
   }
   __device__ int qt(int w) const { return n_qt - 1 - w / bh_count; }
   __device__ int bh(int w) const { return w % bh_count; }
-  __device__ int j_lo(int w) const { return max(0, qt(w) * kFwdRows - window + 1) / kFwdKeys; }
+  __device__ int j_lo(int w) const { return max(0, qt(w) * kFwdRows - window + 1) / Keys; }
   // the key tiles a work tile sees; the last holds the diagonal
-  __device__ int n_tiles(int w) const { return qt(w) - j_lo(w) + 1; }
+  __device__ int n_tiles(int w) const {
+    return (qt(w) * kFwdRows + kFwdRows - 1) / Keys - j_lo(w) + 1;
+  }
 };
 
-// One step of the online softmax over a 64 x 128 score tile, in base 2 (q
-// is pre-scaled, so log2(e) is the only factor): masks when asked, updates
-// the running max m and sum l, returns each row's rescale factor for O in
-// alpha, and P as bf16 A operands.
-__device__ __forceinline__ void softmax_step(float (&sc)[64], float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], uint32_t (&p)[8][4], bool masked,
-                                             int row0, int k0, int window) {
+// One step of the online softmax over a 64-row score tile of R / 2 columns,
+// in base 2 (q is pre-scaled, so log2(e) is the only factor): masks when
+// asked, updates the running max m and sum l, returns each row's rescale
+// factor for O in alpha, and leaves the tile's unnormalized P in sc.
+template <int R>
+__device__ __forceinline__ void softmax_scores(float (&sc)[R], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], bool masked, int row0, int k0,
+                                               int window) {
   if (masked) {
 #pragma unroll
-    for (int e = 0; e < 64; ++e)
+    for (int e = 0; e < R; ++e)
       if (!sees(row0 + acc_row(e), k0 + acc_col(e), window)) sc[e] = -INFINITY;
   }
   float base[2];
@@ -792,7 +487,7 @@ __device__ __forceinline__ void softmax_step(float (&sc)[64], float (&m)[2], flo
   for (int r = 0; r < 2; ++r) {
     float mx = -INFINITY;
 #pragma unroll
-    for (int c = 0; c < 16; ++c) mx = fmaxf(mx, fmaxf(sc[4 * c + 2 * r], sc[4 * c + 2 * r + 1]));
+    for (int c = 0; c < R / 4; ++c) mx = fmaxf(mx, fmaxf(sc[4 * c + 2 * r], sc[4 * c + 2 * r + 1]));
     const float m_new = fmaxf(m[r], quad_max(mx) * kLog2e);
     base[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing visible yet
     alpha[r] = fast_exp2(m[r] - base[r]);
@@ -800,10 +495,17 @@ __device__ __forceinline__ void softmax_step(float (&sc)[64], float (&m)[2], flo
     m[r] = m_new;
   }
 #pragma unroll
-  for (int e = 0; e < 64; ++e) {
+  for (int e = 0; e < R; ++e) {
     sc[e] = fast_exp2(fmaf(sc[e], kLog2e, -base[(e >> 1) & 1]));
     l[(e >> 1) & 1] += sc[e];
   }
+}
+
+// softmax_scores over a 64 x 128 tile, with P as bf16 A operands.
+__device__ __forceinline__ void softmax_step(float (&sc)[64], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], uint32_t (&p)[8][4], bool masked,
+                                             int row0, int k0, int window) {
+  softmax_scores(sc, m, l, alpha, masked, row0, k0, window);
   acc_to_a<64>(p, sc);
 }
 
@@ -814,7 +516,7 @@ __device__ __forceinline__ void softmax_step(float (&sc)[64], float (&m)[2], flo
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-                float* __restrict__ lse, FwdWork wk) {
+                float* __restrict__ lse, FwdWork<kFwdKeys> wk) {
   extern __shared__ unsigned char smem_raw[];
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(align1024(smem_raw));
   const int seq = wk.seq;
@@ -1021,6 +723,93 @@ struct BwdGeom {
   __device__ int j_hi(int i) const { return (i * kBwdRows + kBwdRows - 1) / kBwdKeys; }
 };
 
+// Offset (floats) of element (r, c) of an unpadded 64 x 64 float32 tile
+// whose 8-float chunks are XORed with r % 8 (spreads a column's rows over
+// the banks).
+__device__ __forceinline__ int dqs_offset(int r, int c) { return r * kD + (c ^ ((r & 7) << 3)); }
+
+// The dQ writers of the backward (Writers warps from warp 9). Writer warp wk
+// takes pairs wk, wk + Writers, ... of the block's sequence, so Writers
+// (b, h, i) tiles are in flight at once. For each it waits for its turn,
+// adds the staged partial to the float32 workspace (or, as the last
+// contributor, writes dq), and releases the next turn. Returns when the
+// block's items are done. Slots >= Writers: a writer's last pair must be
+// no older than the last use of the buffer it waits on, or its parity wait
+// could pass on that use's phase.
+// Halves == 2: a staged partial is two unpadded 64 x 64 halves (one per
+// consumer warpgroup, each over its 64 keys; dqs_offset), added half 0 then
+// half 1.
+template <int Slots, int Writers, int Halves, typename Smem, typename Out>
+__device__ __forceinline__ void write_dq(Smem& sm, const BwdGeom& geo, Out* __restrict__ dq,
+                                         float* __restrict__ dq_acc, int* __restrict__ turns) {
+  const int seq = geo.seq, group = geo.group;
+  const int wk = (threadIdx.x - (kConsumers + 32)) / 32, lane = threadIdx.x % 32;
+  int slot = 0;
+  for (uint32_t kv_phase = 0;; kv_phase ^= 1) {
+    mbar_wait(&sm.kv_full, kv_phase);
+    const int item = sm.item;
+    mbar_arrive(&sm.kv_empty);  // the writers read nothing else of the item's buffers
+    if (item >= geo.n_items) return;
+    const int j = item / geo.batch_kv, h0 = (item % geo.batch_kv) * group;
+    const int i_hi = geo.i_hi(j), n_pairs = group * (i_hi - geo.i_lo(j) + 1);
+    for (int p = 0; p < n_pairs; ++p, ++slot) {
+      if (slot % Writers != wk) continue;
+      const int h = h0 + p % group, i = i_hi - p / group, b = slot % Slots;
+      // this item's turn for (b, h, i) is j - j_lo(i), in key-tile order
+      const int turn = j - geo.j_lo(i);
+      const bool last = j == geo.j_hi(i);
+      int* counter = turns + static_cast<size_t>(h) * geo.q_tiles() + i;
+      K6_WRITER_MARK(0);
+      if (lane == 0) {
+        const long long t0 = clock64();
+        while (ld_acquire(counter) < turn)
+          if (clock64() - t0 > kHangCycles) __trap();
+      }
+      __syncwarp();
+      K6_WRITER_MARK(1);
+      mbar_wait(&sm.dq_full[b], (slot / Slots) & 1);
+      K6_WRITER_MARK(2);
+      const size_t base = (static_cast<size_t>(h) * seq + i * kBwdRows) * kD;
+      constexpr int kChunk = 8, kVecs = kBwdRows * kD / 4;  // float4s a lane, a tile
+#pragma unroll 1
+      for (int c0 = 0; c0 < kVecs; c0 += 32 * kChunk) {
+        float4 x[kChunk];
+#pragma unroll
+        for (int n = 0; n < kChunk; ++n) {
+          const int idx = c0 + n * 32 + lane, r = idx / (kD / 4), c = (idx % (kD / 4)) * 4;
+          if constexpr (Halves == 1) {
+            x[n] = *reinterpret_cast<const float4*>(&sm.dqs[b][r * kDqStride + c]);
+          } else {
+            const float4 u = *reinterpret_cast<const float4*>(&sm.dqs[b][0][dqs_offset(r, c)]);
+            const float4 w = *reinterpret_cast<const float4*>(&sm.dqs[b][1][dqs_offset(r, c)]);
+            x[n] = make_float4(u.x + w.x, u.y + w.y, u.z + w.z, u.w + w.w);
+          }
+          if (turn > 0) {
+            const float4 y =
+                __ldcg(reinterpret_cast<const float4*>(dq_acc + base + r * kD + c));
+            x[n] = make_float4(y.x + x[n].x, y.y + x[n].y, y.z + x[n].z, y.w + x[n].w);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kChunk; ++n) {
+          const int idx = c0 + n * 32 + lane;
+          const size_t off = base + (idx / (kD / 4)) * kD + (idx % (kD / 4)) * 4;
+          if (last) {
+            store2(dq + off, x[n].x, x[n].y);
+            store2(dq + off + 2, x[n].z, x[n].w);
+          } else {
+            __stcg(reinterpret_cast<float4*>(dq_acc + off), x[n]);
+          }
+        }
+      }
+      mbar_arrive(&sm.dq_empty[b]);
+      K6_WRITER_MARK(3);
+      __syncwarp();
+      if (lane == 0) add_release(counter, 1);
+    }
+  }
+}
+
 // Persistent: each block takes work items from `work` until none are left.
 // An item (batch b, KV head g, key tile j) keeps K and V of its 128 keys in
 // shared memory and visits every (query head h of the group, query tile i)
@@ -1061,65 +850,8 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   if (threadIdx.x >= kConsumers) {  // warpgroup 2: the producer warp and the dQ writers
     regs_dec<80>();
     if (threadIdx.x >= kConsumers + 32) {  // dQ writers
-      // Writer warp wk takes pairs wk, wk + 3, ... of the block's sequence, so
-      // three (b, h, i) tiles are in flight at once. For each it waits for its
-      // turn, adds the staged partial to the float32 workspace (or, as the
-      // last contributor, writes dq), and releases the next turn.
-      const int wk = (threadIdx.x - (kConsumers + 32)) / 32, lane = threadIdx.x % 32;
-      int slot = 0;
-      for (uint32_t kv_phase = 0;; kv_phase ^= 1) {
-        mbar_wait(&sm.kv_full, kv_phase);
-        const int item = sm.item;
-        mbar_arrive(&sm.kv_empty);  // the writers read nothing else of the item's buffers
-        if (item >= geo.n_items) return;
-        const int j = item / geo.batch_kv, h0 = (item % geo.batch_kv) * group;
-        const int i_hi = geo.i_hi(j), n_pairs = group * (i_hi - geo.i_lo(j) + 1);
-        for (int p = 0; p < n_pairs; ++p, ++slot) {
-          if (slot % (kDqWriters / 32) != wk) continue;
-          const int h = h0 + p % group, i = i_hi - p / group, b = slot % kDqSlots;
-          // this item's turn for (b, h, i) is j - j_lo(i), in key-tile order
-          const int turn = j - geo.j_lo(i);
-          const bool last = j == geo.j_hi(i);
-          int* counter = turns + static_cast<size_t>(h) * geo.q_tiles() + i;
-          if (lane == 0) {
-            const long long t0 = clock64();
-            while (ld_acquire(counter) < turn)
-              if (clock64() - t0 > kHangCycles) __trap();
-          }
-          __syncwarp();
-          mbar_wait(&sm.dq_full[b], (slot / kDqSlots) & 1);
-          const size_t base = (static_cast<size_t>(h) * seq + i * kBwdRows) * kD;
-          constexpr int kChunk = 8, kVecs = kBwdRows * kD / 4;  // float4s a lane, a tile
-#pragma unroll 1
-          for (int c0 = 0; c0 < kVecs; c0 += 32 * kChunk) {
-            float4 x[kChunk];
-#pragma unroll
-            for (int n = 0; n < kChunk; ++n) {
-              const int idx = c0 + n * 32 + lane, r = idx / (kD / 4), c = (idx % (kD / 4)) * 4;
-              x[n] = *reinterpret_cast<const float4*>(&sm.dqs[b][r * kDqStride + c]);
-              if (turn > 0) {
-                const float4 y =
-                    __ldcg(reinterpret_cast<const float4*>(dq_acc + base + r * kD + c));
-                x[n] = make_float4(y.x + x[n].x, y.y + x[n].y, y.z + x[n].z, y.w + x[n].w);
-              }
-            }
-#pragma unroll
-            for (int n = 0; n < kChunk; ++n) {
-              const int idx = c0 + n * 32 + lane;
-              const size_t off = base + (idx / (kD / 4)) * kD + (idx % (kD / 4)) * 4;
-              if (last) {
-                store2(dq + off, x[n].x, x[n].y);
-                store2(dq + off + 2, x[n].z, x[n].w);
-              } else {
-                __stcg(reinterpret_cast<float4*>(dq_acc + off), x[n]);
-              }
-            }
-          }
-          mbar_arrive(&sm.dq_empty[b]);
-          __syncwarp();
-          if (lane == 0) add_release(counter, 1);
-        }
-      }
+      write_dq<kDqSlots, kDqWriters / 32, 1>(sm, geo, dq, dq_acc, turns);
+      return;
     }
 
     // producer warp
@@ -1290,42 +1022,558 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   }
 }
 
+// ---- float32: split-bf16 operands --------------------------------------------
+
+// (x, y) as bf16 pairs: hi = bf16(x) to nearest, lo = bf16(x - hi).
+__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// Eight consecutive floats at src as bf16 hi and lo at hi[0..8), lo[0..8).
+__device__ __forceinline__ void split8(const float* __restrict__ src, bf16* __restrict__ hi,
+                                       bf16* __restrict__ lo) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(src));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(src) + 1);
+  uint4 h, l;
+  split_pair(a.x, a.y, h.x, l.x);
+  split_pair(a.z, a.w, h.y, l.y);
+  split_pair(b.x, b.y, h.z, l.z);
+  split_pair(b.z, b.w, h.w, l.w);
+  *reinterpret_cast<uint4*>(hi) = h;
+  *reinterpret_cast<uint4*>(lo) = l;
+}
+
+// (x, y) as bf16 pairs: hi = x cut to bf16 (its upper 16 bits), lo =
+// bf16(x - hi), with one conversion for the pair.
+__device__ __forceinline__ void split_pair_cut(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const uint32_t xb = __float_as_uint(x), yb = __float_as_uint(y);
+  hi = __byte_perm(xb, yb, 0x7632);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x - __uint_as_float(xb & 0xFFFF0000u),
+                                                 y - __uint_as_float(yb & 0xFFFF0000u));
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// A operands (k16 steps) from a 64 x N float32 accumulator, split
+// (split_pair_cut).
+template <int R>
+__device__ __forceinline__ void acc_to_a_split(uint32_t (&hi)[R / 8][4], uint32_t (&lo)[R / 8][4],
+                                               const float (&d)[R]) {
+#pragma unroll
+  for (int kk = 0; kk < R / 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split_pair_cut(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1], hi[kk][i], lo[kk][i]);
+}
+
+// A warpgroup's 64 x 64 block of a row-major float32 matrix at p, as the
+// A operands of four k16 steps over the 64 columns: pair i of step kk holds
+// row r + 8 (i & 1), columns 16 kk + 8 (i >> 1) + c, c + 1.
+__device__ __forceinline__ void load_a_f32(float2 (&x)[4][4], const float* __restrict__ p) {
+  const int t = threadIdx.x % 128;
+  const int r = (t / 32) * 16 + (t % 32) / 4, c = 2 * (t % 4);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[kk][i] = __ldg(reinterpret_cast<const float2*>(
+          p + (r + 8 * (i & 1)) * kD + 16 * kk + 8 * (i >> 1) + c));
+}
+__device__ __forceinline__ void split_a(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                        const float2 (&x)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_pair(x[kk][i].x, x[kk][i].y, hi[kk][i], lo[kk][i]);
+}
+// The forward's pre-pass: k and v ([n] floats each) into the planes
+// [k hi, k lo, v hi, v lo] of n bf16 each, 8 elements a thread.
+__global__ void __launch_bounds__(256)
+flash_split_f32(const float* __restrict__ k, const float* __restrict__ v, bf16* __restrict__ planes,
+                long long n) {
+  const long long i = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) * 8;
+  if (i >= 2 * n) return;
+  const bool is_v = i >= n;
+  const long long j = is_v ? i - n : i;
+  bf16* hi = planes + (is_v ? 2 * n : 0) + j;
+  split8((is_v ? v : k) + j, hi, hi + n);
+}
+
+constexpr int kF32Keys = 64;   // keys of a float32 K/V tile
+constexpr int kF32Stages = 6;
+constexpr int kF32PlaneBytes = kF32Keys * kRowBytes;  // 8 KB
+
+struct FwdSmemF32 {
+  bf16 k[kF32Stages][2][kF32Keys * kD];  // [stage][hi, lo]
+  bf16 v[kF32Stages][2][kF32Keys * kD];
+  uint64_t k_full[kF32Stages], k_empty[kF32Stages], v_full[kF32Stages], v_empty[kF32Stages];
+};
+constexpr int kFwdF32SmemBytes = sizeof(FwdSmemF32) + 1024;
+
+// flash_fwd_wgmma's schedule on split operands (header, item 5). tkv maps
+// the pre-pass's planes: K hi at row r, K lo at kv_rows + r, V hi at
+// 2 kv_rows + r, V lo at 3 kv_rows + r.
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap tkv,
+              float* __restrict__ o, float* __restrict__ lse, FwdWork<kF32Keys> wk, int kv_rows) {
+  extern __shared__ unsigned char smem_raw[];
+  FwdSmemF32& sm = *reinterpret_cast<FwdSmemF32*>(align1024(smem_raw));
+  const int seq = wk.seq;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kF32Stages; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.k_empty[s], kConsumers);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.v_empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // producer warpgroup: one thread loads K and V
+    regs_dec<40>();
+    if (threadIdx.x != kConsumers) return;
+    int slot = 0;
+    for (int n = 0, w = wk.tile(0); w < wk.count(); w = wk.tile(++n)) {
+      const int kv_row = (wk.bh(w) / wk.group) * seq, j_lo = wk.j_lo(w);
+      for (int t = 0; t < wk.n_tiles(w); ++t, ++slot) {
+        const int s = slot % kF32Stages, row = kv_row + (j_lo + t) * kF32Keys;
+        const uint32_t phase = ((slot / kF32Stages) & 1) ^ 1;
+        mbar_wait(&sm.k_empty[s], phase);
+        mbar_expect_tx(&sm.k_full[s], 2 * kF32PlaneBytes);
+        tma_load(sm.k[s][0], &tkv, &sm.k_full[s], row);
+        tma_load(sm.k[s][1], &tkv, &sm.k_full[s], kv_rows + row);
+        mbar_wait(&sm.v_empty[s], phase);
+        mbar_expect_tx(&sm.v_full[s], 2 * kF32PlaneBytes);
+        tma_load(sm.v[s][0], &tkv, &sm.v_full[s], 2 * kv_rows + row);
+        tma_load(sm.v[s][1], &tkv, &sm.v_full[s], 3 * kv_rows + row);
+      }
+    }
+    return;
+  }
+  regs_inc<232>();
+
+  const int wg = threadIdx.x / 128;
+  int slot = 0;
+  // a key tile that none of this warpgroup's rows sees: wait for it and
+  // release it
+  auto pass = [&]() {
+    const int s = slot % kF32Stages;
+    const uint32_t parity = (slot / kF32Stages) & 1;
+    mbar_wait(&sm.k_full[s], parity);
+    mbar_arrive(&sm.k_empty[s]);
+    mbar_wait(&sm.v_full[s], parity);
+    mbar_arrive(&sm.v_empty[s]);
+    ++slot;
+  };
+  for (int n = 0, w = wk.tile(0); w < wk.count(); w = wk.tile(++n)) {
+    const int bh = wk.bh(w), j_lo = wk.j_lo(w), j_end = j_lo + wk.n_tiles(w);
+    const int row0 = wk.qt(w) * kFwdRows + wg * 64;  // this warpgroup's first query row
+    // this warpgroup's key tiles [own_lo, own_hi]: the last holds its diagonal
+    const int own_lo = max(0, row0 - wk.window + 1) / kF32Keys, own_hi = row0 / kF32Keys;
+    auto masked = [&](int k0) { return k0 + kF32Keys - 1 > row0 || row0 + 63 - k0 >= wk.window; };
+    float acc[32], sc[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    uint32_t qh[4][4], ql[4][4], ph[4][4], pl[4][4], nh[4][4], nl[4][4];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    {
+      float2 x[4][4];
+      load_a_f32(x, q + (static_cast<size_t>(bh) * seq + row0) * kD);
+      split_a(qh, ql, x);
+    }
+    for (int j = j_lo; j < own_lo; ++j) pass();
+
+    auto issue_s = [&](int s) {  // sc = Q K^T for the K tile in stage s
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+      fence_regs(sc);
+      fence_regs(qh);
+      fence_regs(ql);
+      wg_fence();
+      const uint64_t dkh = desc_k(sm.k[s][0]), dkl = desc_k(sm.k[s][1]);
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        wgmma_rs_n64<0>(sc, qh[kk], desc_add(dkh, 32 * kk));
+        wgmma_rs_n64<0>(sc, qh[kk], desc_add(dkl, 32 * kk));
+        wgmma_rs_n64<0>(sc, ql[kk], desc_add(dkh, 32 * kk));
+      }
+      wg_commit();
+    };
+    auto issue_pv = [&](int s) {  // acc += P V for the V tile in stage s
+      mbar_wait(&sm.v_full[s], (slot / kF32Stages) & 1);
+      fence_regs(acc);
+      fence_regs(ph);
+      fence_regs(pl);
+      wg_fence();
+      const uint64_t dvh = desc_mn(sm.v[s][0]), dvl = desc_mn(sm.v[s][1]);
+#pragma unroll
+      for (int kk = 0; kk < kF32Keys / 16; ++kk) {
+        wgmma_rs_n64<1>(acc, ph[kk], desc_add(dvh, kk * 16 * kRowBytes));
+        wgmma_rs_n64<1>(acc, ph[kk], desc_add(dvl, kk * 16 * kRowBytes));
+        wgmma_rs_n64<1>(acc, pl[kk], desc_add(dvh, kk * 16 * kRowBytes));
+      }
+      wg_commit();
+    };
+
+    {
+      const int s = slot % kF32Stages;
+      mbar_wait(&sm.k_full[s], (slot / kF32Stages) & 1);
+      issue_s(s);
+      wg_wait0();
+      fence_regs(sc);
+      fence_regs(qh);
+      fence_regs(ql);
+      mbar_arrive(&sm.k_empty[s]);
+      softmax_scores(sc, m, l, alpha, masked(own_lo * kF32Keys), row0, own_lo * kF32Keys,
+                     wk.window);
+      acc_to_a_split<32>(ph, pl, sc);
+    }
+    // as flash_fwd_wgmma: S of tile j + 1 ahead of P V of tile j
+    for (int j = own_lo; j < own_hi; ++j, ++slot) {
+      const int s = slot % kF32Stages, s1 = (slot + 1) % kF32Stages;
+      mbar_wait(&sm.k_full[s1], ((slot + 1) / kF32Stages) & 1);
+      issue_s(s1);
+      issue_pv(s);
+      wg_wait1();
+      fence_regs(sc);
+      fence_regs(qh);
+      fence_regs(ql);
+      mbar_arrive(&sm.k_empty[s1]);
+      const int k1 = (j + 1) * kF32Keys;
+      softmax_scores(sc, m, l, alpha, masked(k1), row0, k1, wk.window);
+      acc_to_a_split<32>(nh, nl, sc);
+      wg_wait0();
+      fence_regs(acc);
+      fence_regs(ph);
+      fence_regs(pl);
+      mbar_arrive(&sm.v_empty[s]);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[e] *= alpha[(e >> 1) & 1];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ph[kk][i] = nh[kk][i];
+          pl[kk][i] = nl[kk][i];
+        }
+    }
+    issue_pv(slot % kF32Stages);
+    wg_wait0();
+    fence_regs(acc);
+    fence_regs(ph);
+    fence_regs(pl);
+    mbar_arrive(&sm.v_empty[slot % kF32Stages]);
+    ++slot;
+    for (int j = own_hi + 1; j < j_end; ++j) pass();
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float total = quad_sum(l[r]);
+      const float inv = 1.f / total;
+      const int row = row0 + acc_row(2 * r);
+      float* orow = o + (static_cast<size_t>(bh) * seq + row) * kD;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        store2(orow + acc_col(4 * c), acc[4 * c + 2 * r] * inv, acc[4 * c + 2 * r + 1] * inv);
+      if (threadIdx.x % 4 == 0)
+        lse[static_cast<size_t>(bh) * seq + row] = (m[r] + log2f(total)) * kLn2;
+    }
+  }
+}
+
+// The backward's pre-pass, one launch. Blocks [0, rows / 32): delta =
+// rowsum(dO * O) in float32 (8 threads a row, a fixed order) and the planes
+// of Q and dO; the rest: the planes of K and V. planes: [q hi, q lo, dO hi,
+// dO lo] of rows x 64 bf16 each, then [k hi, k lo, v hi, v lo] of
+// kv_rows x 64.
+__global__ void __launch_bounds__(256)
+flash_bwd_prep_f32(const float* __restrict__ q, const float* __restrict__ o,
+                   const float* __restrict__ dout, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ delta,
+                   bf16* __restrict__ planes, long long rows, long long kv_rows) {
+  const long long n = rows * kD, kv_n = kv_rows * kD;
+  const long long row_blocks = rows / 32;
+  if (blockIdx.x < row_blocks) {
+    const long long row = static_cast<long long>(blockIdx.x) * 32 + threadIdx.x / 8;
+    const long long e = row * kD + (threadIdx.x % 8) * 8;
+    const float4* a = reinterpret_cast<const float4*>(o + e);
+    const float4* b = reinterpret_cast<const float4*>(dout + e);
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float4 x = __ldg(a + i), y = __ldg(b + i);
+      sum += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+    if (threadIdx.x % 8 == 0) delta[row] = sum;
+    split8(q + e, planes + e, planes + n + e);
+    split8(dout + e, planes + 2 * n + e, planes + 3 * n + e);
+    return;
+  }
+  const long long e = ((blockIdx.x - row_blocks) * 256 + threadIdx.x) * 8;
+  if (e < kv_n) split8(k + e, planes + 4 * n + e, planes + 4 * n + kv_n + e);
+  else if (e < 2 * kv_n)
+    split8(v + e - kv_n, planes + 4 * n + kv_n + e, planes + 4 * n + 2 * kv_n + e);
+}
+
+constexpr int kF32BwdStages = 2;
+constexpr int kF32DqSlots = 2;
+constexpr int kF32DqWriters = 2;  // warps 9 and 10 (warp 11 only gives its registers away)
+
+struct BwdSmemF32 {
+  bf16 k[2][kBwdKeys * kD];                // hi, lo
+  bf16 v[2][kBwdKeys * kD];
+  bf16 dst[2][kBwdKeys * kD];              // [hi, lo] of dS^T: [key][query], 64 keys a warpgroup
+  bf16 q[kF32BwdStages][2][kBwdRows * kD];  // [stage][hi, lo]
+  bf16 dout[kF32BwdStages][2][kBwdRows * kD];
+  float lse[kF32BwdStages][kBwdRows];
+  float delta[kF32BwdStages][kBwdRows];
+  float dqs[kF32DqSlots][2][kBwdRows * kD];  // dQ partials for the writers, a half a warpgroup
+  uint64_t full[kF32BwdStages], empty[kF32BwdStages], kv_full, kv_empty, dq_full[kF32DqSlots],
+      dq_empty[kF32DqSlots];
+  int item;
+};
+constexpr int kBwdF32SmemBytes = sizeof(BwdSmemF32) + 1024;
+
+// flash_bwd_wgmma's items, pairs and dQ order on split operands (header,
+// item 6). tq and tdo map the planes of Q and dO (lo at rows + r), tkv
+// those of K and V (K lo at kv_rows + r, V hi at 2 kv_rows + r, V lo at
+// 3 kv_rows + r).
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_f32(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+              const __grid_constant__ CUtensorMap tkv, const float* __restrict__ lse,
+              const float* __restrict__ delta, float* __restrict__ dq, float* __restrict__ dk,
+              float* __restrict__ dv,
+              float* __restrict__ dq_acc, int* __restrict__ turns, int* __restrict__ work,
+              BwdGeom geo, int rows, int kv_rows) {
+  extern __shared__ unsigned char smem_raw[];
+  BwdSmemF32& sm = *reinterpret_cast<BwdSmemF32*>(align1024(smem_raw));
+  const int seq = geo.seq, group = geo.group;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kF32BwdStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers);
+    }
+    mbar_init(&sm.kv_full, 1);
+    mbar_init(&sm.kv_empty, kConsumers + 32 * kF32DqWriters);
+    for (int b = 0; b < kF32DqSlots; ++b) {
+      mbar_init(&sm.dq_full[b], kConsumers);
+      mbar_init(&sm.dq_empty[b], 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  K6_SPAN_MARK(0);
+
+  if (threadIdx.x >= kConsumers) {  // warpgroup 2: the producer warp and the dQ writers
+    regs_dec<80>();
+    if (threadIdx.x >= kConsumers + 32) {
+      if (threadIdx.x < kConsumers + 32 + 32 * kF32DqWriters)
+        write_dq<kF32DqSlots, kF32DqWriters, 2>(sm, geo, dq, dq_acc, turns);
+      return;
+    }
+    if (threadIdx.x != kConsumers) return;
+    int slot = 0;
+    for (uint32_t kv_phase = 0;; kv_phase ^= 1) {
+      const int item = atomicAdd(work, 1);
+      if (item >= geo.n_items) {
+        mbar_wait(&sm.kv_empty, kv_phase ^ 1);
+        sm.item = item;
+        mbar_arrive(&sm.kv_full);  // no loads: the block stops
+        return;
+      }
+      const int j = item / geo.batch_kv, bg = item % geo.batch_kv;
+      const int h0 = bg * group;
+      const int i_hi = geo.i_hi(j), n_pairs = group * (i_hi - geo.i_lo(j) + 1);
+      bool kv_loaded = false;
+      for (int p = 0; p < n_pairs; ++p, ++slot) {
+        const int s = slot % kF32BwdStages;
+        const int row = (h0 + p % group) * seq + (i_hi - p / group) * kBwdRows;
+        mbar_wait(&sm.empty[s], ((slot / kF32BwdStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[s], 4 * kBwdRows * kRowBytes + 2 * kBwdRows * 4);
+        tma_load(sm.q[s][0], &tq, &sm.full[s], row);
+        tma_load(sm.q[s][1], &tq, &sm.full[s], rows + row);
+        tma_load(sm.dout[s][0], &tdo, &sm.full[s], row);
+        tma_load(sm.dout[s][1], &tdo, &sm.full[s], rows + row);
+        bulk_load(sm.lse[s], lse + row, kBwdRows * 4, &sm.full[s]);
+        bulk_load(sm.delta[s], delta + row, kBwdRows * 4, &sm.full[s]);
+        // K's and V's planes once the ring holds the item's first pairs
+        if (!kv_loaded && (p == kF32BwdStages - 1 || p == n_pairs - 1)) {
+          const int r = bg * seq + j * kBwdKeys;
+          mbar_wait(&sm.kv_empty, kv_phase ^ 1);
+          sm.item = item;
+          mbar_expect_tx(&sm.kv_full, 4 * kBwdKeys * kRowBytes);
+          tma_load(sm.k[0], &tkv, &sm.kv_full, r);
+          tma_load(sm.k[1], &tkv, &sm.kv_full, kv_rows + r);
+          tma_load(sm.v[0], &tkv, &sm.kv_full, 2 * kv_rows + r);
+          tma_load(sm.v[1], &tkv, &sm.kv_full, 3 * kv_rows + r);
+          kv_loaded = true;
+        }
+      }
+    }
+  }
+  regs_inc<208>();
+
+  // Each consumer warpgroup works on its own 64 keys from here on, with no
+  // barrier with the other: the two meet only at the ring's empty barriers
+  // and the staged dQ halves, so one's elementwise phase can run while the
+  // other's products do.
+  const int wg = threadIdx.x / 128;
+  bf16* const dst_h = sm.dst[0] + wg * 64 * kD;  // this warpgroup's rows of dS^T
+  bf16* const dst_l = sm.dst[1] + wg * 64 * kD;
+  int slot = 0;
+  for (uint32_t kv_phase = 0;; kv_phase ^= 1) {
+    mbar_wait(&sm.kv_full, kv_phase);
+    const int item = sm.item;
+    if (item >= geo.n_items) {
+      K6_SPAN_MARK(1);
+      return;
+    }
+    const int j = item / geo.batch_kv, bg = item % geo.batch_kv;
+    const int k0 = j * kBwdKeys + wg * 64;  // this warpgroup's first key
+    const int i_hi = geo.i_hi(j), n_pairs = group * (i_hi - geo.i_lo(j) + 1);
+    float dk_acc[32], dv_acc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+    const uint64_t d_kh = desc_k(sm.k[0] + wg * 64 * kD), d_kl = desc_k(sm.k[1] + wg * 64 * kD);
+    const uint64_t d_vh = desc_k(sm.v[0] + wg * 64 * kD), d_vl = desc_k(sm.v[1] + wg * 64 * kD);
+
+    for (int p = 0; p < n_pairs; ++p, ++slot) {
+      const int s = slot % kF32BwdStages;
+      const int q0 = (i_hi - p / group) * kBwdRows;
+      K6_MARK(0);
+      mbar_wait(&sm.full[s], (slot / kF32BwdStages) & 1);
+      K6_MARK(1);
+      // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries), three products each
+      float st[32], dpt[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) st[e] = dpt[e] = 0.f;
+      fence_regs(st);
+      fence_regs(dpt);
+      wg_fence();
+      const uint64_t d_qh = desc_k(sm.q[s][0]), d_ql = desc_k(sm.q[s][1]);
+      const uint64_t d_doh = desc_k(sm.dout[s][0]), d_dol = desc_k(sm.dout[s][1]);
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        wgmma_ss_n64<0, 0>(st, desc_add(d_kh, 32 * kk), desc_add(d_qh, 32 * kk), 1);
+        wgmma_ss_n64<0, 0>(st, desc_add(d_kh, 32 * kk), desc_add(d_ql, 32 * kk), 1);
+        wgmma_ss_n64<0, 0>(st, desc_add(d_kl, 32 * kk), desc_add(d_qh, 32 * kk), 1);
+        wgmma_ss_n64<0, 0>(dpt, desc_add(d_vh, 32 * kk), desc_add(d_doh, 32 * kk), 1);
+        wgmma_ss_n64<0, 0>(dpt, desc_add(d_vh, 32 * kk), desc_add(d_dol, 32 * kk), 1);
+        wgmma_ss_n64<0, 0>(dpt, desc_add(d_vl, 32 * kk), desc_add(d_doh, 32 * kk), 1);
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(st);
+      fence_regs(dpt);
+      K6_MARK(2);
+      // P^T = exp2(S^T log2(e) - lse log2(e)), dS^T = P^T (dP^T - delta);
+      // columns are queries: column c's lse and delta, for its two elements
+      const bool masked = k0 + 63 > q0 || q0 + kBwdRows - 1 - k0 >= geo.window;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const int e0 = (c >> 1) * 4 + (c & 1), col = acc_col(e0);
+        const float l2 = sm.lse[s][col] * kLog2e, dlt = sm.delta[s][col];
+#pragma unroll
+        for (int e = e0; e < e0 + 4; e += 2) {
+          const float pv = !masked || sees(q0 + col, k0 + acc_row(e), geo.window)
+                               ? fast_exp2(fmaf(st[e], kLog2e, -l2)) : 0.f;
+          st[e] = pv;
+          dpt[e] = pv * (dpt[e] - dlt);
+        }
+      }
+      uint32_t ph[4][4], pl[4][4];
+      acc_to_a_split<32>(ph, pl, st);
+      K6_MARK(3);
+      {
+        // dS^T's parts into this warpgroup's rows (the last pair's dK and dQ
+        // products, which read them, are done), for dK as a K-major A
+        // operand and dQ = dS K as an MN-major one
+        uint32_t dh[4][4], dl[4][4];
+        acc_to_a_split<32>(dh, dl, dpt);
+#pragma unroll
+        for (int e = 0; e < 32; e += 2) {
+          const uint32_t off = swizzle_offset(acc_row(e), acc_col(e));
+          *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(dst_h) + off) =
+              dh[e / 8][(e % 8) / 2];
+          *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(dst_l) + off) =
+              dl[e / 8][(e % 8) / 2];
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // to the async proxy
+      named_sync(2 + wg, 128);  // the warpgroup's four warps have written theirs
+      K6_MARK(4);
+      // dV += P^T dO (P^T from registers), dK += dS^T Q: the group's sums;
+      // this warpgroup's dQ partial dS K over its 64 keys (64 queries x 64)
+      float dqp[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dqp[e] = 0.f;
+      fence_regs(dqp);
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(ph);
+      fence_regs(pl);
+      wg_fence();
+      const uint64_t m_doh = desc_mn(sm.dout[s][0]), m_dol = desc_mn(sm.dout[s][1]);
+      const uint64_t m_qh = desc_mn(sm.q[s][0]), m_ql = desc_mn(sm.q[s][1]);
+      const uint64_t a_dsh = desc_k(dst_h), a_dsl = desc_k(dst_l);
+      const uint64_t m_dsh = desc_mn(dst_h), m_dsl = desc_mn(dst_l);
+      const uint64_t m_kh = desc_mn(sm.k[0] + wg * 64 * kD), m_kl = desc_mn(sm.k[1] + wg * 64 * kD);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t at = kk * 16 * kRowBytes;
+        wgmma_rs_n64<1>(dv_acc, ph[kk], desc_add(m_doh, at));
+        wgmma_rs_n64<1>(dv_acc, ph[kk], desc_add(m_dol, at));
+        wgmma_rs_n64<1>(dv_acc, pl[kk], desc_add(m_doh, at));
+        wgmma_ss_n64<0, 1>(dk_acc, desc_add(a_dsh, 32 * kk), desc_add(m_qh, at), 1);
+        wgmma_ss_n64<0, 1>(dk_acc, desc_add(a_dsh, 32 * kk), desc_add(m_ql, at), 1);
+        wgmma_ss_n64<0, 1>(dk_acc, desc_add(a_dsl, 32 * kk), desc_add(m_qh, at), 1);
+        wgmma_ss_n64<1, 1>(dqp, desc_add(m_dsh, at), desc_add(m_kh, at), 1);
+        wgmma_ss_n64<1, 1>(dqp, desc_add(m_dsh, at), desc_add(m_kl, at), 1);
+        wgmma_ss_n64<1, 1>(dqp, desc_add(m_dsl, at), desc_add(m_kh, at), 1);
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(dqp);
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(ph);
+      fence_regs(pl);
+      mbar_arrive(&sm.empty[s]);
+      K6_MARK(5);
+      // the half partial to the writers, through one of kF32DqSlots buffers
+      const int b = slot % kF32DqSlots;
+      mbar_wait(&sm.dq_empty[b], ((slot / kF32DqSlots) & 1) ^ 1);
+      K6_MARK(6);
+#pragma unroll
+      for (int e = 0; e < 32; e += 2)
+        *reinterpret_cast<float2*>(&sm.dqs[b][wg][dqs_offset(acc_row(e), acc_col(e))]) =
+            make_float2(dqp[e], dqp[e + 1]);
+      mbar_arrive(&sm.dq_full[b]);
+      K6_MARK(7);
+    }
+    // dK, dV of this warpgroup's 64 keys, at the KV head's rows
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const size_t off = (static_cast<size_t>(bg) * seq + k0 + acc_row(e)) * kD + acc_col(e);
+      store2(dk + off, dk_acc[e], dk_acc[e + 1]);
+      store2(dv + off, dv_acc[e], dv_acc[e + 1]);
+    }
+    mbar_arrive(&sm.kv_empty);
+  }
+}
+
 // ---- host ------------------------------------------------------------------
 
 template <typename K>
 int set_smem(K kernel, int bytes) {
   return static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-}
-
-template <typename T>
-int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int seq,
-        int window, int group, cudaStream_t s) {
-  constexpr int bytes = 3 * Parts<T>::value * kTileBytes;
-  if (int err = set_smem(flash_fwd_kernel<T>, bytes)) return err;
-  flash_fwd_kernel<T><<<dim3(seq / kTile, bh), kThreads, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, seq, window, group);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
-        const float* lse, float* delta, void* dq, void* dk, void* dv, int bh, int seq,
-        int window, int group, cudaStream_t s) {
-  constexpr int bytes = bwd_smem_bytes<Parts<T>::value>();
-  if (int err = set_smem(flash_bwd_dq_kernel<T>, bytes)) return err;
-  if (int err = set_smem(flash_bwd_dkv_kernel<T>, bytes)) return err;
-  flash_bwd_dq_kernel<T><<<dim3(seq / kTile, bh), kThreads, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq),
-      seq, window, group);
-  if (int err = static_cast<int>(cudaGetLastError())) return err;
-  flash_bwd_dkv_kernel<T><<<dim3(seq / kTile, bh / group), kThreads, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), seq,
-      window, group);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // cuTensorMapEncodeTiled lives in libcuda. The library looks it up through
@@ -1381,7 +1629,7 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, i
   if (int err = make_map(&tk, k, kv_rows, kFwdKeys)) return err;
   if (int err = make_map(&tv, v, kv_rows, kFwdKeys)) return err;
   if (int err = set_smem(flash_fwd_wgmma, kFwdSmemBytes)) return err;
-  FwdWork wk;
+  FwdWork<kFwdKeys> wk;
   wk.bh_count = batch * heads;
   wk.n_qt = seq / kFwdRows;
   wk.seq = seq;
@@ -1421,6 +1669,55 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o, const v
   return static_cast<int>(cudaGetLastError());
 }
 
+
+int fwd_f32(const float* q, const float* k, const float* v, float* o, float* lse, bf16* planes,
+            int batch, int heads, int kv_heads, int seq, int window, cudaStream_t s) {
+  const long long kv_rows = static_cast<long long>(batch) * kv_heads * seq, n = kv_rows * kD;
+  flash_split_f32<<<static_cast<unsigned>((2 * n / 8 + 255) / 256), 256, 0, s>>>(k, v, planes, n);
+  if (int err = static_cast<int>(cudaGetLastError())) return err;
+  CUtensorMap tkv;
+  if (int err = make_map(&tkv, planes, 4 * kv_rows, kF32Keys)) return err;
+  if (int err = set_smem(flash_fwd_f32, kFwdF32SmemBytes)) return err;
+  FwdWork<kF32Keys> wk;
+  wk.bh_count = batch * heads;
+  wk.n_qt = seq / kFwdRows;
+  wk.seq = seq;
+  wk.window = window;
+  wk.group = heads / kv_heads;
+  flash_fwd_f32<<<min(wk.bh_count * wk.n_qt, sm_count()), kWsThreads, kFwdF32SmemBytes, s>>>(
+      q, tkv, o, lse, wk, static_cast<int>(kv_rows));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bwd_f32(const float* q, const float* k, const float* v, const float* o, const float* dout,
+            const float* lse, float* delta, float* dq, float* dk, float* dv, float* dq_acc,
+            int* counters, bf16* planes, int batch, int heads, int kv_heads, int seq, int window,
+            cudaStream_t s) {
+  const long long rows = static_cast<long long>(batch) * heads * seq;
+  const long long kv_rows = static_cast<long long>(batch) * kv_heads * seq;
+  const long long blocks = rows / 32 + (2 * kv_rows * kD / 8 + 255) / 256;
+  flash_bwd_prep_f32<<<static_cast<unsigned>(blocks), 256, 0, s>>>(q, o, dout, k, v, delta,
+                                                                   planes, rows, kv_rows);
+  if (int err = static_cast<int>(cudaGetLastError())) return err;
+  CUtensorMap tq, tdo, tkv;
+  if (int err = make_map(&tq, planes, 2 * rows, kBwdRows)) return err;
+  if (int err = make_map(&tdo, planes + 2 * rows * kD, 2 * rows, kBwdRows)) return err;
+  if (int err = make_map(&tkv, planes + 4 * rows * kD, 4 * kv_rows, kBwdKeys)) return err;
+  if (int err = set_smem(flash_bwd_f32, kBwdF32SmemBytes)) return err;
+  BwdGeom geo;
+  geo.batch_kv = batch * kv_heads;
+  geo.group = heads / kv_heads;
+  geo.seq = seq;
+  geo.window = window;
+  geo.n_items = geo.batch_kv * (seq / kBwdKeys);
+  int* turns = counters;
+  int* work = counters + static_cast<size_t>(batch) * heads * (seq / kBwdRows);
+  flash_bwd_f32<<<min(geo.n_items, sm_count()), kBwdThreads, kBwdF32SmemBytes, s>>>(
+      tq, tdo, tkv, lse, delta, dq, dk, dv, dq_acc, turns, work, geo, static_cast<int>(rows),
+      static_cast<int>(kv_rows));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Shapes (row-major, contiguous, 16-byte aligned): q, o, dout, dq
@@ -1430,28 +1727,51 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o, const v
 // multiple of 128, 1 <= window, heads a multiple of kv_heads. Each returns 0
 // or the first error: a cudaError_t after a launch, kErrNoEncode or
 // kErrEncode from a tensor map.
+
+// float32: planes is bf16 scratch of 4 * batch * kv_heads * seq * 64
+// elements (the split K and V); bf16 takes none.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   void* lse, int batch, int heads, int kv_heads, int seq,
-                                   int window, int is_f32, void* stream) {
+                                   void* lse, void* planes, int batch, int heads, int kv_heads,
+                                   int seq, int window, int is_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  return is_f32 ? fwd<float>(q, k, v, o, l, batch * heads, seq, window, heads / kv_heads, s)
-                : fwd_bf16(q, k, v, o, l, batch, heads, kv_heads, seq, window, s);
+  if (is_f32)
+    return fwd_f32(static_cast<const float*>(q), static_cast<const float*>(k),
+                   static_cast<const float*>(v), static_cast<float*>(o), l,
+                   static_cast<bf16*>(planes), batch, heads, kv_heads, seq, window, s);
+  return fwd_bf16(q, k, v, o, l, batch, heads, kv_heads, seq, window, s);
 }
 
-// Writes delta, dq, dk and dv. bf16: dq_acc is float32 scratch shaped like
-// q, and counters int32 [batch * heads * seq / 64 + 1], all zero (the
-// caller's torch.zeros). float32 (the mma.sync kernels) uses neither.
+// Writes delta, dq, dk and dv. dq_acc is float32 scratch shaped like q, and
+// counters int32 [batch * heads * seq / 64 + 1], all zero (the caller's
+// torch.zeros). float32: planes is bf16 scratch of
+// 4 * (heads + kv_heads) * batch * seq * 64 elements (the split Q, dO, K
+// and V); bf16 takes none.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* delta, void* dq,
-                                   void* dk, void* dv, void* dq_acc, void* counters, int batch,
-                                   int heads, int kv_heads, int seq, int window, int is_f32,
-                                   void* stream) {
+                                   void* dk, void* dv, void* dq_acc, void* counters, void* planes,
+                                   int batch, int heads, int kv_heads, int seq, int window,
+                                   int is_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
-  return is_f32 ? bwd<float>(q, k, v, o, dout, l, d, dq, dk, dv, batch * heads, seq, window,
-                             heads / kv_heads, s)
-                : bwd_bf16(q, k, v, o, dout, l, d, dq, dk, dv, static_cast<float*>(dq_acc),
-                           static_cast<int*>(counters), batch, heads, kv_heads, seq, window, s);
+  if (is_f32)
+    return bwd_f32(static_cast<const float*>(q), static_cast<const float*>(k),
+                   static_cast<const float*>(v), static_cast<const float*>(o),
+                   static_cast<const float*>(dout), l, d, static_cast<float*>(dq),
+                   static_cast<float*>(dk), static_cast<float*>(dv), static_cast<float*>(dq_acc),
+                   static_cast<int*>(counters), static_cast<bf16*>(planes), batch, heads,
+                   kv_heads, seq, window, s);
+  return bwd_bf16(q, k, v, o, dout, l, d, dq, dk, dv, static_cast<float*>(dq_acc),
+                  static_cast<int*>(counters), batch, heads, kv_heads, seq, window, s);
 }
+
+#ifdef RSTNET_K6_MARKS
+// The phase marks of the last float32 backward (see k6_marks): consumer
+// marks [132][2][160][8], writer marks [132][160][4], spans [132][4], int64.
+extern "C" int k6_marks_copy(void* consumer, void* writer, void* span) {
+  cudaMemcpyFromSymbol(consumer, k6_marks, sizeof(k6_marks));
+  cudaMemcpyFromSymbol(writer, k6_writer_marks, sizeof(k6_writer_marks));
+  return static_cast<int>(cudaMemcpyFromSymbol(span, k6_span_marks, sizeof(k6_span_marks)));
+}
+#endif

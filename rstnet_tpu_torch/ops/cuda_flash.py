@@ -14,10 +14,14 @@ the plain versions repeat K/V). Key j is visible to query i iff
   dk and dv at the KV heads, summed over each group.
 
 Each launches its kernel on a CUDA tensor (or raises) and runs its plain
-version on a CPU tensor. bf16 goes through the Hopper kernels (TMA,
-``wgmma``; the backward is one persistent launch after a row pre-pass for
-delta), float32 through the split-bf16 ``mma.sync`` kernels: the wrappers
-count the two apart (``launches`` and ``launches_f32``).
+version on a CPU tensor. Both dtypes go through the Hopper kernels (TMA,
+``wgmma``, persistent; the backward is one launch after a row pre-pass for
+delta). float32 runs them on split operands: a pre-pass writes bf16 planes
+hi = bf16(x) and lo = bf16(x - hi) of K and V (forward) or of Q, dO, K and
+V (backward, with delta) into scratch that the wrapper allocates, and every
+product is hi.hi + hi.lo + lo.hi (:func:`split_hi_lo_reference` is the
+split's plain version). The wrappers count the two dtypes apart
+(``launches`` and ``launches_f32``).
 :func:`flash_attention_kernel` is the autograd function over the two, the
 route of the backbone's training forwards.
 """
@@ -76,6 +80,13 @@ def flash_attention_bwd_reference(q, k, v, o, do, lse, window: int):
     dv = torch.einsum("bhts,bhtd->bhsd", p, do.float())
     dk, dv = (t.reshape(B, Hkv, H // Hkv, T, D).sum(2) for t in (dk, dv))
     return dq, dk.to(k.dtype), dv.to(v.dtype), delta
+
+
+def split_hi_lo_reference(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The float32 pre-pass's split, plain: hi = bf16(x) rounded to nearest,
+    lo = bf16(x - hi); x - hi - lo is within 2**-16 |x|."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
 
 
 def relative_error_by_tile(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -147,10 +158,13 @@ def flash_attention_fwd(q, k, v, window: int):
     B, H, Hkv, T = _check_cuda_operands(window, q, kv=(k, v))
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    f32 = q.dtype == torch.float32
+    # float32: K's and V's hi and lo planes
+    planes = torch.empty(4 * k.numel(), dtype=torch.bfloat16, device=q.device) if f32 else None
     with torch.cuda.device(q.device):
         status = cuda_lib.kernel_library().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, Hkv,
-            T, window, int(q.dtype == torch.float32), _stream())
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            planes.data_ptr() if f32 else None, B, H, Hkv, T, window, int(f32), _stream())
     cuda_lib.check(status, "flash_attention_fwd")
     _count(flash_attention_fwd, q)
     return o, lse
@@ -158,8 +172,9 @@ def flash_attention_fwd(q, k, v, window: int):
 
 def flash_attention_bwd(q, k, v, o, do, lse, window: int):
     """-> (dq in q's dtype, dk, dv at the KV heads in k's and v's dtype,
-    delta [B, H, T] float32). The bf16 kernel sums dQ in a float32
-    workspace behind per-tile turn counters, both allocated here."""
+    delta [B, H, T] float32). The kernel sums dQ in a float32 workspace
+    behind per-tile turn counters, both allocated here, as are float32's
+    planes."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, do, lse, window)
     _device_check(q, "flash_attention_bwd")
@@ -168,23 +183,24 @@ def flash_attention_bwd(q, k, v, o, do, lse, window: int):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     f32 = q.dtype == torch.float32
-    dq_acc = None if f32 else torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     # one turn counter per (batch, head, query tile), then the work counter
-    counters = None if f32 else torch.zeros(B * H * (T // DQ_TILE) + 1, dtype=torch.int32,
-                                             device=q.device)
+    counters = torch.zeros(B * H * (T // DQ_TILE) + 1, dtype=torch.int32, device=q.device)
+    # float32: the hi and lo planes of Q, dO, K and V
+    planes = (torch.empty(4 * (q.numel() + k.numel()), dtype=torch.bfloat16, device=q.device)
+              if f32 else None)
     with torch.cuda.device(q.device):
         status = cuda_lib.kernel_library().flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            None if f32 else dq_acc.data_ptr(), None if f32 else counters.data_ptr(), B, H, Hkv,
-            T, window, int(f32), _stream())
+            dq_acc.data_ptr(), counters.data_ptr(), planes.data_ptr() if f32 else None, B, H,
+            Hkv, T, window, int(f32), _stream())
     cuda_lib.check(status, "flash_attention_bwd")
     _count(flash_attention_bwd, q)
     return dq, dk, dv, delta
 
 
-# kernel launches (bf16 Hopper kernels, float32 mma.sync kernels); reset
-# freely by callers
+# kernel launches (bf16 inputs, float32 inputs); reset freely by callers
 flash_attention_fwd.launches = flash_attention_fwd.launches_f32 = 0
 flash_attention_bwd.launches = flash_attention_bwd.launches_f32 = 0
 

@@ -119,16 +119,23 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def device_events(fn) -> list[str]:
+def device_events(fn, attempts: int = 3) -> list[str]:
     """The names of the device events (kernels, copies, fills) of one
-    ``fn()``, in the order the profiler lists them."""
+    ``fn()``, in the order the profiler lists them. ``fn`` must launch
+    device work and be safe to repeat: a window in which the profiler
+    recorded no device event at all lost its records (seen once on the
+    card), and is profiled again, up to ``attempts`` windows."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def device_profile(run_frame, frames) -> dict:

@@ -483,28 +483,34 @@ def test_flash_kernels_match_plain(cuda, dtype, T, window, heads):
     _k6_case(cuda, 1, *heads, T, dtype, window)
 
 
-def test_flash_kernels_at_training_shapes(cuda):
-    """B=2 and the main path's B=4, 32 query heads over 8 KV heads, T=1024,
-    bf16: causal (context 3000 >= T) and local (256)."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_at_training_shapes(cuda, dtype):
+    """B=2 and the main paths' B=4, 32 query heads over 8 KV heads, T=1024,
+    bf16 and float32 (the split-bf16 route of float32 training): causal
+    (context 3000 >= T) and local (256)."""
     for B in (2, 4):
         for window in (1024, 256):
-            _k6_case(cuda, B, 32, 8, 1024, torch.bfloat16, window)
+            _k6_case(cuda, B, 32, 8, 1024, dtype, window)
 
 
-def test_flash_kernels_smallest_grid(cuda):
-    """B=1, H=Hkv=1, T=128: one work item, one forward tile (the ordered dQ
-    must not wait on itself)."""
-    for dtype in (torch.bfloat16, torch.float32):
-        _k6_case(cuda, 1, 1, 1, 128, dtype, 128)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_smallest_grid(cuda, dtype):
+    """B=1, T=128: one work item, one forward tile (the ordered dQ must not
+    wait on itself); H=Hkv=1, and four query heads over one KV head under a
+    window (the float32 forward's warpgroups pass over the key tile their
+    rows do not see)."""
+    _k6_case(cuda, 1, 1, 1, 128, dtype, 128)
+    _k6_case(cuda, 1, 4, 1, 128, dtype, 100)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("window", [1024, 256])
-def test_flash_backward_is_bit_identical_across_calls(cuda, window):
+def test_flash_backward_is_bit_identical_across_calls(cuda, window, dtype):
     """dQ is summed in a fixed order (no atomics): two calls agree bit for
     bit."""
     from rstnet_tpu_torch.ops import cuda_flash as cf
 
-    q, k, v, do = _k6_inputs(cuda, 2, 32, 8, 1024, torch.bfloat16)
+    q, k, v, do = _k6_inputs(cuda, 2, 32, 8, 1024, dtype)
     o, lse = cf.flash_attention_fwd(q, k, v, window)
     first = cf.flash_attention_bwd(q, k, v, o, do, lse, window)
     second = cf.flash_attention_bwd(q, k, v, o, do, lse, window)

@@ -8,7 +8,11 @@ function (the kernels' plain dQ and dK/dV) and through autograd of
 ``flash_attention_reference`` are held to ``jax.grad`` of the JAX masked
 reference within 1e-4: float32 sums over 512 keys in another order; so is
 the plain backward, with K/V at fewer heads than Q (GQA: the plain versions
-repeat K/V, the kernels do not). Inputs come from numpy with a seed."""
+repeat K/V, the kernels do not). The float32 kernels' scheme (every operand
+split into bf16 hi and lo parts, three products hi.hi + hi.lo + lo.hi) is
+emulated in plain PyTorch and held to JAX within SPLIT_TOL of each 64-row
+tile's scale, the card's limit for those kernels. Inputs come from numpy
+with a seed."""
 
 import math
 
@@ -29,6 +33,12 @@ from rstnet_tpu_torch.ops.flash_attention import (
 
 SPLASH_TOL = 2e-3
 GRAD_TOL = 1e-4
+# the split-bf16 scheme against JAX's float32: ||got - want|| / ||want|| over
+# every 64-row tile (cuda_flash.relative_error_by_tile) within 1e-4, the
+# card's limit for the float32 kernels; the split drops ~2**-16 of each
+# operand (lo.lo and lo's own rounding), where one bf16 product would read
+# ~2e-3
+SPLIT_TOL = 1e-4
 
 
 def _inputs(seed, B, H, Hkv, T, D=64):
@@ -216,3 +226,89 @@ def test_wrappers_take_the_plain_version_only_on_cpu():
     o, lse = cuda_flash.flash_attention_fwd(t[0], t[1][:, :1], t[2][:, :1], 64)
     cuda_flash.flash_attention_bwd(t[0], t[1][:, :1], t[2][:, :1], o, t[3], lse, 64)
     assert [(f.launches, f.launches_f32) for f in fns] == before  # the plain versions count none
+
+
+def test_split_hi_lo_reference():
+    """hi is x rounded to the nearest bf16 (ties to even, from the bits),
+    lo is x - hi rounded to bf16, and x - hi - lo is within 2**-16 |x|
+    (lo's own rounding, 2**-9 of |x - hi| <= 2**-9 |x|, bounds it by
+    2**-18 |x|)."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal(4096) * 10.0 ** rng.uniform(-6, 6, 4096)).astype(np.float32)
+    u = x.view(np.uint32).astype(np.uint64)
+    want_hi = (((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32)).view(np.float32)
+    hi, lo = cuda_flash.split_hi_lo_reference(torch.from_numpy(x))
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    np.testing.assert_array_equal(hi.float().numpy(), want_hi)
+    np.testing.assert_array_equal(lo.float().numpy(),
+                                  torch.from_numpy(x - want_hi).bfloat16().float().numpy())
+    rest = x.astype(np.float64) - hi.double().numpy() - lo.double().numpy()
+    assert np.all(np.abs(rest) <= 2.0**-16 * np.abs(x.astype(np.float64)))
+
+
+def _split_mm(a, b):
+    """a @ b as the float32 kernels form it: both operands split, three bf16
+    products (exact in float32) summed in float32."""
+    (ah, al), (bh, bl) = ([t.float() for t in cuda_flash.split_hi_lo_reference(x)]
+                          for x in (a, b))
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _split_scheme(q, k, v, do, window):
+    """The float32 kernels' arithmetic in plain PyTorch (q pre-scaled, K/V
+    at q's heads): S = Q K^T and P V on split operands, P unnormalized
+    (exp(S - rowmax)) when split as the forward's online softmax splits it;
+    then the backward's five products on split operands. -> o, (dq, dk,
+    dv), dk and dv still at q's heads."""
+    pos = torch.arange(q.shape[2])
+    delta_pos = pos[:, None] - pos[None, :]
+    visible = (delta_pos >= 0) & (delta_pos < window)
+    s = _split_mm(q, k.transpose(-1, -2)).masked_fill(~visible, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = _split_mm(p, v) / l
+    lse = m + torch.log(l)
+    p = torch.exp(s - lse)
+    delta = (do * o).sum(-1, keepdim=True)
+    ds = p * (_split_mm(do, v.transpose(-1, -2)) - delta)
+    grads = (_split_mm(ds, k), _split_mm(ds.transpose(-1, -2), q),
+             _split_mm(p.transpose(-1, -2), do))
+    return o, grads
+
+
+@pytest.mark.parametrize("context", [None, 100])
+def test_split_scheme_forward_matches_splash(context):
+    """The emulated float32 forward against jax's splash kernel in interpret
+    mode (float32), T=512, GQA 4:1, within SPLIT_TOL of every tile."""
+    q, k, v, do = _inputs(12, 1, 4, 1, 512)
+    q = q * 0.125  # pre-scaled, as the route hands it to the kernels
+    want = np.asarray(jax_flash.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                                context, 1.0, interpret=True))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    kr, vr = cuda_flash.repeat_kv(tq, tk, tv)
+    o, _ = _split_scheme(tq, kr, vr, torch.from_numpy(do), attention_window(512, context))
+    assert max(cuda_flash.relative_error_by_tile(o, torch.from_numpy(want))) <= SPLIT_TOL
+
+
+@pytest.mark.parametrize("context", [None, 100])
+def test_split_scheme_gradients_match_jax_grad(context):
+    """The emulated float32 backward (dK and dV summed over the group)
+    against ``jax.grad`` of the JAX masked reference, run as
+    ``test_gradients_match_jax_grad`` runs it, T=512, GQA 4:1, within
+    SPLIT_TOL of every tile."""
+    q, k, v, do = _inputs(13, 1, 4, 1, 512)
+    q = q * 0.125
+
+    def loss(q, k, v):
+        return jnp.sum(_jax_masked(q, k, v, context, 1.0) * do)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    kr, vr = cuda_flash.repeat_kv(tq, tk, tv)
+    _, (dq, dk, dv) = _split_scheme(tq, kr, vr, torch.from_numpy(do),
+                                    attention_window(512, context))
+    dk, dv = (t.reshape(1, 1, 4, 512, 64).sum(2) for t in (dk, dv))
+    for got, w in zip((dq, dk, dv), want):
+        assert max(cuda_flash.relative_error_by_tile(got, torch.from_numpy(np.asarray(w)))) \
+            <= SPLIT_TOL

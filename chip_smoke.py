@@ -14,8 +14,8 @@ Phases (each prints its findings; any failure exits non-zero):
    K1, Mimi's quantizer), with device times and bounds; K1, K2 and K3 are
    also held to bit-identical results across two calls, a K1 micro-step
    and a K3 split-path call to exactly one device kernel under
-   ``torch.profiler``, and K2 is timed beside the eager three-call chain at
-   B in {2, 16, 64};
+   ``torch.profiler``, and K2 is timed beside the eager three-call chain and
+   its route's own view-based fallback at B in {2, 16, 32, 64};
 4. small slices: a small Mimi + Moshi serving frame (solo, K1), the same
    under ``--int8 --kv-int8`` (K1-int8) and a small batched tick
    (``SessionBatcher`` at B=4, K2) on the card against the same weights on
@@ -47,14 +47,17 @@ Phases (each prints its findings; any failure exits non-zero):
    then, on that run's experiment, the inference CLIs ``lm_eval`` and
    ``infer_cli`` (path ``speech_cli``: K4 in every backbone step); then the
    same training run in float32 (path ``train_step_f32``: K6's float32
-   kernels, each step's loss held to the bf16 run's, one step profiled);
+   kernels, each step's loss held to the bf16 run's, one step profiled),
+   and the two CLIs on its float32 checkpoint (path ``speech_cli_f32``: K4
+   over float32 weights in every backbone step);
 7. speech streaming: K4 and K5 (the fused gated FFN of the backbone's
-   LLaMAMLP, bf16 and int8 weights) against their plain versions at
-   Llama-3.2-1B's MLP (C=2048, H=8192; N in {1, 4, 16, 64}, x in bf16 and
-   float32), two calls bit for bit, with device, plain, bound and eager
+   LLaMAMLP, bf16, int8 and float32 weights) against their plain versions
+   at Llama-3.2-1B's MLP (C=2048, H=8192; N in {1, 4, 16, 64}, x in bf16
+   and float32), two calls bit for bit, with device, plain, bound and eager
    three-GEMM times (phase ``kernels``); a small ``SpeechTextLM`` through
    ``teacher_forced_stream`` on the card and on the CPU from the same
-   weights, bf16 and then ``quantize_for_serving`` with an int8 ring; and
+   weights, bf16, then ``quantize_for_serving`` with an int8 ring, then in
+   float32; and
    the full flagship (Llama-3.2-1B backbone, codecformer 1024 x 6, bf16,
    seeded random weights) through ``LMGen.step`` at B=1 (path
    ``speech_frame``), then with Mimi 24 kHz through
@@ -379,22 +382,30 @@ def check_k1(g, card: str, int8: bool = False) -> dict:
 # Timed over `layers` layers' 8 steps in turn, beyond the 50 MB L2 as a
 # tick's calls find them: Moshi's one layer is 138 MB, the codecformer's
 # six 226 MB.
-K2_SHAPES = {"moshi": dict(H=2816, batches=(2, 16, 64), layers=1),
-             "flagship": dict(H=768, batches=(16, 64), layers=6)}
+K2_SHAPES = {"moshi": dict(H=2816, batches=(2, 16, 32, 64), layers=1),
+             "flagship": dict(H=768, batches=(16, 32, 64), layers=6)}
 
 
 def check_k2(g, card: str, sessions: int) -> dict:
     """K2 (bf16 weights) at both of its shapes (``K2_SHAPES``), x in bf16 and
     f32, steps 0 and 7, against the plain version; two calls compared bit
-    for bit. Timed beside the plain version and the eager three-call chain
+    for bit. Timed beside the plain version, the eager three-call chain
     ``silu(x Wg^T) * (x Wv^T) Wo^T`` on the same slices in x's dtype (a
     yardstick: no single PyTorch call computes the function, so it is not
-    ``library_ms``). The kernels line carries Moshi's shape at the sessions'
-    B, the codecformer's at B=16 under ``"flagship"``, and each shape's bf16
-    times by B."""
+    ``library_ms``), and the route's own fallback at T == 1
+    (``step_gated_ffn``, the step's slices as views), which the route
+    takes from ``K2_FALLBACK_BATCH`` rows up; logged: the smallest B from
+    which the fallback beats K2 at both shapes in this call. The kernels
+    line carries Moshi's shape at the sessions' B, the codecformer's at
+    B=16 under ``"flagship"``, and each shape's bf16 times by B."""
     import torch.nn.functional as F
 
-    from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn_step, gating_ffn_step_reference
+    from rstnet_tpu_torch.modules.transformer import step_gated_ffn
+    from rstnet_tpu_torch.ops.cuda_ffn import (
+        K2_FALLBACK_BATCH,
+        gating_ffn_step,
+        gating_ffn_step_reference,
+    )
 
     S, C = 8, 1024
     err, result = 0.0, {}
@@ -438,20 +449,31 @@ def check_k2(g, card: str, sessions: int) -> dict:
 
                 chain_ms = time_ms(chain, 96)
                 del w_in, w_out
+                h = x[:, None]
+                fallback_ms = time_ms(lambda: step_gated_ffn(h, lin_in, lin_out,
+                                                             next(turn) % slices, "silu"), 96)
                 xb = x.element_size()
                 bound_ms, bound_by = bound(2 * 3 * H * C + 2 * B * C * xb, 2 * B * 3 * H * C,
                                            "bf16")
                 log(f"K2 ({shape}) B={B} x {str(dtype)[6:]} (C={C}, H={H}): kernel {ms:.4f} ms, "
                     f"plain {plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), eager "
-                    f"three-call chain {chain_ms:.4f} ms; two calls bit-identical [{card}]")
+                    f"three-call chain {chain_ms:.4f} ms, the route's fallback "
+                    f"{fallback_ms:.4f} ms; two calls bit-identical [{card}]")
                 if dtype == torch.bfloat16:
-                    by_b[B] = {"ms": ms, "chain_ms": chain_ms, "bound_ms": bound_ms}
+                    by_b[B] = {"ms": ms, "chain_ms": chain_ms, "fallback_ms": fallback_ms,
+                               "bound_ms": bound_ms}
                     if B == headline:
                         result[shape] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
                                          "bound_by": bound_by, "three_call_chain_ms": chain_ms,
                                          "H": H, "B": B}
         result[shape]["by_batch_bf16"] = by_b
         del lin_in, lin_out
+    by_shape = [r["by_batch_bf16"] for r in result.values()]
+    wins = [B for B in sorted(set.intersection(*map(set, by_shape)))
+            if all(t[B]["fallback_ms"] < t[B]["ms"] for t in by_shape)]
+    log(f"K2 against its fallback, bf16 x: the fallback is faster at both shapes at B = "
+        f"{wins or 'none'} of those timed at both; the route takes the fallback from "
+        f"K2_FALLBACK_BATCH = {K2_FALLBACK_BATCH} rows up (bf16 x over bf16 weights) [{card}]")
     log(f"K2 max |kernel - plain| {err:.3e} over shapes, B, dtypes and steps")
     return {"name": "gating_ffn_step", "route": "cuda",
             "source": "rstnet_tpu_torch/csrc/gating_ffn_step.cu",
@@ -468,20 +490,22 @@ K4_KERNEL_NAMES = ("gate_value_tc", "down_tc", "sum_down_splits", "split_rows",
 
 
 def check_k4_k5(g, card: str) -> list[dict]:
-    """K4 (bf16 weights) and K5 (the same weights quantized by the port's
-    ``quantize_weight_int8``) at Llama-3.2-1B's MLP (C=2048, H=8192, the
+    """K4 (bf16 weights), K5 (the same weights quantized by the port's
+    ``quantize_weight_int8``) and K4 over the same weights in float32 (its
+    entry ``gating_ffn_f32_weights``: split into bf16 parts in registers,
+    path ``speech_cli_f32``) at Llama-3.2-1B's MLP (C=2048, H=8192, the
     model's init scales), N in ``K4_K5_ROWS``, x in bf16 and float32, each
-    against its plain version, two calls compared bit for bit; and K4 over
-    the same weights in float32 at N=1 (on no path of the main line: the
-    CUDA-core kernels under an f32 x, the wrapper's own bf16 copy under a
-    bf16 x). Timed over three weight sets in turn, so no call finds its
-    weights in the 50 MB L2 (as a frame's 16 layers do not); beside each
-    kernel its plain version and the eager three-GEMM chain ``silu(x Wg^T)
-    * (x Wv^T) Wo^T`` in x's dtype (a yardstick: no single PyTorch call
-    computes the function). Each kernels entry carries its first case (K4
-    and K5: the main path's N=1 with bf16 x) and under ``by_rows`` every N's
-    kernel, chain and bound times (bf16 x, and with an ``f32_`` prefix
-    float32 x); the float32-weights case goes under K4's ``f32_weights``."""
+    against its plain version, two calls compared bit for bit. Timed over
+    three weight sets in turn, so no call finds its weights in the 50 MB L2
+    (as a frame's 16 layers do not); beside each kernel its plain version
+    and the eager three-GEMM chain ``silu(x Wg^T) * (x Wv^T) Wo^T`` in x's
+    dtype (a yardstick: no single PyTorch call computes the function; over
+    float32 weights and a bf16 x timed on weights cast before timing, and
+    with the cast in every call, the same function as the kernel's). Each
+    kernels entry carries its first case (K4 and K5: the main path's N=1
+    with bf16 x; K4 over float32 weights: ``speech_cli_f32``'s N=1 with an
+    f32 x) and under ``by_rows`` every N's kernel, chain and bound times
+    (bf16 x, and with an ``f32_`` prefix float32 x)."""
     import torch.nn.functional as F
 
     from rstnet_tpu_torch.modules.transformer import quantize_weight_int8
@@ -506,20 +530,20 @@ def check_k4_k5(g, card: str) -> list[dict]:
         q = [quantize_weight_int8(w) for w in ws]
         qsets.append([t for wq in q for t in (wq.w_int8.data, wq.scale.data)])
     k4 = "rstnet_tpu/ops/pallas_ffn.py:79"
-    # name: (kernel, plain, weight sets, replaces, N values, x dtypes)
+    # name: (kernel, plain, weight sets, replaces, x dtypes: the first one's N=1 heads the entry)
     kernels = {
-        "gating_ffn": (gating_ffn, gating_ffn_reference, sets, k4, K4_K5_ROWS, (bf16, f32)),
+        "gating_ffn": (gating_ffn, gating_ffn_reference, sets, k4, (bf16, f32)),
         "gating_ffn_int8": (gating_ffn_int8, gating_ffn_int8_reference, qsets,
-                            "rstnet_tpu/ops/pallas_ffn.py:152", K4_K5_ROWS, (bf16, f32)),
-        "gating_ffn float32 weights": (gating_ffn, gating_ffn_reference,
-                                       [[t.float() for t in ws] for ws in sets], k4, (1,),
-                                       (f32, bf16)),
+                            "rstnet_tpu/ops/pallas_ffn.py:152", (bf16, f32)),
+        "gating_ffn_f32_weights": (gating_ffn, gating_ffn_reference,
+                                   [[t.float() for t in ws] for ws in sets],
+                                   k4 + " (float32 weights)", (f32, bf16)),
     }
     entries = []
-    for name, (kernel, plain, wsets, replaces, rows_list, dtypes) in kernels.items():
+    for name, (kernel, plain, wsets, replaces, dtypes) in kernels.items():
         err, result, by_rows = 0.0, None, {}
         wtype = wsets[0][0].dtype
-        for N in rows_list:
+        for N in K4_K5_ROWS:
             for dtype in dtypes:
                 x = torch.randn((N, C), device="cuda", generator=g).to(dtype)
                 rtol, atol = K2_TOL[dtype]
@@ -561,18 +585,18 @@ def check_k4_k5(g, card: str) -> list[dict]:
                     cast_ms = time_ms(chain_cast, 30)
                 xb, wb = x.element_size(), wsets[0][0].element_size()
                 n_bytes = wb * 3 * H * C + 2 * N * C * xb + (4 * (2 * H + C) if wb == 1 else 0)
-                if wtype == f32 and dtype == f32:
-                    # the CUDA-core kernels: an f32 multiply and add a weight and row
-                    bound_ms, bound_by = bound(n_bytes, 2 * N * 3 * H * C, "f32")
-                else:
-                    # the products as the tensor-core kernels run them: a multiply and
-                    # an add a weight and row, once for a bf16 x in the gate/value pass
-                    # and twice for an f32 one (hi + lo), twice in the down pass (the
-                    # f32 hidden as hi + lo); K5's int8 weights are widened exactly and
-                    # its row scales multiply row sums
-                    parts = 1 if dtype == bf16 else 2
-                    bound_ms, bound_by = bound(n_bytes, 2 * N * (2 * H * C * parts + C * H * 2),
-                                               "bf16")
+                # the products as the tensor-core kernels run them, a multiply and
+                # an add a weight and row each: in the gate/value pass once for a
+                # bf16 x and twice for an f32 one (hi + lo), in the down pass twice
+                # (the f32 hidden as hi + lo); float32 weights under an f32 x add
+                # their lo part against the hi part of x and of the hidden (three
+                # products in each pass), under a bf16 x they enter as bf16(w) only;
+                # K5's int8 weights are widened exactly and its row scales multiply
+                # row sums
+                parts = 1 if dtype == bf16 else 2
+                lo = int(wtype == f32 and dtype == f32)
+                bound_ms, bound_by = bound(
+                    n_bytes, 2 * N * (2 * H * C * (parts + lo) + C * H * (2 + lo)), "bf16")
                 log(f"{name} N={N} x {str(dtype)[6:]} (C={C}, H={H}): kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
                     f"{n_bytes / 1e6:.1f} MB), eager three-GEMM chain {chain_ms:.4f} ms"
@@ -592,10 +616,6 @@ def check_k4_k5(g, card: str) -> list[dict]:
         entries.append({"name": name, "route": "cuda",
                         "source": "rstnet_tpu_torch/csrc/gating_ffn.cu", "replaces": replaces,
                         "max_abs_err": err, **result, "library_ms": None, "by_rows": by_rows})
-    f32_weights = entries.pop()
-    entries[0]["f32_weights"] = {k: f32_weights[k] for k in
-                                 ("ms", "plain_ms", "bound_ms", "bound_by", "three_gemm_ms",
-                                  "max_abs_err", "by_rows")}
     del sets, qsets, kernels
     torch.cuda.empty_cache()
     return entries
@@ -988,7 +1008,8 @@ def _counters() -> dict:
             "flash_attention_fwd_f32": (cuda_flash.flash_attention_fwd, "launches_f32"),
             "flash_attention_bwd_f32": (cuda_flash.flash_attention_bwd, "launches_f32"),
             "gating_ffn": (gating_ffn, "launches"),
-            "gating_ffn_int8": (gating_ffn_int8, "launches")}
+            "gating_ffn_int8": (gating_ffn_int8, "launches"),
+            "gating_ffn_f32_weights": (gating_ffn, "launches_f32w")}
 
 
 def reset_counts() -> None:
@@ -1144,11 +1165,13 @@ def recorded_stream_logits():
 
 
 def check_small_speech_slice(seed: int, n_frames: int = 8) -> None:
-    """A small ``SpeechTextLM`` (bf16, widths inside K4/K5's route) through
-    ``teacher_forced_stream`` on the card and on the CPU from the same
-    weights and grid: bf16, then ``quantize_for_serving`` (quantized on the
-    CPU, copied to the card) with an int8 ring. The card launches K4 (bf16)
-    or K5 (int8) once a layer a frame and nothing else."""
+    """A small ``SpeechTextLM`` (widths inside K4/K5's route) through
+    ``teacher_forced_stream`` at B=2 on the card and on the CPU from the
+    same weights and grid: bf16, then ``quantize_for_serving`` (quantized on
+    the CPU, copied to the card) with an int8 ring, then the model built in
+    float32 from the same seed. The card launches K4 (bf16), K5 (int8) or
+    K4 over float32 weights once a layer a frame and nothing else; every
+    variant is held to the same limits."""
     import copy
 
     from rstnet_tpu_torch.evalsuite.quant_quality import teacher_forced_stream
@@ -1162,9 +1185,13 @@ def check_small_speech_slice(seed: int, n_frames: int = 8) -> None:
                            rng.integers(0, cfg.audio_card - 2, (2, cfg.n_q, n_frames))], axis=1)
     none = dict.fromkeys(_counters(), 0)
     for label, kernel, int8 in (("bf16", "gating_ffn", False),
-                                ("int8 --kv-int8", "gating_ffn_int8", True)):
+                                ("int8 --kv-int8", "gating_ffn_int8", True),
+                                ("float32", "gating_ffn_f32_weights", False)):
         if int8:
             quantize_for_serving(cpu)
+        if label == "float32":
+            cpu = SpeechTextLM(cfg, dtype=torch.float32,
+                               generator=torch.Generator().manual_seed(seed))
         runs = {}
         for device, m in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).to("cuda"))):
             reset_counts()
@@ -1280,13 +1307,23 @@ def build_mimi(seed: int):
     return mimi
 
 
-def speech_tick_expected(model, n_ticks: int) -> dict:
+def k2_takes(sessions: int) -> bool:
+    """Whether K2's route takes the per-step FFN of a batched tick of
+    ``sessions`` rows: bf16 x over bf16 weights, as on every batched path
+    here (``cuda_ffn.k2_falls_back``)."""
+    from rstnet_tpu_torch.ops.cuda_ffn import k2_falls_back
+
+    return not k2_falls_back(sessions, torch.bfloat16, torch.bfloat16)
+
+
+def speech_tick_expected(model, n_ticks: int, sessions: int) -> dict:
     """A batched speech tick's launches: K4 once a backbone layer (N = the
     sessions), K2 once a codecformer layer and micro-step where its gating
-    is on K2's route, K3 twice (Mimi's two quantizers)."""
+    is on K2's route at this many rows, K3 twice (Mimi's two quantizers)."""
     cfg, cf = model.config, model.codecformer
     hidden = cf.layers.gating.linear_in[0].shape[-2] // 2
-    on_k2 = cf.weights_per_step and hidden % 128 == 0 and cf.d_model % 128 == 0
+    on_k2 = (cf.weights_per_step and hidden % 128 == 0 and cf.d_model % 128 == 0
+             and k2_takes(sessions))
     k2 = cfg.dep_q * cf.num_layers if on_k2 else 0
     return {**dict.fromkeys(_counters(), 0), "gating_ffn": cfg.n_layer * n_ticks,
             "gating_ffn_step": k2 * n_ticks, "rvq_encode": 2 * n_ticks}
@@ -1351,7 +1388,7 @@ def run_speech_batched_tick(mimi, model, seed: int, sessions: int, n_ticks: int,
             if not 0 <= tok < cfg.padded_vocab_size:
                 raise AssertionError(f"{path} session {i}: text token {tok} outside "
                                      f"[0, {cfg.padded_vocab_size})")
-    expected = speech_tick_expected(model, n_ticks)
+    expected = speech_tick_expected(model, n_ticks, sessions)
     log(f"{path}: {n_ticks} ticks x {sessions} sessions; launches {counts}")
     if counts != expected:
         raise AssertionError(f"{path}: launches {counts}, expected {expected}")
@@ -1370,26 +1407,31 @@ def run_speech_batched_tick(mimi, model, seed: int, sessions: int, n_ticks: int,
     return counts
 
 
-def run_cli_chain(root: Path, data: str, exp: Path, n_layer: int, card: str) -> dict:
-    """``lm_eval`` and ``infer_cli`` (``--device cuda``) on the training
-    slice's experiment: finite CE and perplexity, two generated grids of
-    1 + n_q rows, and K4 once a layer in every backbone step (counted from
-    the run) with no other launch."""
+def run_cli_chain(root: Path, data: str, exp: Path, n_layer: int, card: str,
+                  path: str = "speech_cli", kernel: str = "gating_ffn") -> dict:
+    """``lm_eval`` and ``infer_cli`` (``--device cuda``) on a training
+    slice's experiment, in the checkpoint's dtype: finite CE and perplexity,
+    two generated grids of 1 + n_q rows, and ``kernel`` (K4 over the
+    checkpoint's weights, by its counter's name) once a layer in every
+    backbone step (counted from the run) with no other launch. Logs each
+    CLI's wall time, the rows N of the K4 calls, and the peak memory."""
     from rstnet_tpu_torch.evalsuite import lm_eval
     from rstnet_tpu_torch.inference import infer_cli
+    from rstnet_tpu_torch.models import backbone
     from rstnet_tpu_torch.models.lm import SpeechTextLM
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    steps = []
-    real = SpeechTextLM.step_global
+    steps, k4_rows = [], []
+    real, real_ffn = SpeechTextLM.step_global, backbone.gating_ffn
 
     def counted(self, *args, **kwargs):
         steps.append(1)
         return real(self, *args, **kwargs)
 
     SpeechTextLM.step_global = counted
+    backbone.gating_ffn = lambda *a, **k: k4_rows.append(a[0].shape[0]) or real_ffn(*a, **k)
     try:
         reset_counts()
         t0 = time.perf_counter()
@@ -1404,22 +1446,25 @@ def run_cli_chain(root: Path, data: str, exp: Path, n_layer: int, card: str) -> 
         counts = read_counts()
     finally:
         SpeechTextLM.step_global = real
+        backbone.gating_ffn = real_ffn
     peak = torch.cuda.max_memory_allocated() / 2**30
     grids = [np.load(p) for p in written]
-    log(f"speech_cli: lm_eval {t_eval:.1f} s (loss audio {report['loss_audio']:.4f}, text "
+    by_rows = {n: k4_rows.count(n) for n in sorted(set(k4_rows))}
+    log(f"{path}: lm_eval {t_eval:.1f} s (loss audio {report['loss_audio']:.4f}, text "
         f"{report['loss_text']:.4f}, ppl audio {report['ppl_audio']:.3f}, text "
         f"{report['ppl_text']:.3f} over {report['n_batches']} batches); infer_cli {t_infer:.1f} s, "
-        f"{len(written)} grids {[g.shape for g in grids]}, {len(steps)} backbone steps; launches "
-        f"{counts}; peak memory {peak:.2f} GiB [{card}]")
+        f"{len(written)} grids {[g.shape for g in grids]}, {len(steps)} backbone steps, K4 "
+        f"calls by rows N {by_rows}; launches {counts}; peak memory {peak:.2f} GiB (wall "
+        f"times on the host clock) [{card}]")
     if not all(math.isfinite(report[k]) for k in ("loss_audio", "loss_text", "ppl_audio",
                                                   "ppl_text")) or report["n_batches"] < 1:
         raise AssertionError(f"lm_eval report {report}")
     if len(grids) != 2 or any(g.ndim != 2 or g.shape[0] != 9 for g in grids):
         raise AssertionError(f"infer_cli wrote {[g.shape for g in grids]}, expected two grids of "
                              "9 rows")
-    want = {**dict.fromkeys(_counters(), 0), "gating_ffn": n_layer * len(steps)}
+    want = {**dict.fromkeys(_counters(), 0), kernel: n_layer * len(steps)}
     if not steps or counts != want:
-        raise AssertionError(f"speech_cli launches {counts}, expected {want}")
+        raise AssertionError(f"{path} launches {counts}, expected {want}")
     return counts
 
 
@@ -1793,7 +1838,8 @@ F32_PROFILED_STEP = 4
 K6_F32_KERNEL_NAMES = ("flash_fwd_f32", "flash_bwd_f32", "flash_split_f32", "flash_bwd_prep_f32")
 
 
-def run_f32_training_slice(seed: int, n_steps: int, card: str, bf16_steps: list) -> dict:
+def run_f32_training_slice(seed: int, n_steps: int, card: str,
+                           bf16_steps: list) -> tuple[dict, dict]:
     """The full training slice again in float32 (``--dtype float32``): the
     same config, flags, seed and synthetic data as ``run_full_training_slice``,
     so that every step sees the bf16 run's batch (the trainer's batch order
@@ -1804,7 +1850,10 @@ def run_f32_training_slice(seed: int, n_steps: int, card: str, bf16_steps: list)
     ``torch.profiler`` (K6's device time and the device's busy time a step);
     step time p50 and frames/s over the other 1024-bucket steps after the
     first. float32 matmuls stay in full float32 (no TF32, as the
-    environment phase set). Returns the launches."""
+    environment phase set). Then the inference CLIs on the float32
+    checkpoint (``run_cli_chain``, path ``speech_cli_f32``: K4 over float32
+    weights in every backbone step). Returns the launches of the training
+    path and of the CLI path."""
     import tempfile
 
     from rstnet_tpu_torch.models.config import Config
@@ -1891,7 +1940,9 @@ def run_f32_training_slice(seed: int, n_steps: int, card: str, bf16_steps: list)
             f"{100 * profiled['k6_ms'] / p50:.2f} % of the p50 step); peak memory {peak:.1f} GiB; "
             f"{wall:.1f} s wall (init included), epoch checkpoint {size / 2**30:.2f} GiB saved in "
             f"{out['checkpoints'][-1]['seconds']:.1f} s [{card}]")
-        return counts
+        del out
+        return counts, run_cli_chain(root, data, root / "exp", cfg.n_layer, card,
+                                     "speech_cli_f32", "gating_ffn_f32_weights")
     finally:
         trainer.make_train_step = make_train_step
         shutil.rmtree(root, ignore_errors=True)
@@ -1944,7 +1995,8 @@ def main(argv=None) -> int:
     with phase("full batched slice"):
         paths["batched_tick"] = run_full_batched_slice(
             mimi, lm_gen, args.seed, args.sessions, ticks, card, "full batched slice",
-            {**none, "gating_ffn_step": 8 * layers * ticks, "rvq_encode": 2 * ticks})
+            {**none, "gating_ffn_step": 8 * layers * ticks * k2_takes(args.sessions),
+             "rvq_encode": 2 * ticks})
     with phase("int8 quantization"):
         from rstnet_tpu_torch.serving.server import quantize_for_serving
 
@@ -2006,7 +2058,8 @@ def main(argv=None) -> int:
     with phase("float32 training slice"):
         gc.collect()
         torch.cuda.empty_cache()
-        paths["train_step_f32"] = run_f32_training_slice(args.seed, TRAIN_STEPS, card, bf16_steps)
+        paths["train_step_f32"], paths["speech_cli_f32"] = run_f32_training_slice(
+            args.seed, TRAIN_STEPS, card, bf16_steps)
     for k in kernels:
         k["launches_by_path"] = {p: counts[k["name"]] for p, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

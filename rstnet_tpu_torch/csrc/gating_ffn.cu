@@ -11,21 +11,20 @@
 //
 // What bounds it on the H100: the weight bytes, at every N <= 64 the route
 // sends. At Llama-3.2-1B's MLP (C=2048, H=8192) a call reads 3 * C * H
-// weights, 100.7 MB in bf16 (30.0 us at 3.35 TB/s) or 50.3 MB in int8
-// (15.0 us), and does 2N FLOPs a weight and x row: at N = 64, 64 FLOPs a
-// bf16 byte and 128 an int8 byte (twice that where an operand goes in as
-// two bf16 parts, below), under the ~295 FLOP/byte where the bf16 tensor
-// cores would bind. The first port dotted each weight row with each x row
-// on the CUDA cores (a warp a row), so its time grew ~20 us a row of N
-// beyond the stream.
+// weights, 100.7 MB in bf16 (30.0 us at 3.35 TB/s), 50.3 MB in int8 (15.0
+// us) or 201.3 MB in f32 (60.1 us), and does 2N FLOPs a weight and x row:
+// at N = 64, 64 FLOPs a bf16 byte and 128 an int8 byte (up to three times
+// that where operands go in as bf16 parts, below), under the ~295
+// FLOP/byte where the bf16 tensor cores would bind. The first port dotted
+// each weight row with each x row on the CUDA cores (a warp a row), so its
+// time grew ~20 us a row of N beyond the stream.
 //
-// What the design does about it (bf16 or int8 weights, C and H multiples
-// of 128: the route's envelope). Every weight byte is read from device
-// memory once and applied to all N rows on the tensor cores (wgmma, bf16
-// in, f32 sums): the weights are the M side, x (or the hidden) the N side,
-// N padded to 8, 16, 32 or 64 columns, so 1 to 64 rows cost one weight
-// stream. Three launches with programmatic dependent launch (a fourth,
-// first, for an f32 x):
+// What the design does about it (C and H multiples of 128: the route's
+// envelope). Every weight byte is read from device memory once and applied
+// to all N rows on the tensor cores (wgmma, bf16 in, f32 sums): the weights
+// are the M side, x (or the hidden) the N side, N padded to 8, 16, 32 or 64
+// columns, so 1 to 64 rows cost one weight stream. Three launches with
+// programmatic dependent launch (a fourth, first, for an f32 x):
 // 1. gate_value_tc: a block takes 64 hidden units over all of C: consumer
 //    warpgroup 0 their 64 gate rows, warpgroup 1 their 64 value rows (as
 //    many bytes of x read from L2 a stage as half its weight bytes at
@@ -44,28 +43,44 @@
 //    bit-identical results.
 // A block is one producer warp and two consumer warpgroups. The producer
 // keeps a ring of stages full with TMA tensor copies completing on
-// mbarriers: a stage is 128 weight rows x 128 bytes (64 bf16 or 128 int8
-// columns; 16 KB) and the matching columns of the N operand, every box in
-// the 128-byte swizzle that wgmma reads. bf16 weights: one deep ring an SM
-// (200 KB, up to 8 stages); int8: two rings of 96 KB an SM, so that a down
-// block's first stages stream beside a gate/value block. Precision: a bf16
-// x times a bf16 weight is exact in the f32 sum; an f32 x (split by
-// split_rows) and the f32 hidden enter as hi + lo, two products into one
-// sum, leaving ~2^-17 of each value out. K5: the int8 weights stream as
-// int8 (half the bytes) and each warp widens its 16 rows into wgmma's
-// register A fragments: byte q + 128 in the mantissa of 2^23, minus 2^23 +
-// 128, is q in f32, exactly, whose upper half is bf16(q) (|q| <= 127:
-// exact). That is one prmt and one add a weight and one prmt and one xor a
-// pair, ~3 instructions a weight on the CUDA cores beside the products,
-// and a stage's widening waits for its products (the A registers are
-// reused). The row scale multiplies the row's f32 sum once (gate and value
-// in the gate/value epilogue, out in sum_down_splits), where the reference
-// rounds float(q) * scale per element: one f32 rounding apart.
+// mbarriers: a stage is 128 weight rows x 128 bytes a box (64 bf16 or 128
+// int8 columns, one box of 16 KB; 64 f32 columns, two boxes of 32) and the
+// matching columns of the N operand, every box in the 128-byte swizzle
+// that wgmma reads. bf16 and f32 weights: one deep ring an SM (200 KB, up
+// to 8 stages); int8: two rings of 96 KB an SM, so that a down block's
+// first stages stream beside a gate/value block. Precision: a bf16 x times
+// a bf16 weight is exact in the f32 sum; an f32 x (split by split_rows) and
+// the f32 hidden enter as hi + lo, two products into one sum, leaving
+// ~2^-17 of each value out. K5: the int8 weights stream as int8 (half the
+// bytes) and each warp widens its 16 rows into wgmma's register A
+// fragments: byte q + 128 in the mantissa of 2^23, minus 2^23 + 128, is q
+// in f32, exactly, whose upper half is bf16(q) (|q| <= 127: exact). That is
+// one prmt and one add a weight and one prmt and one xor a pair, ~3
+// instructions a weight on the CUDA cores beside the products, and a
+// stage's widening waits for its products (the A registers are reused).
+// The row scale multiplies the row's f32 sum once (gate and value in the
+// gate/value epilogue, out in sum_down_splits), where the reference rounds
+// float(q) * scale per element: one f32 rounding apart. K4 over f32
+// weights: the weights stream as f32 (twice the bf16 bytes, never copied)
+// and each warp splits its 16 rows in registers into A fragments hi =
+// bf16(w) (round to nearest even: bit for bit torch's w.to(bfloat16)) and
+// lo = bf16(w - hi), 8 bytes a lane a fragment register. Under a bf16 x
+// only hi enters (the weights taken in x's dtype, as the reference does);
+// under an f32 x, hi . x_hi + hi . x_lo + lo . x_hi, one sum (and hi . h_hi
+// + hi . h_lo + lo . h_hi in the down pass), ~2^-17 of each operand left
+// out. The split is in registers, not in a converter warpgroup writing
+// bf16 planes: a stage's f32 box is read from shared memory once, by the
+// warp that multiplies it, and nothing waits on a second hand-off; the
+// ~6 instructions a weight pair sit beside the products, far under a
+// stage's arrival time at the f32 stream rate.
 // Measured on the H100 (tools/ffn_spans.py, PERF.md): the gate/value pass
 // streams bf16 weights at 2.1-2.5 TB/s, and the down pass streams most of
-// Wo after it (a 10-13 us tail): what keeps K4 above its bound. Float32 weights (on no path of the main line)
-// and C or H off the 128 grid keep the first port's CUDA-core kernels
-// (core_*), with each int8 element dequantized as float(q) * scale there.
+// Wo after it (a 10-13 us tail): what keeps K4 above its bound. Over f32
+// weights K4 takes 1.2-1.4x its bound from N = 1 to 64 (tools/k4_trees.py;
+// two 96 KB rings an SM, as K5 keeps, measured slower at every N). C or H off
+// the 128 grid keep the first port's CUDA-core kernels (core_*), with each
+// int8 element dequantized as float(q) * scale there and f32 weights under
+// a bf16 x rounded to bf16 as they are loaded.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -88,7 +103,7 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16(v); }
 
 // ---------------------------------------------------------------------------
-// CUDA-core kernels (float32 weights; C or H off the 128 grid)
+// CUDA-core kernels (C or H off the 128 grid)
 
 constexpr int kCoreWarps = 8;
 constexpr int kCoreThreads = kCoreWarps * 32;
@@ -124,6 +139,17 @@ __device__ __forceinline__ void load8(const int8_t* __restrict__ row, int i, flo
   const int8_t* q = reinterpret_cast<const int8_t*>(&a);
 #pragma unroll
   for (int j = 0; j < 8; ++j) f[j] = static_cast<float>(q[j]) * scale;
+}
+
+// load8, then each weight taken in x's dtype: f32 weights under a bf16 x as
+// bf16(w) (bf16 and int8 rows are already exact in bf16).
+template <typename X, typename W>
+__device__ __forceinline__ void load8x(const W* __restrict__ row, int i, float scale, float* f) {
+  load8(row, i, scale, f);
+  if constexpr (std::is_same<X, bf16>::value && std::is_same<W, float>::value) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(__float2bfloat16_rn(f[j]));
+  }
 }
 
 // acc + a . (the 8 floats at s), s in shared memory
@@ -201,8 +227,8 @@ core_gate_value(const X* __restrict__ x, const W* __restrict__ wg, const W* __re
     float fg[8], fv[8];
     bool have = row && 8 * lane < C;
     if (have) {
-      load8(wgr, lane, sg, fg);
-      load8(wvr, lane, sv, fv);
+      load8x<X>(wgr, lane, sg, fg);
+      load8x<X>(wvr, lane, sv, fv);
     }
     for (int c0 = 0; c0 < C; c0 += tile) {
       __syncthreads();  // the previous tile is consumed
@@ -213,8 +239,8 @@ core_gate_value(const X* __restrict__ x, const W* __restrict__ wg, const W* __re
         const bool next = row && cn < C;
         float ng[8], nv[8];
         if (next) {  // the next columns' weights, in flight during these sums
-          load8(wgr, cn / 8, sg, ng);
-          load8(wvr, cn / 8, sv, nv);
+          load8x<X>(wgr, cn / 8, sg, ng);
+          load8x<X>(wvr, cn / 8, sv, nv);
         }
         if (have) {
           const float* xt = xs + (s - c0) + 8 * lane;
@@ -275,7 +301,7 @@ core_down(const float* __restrict__ hid, const W* __restrict__ wo, const float* 
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       have[u] = row && u * kChunk + 8 * lane < H;
-      if (have[u]) load8(wor, u * kChunk / 8 + lane, so, fw[u]);
+      if (have[u]) load8x<X>(wor, u * kChunk / 8 + lane, so, fw[u]);
     }
     for (int h0 = 0; h0 < H; h0 += tile) {
       __syncthreads();
@@ -288,7 +314,7 @@ core_down(const float* __restrict__ hid, const W* __restrict__ wo, const float* 
         for (int u = 0; u < U; ++u) {
           const int hn = s + (U + u) * kChunk + 8 * lane;
           next[u] = row && hn < H;
-          if (next[u]) load8(wor, hn / 8, so, nw[u]);
+          if (next[u]) load8x<X>(wor, hn / 8, so, nw[u]);
         }
 #pragma unroll
         for (int u = 0; u < U; ++u) {
@@ -371,29 +397,39 @@ constexpr int kTcThreads = 32 * kWarps + 32;   // plus the producer warp
 constexpr int kRows = 16 * kWarps;             // weight rows a block: 64 a warpgroup
 constexpr int kUnits = kRows / 2;              // hidden units a gate/value block: 64
 constexpr int kRowBytes = 128;                 // a staged row: the 128-byte swizzle span
-constexpr int kABytes = kRows * kRowBytes;     // a stage's weights: 16 KB
+constexpr int kABytes = kRows * kRowBytes;     // one box of a stage's weights: 16 KB
 constexpr int kMaxStages = 8;
 constexpr int kMaxRows = 64;                   // x rows a launch chain: 8 n-tiles of 8
 constexpr long long kHangCycles = 20000000000LL;  // ~10 s: a wait this long is a fault
 
-// K columns a stage: one 128-byte row of W
+// A weight box's K columns: one 128-byte row of W (the swizzle's span)
 template <typename W>
-__host__ __device__ constexpr int k_cols() { return kRowBytes / static_cast<int>(sizeof(W)); }
+__host__ __device__ constexpr int box_cols() { return kRowBytes / static_cast<int>(sizeof(W)); }
+// Weight boxes a stage: f32 weights two (64 columns), so that a stage spans
+// whole 64-column boxes of the bf16 N operand
+template <typename W>
+__host__ __device__ constexpr int w_boxes() { return sizeof(W) == 4 ? 2 : 1; }
+// K columns a stage
+template <typename W>
+__host__ __device__ constexpr int k_cols() { return w_boxes<W>() * box_cols<W>(); }
+// a stage's weight bytes: 16 KB, 32 KB for f32
+template <typename W>
+__host__ __device__ constexpr int a_bytes() { return w_boxes<W>() * kABytes; }
 // the N operand's boxes a plane and stage: 64 bf16 columns each
 template <typename W>
 __host__ __device__ constexpr int b_boxes() { return k_cols<W>() / 64; }
 template <typename W, int NT, int SB>
 __host__ __device__ constexpr int stage_bytes() {
-  return kABytes + SB * b_boxes<W>() * NT * 8 * kRowBytes;
+  return a_bytes<W>() + SB * b_boxes<W>() * NT * 8 * kRowBytes;
 }
-// Blocks an SM and ring bytes a block: bf16 weights stream through one deep
-// ring an SM; an int8 pass keeps two shallower rings an SM, so that a down
+// Blocks an SM and ring bytes a block: bf16 and f32 weights stream through
+// one deep ring an SM; an int8 pass keeps two shallower rings an SM, so that a down
 // block's first stages stream beside a gate/value block (its half-size
 // pass gains more from that head start than from depth; measured on the
 // H100, PERF.md).
 template <typename W>
 __host__ __device__ constexpr int blocks_per_sm() {
-  return std::is_same<W, bf16>::value ? 1 : 2;
+  return std::is_same<W, int8_t>::value ? 2 : 1;
 }
 template <typename W>
 __host__ __device__ constexpr int ring_bytes() {
@@ -471,9 +507,8 @@ __device__ __forceinline__ void tma3d(void* dst, const CUtensorMap* map, uint64_
 // of it in the stream runs; it touches nothing but its weights before
 // dep_wait(), which returns once that kernel has finished and its writes
 // are visible. So the weights must not be written by the kernel just ahead
-// of the call: where they may be (the K4 wrapper's own bf16 copy of f32
-// weights), the call's first kernel is launched without the overlap
-// (`overlap` == 0), and the rest start only after it has.
+// of the call (the wrappers copy no weights: f32 weights are read in place
+// whatever x's dtype).
 __device__ __forceinline__ void dep_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
 __device__ __forceinline__ void dep_launch() { asm volatile("griddepcontrol.launch_dependents;"); }
 
@@ -599,6 +634,18 @@ __device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// Two f32 weights (the lower column first) as bf16 pairs hi = bf16(w),
+// rounded to nearest even as torch's w.to(torch.bfloat16) is, and lo =
+// bf16(w - hi) (w - hi is exact in f32).
+__device__ __forceinline__ void split_pair(const unsigned char* p, uint32_t& hi, uint32_t& lo) {
+  const float2 w = *reinterpret_cast<const float2*>(p);
+  const __nv_bfloat162 h = __floats2bfloat162_rn(w.x, w.y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(w.x - hf.x, w.y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
 // Two int8 weights (bytes 2 hsel and 2 hsel + 1 of word w) as a bf16 pair,
 // exactly: the byte q + 128 in the low mantissa bits of 2^23 is 2^23 + q +
 // 128; less 2^23 + 128 it is float(q), whose upper half is bf16(q) (|q| <=
@@ -640,7 +687,7 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int s
 // the first S chunks go out before the wait for the kernel ahead (they do
 // not depend on it); the N operand only after it. load_a(dst, bar, i) and
 // load_b(dst, bar, i) issue the copies.
-template <int kStage, int kStages, typename A, typename B>
+template <int kStage, int kA, int kStages, typename A, typename B>
 __device__ __forceinline__ void produce(unsigned char* ring, uint64_t* full, uint64_t* empty,
                                         int n_chunks, A load_a, B load_b) {
   const int pre = min(kStages, n_chunks);
@@ -649,14 +696,14 @@ __device__ __forceinline__ void produce(unsigned char* ring, uint64_t* full, uin
     load_a(ring + i * kStage, &full[i], i);
   }
   dep_wait();
-  for (int i = 0; i < pre; ++i) load_b(ring + i * kStage + kABytes, &full[i], i);
+  for (int i = 0; i < pre; ++i) load_b(ring + i * kStage + kA, &full[i], i);
   for (int i = pre; i < n_chunks; ++i) {
     const int s = i % kStages;
     mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
     unsigned char* st = ring + s * kStage;
     mbar_expect_tx(&full[s], kStage);
     load_a(st, &full[s], i);
-    load_b(st + kABytes, &full[s], i);
+    load_b(st + kA, &full[s], i);
   }
 }
 
@@ -666,10 +713,10 @@ __device__ __forceinline__ void consumers_sync() {
 }
 
 // A consumer warpgroup's loop: acc = its 64-row tile (at byte offset a_off
-// of every stage) times the stage's N operand (SB planes of NT * 8 rows, at
-// kABytes), summed over n_chunks chunks. acc element e of a thread: tile row
-// 16 (warp % 4) + g + 8 ((e >> 1) & 1), column 8 (e >> 2) + 2t + (e & 1),
-// g = lane / 4, t = lane % 4.
+// of every weight box of a stage) times the stage's N operand (SB planes of
+// NT * 8 rows, after the weights), summed over n_chunks chunks. acc element
+// e of a thread: tile row 16 (warp % 4) + g + 8 ((e >> 1) & 1), column
+// 8 (e >> 2) + 2t + (e & 1), g = lane / 4, t = lane % 4.
 // bf16 weights: A and B by descriptor, 4 k16 steps a stage; a stage is
 // released once its products are done (holding it until the next stage's
 // were issued measured slower).
@@ -678,11 +725,18 @@ __device__ __forceinline__ void consumers_sync() {
 // fragments: lane (g, t) needs bytes {2t, 2t+1} (a0 / a1 for rows g / g+8)
 // and {2t+8, 2t+9} (a2 / a3) of each chunk, half t & 1 of words t >> 1 and
 // 2 + (t >> 1).
-template <typename W, int NT, int SB, int kStage, int kStages>
+// f32 weights: each warp splits its 16 rows of the stage's two boxes (4 k16
+// steps of 64 bytes; chunk j of row r at (j ^ (r % 8)) * 16) into hi and lo
+// A fragments: lane (g, t) needs columns {2t, 2t+1} and {2t+8, 2t+9} of a
+// k16 step, 8 bytes at 8 (t & 1) in chunks 4 (k % 2) + (t >> 1) and 2 more.
+// Products: hi with every plane of the N operand, and with kLo (an f32 x)
+// lo with plane 0 (hi . hi + hi . lo + lo . hi), one sum.
+template <typename W, int NT, int SB, int kStage, int kStages, bool kLo = false>
 __device__ __forceinline__ void consume(float (&acc)[4 * NT], const unsigned char* ring,
                                         uint64_t* full, uint64_t* empty, int n_chunks,
                                         int a_off) {
   constexpr int kBox = NT * 8 * kRowBytes;  // one box of the N operand
+  constexpr int kA = a_bytes<W>();          // the N operand's offset in a stage
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int e = 0; e < 4 * NT; ++e) acc[e] = 0.f;
@@ -702,9 +756,42 @@ __device__ __forceinline__ void consume(float (&acc)[4 * NT], const unsigned cha
 #pragma unroll
         for (int sb = 0; sb < SB; ++sb)
           Wgmma<NT>::ss(acc, desc_add(da, 32 * kk),
-                        desc_add(desc_k(st + kABytes + sb * kBox), 32 * kk));
+                        desc_add(desc_k(st + kA + sb * kBox), 32 * kk));
       wg_commit();
       wg_wait<0>();
+      release(i);
+    }
+    fence_regs(acc);
+  } else if constexpr (std::is_same<W, float>::value) {
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = a_off + (16 * (threadIdx.x / 32 % 4) + g) * kRowBytes + 8 * (t & 1);
+    for (int i = 0; i < n_chunks; ++i) {
+      const int s = i % kStages;
+      mbar_wait(&full[s], (i / kStages) & 1);
+      const unsigned char* st = ring + s * kStage;
+      uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const unsigned char* row = st + (k / 2) * kABytes + r0;
+        const int c0 = ((4 * (k % 2) + (t >> 1)) ^ g) << 4;
+        const int c2 = ((4 * (k % 2) + 2 + (t >> 1)) ^ g) << 4;
+        split_pair(row + c0, hi[k][0], lo[k][0]);
+        split_pair(row + 8 * kRowBytes + c0, hi[k][1], lo[k][1]);
+        split_pair(row + c2, hi[k][2], lo[k][2]);
+        split_pair(row + 8 * kRowBytes + c2, hi[k][3], lo[k][3]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int sb = 0; sb < SB; ++sb)
+          Wgmma<NT>::rs(acc, hi[k], desc_add(desc_k(st + kA + sb * kBox), 32 * k));
+        if constexpr (kLo) Wgmma<NT>::rs(acc, lo[k], desc_add(desc_k(st + kA), 32 * k));
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(hi);
+      if constexpr (kLo) fence_regs(lo);
       release(i);
     }
     fence_regs(acc);
@@ -730,7 +817,7 @@ __device__ __forceinline__ void consume(float (&acc)[4 * NT], const unsigned cha
 #pragma unroll
         for (int sb = 0; sb < SB; ++sb)
           Wgmma<NT>::rs(acc, a[j],
-                        desc_add(desc_k(st + kABytes + (2 * sb + j / 4) * kBox), 32 * (j % 4)));
+                        desc_add(desc_k(st + kA + (2 * sb + j / 4) * kBox), 32 * (j % 4)));
       wg_commit();
       wg_wait<0>();
       fence_regs(a);
@@ -743,7 +830,8 @@ __device__ __forceinline__ void consume(float (&acc)[4 * NT], const unsigned cha
 // hid[p][n0 + n][h] (p = 0: hi, 1: lo; planes `plane` apart) of
 // silu(Wg[h] . x[n]) * (Wv[h] . x[n]) for the block's 64 hidden units;
 // gs/vs: int8 row scales or null. SB: 1 for a bf16 x, 2 for an f32 x's hi
-// and lo planes (x_map: [SB, rows, C], the launch chain's rows).
+// and lo planes (x_map: [SB, rows, C], the launch chain's rows). f32
+// weights enter as hi + lo under an f32 x, as hi = bf16(w) under a bf16 x.
 template <typename W, int NT, int SB>
 __global__ void __launch_bounds__(kTcThreads, blocks_per_sm<W>())
 gate_value_tc(const __grid_constant__ CUtensorMap wg_map,
@@ -752,6 +840,7 @@ gate_value_tc(const __grid_constant__ CUtensorMap wg_map,
               const float* __restrict__ vs, bf16* __restrict__ hid, size_t plane, int rows, int C,
               int H) {
   constexpr int kStage = stage_bytes<W, NT, SB>(), kStages = n_stages<W, NT, SB>();
+  constexpr bool kLo = std::is_same<W, float>::value && SB == 2;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * kMaxStages];
   uint64_t *full = bars, *empty = bars + kMaxStages;
@@ -763,11 +852,15 @@ gate_value_tc(const __grid_constant__ CUtensorMap wg_map,
   if (warp == kWarps) {
     if (lane == 0) {
       const CUtensorMap *mg = &wg_map, *mv = &wv_map, *mx = &x_map;
-      produce<kStage, kStages>(
+      produce<kStage, a_bytes<W>(), kStages>(
           ring, full, empty, n_chunks,
           [=](unsigned char* dst, uint64_t* bar, int i) {
-            tma2d(dst, mg, bar, i * k_cols<W>(), h0);
-            tma2d(dst + kABytes / 2, mv, bar, i * k_cols<W>(), h0);
+#pragma unroll
+            for (int b = 0; b < w_boxes<W>(); ++b) {
+              const int k = i * k_cols<W>() + b * box_cols<W>();
+              tma2d(dst + b * kABytes, mg, bar, k, h0);
+              tma2d(dst + b * kABytes + kABytes / 2, mv, bar, k, h0);
+            }
           },
           [=](unsigned char* dst, uint64_t* bar, int i) {
             load_b<W, NT, SB>(dst, mx, bar, i * k_cols<W>());
@@ -780,7 +873,8 @@ gate_value_tc(const __grid_constant__ CUtensorMap wg_map,
   // ring, element for element
   const int wg = warp / 4, g = lane / 4, t = lane % 4, tw = threadIdx.x % 128;
   float acc[4 * NT];
-  consume<W, NT, SB, kStage, kStages>(acc, ring, full, empty, n_chunks, wg * (kABytes / 2));
+  consume<W, NT, SB, kStage, kStages, kLo>(acc, ring, full, empty, n_chunks,
+                                           wg * (kABytes / 2));
   float* vals = reinterpret_cast<float*>(ring);  // [4 NT][128]
   consumers_sync();  // every warp is done with the ring
   if (wg == 1) {
@@ -804,8 +898,9 @@ gate_value_tc(const __grid_constant__ CUtensorMap wg_map,
 }
 
 // partial[split][n0 + n][c] = Wo[c] . hid[n] over the block's split of H,
-// for the block's 128 output rows (hid_map: [2, rows, H], hi and lo).
-template <typename W, int NT>
+// for the block's 128 output rows (hid_map: [2, rows, H], hi and lo). kLo:
+// f32 weights under an f32 x, whose lo part enters too.
+template <typename W, int NT, bool kLo>
 __global__ void __launch_bounds__(kTcThreads, blocks_per_sm<W>())
 down_tc(const __grid_constant__ CUtensorMap wo_map, const __grid_constant__ CUtensorMap hid_map,
         float* __restrict__ partial, int N, int n0, int rows, int C, int H) {
@@ -824,10 +919,12 @@ down_tc(const __grid_constant__ CUtensorMap wo_map, const __grid_constant__ CUte
   if (warp == kWarps) {
     if (lane == 0) {
       const CUtensorMap *mo = &wo_map, *hm = &hid_map;
-      produce<kStage, kStages>(
+      produce<kStage, a_bytes<W>(), kStages>(
           ring, full, empty, n_chunks,
           [=](unsigned char* dst, uint64_t* bar, int i) {
-            tma2d(dst, mo, bar, k_lo + i * k_cols<W>(), c0);
+#pragma unroll
+            for (int b = 0; b < w_boxes<W>(); ++b)
+              tma2d(dst + b * kABytes, mo, bar, k_lo + i * k_cols<W>() + b * box_cols<W>(), c0);
           },
           [=](unsigned char* dst, uint64_t* bar, int i) {
             load_b<W, NT, 2>(dst, hm, bar, k_lo + i * k_cols<W>());
@@ -843,7 +940,7 @@ down_tc(const __grid_constant__ CUtensorMap wo_map, const __grid_constant__ CUte
   // gate/value block on the same SM. The partials, too, may be read until
   // then by the kernel ahead.
   dep_wait();
-  consume<W, NT, 2, kStage, kStages>(acc, ring, full, empty, n_chunks, wg * (kABytes / 2));
+  consume<W, NT, 2, kStage, kStages, kLo>(acc, ring, full, empty, n_chunks, wg * (kABytes / 2));
 #pragma unroll
   for (int e = 0; e < 4 * NT; ++e) {
     const int c = c0 + 16 * warp + g + 8 * ((e >> 1) & 1), col = 8 * (e >> 2) + 2 * t + (e & 1);
@@ -924,11 +1021,12 @@ template <typename W>
 int weight_map(CUtensorMap* map, const void* w, int rows, int cols, int box_rows) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(W)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(k_cols<W>()),
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols<W>()),
                              static_cast<cuuint32_t>(box_rows)};
-  return make_map(map, std::is_same<W, bf16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                                    : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                  2, w, dims, strides, box);
+  const CUtensorMapDataType type = std::is_same<W, bf16>::value  ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                   : std::is_same<W, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                                                   : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  return make_map(map, type, 2, w, dims, strides, box);
 }
 
 // bf16 planes [planes][rows][cols] (planes plane_bytes apart) read in boxes
@@ -942,14 +1040,13 @@ int plane_map(CUtensorMap* map, const bf16* base, int planes, int rows, int cols
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box);
 }
 
-// Launch `kernel` on `grid`, with programmatic stream serialization if
-// `overlap`.
+// Launch `kernel` on `grid` with programmatic stream serialization.
 template <typename... Params, typename... Args>
 cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, int threads, int smem,
-                       cudaStream_t s, bool overlap, Args... args) {
+                       cudaStream_t s, Args... args) {
   cudaLaunchAttribute pdl[1];
   pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl[0].val.programmaticStreamSerializationAllowed = overlap ? 1 : 0;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(threads);
@@ -977,13 +1074,12 @@ cudaError_t allow_smem(int smem) {
 }
 
 // One launch chain's two passes over rows [n0, n0 + rows) of N (rows <= 64,
-// NT n-tiles of 8 columns): the N operand's maps cover those rows only. The
-// gate/value pass overlaps the kernel ahead if `overlap`.
+// NT n-tiles of 8 columns): the N operand's maps cover those rows only.
 template <typename W, int NT>
 cudaError_t tc_chain(const CUtensorMap& wg_map, const CUtensorMap& wv_map,
                      const CUtensorMap& wo_map, const bf16* xb, bool x_split, const float* gs,
                      const float* vs, bf16* hid, float* partial, int splits, int N, int n0,
-                     int rows, int C, int H, bool overlap, cudaStream_t s) {
+                     int rows, int C, int H, cudaStream_t s) {
   CUtensorMap x_map, hid_map;
   const int planes = x_split ? 2 : 1;
   const size_t x_plane = static_cast<size_t>(x_split ? N : rows) * C * 2;
@@ -994,28 +1090,33 @@ cudaError_t tc_chain(const CUtensorMap& wg_map, const CUtensorMap& wv_map,
   bf16* hid_rows = hid + static_cast<size_t>(n0) * H;
   if (int err = plane_map(&hid_map, hid_rows, 2, rows, H, 2 * h_plane, 8 * NT))
     return static_cast<cudaError_t>(err);
+  // f32 weights under an f32 x: the down pass takes their lo part too
+  constexpr bool kF32 = std::is_same<W, float>::value;
   auto* gv = x_split ? gate_value_tc<W, NT, 2> : gate_value_tc<W, NT, 1>;
+  auto* down = x_split ? down_tc<W, NT, kF32> : down_tc<W, NT, false>;
   const int gv_smem = x_split ? tc_smem_bytes<W, NT, 2>() : tc_smem_bytes<W, NT, 1>();
   constexpr int down_smem = tc_smem_bytes<W, NT, 2>();
   cudaError_t e = x_split ? allow_smem<gate_value_tc<W, NT, 2>>(gv_smem)
                           : allow_smem<gate_value_tc<W, NT, 1>>(gv_smem);
-  if (e == cudaSuccess) e = allow_smem<down_tc<W, NT>>(down_smem);
   if (e == cudaSuccess)
-    e = launch_pdl(gv, dim3(H / kUnits), kTcThreads, gv_smem, s, overlap, wg_map, wv_map, x_map,
-                   gs, vs, hid_rows, h_plane, rows, C, H);
+    e = x_split ? allow_smem<down_tc<W, NT, kF32>>(down_smem)
+                : allow_smem<down_tc<W, NT, false>>(down_smem);
   if (e == cudaSuccess)
-    e = launch_pdl(down_tc<W, NT>, dim3(C / kRows, splits), kTcThreads, down_smem, s, true,
-                   wo_map, hid_map, partial, N, n0, rows, C, H);
+    e = launch_pdl(gv, dim3(H / kUnits), kTcThreads, gv_smem, s, wg_map, wv_map, x_map, gs, vs,
+                   hid_rows, h_plane, rows, C, H);
+  if (e == cudaSuccess)
+    e = launch_pdl(down, dim3(C / kRows, splits), kTcThreads, down_smem, s, wo_map, hid_map,
+                   partial, N, n0, rows, C, H);
   return e;
 }
 
 // The tensor-core route. scratch (f32 words): hid [2, N, H] bf16 (N * H
 // words), then the split x [2, N, C] bf16 (N * C), then partial [splits, N,
-// C] f32. The first kernel overlaps the kernel ahead if `overlap`.
+// C] f32.
 template <typename X, typename W>
 int tc_run(const void* x, const void* wg, const void* wv, const void* wo, const float* gs,
            const float* vs, const float* os, float* scratch, void* out, int N, int C, int H,
-           int splits, bool overlap, cudaStream_t s) {
+           int splits, cudaStream_t s) {
   bf16* hid = reinterpret_cast<bf16*>(scratch);
   bf16* xs = reinterpret_cast<bf16*>(scratch + static_cast<size_t>(N) * H);
   float* partial = scratch + static_cast<size_t>(N) * (H + C);
@@ -1027,33 +1128,32 @@ int tc_run(const void* x, const void* wg, const void* wv, const void* wo, const 
   constexpr bool kSplitX = std::is_same<X, float>::value;
   cudaError_t e = cudaSuccess;
   if (kSplitX)
-    e = launch_pdl(split_rows, dim3((N * C + 255) / 256), 256, 0, s, overlap,
+    e = launch_pdl(split_rows, dim3((N * C + 255) / 256), 256, 0, s,
                    static_cast<const float*>(x), xs, N * C);
   const bf16* xb = kSplitX ? xs : static_cast<const bf16*>(x);
   for (int n0 = 0; n0 < N && e == cudaSuccess; n0 += kMaxRows) {
     const int rows = std::min(kMaxRows, N - n0);
-    const bool chain_overlap = kSplitX || n0 > 0 || overlap;  // the first kernel's, or not
     const int nt = rows <= 8 ? 1 : rows <= 16 ? 2 : rows <= 32 ? 4 : 8;
     switch (nt) {
       case 1:
         e = tc_chain<W, 1>(wg_map, wv_map, wo_map, xb, kSplitX, gs, vs, hid, partial, splits, N,
-                           n0, rows, C, H, chain_overlap, s);
+                           n0, rows, C, H, s);
         break;
       case 2:
         e = tc_chain<W, 2>(wg_map, wv_map, wo_map, xb, kSplitX, gs, vs, hid, partial, splits, N,
-                           n0, rows, C, H, chain_overlap, s);
+                           n0, rows, C, H, s);
         break;
       case 4:
         e = tc_chain<W, 4>(wg_map, wv_map, wo_map, xb, kSplitX, gs, vs, hid, partial, splits, N,
-                           n0, rows, C, H, chain_overlap, s);
+                           n0, rows, C, H, s);
         break;
       default:
         e = tc_chain<W, 8>(wg_map, wv_map, wo_map, xb, kSplitX, gs, vs, hid, partial, splits, N,
-                           n0, rows, C, H, chain_overlap, s);
+                           n0, rows, C, H, s);
     }
   }
   if (e == cudaSuccess)
-    e = launch_pdl(sum_down_splits<X>, dim3((N * C + 255) / 256), 256, 0, s, true,
+    e = launch_pdl(sum_down_splits<X>, dim3((N * C + 255) / 256), 256, 0, s,
                    static_cast<const float*>(partial), os, static_cast<X*>(out), splits, N, C);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
@@ -1065,38 +1165,44 @@ bool on_grid(int C, int H) { return C % 128 == 0 && H % 128 == 0; }
 
 // K4. Shapes (row-major, contiguous, 16-byte aligned): x [N, C] and out
 // [N, C], f32 (x_bf16 == 0) or bf16; w_gate, w_val [H, C] and w_out [C, H],
-// bf16 (w_bf16 == 1) or f32, f32 weights only with f32 x (the wrapper takes
-// the weights in x's dtype). C and H multiples of 8. scratch: N * (H + C +
-// splits * C) f32 words; splits: the down pass's parts of H (clamped to
-// [1, H / 128]; used with bf16 weights and C, H multiples of 128, the
-// tensor-core route). overlap: 1 if the kernel just ahead in the stream
-// wrote no weights (the first kernel may then start streaming them before
-// it has finished), else 0. Returns the cudaGetLastError() status after the
+// bf16 (w_bf16 == 1) or f32, read in place and taken in x's dtype (f32
+// weights under a bf16 x as bf16(w)). C and H multiples of 8. scratch: N *
+// (H + C + splits * C) f32 words; splits: the down pass's parts of H
+// (clamped to [1, H / 128]; used with C, H multiples of 128, the
+// tensor-core route). The first kernel starts streaming the weights before
+// the kernel just ahead in the stream has finished: that kernel must not
+// have written them. Returns the cudaGetLastError() status after the
 // launches (or a tensor-map error, above 10000).
 extern "C" int gating_ffn(const void* x, const void* w_gate, const void* w_val, const void* w_out,
                           void* scratch, void* out, int N, int C, int H, int splits, int x_bf16,
-                          int w_bf16, int overlap, void* stream) {
+                          int w_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sf = static_cast<float*>(scratch);
-  if (x_bf16 && !w_bf16) return static_cast<int>(cudaErrorInvalidValue);
-  if (w_bf16 && on_grid(C, H)) {
-    return x_bf16 ? tc_run<bf16, bf16>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
-                                       out, N, C, H, splits, overlap != 0, s)
-                  : tc_run<float, bf16>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
-                                        out, N, C, H, splits, overlap != 0, s);
+  if (on_grid(C, H)) {
+    if (w_bf16)
+      return x_bf16 ? tc_run<bf16, bf16>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
+                                         out, N, C, H, splits, s)
+                    : tc_run<float, bf16>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
+                                          out, N, C, H, splits, s);
+    return x_bf16 ? tc_run<bf16, float>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
+                                        out, N, C, H, splits, s)
+                  : tc_run<float, float>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
+                                         out, N, C, H, splits, s);
   }
-  if (x_bf16)
-    return core_run<bf16, bf16>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf, out, N,
-                                C, H, s);
-  return w_bf16 ? core_run<float, bf16>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
+  if (w_bf16)
+    return x_bf16 ? core_run<bf16, bf16>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
+                                         out, N, C, H, s)
+                  : core_run<float, bf16>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
+                                          out, N, C, H, s);
+  return x_bf16 ? core_run<bf16, float>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
                                         out, N, C, H, s)
                 : core_run<float, float>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
                                          out, N, C, H, s);
 }
 
 // K5. As K4 with int8 w_gate, w_val [H, C] and w_out [C, H] and their f32
-// row scales gate_scale, val_scale [H] and out_scale [C], always with
-// overlap: the kernel just ahead in the stream must not have written them.
+// row scales gate_scale, val_scale [H] and out_scale [C] (the kernel just
+// ahead in the stream must not have written them either).
 extern "C" int gating_ffn_int8(const void* x, const void* w_gate, const void* gate_scale,
                                const void* w_val, const void* val_scale, const void* w_out,
                                const void* out_scale, void* scratch, void* out, int N, int C,
@@ -1108,9 +1214,9 @@ extern "C" int gating_ffn_int8(const void* x, const void* w_gate, const void* ga
   float* sf = static_cast<float*>(scratch);
   if (on_grid(C, H)) {
     return x_bf16 ? tc_run<bf16, int8_t>(x, w_gate, w_val, w_out, gs, vs, os, sf, out, N, C, H,
-                                         splits, true, s)
+                                         splits, s)
                   : tc_run<float, int8_t>(x, w_gate, w_val, w_out, gs, vs, os, sf, out, N, C, H,
-                                          splits, true, s);
+                                          splits, s);
   }
   if (x_bf16) return core_run<bf16, int8_t>(x, w_gate, w_val, w_out, gs, vs, os, sf, out, N, C, H, s);
   return core_run<float, int8_t>(x, w_gate, w_val, w_out, gs, vs, os, sf, out, N, C, H, s);

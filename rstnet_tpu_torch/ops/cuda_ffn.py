@@ -24,8 +24,10 @@ the weights (int8 as int8) for any N up to 64, x and the hidden as bf16
 parts (an f32 value as hi + lo), K5's row scale applied to each row's float32
 sum; the plain versions dequantize each element as ``float(q) * scale[row]``
 in float32, as the Pallas body does, one float32 rounding from the kernel.
-Float32 weights and other widths take the CUDA-core kernels of the same
-source.
+Float32 weights take the same route, streamed as float32 and never copied:
+split in registers into bf16 parts, hi = bf16(w) alone under a bf16 x
+(exactly the weights in x's dtype), hi + lo against x's hi + lo under an
+f32 x. Other widths take the CUDA-core kernels of the same source.
 ``Backbone.step`` routes its MLP through them. The JAX ``_mlp`` instead
 rounds ``fc_1``'s and ``fc_2``'s outputs and the hidden to x's dtype (and its
 int8 ``linear`` dequantizes in x's dtype): with float32 activations the two
@@ -123,6 +125,24 @@ def gating_ffn_step(x: torch.Tensor, lin_in: torch.Tensor, lin_out: torch.Tensor
 
 
 gating_ffn_step.launches = 0  # kernel launches; reset freely by callers
+
+# K2's route (``StreamingTransformer._ffn`` at T == 1): a bf16 x over bf16
+# weights of this many rows or more takes the view-based fallback instead
+# (``step_gated_ffn``: two matmuls over the step's slices). Measured on the
+# H100 by chip_smoke.check_k2, K2 beside that fallback in one call (NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md section 6): bf16 x, the fallback is faster
+# at B=64 at both of K2's shapes (Moshi's depformer 0.0257 ms against K2's
+# 0.0274, the flagship's codecformer 0.0187 against 0.0209) and slower at
+# B=32 (0.0254 against 0.0178, 0.0182 against 0.0152) and below. An f32 x
+# keeps K2 at every B: the fallback casts the slices to float32 each call
+# and lost at every B measured (0.0952 against 0.0423 at Moshi's B=64).
+K2_FALLBACK_BATCH = 64
+
+
+def k2_falls_back(rows: int, x_dtype: torch.dtype, w_dtype: torch.dtype) -> bool:
+    """Whether K2's route leaves a per-step FFN of ``rows`` rows to the
+    view-based fallback (``K2_FALLBACK_BATCH``)."""
+    return rows >= K2_FALLBACK_BATCH and x_dtype == w_dtype == torch.bfloat16
 
 
 @functools.lru_cache(maxsize=None)
@@ -223,39 +243,39 @@ def gating_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_val: torch.Tensor,
     """K4: fused ``(silu(x Wg^T) * (x Wv^T)) Wo^T`` for x [N, C] (float32 or
     bf16) and float32 or bf16 weights -> [N, C] in x's dtype. Launches the
     kernel on a CUDA tensor (or raises), runs the plain version on a CPU
-    tensor.
+    tensor. Counts launches over bf16 weights in ``gating_ffn.launches``
+    and over float32 weights in ``gating_ffn.launches_f32w``.
 
     Precondition on the card: the kernels start streaming the weights
     before the kernel launched just ahead of the call on the stream has
     finished (programmatic dependent launch), so that kernel must not have
-    written them. Float32 weights under a bf16 x are the exception this
-    wrapper makes itself: it copies them to bf16 and then launches without
-    the overlap."""
+    written them."""
     if x.device.type == "cpu":
         return gating_ffn_reference(x, w_gate, w_val, w_out)
     if x.device.type != "cuda":
         raise NotImplementedError(f"gating_ffn has no kernel for {x.device}")
     weights = (w_gate, w_val, w_out)
     _check_ffn_operands("gating_ffn", x, weights, _DTYPES)
-    converted = x.dtype == torch.bfloat16 and w_gate.dtype == torch.float32
-    if converted:
-        weights = tuple(w.to(torch.bfloat16) for w in weights)  # the weights in x's dtype
     N, C = x.shape
     H = w_gate.shape[0]
+    w_bf16 = w_gate.dtype == torch.bfloat16
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         scratch, splits = _ffn_scratch(x, C, H)
         status = cuda_lib.kernel_library().gating_ffn(
             x.data_ptr(), *(w.data_ptr() for w in weights), scratch.data_ptr(), out.data_ptr(),
-            N, C, H, splits, int(x.dtype == torch.bfloat16),
-            int(weights[0].dtype == torch.bfloat16), int(not converted),
+            N, C, H, splits, int(x.dtype == torch.bfloat16), int(w_bf16),
             torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(status, "gating_ffn")
-    gating_ffn.launches += 1
+    if w_bf16:
+        gating_ffn.launches += 1
+    else:
+        gating_ffn.launches_f32w += 1
     return out
 
 
-gating_ffn.launches = 0  # kernel launches; reset freely by callers
+# kernel launches over bf16 and over float32 weights; reset freely by callers
+gating_ffn.launches = gating_ffn.launches_f32w = 0
 
 
 def gating_ffn_int8(x: torch.Tensor, w_gate: torch.Tensor, gate_scale: torch.Tensor,

@@ -16,7 +16,8 @@ each; observed 5.8e-3 for K4 and 7.5e-3 for K5).
 The rounding of the kernels' tensor-core route (bf16 or int8 weights, C and
 H multiples of 128), emulated in plain torch, is held to the Pallas kernels
 within the card tolerances (``chip_smoke.K2_TOL``): float32 outputs 1e-4
-relative + 1e-5 absolute, bf16 outputs one bf16 step."""
+relative + 1e-5 absolute, bf16 outputs one bf16 step; so is the rounding of
+its float32-weight route (weights split into bf16 hi + lo in registers)."""
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +33,7 @@ from rstnet_tpu_torch.ops.cuda_ffn import (
     gating_ffn_int8_reference,
     gating_ffn_reference,
 )
-from tests.test_torch_ffn import _products
+from tests.test_torch_ffn import _products, _split_bf16
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2.0**-7, atol=1e-5)
@@ -149,13 +150,16 @@ def test_wrappers_take_the_plain_version_on_cpu_only():
     a device without a kernel raises."""
     x = torch.randn(2, 128)
     w = [torch.randn(256, 128), torch.randn(256, 128), torch.randn(128, 256)]
-    launches = gating_ffn.launches, gating_ffn_int8.launches
+    launches = gating_ffn.launches, gating_ffn.launches_f32w, gating_ffn_int8.launches
     torch.testing.assert_close(gating_ffn(x, *w), gating_ffn_reference(x, *w), rtol=0, atol=0)
+    bf16 = [t.bfloat16() for t in w]
+    torch.testing.assert_close(gating_ffn(x, *bf16), gating_ffn_reference(x, *bf16), rtol=0,
+                               atol=0)
     q = [quantize_weight_int8(t) for t in w]
     args = [t for wq in q for t in (wq.w_int8.data, wq.scale.data)]
     torch.testing.assert_close(gating_ffn_int8(x, *args), gating_ffn_int8_reference(x, *args),
                                rtol=0, atol=0)
-    assert (gating_ffn.launches, gating_ffn_int8.launches) == launches
+    assert (gating_ffn.launches, gating_ffn.launches_f32w, gating_ffn_int8.launches) == launches
     with pytest.raises(NotImplementedError):
         gating_ffn(x.to("meta"), *(t.to("meta") for t in w))
     with pytest.raises(NotImplementedError):
@@ -215,5 +219,47 @@ def test_k5_tensor_core_rounding_matches_pallas(N, C, H, dtype):
     want = gating_ffn_pallas_int8(jx, *(jnp.asarray(a.numpy()) for a in args), interpret=True)
     got = _tensor_core_ffn(tx, *(w.w_int8.data.to(torch.bfloat16) for w in q),
                            scales=[w.scale.data.float() for w in q])
+    assert got.dtype == DTYPES[dtype][1] and tuple(got.shape) == (N, C)
+    np.testing.assert_allclose(_np(got), _np(want), **CARD_TOL[dtype])
+
+
+def _f32_weight_products(a: torch.Tensor, w: torch.Tensor, lo: bool) -> torch.Tensor:
+    """a [N, K] @ w [M, K]^T as K4's float32-weight route runs it: w as hi =
+    bf16(w) and lo = bf16(w - hi), ``a`` as hi + lo if f32; hi . a_hi (+
+    hi . a_lo), and with ``lo`` (an f32 x) lo . a_hi too; exact products,
+    f32 sums."""
+    w_hi, w_lo = _split_bf16(w)
+    a_parts = _split_bf16(a) if a.dtype == torch.float32 else (a,)
+    out = sum(p.float() @ w_hi.float().T for p in a_parts)
+    return out + a_parts[0].float() @ w_lo.float().T if lo else out
+
+
+def _f32_weight_ffn(x, w_gate, w_val, w_out):
+    """K4's tensor-core route over float32 weights in plain torch: under an
+    f32 x three products a weight (hi . x_hi + hi . x_lo + lo . x_hi), the
+    hidden likewise in the down pass; under a bf16 x only bf16(w) enters,
+    against x and against the hidden's hi + lo."""
+    lo = x.dtype == torch.float32
+    gate, val = (_f32_weight_products(x, w, lo) for w in (w_gate, w_val))
+    hid = gate * torch.sigmoid(gate) * val
+    return _f32_weight_products(hid, w_out, lo).to(x.dtype)
+
+
+@pytest.mark.parametrize("N,C,H", TC_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_k4_f32_weight_route_rounding_matches_pallas(N, C, H, dtype):
+    """The rounding of K4's float32-weight route against
+    ``gating_ffn_pallas`` in interpret mode over float32 weights, fed as the
+    port's function takes them: as they are under an f32 x, in x's dtype
+    under a bf16 x (as ``gating_ffn_reference`` and the JAX ``linear`` take
+    them; bf16(w) is exactly the route's hi). The split leaves ~2**-17 of
+    each f32 operand out, inside the card tolerance."""
+    from rstnet_tpu.ops.pallas_ffn import gating_ffn_pallas
+
+    x = np.random.default_rng(N + C + H + 2).normal(size=(N, C))
+    jx, tx = _both(x, dtype)
+    ws = [_both(a, "f32") for a in _weights(C, H, 9)]
+    want = gating_ffn_pallas(jx, *(j.astype(jx.dtype) for j, _ in ws), interpret=True)
+    got = _f32_weight_ffn(tx, *(t for _, t in ws))
     assert got.dtype == DTYPES[dtype][1] and tuple(got.shape) == (N, C)
     np.testing.assert_allclose(_np(got), _np(want), **CARD_TOL[dtype])

@@ -2,6 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--frames N] [--sessions N]
+    python3 chip_smoke.py --trees DIR,DIR [--out F.json]
+
+The second form times K4 over float32 weights in each checkout in turn
+(``compare_trees``) and runs nothing else.
 
 Phases (each prints its findings; any failure exits non-zero):
 
@@ -15,7 +19,7 @@ Phases (each prints its findings; any failure exits non-zero):
    also held to bit-identical results across two calls, a K1 micro-step
    and a K3 split-path call to exactly one device kernel under
    ``torch.profiler``, and K2 is timed beside the eager three-call chain and
-   its route's own view-based fallback at B in {2, 16, 32, 64};
+   two matmuls over the step's slices as views at B in {2, 16, 32, 64};
 4. small slices: a small Mimi + Moshi serving frame (solo, K1), the same
    under ``--int8 --kv-int8`` (K1-int8) and a small batched tick
    (``SessionBatcher`` at B=4, K2) on the card against the same weights on
@@ -90,6 +94,7 @@ import functools
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -151,6 +156,15 @@ TRAIN_STEPS = 6
 # ulps (2**-8 relative) of each logit, which move a mean over hundreds of
 # tokens by far less.
 SPEECH_CE_TOL = 2e-2
+# its float32 variant (K4 over float32 weights, split-bf16 products that
+# leave ~2**-17 of each operand out, against float32 on the CPU): logits
+# within 1e-5 of their scale and the mean CE within 1e-6. Sound runs read
+# ~1e-6 of the logits and ~1.5e-7 of the CE; a control run whose card MLP
+# weights are rounded to bf16 (what a route that dropped the weights' lo
+# parts computes) reads ~4.7e-4 of the logits (1.5e-4 of their scale) and
+# ~1.9e-6 of the CE, and the check must fail it (PERF.md section 6)
+SPEECH_F32_LOGIT_TOL = 1e-5
+SPEECH_F32_CE_TOL = 1e-6
 # a small SpeechTextLM whose widths reach K4/K5's route (n_embd 256, MLP
 # 512); its codecformer (128 x 2, card 128, gating hidden 170) stays off K2
 SMALL_SPEECH = dict(name="smoke-speech", block_size=256, vocab_size=512, padded_vocab_size=512,
@@ -392,22 +406,24 @@ def check_k2(g, card: str, sessions: int) -> dict:
     for bit. Timed beside the plain version, the eager three-call chain
     ``silu(x Wg^T) * (x Wv^T) Wo^T`` on the same slices in x's dtype (a
     yardstick: no single PyTorch call computes the function, so it is not
-    ``library_ms``), and the route's own fallback at T == 1
-    (``step_gated_ffn``, the step's slices as views), which the route
-    takes from ``K2_FALLBACK_BATCH`` rows up; logged: the smallest B from
-    which the fallback beats K2 at both shapes in this call. The kernels
-    line carries Moshi's shape at the sessions' B, the codecformer's at
-    B=16 under ``"flagship"``, and each shape's bf16 times by B."""
+    ``library_ms``), the two matmuls over the step's slices as views that
+    the route runs at T == 1 where K2 does not (``step_gated_ffn``), and K2
+    on PR 7's schedule (one group of rows, H split to fill the SMs) where
+    ``k2_schedule`` picks another; logged: the B at which K2 beats the two
+    matmuls at both shapes in this call. The kernels line carries Moshi's
+    shape at the sessions' B, the codecformer's at B=16 under
+    ``"flagship"``, and each shape's bf16 times by B."""
     import torch.nn.functional as F
 
     from rstnet_tpu_torch.modules.transformer import step_gated_ffn
     from rstnet_tpu_torch.ops.cuda_ffn import (
-        K2_FALLBACK_BATCH,
         gating_ffn_step,
         gating_ffn_step_reference,
+        k2_schedule,
     )
 
     S, C = 8, 1024
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     err, result = 0.0, {}
     for shape, dims in K2_SHAPES.items():
         H, slices = dims["H"], 8 * dims["layers"]
@@ -450,18 +466,26 @@ def check_k2(g, card: str, sessions: int) -> dict:
                 chain_ms = time_ms(chain, 96)
                 del w_in, w_out
                 h = x[:, None]
-                fallback_ms = time_ms(lambda: step_gated_ffn(h, lin_in, lin_out,
-                                                             next(turn) % slices, "silu"), 96)
+                views_ms = time_ms(lambda: step_gated_ffn(h, lin_in, lin_out,
+                                                          next(turn) % slices, "silu"), 96)
+                schedule = k2_schedule(x.device, B, C, H)
+                pr7 = (1, max(1, min(H // 128, 2 * sms // (C // 32))))
+                pr7_ms = None if schedule == pr7 else time_ms(
+                    lambda: gating_ffn_step(x, lin_in, lin_out, next(turn) % slices,
+                                            schedule=pr7), 96)
                 xb = x.element_size()
                 bound_ms, bound_by = bound(2 * 3 * H * C + 2 * B * C * xb, 2 * B * 3 * H * C,
                                            "bf16")
-                log(f"K2 ({shape}) B={B} x {str(dtype)[6:]} (C={C}, H={H}): kernel {ms:.4f} ms, "
+                log(f"K2 ({shape}) B={B} x {str(dtype)[6:]} (C={C}, H={H}): kernel {ms:.4f} ms "
+                    f"(groups, splits {schedule}"
+                    + ("" if pr7_ms is None else f"; PR 7's {pr7}: {pr7_ms:.4f} ms") + "), "
                     f"plain {plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), eager "
-                    f"three-call chain {chain_ms:.4f} ms, the route's fallback "
-                    f"{fallback_ms:.4f} ms; two calls bit-identical [{card}]")
+                    f"three-call chain {chain_ms:.4f} ms, two matmuls on the slices as views "
+                    f"{views_ms:.4f} ms; two calls bit-identical [{card}]")
                 if dtype == torch.bfloat16:
-                    by_b[B] = {"ms": ms, "chain_ms": chain_ms, "fallback_ms": fallback_ms,
-                               "bound_ms": bound_ms}
+                    by_b[B] = {"ms": ms, "chain_ms": chain_ms, "views_chain_ms": views_ms,
+                               "pr7_schedule_ms": pr7_ms, "bound_ms": bound_ms,
+                               "schedule": schedule}
                     if B == headline:
                         result[shape] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
                                          "bound_by": bound_by, "three_call_chain_ms": chain_ms,
@@ -470,10 +494,9 @@ def check_k2(g, card: str, sessions: int) -> dict:
         del lin_in, lin_out
     by_shape = [r["by_batch_bf16"] for r in result.values()]
     wins = [B for B in sorted(set.intersection(*map(set, by_shape)))
-            if all(t[B]["fallback_ms"] < t[B]["ms"] for t in by_shape)]
-    log(f"K2 against its fallback, bf16 x: the fallback is faster at both shapes at B = "
-        f"{wins or 'none'} of those timed at both; the route takes the fallback from "
-        f"K2_FALLBACK_BATCH = {K2_FALLBACK_BATCH} rows up (bf16 x over bf16 weights) [{card}]")
+            if all(t[B]["ms"] < t[B]["views_chain_ms"] for t in by_shape)]
+    log(f"K2 against two matmuls on the slices as views, bf16 x: K2 is faster at both shapes "
+        f"at B = {wins or 'none'} of those timed at both [{card}]")
     log(f"K2 max |kernel - plain| {err:.3e} over shapes, B, dtypes and steps")
     return {"name": "gating_ffn_step", "route": "cuda",
             "source": "rstnet_tpu_torch/csrc/gating_ffn_step.cu",
@@ -489,7 +512,7 @@ K4_KERNEL_NAMES = ("gate_value_tc", "down_tc", "sum_down_splits", "split_rows",
                    "core_gate_value", "core_down")
 
 
-def check_k4_k5(g, card: str) -> list[dict]:
+def check_k4_k5(g, card: str, only: tuple = ()) -> list[dict]:
     """K4 (bf16 weights), K5 (the same weights quantized by the port's
     ``quantize_weight_int8``) and K4 over the same weights in float32 (its
     entry ``gating_ffn_f32_weights``: split into bf16 parts in registers,
@@ -505,7 +528,8 @@ def check_k4_k5(g, card: str) -> list[dict]:
     kernels entry carries its first case (K4 and K5: the main path's N=1
     with bf16 x; K4 over float32 weights: ``speech_cli_f32``'s N=1 with an
     f32 x) and under ``by_rows`` every N's kernel, chain and bound times
-    (bf16 x, and with an ``f32_`` prefix float32 x)."""
+    (bf16 x, and with an ``f32_`` prefix float32 x). ``only``: the entries
+    to run, by name (all when empty)."""
     import torch.nn.functional as F
 
     from rstnet_tpu_torch.modules.transformer import quantize_weight_int8
@@ -539,6 +563,7 @@ def check_k4_k5(g, card: str) -> list[dict]:
                                    [[t.float() for t in ws] for ws in sets],
                                    k4 + " (float32 weights)", (f32, bf16)),
     }
+    kernels = {k: v for k, v in kernels.items() if not only or k in only}
     entries = []
     for name, (kernel, plain, wsets, replaces, dtypes) in kernels.items():
         err, result, by_rows = 0.0, None, {}
@@ -1164,14 +1189,36 @@ def recorded_stream_logits():
         quant_quality.sample_token = orig
 
 
+def _speech_slice_readings(runs: dict, tol: float, ce_tol: float) -> tuple[dict, bool]:
+    """The small speech slice's card run against its CPU run: the readings,
+    and whether they lie within the limits (logits within ``tol`` of their
+    scale, no greedy token flipped past the near-tie margin, CE within
+    ``ce_tol``)."""
+    (rc, lc, _), (rg, lg, _) = runs["cpu"], runs["cuda"]
+    scale = max(a.abs().max().item() for a in lc)
+    logit_err = max((a - b).abs().max().item() for a, b in zip(lc, lg))
+    flips = 0
+    for a, b in zip(lc, lg):
+        top2 = a.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * tol * max(1.0, scale)
+        flips += int(((a.argmax(-1) != b.argmax(-1)) & clear).sum())
+    ce_err = max(abs(rc.ce_text - rg.ce_text), abs(rc.ce_audio - rg.ce_audio))
+    r = dict(scale=scale, logit_err=logit_err, flips=flips, ce_err=ce_err,
+             greedy_diff=int((rc.greedy != rg.greedy).sum()), tokens=rc.greedy.size,
+             ce=(rg.ce_text, rc.ce_text, rg.ce_audio, rc.ce_audio))
+    return r, logit_err <= tol * max(1.0, scale) and not flips and ce_err <= ce_tol
+
+
 def check_small_speech_slice(seed: int, n_frames: int = 8) -> None:
     """A small ``SpeechTextLM`` (widths inside K4/K5's route) through
     ``teacher_forced_stream`` at B=2 on the card and on the CPU from the
     same weights and grid: bf16, then ``quantize_for_serving`` (quantized on
     the CPU, copied to the card) with an int8 ring, then the model built in
     float32 from the same seed. The card launches K4 (bf16), K5 (int8) or
-    K4 over float32 weights once a layer a frame and nothing else; every
-    variant is held to the same limits."""
+    K4 over float32 weights once a layer a frame and nothing else. bf16 and
+    int8 are held to ``SLICE_LOGIT_TOL`` and ``SPEECH_CE_TOL``, float32 to
+    its own ``SPEECH_F32_*`` limits; a float32 control run, the card's
+    backbone MLP weights rounded to bf16, must fall outside them."""
     import copy
 
     from rstnet_tpu_torch.evalsuite.quant_quality import teacher_forced_stream
@@ -1184,40 +1231,51 @@ def check_small_speech_slice(seed: int, n_frames: int = 8) -> None:
     grid = np.concatenate([rng.integers(0, cfg.padded_vocab_size, (2, 1, n_frames)),
                            rng.integers(0, cfg.audio_card - 2, (2, cfg.n_q, n_frames))], axis=1)
     none = dict.fromkeys(_counters(), 0)
+
+    def mlp_weights_to_bf16(m):
+        for mod in m.modules():
+            if all(hasattr(mod, k) for k in ("fc_1", "fc_2", "proj")):
+                for lin in (mod.fc_1, mod.fc_2, mod.proj):
+                    lin.weight.data = lin.weight.data.to(torch.bfloat16).float()
+        return m
+
     for label, kernel, int8 in (("bf16", "gating_ffn", False),
                                 ("int8 --kv-int8", "gating_ffn_int8", True),
-                                ("float32", "gating_ffn_f32_weights", False)):
+                                ("float32", "gating_ffn_f32_weights", False),
+                                ("float32 control", "gating_ffn_f32_weights", False)):
         if int8:
             quantize_for_serving(cpu)
         if label == "float32":
             cpu = SpeechTextLM(cfg, dtype=torch.float32,
                                generator=torch.Generator().manual_seed(seed))
+        control = label == "float32 control"
         runs = {}
         for device, m in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).to("cuda"))):
+            if control and device == "cuda":
+                mlp_weights_to_bf16(m)
             reset_counts()
             with recorded_stream_logits() as record:
                 r = teacher_forced_stream(m, grid, seed, kv_int8=int8)
             runs[device] = (r, record, read_counts())
-        (rc, lc, counts_c), (rg, lg, counts_g) = runs["cpu"], runs["cuda"]
+        counts_c, counts_g = runs["cpu"][2], runs["cuda"][2]
         want = {**none, kernel: cfg.n_layer * n_frames}
         if counts_g != want or counts_c != none:
             raise AssertionError(f"small speech slice ({label}) launched {counts_g} on the card "
                                  f"(expected {want}) and {counts_c} on the CPU (expected none)")
-        scale = max(a.abs().max().item() for a in lc)
-        logit_err = max((a - b).abs().max().item() for a, b in zip(lc, lg))
-        flips = 0
-        for a, b in zip(lc, lg):
-            top2 = a.topk(2, dim=-1).values
-            clear = (top2[..., 0] - top2[..., 1]) > 2 * SLICE_LOGIT_TOL * max(1.0, scale)
-            flips += int(((a.argmax(-1) != b.argmax(-1)) & clear).sum())
-        ce_err = max(abs(rc.ce_text - rg.ce_text), abs(rc.ce_audio - rg.ce_audio))
+        tol, ce_tol = ((SPEECH_F32_LOGIT_TOL, SPEECH_F32_CE_TOL) if label.startswith("float32")
+                       else (SLICE_LOGIT_TOL, SPEECH_CE_TOL))
+        r, within = _speech_slice_readings(runs, tol, ce_tol)
         log(f"small speech slice ({label}), card vs CPU over {n_frames} frames at B=2: logits max "
-            f"abs err {logit_err:.3e} (max |logit| {scale:.3e}), CE text {rg.ce_text:.5f} / "
-            f"{rc.ce_text:.5f}, audio {rg.ce_audio:.5f} / {rc.ce_audio:.5f} (max diff "
-            f"{ce_err:.3e}, limit {SPEECH_CE_TOL}), greedy tokens differ at "
-            f"{int((rc.greedy != rg.greedy).sum())} of {rc.greedy.size} ({flips} past the "
-            f"near-tie margin); card {kernel} launches {counts_g[kernel]}")
-        if logit_err > SLICE_LOGIT_TOL * max(1.0, scale) or flips or ce_err > SPEECH_CE_TOL:
+            f"abs err {r['logit_err']:.3e} (max |logit| {r['scale']:.3e}, limit {tol} of it), CE "
+            f"text {r['ce'][0]:.7f} / {r['ce'][1]:.7f}, audio {r['ce'][2]:.7f} / "
+            f"{r['ce'][3]:.7f} (max diff {r['ce_err']:.3e}, limit {ce_tol}), greedy tokens "
+            f"differ at {r['greedy_diff']} of {r['tokens']} ({r['flips']} past the near-tie "
+            f"margin); card {kernel} launches {counts_g[kernel]}"
+            + ("; the card's MLP weights rounded to bf16, must fall outside" if control else ""))
+        if control and within:
+            raise AssertionError("the small speech slice's float32 limits do not catch MLP "
+                                 "weights rounded to bf16")
+        if not control and not within:
             raise AssertionError(f"the small speech slice ({label}) on the card disagrees with "
                                  "the CPU")
 
@@ -1307,23 +1365,13 @@ def build_mimi(seed: int):
     return mimi
 
 
-def k2_takes(sessions: int) -> bool:
-    """Whether K2's route takes the per-step FFN of a batched tick of
-    ``sessions`` rows: bf16 x over bf16 weights, as on every batched path
-    here (``cuda_ffn.k2_falls_back``)."""
-    from rstnet_tpu_torch.ops.cuda_ffn import k2_falls_back
-
-    return not k2_falls_back(sessions, torch.bfloat16, torch.bfloat16)
-
-
-def speech_tick_expected(model, n_ticks: int, sessions: int) -> dict:
+def speech_tick_expected(model, n_ticks: int) -> dict:
     """A batched speech tick's launches: K4 once a backbone layer (N = the
     sessions), K2 once a codecformer layer and micro-step where its gating
-    is on K2's route at this many rows, K3 twice (Mimi's two quantizers)."""
+    is on K2's route, K3 twice (Mimi's two quantizers)."""
     cfg, cf = model.config, model.codecformer
     hidden = cf.layers.gating.linear_in[0].shape[-2] // 2
-    on_k2 = (cf.weights_per_step and hidden % 128 == 0 and cf.d_model % 128 == 0
-             and k2_takes(sessions))
+    on_k2 = cf.weights_per_step and hidden % 128 == 0 and cf.d_model % 128 == 0
     k2 = cfg.dep_q * cf.num_layers if on_k2 else 0
     return {**dict.fromkeys(_counters(), 0), "gating_ffn": cfg.n_layer * n_ticks,
             "gating_ffn_step": k2 * n_ticks, "rvq_encode": 2 * n_ticks}
@@ -1388,7 +1436,7 @@ def run_speech_batched_tick(mimi, model, seed: int, sessions: int, n_ticks: int,
             if not 0 <= tok < cfg.padded_vocab_size:
                 raise AssertionError(f"{path} session {i}: text token {tok} outside "
                                      f"[0, {cfg.padded_vocab_size})")
-    expected = speech_tick_expected(model, n_ticks, sessions)
+    expected = speech_tick_expected(model, n_ticks)
     log(f"{path}: {n_ticks} ticks x {sessions} sessions; launches {counts}")
     if counts != expected:
         raise AssertionError(f"{path}: launches {counts}, expected {expected}")
@@ -1948,13 +1996,67 @@ def run_f32_training_slice(seed: int, n_steps: int, card: str,
         shutil.rmtree(root, ignore_errors=True)
 
 
+def compare_trees(trees: list[str], seed: int, out: str) -> int:
+    """K4 over float32 weights (``check_k4_k5``'s ``gating_ffn_f32_weights``
+    entry) in several checkouts of the port, one process each, in the order
+    given and then reversed (A, B, B, A): each process runs this script with
+    ``--k4-f32-out`` from the checkout's root, so it imports and builds that
+    checkout's ``rstnet_tpu_torch``. Prints each case's times by turn and
+    writes them as JSON to ``out``."""
+    card = phase_environment()
+    order = trees + trees[::-1]
+    turns = []
+    for i, tree in enumerate(order):
+        root = Path(tree).resolve()
+        dump = Path(out or "chiprun_out/trees.json").resolve().with_suffix(f".turn{i}.json")
+        dump.parent.mkdir(parents=True, exist_ok=True)
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(root), *filter(None, [os.environ.get("PYTHONPATH")])])}
+        subprocess.run([sys.executable, "-P", str(Path(__file__).resolve()), "--seed", str(seed),
+                        "--k4-f32-out", str(dump)], cwd=root, env=env, check=True)
+        turns.append(json.loads(dump.read_text()))
+        dump.unlink()
+    report = {"card": card, "order": order, "cases": {}}
+    for N in map(str, K4_K5_ROWS):
+        for prefix, x in (("f32_", "float32"), ("", "bfloat16")):
+            rows = [t["by_rows"][N] for t in turns]
+            case = {"kernel_ms": [r[prefix + "ms"] for r in rows],
+                    "chain_ms": [r[prefix + "chain_ms"] for r in rows],
+                    "chain_cast_ms": [r.get(prefix + "chain_cast_ms") for r in rows]}
+            report["cases"][f"N={N} x {x}"] = case
+            cast = case["chain_cast_ms"]
+            log(f"K4 float32 weights N={N} x {x}: "
+                + ", ".join(f"{t} {v:.4f}" for t, v in zip(order, case["kernel_ms"]))
+                + " ms; chain " + " / ".join(f"{v:.4f}" for v in case["chain_ms"])
+                + ("" if None in cast else ", with the cast " + " / ".join(f"{v:.4f}" for v in cast))
+                + f" [{card}]")
+    if out:
+        Path(out).write_text(json.dumps(report, indent=1))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--frames", type=int, default=16,
                         help="frames of the solo slices and ticks of the batched ones")
     parser.add_argument("--sessions", type=int, default=16)
+    parser.add_argument("--trees", default="",
+                        help="checkout roots, comma-separated: time K4 over float32 weights in "
+                        "each in turn (compare_trees) instead of the smoke run")
+    parser.add_argument("--out", default="", help="with --trees: the times as JSON")
+    parser.add_argument("--k4-f32-out", default="",
+                        help="run only K4 over float32 weights and write its entry here as JSON")
     args = parser.parse_args(argv)
+    if args.trees:
+        return compare_trees(args.trees.split(","), args.seed, args.out)
+    if args.k4_f32_out:
+        card = phase_environment()
+        phase_build()
+        g = torch.Generator(device="cuda").manual_seed(args.seed)
+        (entry,) = check_k4_k5(g, card, only=("gating_ffn_f32_weights",))
+        Path(args.k4_f32_out).write_text(json.dumps(entry))
+        return 0
     t_start = time.perf_counter()
 
     with phase("environment"):
@@ -1995,8 +2097,7 @@ def main(argv=None) -> int:
     with phase("full batched slice"):
         paths["batched_tick"] = run_full_batched_slice(
             mimi, lm_gen, args.seed, args.sessions, ticks, card, "full batched slice",
-            {**none, "gating_ffn_step": 8 * layers * ticks * k2_takes(args.sessions),
-             "rvq_encode": 2 * ticks})
+            {**none, "gating_ffn_step": 8 * layers * ticks, "rvq_encode": 2 * ticks})
     with phase("int8 quantization"):
         from rstnet_tpu_torch.serving.server import quantize_for_serving
 

@@ -42,8 +42,13 @@
 //    split too, in whole 128-column chunks: block (r, s) takes rows
 //    [32 r, 32 r + 32) over split s, two blocks an SM in all, and writes its
 //    partial [B, 32] sums; sum_splits then adds the splits' partials in
-//    split order. No floating-point atomics: two calls give bit-identical
-//    results.
+//    split order (one split: no partials, no third launch). No
+//    floating-point atomics: two calls give bit-identical results.
+// 3. Groups of rows: the wrapper may share B among `groups` groups of blocks,
+//    each a copy of both passes' grids over B / groups rows, so that a small
+//    grid (the flagship codecformer's H = 768: 48 gate/value blocks) keeps
+//    every SM streaming with narrower N tiles; each output is the same sum
+//    whatever the groups.
 // The three launches use programmatic dependent launch: each kernel starts
 // while the one ahead of it runs, streams its first weight stages, and
 // waits (griddepcontrol.wait) only before it reads what that kernel wrote.
@@ -418,8 +423,9 @@ __device__ __forceinline__ int acc_col(int n, int e) {
   return 8 * n + 2 * (threadIdx.x % 4) + (e & 1);
 }
 
-// hid[b, h] = silu(Wg[h] . x[b]) * (Wv[h] . x[b]); w_in [2H, C]. Block x:
-// hidden units [16 x, 16 x + 16): its gate tile and its value tile.
+// hid[b, h] = silu(Wg[h] . x[b]) * (Wv[h] . x[b]); w_in [2H, C]. Block (x, y):
+// hidden units [16 x, 16 x + 16), its gate tile and its value tile, over
+// the chunks of 8 NT rows of x numbered y, y + gridDim.y, ...
 template <int NT, typename X>
 __global__ void __launch_bounds__(kMmaThreads)
 gate_value_mma(const X* __restrict__ x, const bf16* __restrict__ w_in, float* __restrict__ hid,
@@ -429,7 +435,7 @@ gate_value_mma(const X* __restrict__ x, const bf16* __restrict__ w_in, float* __
   const int h0 = blockIdx.x * 16;
   const bf16* wg = w_in + static_cast<size_t>(h0) * C;
   const bf16* wv = w_in + static_cast<size_t>(H + h0) * C;
-  for (int n0 = 0; n0 < B; n0 += 8 * NT) {
+  for (int n0 = 8 * NT * blockIdx.y; n0 < B; n0 += 8 * NT * gridDim.y) {
     float acc[2][NT][4];
     block_tiles<NT>(acc, smem, wg, wv, x, C, 0, C, n0, B);
     if (threadIdx.x >= 32) continue;
@@ -448,9 +454,10 @@ gate_value_mma(const X* __restrict__ x, const bf16* __restrict__ w_in, float* __
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(bf16* p, float v) { *p = __float2bfloat16(v); }
 
-// out[b, c] = Wo[c] . hid[b]; w_out [C, H]. Block (x, y): output rows
-// [32 x, 32 x + 32) over split y of gridDim.y of H's 128-column chunks,
-// written to out (one split) or to partial [splits, B, C] f32.
+// out[b, c] = Wo[c] . hid[b]; w_out [C, H]. Block (x, y, z): output rows
+// [32 x, 32 x + 32) over split y of gridDim.y of H's 128-column chunks, for
+// the chunks of 8 NT rows of hid numbered z, z + gridDim.z, ...; written to
+// out (one split) or to partial [splits, B, C] f32.
 template <int NT, typename X>
 __global__ void __launch_bounds__(kMmaThreads)
 down_mma(const float* __restrict__ hid, const bf16* __restrict__ w_out, X* __restrict__ out,
@@ -462,7 +469,7 @@ down_mma(const float* __restrict__ hid, const bf16* __restrict__ w_out, X* __res
   const int n_chunks = H / kKc;
   const int k_lo = kKc * (n_chunks * split / splits), k_hi = kKc * (n_chunks * (split + 1) / splits);
   const bf16* w0 = w_out + static_cast<size_t>(c0) * H;
-  for (int n0 = 0; n0 < B; n0 += 8 * NT) {
+  for (int n0 = 8 * NT * blockIdx.z; n0 < B; n0 += 8 * NT * gridDim.z) {
     float acc[2][NT][4];
     block_tiles<NT>(acc, smem, w0, w0 + static_cast<size_t>(16) * H, hid, H, k_lo, k_hi, n0, B);
     if (threadIdx.x >= 32) continue;
@@ -497,7 +504,7 @@ sum_splits(const float* __restrict__ partial, X* __restrict__ out, int splits, i
 
 template <int NT, int NT2, typename X>
 int run_mma(const void* x, const void* w_in, const void* w_out, float* hid, void* out,
-            float* partial, int splits, int B, int C, int H, cudaStream_t s) {
+            float* partial, int splits, int groups, int B, int C, int H, cudaStream_t s) {
   auto* gv = gate_value_mma<NT, X>;
   auto* down = down_mma<NT2, X>;
   constexpr int gv_smem = mma_smem_bytes<NT, X>(), down_smem = mma_smem_bytes<NT2, float>();
@@ -514,12 +521,12 @@ int run_mma(const void* x, const void* w_in, const void* w_out, float* hid, void
   cfg.stream = s;
   cfg.attrs = pdl;
   cfg.numAttrs = 1;
-  cfg.gridDim = dim3(H / 16);
+  cfg.gridDim = dim3(H / 16, groups);
   cfg.dynamicSmemBytes = gv_smem;
   e = cudaLaunchKernelEx(&cfg, gv, static_cast<const X*>(x), static_cast<const bf16*>(w_in), hid,
                          B, C, H);
   if (e != cudaSuccess) return static_cast<int>(e);
-  cfg.gridDim = dim3(C / kRows, splits);
+  cfg.gridDim = dim3(C / kRows, splits, groups);
   cfg.dynamicSmemBytes = down_smem;
   e = cudaLaunchKernelEx(&cfg, down, static_cast<const float*>(hid),
                          static_cast<const bf16*>(w_out), static_cast<X*>(out), partial, B, C, H);
@@ -534,20 +541,26 @@ int run_mma(const void* x, const void* w_in, const void* w_out, float* hid, void
   return static_cast<int>(cudaGetLastError());
 }
 
-// N columns a chunk: B rounded up to 8, at most 64 (32 for an f32 x, whose
-// stages are twice as wide).
+// N columns a chunk: a group's share of B (B / groups, rounded up) rounded
+// up to 8, at most 64 (32 for an f32 x, whose stages are twice as wide).
 template <typename X>
 int dispatch_mma(const void* x, const void* w_in, const void* w_out, float* hid, void* out,
-                 float* partial, int splits, int B, int C, int H, cudaStream_t s) {
+                 float* partial, int splits, int groups, int B, int C, int H, cudaStream_t s) {
   constexpr bool kF32 = std::is_same<X, float>::value;
-  if (B <= 8) return run_mma<1, 1, X>(x, w_in, w_out, hid, out, partial, splits, B, C, H, s);
-  if (B <= 16) return run_mma<2, 2, X>(x, w_in, w_out, hid, out, partial, splits, B, C, H, s);
-  if constexpr (kF32) {
-    return run_mma<4, 4, X>(x, w_in, w_out, hid, out, partial, splits, B, C, H, s);
-  } else {
-    if (B <= 32) return run_mma<4, 4, X>(x, w_in, w_out, hid, out, partial, splits, B, C, H, s);
-    return run_mma<8, 8, X>(x, w_in, w_out, hid, out, partial, splits, B, C, H, s);
+  const int cols = (B + groups - 1) / groups;
+  if (cols <= 8) {
+    return run_mma<1, 1, X>(x, w_in, w_out, hid, out, partial, splits, groups, B, C, H, s);
   }
+  if (cols <= 16) {
+    return run_mma<2, 2, X>(x, w_in, w_out, hid, out, partial, splits, groups, B, C, H, s);
+  }
+  if (kF32 || cols <= 32) {
+    return run_mma<4, 4, X>(x, w_in, w_out, hid, out, partial, splits, groups, B, C, H, s);
+  }
+  if constexpr (!kF32) {
+    return run_mma<8, 8, X>(x, w_in, w_out, hid, out, partial, splits, groups, B, C, H, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);  // not reached
 }
 
 }  // namespace
@@ -558,16 +571,19 @@ int dispatch_mma(const void* x, const void* w_in, const void* w_out, float* hid,
 // scratch. C and H multiples of 8. With bf16 weights and C, H multiples of
 // 128 the tensor-core kernels run: `splits` (1 to H / 128) splits of H in
 // the down pass and partial [splits, B, C] f32 scratch (unused when splits
-// == 1). Returns the cudaGetLastError() status after the launches.
+// == 1); `groups` (1 to B) groups of blocks share B's rows, each group with
+// a copy of both passes' grids over B / groups rows (rounded up). Returns the
+// cudaGetLastError() status after the launches.
 extern "C" int gating_ffn_step(const void* x, const void* w_in, const void* w_out, void* hid,
-                               void* out, void* partial, int splits, int B, int C, int H,
-                               int x_bf16, int w_bf16, void* stream) {
+                               void* out, void* partial, int splits, int groups, int B, int C,
+                               int H, int x_bf16, int w_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* hf = static_cast<float*>(hid);
   if (w_bf16 && C % 128 == 0 && H % 128 == 0) {
+    if (groups < 1 || groups > B) return static_cast<int>(cudaErrorInvalidValue);
     float* pf = static_cast<float*>(partial);
-    return x_bf16 ? dispatch_mma<bf16>(x, w_in, w_out, hf, out, pf, splits, B, C, H, s)
-                  : dispatch_mma<float>(x, w_in, w_out, hf, out, pf, splits, B, C, H, s);
+    return x_bf16 ? dispatch_mma<bf16>(x, w_in, w_out, hf, out, pf, splits, groups, B, C, H, s)
+                  : dispatch_mma<float>(x, w_in, w_out, hf, out, pf, splits, groups, B, C, H, s);
   }
   if (x_bf16) {
     return w_bf16 ? run<bf16, bf16>(x, w_in, w_out, hf, out, B, C, H, s)

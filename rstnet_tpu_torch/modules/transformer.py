@@ -37,7 +37,7 @@ from rstnet_tpu_torch.ops.attention import (
     ring_kv_buffers,
     ring_kv_update,
 )
-from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn_step, k2_falls_back
+from rstnet_tpu_torch.ops.cuda_ffn import clamp_step, gating_ffn_step
 from rstnet_tpu_torch.ops.gating import ActivationGating, gated_ffn, get_activation
 from rstnet_tpu_torch.ops.norms import LayerScale, Norm
 from rstnet_tpu_torch.ops.rope import apply_rope_interleaved
@@ -93,8 +93,9 @@ def step_gated_ffn(h: torch.Tensor, lin_in, lin_out, step: int, activation: str)
     """One step's gated FFN of a per-step weight stack (``lin_in [S, 2H,
     C]``, ``lin_out [S, C, H]``, plain or int8) over h [B, T, C]: the step
     clamped to [0, S-1] and its slices taken as views, no gather of the
-    stack. K2's fallback at T == 1."""
-    s = min(max(int(step), 0), lin_in.shape[0] - 1)
+    stack. The T == 1 case that K2 does not take (int8 weights, widths off
+    its grid)."""
+    s = clamp_step(step, lin_in.shape[0])
     return gated_ffn(h, resolve_weight(lin_in[s], h.dtype), resolve_weight(lin_out[s], h.dtype),
                      activation)
 
@@ -272,8 +273,7 @@ class StreamingTransformer(nn.Module):
             lin_in, lin_out = layers.gating.linear_in[i], layers.gating.linear_out[i]
             hidden = lin_in.shape[-2] // 2
             if (T == 1 and self.gating == "silu" and hidden % 128 == 0
-                    and self.d_model % 128 == 0 and not is_int8(lin_in)
-                    and not k2_falls_back(x.shape[0], h.dtype, lin_in.dtype)):
+                    and self.d_model % 128 == 0 and not is_int8(lin_in)):
                 # K2 reads only the step's weight slice: no gather of the stack
                 update = gating_ffn_step(h[:, 0, :], lin_in, lin_out, offset)[:, None, :]
             elif T == 1:

@@ -52,7 +52,8 @@ from rstnet_tpu_torch.ops.gating import get_activation
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _clamp_step(step: int, S: int) -> int:
+def clamp_step(step: int, S: int) -> int:
+    """The step index as the JAX call site clamps it: into [0, S-1]."""
     return min(max(int(step), 0), S - 1)
 
 
@@ -60,7 +61,7 @@ def gating_ffn_step_reference(x: torch.Tensor, lin_in: torch.Tensor, lin_out: to
                               step: int, activation: str = "silu") -> torch.Tensor:
     """Plain PyTorch version: x [B, C], lin_in [S, 2H, C], lin_out [S, C, H]
     -> [B, C] in x's dtype."""
-    s = _clamp_step(step, lin_in.shape[0])
+    s = clamp_step(step, lin_in.shape[0])
     w_in = lin_in[s].to(x.dtype).float()
     w_out = lin_out[s].to(x.dtype).float()
     gate, val = (x.float() @ w_in.T).chunk(2, dim=-1)
@@ -91,11 +92,13 @@ def _check_cuda_operands(x, lin_in, lin_out, activation):
 
 
 def gating_ffn_step(x: torch.Tensor, lin_in: torch.Tensor, lin_out: torch.Tensor, step: int,
-                    activation: str = "silu") -> torch.Tensor:
+                    activation: str = "silu", schedule: tuple[int, int] | None = None
+                    ) -> torch.Tensor:
     """Fused per-step gated FFN: x [B, C] (float32 or bf16), lin_in
     [S, 2H, C], lin_out [S, C, H] (float32 or bf16), step an int -> [B, C]
     in x's dtype. Launches the kernel on a CUDA tensor (or raises), runs the
-    plain version on a CPU tensor."""
+    plain version on a CPU tensor. ``schedule``: (groups, splits) of the
+    tensor-core passes in place of ``k2_schedule``'s, to compare them."""
     if x.device.type == "cpu":
         return gating_ffn_step_reference(x, lin_in, lin_out, step, activation)
     if x.device.type != "cuda":
@@ -103,7 +106,7 @@ def gating_ffn_step(x: torch.Tensor, lin_in: torch.Tensor, lin_out: torch.Tensor
     _check_cuda_operands(x, lin_in, lin_out, activation)
     B, C = x.shape
     H = lin_in.shape[1] // 2
-    s = _clamp_step(step, lin_in.shape[0])
+    s = clamp_step(step, lin_in.shape[0])
     w_in, w_out = lin_in[s], lin_out[s]  # views of the step's slice: no copy
     if x.dtype == torch.bfloat16 and w_in.dtype == torch.float32:
         # the JAX call site takes the weights in x's dtype
@@ -112,12 +115,12 @@ def gating_ffn_step(x: torch.Tensor, lin_in: torch.Tensor, lin_out: torch.Tensor
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        splits = down_splits(x.device, C, H)
+        groups, splits = schedule or k2_schedule(x.device, B, C, H)
         partial = torch.empty((splits, B, C) if splits > 1 else (0,), dtype=torch.float32,
                               device=x.device)
         status = cuda_lib.kernel_library().gating_ffn_step(
             x.data_ptr(), w_in.data_ptr(), w_out.data_ptr(), hid.data_ptr(), out.data_ptr(),
-            partial.data_ptr(), splits, B, C, H, int(x.dtype == torch.bfloat16),
+            partial.data_ptr(), splits, groups, B, C, H, int(x.dtype == torch.bfloat16),
             int(w_in.dtype == torch.bfloat16), stream)
     cuda_lib.check(status, "gating_ffn_step")
     gating_ffn_step.launches += 1
@@ -126,36 +129,29 @@ def gating_ffn_step(x: torch.Tensor, lin_in: torch.Tensor, lin_out: torch.Tensor
 
 gating_ffn_step.launches = 0  # kernel launches; reset freely by callers
 
-# K2's route (``StreamingTransformer._ffn`` at T == 1): a bf16 x over bf16
-# weights of this many rows or more takes the view-based fallback instead
-# (``step_gated_ffn``: two matmuls over the step's slices). Measured on the
-# H100 by chip_smoke.check_k2, K2 beside that fallback in one call (NVIDIA
-# H100 80GB HBM3, 700 W; PERF.md section 6): bf16 x, the fallback is faster
-# at B=64 at both of K2's shapes (Moshi's depformer 0.0257 ms against K2's
-# 0.0274, the flagship's codecformer 0.0187 against 0.0209) and slower at
-# B=32 (0.0254 against 0.0178, 0.0182 against 0.0152) and below. An f32 x
-# keeps K2 at every B: the fallback casts the slices to float32 each call
-# and lost at every B measured (0.0952 against 0.0423 at Moshi's B=64).
-K2_FALLBACK_BATCH = 64
-
-
-def k2_falls_back(rows: int, x_dtype: torch.dtype, w_dtype: torch.dtype) -> bool:
-    """Whether K2's route leaves a per-step FFN of ``rows`` rows to the
-    view-based fallback (``K2_FALLBACK_BATCH``)."""
-    return rows >= K2_FALLBACK_BATCH and x_dtype == w_dtype == torch.bfloat16
-
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def down_splits(device: torch.device, C: int, H: int) -> int:
-    """Splits of H in K2's tensor-core down pass: blocks of 32 output rows x
-    one split, two for every SM (as many as stay resident at once), each
-    split at least one 128-column chunk of H; a third launch adds the
-    splits' partial sums in order."""
-    return max(1, min(H // 128, 2 * _sm_count(device.index) // max(1, C // 32)))
+def k2_schedule(device: torch.device, B: int, C: int, H: int) -> tuple[int, int]:
+    """(groups, splits) of K2's tensor-core passes over B rows. Two blocks
+    an SM stay resident at once. The rows are shared among ``groups`` groups
+    of blocks, each a copy of both passes' grids over at least 8 rows: the
+    most (a power of two) whose gate/value blocks (H / 16 a group) all stay
+    resident, since a second wave costs more than the narrower tiles save.
+    The down pass splits H (``splits``, then a launch adds the partial sums
+    in order) only where a block would otherwise stream more 128-column
+    chunks than a gate/value block does (H > C), into as many splits as
+    keep its blocks (C / 32 x groups x splits) resident. The times it rests
+    on: ``chip_smoke.check_k2``, beside one group and PR 7's splits."""
+    slots = 2 * _sm_count(device.index)
+    groups = 1
+    while 2 * groups <= B // 8 and H // 16 * 2 * groups <= slots:
+        groups *= 2
+    splits = 1 if H <= C else max(1, min(H // 128, slots // (max(1, C // 32) * groups)))
+    return groups, splits
 
 
 # K4/K5's decode envelope: the Pallas docstring's batch-1..64. On the H100

@@ -38,7 +38,7 @@ SIGNATURES = {
     "rvq_encode_scratch_bytes": ([_I] * 5, _LL),
     "depformer_step": ([_P] * 13 + [_I] * 8 + [_F, _P], _I),
     "depformer_step_int8": ([_P] * 18 + [_I] * 8 + [_F, _P], _I),
-    "gating_ffn_step": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    "gating_ffn_step": ([_P] * 6 + [_I] * 7 + [_P], _I),
     "gating_ffn": ([_P] * 6 + [_I] * 6 + [_P], _I),
     "gating_ffn_int8": ([_P] * 9 + [_I] * 5 + [_P], _I),
     "flash_attention_fwd": ([_P] * 6 + [_I] * 6 + [_P], _I),

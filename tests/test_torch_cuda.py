@@ -326,6 +326,29 @@ def test_gating_ffn_step_kernel_matches_plain(cuda, B, x_dtype, w_dtype):
                         lin_out[:, :100].contiguous(), 0)  # C % 8 != 0
 
 
+@pytest.mark.parametrize("schedule", [(1, 1), (1, 6), (2, 1), (4, 2), (8, 3)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_gating_ffn_step_schedules_match_plain(cuda, schedule, x_dtype):
+    """K2 at the flagship codecformer's width (C=1024, H=768) and B=60 (a
+    last group of rows short of its tile) on every (groups, splits) given,
+    and on ``k2_schedule``'s own: each within the route's tolerance of the
+    plain version, and two calls bit for bit."""
+    from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn_step, gating_ffn_step_reference
+
+    S, C, H, B = 4, 1024, 768, 60
+    x = torch.randn((B, C), device="cuda", generator=cuda).to(x_dtype)
+    lin_in = ((torch.rand((S, 2 * H, C), device="cuda", generator=cuda) * 2 - 1)
+              * C**-0.5).bfloat16()
+    lin_out = ((torch.rand((S, C, H), device="cuda", generator=cuda) * 2 - 1)
+               * H**-0.5).bfloat16()
+    want = gating_ffn_step_reference(x, lin_in, lin_out, 2).float()
+    rtol = 1e-4 if x_dtype == torch.float32 else 2.0**-7
+    for sched in (schedule, None):
+        got = gating_ffn_step(x, lin_in, lin_out, 2, schedule=sched)
+        assert torch.equal(got, gating_ffn_step(x, lin_in, lin_out, 2, schedule=sched))
+        torch.testing.assert_close(got.float(), want, rtol=rtol, atol=1e-5)
+
+
 @pytest.mark.parametrize("B", [2, 16, 64])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 def test_gating_ffn_step_kernel_is_bit_identical_across_calls(cuda, B, x_dtype):

@@ -178,3 +178,29 @@ def test_depformer_step_through_k2_matches_jax(monkeypatch, w_dtype):
         ty, tst = tm.step(tst, torch.from_numpy(x[t]))
         np.testing.assert_allclose(_np(ty), _np(jy), rtol=1e-5, atol=1e-5)
     assert calls == [t for t in range(4) for _ in range(2)]  # each layer, each step
+
+
+# (B, C, H) -> K2's (groups, splits) on a card of 132 SMs: Moshi 7B's
+# depformer (C=1024, H=2816) keeps one group (its 176 gate/value blocks
+# already fill the SMs) and splits H eight ways; the flagship codecformer
+# (H=768 <= C) never splits H and shares 16 or more rows among groups of
+# blocks, as many as keep every block resident; K2's CUDA test shape (H > C)
+# splits H too.
+K2_SCHEDULES = {(2, 1024, 2816): (1, 8), (64, 1024, 2816): (1, 8), (2, 1024, 768): (1, 1),
+                (8, 1024, 768): (1, 1), (16, 1024, 768): (2, 1), (64, 1024, 768): (4, 1),
+                (300, 256, 384): (8, 3)}
+
+
+@pytest.mark.parametrize("shape", sorted(K2_SCHEDULES), ids=lambda s: "B%d-C%d-H%d" % s)
+def test_k2_schedule(monkeypatch, shape):
+    """``k2_schedule`` on a 132-SM card: the table above, and in every case
+    at least 8 rows a group and at most two blocks an SM in each pass."""
+    from rstnet_tpu_torch.ops import cuda_ffn
+
+    monkeypatch.setattr(cuda_ffn, "_sm_count", lambda index: 132)
+    B, C, H = shape
+    groups, splits = cuda_ffn.k2_schedule(torch.device("cuda", 0), B, C, H)
+    assert (groups, splits) == K2_SCHEDULES[shape]
+    assert groups == 1 or B // groups >= 8
+    assert groups == 1 or H // 16 * groups <= 2 * 132
+    assert splits == 1 or C // 32 * groups * splits <= 2 * 132

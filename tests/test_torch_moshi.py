@@ -249,28 +249,25 @@ def test_server_options_not_ported_raise():
             main(flag)
 
 
-# the per-step FFN's fallback cases at T == 1: (rows, dim_feedforward, int8,
-# dtype). dim_feedforward 192 gives a gating hidden of 128 (on K2's grid),
-# 160 one of 106 (off it); int8 weights never take K2, nor does a bf16 x over
-# bf16 weights from K2_FALLBACK_BATCH rows up.
-STEP_FFN_FALLBACKS = {"batch_bound": (None, 192, False, "bf16"),
+# the per-step FFN's cases at T == 1 that K2 does not take: (rows,
+# dim_feedforward, int8, dtype). dim_feedforward 192 gives a gating hidden of
+# 128 (on K2's grid), 160 one of 106 (off it); int8 weights never take K2.
+STEP_FFN_FALLBACKS = {"off_grid_bf16": (64, 160, False, "bf16"),
                       "off_grid": (3, 160, False, "f32"), "int8": (3, 192, True, "f32")}
 
 
 @pytest.mark.parametrize("case", sorted(STEP_FFN_FALLBACKS))
 def test_step_ffn_fallback_matches_jax_ffn(monkeypatch, case):
     """The depformer's per-step FFN at T == 1 where K2's route does not take
-    it: a bf16 x over bf16 weights of ``K2_FALLBACK_BATCH`` rows, a hidden
-    off the 128 grid, int8 weights. The view-based fallback
-    (``step_gated_ffn``) against the JAX ``_ffn`` (its einsum branch:
-    ``use_pallas_ffn`` is off without a TPU), at steps inside and past
+    it: a hidden off the 128 grid (bf16 at 64 rows, f32), int8 weights. The
+    view-based fallback (``step_gated_ffn``) against the JAX ``_ffn`` (its
+    einsum branch: ``use_pallas_ffn`` is off without a TPU), at steps inside and past
     [0, S): float32 within 1e-5 (the same float32 math summed in another
     order); bf16 within 2e-2 of the output's scale (both sides round the
     gate, the value and the hidden to bf16, from sums in other orders)."""
     import rstnet_tpu_torch.modules.transformer as tmod
     from rstnet_tpu.modules.transformer import StreamingTransformer as JT
     from rstnet_tpu.modules.transformer import quantize_transformer_int8 as jax_quantize
-    from rstnet_tpu_torch.ops.cuda_ffn import K2_FALLBACK_BATCH
 
     rows, ff, int8, dtype = STEP_FFN_FALLBACKS[case]
     jdtype, tdtype = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32,
@@ -289,8 +286,7 @@ def test_step_ffn_fallback_matches_jax_ffn(monkeypatch, case):
     real = tmod.step_gated_ffn
     monkeypatch.setattr(tmod, "step_gated_ffn", lambda *a: calls.append(a[3]) or real(*a))
     monkeypatch.setattr(tmod, "gating_ffn_step", None)  # K2's route must not be taken
-    x = jnp.asarray(np.random.default_rng(10).normal(size=(rows or K2_FALLBACK_BATCH, 1, 128)),
-                    jdtype)
+    x = jnp.asarray(np.random.default_rng(10).normal(size=(rows, 1, 128)), jdtype)
     for offset in (0, 3, 6):
         want = jm._ffn(layer, x, offset)
         got = tm._ffn(0, torch.from_numpy(np.asarray(x.astype(jnp.float32))).to(tdtype), offset)

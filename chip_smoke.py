@@ -36,7 +36,20 @@ Phases (each prints its findings; any failure exits non-zero):
    the server's ``--int8`` does, with an int8 ring (``--kv-int8``), through
    both again. Each path's kernel launches are counted from zero just
    before it runs and read just after; two more ticks of each batched path
-   run under ``torch.profiler`` (device busy and K2's time a tick);
+   run under ``torch.profiler`` (device busy and K2's time a tick). These
+   paths run eagerly (``cuda_graphs=False``). Between the bf16 and the int8
+   runs, the same steps as CUDA graph replays (``serving/graphs.py``), each
+   against an eager run of the same greedy model on the same frames (text
+   tokens equal, audio within ``SLICE_AUDIO_TOL``): paths
+   ``solo_frame_graph`` and ``solo_scan_4`` (a ``ServerState`` with
+   ``scan_frames`` 4: ``--frames`` single frames, then 4 scans of 4) and
+   ``batched_tick_graph`` (``--sessions`` sessions). A graph step's
+   warm-up call, capture and first replays run under
+   ``torch.cuda.set_sync_debug_mode("error")``; the host counters count
+   the warm-up call and the capture, and one replay's launches are counted
+   by name from ``torch.profiler``'s device events (``CALL_KERNELS``);
+   each path reports graph and eager p50/p99, device busy share, capture
+   time and peak memory;
 6. training: K6 (flash attention: the forward and the one-launch backward,
    GQA inside the kernels) against its plain versions at the training shapes
    (H=32 over 8 KV heads, T=1024, D=64; causal and a 256 window; B=2 and the
@@ -73,14 +86,20 @@ Phases (each prints its findings; any failure exits non-zero):
    ``quantize_for_serving`` with an int8 ring (paths
    ``speech_frame_head_int8``, ``speech_frame_mixed_int8``,
    ``speech_frame_int8``); each path's frames or ticks timed on the host
-   clock, and 4 frames or 2 ticks more under ``torch.profiler``.
+   clock, and 4 frames or 2 ticks more under ``torch.profiler``. As CUDA
+   graph replays against the eager runs, as in phase 5: the flagship's
+   ``LMGen.step`` at B=1 in bf16 (path ``speech_frame_graph``, a
+   ``CapturedStep``) and the batched speech tick at 16 sessions (path
+   ``speech_batched_tick_16_graph``).
 
 Every phase prints its wall time.
 
 Kernel times are device times: a device sleep holds the stream while the
 host enqueues the timed calls, so the host's launch cost is not in them.
 The line before the last is the card's ``nvidia-smi`` name and power limit
-again, before it a ``{"kernels": [...]}`` JSON line, and the last line is
+again, before it a ``{"kernels": [...]}`` JSON line (a graph path's
+launches of one replay under ``replay_launches_by_path``), before that the
+graph paths' readings as ``{"graph_paths": ...}``, and the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result. Imports nothing of JAX.
 """
@@ -909,7 +928,7 @@ def check_small_slice(seed: int, n_frames: int = 6, int8: bool = False) -> None:
     frames = np.random.default_rng(seed).normal(0, 0.1, (n_frames, 1920)).astype(np.float32)
     runs = {}
     for device in ("cpu", "cuda"):
-        state = ServerState(*_small_models(device, seed, int8), seed=seed)
+        state = ServerState(*_small_models(device, seed, int8), seed=seed, cuda_graphs=False)
         forced = None if device == "cpu" else [tok for _, tok in runs["cpu"][0]]
         reset_counts()
         with recorded_sampling(forced) as record:
@@ -947,7 +966,8 @@ def check_small_batched_slice(seed: int, sessions: int = 4, n_ticks: int = 6) ->
     runs = {}
     for device in ("cpu", "cuda"):
         mimi, gen = _small_models(device, seed)
-        batcher = SessionBatcher(mimi, gen, max_sessions=sessions, dtype=torch.float32, seed=seed)
+        batcher = SessionBatcher(mimi, gen, max_sessions=sessions, dtype=torch.float32, seed=seed,
+                                 cuda_graphs=False)
         active = [batcher.acquire() for _ in range(sessions)]
         forced = None if device == "cpu" else [tok for _, tok in runs["cpu"][0]]
         reset_counts()
@@ -1054,7 +1074,7 @@ def run_full_slice(mimi, lm_gen, seed: int, n_frames: int, card: str, path: str,
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    state = ServerState(mimi, lm_gen, seed=seed)
+    state = ServerState(mimi, lm_gen, seed=seed, cuda_graphs=False)
     state.warmup()
     torch.cuda.synchronize()
     log(f"{path}: warmed up in {time.perf_counter() - t0:.1f} s")
@@ -1097,7 +1117,7 @@ def run_full_batched_slice(mimi, lm_gen, seed: int, sessions: int, n_ticks: int,
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    batcher = SessionBatcher(mimi, lm_gen, max_sessions=sessions, seed=seed)
+    batcher = SessionBatcher(mimi, lm_gen, max_sessions=sessions, seed=seed, cuda_graphs=False)
     batcher.warmup()
     active = [batcher.acquire() for _ in range(sessions)]
     torch.cuda.synchronize()
@@ -1394,7 +1414,7 @@ def run_speech_batched_tick(mimi, model, seed: int, sessions: int, n_ticks: int,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    batcher = SessionBatcher(mimi, gen, max_sessions=sessions, seed=seed)
+    batcher = SessionBatcher(mimi, gen, max_sessions=sessions, seed=seed, cuda_graphs=False)
     active = [batcher.acquire() for _ in range(sessions)]
     frame, warm = batcher.frame_size, 3
     signals = np.stack([_signal(seed + i, (warm + n_ticks + 2) * frame, 110.0 + 20.0 * i)
@@ -1452,6 +1472,346 @@ def run_speech_batched_tick(mimi, model, seed: int, sessions: int, n_ticks: int,
                                    K4_KERNEL_NAMES)
     log(f"{path} profiler over 2 ticks: device busy {busy / 2:.3f} ms a tick, K4 {k4_ms / 2:.3f} "
         f"ms a tick ({cfg.n_layer} calls at N={sessions}) [{card}]")
+    return counts
+
+
+def check_graph_launches(g, card: str) -> dict:
+    """Each serving kernel at a main path's shape, its device time launched
+    eagerly and as a replay of a CUDA graph that holds one call (K1 and K3
+    are cooperative launches, K2's and K4's passes programmatic dependent
+    launches): a launch that the capture kept as it is costs no more in a
+    replay, and a programmatic pair that became a full dependency would cost
+    more. Each replay's outputs equal the eager call's, bit for bit.
+    Returns {kernel: (eager ms, replay ms)}."""
+    from rstnet_tpu_torch.ops.cuda_depformer import depformer_step
+    from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn, gating_ffn_step
+    from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode
+    from rstnet_tpu_torch.serving.graphs import CapturedStep
+
+    ops, xs, d = _k1_operands(g)
+    kc = torch.zeros((d["L"], d["S"], d["C"]), device="cuda")
+    k1 = [ops[k] for k in ("norm1", "in_proj", "out_proj", "norm2", "gin", "gout", "head_w",
+                           "head_b")]
+
+    def uni(*shape):
+        return (torch.rand(shape, device="cuda", generator=g) * 2 - 1) * shape[-1] ** -0.5
+
+    cases = {
+        "depformer_step": (lambda x, *a: depformer_step(x, 3, *a, heads=16)[0],
+                           (xs[3], *k1, kc, kc.clone())),
+        "gating_ffn_step": (lambda x, a, b: gating_ffn_step(x, a, b, 5),
+                            (torch.randn((16, 1024), device="cuda", generator=g).bfloat16(),
+                             uni(8, 2 * 2816, 1024).bfloat16(), uni(8, 1024, 2816).bfloat16())),
+        "rvq_encode": (rvq_encode, (torch.randn((1, 256), device="cuda", generator=g),
+                                    torch.randn((7, 2048, 256), device="cuda", generator=g))),
+        "gating_ffn": (gating_ffn, (torch.randn((1, 2048), device="cuda", generator=g).bfloat16(),
+                                    uni(8192, 2048).bfloat16(), uni(8192, 2048).bfloat16(),
+                                    uni(2048, 8192).bfloat16())),
+    }
+    times = {}
+    for name, (fn, inputs) in cases.items():
+        want = fn(*inputs)
+        step = CapturedStep(lambda st, *ins, fn=fn: (fn(*ins), st), {}, inputs, name=name)
+        step()
+        got = step()
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: a graph replay differs from the eager call")
+        times[name] = (time_ms(lambda: fn(*inputs), 30), time_ms(step, 30))
+    log("kernels in a CUDA graph (one call a graph; device ms a call, eager / replay): "
+        + ", ".join(f"{k} {e:.4f} / {r:.4f}" for k, (e, r) in times.items()) + f" [{card}]")
+    return times
+
+
+# -- the serving steps as CUDA graphs ------------------------------------------
+
+# the device kernel that each call of a wrapper launches exactly once (a
+# wrapper's other kernels launch once or not at all), by the launch counter
+# the call also counts in: how the launches of a graph replay, which no
+# wrapper sees, are counted from the profiler's device events
+CALL_KERNELS = {"depformer_step": ("dep_step_kernel",),
+                "rvq_encode": ("rvq_split_kernel", "rvq_tiled_kernel"),
+                "gating_ffn_step": ("down_mma", "down_kernel"),
+                "gating_ffn": ("down_tc", "core_down")}
+
+
+def replay_launches(fn) -> dict:
+    """Each wrapper's kernel calls in one ``fn()``, counted by name from
+    ``torch.profiler``'s device events."""
+    from rstnet_tpu_torch.tools.profile_frame import device_events
+
+    names = device_events(fn)
+    return {k: sum(any(p in n for p in pats) for n in names) for k, pats in CALL_KERNELS.items()}
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Fail on any operation that waits for the device on the host (a
+    ``.item()``, a pageable copy, a synchronize) inside the block."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _check_replays(path: str, got: dict, want: dict) -> None:
+    if any(got[k] != n for k, n in want.items()) or any(
+            got[k] for k in got if k not in want):
+        raise AssertionError(f"{path}: one replay launched {got}, expected {want}")
+
+
+def _graph_record(path, times, eager_times, busy_ms, wall_ms, peak, capture_ms, replays,
+                  card, unit="frame") -> dict:
+    ts, es = sorted(times), sorted(eager_times)
+
+    def p(xs, q):
+        return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+    rec = {"p50_ms": p(ts, 0.5), "p99_ms": p(ts, 0.99), "eager_p50_ms": p(es, 0.5),
+           "eager_p99_ms": p(es, 0.99), "device_busy_ms": busy_ms,
+           "busy_share": busy_ms / wall_ms if wall_ms else None, "peak_gib": peak,
+           "capture_ms": capture_ms, "replay_launches": replays}
+    log(f"{path}: graph {_percentiles(times)}, eager {_percentiles(eager_times)} a {unit} "
+        f"(host clock, {len(times)} {unit}s each); device busy {busy_ms:.3f} ms a {unit}, "
+        f"{100 * (rec['busy_share'] or 0):.1f} % of the wall; capture {capture_ms:.1f} ms; "
+        f"peak memory {peak:.2f} GiB; one replay launches {replays} [{card}]")
+    return rec
+
+
+def run_graph_solo(mimi, lm_gen, seed: int, n_frames: int, n_scans: int, card: str,
+                   graphs: dict) -> tuple[dict, dict]:
+    """Paths ``solo_frame_graph`` and ``solo_scan_4``: a ``ServerState``
+    (greedy, ``scan_frames`` 4) whose frame and scan are CUDA graph replays,
+    against an eager one on the same frames: ``n_frames`` single frames,
+    then ``n_scans`` scans of 4, text tokens equal and audio within
+    ``SLICE_AUDIO_TOL``. The graph state's first frames and scans (each
+    step's warm-up call, its capture and its first replays) run under
+    ``no_host_sync``. Host counters count the warm-up and the capture; one
+    replay's launches are counted by the profiler. Returns the two paths'
+    host counts; ``graphs`` gets each path's readings."""
+    from rstnet_tpu_torch.serving.server import ServerState
+
+    greedy = dataclasses.replace(lm_gen, use_sampling=False)
+    sf, fs, max_delay = 4, mimi.frame_size, lm_gen.max_delay
+    pcm = _signal(seed + 7, (n_frames + sf * n_scans) * fs).reshape(-1, fs)
+    frames, blocks = pcm[:n_frames], pcm[n_frames:].reshape(n_scans, sf * fs)
+
+    def drive(state):
+        toks, audio, frame_ms, scan_ms = [], [], [], []
+        torch.cuda.synchronize()
+        for x in frames:
+            t0 = time.perf_counter()
+            a, tok = state.handle_frame_array(x)
+            torch.cuda.synchronize()  # a warmup frame reads nothing back
+            frame_ms.append((time.perf_counter() - t0) * 1000)
+            toks.append(tok)
+            audio.append(a)
+        for x in blocks:
+            t0 = time.perf_counter()
+            a, tk = state.handle_frames_array(x)
+            torch.cuda.synchronize()
+            scan_ms.append((time.perf_counter() - t0) * 1000)
+            toks.extend(tk)
+            audio.append(a)
+        return toks, audio, frame_ms, scan_ms
+
+    eager = ServerState(mimi, greedy, seed=seed, scan_frames=sf, cuda_graphs=False)
+    eager.warmup()
+    e_toks, e_audio, e_frame_ms, e_scan_ms = drive(eager)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state = ServerState(mimi, greedy, seed=seed, scan_frames=sf)
+    with no_host_sync():
+        for _ in range(max_delay + 2):  # warm-up, capture + replay, replays
+            state._run(np.zeros(fs, np.float32), 0)
+    frame_counts = read_counts()
+    reset_counts()
+    with no_host_sync():  # past the delay warmup: every frame of a scan is valid
+        for _ in range(3):
+            state._run(np.zeros(sf * fs, np.float32), sf)
+    scan_counts = read_counts()
+    state.reset()
+    g_toks, g_audio, frame_ms, scan_ms = drive(state)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if g_toks != e_toks:
+        raise AssertionError(f"graph tokens differ from eager: {g_toks} vs {e_toks}")
+    err = max(float(np.abs(a - b).max()) for a, b in zip(g_audio, e_audio) if a is not None)
+    if not err <= SLICE_AUDIO_TOL:
+        raise AssertionError(f"graph audio differs from eager by {err}")
+    log(f"solo graph: {len(g_toks)} text tokens equal to the eager frames' and scans'; audio "
+        f"max |graph - eager| {err:.3g}")
+    caps = {k: g.capture_ms for k, g in state.graphs().items()}
+    none = dict.fromkeys(_counters(), 0)
+    for counts, want, what in (
+            (frame_counts, {**none, "depformer_step": 16, "rvq_encode": 4}, "frame"),
+            (scan_counts, {**none, "depformer_step": 16 * sf, "rvq_encode": 4}, "scan")):
+        if counts != want:  # the warm-up call and the capture, not the replays
+            raise AssertionError(f"solo {what} graph: host launches {counts}, expected {want}")
+    frame_rep = replay_launches(lambda: state._run(frames[-1], 0))
+    _check_replays("solo_frame_graph", frame_rep, {"depformer_step": 8, "rvq_encode": 2})
+    scan_rep = replay_launches(lambda: state._run(blocks[-1], sf))
+    _check_replays("solo_scan_4", scan_rep, {"depformer_step": 8 * sf, "rvq_encode": 2})
+    from rstnet_tpu_torch.tools.profile_frame import device_profile
+
+    fprof = device_profile(state.handle_frame_array, frames[:4])
+    sprof = device_profile(state.handle_frames_array, blocks[:2])
+    graphs["solo_frame_graph"] = _graph_record(
+        "solo_frame_graph", frame_ms, e_frame_ms, fprof.get("device_ms", 0) / 4,
+        fprof["wall_ms"] / 4, peak, caps["frame"], frame_rep, card)
+    graphs["solo_scan_4"] = _graph_record(
+        "solo_scan_4", scan_ms, e_scan_ms, sprof.get("device_ms", 0) / 2, sprof["wall_ms"] / 2,
+        peak, caps[f"scan_{sf}"], scan_rep, card, unit="scan")
+    graphs["solo_scan_4"]["amortized_ms_a_frame"] = graphs["solo_scan_4"]["p50_ms"] / sf
+    log(f"solo_scan_4: {graphs['solo_scan_4']['p50_ms'] / sf:.2f} ms a frame amortized (p50 "
+        f"scan / {sf}), against {graphs['solo_frame_graph']['p50_ms']:.2f} ms a graph frame "
+        f"[{card}]")
+    del state
+    return frame_counts, scan_counts
+
+
+def run_graph_batched(mimi, gen, seed: int, sessions: int, n_ticks: int, card: str, path: str,
+                      per_tick: dict, graphs: dict) -> dict:
+    """Path ``path``: ``SessionBatcher`` ticks as CUDA graph replays
+    against eager ticks of another batcher over the same weights and
+    signals, one batcher at a time: 3 silent ticks before the sessions join
+    (the graph batcher's warm-up call, capture and first replay, under
+    ``no_host_sync``), then ``n_ticks`` ticks of ``sessions`` sessions whose
+    text tokens must be equal and audio within ``SLICE_AUDIO_TOL``.
+    ``per_tick``: each wrapper's calls in one tick. Returns the graph
+    batcher's host counts (its warm-up call and capture)."""
+    from rstnet_tpu_torch.serving.batcher import SessionBatcher
+
+    gen = dataclasses.replace(gen, use_sampling=False)
+    fs = mimi.frame_size
+    signals = np.stack([_signal(seed + i, n_ticks * fs, 110.0 + 20.0 * i)
+                        for i in range(sessions)]).reshape(sessions, n_ticks, fs)
+    zero = np.zeros((sessions, 1, fs), np.float32)
+    runs = {}
+    for graphed in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        b = SessionBatcher(mimi, gen, max_sessions=sessions, seed=seed, cuda_graphs=graphed)
+        with no_host_sync() if graphed else contextlib.nullcontext():
+            for _ in range(3):
+                b._tick(zero)
+        counts = read_counts()
+        active = [b.acquire() for _ in range(sessions)]
+        times = []
+        for t in range(n_ticks):
+            for i, sess in enumerate(active):
+                sess.inputs.put_nowait(signals[i, t])
+            t0 = time.perf_counter()
+            b.step_once()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1000)
+        got = [[sess.outputs.get_nowait() for _ in range(sess.outputs.qsize())]
+               for sess in active]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs[graphed] = (got, times)
+        if not graphed:
+            del b
+            continue
+        rep = replay_launches(lambda: b._tick(zero))
+        _check_replays(path, rep, {k: v for k, v in per_tick.items() if v})
+
+        def ticks(_):
+            for i, sess in enumerate(active):
+                sess.inputs.put_nowait(signals[i, -1])
+            b.step_once()
+
+        from rstnet_tpu_torch.tools.profile_frame import device_profile
+
+        prof = device_profile(ticks, range(2))
+        want = {k: 2 * v for k, v in per_tick.items()}
+        if counts != {**dict.fromkeys(_counters(), 0), **want}:
+            raise AssertionError(f"{path}: host launches {counts}, expected {want} (the warm-up "
+                                 f"call and the capture)")
+        graphs[path] = _graph_record(path, times, runs[False][1],
+                                     prof.get("device_ms", 0) / 2, prof["wall_ms"] / 2, peak,
+                                     b._graph.capture_ms, rep, card, unit="tick")
+        del b
+    (e_got, _), (g_got, _) = runs[False], runs[True]
+    err = 0.0
+    for i, (e, g) in enumerate(zip(e_got, g_got)):
+        if len(e) != len(g) or not e or [t for _, t in e] != [t for _, t in g]:
+            raise AssertionError(f"{path} session {i}: graph tokens {[t for _, t in g]} vs "
+                                 f"eager {[t for _, t in e]}")
+        err = max(err, max(float(np.abs(a - c).max()) for (a, _), (c, _) in zip(e, g)))
+    if not err <= SLICE_AUDIO_TOL:
+        raise AssertionError(f"{path}: graph audio differs from eager by {err}")
+    log(f"{path}: {sessions} sessions x {len(g_got[0])} frames, text tokens equal to the eager "
+        f"ticks'; audio max |graph - eager| {err:.3g}")
+    return counts
+
+
+def run_speech_graph(model, seed: int, n_frames: int, card: str, graphs: dict) -> dict:
+    """Path ``speech_frame_graph``: the flagship's ``LMGen.step`` at B=1
+    (bf16, greedy) captured as a CUDA graph (``CapturedStep``) and replayed,
+    against the eager step on the same state: 2 warm-up frames and
+    ``n_frames`` more, tokens equal. The graph's warm-up call, capture and
+    first two replays run under ``no_host_sync``. Returns the host counts
+    (the warm-up call and the capture)."""
+    from rstnet_tpu_torch.inference.generate import LMGen
+    from rstnet_tpu_torch.serving.graphs import CapturedStep
+    from rstnet_tpu_torch.tools.profile_frame import device_profile
+
+    gen = LMGen(model, delays=(0,) + (1,) * model.config.n_q, use_sampling=False,
+                kv_unstacked=True)
+    total = 2 + n_frames
+    state = gen.init_state(1, device="cuda")
+    e_toks, e_ms = [], []
+    for t in range(total):
+        t0 = time.perf_counter()
+        out, _, state = gen.step(state, None)
+        e_toks.append(out.cpu())
+        if t >= 2:
+            e_ms.append((time.perf_counter() - t0) * 1000)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+
+    def frame(st):
+        out, valid, st = gen.step(st, None)
+        return (out, valid), st
+
+    step = CapturedStep(frame, gen.init_state(1, device="cuda"), name="speech frame")
+    outs = []
+    with no_host_sync():
+        for _ in range(4):  # warm-up, capture + replay, 2 replays
+            outs.append(step()[0].clone())
+    counts = read_counts()
+    g_toks = [o.cpu() for o in outs]
+    ms = []
+    for _ in range(total - 4):
+        t0 = time.perf_counter()
+        g_toks.append(step()[0].cpu())
+        ms.append((time.perf_counter() - t0) * 1000)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for t, (e, g) in enumerate(zip(e_toks, g_toks)):
+        if not torch.equal(e, g):
+            raise AssertionError(f"speech_frame_graph frame {t}: graph {g[0, :, 0].tolist()} vs "
+                                 f"eager {e[0, :, 0].tolist()}")
+    log(f"speech_frame_graph: {total} frames, tokens equal to the eager step's")
+    L = model.config.n_layer
+    want = {**dict.fromkeys(_counters(), 0), "gating_ffn": 2 * L, "depformer_step": 16}
+    if counts != want:
+        raise AssertionError(f"speech_frame_graph: host launches {counts}, expected {want}")
+    rep = replay_launches(step)
+    _check_replays("speech_frame_graph", rep, {"gating_ffn": L, "depformer_step": 8})
+    prof = device_profile(lambda _: step()[0].cpu(), range(4))
+    graphs["speech_frame_graph"] = _graph_record(
+        "speech_frame_graph", ms, e_ms[-len(ms):], prof.get("device_ms", 0) / 4,
+        prof["wall_ms"] / 4, peak, step.capture_ms, rep, card)
     return counts
 
 
@@ -2068,6 +2428,7 @@ def main(argv=None) -> int:
         kernels = [check_k1(g, card), check_k1(g, card, int8=True),
                    check_k2(g, card, args.sessions), check_k3(g, card, args.sessions),
                    *check_k6(g, card), *check_k4_k5(g, card)]
+        check_graph_launches(g, card)
     with phase("small slices"):
         check_small_slice(args.seed)
         check_small_slice(args.seed, int8=True)
@@ -2098,6 +2459,14 @@ def main(argv=None) -> int:
         paths["batched_tick"] = run_full_batched_slice(
             mimi, lm_gen, args.seed, args.sessions, ticks, card, "full batched slice",
             {**none, "gating_ffn_step": 8 * layers * ticks, "rvq_encode": 2 * ticks})
+    graphs = {}
+    with phase("full solo graph"):
+        paths["solo_frame_graph"], paths["solo_scan_4"] = run_graph_solo(
+            mimi, lm_gen, args.seed, n, 4, card, graphs)
+    with phase("full batched graph"):
+        paths["batched_tick_graph"] = run_graph_batched(
+            mimi, lm_gen, args.seed, args.sessions, ticks, card, "batched_tick_graph",
+            {"gating_ffn_step": 8 * layers, "rvq_encode": 2}, graphs)
     with phase("int8 quantization"):
         from rstnet_tpu_torch.serving.server import quantize_for_serving
 
@@ -2130,13 +2499,23 @@ def main(argv=None) -> int:
         paths["speech_frame"] = run_speech_slice(
             flagship, args.seed, n, card, "speech_frame (bf16)",
             {**none, "gating_ffn": L * n, "depformer_step": 8 * n})
+    with phase("flagship graph frames"):
+        paths["speech_frame_graph"] = run_speech_graph(flagship, args.seed, n, card, graphs)
     with phase("speech batched tick"):
         mimi24 = build_mimi(args.seed)
         for sessions in (16, 64):
             paths[f"speech_batched_tick_{sessions}"] = run_speech_batched_tick(
                 mimi24, flagship, args.seed, sessions, 8, card,
                 f"speech_batched_tick_{sessions} (bf16, --kv-int8)")
-        del mimi24
+    with phase("speech batched tick graph"):
+        from rstnet_tpu_torch.inference.generate import LMGen
+
+        speech_gen = LMGen(flagship, delays=(0,) + (1,) * flagship.config.n_q, kv_int8=True,
+                           kv_unstacked=True)
+        paths["speech_batched_tick_16_graph"] = run_graph_batched(
+            mimi24, speech_gen, args.seed, 16, 8, card, "speech_batched_tick_16_graph",
+            {k: v for k, v in speech_tick_expected(flagship, 1).items() if v}, graphs)
+        del mimi24, speech_gen
     with phase("flagship head-int8 frames"):
         quantize_head_for_serving(flagship)
         paths["speech_frame_head_int8"] = run_speech_slice(
@@ -2164,6 +2543,11 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches_by_path"] = {p: counts[k["name"]] for p, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
+        # a graph path's launches of one replay, counted by the profiler
+        k["replay_launches_by_path"] = {
+            p: rec["replay_launches"].get(k["name"], 0) for p, rec in graphs.items()
+            if rec["replay_launches"].get(k["name"], 0)}
+    log(json.dumps({"graph_paths": graphs}))
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s wall")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

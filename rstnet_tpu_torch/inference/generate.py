@@ -16,7 +16,14 @@ at batch > 1, they run the model's ``step_codecformer``. Unlike the JAX
 wherever the shapes allow.
 K1's operands are taken from the weights at every frame, as JAX does, so an
 in-place change of the weights (padding, int8 quantization) reaches the
-kernel. ``step_scan`` (several frames per call) is not ported yet.
+kernel. ``step_scan`` runs N frames per call, as N ``step`` calls.
+
+The frame reads nothing back to the host: the state's ``offset`` is a 0-dim
+device tensor, and the delays, the user-stream rows and the initial frame
+are device tensors built once per device and batch size. So a frame, or N
+of them, can be captured as one CUDA graph and replayed
+(``serving/graphs.py``), the counterpart of the JAX package's one jitted
+dispatch per frame.
 """
 
 from __future__ import annotations
@@ -47,6 +54,9 @@ class LMGen:
     # one ring per layer instead of stacked [L, ...] buffers (the model's
     # init_state; the same values either way)
     kv_unstacked: bool = False
+    # device constants by (device, batch): built outside any graph capture
+    _consts: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                      compare=False)
 
     def __post_init__(self):
         if not self.delays:
@@ -67,12 +77,30 @@ class LMGen:
         """Streams supplied by the caller (8 for duplex Moshi configs)."""
         return self.model.num_codebooks - self.model.config.dep_q - 1
 
+    def _constants(self, device, batch_size: int) -> dict:
+        """The frame's constant tensors on ``device``: the delays, the rows of
+        the user streams and the initial frame ``[B, K]``. Built at the first
+        call for a device and batch size (``init_state`` makes it), so a frame
+        copies nothing from the host."""
+        key = (device, batch_size)
+        if key not in self._consts:
+            dep_q = self.model.config.dep_q
+            self._consts[key] = {
+                "delays": torch.tensor(self.delays, dtype=torch.long, device=device),
+                "user_rows": torch.arange(self.num_user_streams, device=device) + dep_q + 1,
+                "initial": self.model.initial_frame(batch_size, device)[:, :, 0].long(),
+            }
+        return self._consts[key]
+
     def init_state(self, batch_size: int, dtype=torch.bfloat16, device=None) -> dict:
         K = self.model.num_codebooks
+        cache = torch.full((batch_size, K, self.cache_len), UNGENERATED_TOKEN_ID,
+                           dtype=torch.long, device=device)
+        self._constants(cache.device, batch_size)
         return {
-            "cache": torch.full((batch_size, K, self.cache_len), UNGENERATED_TOKEN_ID,
-                                dtype=torch.long, device=device),
-            "offset": 0,
+            "cache": cache,
+            # a device scalar, so the frame never reads it back
+            "offset": torch.zeros((), dtype=torch.long, device=device),
             # per-slot frame count: bounds the slot's attention lookback
             # (min_pos) and drives its own delay warmup
             "age": torch.zeros((batch_size,), dtype=torch.long, device=device),
@@ -101,21 +129,22 @@ class LMGen:
         cache, offset, age = state["cache"], state["offset"], state["age"]
         B, K, CT = cache.shape
         device = cache.device
-        delays = torch.tensor(self.delays, dtype=torch.long, device=device)
+        consts = self._constants(device, B)
+        delays = consts["delays"]
 
         # 1. write user streams at their delayed positions
         if self.num_user_streams:
             if input_tokens is None or input_tokens.shape[1] != self.num_user_streams:
                 raise ValueError(f"expected [B, {self.num_user_streams}, 1] user tokens")
-            ks = torch.arange(self.num_user_streams, device=device) + cfg.dep_q + 1
+            ks = consts["user_rows"]
             cache[:, ks, (offset + delays[ks]) % CT] = input_tokens[:, :, 0].long()
 
         # 2. at the start of a slot's session, delayed streams read the initial token
-        position = offset % CT
-        initial = model.initial_frame(B, device)[:, :, 0]
+        position = (offset % CT).reshape(1)
         use_initial = age[:, None] <= delays[None, :]
-        current = torch.where(use_initial, initial, cache[:, :, position])
-        cache[:, :, position] = current
+        current = torch.where(use_initial, consts["initial"],
+                              cache.index_select(2, position)[:, :, 0])
+        cache.index_copy_(2, position, current[:, :, None])
 
         # 3. backbone step; min_pos hides ring keys from before each slot's session
         hidden, text_logits, state["lm"] = model.step_global(
@@ -154,11 +183,11 @@ class LMGen:
         audio = torch.stack(audio_tokens, dim=1)  # [B, dep_q]
 
         # 5. write the generated tokens at the next position
-        offset += 1
+        offset = offset + 1
         age += 1
-        position = offset % CT
-        cache[:, 0, position] = text_token
-        cache[:, 1 : cfg.dep_q + 1, position] = audio
+        position = (offset % CT).reshape(1)
+        generated = torch.cat([text_token[:, None], audio], dim=1)  # [B, dep_q + 1]
+        cache[:, : cfg.dep_q + 1].index_copy_(2, position, generated[:, :, None])
 
         # 6. gather the delayed output frame
         index = (offset - self.max_delay + delays[: cfg.dep_q + 1]) % CT
@@ -166,3 +195,27 @@ class LMGen:
             2, index[None, :, None].expand(B, cfg.dep_q + 1, 1))
         state["offset"] = offset
         return out, age > self.max_delay, state
+
+    def step_scan(self, state: dict, generator: torch.Generator | None,
+                  input_tokens: torch.Tensor | None = None, n_frames: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+        """N frame steps in one call (the JAX ``lax.scan`` over :meth:`step`).
+
+        input_tokens: [B, num_user_streams, N] (or None when there are no user
+        streams, with ``n_frames`` giving N). Returns (frames [B, dep_q+1, N],
+        valid [B, N], state), token-identical to N :meth:`step` calls drawing
+        from the same generator. The frames are unrolled, so a CUDA graph of
+        the call replays all N with one launch."""
+        if input_tokens is not None:
+            n = input_tokens.shape[-1]
+        elif n_frames is None:
+            raise ValueError("n_frames is required without user streams")
+        else:
+            n = n_frames
+        outs, valids = [], []
+        for t in range(n):
+            tokens = None if input_tokens is None else input_tokens[:, :, t : t + 1]
+            out, valid, state = self.step(state, generator, tokens)
+            outs.append(out[:, :, 0])
+            valids.append(valid)
+        return torch.stack(outs, dim=2), torch.stack(valids, dim=1), state

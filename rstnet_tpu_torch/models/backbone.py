@@ -365,7 +365,8 @@ class Backbone(nn.Module):
             kv = [ring_kv_buffers(shape, dtype, device, kv_int8) for _ in range(cfg.n_layer)]
         else:
             kv = ring_kv_buffers((cfg.n_layer, *shape), dtype, device, kv_int8)
-        return {"kv": kv, "offset": 0}
+        # a device scalar: the step reads nothing back (CUDA-graph capturable)
+        return {"kv": kv, "offset": torch.zeros((), dtype=torch.long, device=device)}
 
     def step(self, state: dict, x: torch.Tensor, min_pos: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, dict]:

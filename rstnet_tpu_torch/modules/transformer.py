@@ -5,7 +5,11 @@ Layer parameters stay stacked along a leading layer axis, as in the JAX
 pytree (``layers.in_proj`` is ``[L, mult*3*d, d]``); the layer loop slices
 them. ``weights_per_step > 0`` gives every time step its own projections and
 FFN (the depth transformer over codebooks). Streaming state is
-``{"kv": ring buffers, "offset": int}``; ``step`` writes the ring in place.
+``{"kv": ring buffers, "offset": ...}``; ``step`` writes the ring in place.
+The offset is a 0-dim int64 tensor on the state's device, so a step reads
+nothing back to the host and a CUDA graph can replay it; with per-step
+weights it is a Python int instead, since there it is the codebook index
+that selects the step's weights.
 
 A per-step FFN at T == 1 inside K2's envelope (plain weights, hidden and
 d_model multiples of 128, SiLU gating) goes through
@@ -351,14 +355,17 @@ class StreamingTransformer(nn.Module):
         """Ring of ``context + chunk_size - 1`` slots, so the earliest query
         of a chunk still sees its full window. ``kv_unstacked`` keeps one
         ring per layer instead of a stacked ``[L, ...]`` pair; ``kv_int8``
-        stores K/V as int8 codes with per-step scales."""
+        stores K/V as int8 codes with per-step scales. The offset is a 0-dim
+        int64 tensor on ``device``, or the int 0 with per-step weights (the
+        step index selects weights on the host)."""
         cap = self.kv_capacity + chunk_size - 1
         shape = (batch_size, self.num_heads, cap, self.head_dim)
         if kv_unstacked:
             kv = [ring_kv_buffers(shape, dtype, device, kv_int8) for _ in range(self.num_layers)]
         else:
             kv = ring_kv_buffers((self.num_layers, *shape), dtype, device, kv_int8)
-        return {"kv": kv, "offset": 0}
+        offset = 0 if self.weights_per_step else torch.zeros((), dtype=torch.long, device=device)
+        return {"kv": kv, "offset": offset}
 
     def step(self, state: dict, x: torch.Tensor, min_pos: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, dict]:

@@ -4,7 +4,9 @@
 The ring keeps every written slot valid: ``ring_positions`` gives each slot
 its true absolute position, so chunked streaming equals the offline windowed
 mask for any length (``ARCHITECTURE.md`` "ring KV"). Unlike the JAX version,
-``ring_kv_update`` writes the new steps into the cache in place. An int8 ring
+``ring_kv_update`` writes the new steps into the cache in place, and its
+``end`` may be a 0-dim device tensor (a streaming state's offset), so a step
+reads nothing back to the host and can be captured in a CUDA graph. An int8 ring
 (``kv_int8``) holds K/V codes with a bf16 scale per step and head;
 ``masked_attention`` folds the scales into the logits and the weights.
 """
@@ -14,9 +16,10 @@ from __future__ import annotations
 import torch
 
 
-def ring_positions(capacity: int, end: int, device=None) -> torch.Tensor:
+def ring_positions(capacity: int, end: int | torch.Tensor, device=None) -> torch.Tensor:
     """Absolute time position of each ring slot; -1 for not-yet-written.
-    ``end`` is the number of steps written so far (after the current write)."""
+    ``end`` is the number of steps written so far (after the current write):
+    an int or a 0-dim tensor on ``device``."""
     idx = torch.arange(capacity, dtype=torch.int64, device=device)
     wraps = (end - 1 - idx) // capacity  # largest p <= end-1 with p = idx mod capacity
     pos = idx + wraps * capacity
@@ -54,11 +57,12 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def ring_kv_update(
-    cache: dict, end: int, k_new: torch.Tensor, v_new: torch.Tensor
-) -> tuple[dict, torch.Tensor, int]:
+    cache: dict, end: int | torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
+) -> tuple[dict, torch.Tensor, int | torch.Tensor]:
     """Write T new steps ``[B, H, T, D]`` into the ring at ``(end + t) %
-    capacity``, in place (quantized first for an int8 ring). Returns
-    (cache, positions[capacity], new_end)."""
+    capacity``, in place (quantized first for an int8 ring). ``end``: an int
+    or a 0-dim int64 tensor on the cache's device. Returns (cache,
+    positions[capacity], new_end)."""
     T = k_new.shape[2]
     capacity = cache["k"].shape[2]
     idx = (torch.arange(T, device=k_new.device) + end) % capacity

@@ -108,6 +108,6 @@ def _split_scratch(device: torch.device, stream: int, words: int) -> torch.Tenso
     key = (device, stream)
     if key not in _SCRATCH or _SCRATCH[key].numel() < words:
         buf = torch.full((max(words, 1024),), -1, dtype=torch.int64, device=device)
-        buf[0] = 0
+        buf[:1].zero_()  # a fill on the device: no copy from the host
         _SCRATCH[key] = buf
     return _SCRATCH[key]

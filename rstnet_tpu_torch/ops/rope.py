@@ -17,15 +17,15 @@ def apply_rope_interleaved(
     max_period: float = 10_000.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """RoPE over ``[B, H, T, D]`` with (real, imag) pairs interleaved along D;
-    the rotation is computed in float32 and cast back."""
+    the rotation is computed in float32 and cast back. ``offset``: the
+    position of the first step, an int or a 0-dim tensor on ``q``'s device
+    (a streaming state's), which is read on the device, never on the host."""
     T, D = q.shape[2], q.shape[3]
     if D % 2:
         raise ValueError(f"head dim {D} must be even")
     ds = torch.arange(D // 2, dtype=torch.float32, device=q.device)
     freqs = torch.exp(ds * (-math.log(max_period) * 2 / D))
-    ts = torch.as_tensor(offset, device=q.device).float() + torch.arange(
-        T, dtype=torch.float32, device=q.device
-    )
+    ts = (torch.arange(T, device=q.device) + offset).float()
     angles = freqs[None, :] * ts[:, None]  # [T, D//2]
     rotr, roti = torch.cos(angles), torch.sin(angles)
 

@@ -12,8 +12,12 @@ encode step + LM frame step + codec decode step) on an 80 ms frame clock:
   their streams real-time, as a duplex user who stays quiet.
 * The batch is always ``max_sessions`` wide; empty slots compute rows that
   are never read.
-* The tick is one eager method (``_fused_step``) over a dict of device
-  tensors that it updates in place under ``_state_lock``. At B > 1 every
+* The tick is one method (``_fused_step``) over a dict of device tensors
+  that it updates in place under ``_state_lock``. On the card it is
+  captured once as a CUDA graph over static ``[B, 1, frame]`` input and
+  output buffers (``serving/graphs.py``) and replayed every tick; joins and
+  leaves reset their slots in place on the same buffers between replays,
+  and the CPU runs it eagerly. At B > 1 every
   depformer micro-step's FFN runs kernel K2 (``ops/cuda_ffn.py``) and the
   batched Mimi encode runs K3 on B rows. Over int8 serving weights the FFN
   takes the dequantizing gather path instead of K2, as in JAX, so the tick
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 
 from rstnet_tpu_torch.inference.generate import LMGen
+from rstnet_tpu_torch.serving.graphs import CapturedStep, copy_tree_, weights_key
 from rstnet_tpu_torch.utils.latency import FrameLatencyTracker
 
 FRAME_SECONDS = 0.08
@@ -77,9 +82,13 @@ class SessionBatcher:
 
     def __init__(self, mimi, lm_gen: LMGen, max_sessions: int = 8, dtype=torch.bfloat16,
                  pipeline_depth: int = 1, wire_dtype: str = "float32",
-                 fetch_pool: Optional[int] = None, seed: int = 0):
+                 fetch_pool: Optional[int] = None, seed: int = 0, scan_frames: int = 0,
+                 cuda_graphs: bool = True):
         """``dtype``: the LM state's (the codec state is float32).
-        ``seed`` seeds the batcher's sampling generator.
+        ``seed`` seeds the batcher's sampling generator. ``scan_frames`` is
+        the server's option, reported by ``/api/stats``: the clock steps one
+        frame a tick, as the JAX batcher does. ``cuda_graphs`` (on a CUDA
+        device) replays the tick as a CUDA graph.
 
         ``wire_dtype="int16"`` moves PCM between host and device as 16-bit
         integers, the format WebSocket clients send and receive, and converts
@@ -117,6 +126,9 @@ class SessionBatcher:
         }
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         self.wire_int16 = wire_dtype in ("int16", "pcm16")
+        self.scan_frames = int(scan_frames)
+        self.cuda_graphs = cuda_graphs and dev.type == "cuda"
+        self._graph: Optional[CapturedStep] = None
         # host mirrors of the per-slot ages: validity is a deterministic
         # counter, so the host never reads the device copies
         self.age = np.zeros((B,), np.int32)
@@ -203,9 +215,10 @@ class SessionBatcher:
             # the generation bump and the reset are seen together by a tick
             self._gen[slot] += 1
             st = self._state
-            st["enc"] = self.mimi.reset_encode_slots(st["enc"], [slot])
-            st["dec"] = self.mimi.reset_decode_slots(st["dec"], [slot])
-            st["lm"] = self.lm_gen.reset_slots(st["lm"], [slot])
+            # in place: a captured tick holds these buffers
+            copy_tree_(st["enc"], self.mimi.reset_encode_slots(st["enc"], [slot]))
+            copy_tree_(st["dec"], self.mimi.reset_decode_slots(st["dec"], [slot]))
+            self.lm_gen.reset_slots(st["lm"], [slot])
             st["age"][slot] = 0
             st["dec_age"][slot] = 0
             self.age[slot] = 0
@@ -237,10 +250,34 @@ class SessionBatcher:
                 pass  # silence keeps the duplex clock running
         return pcm, snapshot
 
+    def _tick(self, pcm: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        """One tick on the device: eager, or a replay of the captured tick
+        (captured at its second call; the first warms it up)."""
+        pcm_t = torch.from_numpy(pcm)
+        if not self.cuda_graphs:
+            return self._fused_step(self._state, pcm_t.to(self.device))
+        if self._graph is None:
+            def step(state, pcm_in):
+                return self._fused_step(state, pcm_in), state
+
+            self._graph = CapturedStep(
+                step, self._state, (torch.zeros(pcm_t.shape, dtype=pcm_t.dtype,
+                                                device=self.device),),
+                generators=(self.generator,),
+                key=lambda: weights_key(self.mimi, self.lm_gen.model), name="batched tick")
+        # pageable memory: the copy returns once the source is staged
+        self._graph.inputs[0].copy_(pcm_t, non_blocking=True)
+        return self._graph()
+
     def _start_fetch(self, audio: torch.Tensor, out: torch.Tensor):
         """At dispatch: with async fetch on the card, start copies of the
-        outputs into pinned host memory and record an event after them."""
+        outputs into pinned host memory and record an event after them. A
+        replayed tick's outputs are static, so without async fetch they are
+        copied on the device: the next replay, later on the same stream,
+        cannot overwrite a frame that is still to be fetched."""
         if not (self._async_fetch and audio.is_cuda):
+            if self._graph is not None and self._graph.graph is not None:
+                audio, out = audio.clone(), out.clone()
             return audio, out, None
         host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in (audio, out)]
         for h, t in zip(host, (audio, out)):
@@ -273,7 +310,7 @@ class SessionBatcher:
             t0 = time.perf_counter()
             if self.wire_int16:
                 pcm = (np.clip(pcm, -1.0, 1.0) * 32767.0).astype(np.int16)
-            audio, out = self._fused_step(self._state, torch.from_numpy(pcm).to(self.device))
+            audio, out = self._tick(pcm)
             # validity is deterministic from the ages: no device sync
             valid_np = (self.age + 1) > self.lm_gen.max_delay
             self.age += 1

@@ -12,17 +12,24 @@ protocol and codec handshake are the JAX server's (``b"\\x01"`` audio,
 ``b"\\x02"`` text as the token id, Opus or PCM16 via ``serving/opus.py``).
 ``/api/stats`` reports the frame-latency tail.
 
+With ``--scan-frames N`` (default 4, as in JAX) a solo session that has N
+whole frames buffered past the LM's delay warmup runs them as one step
+(``handle_frames_array``: encode chunk -> ``LMGen.step_scan`` -> decode
+chunk). On the card the solo frame, the scan and the batched tick are each
+captured once as a CUDA graph (``serving/graphs.py``) and replayed, the
+counterpart of the JAX server's one jitted dispatch a frame.
+
 Run: ``python -m rstnet_tpu_torch.serving.server [--tiny] [--device cuda]
-[--batch N] [--int8] [--int8-dep] [--int8-head] [--kv-int8]``. The int8
-options follow the JAX ``main`` (``quantize_for_serving``): ``--int8``
-quantizes the depformer slice and the backbone, ``--int8-dep`` the depformer
-slice only, ``--int8-head`` the text head (only without ``--int8``), and
-``--kv-int8`` stores the backbone ring K/V as int8. One difference: the JAX
-server returns from its ``--tiny`` branch before its int8 block, so there the
-weight options do nothing on the tiny pair, while the port applies them to
-whichever pair it builds. ``--scan-frames`` raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item; the checkpoint and tokenizer options come
-with checkpoint loading (``ROADMAP.md`` queue 1).
+[--batch N] [--scan-frames N] [--int8] [--int8-dep] [--int8-head]
+[--kv-int8]``. The int8 options follow the JAX ``main``
+(``quantize_for_serving``): ``--int8`` quantizes the depformer slice and the
+backbone, ``--int8-dep`` the depformer slice only, ``--int8-head`` the text
+head (only without ``--int8``), and ``--kv-int8`` stores the backbone ring
+K/V as int8. One difference: the JAX server returns from its ``--tiny``
+branch before its int8 block, so there the weight options do nothing on the
+tiny pair, while the port applies them to whichever pair it builds. The
+checkpoint and tokenizer options come with checkpoint loading
+(``ROADMAP.md`` queue 1).
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import torch
 
 from rstnet_tpu_torch.inference.generate import LMGen
 from rstnet_tpu_torch.serving import opus
+from rstnet_tpu_torch.serving.graphs import CapturedStep, copy_tree_, weights_key
 from rstnet_tpu_torch.utils.latency import FrameLatencyTracker
 
 TAG_AUDIO = b"\x01"
@@ -52,26 +60,57 @@ class ServerState:
     """The codec and the LM engine in streaming state for one session.
 
     ``seed`` seeds the sampling generator at every ``reset``, so a session is
-    reproducible."""
+    reproducible. ``scan_frames`` (0 or 1: off) sizes the codec state for a
+    catch-up chunk of that many frames (``handle_frames_array``).
 
-    def __init__(self, mimi, lm_gen: LMGen, seed: int = 0):
+    On a CUDA device (unless ``cuda_graphs`` is False) the frame and the
+    scan are each captured once as a CUDA graph (``serving/graphs.py``) and
+    then replayed, over one set of state buffers that ``reset`` refills in
+    place, so a new session replays the same graphs. On the CPU the same
+    functions run eagerly."""
+
+    def __init__(self, mimi, lm_gen: LMGen, seed: int = 0, scan_frames: int = 0,
+                 cuda_graphs: bool = True):
         self.mimi, self.lm_gen = mimi, lm_gen
         self.seed = seed
+        self.scan_frames = int(scan_frames)
         self.frame_size = mimi.frame_size
         self.device = next(mimi.parameters()).device
         self.lock = asyncio.Lock()
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        self.generator = torch.Generator(device=self.device)
+        self._state = None
+        self._frame_graph = None
+        self._scan_graphs: dict = {}  # by frames per scan
         self.reset()
 
     def reset(self) -> None:
         dev = self.device
-        self._state = {
-            "enc": self.mimi.init_encode_state(1, device=dev),
-            "dec": self.mimi.init_decode_state(1, device=dev),
+        chunk_frames = max(1, self.scan_frames)
+        fresh = {
+            "enc": self.mimi.init_encode_state(1, chunk_frames=chunk_frames, device=dev),
+            "dec": self.mimi.init_decode_state(1, chunk_frames=chunk_frames, device=dev),
             "lm": self.lm_gen.init_state(1, dtype=torch.float32, device=dev),
             "dec_age": torch.zeros((1,), dtype=torch.long, device=dev),
         }
-        self.generator = torch.Generator(device=dev).manual_seed(self.seed)
+        if self._state is None:
+            self._state = fresh
+        else:  # in place: captured graphs hold these buffers
+            copy_tree_(self._state, fresh)
+        self.generator.manual_seed(self.seed)
         self.steps = 0  # completed frames; validity is deterministic from it
+
+    @property
+    def enc_state(self) -> dict:
+        return self._state["enc"]
+
+    @property
+    def dec_state(self) -> dict:
+        return self._state["dec"]
+
+    @property
+    def lm_state(self) -> dict:
+        return self._state["lm"]
 
     @torch.no_grad()
     def _fused_frame(self, state: dict, chunk: torch.Tensor):
@@ -90,10 +129,81 @@ class ServerState:
                      "dec_age": state["dec_age"] + valid.long()}
         return audio, out, new_state
 
+    @torch.no_grad()
+    def _fused_frames(self, state: dict, chunk: torch.Tensor):
+        """N whole frames (encode chunk -> ``LMGen.step_scan`` -> decode
+        chunk). The caller gates on the warmup being over, so every frame of
+        the scan is valid."""
+        mimi, gen = self.mimi, self.lm_gen
+        n_frames = chunk.shape[-1] // self.frame_size
+        codes, enc = mimi.encode_step(state["enc"], chunk)
+        user = codes[:, : gen.num_user_streams, :] if gen.num_user_streams else None
+        out, _, lm = gen.step_scan(state["lm"], self.generator, user,
+                                   n_frames=None if gen.num_user_streams else n_frames)
+        audio, dec = mimi.decode_step(state["dec"], out[:, 1:, :])
+        new_state = {"enc": enc, "dec": dec, "lm": lm,
+                     "dec_age": state["dec_age"] + out.shape[-1]}
+        return audio, out, new_state
+
+    def _captured(self, fn, n_samples: int) -> CapturedStep:
+        """A graph of ``fn`` over this session's state buffers and a static
+        [1, 1, n_samples] input; the frame and scan graphs share the state,
+        the memory pool and the capture stream."""
+        first = self._frame_graph or next(iter(self._scan_graphs.values()), None)
+        pcm = torch.zeros((1, 1, n_samples), dtype=torch.float32, device=self.device)
+
+        def step(state, chunk):
+            audio, out, new_state = fn(state, chunk)
+            return (audio, out), new_state
+
+        return CapturedStep(
+            step, self._state, (pcm,), pool=first.pool if first else None,
+            stream=first.stream if first else None, generators=(self.generator,),
+            key=lambda: weights_key(self.mimi, self.lm_gen.model), name=fn.__name__)
+
+    def _run(self, pcm: np.ndarray, n_frames: int):
+        """One frame (``n_frames`` 0) or a scan of ``n_frames``: (audio, out)
+        on the device."""
+        if not self.cuda_graphs:
+            chunk = torch.as_tensor(pcm, dtype=torch.float32).reshape(1, 1, -1).to(self.device)
+            fn = self._fused_frames if n_frames else self._fused_frame
+            audio, out, self._state = fn(self._state, chunk)
+            return audio, out
+        if n_frames:
+            if n_frames not in self._scan_graphs:
+                self._scan_graphs[n_frames] = self._captured(self._fused_frames, pcm.shape[-1])
+            graph = self._scan_graphs[n_frames]
+        else:
+            if self._frame_graph is None:
+                self._frame_graph = self._captured(self._fused_frame, pcm.shape[-1])
+            graph = self._frame_graph
+        # pageable memory: the copy returns once the source is staged
+        graph.inputs[0].copy_(torch.from_numpy(np.ascontiguousarray(pcm, np.float32))
+                              .reshape(1, 1, -1), non_blocking=True)
+        return graph()
+
+    def graphs(self) -> dict:
+        """The captured steps by name (``frame``, ``scan_N``)."""
+        out = {f"scan_{n}": g for n, g in self._scan_graphs.items()}
+        if self._frame_graph is not None:
+            out["frame"] = self._frame_graph
+        return out
+
     def warmup(self, n_frames: int = 4) -> None:
-        """Run a few silent frames (allocator, cuDNN plans, kernel build), then reset."""
-        for _ in range(n_frames):
+        """Run silent frames and, with ``scan_frames > 1``, scans (the
+        allocator, the kernel build, the graph captures), then reset. The
+        scan needs the LM's delay warmup behind it, so at least
+        ``max_delay + 1`` frames run first; on the card each step runs
+        eagerly once and is captured at its second call."""
+        calls = 2 if self.cuda_graphs else 1
+        if self.scan_frames > 1:
+            n_frames = max(n_frames, self.lm_gen.max_delay + 1)
+        for _ in range(max(n_frames, calls)):
             self.handle_frame_array(np.zeros(self.frame_size, np.float32))
+        if self.scan_frames > 1 and self.steps > self.lm_gen.max_delay:
+            for _ in range(calls):
+                self.handle_frames_array(np.zeros(self.scan_frames * self.frame_size,
+                                                  np.float32))
         self.reset()
 
     def handle_frame_array(self, pcm: np.ndarray) -> tuple[Optional[np.ndarray], Optional[int]]:
@@ -102,12 +212,31 @@ class ServerState:
         (None, None) without reading anything back from the device."""
         if pcm.shape[-1] != self.frame_size:
             raise ValueError(f"frame of {pcm.shape[-1]} samples, expected {self.frame_size}")
-        chunk = torch.as_tensor(pcm, dtype=torch.float32).reshape(1, 1, -1).to(self.device)
-        audio, out, self._state = self._fused_frame(self._state, chunk)
+        audio, out = self._run(pcm, 0)
         self.steps += 1
         if self.steps <= self.lm_gen.max_delay:
             return None, None
         return audio[0, 0].cpu().numpy(), int(out[0, 0, 0])
+
+    def handle_frames_array(self, pcm: np.ndarray) -> tuple[np.ndarray, list]:
+        """N whole frames in one step (encode chunk -> ``LMGen.step_scan`` ->
+        decode chunk): [N * frame_size] float samples -> (audio samples, N
+        text tokens). Only past the warmup (``steps > max_delay``), so every
+        frame of the scan is valid; N at most ``max(1, scan_frames)``, the
+        chunk the codec state is sized for."""
+        if self.steps <= self.lm_gen.max_delay:
+            raise RuntimeError(
+                "handle_frames_array called during warmup "
+                f"(step {self.steps} <= max_delay {self.lm_gen.max_delay}); "
+                "route warmup frames through handle_frame_array")
+        n, rest = divmod(pcm.shape[-1], self.frame_size)
+        if rest or not 1 <= n <= max(1, self.scan_frames):
+            raise ValueError(f"{pcm.shape[-1]} samples: expected 1 to {max(1, self.scan_frames)} "
+                             f"whole frames of {self.frame_size}")
+        audio, out = self._run(pcm, n)
+        self.steps += n
+        audio_np, out_np = audio[0, 0].cpu().numpy(), out[0, 0, :].cpu().numpy()
+        return audio_np, [int(t) for t in out_np]
 
 
 def _handshake_reply(raw: str, frame_size: int) -> tuple[object, str]:
@@ -153,6 +282,24 @@ async def handle_chat(state: ServerState, request):
                 transport = opus.Pcm16Transport()
             buffered = np.concatenate([buffered, transport.unpack(data[1:])])
             while buffered.shape[0] >= state.frame_size:
+                sf = state.scan_frames
+                if (sf > 1 and buffered.shape[0] >= sf * state.frame_size
+                        and state.steps > state.lm_gen.max_delay):
+                    # catch-up: sf buffered frames in one step; each frame
+                    # records the scan's time a frame
+                    block = buffered[: sf * state.frame_size]
+                    buffered = buffered[sf * state.frame_size :]
+                    t0 = time.perf_counter()
+                    audio, text_tokens = state.handle_frames_array(block)
+                    ms = (time.perf_counter() - t0) * 1000
+                    logging.info("%d frames handled in %.1f ms (scan)", sf, ms)
+                    for _ in range(sf):
+                        tracker.record(ms / sf)
+                    await ws.send_bytes(TAG_AUDIO + transport.pack(audio))
+                    for tok in text_tokens:
+                        if tok not in TEXT_SKIP_IDS:
+                            await ws.send_bytes(TAG_TEXT + str(tok).encode())
+                    continue
                 frame = buffered[: state.frame_size]
                 buffered = buffered[state.frame_size :]
                 t0 = time.perf_counter()
@@ -279,6 +426,8 @@ def build_batched_app(batcher):
         return web.json_response({
             "active_sessions": len(batcher.sessions),
             "pipeline_depth": batcher.pipeline_depth,
+            "scan_frames": batcher.scan_frames,
+            "cuda_graphs": batcher.cuda_graphs,
             "fetch_pool": batcher.fetch_pool,
             "async_fetch": batcher._async_fetch,
             "delivery": batcher.delivery_latency.summary(),
@@ -292,11 +441,6 @@ def build_batched_app(batcher):
 
     app.on_startup.append(start_clock)
     return app
-
-
-_NOT_YET = {
-    "scan_frames": "queue 1: LMGen.step_scan as a CUDA-graph replay (--scan-frames)",
-}
 
 
 @torch.no_grad()
@@ -350,7 +494,7 @@ def build_models(tiny: bool, device, seed: int):
     return mimi, LMGen(lm, delays=lm.delays)
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser()
     parser.add_argument("--host", default="localhost")
     parser.add_argument("--port", type=int, default=8998)
@@ -376,7 +520,11 @@ def main(argv=None):
     parser.add_argument("--fetch-pool", default="auto", metavar="N",
                         help="threads that wait for in-flight frames' device->host copies; "
                              "auto = the pipeline depth when it is > 1, 0 turns it off")
-    parser.add_argument("--scan-frames", type=int, default=0, metavar="N")
+    parser.add_argument("--scan-frames", type=int, default=4, metavar="N",
+                        help="when a session has >= N whole frames buffered (file streaming, "
+                             "catch-up after a stall), run them as one step "
+                             "(LMGen.step_scan; one graph replay on the card); 0 disables. "
+                             "The batched clock takes one frame a tick and ignores it")
     parser.add_argument("--int8", action="store_true",
                         help="weight-only int8 for the backbone and the depformer slice (the "
                              "text head stays)")
@@ -386,26 +534,20 @@ def main(argv=None):
                         help="weight-only int8 text head (ignored with --int8)")
     parser.add_argument("--kv-int8", action="store_true",
                         help="the backbone ring K/V as int8 with per-step scales")
-    args = parser.parse_args(argv)
-    for name, item in _NOT_YET.items():
-        if getattr(args, name):
-            raise NotImplementedError(f"--{name.replace('_', '-')} is not ported yet "
-                                      f"(ROADMAP.md {item})")
-    from aiohttp import web
+    return parser.parse_args(argv)
 
-    ssl_context = None
-    if args.ssl:
-        import ssl
 
-        ssl_context = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
-        ssl_context.load_cert_chain(certfile=os.path.join(args.ssl, "cert.pem"),
-                                    keyfile=os.path.join(args.ssl, "key.pem"))
+def build_server(args: argparse.Namespace):
+    """The warmed-up ``ServerState`` (solo) or ``SessionBatcher``
+    (``--batch``) that ``main`` serves; its steps are captured as CUDA
+    graphs on the card."""
     device = torch.device(args.device)
     if device.type == "cuda":
         # the reference precision: true fp32 matmuls and convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     mimi, lm_gen = build_models(args.tiny, device, args.seed)
+    # the weights are final before any graph is captured
     quantize_for_serving(lm_gen.model, args.int8, args.int8_dep, args.int8_head)
     lm_gen = dataclasses.replace(lm_gen, kv_int8=args.kv_int8)
     if args.batch:
@@ -420,16 +562,30 @@ def main(argv=None):
             dtype=torch.float32 if args.tiny else torch.bfloat16, pipeline_depth=depth,
             wire_dtype=wire,
             fetch_pool=None if args.fetch_pool == "auto" else int(args.fetch_pool),
-            seed=args.seed)
+            seed=args.seed, scan_frames=args.scan_frames)
         logging.info("warming up (batch %d, pipeline depth %d, wire %s)...", args.batch, depth,
                      wire)
         batcher.warmup()
-        app = build_batched_app(batcher)
-    else:
-        state = ServerState(mimi, lm_gen, seed=args.seed)
-        logging.info("warming up...")
-        state.warmup()
-        app = build_app(state)
+        return batcher
+    state = ServerState(mimi, lm_gen, seed=args.seed, scan_frames=args.scan_frames)
+    logging.info("warming up (scan frames %d)...", args.scan_frames)
+    state.warmup()
+    return state
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    from aiohttp import web
+
+    ssl_context = None
+    if args.ssl:
+        import ssl
+
+        ssl_context = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ssl_context.load_cert_chain(certfile=os.path.join(args.ssl, "cert.pem"),
+                                    keyfile=os.path.join(args.ssl, "key.pem"))
+    server = build_server(args)
+    app = build_batched_app(server) if args.batch else build_app(server)
     logging.info("serving ws://%s:%d/api/chat", args.host, args.port)
     web.run_app(app, host=args.host, port=args.port, ssl_context=ssl_context)
 

@@ -6,24 +6,34 @@
                                                   [--kv-int8]
 
 Builds the full slice as ``chip_smoke.py`` does (Mimi 24 kHz in float32 +
-Moshi 7B in bf16, seeded random weights, seeded normal codebooks), warms it
-up, and then measures, all on the card, for the solo frame
-(``ServerState.handle_frame_array``) or, with ``--batch N``, for one tick of
-a ``SessionBatcher`` with N sessions, each fed the same signal. The int8
-options are the server's (``serving/server.py::quantize_for_serving``):
+Moshi 7B in bf16, seeded random weights, seeded normal codebooks) and
+measures, all on the card, the solo frame (``ServerState.handle_frame_array``)
+or, with ``--batch N``, one tick of a ``SessionBatcher`` with N sessions,
+each fed the same signal. The int8 options are the server's
+(``serving/server.py::quantize_for_serving``). Two readings, one after the
+other on the same models:
 
-1. frame (tick) time, p50 and max, over ``--frames`` frames (host clock, a
-   synchronize per frame);
-2. stage times, medians over ``--frames`` more frames, each stage bracketed
-   by ``torch.cuda.synchronize()``: Mimi encode, backbone step
-   (``step_global``), depformer (the rest of ``LMGen.step``: 8 micro-steps,
-   embeddings, sampling, token bookkeeping) and Mimi decode;
-3. ``torch.profiler`` over ``--profile-frames`` frames with no stage syncs:
-   device time (the union of the kernel and copy intervals), the device's
-   busy share of the wall time, launches per frame, and device time by
-   kernel name.
+* ``graph``: the frame the server runs, a CUDA graph replay
+  (``serving/graphs.py``), after the server's warmup (which captures it; the
+  capture's wall time is reported);
+* ``eager``: the same frame with the graphs off, and its stage split.
 
-Prints a summary; ``--out`` also writes every number as JSON.
+Each reading has:
+
+1. frame (tick) time, p50, p99 and max, over ``--frames`` frames (host
+   clock, a synchronize per frame, the device-to-host copy of the outputs
+   included);
+2. ``torch.profiler`` over ``--profile-frames`` frames: device time (the
+   union of the kernel and copy intervals), the device's busy share of the
+   wall time, device events per frame, and device time by kernel name;
+3. eager only: stage times, medians over ``--frames`` more frames, each
+   stage bracketed by ``torch.cuda.synchronize()``: Mimi encode, backbone
+   step (``step_global``), depformer (the rest of ``LMGen.step``: 8
+   micro-steps, embeddings, sampling, token bookkeeping) and Mimi decode. A
+   graph has no stages to bracket, so this split is the eager frame's.
+
+Peak memory is read for each reading, the graph pool included. Prints a
+summary; ``--out`` also writes every number as JSON.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -47,24 +58,31 @@ def _signal(n_frames: int, frame_size: int, seed: int) -> np.ndarray:
     return sig.astype(np.float32).reshape(n_frames, frame_size)
 
 
-def _build(args):
-    """(mimi, lm_gen, frame size, one frame: pcm [frame_size] -> None)."""
-    from rstnet_tpu_torch.serving.batcher import SessionBatcher
-    from rstnet_tpu_torch.serving.server import ServerState, build_models, quantize_for_serving
+def _build_models(args):
+    from rstnet_tpu_torch.serving.server import build_models, quantize_for_serving
 
-    device, seed, batch = torch.device("cuda"), args.seed, args.batch
+    device, seed = torch.device("cuda"), args.seed
     mimi, lm_gen = build_models(False, device, seed)
     quantize_for_serving(lm_gen.model, args.int8, args.int8_dep, args.int8_head)
     lm_gen = dataclasses.replace(lm_gen, kv_int8=args.kv_int8)
-    torch.cuda.reset_peak_memory_stats()  # the serving peak, not the bf16 build's
     g = torch.Generator(device=device).manual_seed(seed + 1)
     for rvq in (mimi.quantizer.rvq_first, mimi.quantizer.rvq_rest):
         rvq.layers.embedding_sum.normal_(generator=g)  # zero codebooks make every code a tie
+    return mimi, lm_gen
+
+
+def _build(args, mimi, lm_gen, graphs: bool):
+    """(server, frame size, one frame: pcm [frame_size] -> None, captured
+    steps by name)."""
+    from rstnet_tpu_torch.serving.batcher import SessionBatcher
+    from rstnet_tpu_torch.serving.server import ServerState
+
+    seed, batch = args.seed, args.batch
     if not batch:
-        state = ServerState(mimi, lm_gen, seed=seed)
+        state = ServerState(mimi, lm_gen, seed=seed, cuda_graphs=graphs)
         state.warmup()
-        return mimi, lm_gen, state.frame_size, state.handle_frame_array
-    batcher = SessionBatcher(mimi, lm_gen, max_sessions=batch, seed=seed)
+        return state, state.frame_size, state.handle_frame_array, state.graphs()
+    batcher = SessionBatcher(mimi, lm_gen, max_sessions=batch, seed=seed, cuda_graphs=graphs)
     batcher.warmup()
     sessions = [batcher.acquire() for _ in range(batch)]
 
@@ -76,7 +94,8 @@ def _build(args):
             while not sess.outputs.empty():
                 sess.outputs.get_nowait()
 
-    return mimi, lm_gen, batcher.frame_size, tick
+    captured = {"tick": batcher._graph} if batcher._graph is not None else {}
+    return batcher, batcher.frame_size, tick, captured
 
 
 def _timed(fn, record: list):
@@ -184,38 +203,53 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    mimi, lm_gen, frame_size, run_frame = _build(args)
+    mimi, lm_gen = _build_models(args)
     n = args.frames
-    frames = _signal(2 * n + args.profile_frames, frame_size, args.seed)
-
-    times = []
-    for pcm in frames[:n]:
-        _timed(run_frame, times)(pcm)
-    stages = stage_times(mimi, lm_gen, run_frame, frames[n : 2 * n])
-    prof = device_profile(run_frame, frames[2 * n :])
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-
     options = [f"--{k.replace('_', '-')}" for k in ("int8", "int8_dep", "int8_head", "kv_int8")
                if getattr(args, k)]
-    result = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "batch": args.batch, "options": options, "peak_memory_gib": peak_gib,
-              "frame_ms": {"p50": statistics.median(times), "max": max(times), "n": n},
-              "stage_ms": stages, "profile": prof}
     what = f"batched tick, {args.batch} sessions" if args.batch else "solo frame"
     what += "".join(f" {o}" for o in options)
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; {what}; "
-          f"peak memory {peak_gib:.1f} GiB")
-    print(f"frame ms over {n} frames: p50 {statistics.median(times):.3f}, max {max(times):.3f}")
-    print("stage ms (medians, synchronized per stage): " + ", ".join(
-        f"{k} {stages[k]:.3f}" for k in ("encode", "backbone", "depformer", "decode", "frame")))
-    if "device_ms" in prof:
-        print(f"profiler over {prof['frames']} frames: wall {prof['wall_ms']:.3f} ms, device busy "
-              f"{prof['device_ms']:.3f} ms ({100 * prof['busy_share']:.1f} %), "
-              f"{prof['launches_per_frame']:.0f} device events per frame")
-        for name, ms in prof["by_kernel_ms"]:
-            print(f"  {ms:10.3f} ms  {name[:110]}")
-    else:
-        print("profiler: no device events recorded; device time not measured")
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; {what}")
+    result = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+              "batch": args.batch, "options": options}
+    for reading in ("graph", "eager"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()  # the serving peak, not the build's
+        server, frame_size, run_frame, captured = _build(args, mimi, lm_gen, reading == "graph")
+        frames = _signal(2 * n + args.profile_frames, frame_size, args.seed)
+        times = []
+        for pcm in frames[:n]:
+            _timed(run_frame, times)(pcm)
+        prof = device_profile(run_frame, frames[n : n + args.profile_frames])
+        stages = (stage_times(mimi, lm_gen, run_frame, frames[n + args.profile_frames :])
+                  if reading == "eager" else None)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        ts = sorted(times)
+        res = {"peak_memory_gib": peak_gib,
+               "frame_ms": {"p50": statistics.median(times),
+                            "p99": ts[min(n - 1, int(0.99 * n))], "max": ts[-1], "n": n},
+               "capture_ms": {k: g.capture_ms for k, g in captured.items()},
+               "profile": prof}
+        if stages is not None:
+            res["stage_ms"] = stages
+        result[reading] = res
+        print(f"[{reading}] frame ms over {n} frames: p50 {res['frame_ms']['p50']:.3f}, p99 "
+              f"{res['frame_ms']['p99']:.3f}, max {ts[-1]:.3f}; peak memory {peak_gib:.2f} GiB"
+              + "".join(f"; {k} captured in {ms:.1f} ms" for k, ms in res["capture_ms"].items()))
+        if stages is not None:
+            print("[eager] stage ms (medians, synchronized per stage): " + ", ".join(
+                f"{k} {stages[k]:.3f}" for k in ("encode", "backbone", "depformer", "decode",
+                                                 "frame")))
+        if "device_ms" in prof:
+            print(f"[{reading}] profiler over {prof['frames']} frames: wall {prof['wall_ms']:.3f} "
+                  f"ms, device busy {prof['device_ms']:.3f} ms ({100 * prof['busy_share']:.1f} "
+                  f"%), {prof['launches_per_frame']:.0f} device events per frame")
+            for name, ms in prof["by_kernel_ms"]:
+                print(f"  {ms:10.3f} ms  {name[:110]}")
+        else:
+            print(f"[{reading}] profiler: no device events recorded; device time not measured")
+        del server, run_frame, captured
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

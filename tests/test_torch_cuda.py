@@ -589,3 +589,177 @@ def test_flash_kernels_refuse_outside_envelope(cuda):
     with pytest.raises(TypeError):
         h = q.half()
         flash_attention_fwd(h, kv.half(), kv.half(), 128)
+
+
+# -- the kernels and the serving steps inside captured CUDA graphs ------------
+
+
+def _graph_cases(gen):
+    """Each kernel of the serving path at a serving shape: (name, the
+    wrapper, its static inputs, its keyword arguments)."""
+    from rstnet_tpu_torch.modules.transformer import quantize_weight_int8
+    from rstnet_tpu_torch.ops.cuda_depformer import depformer_step
+    from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn, gating_ffn_int8, gating_ffn_step
+    from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode
+
+    def uniform(*shape):
+        return (torch.rand(shape, device="cuda", generator=gen) * 2 - 1) * shape[-1] ** -0.5
+
+    cases = {}
+    for int8 in (False, True):
+        ops, xs, scales = _k1_case(gen, (6, 8, 1024, 16, 2816, 2048), int8)
+        caches = [torch.zeros((6, 8, 1024), device="cuda") for _ in range(2)]
+        cases["K1-int8" if int8 else "K1"] = (
+            lambda x, *a, scales=scales: depformer_step(x, 3, *a, heads=16, scales=scales)[0],
+            (xs[3], *ops, *caches))
+    lin_in, lin_out = uniform(8, 2 * 2816, 1024).bfloat16(), uniform(8, 1024, 2816).bfloat16()
+    cases["K2"] = (lambda x, a, b: gating_ffn_step(x, a, b, 5),
+                   (torch.randn((16, 1024), device="cuda", generator=gen).bfloat16(), lin_in,
+                    lin_out))
+    cases["K3"] = (lambda x, b: rvq_encode(x, b), (torch.randn((7, 256), device="cuda", generator=gen),
+                                                   torch.randn((7, 2048, 256), device="cuda",
+                                                               generator=gen)))
+    w = [uniform(8192, 2048).bfloat16(), uniform(8192, 2048).bfloat16(),
+         uniform(2048, 8192).bfloat16()]
+    x = torch.randn((1, 2048), device="cuda", generator=gen).bfloat16()
+    cases["K4"] = (gating_ffn, (x, *w))
+    q = [quantize_weight_int8(t) for t in w]
+    cases["K5"] = (gating_ffn_int8, (x, *(t for wq in q for t in (wq.w_int8.data,
+                                                                  wq.scale.data))))
+    return cases
+
+
+@pytest.mark.parametrize("name", ["K1", "K1-int8", "K2", "K3", "K4", "K5"])
+def test_kernel_replays_in_a_graph_bit_for_bit(cuda, name):
+    """Each serving kernel launched inside a captured CUDA graph (K1 and K3
+    as cooperative launches, K2, K4 and K5 with programmatic dependent
+    launch; K3 on its split path at 7 rows) and replayed 20 times: every
+    replay's output equals the eager launch's, bit for bit, and the host
+    counter counted the capture, not the replays."""
+    from rstnet_tpu_torch.serving.graphs import CapturedStep
+
+    fn, inputs = _graph_cases(cuda)[name]
+    want = fn(*inputs)
+    step = CapturedStep(lambda state, *ins: (fn(*ins), state), {}, inputs, name=name)
+    step()  # the warm-up launch, on the capture stream
+    for _ in range(20):
+        got = step()
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g, w), name
+    assert step.captures == 1
+
+
+def _card_state(scan_frames=4, graphs=True):
+    from rstnet_tpu_torch.inference.generate import LMGen
+    from rstnet_tpu_torch.serving.server import ServerState, build_models
+
+    mimi, gen = build_models(True, torch.device("cuda"), 0)
+    gen = LMGen(gen.model, delays=gen.model.delays, use_sampling=False)
+    return ServerState(mimi, gen, scan_frames=scan_frames, cuda_graphs=graphs)
+
+
+def test_server_state_graph_frames_equal_eager_frames(cuda):
+    """The tiny server pair on the card: 20 frames and then two scans of 4
+    through the captured graphs (the frame and the scan share the state
+    buffers) equal the eager frames and scans bit for bit; a ``reset``
+    reuses the graphs, and the next session equals the first."""
+    import numpy as np
+
+    pcm = np.random.default_rng(1).normal(0, 0.1, (28, 1920)).astype(np.float32)
+    runs = []
+    for graphs in (False, True, True):
+        state = runs[-1][0] if len(runs) == 2 else _card_state(graphs=graphs)
+        state.reset()
+        got = [state.handle_frame_array(p) for p in pcm[:20]]
+        got += [state.handle_frames_array(pcm[i : i + 4].reshape(-1)) for i in (20, 24)]
+        runs.append((state, got))
+    graph_state = runs[1][0]
+    assert set(graph_state.graphs()) == {"frame", "scan_4"}
+    assert all(g.captures == 1 for g in graph_state.graphs().values())
+    for _, got in runs[1:]:
+        for (a0, t0), (a1, t1) in zip(runs[0][1], got):
+            assert t0 == t1
+            if a0 is not None:
+                np.testing.assert_array_equal(a0, a1)
+
+
+def test_graph_is_recaptured_after_weights_are_replaced(cuda):
+    """``quantize_for_serving`` replaces the LM's weights: the next frame
+    does not replay the graph captured over the old ones (it warms up and
+    captures again), and its frames equal an eager state's over the
+    quantized weights."""
+    import numpy as np
+
+    from rstnet_tpu_torch.serving.server import quantize_for_serving
+
+    pcm = np.random.default_rng(2).normal(0, 0.1, (6, 1920)).astype(np.float32)
+    state = _card_state(scan_frames=0)
+    for p in pcm[:3]:
+        state.handle_frame_array(p)
+    graph = state.graphs()["frame"]
+    assert graph.captures == 1
+    quantize_for_serving(state.lm_gen.model, int8=True)
+    eager = _card_state(scan_frames=0, graphs=False)
+    eager.mimi, eager.lm_gen = state.mimi, state.lm_gen
+    state.reset()
+    eager.reset()
+    for p in pcm:
+        (a0, t0), (a1, t1) = eager.handle_frame_array(p), state.handle_frame_array(p)
+        assert t0 == t1
+        if a0 is not None:
+            np.testing.assert_array_equal(a0, a1)
+    assert graph.captures == 2
+
+
+def test_batched_tick_graph_equals_eager_tick(cuda):
+    """Two sessions of the tiny pair through ``SessionBatcher``: the
+    replayed tick's frames equal the eager tick's, with a join between
+    replays (the slot reset runs in place on the captured buffers)."""
+    import numpy as np
+
+    frames = np.random.default_rng(3).normal(0, 0.1, (8, 1920)).astype(np.float32)
+    streams = []
+    for graphs in (False, True):
+        b = _card_batcher(cuda_graphs=graphs)
+        first = b.acquire()
+        second = None
+        for i, f in enumerate(frames):
+            if i == 4:
+                second = b.acquire()
+            for sess in (first, second):
+                if sess is not None:
+                    sess.inputs.put_nowait(f)
+            b.step_once()
+        assert (b._graph is not None and b._graph.captures == 1) == graphs
+        streams.append([[s.outputs.get_nowait() for _ in range(s.outputs.qsize())]
+                        for s in (first, second)])
+    for got0, got1 in zip(*streams):
+        assert len(got0) == len(got1) > 0
+        for (a0, t0), (a1, t1) in zip(got0, got1):
+            assert t0 == t1
+            np.testing.assert_array_equal(a0, a1)
+
+
+def test_sampling_graph_draws_fresh_noise_and_repeats_from_its_seed(cuda):
+    """With sampling on, the captured frame draws from the state's
+    generator (registered with the graph): a second session after
+    ``reset`` (which re-seeds the same generator in place) repeats the
+    first session's tokens, a state with another seed does not, and the
+    replays do not repeat one draw (the text tokens vary over the frames)."""
+    import numpy as np
+
+    from rstnet_tpu_torch.serving.server import ServerState, build_models
+
+    mimi, gen = build_models(True, torch.device("cuda"), 0)
+    pcm = np.random.default_rng(4).normal(0, 0.1, (12, 1920)).astype(np.float32)
+
+    def session(state):
+        state.reset()
+        return [state.handle_frame_array(p)[1] for p in pcm]
+
+    state = ServerState(mimi, gen, seed=5)
+    first, second = session(state), session(state)
+    other = session(ServerState(mimi, gen, seed=6))
+    assert state.graphs()["frame"].captures == 1
+    assert first == second and first != other and len(set(first)) > 1

@@ -238,17 +238,6 @@ def test_serving_frame_matches_jax_teacher_forced(monkeypatch):
     check_frames_teacher_forced(*_slice_pair(monkeypatch), monkeypatch)
 
 
-def test_server_options_not_ported_raise():
-    """Only --scan-frames is still refused, solo and batched, before any
-    model is built."""
-    from rstnet_tpu_torch.serving.server import main
-
-    for flag in (["--scan-frames", "4"], ["--batch", "2", "--scan-frames", "4"],
-                 ["--int8", "--kv-int8", "--scan-frames", "4"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(flag)
-
-
 # the per-step FFN's cases at T == 1 that K2 does not take: (rows,
 # dim_feedforward, int8, dtype). dim_feedforward 192 gives a gating hidden of
 # 128 (on K2's grid), 160 one of 106 (off it); int8 weights never take K2.

@@ -43,13 +43,17 @@ Phases (each prints its findings; any failure exits non-zero):
    tokens equal, audio within ``SLICE_AUDIO_TOL``): paths
    ``solo_frame_graph`` and ``solo_scan_4`` (a ``ServerState`` with
    ``scan_frames`` 4: ``--frames`` single frames, then 4 scans of 4) and
-   ``batched_tick_graph`` (``--sessions`` sessions). A graph step's
-   warm-up call, capture and first replays run under
+   ``batched_tick_graph`` (``--sessions`` sessions); after the int8 runs,
+   the same three as ``solo_frame_int8_graph``, ``solo_scan_4_int8`` and
+   ``batched_tick_int8_graph`` (``--int8 --kv-int8``, K1-int8). A graph
+   step's warm-up call, capture and first replays run under
    ``torch.cuda.set_sync_debug_mode("error")``; the host counters count
-   the warm-up call and the capture, and one replay's launches are counted
-   by name from ``torch.profiler``'s device events (``CALL_KERNELS``);
-   each path reports graph and eager p50/p99, device busy share, capture
-   time and peak memory;
+   the warm-up call and the capture (a capture records kernels and
+   launches none), and are checked; one replay's launches are counted by
+   name, weight type included, from ``torch.profiler``'s device events
+   (``CALL_KERNELS``); a path's launches are its warm-up call's and its
+   replays' (``graph_launches``). Each path reports graph and eager
+   p50/p99, device busy share, capture time and peak memory;
 6. training: K6 (flash attention: the forward and the one-launch backward,
    GQA inside the kernels) against its plain versions at the training shapes
    (H=32 over 8 KV heads, T=1024, D=64; causal and a 256 window; B=2 and the
@@ -98,7 +102,8 @@ Kernel times are device times: a device sleep holds the stream while the
 host enqueues the timed calls, so the host's launch cost is not in them.
 The line before the last is the card's ``nvidia-smi`` name and power limit
 again, before it a ``{"kernels": [...]}`` JSON line (a graph path's
-launches of one replay under ``replay_launches_by_path``), before that the
+launches of one replay under ``replay_launches_by_path``, and under
+``launches_by_path`` its device launches over the run), before that the
 graph paths' readings as ``{"graph_paths": ...}``, and the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result. Imports nothing of JAX.
@@ -114,6 +119,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1527,13 +1533,22 @@ def check_graph_launches(g, card: str) -> dict:
 # -- the serving steps as CUDA graphs ------------------------------------------
 
 # the device kernel that each call of a wrapper launches exactly once (a
-# wrapper's other kernels launch once or not at all), by the launch counter
-# the call also counts in: how the launches of a graph replay, which no
-# wrapper sees, are counted from the profiler's device events
-CALL_KERNELS = {"depformer_step": ("dep_step_kernel",),
-                "rvq_encode": ("rvq_split_kernel", "rvq_tiled_kernel"),
-                "gating_ffn_step": ("down_mma", "down_kernel"),
-                "gating_ffn": ("down_tc", "core_down")}
+# wrapper's other kernels launch once or not at all), as a pattern of its
+# demangled name, by the launch counter the call also counts in: how the
+# launches of a graph replay, which no wrapper sees, are counted from the
+# profiler's device events. The weight type (the template argument W; int8
+# is ``signed char``) tells K1 from K1-int8 and K4 from K5 and K4 over
+# float32 weights; K4/K5's CUDA-core route (``core_down``, widths off the
+# tensor-core grid) has an entry of its own, which no graph path expects,
+# so a replay that leaves the tensor-core route fails its check.
+CALL_KERNELS = {"depformer_step": r"dep_step_kernel<[^,>]+, __nv_bfloat16>",
+                "depformer_step_int8": r"dep_step_kernel<[^,>]+, signed char>",
+                "rvq_encode": r"rvq_(split|tiled)_kernel",
+                "gating_ffn_step": r"down_mma|down_kernel",
+                "gating_ffn": r"down_tc<__nv_bfloat16,",
+                "gating_ffn_int8": r"down_tc<signed char,",
+                "gating_ffn_f32_weights": r"down_tc<float,",
+                "gating_ffn core_down route": r"core_down<"}
 
 
 def replay_launches(fn) -> dict:
@@ -1542,7 +1557,17 @@ def replay_launches(fn) -> dict:
     from rstnet_tpu_torch.tools.profile_frame import device_events
 
     names = device_events(fn)
-    return {k: sum(any(p in n for p in pats) for n in names) for k, pats in CALL_KERNELS.items()}
+    return {k: sum(bool(re.search(pat, n)) for n in names) for k, pat in CALL_KERNELS.items()}
+
+
+def graph_launches(host: dict, per_replay: dict, replays: int, captures: int = 1) -> dict:
+    """A graph path's device launches by counter: the host counters
+    (``host``) count each wrapper call of the step's eager warm-up call and
+    of its ``captures`` captures, each of which records one replay's
+    kernels into the graph and launches none; each of the ``replays``
+    replays, which no wrapper sees, launches ``per_replay`` (counted by the
+    profiler)."""
+    return {k: n + (replays - captures) * per_replay.get(k, 0) for k, n in host.items()}
 
 
 @contextlib.contextmanager
@@ -1564,7 +1589,9 @@ def _check_replays(path: str, got: dict, want: dict) -> None:
 
 
 def _graph_record(path, times, eager_times, busy_ms, wall_ms, peak, capture_ms, replays,
-                  card, unit="frame") -> dict:
+                  card, n_replays, unit="frame") -> dict:
+    """A graph path's readings; ``replays``: one replay's launches (the
+    profiler's), ``n_replays``: the replays of the path's run."""
     ts, es = sorted(times), sorted(eager_times)
 
     def p(xs, q):
@@ -1573,7 +1600,7 @@ def _graph_record(path, times, eager_times, busy_ms, wall_ms, peak, capture_ms, 
     rec = {"p50_ms": p(ts, 0.5), "p99_ms": p(ts, 0.99), "eager_p50_ms": p(es, 0.5),
            "eager_p99_ms": p(es, 0.99), "device_busy_ms": busy_ms,
            "busy_share": busy_ms / wall_ms if wall_ms else None, "peak_gib": peak,
-           "capture_ms": capture_ms, "replay_launches": replays}
+           "capture_ms": capture_ms, "replay_launches": replays, "replays": n_replays}
     log(f"{path}: graph {_percentiles(times)}, eager {_percentiles(eager_times)} a {unit} "
         f"(host clock, {len(times)} {unit}s each); device busy {busy_ms:.3f} ms a {unit}, "
         f"{100 * (rec['busy_share'] or 0):.1f} % of the wall; capture {capture_ms:.1f} ms; "
@@ -1582,16 +1609,20 @@ def _graph_record(path, times, eager_times, busy_ms, wall_ms, peak, capture_ms, 
 
 
 def run_graph_solo(mimi, lm_gen, seed: int, n_frames: int, n_scans: int, card: str,
-                   graphs: dict) -> tuple[dict, dict]:
-    """Paths ``solo_frame_graph`` and ``solo_scan_4``: a ``ServerState``
-    (greedy, ``scan_frames`` 4) whose frame and scan are CUDA graph replays,
-    against an eager one on the same frames: ``n_frames`` single frames,
-    then ``n_scans`` scans of 4, text tokens equal and audio within
-    ``SLICE_AUDIO_TOL``. The graph state's first frames and scans (each
-    step's warm-up call, its capture and its first replays) run under
-    ``no_host_sync``. Host counters count the warm-up and the capture; one
-    replay's launches are counted by the profiler. Returns the two paths'
-    host counts; ``graphs`` gets each path's readings."""
+                   graphs: dict, names=("solo_frame_graph", "solo_scan_4"),
+                   dep: str = "depformer_step") -> tuple[dict, dict]:
+    """Paths ``names`` (frame, scan; by default ``solo_frame_graph`` and
+    ``solo_scan_4``): a ``ServerState`` (greedy, ``scan_frames`` 4) whose
+    frame and scan are CUDA graph replays, against an eager one on the same
+    frames: ``n_frames`` single frames, then ``n_scans`` scans of 4, text
+    tokens equal and audio within ``SLICE_AUDIO_TOL``. ``dep``: K1's
+    counter (``depformer_step_int8`` over int8 weights). The graph state's
+    first frames and scans (each step's warm-up call, its capture and its
+    first replays) run under ``no_host_sync``. The host counters count the
+    warm-up call and the capture, and are checked; one replay's launches
+    are counted by the profiler. Returns the two paths' device launches
+    (``graph_launches``) over their runs; ``graphs`` gets each path's
+    readings."""
     from rstnet_tpu_torch.serving.server import ServerState
 
     greedy = dataclasses.replace(lm_gen, use_sampling=False)
@@ -1639,40 +1670,45 @@ def run_graph_solo(mimi, lm_gen, seed: int, n_frames: int, n_scans: int, card: s
     state.reset()
     g_toks, g_audio, frame_ms, scan_ms = drive(state)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = state.graphs()
+    fstep, sstep = steps["frame"], steps[f"scan_{sf}"]
+    replays = {"frame": fstep.replays, "scan": sstep.replays}  # the paths' runs
     if g_toks != e_toks:
         raise AssertionError(f"graph tokens differ from eager: {g_toks} vs {e_toks}")
     err = max(float(np.abs(a - b).max()) for a, b in zip(g_audio, e_audio) if a is not None)
     if not err <= SLICE_AUDIO_TOL:
         raise AssertionError(f"graph audio differs from eager by {err}")
-    log(f"solo graph: {len(g_toks)} text tokens equal to the eager frames' and scans'; audio "
+    fname, sname = names
+    log(f"{fname}: {len(g_toks)} text tokens equal to the eager frames' and scans'; audio "
         f"max |graph - eager| {err:.3g}")
-    caps = {k: g.capture_ms for k, g in state.graphs().items()}
     none = dict.fromkeys(_counters(), 0)
     for counts, want, what in (
-            (frame_counts, {**none, "depformer_step": 16, "rvq_encode": 4}, "frame"),
-            (scan_counts, {**none, "depformer_step": 16 * sf, "rvq_encode": 4}, "scan")):
+            (frame_counts, {**none, dep: 16, "rvq_encode": 4}, fname),
+            (scan_counts, {**none, dep: 16 * sf, "rvq_encode": 4}, sname)):
         if counts != want:  # the warm-up call and the capture, not the replays
-            raise AssertionError(f"solo {what} graph: host launches {counts}, expected {want}")
+            raise AssertionError(f"{what}: host launches {counts}, expected {want}")
     frame_rep = replay_launches(lambda: state._run(frames[-1], 0))
-    _check_replays("solo_frame_graph", frame_rep, {"depformer_step": 8, "rvq_encode": 2})
+    _check_replays(fname, frame_rep, {dep: 8, "rvq_encode": 2})
     scan_rep = replay_launches(lambda: state._run(blocks[-1], sf))
-    _check_replays("solo_scan_4", scan_rep, {"depformer_step": 8 * sf, "rvq_encode": 2})
+    _check_replays(sname, scan_rep, {dep: 8 * sf, "rvq_encode": 2})
     from rstnet_tpu_torch.tools.profile_frame import device_profile
 
     fprof = device_profile(state.handle_frame_array, frames[:4])
     sprof = device_profile(state.handle_frames_array, blocks[:2])
-    graphs["solo_frame_graph"] = _graph_record(
-        "solo_frame_graph", frame_ms, e_frame_ms, fprof.get("device_ms", 0) / 4,
-        fprof["wall_ms"] / 4, peak, caps["frame"], frame_rep, card)
-    graphs["solo_scan_4"] = _graph_record(
-        "solo_scan_4", scan_ms, e_scan_ms, sprof.get("device_ms", 0) / 2, sprof["wall_ms"] / 2,
-        peak, caps[f"scan_{sf}"], scan_rep, card, unit="scan")
-    graphs["solo_scan_4"]["amortized_ms_a_frame"] = graphs["solo_scan_4"]["p50_ms"] / sf
-    log(f"solo_scan_4: {graphs['solo_scan_4']['p50_ms'] / sf:.2f} ms a frame amortized (p50 "
-        f"scan / {sf}), against {graphs['solo_frame_graph']['p50_ms']:.2f} ms a graph frame "
+    graphs[fname] = _graph_record(
+        fname, frame_ms, e_frame_ms, fprof.get("device_ms", 0) / 4,
+        fprof["wall_ms"] / 4, peak, fstep.capture_ms, frame_rep, card, replays["frame"])
+    graphs[sname] = _graph_record(
+        sname, scan_ms, e_scan_ms, sprof.get("device_ms", 0) / 2, sprof["wall_ms"] / 2,
+        peak, sstep.capture_ms, scan_rep, card, replays["scan"], unit="scan")
+    graphs[sname]["amortized_ms_a_frame"] = graphs[sname]["p50_ms"] / sf
+    log(f"{sname}: {graphs[sname]['p50_ms'] / sf:.2f} ms a frame amortized (p50 "
+        f"scan / {sf}), against {graphs[fname]['p50_ms']:.2f} ms a graph frame "
         f"[{card}]")
-    del state
-    return frame_counts, scan_counts
+    launches = (graph_launches(frame_counts, frame_rep, replays["frame"], fstep.captures),
+                graph_launches(scan_counts, scan_rep, replays["scan"], sstep.captures))
+    del state, steps, fstep, sstep
+    return launches
 
 
 def run_graph_batched(mimi, gen, seed: int, sessions: int, n_ticks: int, card: str, path: str,
@@ -1683,8 +1719,9 @@ def run_graph_batched(mimi, gen, seed: int, sessions: int, n_ticks: int, card: s
     (the graph batcher's warm-up call, capture and first replay, under
     ``no_host_sync``), then ``n_ticks`` ticks of ``sessions`` sessions whose
     text tokens must be equal and audio within ``SLICE_AUDIO_TOL``.
-    ``per_tick``: each wrapper's calls in one tick. Returns the graph
-    batcher's host counts (its warm-up call and capture)."""
+    ``per_tick``: each wrapper's calls in one tick. The graph batcher's host
+    counts (its warm-up call and capture) are checked; returns its device
+    launches (``graph_launches``) over the path's run."""
     from rstnet_tpu_torch.serving.batcher import SessionBatcher
 
     gen = dataclasses.replace(gen, use_sampling=False)
@@ -1719,6 +1756,7 @@ def run_graph_batched(mimi, gen, seed: int, sessions: int, n_ticks: int, card: s
         if not graphed:
             del b
             continue
+        n_replays = b._graph.replays  # the path's run
         rep = replay_launches(lambda: b._tick(zero))
         _check_replays(path, rep, {k: v for k, v in per_tick.items() if v})
 
@@ -1736,7 +1774,8 @@ def run_graph_batched(mimi, gen, seed: int, sessions: int, n_ticks: int, card: s
                                  f"call and the capture)")
         graphs[path] = _graph_record(path, times, runs[False][1],
                                      prof.get("device_ms", 0) / 2, prof["wall_ms"] / 2, peak,
-                                     b._graph.capture_ms, rep, card, unit="tick")
+                                     b._graph.capture_ms, rep, card, n_replays, unit="tick")
+        launches = graph_launches(counts, rep, n_replays, b._graph.captures)
         del b
     (e_got, _), (g_got, _) = runs[False], runs[True]
     err = 0.0
@@ -1749,7 +1788,7 @@ def run_graph_batched(mimi, gen, seed: int, sessions: int, n_ticks: int, card: s
         raise AssertionError(f"{path}: graph audio differs from eager by {err}")
     log(f"{path}: {sessions} sessions x {len(g_got[0])} frames, text tokens equal to the eager "
         f"ticks'; audio max |graph - eager| {err:.3g}")
-    return counts
+    return launches
 
 
 def run_speech_graph(model, seed: int, n_frames: int, card: str, graphs: dict) -> dict:
@@ -1757,8 +1796,9 @@ def run_speech_graph(model, seed: int, n_frames: int, card: str, graphs: dict) -
     (bf16, greedy) captured as a CUDA graph (``CapturedStep``) and replayed,
     against the eager step on the same state: 2 warm-up frames and
     ``n_frames`` more, tokens equal. The graph's warm-up call, capture and
-    first two replays run under ``no_host_sync``. Returns the host counts
-    (the warm-up call and the capture)."""
+    first two replays run under ``no_host_sync``. The host counts (the
+    warm-up call and the capture) are checked; returns the device launches
+    (``graph_launches``) over the path's run."""
     from rstnet_tpu_torch.inference.generate import LMGen
     from rstnet_tpu_torch.serving.graphs import CapturedStep
     from rstnet_tpu_torch.tools.profile_frame import device_profile
@@ -1797,6 +1837,7 @@ def run_speech_graph(model, seed: int, n_frames: int, card: str, graphs: dict) -
         g_toks.append(step()[0].cpu())
         ms.append((time.perf_counter() - t0) * 1000)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    n_replays = step.replays  # the path's run
     for t, (e, g) in enumerate(zip(e_toks, g_toks)):
         if not torch.equal(e, g):
             raise AssertionError(f"speech_frame_graph frame {t}: graph {g[0, :, 0].tolist()} vs "
@@ -1811,8 +1852,8 @@ def run_speech_graph(model, seed: int, n_frames: int, card: str, graphs: dict) -
     prof = device_profile(lambda _: step()[0].cpu(), range(4))
     graphs["speech_frame_graph"] = _graph_record(
         "speech_frame_graph", ms, e_ms[-len(ms):], prof.get("device_ms", 0) / 4,
-        prof["wall_ms"] / 4, peak, step.capture_ms, rep, card)
-    return counts
+        prof["wall_ms"] / 4, peak, step.capture_ms, rep, card, n_replays)
+    return graph_launches(counts, rep, n_replays, step.captures)
 
 
 def run_cli_chain(root: Path, data: str, exp: Path, n_layer: int, card: str,
@@ -2483,6 +2524,14 @@ def main(argv=None) -> int:
         paths["batched_tick_int8"] = run_full_batched_slice(
             mimi, lm_int8, args.seed, args.sessions, ticks, card,
             "full int8 batched slice (--int8 --kv-int8)", {**none, "rvq_encode": 2 * ticks})
+    with phase("full int8 solo graph"):
+        paths["solo_frame_int8_graph"], paths["solo_scan_4_int8"] = run_graph_solo(
+            mimi, lm_int8, args.seed, n, 4, card, graphs,
+            names=("solo_frame_int8_graph", "solo_scan_4_int8"), dep="depformer_step_int8")
+    with phase("full int8 batched graph"):
+        paths["batched_tick_int8_graph"] = run_graph_batched(
+            mimi, lm_int8, args.seed, args.sessions, ticks, card, "batched_tick_int8_graph",
+            {"rvq_encode": 2}, graphs)
     del mimi, lm_gen, lm_int8  # free the card for the speech LM
     with phase("flagship"):
         from rstnet_tpu_torch.models.lm import (
@@ -2541,6 +2590,8 @@ def main(argv=None) -> int:
         paths["train_step_f32"], paths["speech_cli_f32"] = run_f32_training_slice(
             args.seed, TRAIN_STEPS, card, bf16_steps)
     for k in kernels:
+        # a graph path's are its device launches: its eager warm-up call's
+        # and its replays' (graph_launches)
         k["launches_by_path"] = {p: counts[k["name"]] for p, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         # a graph path's launches of one replay, counted by the profiler

@@ -82,11 +82,9 @@ class SessionBatcher:
 
     def __init__(self, mimi, lm_gen: LMGen, max_sessions: int = 8, dtype=torch.bfloat16,
                  pipeline_depth: int = 1, wire_dtype: str = "float32",
-                 fetch_pool: Optional[int] = None, seed: int = 0, scan_frames: int = 0,
-                 cuda_graphs: bool = True):
+                 fetch_pool: Optional[int] = None, seed: int = 0, cuda_graphs: bool = True):
         """``dtype``: the LM state's (the codec state is float32).
-        ``seed`` seeds the batcher's sampling generator. ``scan_frames`` is
-        the server's option, reported by ``/api/stats``: the clock steps one
+        ``seed`` seeds the batcher's sampling generator. The clock steps one
         frame a tick, as the JAX batcher does. ``cuda_graphs`` (on a CUDA
         device) replays the tick as a CUDA graph.
 
@@ -126,7 +124,6 @@ class SessionBatcher:
         }
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         self.wire_int16 = wire_dtype in ("int16", "pcm16")
-        self.scan_frames = int(scan_frames)
         self.cuda_graphs = cuda_graphs and dev.type == "cuda"
         self._graph: Optional[CapturedStep] = None
         # host mirrors of the per-slot ages: validity is a deterministic

@@ -96,6 +96,7 @@ class CapturedStep:
         self.outputs = None
         self.warmed_up = False  # the eager call since the last (re)start ran
         self.captures = 0
+        self.replays = 0
         self.capture_ms = 0.0  # wall time of the last capture
         self._key = key() if key is not None else None
 
@@ -152,4 +153,5 @@ class CapturedStep:
                 return self._eager()
             self.capture()
         self.graph.replay()
+        self.replays += 1
         return self.outputs

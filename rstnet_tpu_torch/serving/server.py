@@ -426,7 +426,6 @@ def build_batched_app(batcher):
         return web.json_response({
             "active_sessions": len(batcher.sessions),
             "pipeline_depth": batcher.pipeline_depth,
-            "scan_frames": batcher.scan_frames,
             "cuda_graphs": batcher.cuda_graphs,
             "fetch_pool": batcher.fetch_pool,
             "async_fetch": batcher._async_fetch,
@@ -562,7 +561,7 @@ def build_server(args: argparse.Namespace):
             dtype=torch.float32 if args.tiny else torch.bfloat16, pipeline_depth=depth,
             wire_dtype=wire,
             fetch_pool=None if args.fetch_pool == "auto" else int(args.fetch_pool),
-            seed=args.seed, scan_frames=args.scan_frames)
+            seed=args.seed)
         logging.info("warming up (batch %d, pipeline depth %d, wire %s)...", args.batch, depth,
                      wire)
         batcher.warmup()

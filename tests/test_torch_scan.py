@@ -246,6 +246,24 @@ def test_frame_reads_nothing_back(no_host_reads):
         torch.zeros(()).item()
 
 
+def test_int8_frame_reads_nothing_back(no_host_reads):
+    """The served ``--int8 --kv-int8`` frame, scan and batched tick (the
+    tiny pair, weights quantized in place, an int8 ring) read no tensor
+    back to the host either: on the card they are graph replays too."""
+    from rstnet_tpu_torch.serving.server import build_server, parse_args
+
+    flags = ["--tiny", "--device", "cpu", "--int8", "--kv-int8"]
+    server = build_server(parse_args([*flags, "--scan-frames", "4"]))
+    batcher = build_server(parse_args([*flags, "--batch", "2", "--pipeline", "1"]))
+    assert server.lm_gen.kv_int8 and batcher.lm_gen.kv_int8
+    state = server._state
+    no_host_reads()
+    for _ in range(2):
+        _, _, state = server._fused_frame(state, torch.zeros((1, 1, server.frame_size)))
+        batcher._fused_step(batcher._state, torch.zeros((2, 1, batcher.frame_size)))
+    server._fused_frames(state, torch.zeros((1, 1, 4 * server.frame_size)))
+
+
 @pytest.mark.parametrize("flags", [["--scan-frames", "4"],
                                    ["--batch", "2", "--pipeline", "1", "--scan-frames", "4"],
                                    ["--int8", "--kv-int8", "--scan-frames", "4"]],
@@ -253,16 +271,21 @@ def test_frame_reads_nothing_back(no_host_reads):
 def test_server_scan_frames_option_builds_the_server(flags):
     """``--scan-frames`` reaches a built, warmed-up server (the tiny pair on
     the CPU): solo, a ``ServerState`` whose codec state takes a chunk of 4
-    frames; with ``--batch``, a ``SessionBatcher`` that keeps the option.
+    frames; with ``--batch`` the flag is accepted and a ``SessionBatcher``
+    is built (its clock steps one frame a tick, as the JAX batcher's does).
     Its default is 4, as in the JAX server."""
+    from rstnet_tpu_torch.serving.batcher import SessionBatcher
     from rstnet_tpu_torch.serving.server import ServerState, build_server, parse_args
 
     assert parse_args([]).scan_frames == 4
-    server = build_server(parse_args(["--tiny", "--device", "cpu", *flags]))
-    assert server.scan_frames == 4
+    args = parse_args(["--tiny", "--device", "cpu", *flags])
+    assert args.scan_frames == 4
+    server = build_server(args)
     if "--batch" in flags:
+        assert isinstance(server, SessionBatcher)
         assert server.max_sessions == 2 and not server.cuda_graphs
         return
+    assert server.scan_frames == 4
     assert isinstance(server, ServerState) and server.steps == 0 and not server.cuda_graphs
     assert server.lm_gen.kv_int8 == ("--kv-int8" in flags)
     ring = server.enc_state["encoder_transformer"]["kv"]["k"]

@@ -1177,19 +1177,15 @@ def run_full_batched_slice(mimi, lm_gen, seed: int, sessions: int, n_ticks: int,
 K2_KERNEL_NAMES = ("gate_value_mma", "down_mma", "sum_splits", "gate_value_kernel", "down_kernel")
 
 
-def device_kernel_ms(fn, names) -> tuple[float, float]:
+def device_kernel_ms(fn, names, once: bool = False) -> tuple[float, float]:
     """(device busy ms, ms the device spent in events whose name holds one
     of ``names``: the union of their spans, so kernels that overlap, as K2's
-    do, count once) over one ``fn()`` under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
+    do, count once) over one ``fn()`` under ``torch.profiler``
+    (``device_trace``; ``once``: one window, not confirmed, for an ``fn``
+    that must not run twice)."""
+    from rstnet_tpu_torch.tools.profile_frame import _union_us, device_trace
 
-    from rstnet_tpu_torch.tools.profile_frame import _union_us
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = (device_trace(fn, attempts=1, confirm=False) if once else device_trace(fn))[0]
     busy = _union_us([(e.time_range.start, e.time_range.end) for e in dev]) / 1000
     matched = _union_us([(e.time_range.start, e.time_range.end) for e in dev
                          if any(n in e.name for n in names)])
@@ -1368,14 +1364,11 @@ def run_speech_slice(model, seed: int, n_frames: int, card: str, path: str, expe
     log(f"{path} frame time: {_percentiles(times)} over {n_frames} frames (host clock, "
         f"informational); peak memory {peak:.2f} GiB [{card}]")
     prof = device_profile(lambda _: gen.step(state, g), range(4))
-    if "device_ms" in prof:
-        top = ", ".join(f"{name[:48]} {ms / 4:.3f}" for name, ms in prof["by_kernel_ms"][:6])
-        log(f"{path} profiler over 4 frames: device busy {prof['device_ms'] / 4:.3f} ms a frame, "
-            f"{100 * prof['busy_share']:.1f} % of the wall ({prof['wall_ms'] / 4:.3f} ms a frame "
-            f"profiled), {prof['launches_per_frame']:.0f} device events a frame; largest (ms a "
-            f"frame): {top} [{card}]")
-    else:
-        log(f"{path} profiler: no device events recorded; device time not measured")
+    top = ", ".join(f"{name[:48]} {ms / 4:.3f}" for name, ms in prof["by_kernel_ms"][:6])
+    log(f"{path} profiler over 4 frames: device busy {prof['device_ms'] / 4:.3f} ms a frame, "
+        f"{100 * prof['busy_share']:.1f} % of the wall ({prof['wall_ms'] / 4:.3f} ms a frame "
+        f"profiled), {prof['launches_per_frame']:.0f} device events a frame; largest (ms a "
+        f"frame): {top} [{card}]")
     return counts
 
 
@@ -1696,10 +1689,10 @@ def run_graph_solo(mimi, lm_gen, seed: int, n_frames: int, n_scans: int, card: s
     fprof = device_profile(state.handle_frame_array, frames[:4])
     sprof = device_profile(state.handle_frames_array, blocks[:2])
     graphs[fname] = _graph_record(
-        fname, frame_ms, e_frame_ms, fprof.get("device_ms", 0) / 4,
+        fname, frame_ms, e_frame_ms, fprof["device_ms"] / 4,
         fprof["wall_ms"] / 4, peak, fstep.capture_ms, frame_rep, card, replays["frame"])
     graphs[sname] = _graph_record(
-        sname, scan_ms, e_scan_ms, sprof.get("device_ms", 0) / 2, sprof["wall_ms"] / 2,
+        sname, scan_ms, e_scan_ms, sprof["device_ms"] / 2, sprof["wall_ms"] / 2,
         peak, sstep.capture_ms, scan_rep, card, replays["scan"], unit="scan")
     graphs[sname]["amortized_ms_a_frame"] = graphs[sname]["p50_ms"] / sf
     log(f"{sname}: {graphs[sname]['p50_ms'] / sf:.2f} ms a frame amortized (p50 "
@@ -1773,7 +1766,7 @@ def run_graph_batched(mimi, gen, seed: int, sessions: int, n_ticks: int, card: s
             raise AssertionError(f"{path}: host launches {counts}, expected {want} (the warm-up "
                                  f"call and the capture)")
         graphs[path] = _graph_record(path, times, runs[False][1],
-                                     prof.get("device_ms", 0) / 2, prof["wall_ms"] / 2, peak,
+                                     prof["device_ms"] / 2, prof["wall_ms"] / 2, peak,
                                      b._graph.capture_ms, rep, card, n_replays, unit="tick")
         launches = graph_launches(counts, rep, n_replays, b._graph.captures)
         del b
@@ -1851,7 +1844,7 @@ def run_speech_graph(model, seed: int, n_frames: int, card: str, graphs: dict) -
     _check_replays("speech_frame_graph", rep, {"gating_ffn": L, "depformer_step": 8})
     prof = device_profile(lambda _: step()[0].cpu(), range(4))
     graphs["speech_frame_graph"] = _graph_record(
-        "speech_frame_graph", ms, e_ms[-len(ms):], prof.get("device_ms", 0) / 4,
+        "speech_frame_graph", ms, e_ms[-len(ms):], prof["device_ms"] / 4,
         prof["wall_ms"] / 4, peak, step.capture_ms, rep, card, n_replays)
     return graph_launches(counts, rep, n_replays, step.captures)
 
@@ -2281,9 +2274,10 @@ def run_full_training_slice(seed: int, n_steps: int, card: str) -> tuple[dict, d
         shutil.rmtree(root, ignore_errors=True)
 
 
-# the float32 training slice: the step profiled under torch.profiler (a
-# 1024-bucket step after the first), and K6's float32 kernels by name
-F32_PROFILED_STEP = 4
+# the float32 training slice: the first 1024-bucket step after this many
+# whose profiler window kept its records is the profiled one (step 3, or 4
+# if 3's window lost records), and K6's float32 kernels by name
+F32_PROFILED_STEP = 3
 K6_F32_KERNEL_NAMES = ("flash_fwd_f32", "flash_bwd_f32", "flash_split_f32", "flash_bwd_prep_f32")
 
 
@@ -2306,6 +2300,7 @@ def run_f32_training_slice(seed: int, n_steps: int, card: str,
     import tempfile
 
     from rstnet_tpu_torch.models.config import Config
+    from rstnet_tpu_torch.tools.profile_frame import NoDeviceEvents
     from rstnet_tpu_torch.training import trainer
 
     cfg = Config.from_file("configs/llama_1b_speech.yaml")
@@ -2321,12 +2316,18 @@ def run_f32_training_slice(seed: int, n_steps: int, card: str,
 
         def train_step(state, batch):
             calls[0] += 1
-            if calls[0] != F32_PROFILED_STEP + 1:
+            if (calls[0] <= F32_PROFILED_STEP or "busy_ms" in profiled
+                    or batch["tokens"].shape[2] != 1024):
                 return step(state, batch)
+            # a step runs once: a window that lost records is not repeated,
+            # the next 1024-bucket step is profiled instead
             box = {}
-            profiled["busy_ms"], profiled["k6_ms"] = device_kernel_ms(
-                lambda: box.update(out=step(state, batch)), K6_F32_KERNEL_NAMES)
-            profiled["seq_len"] = batch["tokens"].shape[2]
+            try:
+                profiled["busy_ms"], profiled["k6_ms"] = device_kernel_ms(
+                    lambda: box.update(out=step(state, batch)), K6_F32_KERNEL_NAMES, once=True)
+            except NoDeviceEvents:
+                return box["out"]
+            profiled["step"], profiled["seq_len"] = calls[0] - 1, batch["tokens"].shape[2]
             return box["out"]
 
         return train_step
@@ -2368,7 +2369,7 @@ def run_f32_training_slice(seed: int, n_steps: int, card: str,
                 f"{sf['loss']:.5f} (audio {sf['loss_audio']:.5f}, text {sf['loss_text']:.5f}), "
                 f"bf16 {sb['loss']:.5f}; rel diff loss {rel['loss']:.2e}, audio "
                 f"{rel['loss_audio']:.2e}, text {rel['loss_text']:.2e}; "
-                f"{sf['step_time'] * 1e3:.1f} ms" + (" (profiled)" if i == F32_PROFILED_STEP
+                f"{sf['step_time'] * 1e3:.1f} ms" + (" (profiled)" if i == profiled["step"]
                                                       else ""))
             if not all(math.isfinite(sf[k]) for k in ("loss", "loss_audio", "loss_text")):
                 raise AssertionError(f"non-finite float32 loss at step {i}")
@@ -2376,7 +2377,7 @@ def run_f32_training_slice(seed: int, n_steps: int, card: str,
             raise AssertionError(f"float32 losses {worst:.2e} from the bf16 run's (limit "
                                  f"{F32_LOSS_RTOL})")
         steady = [s for i, s in enumerate(steps)
-                  if 0 < i != F32_PROFILED_STEP and s["seq_len"] == 1024]
+                  if 0 < i != profiled["step"] and s["seq_len"] == 1024]
         p50 = statistics.median(s["step_time"] for s in steady) * 1e3
         frames = steady[0]["batch_size"] * 1024 / p50 * 1e3
         ckpt = Path(out["checkpoints"][-1]["path"])
@@ -2599,6 +2600,9 @@ def main(argv=None) -> int:
             p: rec["replay_launches"].get(k["name"], 0) for p, rec in graphs.items()
             if rec["replay_launches"].get(k["name"], 0)}
     log(json.dumps({"graph_paths": graphs}))
+    from rstnet_tpu_torch.tools.profile_frame import window_stats
+
+    log(f"device_trace: {window_stats()}")
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s wall")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -138,48 +138,107 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def device_events(fn, attempts: int = 3) -> list[str]:
-    """The names of the device events (kernels, copies, fills) of one
-    ``fn()``, in the order the profiler lists them. ``fn`` must launch
-    device work and be safe to repeat: a window in which the profiler
-    recorded no device event at all lost its records (seen once on the
-    card), and is profiled again, up to ``attempts`` windows."""
+# the kernel of ``torch.cuda._sleep``, launched at both ends of a window
+MARK = "spin_kernel"
+# throwaway kernels a window launches before its first marker; doubled, up
+# to PRIMERS_MAX, after a window that lost that marker
+_primers = [64]
+PRIMERS_MAX = 4096
+# seconds a window waits on the host after it opens
+WAIT_S = 0.002
+# windows device_trace opened in this process, those that lost a marker, and
+# the most throwaway records one window lost
+WINDOWS = collections.Counter()
+
+
+class NoDeviceEvents(RuntimeError):
+    """No profiler window kept all of its device records."""
+
+
+def device_trace(fn, attempts: int = 8, confirm: bool = True) -> tuple[list, float]:
+    """(the device events (kernels, copies, fills) of one ``fn()`` under
+    ``torch.profiler``, in the order of their start; the wall time of
+    ``fn`` and the markers, in us).
+
+    The profiler loses device records (``chip_smoke.py``'s runs and
+    ``tools/profiler_windows.py`` on an H100): those of kernels launched
+    just after a window opens, up to 253 back-to-back launches; then, once
+    a process has run a while, the first few of every window, however long
+    the window waited before them; and now and then every record of a few
+    windows in a row. So a window waits WAIT_S on the host, launches
+    throwaway kernels, then a marker kernel (:data:`MARK`), ``fn`` and a
+    marker; a window that lost its first marker doubles the throwaway
+    kernels of the windows after it. A window counts only if it holds both
+    markers; with ``confirm``, only once another whole window held as many
+    events between them, since a loss inside a long window can only remove
+    events. It traces the device only (no host operators), which keeps
+    reading it short. ``fn`` must launch the same device work each time it
+    runs, and with ``confirm``, or ``attempts`` > 1, be safe to repeat.
+    Raises :class:`NoDeviceEvents` after ``attempts`` windows without one
+    that counts."""
     from torch.profiler import ProfilerActivity, profile
 
+    seen, lost = set(), []
+    scrap = torch.empty(1, device="cuda")
     for _ in range(attempts):
+        primers = _primers[0]
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(WAIT_S)
+            for _ in range(primers):
+                scrap.zero_()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            break
-    return names
+            t0 = time.perf_counter()
+            torch.cuda._sleep(1)
+            fn()
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        dev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(dev) if MARK in e.name]
+        WINDOWS["opened"] += 1
+        if len(marks) != 2:
+            WINDOWS["lost"] += 1
+            lost.append(f"{len(dev)} events, markers at {marks}, {primers} throwaway kernels")
+            _primers[0] = min(2 * primers, PRIMERS_MAX)
+            continue
+        WINDOWS["most_primers_lost"] = max(WINDOWS["most_primers_lost"], primers - marks[0])
+        body = dev[marks[0] + 1 : marks[1]]
+        if not confirm or len(body) in seen:
+            return body, wall_us
+        seen.add(len(body))
+    raise NoDeviceEvents(f"torch.profiler kept no whole window in {attempts}: whole ones held "
+                         f"{sorted(seen)} events; the others {lost}")
+
+
+def window_stats() -> str:
+    return (f"{WINDOWS['opened']} profiler windows, {WINDOWS['lost']} of them without both "
+            f"markers; at most {WINDOWS['most_primers_lost']} throwaway records lost in a whole "
+            f"window; {_primers[0]} throwaway kernels a window now")
+
+
+def device_events(fn) -> list[str]:
+    """The names of :func:`device_trace`'s events of one ``fn()``."""
+    return [e.name for e in device_trace(fn)[0]]
 
 
 def device_profile(run_frame, frames) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    def run():
         for pcm in frames:
             run_frame(pcm)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    dev, wall_us = device_trace(run)
     n = len(frames)
-    out = {"frames": n, "wall_ms": wall_us / 1000, "device_events": len(dev)}
-    if not dev:
-        return out
     spans = [(e.time_range.start, e.time_range.end) for e in dev]
     by_name = collections.Counter()
     for e in dev:
         by_name[e.name] += e.time_range.elapsed_us()
     busy = _union_us(spans)
-    out.update(device_ms=busy / 1000, busy_share=busy / wall_us, launches_per_frame=len(dev) / n,
-               by_kernel_ms=[(name, us / 1000) for name, us in by_name.most_common(15)])
-    return out
+    return {"frames": n, "wall_ms": wall_us / 1000, "device_events": len(dev),
+            "device_ms": busy / 1000, "busy_share": busy / wall_us,
+            "launches_per_frame": len(dev) / n,
+            "by_kernel_ms": [(name, us / 1000) for name, us in by_name.most_common(15)]}
 
 
 def main(argv=None) -> int:
@@ -241,14 +300,11 @@ def main(argv=None) -> int:
             print("[eager] stage ms (medians, synchronized per stage): " + ", ".join(
                 f"{k} {stages[k]:.3f}" for k in ("encode", "backbone", "depformer", "decode",
                                                  "frame")))
-        if "device_ms" in prof:
-            print(f"[{reading}] profiler over {prof['frames']} frames: wall {prof['wall_ms']:.3f} "
-                  f"ms, device busy {prof['device_ms']:.3f} ms ({100 * prof['busy_share']:.1f} "
-                  f"%), {prof['launches_per_frame']:.0f} device events per frame")
-            for name, ms in prof["by_kernel_ms"]:
-                print(f"  {ms:10.3f} ms  {name[:110]}")
-        else:
-            print(f"[{reading}] profiler: no device events recorded; device time not measured")
+        print(f"[{reading}] profiler over {prof['frames']} frames: wall {prof['wall_ms']:.3f} "
+              f"ms, device busy {prof['device_ms']:.3f} ms ({100 * prof['busy_share']:.1f} "
+              f"%), {prof['launches_per_frame']:.0f} device events per frame")
+        for name, ms in prof["by_kernel_ms"]:
+            print(f"  {ms:10.3f} ms  {name[:110]}")
         del server, run_frame, captured
     if args.out:
         with open(args.out, "w") as f:

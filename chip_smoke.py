@@ -54,6 +54,21 @@ Phases (each prints its findings; any failure exits non-zero):
    (``CALL_KERNELS``); a path's launches are its warm-up call's and its
    replays' (``graph_launches``). Each path reports graph and eager
    p50/p99, device busy share, capture time and peak memory;
+   then public checkpoints (``models/convert.py``), from files written in
+   the upstream layouts by ``tools/upstream_layout.py`` under a temporary
+   directory removed at the end: Mimi 24 kHz (float32 ``.safetensors``) and
+   Moshi 7B (bf16 ``.safetensors``, 15.4 GB) from seeded models, served
+   through ``build_server(parse_args(["--mimi-checkpoint", ...,
+   "--lm-checkpoint", ...]))`` (Moshi converted to float32, K1 over the
+   bf16 rounding of its depformer), every loaded parameter held bit for bit
+   to the file's tensor widened to float32, then 16 graph frames and one
+   4-frame scan against an eager server (paths ``checkpoint_solo_frame``
+   and ``checkpoint_scan_4``; without room on the disk for the Moshi file,
+   the Moshi leg converts the in-memory upstream dict and says so); and
+   ``offline_tokenization --mode audio`` over 4 seeded clips of 10 s through
+   the Mimi file (path ``mimi_tokenize``: K3's tiled path; codes equal to
+   ``MimiModel.encode``, ``MimiTokenizer.detokenize`` equal to
+   ``MimiModel.decode``);
 6. training: K6 (flash attention: the forward and the one-launch backward,
    GQA inside the kernels) against its plain versions at the training shapes
    (H=32 over 8 KV heads, T=1024, D=64; causal and a 256 window; B=2 and the
@@ -66,11 +81,17 @@ Phases (each prints its findings; any failure exits non-zero):
    speech config (2.01 B parameters, bf16) for ``TRAIN_STEPS`` steps on
    synthetic data, K6 on every step whose bucket is 1024 and on no other;
    then, on that run's experiment, the inference CLIs ``lm_eval`` and
-   ``infer_cli`` (path ``speech_cli``: K4 in every backbone step); then the
+   ``infer_cli`` (path ``speech_cli``: K4 in every backbone step; with
+   ``--mimi_checkpoint`` on the Mimi file, a wav beside each grid); then the
    same training run in float32 (path ``train_step_f32``: K6's float32
    kernels, each step's loss held to the bf16 run's, one step profiled),
    and the two CLIs on its float32 checkpoint (path ``speech_cli_f32``: K4
-   over float32 weights in every backbone step);
+   over float32 weights in every backbone step); and last, a seeded
+   Llama-3.2-1B backbone written as litgpt's ``lit_model.pth`` (bf16, 2.5 GB)
+   and ``trainer --checkpoint_path`` on it for 3 bf16 steps (path
+   ``train_from_litgpt``: the loaded backbone equal to the file after the
+   cast, K6 on every 1024-bucket step, step 0's loss equal to that of the
+   same model assembled from the source weights);
 7. speech streaming: K4 and K5 (the fused gated FFN of the backbone's
    LLaMAMLP, bf16, int8 and float32 weights) against their plain versions
    at Llama-3.2-1B's MLP (C=2048, H=8192; N in {1, 4, 16, 64}, x in bf16
@@ -124,6 +145,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1686,13 +1708,14 @@ def run_graph_solo(mimi, lm_gen, seed: int, n_frames: int, n_scans: int, card: s
     _check_replays(sname, scan_rep, {dep: 8 * sf, "rvq_encode": 2})
     from rstnet_tpu_torch.tools.profile_frame import device_profile
 
-    fprof = device_profile(state.handle_frame_array, frames[:4])
-    sprof = device_profile(state.handle_frames_array, blocks[:2])
+    nf, ns = len(frames[:4]), len(blocks[:2])
+    fprof = device_profile(state.handle_frame_array, frames[:nf])
+    sprof = device_profile(state.handle_frames_array, blocks[:ns])
     graphs[fname] = _graph_record(
-        fname, frame_ms, e_frame_ms, fprof["device_ms"] / 4,
-        fprof["wall_ms"] / 4, peak, fstep.capture_ms, frame_rep, card, replays["frame"])
+        fname, frame_ms, e_frame_ms, fprof["device_ms"] / nf,
+        fprof["wall_ms"] / nf, peak, fstep.capture_ms, frame_rep, card, replays["frame"])
     graphs[sname] = _graph_record(
-        sname, scan_ms, e_scan_ms, sprof["device_ms"] / 2, sprof["wall_ms"] / 2,
+        sname, scan_ms, e_scan_ms, sprof["device_ms"] / ns, sprof["wall_ms"] / ns,
         peak, sstep.capture_ms, scan_rep, card, replays["scan"], unit="scan")
     graphs[sname]["amortized_ms_a_frame"] = graphs[sname]["p50_ms"] / sf
     log(f"{sname}: {graphs[sname]['p50_ms'] / sf:.2f} ms a frame amortized (p50 "
@@ -1850,13 +1873,17 @@ def run_speech_graph(model, seed: int, n_frames: int, card: str, graphs: dict) -
 
 
 def run_cli_chain(root: Path, data: str, exp: Path, n_layer: int, card: str,
-                  path: str = "speech_cli", kernel: str = "gating_ffn") -> dict:
+                  path: str = "speech_cli", kernel: str = "gating_ffn",
+                  mimi_checkpoint: Path | None = None) -> dict:
     """``lm_eval`` and ``infer_cli`` (``--device cuda``) on a training
     slice's experiment, in the checkpoint's dtype: finite CE and perplexity,
     two generated grids of 1 + n_q rows, and ``kernel`` (K4 over the
     checkpoint's weights, by its counter's name) once a layer in every
-    backbone step (counted from the run) with no other launch. Logs each
-    CLI's wall time, the rows N of the K4 calls, and the peak memory."""
+    backbone step (counted from the run) with no other launch. With
+    ``mimi_checkpoint``, ``infer_cli --mimi_checkpoint`` must also write a
+    wav of finite samples beside each grid (decoding launches no kernel of
+    ours). Logs each CLI's wall time, the rows N of the K4 calls, and the
+    peak memory."""
     from rstnet_tpu_torch.evalsuite import lm_eval
     from rstnet_tpu_torch.inference import infer_cli
     from rstnet_tpu_torch.models import backbone
@@ -1882,7 +1909,9 @@ def run_cli_chain(root: Path, data: str, exp: Path, n_layer: int, card: str,
         t_eval = time.perf_counter() - t0
         written = infer_cli.main(["--exp_dir", str(exp), "--data_jsons", data, "--output_dir",
                                   str(root / "gen"), "--prefix_frames", "8", "--max_new_frames",
-                                  "8", "--max_examples", "2", "--device", "cuda"])
+                                  "8", "--max_examples", "2", "--device", "cuda",
+                                  *(["--mimi_checkpoint", str(mimi_checkpoint)]
+                                    if mimi_checkpoint else [])])
         torch.cuda.synchronize()
         t_infer = time.perf_counter() - t0 - t_eval
         counts = read_counts()
@@ -1904,6 +1933,15 @@ def run_cli_chain(root: Path, data: str, exp: Path, n_layer: int, card: str,
     if len(grids) != 2 or any(g.ndim != 2 or g.shape[0] != 9 for g in grids):
         raise AssertionError(f"infer_cli wrote {[g.shape for g in grids]}, expected two grids of "
                              "9 rows")
+    if mimi_checkpoint:
+        from rstnet_tpu_torch.utils.audio import read_wav
+
+        wavs = [read_wav(str(p.with_suffix(".wav"))) for p in written]
+        if any(sr != 24000 or w.shape != (1, g.shape[1] * 1920) or not np.isfinite(w).all()
+               for (w, sr), g in zip(wavs, grids)):
+            raise AssertionError(f"infer_cli --mimi_checkpoint wrote {[w.shape for w, _ in wavs]}")
+        log(f"{path}: infer_cli --mimi_checkpoint wrote {len(wavs)} wavs of "
+            f"{[w.shape[1] / 24000 for w, _ in wavs]} s")
     want = {**dict.fromkeys(_counters(), 0), kernel: n_layer * len(steps)}
     if not steps or counts != want:
         raise AssertionError(f"{path} launches {counts}, expected {want}")
@@ -2211,7 +2249,8 @@ def _check_disk(root: Path, need: int, what: str) -> None:
                            f"{root}, {free / 2**30:.1f} GiB are")
 
 
-def run_full_training_slice(seed: int, n_steps: int, card: str) -> tuple[dict, dict, list]:
+def run_full_training_slice(seed: int, n_steps: int, card: str,
+                            mimi_checkpoint: Path | None = None) -> tuple[dict, dict, list]:
     """``trainer.main`` on ``configs/llama_1b_speech.yaml`` (bf16, full width
     and depth) for ``n_steps`` steps of synthetic data: long utterances on
     the 1024 bucket (K6) and one batch of short ones (bucket 487, the masked
@@ -2269,7 +2308,8 @@ def run_full_training_slice(seed: int, n_steps: int, card: str) -> tuple[dict, d
             f"epoch checkpoint {size / 2**30:.2f} GiB saved in "
             f"{out['checkpoints'][-1]['seconds']:.1f} s [{card}]")
         del out
-        return counts, run_cli_chain(root, data, root / "exp", cfg.n_layer, card), steps
+        return counts, run_cli_chain(root, data, root / "exp", cfg.n_layer, card,
+                                     mimi_checkpoint=mimi_checkpoint), steps
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2395,6 +2435,334 @@ def run_f32_training_slice(seed: int, n_steps: int, card: str,
                                      "speech_cli_f32", "gating_ffn_f32_weights")
     finally:
         trainer.make_train_step = make_train_step
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# -- loading public checkpoints (the converter, the tokenizers) -----------------
+
+# the Moshi 7B file in bf16 (15.4 GB) and the room it needs on the disk
+MOSHI_FILE_BYTES = 16 * 2**30
+# path mimi_tokenize: this many seeded clips of this many seconds
+TOKENIZE_CLIPS, TOKENIZE_SECONDS = 4, 10.0
+# path train_from_litgpt: steps, and step 0's loss against the loss of the
+# same model assembled from the source weights on the same batch (the same
+# kernels on the same inputs; a load that missed or moved one weight moves
+# the loss by orders more)
+LITGPT_STEPS = 3
+LITGPT_LOSS_RTOL = 1e-6
+
+
+def host_peak_gib() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str, seconds: list):
+    """Record the wall time of each ``module.name(...)`` call in ``seconds``."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def check_upstream_equal(what: str, upstream: dict, sd) -> int:
+    """Every tensor of a loaded model under its upstream name (``upstream``,
+    ``tools/upstream_layout.py``) against the file's tensor widened as the
+    loader widens it, bit for bit; returns the elements compared."""
+    if set(upstream) != set(sd):
+        raise AssertionError(f"{what}: names differ from the file's: "
+                             f"{sorted(set(upstream) ^ set(sd))[:8]}")
+    n = 0
+    for name, t in upstream.items():
+        want = sd[name].to(t.device)
+        if t.dtype != want.dtype or t.shape != want.shape or not torch.equal(t, want):
+            raise AssertionError(f"{what}: {name} is not the file's {sd.raw(name).dtype} tensor "
+                                 "widened to float32")
+        n += t.numel()
+    return n
+
+
+def write_mimi_file(root: Path, seed: int) -> Path:
+    """Mimi 24 kHz from ``seed`` (``build_mimi``) as a float32 kyutai-layout
+    ``.safetensors`` file."""
+    from rstnet_tpu_torch.tools.upstream_layout import upstream_mimi, write_upstream
+
+    mimi = build_mimi(seed)
+    t0 = time.perf_counter()
+    path = write_upstream(root / "mimi.safetensors", upstream_mimi(mimi))
+    log(f"checkpoints: Mimi 24 kHz written to {path.name}, {path.stat().st_size / 2**20:.0f} MiB "
+        f"float32, in {time.perf_counter() - t0:.1f} s")
+    return path
+
+
+def run_checkpoint_solo_frame(root: Path, mimi_file: Path, seed: int, n_frames: int, card: str,
+                              graphs: dict) -> tuple[dict, dict]:
+    """Paths ``checkpoint_solo_frame`` and ``checkpoint_scan_4``: Moshi 7B
+    from ``seed`` (bf16) written as a kyutai-layout ``.safetensors`` file,
+    then the server built from the two files, ``build_server(parse_args(
+    ["--mimi-checkpoint", ..., "--lm-checkpoint", ...]))``: Mimi and Moshi
+    loaded and converted (Moshi float32, as the JAX server serves a converted
+    checkpoint), and K1 over the bf16 rounding of the float32 depformer.
+    Every loaded parameter is held, under its upstream name, to the file's
+    tensor widened to float32, bit for bit. Then ``n_frames`` graph frames
+    and one 4-frame scan against an eager server on the same frames
+    (``run_graph_solo``). Where the disk cannot hold the Moshi file, the
+    Moshi leg converts the in-memory upstream dict through the same
+    ``convert_moshi_lm`` and says so."""
+    from rstnet_tpu_torch.models import convert
+    from rstnet_tpu_torch.models.moshi_lm import moshi_7b
+    from rstnet_tpu_torch.serving.server import build_server, parse_args
+    from rstnet_tpu_torch.tools.upstream_layout import (
+        upstream_mimi,
+        upstream_moshi,
+        write_upstream,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    src = moshi_7b(device="cuda", dtype=torch.bfloat16, generator=g)
+    upstream = upstream_moshi(src)
+    free = shutil.disk_usage(root).free
+    on_disk = free >= MOSHI_FILE_BYTES
+    t0 = time.perf_counter()
+    if on_disk:
+        moshi_file = write_upstream(root / "model.safetensors", upstream)
+        size = moshi_file.stat().st_size
+        log(f"checkpoint_solo_frame: Moshi 7B written to {moshi_file.name}, {size / 2**30:.2f} GiB "
+            f"bf16, in {time.perf_counter() - t0:.1f} s ({free / 2**30:.0f} GiB were free)")
+        upstream = None
+    else:
+        moshi_file = root / "in-memory-moshi"
+        upstream = {k: v.cpu() for k, v in upstream.items()}
+        log(f"checkpoint_solo_frame: {free / 2**30:.1f} GiB free under {root}, less than the "
+            f"{MOSHI_FILE_BYTES / 2**30:.0f} GiB the Moshi file needs: the Moshi leg converts the "
+            "in-memory upstream dict through convert_moshi_lm instead of a file")
+    del src
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    real_load = convert.load_torch_state_dict
+
+    def load(path):
+        if Path(path) == moshi_file and not on_disk:
+            return convert.StateDictFile(upstream)
+        return real_load(path)
+
+    mimi_s, moshi_s = [], []
+    convert.load_torch_state_dict = load
+    try:
+        with timed_calls(convert, "load_mimi", mimi_s), \
+                timed_calls(convert, "load_moshi_lm", moshi_s):
+            t0 = time.perf_counter()
+            state = build_server(parse_args(["--mimi-checkpoint", str(mimi_file),
+                                             "--lm-checkpoint", str(moshi_file),
+                                             "--seed", str(seed)]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        lm = state.lm_gen.model
+        if any(p.dtype != torch.float32 for p in lm.parameters()):
+            raise AssertionError("the converted Moshi is not float32")
+        t0 = time.perf_counter()
+        n = check_upstream_equal("Moshi 7B", upstream_moshi(lm), load(moshi_file))
+        n += check_upstream_equal("Mimi 24 kHz", upstream_mimi(state.mimi),
+                                  real_load(mimi_file))
+        check_s = time.perf_counter() - t0
+    finally:
+        convert.load_torch_state_dict = real_load
+    log(f"checkpoint_solo_frame: build_server from the files in {wall:.1f} s wall (Mimi load + "
+        f"convert {mimi_s[0]:.1f} s, Moshi {moshi_s[0]:.1f} s, the rest building the models and "
+        f"the warm-up with its graph captures); peak memory {peak:.2f} GiB on the card, "
+        f"{host_peak_gib():.1f} GiB host RSS (process peak so far); {n / 1e9:.3f} B loaded "
+        f"parameters equal to the files' tensors widened to float32 (checked in "
+        f"{check_s:.1f} s) [{card}]")
+    mimi, lm_gen = state.mimi, state.lm_gen
+    del state, upstream
+    gc.collect()
+    torch.cuda.empty_cache()
+    if moshi_file.exists():
+        moshi_file.unlink()
+    out = run_graph_solo(mimi, lm_gen, seed, n_frames, 1, card, graphs,
+                         names=("checkpoint_solo_frame", "checkpoint_scan_4"))
+    rec = graphs["checkpoint_solo_frame"]
+    rec.update(load_s={"mimi": mimi_s[0], "moshi": moshi_s[0], "build_server": wall},
+               load_peak_gib=peak, weights="float32 (converted)", moshi_from_file=on_disk)
+    log(f"checkpoint_solo_frame: graph frame p50 {rec['p50_ms']:.2f} ms, device busy "
+        f"{rec['device_busy_ms']:.2f} ms a frame, over float32 converted weights [{card}]")
+    return out
+
+
+def run_mimi_tokenize(root: Path, mimi_file: Path, seed: int, card: str) -> dict:
+    """Path ``mimi_tokenize``: ``offline_tokenization --mode audio`` over an
+    scp of ``TOKENIZE_CLIPS`` seeded clips of ``TOKENIZE_SECONDS`` s through
+    the Mimi file (K3's tiled path: 128 frames a clip after the bucket).
+    The shard's codes must equal ``MimiModel.encode`` of the same loaded
+    model called directly on the bucket-padded clips, and
+    ``MimiTokenizer.detokenize`` of them must equal ``MimiModel.decode``."""
+    from rstnet_tpu_torch.data.tokenizers.mimi_tokenizer import MimiTokenizer
+    from rstnet_tpu_torch.tools import offline_tokenization
+    from rstnet_tpu_torch.tools.scp_tools import write_scp
+    from rstnet_tpu_torch.utils.audio import read_wav, write_wav
+
+    n = int(TOKENIZE_SECONDS * 24000)
+    entries = []
+    for i in range(TOKENIZE_CLIPS):
+        path = root / f"clip{i}.wav"
+        write_wav(str(path), _signal(seed + 20 + i, n, 130.0 * (i + 1)), 24000)
+        entries.append((f"clip{i}", str(path)))
+    write_scp(str(root / "wav.scp"), entries)
+    argv = ["--scp", str(root / "wav.scp"), "--output", str(root / "codes.npz"), "--mode",
+            "audio", "--mimi-checkpoint", str(mimi_file), "--device", "cuda"]
+    offline_tokenization.main([*argv[:3], str(root / "warm.npz"), *argv[4:]])  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    offline_tokenization.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    shard = np.load(root / "codes.npz")
+    tok = MimiTokenizer(checkpoint_path=str(mimi_file), device="cuda")
+    frames = math.ceil(n / tok.model.frame_size)
+    with torch.no_grad():
+        for utt, path in entries:
+            wav, _ = read_wav(path)
+            padded, _ = tok._bucket_pad(wav)
+            want = tok.model.encode(torch.from_numpy(padded[None]).cuda())[0, :, :frames]
+            codes = shard[utt]
+            if codes.shape != (8, frames) or codes.dtype != np.int16 or not np.array_equal(
+                    codes, want.cpu().numpy()):
+                raise AssertionError(f"mimi_tokenize: {utt}'s codes {codes.shape} differ from "
+                                     "MimiModel.encode")
+            audio = tok.detokenize(codes)
+            direct = tok.model.decode(torch.from_numpy(codes[None].astype(np.int64)).cuda())
+            if not np.array_equal(audio, direct[0].cpu().numpy()) or not np.isfinite(audio).all():
+                raise AssertionError(f"mimi_tokenize: detokenize of {utt} differs from "
+                                     "MimiModel.decode")
+    want = {**dict.fromkeys(_counters(), 0), "rvq_encode": 2 * TOKENIZE_CLIPS}
+    log(f"mimi_tokenize: offline_tokenization --mode audio of {TOKENIZE_CLIPS} x "
+        f"{TOKENIZE_SECONDS:.0f} s in {wall:.2f} s wall (Mimi load included), "
+        f"{TOKENIZE_CLIPS * TOKENIZE_SECONDS / wall:.1f} s of audio a second; codes equal to "
+        f"MimiModel.encode, detokenize equal to MimiModel.decode; launches {counts} [{card}]")
+    if counts != want:
+        raise AssertionError(f"mimi_tokenize launches {counts}, expected {want}")
+    return counts
+
+
+def run_train_from_litgpt(seed: int, card: str) -> dict:
+    """Path ``train_from_litgpt``: a seeded Llama-3.2-1B backbone (the
+    flagship config's, bf16) written as litgpt's ``lit_model.pth``, then
+    ``trainer --checkpoint_path`` for ``LITGPT_STEPS`` bf16 steps at
+    ``--max_length 1023``. The loaded backbone must equal the file's tensors
+    (widened, then cast to bf16) bit for bit; K6 on every 1024-bucket step;
+    finite losses; step 0's loss within ``LITGPT_LOSS_RTOL`` of the loss of
+    the same model assembled from the source weights (the trainer's seeded
+    codecformer and embeddings, the source backbone) on step 0's batch."""
+    import tempfile
+
+    from rstnet_tpu_torch.models import convert
+    from rstnet_tpu_torch.models.backbone import Backbone
+    from rstnet_tpu_torch.models.config import Config
+    from rstnet_tpu_torch.tools.upstream_layout import upstream_backbone, write_upstream
+    from rstnet_tpu_torch.training import trainer
+    from rstnet_tpu_torch.training.train_step import make_loss_fn
+    from rstnet_tpu_torch.utils.arguments import get_args
+
+    cfg = Config.from_file("configs/llama_1b_speech.yaml")
+    root = Path(tempfile.mkdtemp(prefix="smoke_litgpt_"))
+    _check_disk(root, 16 * 2**30, "train_from_litgpt")  # the 2.5 GB file and a 12 GB checkpoint
+    real_build, real_batch, real_load = trainer.build_model, trainer.device_batch, \
+        convert.load_backbone
+    try:
+        g = torch.Generator(device="cuda").manual_seed(seed + 4)
+        src = Backbone(cfg, device="cuda", dtype=torch.bfloat16, generator=g)
+        t0 = time.perf_counter()
+        lit = write_upstream(root / "lit_model.pth", upstream_backbone(src))
+        log(f"train_from_litgpt: Llama-3.2-1B backbone written to {lit.name}, "
+            f"{lit.stat().st_size / 2**30:.2f} GiB bf16, in {time.perf_counter() - t0:.1f} s")
+        data = write_full_training_data(root, seed, LITGPT_STEPS)
+        held, load_s = {}, []
+
+        def build_model(*args, **kwargs):
+            held["model"] = real_build(*args, **kwargs)
+            return held["model"]
+
+        def load_backbone(path, backbone, dtype=None):
+            held["init"] = {k: v.clone() for k, v in held["model"].state_dict().items()
+                            if not k.startswith("backbone.")}
+            t0 = time.perf_counter()
+            out = real_load(path, backbone, dtype)
+            load_s.append(time.perf_counter() - t0)
+            sd = convert.load_torch_state_dict(path)
+            for name, t in upstream_backbone(backbone).items():
+                if not torch.equal(t, sd[name].to(t.device, t.dtype)):
+                    raise AssertionError(f"train_from_litgpt: {name} is not the file's tensor "
+                                         "after the cast")
+            return out
+
+        def device_batch(b, device):
+            out = real_batch(b, device)
+            held.setdefault("batch", {k: v.clone() for k, v in out.items()})
+            return out
+
+        trainer.build_model, trainer.device_batch = build_model, device_batch
+        convert.load_backbone = load_backbone
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        argv = [*full_train_args(data, root / "exp", "bfloat16", LITGPT_STEPS, seed),
+                "--checkpoint_path", str(lit)]
+        reset_counts()
+        t0 = time.perf_counter()
+        out = trainer.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = out["steps"]
+        want = expected_k6(steps, cfg.n_layer)
+        log(f"train_from_litgpt: {len(steps)} steps, buckets "
+            f"{[(s['batch_size'], s['seq_len']) for s in steps]}, launches {counts}")
+        if len(steps) != LITGPT_STEPS or not all(math.isfinite(s["loss"]) for s in steps):
+            raise AssertionError(f"train_from_litgpt steps {[s['loss'] for s in steps]}")
+        if not any(s["seq_len"] == 1024 for s in steps):
+            raise AssertionError("train_from_litgpt: no step on the 1024 bucket, K6 never ran")
+        if {k: counts[k] for k in want} != want or any(
+                v for k, v in counts.items() if k not in want):
+            raise AssertionError(f"train_from_litgpt launches {counts}, expected {want}")
+        model = held["model"]
+        args = get_args(argv)
+        with torch.no_grad():
+            model.load_state_dict({**held["init"], **{f"backbone.{k}": v for k, v in
+                                                      src.state_dict().items()}})
+            loss = float(make_loss_fn(model, audio_ignore_id=args.acoustic_pad_token,
+                                      text_ignore_id=args.text_pad_token)(held["batch"])[0])
+        rel = abs(loss - steps[0]["loss"]) / abs(loss)
+        for s in steps:
+            log(f"  step: B={s['batch_size']} T={s['seq_len']} loss {s['loss']:.4f}, "
+                f"{s['step_time'] * 1e3:.1f} ms (host clock)")
+        log(f"train_from_litgpt: litgpt load + convert + cast {load_s[0]:.1f} s; step 0 loss "
+            f"{steps[0]['loss']:.6f} against {loss:.6f} from the source weights (rel diff "
+            f"{rel:.2e}, limit {LITGPT_LOSS_RTOL}); {wall:.1f} s wall (init, load and the epoch "
+            f"checkpoint included); peak memory {peak:.1f} GiB [{card}]")
+        if not rel <= LITGPT_LOSS_RTOL:
+            raise AssertionError(f"train_from_litgpt: step 0 loss {steps[0]['loss']} against "
+                                 f"{loss} from the source weights")
+        return counts
+    finally:
+        trainer.build_model, trainer.device_batch = real_build, real_batch
+        convert.load_backbone = real_load
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -2533,7 +2901,32 @@ def main(argv=None) -> int:
         paths["batched_tick_int8_graph"] = run_graph_batched(
             mimi, lm_int8, args.seed, args.sessions, ticks, card, "batched_tick_int8_graph",
             {"rvq_encode": 2}, graphs)
-    del mimi, lm_gen, lm_int8  # free the card for the speech LM
+    del mimi, lm_gen, lm_int8  # free the card for the checkpoint paths and the speech LM
+    ckpt_root = Path(tempfile.mkdtemp(prefix="smoke_checkpoints_"))
+    try:
+        return run_from_checkpoints(args, card, kernels, paths, graphs, ckpt_root, n, t_start)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+
+
+def run_from_checkpoints(args, card: str, kernels: list, paths: dict, graphs: dict,
+                         ckpt_root: Path, n: int, t_start: float) -> int:
+    """The rest of ``main`` from the checkpoint paths on; the Mimi file
+    under ``ckpt_root`` serves ``checkpoint_solo_frame``, ``mimi_tokenize``
+    and the ``speech_cli`` path's wavs."""
+    none = dict.fromkeys(_counters(), 0)
+    with phase("checkpoint solo frame"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        mimi_file = write_mimi_file(ckpt_root, args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["checkpoint_solo_frame"], paths["checkpoint_scan_4"] = run_checkpoint_solo_frame(
+            ckpt_root, mimi_file, args.seed, n, card, graphs)
+    with phase("mimi tokenize"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["mimi_tokenize"] = run_mimi_tokenize(ckpt_root, mimi_file, args.seed, card)
     with phase("flagship"):
         from rstnet_tpu_torch.models.lm import (
             quantize_dep_for_serving,
@@ -2584,12 +2977,16 @@ def main(argv=None) -> int:
     del flagship  # free the card for training
     with phase("full training slice"):
         paths["train_step"], paths["speech_cli"], bf16_steps = run_full_training_slice(
-            args.seed, TRAIN_STEPS, card)
+            args.seed, TRAIN_STEPS, card, mimi_checkpoint=mimi_file)
     with phase("float32 training slice"):
         gc.collect()
         torch.cuda.empty_cache()
         paths["train_step_f32"], paths["speech_cli_f32"] = run_f32_training_slice(
             args.seed, TRAIN_STEPS, card, bf16_steps)
+    with phase("train from litgpt"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["train_from_litgpt"] = run_train_from_litgpt(args.seed, card)
     for k in kernels:
         # a graph path's are its device launches: its eager warm-up call's
         # and its replays' (graph_launches)

@@ -5,9 +5,10 @@ Counterpart of ``rstnet_tpu/core.py``. A JAX param pytree is a nested dict
 module of this package names its parameters so that ``state_dict()`` keys are
 exactly those paths, which makes the bridge a key-by-key copy.
 
-The bridge takes and gives numpy arrays and never imports JAX. JAX's bf16
-arrays reach numpy as ``ml_dtypes.bfloat16``; they cross bit for bit through a
-16-bit integer view, never through float32. Where the port keeps one module
+The bridge takes numpy arrays or torch tensors (the checkpoint converter's
+trees, ``models/convert.py``), gives numpy arrays, and never imports JAX.
+JAX's bf16 arrays reach numpy as ``ml_dtypes.bfloat16``; they cross bit for
+bit through a 16-bit integer view, never through float32. Where the port keeps one module
 per layer and JAX stacks the layers along a leading axis (the backbone's
 ``blocks``), ``stacked`` names the prefixes whose JAX leaves are split
 (``blocks.attn.weight [L, ...]`` -> ``blocks.{i}.attn.weight``) on the way
@@ -53,10 +54,26 @@ def container(**params: torch.Tensor) -> nn.Module:
     return m
 
 
-def _to_torch(a: np.ndarray) -> torch.Tensor:
+def _to_torch(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(np.array(a))
+
+
+def flatten_dict(tree, prefix: str = "", sep: str = "."):
+    """Yield (dotted path, leaf) pairs from a nested dict/list tree (a copy
+    of the JAX package's ``core.flatten_dict``)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from flatten_dict(v, f"{prefix}{sep}{k}" if prefix else str(k), sep)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from flatten_dict(v, f"{prefix}{sep}{i}" if prefix else str(i), sep)
+    else:
+        yield prefix, tree
 
 
 def unstack_layers(flat: dict[str, np.ndarray], stacked=()) -> dict[str, np.ndarray]:
@@ -88,8 +105,9 @@ def stack_layers(flat: dict[str, np.ndarray], stacked=()) -> dict[str, np.ndarra
     return out
 
 
-def from_jax_params(flat: dict[str, np.ndarray], module: nn.Module, stacked=()) -> nn.Module:
-    """Load ``{dotted JAX path: numpy array}`` into ``module`` in place.
+def from_jax_params(flat: dict, module: nn.Module, stacked=()) -> nn.Module:
+    """Load ``{dotted JAX path: numpy array or tensor}`` into ``module`` in
+    place.
 
     Keys, shapes and dtypes must match the module's ``state_dict()`` exactly
     (after splitting the ``stacked`` prefixes per layer); bf16 arrays are
@@ -102,7 +120,7 @@ def from_jax_params(flat: dict[str, np.ndarray], module: nn.Module, stacked=()) 
         raise KeyError(f"param trees differ: missing {missing}, unexpected {extra}")
     with torch.no_grad():
         for name, target in own.items():
-            src = _to_torch(np.asarray(flat[name]))
+            src = _to_torch(flat[name])
             if tuple(src.shape) != tuple(target.shape) or src.dtype != target.dtype:
                 raise ValueError(
                     f"{name}: got {src.dtype}{tuple(src.shape)}, "

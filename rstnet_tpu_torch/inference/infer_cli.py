@@ -8,10 +8,11 @@ It loads the trainer's experiment (``config.yaml`` and the newest
 checkpoint's params, in their saved dtype), runs task-conditioned generation
 (continuation, TTS with the text row forced, ASR with the audio rows forced)
 through the ring-KV streaming step, undoes the delay pattern and saves each
-example's [1 + n_q, T] grid as ``<example id>.npy``. It takes the JAX CLI's
-flags plus ``--device`` (``cuda`` unless ``cpu`` is given). Decoding to wav
-(``--mimi_checkpoint``) is refused until a Mimi checkpoint loader is ported
-(``ROADMAP.md`` queue 1, item 7).
+example's [1 + n_q, T] grid as ``<example id>.npy``. With
+``--mimi_checkpoint`` (a kyutai Mimi file) it also decodes each grid's audio
+rows, clamped to real codec codes, through ``MimiTokenizer`` and writes
+``<example id>.wav``. It takes the JAX CLI's flags plus ``--device``
+(``cuda`` unless ``cpu`` is given), which Mimi runs on too.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from rstnet_tpu_torch.models.config import Config
 from rstnet_tpu_torch.models.lm import SpeechTextLM
 from rstnet_tpu_torch.training.checkpoint import latest_checkpoint, restore_checkpoint
 from rstnet_tpu_torch.training.trainer import StoredTokens, resolve_device
+from rstnet_tpu_torch.utils.audio import write_wav
 
 
 def load_model(config_path: str, exp_dir: str, device: torch.device) -> SpeechTextLM:
@@ -63,9 +65,6 @@ def main(argv=None) -> list[Path]:
                         help="torch device to run on: cuda (default), cuda:N or cpu")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, force=True)
-    if args.mimi_checkpoint:
-        raise SystemExit("--mimi_checkpoint: decoding to wav needs the Mimi checkpoint loader, "
-                         "not ported to rstnet_tpu_torch yet (ROADMAP.md queue 1, item 7)")
     device = resolve_device(args.device)
 
     model = load_model(args.model_config or f"{args.exp_dir}/config.yaml", args.exp_dir, device)
@@ -77,6 +76,11 @@ def main(argv=None) -> list[Path]:
                              batch_scale=10_000, max_length=-1, parallel_number=cfg.n_q + 1,
                              is_train=False)
     inf = OfflineInference(model)
+    detok = None
+    if args.mimi_checkpoint:
+        from rstnet_tpu_torch.data.tokenizers.mimi_tokenizer import MimiTokenizer
+
+        detok = MimiTokenizer(checkpoint_path=args.mimi_checkpoint, device=device)
     os.makedirs(args.output_dir, exist_ok=True)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     written = []
@@ -95,9 +99,17 @@ def main(argv=None) -> list[Path]:
                 forced[:, rows] = grid[:, rows]  # tts: the text row; asr: the audio rows
                 forced[:, :, true_len:] = -1  # never force the bucket's padding frames
             out = inf.generate(grid[:, :, :T0], args.max_new_frames, generator, forced=forced)
-            path = Path(args.output_dir) / f"{batch['example_ids'][b]}.npy"
-            np.save(path, it.collator.reverse_delay(out[0]))
+            utt = batch["example_ids"][b]
+            result = it.collator.reverse_delay(out[0])
+            path = Path(args.output_dir) / f"{utt}.npy"
+            np.save(path, result)
             written.append(path)
+            if detok is not None:
+                # clamp to real codec codes: the empty/pad specials (the top
+                # two ids of the audio vocab) are not codebook entries
+                codes = np.clip(result[1:], 0, detok.model.quantizer.bins - 1)
+                write_wav(str(Path(args.output_dir) / f"{utt}.wav"),
+                          detok.detokenize(codes.astype(np.int32)), detok.sr)
         if len(written) >= args.max_examples:
             break
     logging.info(f"generated {len(written)} examples into {args.output_dir}")

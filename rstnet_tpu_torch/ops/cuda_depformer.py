@@ -204,6 +204,23 @@ def _scratch(device: torch.device, stream: int, C: int, H: int) -> torch.Tensor:
     return _SCRATCH[key]
 
 
+def bf16_rounding(w: torch.Tensor) -> torch.Tensor:
+    """``w`` as K1 reads it: ``w`` itself when bf16; for another float dtype
+    its bf16 rounding (the Pallas ``wload``'s ``astype(bf16)``), taken once
+    and kept on the tensor until the tensor is written in place (its
+    ``_version``) or its storage changes. A converted checkpoint is float32,
+    and a frame then reads the copy instead of casting every stack anew."""
+    if w.dtype == torch.bfloat16:
+        return w
+    key = (w.data_ptr(), w._version)
+    cached = getattr(w, "_bf16_rounding", None)
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            cached = (key, w.detach().to(torch.bfloat16).contiguous())
+        w._bf16_rounding = cached
+    return cached[1]
+
+
 def depformer_kernel_operands(model) -> dict | None:
     """The kernel's operands from a model's depth transformer and heads: a
     ``SpeechTextLM``'s ``codecformer`` and ``audio_linears`` or a
@@ -214,7 +231,10 @@ def depformer_kernel_operands(model) -> dict | None:
     keep the ``step_codecformer`` path. When all five are int8 the operands
     are their codes and ``scales`` their float32 row scales ``[..., rows,
     1]``; otherwise ``scales`` is None. Cheap (views of the weights), so
-    callers take it afresh at every frame and follow in-place changes."""
+    callers take it afresh at every frame and follow in-place changes.
+    Float weights of another dtype than bf16 (a converted float32
+    checkpoint) come as their bf16 rounding (:func:`bf16_rounding`), which
+    is what K1 and its plain version compute with."""
     if hasattr(model, "codecformer"):
         tf, head = model.codecformer, model.audio_linears
     else:
@@ -233,6 +253,8 @@ def depformer_kernel_operands(model) -> dict | None:
         weights = {k: w.w_int8 for k, w in weights.items()}
     elif n_int8:  # mixed quantization: keep the step_codecformer path
         return None
+    else:
+        weights = {k: bf16_rounding(w) for k, w in weights.items()}
     C, S = tf.d_model, tf.weights_per_step
     H = weights["gin"].shape[-2] // 2
     card = weights["head_w"].shape[-2]

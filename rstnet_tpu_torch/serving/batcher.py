@@ -82,8 +82,11 @@ class SessionBatcher:
 
     def __init__(self, mimi, lm_gen: LMGen, max_sessions: int = 8, dtype=torch.bfloat16,
                  pipeline_depth: int = 1, wire_dtype: str = "float32",
-                 fetch_pool: Optional[int] = None, seed: int = 0, cuda_graphs: bool = True):
+                 fetch_pool: Optional[int] = None, seed: int = 0, cuda_graphs: bool = True,
+                 text_tokenizer=None):
         """``dtype``: the LM state's (the codec state is float32).
+        ``text_tokenizer`` is what the batched app decodes text with (None:
+        token ids).
         ``seed`` seeds the batcher's sampling generator. The clock steps one
         frame a tick, as the JAX batcher does. ``cuda_graphs`` (on a CUDA
         device) replays the tick as a CUDA graph.
@@ -100,6 +103,7 @@ class SessionBatcher:
         pinned memory at dispatch (the fetch then copies when it runs).
         Dispatch->delivery latency per frame is tracked in
         ``delivery_latency``, the tick time in ``latency``."""
+        self.text_tokenizer = text_tokenizer
         # Slot isolation relies on relative positions: a slot joining at
         # global offset t must behave as a fresh stream at 0, which absolute
         # sin embeddings would break.

@@ -19,7 +19,7 @@ fails raises: nothing falls back to eager.
 The graph bakes in every pointer it reads, the weights' too. ``key``, when
 given, names the weights (see :func:`weights_key`); a call that finds it
 changed drops the graph and warms up and captures again, into a new pool,
-so a graph never runs over weights that were replaced.
+so a graph never runs over weights that were replaced or written since.
 
 ``outputs`` are static: the next call overwrites them, so a caller copies
 out what it keeps before the next call on the same stream is issued.
@@ -75,11 +75,13 @@ def copy_tree_(dst, src) -> None:
 
 
 def weights_key(*modules: torch.nn.Module) -> tuple:
-    """The addresses of every parameter and buffer of ``modules``: it
-    changes when a weight is replaced (padding, int8 quantization), not when
-    one is written in place."""
-    return tuple(t.data_ptr() for m in modules
-                 for t in (*m.parameters(), *m.buffers()))
+    """The addresses of every parameter and buffer of ``modules`` and the
+    parameters' versions: it changes when a weight is replaced (padding,
+    int8 quantization) or a parameter is written in place, since a replay
+    may read a copy taken from it (K1's bf16 rounding of float32 stacks,
+    ``ops/cuda_depformer.py::bf16_rounding``)."""
+    return (tuple(t.data_ptr() for m in modules for t in (*m.parameters(), *m.buffers())),
+            tuple(p._version for m in modules for p in m.parameters()))
 
 
 class CapturedStep:

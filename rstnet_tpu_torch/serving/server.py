@@ -9,7 +9,9 @@ when it opens; Mimi and the LM state run in float32 and the LM weights in
 bf16, as in the reference. With ``--batch N``, up to N connections share one
 ``SessionBatcher`` (``serving/batcher.py``) whose LM state is bf16. Wire
 protocol and codec handshake are the JAX server's (``b"\\x01"`` audio,
-``b"\\x02"`` text as the token id, Opus or PCM16 via ``serving/opus.py``).
+``b"\\x02"`` text, Opus or PCM16 via ``serving/opus.py``). Text goes out
+decoded through the text tokenizer of ``--tokenizer-dir``, or as the token
+id without one.
 ``/api/stats`` reports the frame-latency tail.
 
 With ``--scan-frames N`` (default 4, as in JAX) a solo session that has N
@@ -21,15 +23,19 @@ counterpart of the JAX server's one jitted dispatch a frame.
 
 Run: ``python -m rstnet_tpu_torch.serving.server [--tiny] [--device cuda]
 [--batch N] [--scan-frames N] [--int8] [--int8-dep] [--int8-head]
-[--kv-int8]``. The int8 options follow the JAX ``main``
+[--kv-int8] [--mimi-checkpoint M] [--lm-checkpoint L] [--tokenizer-dir D]``.
+The checkpoint options load kyutai's public files (``models/convert.py``):
+the LM then runs on the converted float32 weights, as the JAX server serves
+them, and K1 reads their bf16 rounding (``ops/cuda_depformer.py::
+bf16_rounding``). Without them the weights are random, drawn from ``--seed``
+(Moshi in bf16). The int8 options follow the JAX ``main``
 (``quantize_for_serving``): ``--int8`` quantizes the depformer slice and the
 backbone, ``--int8-dep`` the depformer slice only, ``--int8-head`` the text
 head (only without ``--int8``), and ``--kv-int8`` stores the backbone ring
 K/V as int8. One difference: the JAX server returns from its ``--tiny``
 branch before its int8 block, so there the weight options do nothing on the
-tiny pair, while the port applies them to whichever pair it builds. The
-checkpoint and tokenizer options come with checkpoint loading
-(``ROADMAP.md`` queue 1).
+tiny pair, while the port applies them to whichever pair it builds. As in
+JAX, ``--tiny`` ignores the checkpoint and tokenizer options.
 """
 
 from __future__ import annotations
@@ -57,7 +63,8 @@ TEXT_SKIP_IDS = (0, 3)  # <unk>/<epad> and <pad>
 
 
 class ServerState:
-    """The codec and the LM engine in streaming state for one session.
+    """The codec and the LM engine in streaming state for one session, and
+    the text tokenizer its text goes out through (None: token ids).
 
     ``seed`` seeds the sampling generator at every ``reset``, so a session is
     reproducible. ``scan_frames`` (0 or 1: off) sizes the codec state for a
@@ -70,8 +77,9 @@ class ServerState:
     functions run eagerly."""
 
     def __init__(self, mimi, lm_gen: LMGen, seed: int = 0, scan_frames: int = 0,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, text_tokenizer=None):
         self.mimi, self.lm_gen = mimi, lm_gen
+        self.text_tokenizer = text_tokenizer
         self.seed = seed
         self.scan_frames = int(scan_frames)
         self.frame_size = mimi.frame_size
@@ -249,10 +257,23 @@ def _handshake_reply(raw: str, frame_size: int) -> tuple[object, str]:
     return opus.make_transport(codec), json.dumps({"codec": codec})
 
 
-async def _send_frame(ws, audio, text_token, transport):
-    await ws.send_bytes(TAG_AUDIO + transport.pack(audio))
-    if text_token is not None and text_token not in TEXT_SKIP_IDS:
+async def _send_text(ws, text_token, text_tokenizer):
+    """One text token: decoded through ``text_tokenizer`` (nothing is sent
+    for an empty piece), or its id without one; padding and unknown ids are
+    never sent."""
+    if text_token is None or text_token in TEXT_SKIP_IDS:
+        return
+    if text_tokenizer is None:
         await ws.send_bytes(TAG_TEXT + str(text_token).encode())
+        return
+    text = text_tokenizer.decode([text_token])
+    if text:
+        await ws.send_bytes(TAG_TEXT + text.encode())
+
+
+async def _send_frame(ws, audio, text_token, text_tokenizer, transport):
+    await ws.send_bytes(TAG_AUDIO + transport.pack(audio))
+    await _send_text(ws, text_token, text_tokenizer)
 
 
 async def handle_chat(state: ServerState, request):
@@ -297,8 +318,7 @@ async def handle_chat(state: ServerState, request):
                         tracker.record(ms / sf)
                     await ws.send_bytes(TAG_AUDIO + transport.pack(audio))
                     for tok in text_tokens:
-                        if tok not in TEXT_SKIP_IDS:
-                            await ws.send_bytes(TAG_TEXT + str(tok).encode())
+                        await _send_text(ws, tok, state.text_tokenizer)
                     continue
                 frame = buffered[: state.frame_size]
                 buffered = buffered[state.frame_size :]
@@ -308,7 +328,7 @@ async def handle_chat(state: ServerState, request):
                 logging.info("frame handled in %.1f ms", ms)
                 tracker.record(ms)
                 if audio is not None:
-                    await _send_frame(ws, audio, text_token, transport)
+                    await _send_frame(ws, audio, text_token, state.text_tokenizer, transport)
         logging.info("chat session ended; frame latency: %s", tracker.summary())
     return ws
 
@@ -338,7 +358,8 @@ async def handle_chat_batched(batcher, request):
                     await ws.close(code=1011, message=b"server step failed")
                     return
                 audio, text_token = item
-                await _send_frame(ws, audio, text_token, holder["transport"])
+                await _send_frame(ws, audio, text_token, batcher.text_tokenizer,
+                                  holder["transport"])
         except asyncio.CancelledError:
             raise
         except Exception as e:  # noqa: BLE001 - a dead client must free the slot
@@ -412,7 +433,8 @@ def build_app(state: ServerState):
 
 def build_batched_app(batcher):
     """App serving up to ``batcher.max_sessions`` concurrent duplex chats
-    through one batched frame step."""
+    through one batched frame step; text goes out through the batcher's
+    ``text_tokenizer``."""
     from aiohttp import web
 
     app = web.Application()
@@ -467,11 +489,14 @@ def quantize_for_serving(lm, int8: bool = False, int8_dep: bool = False,
     return lm
 
 
-def build_models(tiny: bool, device, seed: int):
-    """(mimi, lm_gen) with random weights drawn from ``seed``: the tiny demo
-    pair, or Mimi 24 kHz (f32) + Moshi 7B (bf16). The depformer's gating
-    hidden dim is padded to a multiple of 128 for K2 (a no-op for Moshi 7B,
-    whose hidden dim is 2816 = 22 x 128)."""
+def build_models(tiny: bool, device, seed: int, mimi_checkpoint: str = "",
+                 lm_checkpoint: str = ""):
+    """(mimi, lm_gen): the tiny demo pair with random weights drawn from
+    ``seed``, or Mimi 24 kHz (f32) + Moshi 7B. Moshi is bf16 with random
+    weights, or float32 loaded from ``lm_checkpoint`` (the JAX converter's
+    dtype); Mimi is random or loaded from ``mimi_checkpoint``. The
+    depformer's gating hidden dim is padded to a multiple of 128 for K2 (a
+    no-op for Moshi 7B, whose hidden dim is 2816 = 22 x 128)."""
     from rstnet_tpu_torch.models.mimi import mimi_24k
     from rstnet_tpu_torch.models.moshi_lm import MoshiLMModel, moshi_7b
     from rstnet_tpu_torch.modules.transformer import pad_codecformer_gating
@@ -487,8 +512,19 @@ def build_models(tiny: bool, device, seed: int):
             depformer_num_heads=2, depformer_num_layers=1, device=device, generator=g)
         pad_codecformer_gating(lm.depformer)
         return mimi, LMGen(lm, delays=lm.delays, top_k=32)
+    from rstnet_tpu_torch.models.convert import load_mimi, load_moshi_lm
+
     mimi = mimi_24k(device=device, generator=g)
-    lm = moshi_7b(device=device, dtype=torch.bfloat16, generator=g)
+    if mimi_checkpoint:
+        t0 = time.perf_counter()
+        load_mimi(mimi_checkpoint, mimi)
+        logging.info("loaded %s in %.1f s", mimi_checkpoint, time.perf_counter() - t0)
+    lm = moshi_7b(device=device, dtype=torch.float32 if lm_checkpoint else torch.bfloat16,
+                  generator=g)
+    if lm_checkpoint:
+        t0 = time.perf_counter()
+        load_moshi_lm(lm_checkpoint, lm)
+        logging.info("loaded %s in %.1f s", lm_checkpoint, time.perf_counter() - t0)
     pad_codecformer_gating(lm.depformer)
     return mimi, LMGen(lm, delays=lm.delays)
 
@@ -501,7 +537,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--seed", type=int, default=0,
                         help="seeds the random weights and the sampling generator")
     parser.add_argument("--tiny", action="store_true",
-                        help="small random-weight models (demo/smoke)")
+                        help="small random-weight models (demo/smoke; no checkpoints needed)")
+    parser.add_argument("--mimi-checkpoint", default="", metavar="FILE",
+                        help="kyutai Mimi checkpoint (.safetensors or .pt)")
+    parser.add_argument("--lm-checkpoint", default="", metavar="FILE",
+                        help="kyutai Moshi checkpoint (.safetensors or .pt); served in float32")
+    parser.add_argument("--tokenizer-dir", default="", metavar="DIR",
+                        help="text tokenizer (tokenizer.json or tokenizer*.model) to send "
+                             "text as words instead of token ids")
     parser.add_argument("--ssl", default="", metavar="DIR",
                         help="serve wss/https with DIR/cert.pem + DIR/key.pem")
     parser.add_argument("--batch", type=int, default=0, metavar="N",
@@ -539,13 +582,20 @@ def parse_args(argv=None) -> argparse.Namespace:
 def build_server(args: argparse.Namespace):
     """The warmed-up ``ServerState`` (solo) or ``SessionBatcher``
     (``--batch``) that ``main`` serves; its steps are captured as CUDA
-    graphs on the card."""
+    graphs on the card. Its ``text_tokenizer`` (``--tokenizer-dir``, else
+    None) is what the app decodes text with."""
     device = torch.device(args.device)
     if device.type == "cuda":
         # the reference precision: true fp32 matmuls and convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    mimi, lm_gen = build_models(args.tiny, device, args.seed)
+    mimi, lm_gen = build_models(args.tiny, device, args.seed, args.mimi_checkpoint,
+                                args.lm_checkpoint)
+    text_tokenizer = None
+    if args.tokenizer_dir and not args.tiny:
+        from rstnet_tpu_torch.data.tokenizers.text_tokenizer import TextTokenizer
+
+        text_tokenizer = TextTokenizer(args.tokenizer_dir)
     # the weights are final before any graph is captured
     quantize_for_serving(lm_gen.model, args.int8, args.int8_dep, args.int8_head)
     lm_gen = dataclasses.replace(lm_gen, kv_int8=args.kv_int8)
@@ -561,12 +611,13 @@ def build_server(args: argparse.Namespace):
             dtype=torch.float32 if args.tiny else torch.bfloat16, pipeline_depth=depth,
             wire_dtype=wire,
             fetch_pool=None if args.fetch_pool == "auto" else int(args.fetch_pool),
-            seed=args.seed)
+            seed=args.seed, text_tokenizer=text_tokenizer)
         logging.info("warming up (batch %d, pipeline depth %d, wire %s)...", args.batch, depth,
                      wire)
         batcher.warmup()
         return batcher
-    state = ServerState(mimi, lm_gen, seed=args.seed, scan_frames=args.scan_frames)
+    state = ServerState(mimi, lm_gen, seed=args.seed, scan_frames=args.scan_frames,
+                        text_tokenizer=text_tokenizer)
     logging.info("warming up (scan frames %d)...", args.scan_frames)
     state.warmup()
     return state

@@ -7,7 +7,9 @@ and ``extras.json`` (the reporter). Resume finds the newest one, and old ones
 are rotated away, as in JAX. ``restore_checkpoint(..., partial=True)`` is
 the inference CLIs' params-only load: it maps the file (``mmap``) and reads
 only the params, so the optimizer moments of a large checkpoint are never
-read.
+read. ``save_model`` is the weights-only export (a directory with
+``state.pt`` holding ``{"params": ...}`` only), which the same partial
+restore loads; ``export_numpy`` writes the JAX package's flat ``.npz``.
 """
 
 from __future__ import annotations
@@ -86,6 +88,33 @@ def restore_checkpoint(path: str | Path, target_state: dict, partial: bool = Fal
         extras = json.loads((path / "extras.json").read_text())
     logging.info(f"restored checkpoint {path}")
     return target_state, extras
+
+
+def save_model(path: str | Path, params: dict) -> None:
+    """Weights-only export: ``{name: tensor}`` (a module's ``state_dict``
+    names) to ``<path>/state.pt``, loadable with ``restore_checkpoint(path,
+    {"model": module}, partial=True)``."""
+    path = _ckpt_dir(path)
+    if path.exists():
+        shutil.rmtree(path)
+    path.mkdir(parents=True)
+    torch.save({"params": {k: v.detach().contiguous().cpu() for k, v in params.items()}},
+               path / "state.pt")
+
+
+def export_numpy(path: str | Path, params: dict) -> None:
+    """Flat ``.npz`` of ``{dotted JAX path: tensor or array}`` (the JAX
+    package's ``export_numpy``; bf16 as ``ml_dtypes.bfloat16``)."""
+    import os
+
+    import numpy as np
+
+    from rstnet_tpu_torch.core import tensor_to_numpy
+
+    flat = {k: tensor_to_numpy(v) if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in params.items()}
+    os.makedirs(os.path.dirname(str(path)) or ".", exist_ok=True)
+    np.savez(path, **flat)
 
 
 _CKPT_RE = re.compile(r"ep(\d+)(?:-iter(\d+))?\.checkpoint$")

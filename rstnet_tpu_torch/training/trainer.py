@@ -17,9 +17,14 @@ default) and the device is CUDA, and a batch's bucket length qualifies
 (a multiple of 512: ``--max_length 1023`` gives a top bucket of 1024; the
 default ``--max_length 1000`` gives none).
 
+``--checkpoint_path`` loads a litgpt checkpoint (``lit_model.pth`` or
+``.safetensors``, ``models/convert.py``) into the backbone, cast to the run's
+dtype, as the JAX trainer does; the codecformer and the embeddings keep
+their seeded weights.
+
 Refused, each with the item that ports it (``ROADMAP.md``): LoRA
-(``--lora_r > 0``) and ``--base_int8``, the Moshi family's training forwards,
-``--checkpoint_path`` (the checkpoint converter), and any mesh axis above 1
+(``--lora_r > 0``) and ``--base_int8``, the Moshi family's training forwards
+(with or without ``--checkpoint_path``), and any mesh axis above 1
 (parallelism).
 
 ``main`` returns the train steps' records (one dict a step: epoch, batch
@@ -79,9 +84,6 @@ def refuse_unported(args) -> None:
     if args.model_family == "moshi":
         raise SystemExit("--model_family moshi: the Moshi training forwards are not ported to "
                          "rstnet_tpu_torch yet (ROADMAP.md queue 1, item 7)")
-    if args.checkpoint_path:
-        raise SystemExit("--checkpoint_path: the checkpoint converter is not ported to "
-                         "rstnet_tpu_torch yet (ROADMAP.md queue 1, item 6)")
     axes = {"dp": args.dp, "fsdp": args.fsdp, "tensor": args.tensor, "seq": args.seq,
             "pipe": args.pipe, "expert": args.expert}
     wide = {k: v for k, v in axes.items() if v > 1}
@@ -161,6 +163,11 @@ def main(argv=None) -> dict:
     torch.manual_seed(args.seed)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     model = build_model(args, device, dtype)
+    if args.checkpoint_path:
+        from rstnet_tpu_torch.models.convert import load_backbone
+
+        load_backbone(args.checkpoint_path, model.backbone, dtype=dtype)
+        logging.info(f"loaded pretrained weights from {args.checkpoint_path}")
     # the resolved model config (CLI overrides included) for later reuse
     write_flat_yaml(f"{args.exp_dir}/config.yaml", dataclasses.asdict(model.config))
     write_flat_yaml(f"{args.exp_dir}/train_args.yaml", vars(args))

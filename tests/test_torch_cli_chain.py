@@ -65,11 +65,32 @@ def test_train_eval_generate_chain(tmp_path):
 
 
 def test_infer_cli_refuses_wav_decoding(tmp_path):
+    """``--mimi_checkpoint`` (a Mimi 24 kHz file in kyutai's layout):
+    ``infer_cli`` writes one wav per example beside its grid, the grid's
+    audio rows clamped to real codes and decoded through ``MimiTokenizer``
+    as a direct decode gives them."""
+    from rstnet_tpu_torch.data.tokenizers.mimi_tokenizer import MimiTokenizer
     from rstnet_tpu_torch.inference import infer_cli
+    from rstnet_tpu_torch.models.mimi import mimi_24k
+    from rstnet_tpu_torch.tools.upstream_layout import upstream_mimi, write_upstream
+    from rstnet_tpu_torch.utils.audio import read_wav
 
-    with pytest.raises(SystemExit, match="item 7"):
-        infer_cli.main(["--exp_dir", str(tmp_path), "--data_jsons", "x.json", "--output_dir",
-                        str(tmp_path), "--mimi_checkpoint", "mimi.pt", "--device", "cpu"])
+    exp, _ = _train(tmp_path)
+    mimi = write_upstream(tmp_path / "mimi.safetensors", upstream_mimi(
+        mimi_24k(generator=torch.Generator().manual_seed(3))))
+    out_dir = tmp_path / "gen"
+    written = infer_cli.main(["--exp_dir", str(exp), "--data_jsons", str(tmp_path / "a.json"),
+                              "--output_dir", str(out_dir), "--prefix_frames", "4",
+                              "--max_new_frames", "2", "--max_examples", "2",
+                              "--mimi_checkpoint", str(mimi), "--device", "cpu"])
+    wavs = sorted(out_dir.glob("*.wav"))
+    assert len(written) == 2 and [p.with_suffix(".wav") for p in sorted(written)] == wavs
+    detok = MimiTokenizer(checkpoint_path=str(mimi), device="cpu")
+    grid = np.load(sorted(written)[0])
+    want = detok.detokenize(np.clip(grid[1:], 0, 2047))
+    audio, sr = read_wav(str(wavs[0]))
+    assert sr == 24000 and audio.shape == want.shape == (1, grid.shape[1] * 1920)
+    np.testing.assert_allclose(audio, np.clip(want, -1, 1), rtol=0, atol=1 / 32767 + 1e-6)
 
 
 def test_partial_restore_loads_params_only(tmp_path, monkeypatch):

@@ -763,3 +763,44 @@ def test_sampling_graph_draws_fresh_noise_and_repeats_from_its_seed(cuda):
     other = session(ServerState(mimi, gen, seed=6))
     assert state.graphs()["frame"].captures == 1
     assert first == second and first != other and len(set(first)) > 1
+
+
+def test_k1_over_float32_weights_in_graphs(cuda):
+    """A float32 Moshi inside K1's envelope (a converted checkpoint's dtype)
+    with the tiny Mimi: graph frames equal eager frames bit for bit, K1
+    reading one bf16 rounding of the depformer stacks; a weight written in
+    place recaptures the graph (``weights_key``), and the frames after
+    equal an eager state's over the written weights."""
+    import numpy as np
+
+    from rstnet_tpu_torch.inference.generate import LMGen
+    from rstnet_tpu_torch.models.moshi_lm import MoshiLMModel
+    from rstnet_tpu_torch.ops.cuda_depformer import depformer_kernel_operands
+    from rstnet_tpu_torch.serving.server import ServerState, build_models
+
+    mimi, _ = build_models(True, torch.device("cuda"), 0)
+    lm = MoshiLMModel(delays=(0, 0) + (1,) * 7 + (0,) + (1,) * 7, n_q=16, dep_q=8, card=128,
+                      text_card=256, dim=64, num_heads=4, num_layers=2, hidden_scale=4.0,
+                      context=64, depformer_dim=128, depformer_dim_feedforward=192,
+                      depformer_num_heads=2, depformer_num_layers=2, device="cuda",
+                      generator=cuda)
+    gen = LMGen(lm, delays=lm.delays, use_sampling=False)
+    ops = depformer_kernel_operands(lm)
+    assert ops is not None and ops["in_proj"].dtype == torch.bfloat16
+    assert depformer_kernel_operands(lm)["in_proj"].data_ptr() == ops["in_proj"].data_ptr()
+    pcm = np.random.default_rng(4).normal(0, 0.1, (6, 1920)).astype(np.float32)
+    graph, eager = (ServerState(mimi, gen, cuda_graphs=g) for g in (True, False))
+    for written in (False, True):
+        if written:
+            with torch.no_grad():
+                lm.depformer.layers.in_proj.mul_(1.5)
+            graph.reset()
+            eager.reset()
+        for p in pcm:
+            (a0, t0), (a1, t1) = eager.handle_frame_array(p), graph.handle_frame_array(p)
+            assert t0 == t1
+            if a0 is not None:
+                np.testing.assert_array_equal(a0, a1)
+    assert graph.graphs()["frame"].captures == 2
+    torch.testing.assert_close(depformer_kernel_operands(lm)["in_proj"],
+                               lm.depformer.layers.in_proj.to(torch.bfloat16), rtol=0, atol=0)

@@ -54,3 +54,14 @@ def test_scan_covers_the_speech_inference_slice():
                    "inference/infer_cli.py", "evalsuite/lm_eval.py", "evalsuite/quant_quality.py",
                    "training/checkpoint.py", "data/tokenizers/abs_tokenizer.py"):
         assert f"rstnet_tpu_torch/{module}" in scanned, module
+
+
+def test_scan_covers_the_checkpoint_slice():
+    """The scan reaches every module of checkpoint loading, the tokenizers
+    and offline tokenization."""
+    scanned = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("models/convert.py", "tools/convert_checkpoint.py",
+                   "tools/upstream_layout.py", "data/tokenizers/text_tokenizer.py",
+                   "data/tokenizers/mimi_tokenizer.py", "tools/offline_tokenization.py",
+                   "tools/scp_tools.py", "utils/audio.py"):
+        assert f"rstnet_tpu_torch/{module}" in scanned, module

@@ -82,12 +82,48 @@ def test_data_batches_equal_jax(tmp_path):
 
 @pytest.mark.parametrize("flags", [("--lora_r", "2"), ("--base_int8", "true"),
                                    ("--model_family", "moshi"), ("--fsdp", "2"), ("--seq", "2"),
-                                   ("--dp", "2"), ("--checkpoint_path", "lit_model.pth")])
+                                   ("--dp", "2")])
 def test_trainer_refuses_what_is_not_ported(tmp_path, flags):
     from rstnet_tpu_torch.training import trainer
 
     with pytest.raises(SystemExit):
         trainer.main(_cpu_args(tmp_path, tmp_path / "exp", flags))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_trainer_loads_a_litgpt_checkpoint(tmp_path, dtype):
+    """``--checkpoint_path`` loads a litgpt ``lit_model.pth`` into the
+    backbone, cast to the run's dtype: with a zero learning rate the saved
+    backbone equals the JAX ``convert_backbone`` of the file, cast the same
+    way, bit for bit."""
+    import ml_dtypes
+
+    from rstnet_tpu.core import flatten_dict
+    from rstnet_tpu.models import convert as jc
+    from rstnet_tpu.models.config import Config as JaxConfig
+    from rstnet_tpu_torch.core import stack_layers, tensor_to_numpy
+    from rstnet_tpu_torch.models.backbone import Backbone
+    from rstnet_tpu_torch.models.config import Config
+    from rstnet_tpu_torch.tools.upstream_layout import upstream_backbone, write_upstream
+    from rstnet_tpu_torch.training import trainer
+
+    _write_synthetic(tmp_path)
+    cfg_path = str(tmp_path / "model.yaml")
+    src = Backbone(Config.from_file(cfg_path), generator=torch.Generator().manual_seed(11))
+    ckpt = write_upstream(tmp_path / "lit_model.pth", upstream_backbone(src))
+    exp = tmp_path / "exp"
+    trainer.main(_cpu_args(tmp_path, exp, ("--checkpoint_path", str(ckpt), "--n_epoch", "1",
+                                           "--global_learning_rate", "0", "--dtype", dtype)))
+    saved = torch.load(exp / "ep1.checkpoint" / "state.pt", weights_only=True)["params"]
+    got = stack_layers({k[len("backbone."):]: tensor_to_numpy(v) for k, v in saved.items()
+                        if k.startswith("backbone.")}, ("blocks",))
+    np_dtype = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    tree = jc.convert_backbone(jc.load_torch_state_dict(str(ckpt)), JaxConfig.from_file(cfg_path))
+    want = {k: np.asarray(v).astype(np_dtype) for k, v in flatten_dict(tree)}
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and got[k].tobytes() == v.tobytes(), k
+    assert saved["backbone.wte"].dtype == (torch.float32 if dtype == "float32" else torch.bfloat16)
 
 
 def test_trainer_needs_a_card_unless_told_cpu(tmp_path):

@@ -73,9 +73,12 @@ Phases (each prints its findings; any failure exits non-zero):
    GQA inside the kernels) against its plain versions at the training shapes
    (H=32 over 8 KV heads, T=1024, D=64; causal and a 256 window; B=2 and the
    main paths' B=4, bf16 and float32, the float32 route on split-bf16
-   operands), two backward calls compared bit for bit, with device, plain,
-   bound and SDPA times; a small ``SpeechTextLM`` trained through
-   ``rstnet_tpu_torch.training.trainer.main`` (float32, bucket 512) on the
+   operands; and head dim 128 at B=4: Qwen2.5-7B's 28 heads over 4 and
+   Llama-3.1-8B's 32 over 8, its entries named ``..._d128``), two backward
+   calls compared bit for bit, with device, plain, bound and SDPA times; a
+   small ``SpeechTextLM`` trained through
+   ``rstnet_tpu_torch.training.trainer.main`` (float32, bucket 512; head
+   dim 64, then 128) on the
    card and on the CPU from the same weights and data, one epoch and then a
    resumed second, per-step losses compared; then the full Llama-3.2-1B
    speech config (2.01 B parameters, bf16) for ``TRAIN_STEPS`` steps on
@@ -91,7 +94,19 @@ Phases (each prints its findings; any failure exits non-zero):
    and ``trainer --checkpoint_path`` on it for 3 bf16 steps (path
    ``train_from_litgpt``: the loaded backbone equal to the file after the
    cast, K6 on every 1024-bucket step, step 0's loss equal to that of the
-   same model assembled from the source weights);
+   same model assembled from the source weights); then LM fine-tuning
+   through the trainer CLI, weights drawn on the card: the flagship speech
+   config ``configs/qwen_7b_speech.yaml`` (Qwen2.5-7B, full width and depth)
+   with LoRA r 16 over an int8 frozen base (``--base_int8``), bf16, the
+   T=1024 bucket, ``PEFT_STEPS`` steps and as many of a second epoch resumed
+   from the first one's trainable-only checkpoint (path
+   ``train_qwen7b_peft``: K6 at head dim 128 on every 1024-bucket step), and
+   ``--model_family moshi`` at Moshi 7B's widths with LoRA r 16 on the
+   temporal transformer (path ``train_moshi7b_lora``: no counted kernel),
+   each printing its step time, device and host peaks and frozen and
+   trainable bytes; and phase ``moe_small``: a Mixtral-8x7B-width backbone
+   cut to 2 layers, float32, forward and backward on the card against the
+   CPU;
 7. speech streaming: K4 and K5 (the fused gated FFN of the backbone's
    LLaMAMLP, bf16, int8 and float32 weights) against their plain versions
    at Llama-3.2-1B's MLP (C=2048, H=8192; N in {1, 4, 16, 64}, x in bf16
@@ -1080,6 +1095,12 @@ def _counters() -> dict:
             "flash_attention_bwd": (cuda_flash.flash_attention_bwd, "launches"),
             "flash_attention_fwd_f32": (cuda_flash.flash_attention_fwd, "launches_f32"),
             "flash_attention_bwd_f32": (cuda_flash.flash_attention_bwd, "launches_f32"),
+            "flash_attention_fwd_d128": (cuda_flash.flash_attention_fwd, "launches_d128"),
+            "flash_attention_bwd_d128": (cuda_flash.flash_attention_bwd, "launches_d128"),
+            "flash_attention_fwd_f32_d128": (cuda_flash.flash_attention_fwd,
+                                             "launches_f32_d128"),
+            "flash_attention_bwd_f32_d128": (cuda_flash.flash_attention_bwd,
+                                             "launches_f32_d128"),
             "gating_ffn": (gating_ffn, "launches"),
             "gating_ffn_int8": (gating_ffn_int8, "launches"),
             "gating_ffn_f32_weights": (gating_ffn, "launches_f32w")}
@@ -1953,9 +1974,10 @@ def _visible_pairs(T: int, window: int) -> int:
     return sum(min(i + 1, window) for i in range(T))
 
 
-def _k6_names(dtype) -> tuple[str, str]:
-    """The kernels line's names of K6's forward and backward for a dtype."""
-    tag = "_f32" if dtype == torch.float32 else ""
+def _k6_names(dtype, head_dim: int = 64) -> tuple[str, str]:
+    """The kernels line's names of K6's forward and backward for a dtype
+    and a head dim."""
+    tag = ("_f32" if dtype == torch.float32 else "") + ("_d128" if head_dim == 128 else "")
     return f"flash_attention_fwd{tag}", f"flash_attention_bwd{tag}"
 
 
@@ -1975,14 +1997,14 @@ def _check_k6_route(q, k, v, do, context: int, scale: float, err: dict) -> None:
     (B, H, T, D), dtype = q.shape, q.dtype
     window = attention_window(T, context)
     tol = K6_REL_TOL[dtype]
-    fwd, bwd = _k6_names(dtype)
+    fwd, bwd = _k6_names(dtype, D)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     got = flash_attention(*leaves, context, scale)
     got_grads = torch.autograd.grad(got, leaves, do)
     want = flash_attention_reference(*leaves, context, scale)
     want_grads = torch.autograd.grad(want, leaves, do)
     torch.cuda.synchronize()
-    what = f"K6 B={B} context {context} {str(dtype).split('.')[-1]}"
+    what = f"K6 B={B} H={H}/{k.shape[1]} D={D} context {context} {str(dtype).split('.')[-1]}"
     for name, a, b, kernel in (("o", got, want, fwd), ("dq", got_grads[0], want_grads[0], bwd),
                                ("dk", got_grads[1], want_grads[1], bwd),
                                ("dv", got_grads[2], want_grads[2], bwd)):
@@ -2030,7 +2052,7 @@ def _time_k6(q, k, v, do, context: int, scale: float, card: str) -> dict:
     row, kv, rows = B * H * T * D * size, B * Hkv * T * D * size, B * H * T * 4
     kind = "f32" if dtype == torch.float32 else "bf16"
     products = 3 if dtype == torch.float32 else 1
-    fwd, bwd = _k6_names(dtype)
+    fwd, bwd = _k6_names(dtype, D)
     runs = {
         fwd: (  # q, k, v -> o, lse
             lambda: cf.flash_attention_fwd(qs, k, v, window),
@@ -2069,7 +2091,8 @@ def _time_k6(q, k, v, do, context: int, scale: float, card: str) -> dict:
         entries[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": lib}
     total = entries[fwd]["ms"] + entries[bwd]["ms"]
-    log(f"K6 B={B} context {context} {kind} forward + backward: kernels {total:.4f} ms, SDPA "
+    log(f"K6 B={B} H={H}/{Hkv} D={D} context {context} {kind} forward + backward: kernels "
+        f"{total:.4f} ms, SDPA "
         + (f"{library['fwd_bwd']:.4f} ms" if library else "none (no windowed SDPA route)")
         + f" [{card}]")
     if library:
@@ -2107,24 +2130,62 @@ def check_k6(g, card: str) -> list[dict]:
                         entries.setdefault(name, {})["B2"] = t
         del q, k, v, do
         torch.cuda.empty_cache()
+    check_k6_d128(g, card, err, entries)
     notes = {"flash_attention_fwd": "", "flash_attention_bwd": " (the splash VJP)",
              "flash_attention_fwd_f32": " (float32 only)",
              "flash_attention_bwd_f32": " (the splash VJP; float32 only)"}
+    notes.update({f"{name}_d128": f"{note[:-1]}; head dim 128)" if note else " (head dim 128)"
+                  for name, note in notes.items()})
     return [{"name": name, "route": "cuda", "source": "rstnet_tpu_torch/csrc/flash_attention.cu",
              "replaces": "rstnet_tpu/ops/flash_attention.py:46" + note,
              "max_abs_err": err[name], **entries[name]} for name, note in notes.items()]
 
 
+# head dim 128 at B=4, T=1024: Qwen2.5-7B's 28 query heads over 4 KV heads
+# (the flagship speech config, path train_qwen7b_peft) and Llama-3.1-8B's 32
+# over 8 (the flagship-8B construction's backbone)
+K6_D128_SHAPES = {"qwen7b": (28, 4), "llama8b": (32, 8)}
+
+
+def check_k6_d128(g, card: str, err: dict, entries: dict) -> None:
+    """K6 at head dim 128 (``K6_D128_SHAPES``), bf16 and float32, causal
+    and local (context 256): each held to its plain version within the
+    D = 64 limits, two backward calls bit for bit, and timed (causal; bf16
+    also local at Qwen's shape). The kernels line carries Qwen's causal
+    times, with Llama-8B's under ``llama8b``."""
+    B, T, D = 4, 1024, 128
+    scale = D**-0.5
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, (H, Hkv) in K6_D128_SHAPES.items():
+            q, do = (torch.randn((B, H, T, D), device="cuda", generator=g).to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn((B, Hkv, T, D), device="cuda", generator=g).to(dtype)
+                    for _ in range(2))
+            for context in (3000, 256):
+                _check_k6_route(q, k, v, do, context, scale, err)
+                if context >= T or (dtype == torch.bfloat16 and shape == "qwen7b"):
+                    times = _time_k6(q, k, v, do, context, scale, card)
+                    if context >= T:
+                        for name, t in times.items():
+                            if shape == "qwen7b":
+                                entries.setdefault(name, {}).update(t)
+                            else:
+                                entries.setdefault(name, {})[shape] = t
+            del q, k, v, do
+            torch.cuda.empty_cache()
+
+
 def write_training_data(root, seed: int, long_frames: tuple[int, int], n_long: int,
                         short_frames: tuple[int, int], n_short: int,
                         text_frames: tuple[int, int], n_text: int, audio_card: int,
-                        vocab: int) -> str:
+                        vocab: int, codebooks: int = 8) -> str:
     """Synthetic offline-tokenized ``audio_only`` and ``text_only`` manifests
-    from ``seed`` (numpy .npz shards); returns the manifests' glob."""
+    from ``seed`` (numpy .npz shards), ``codebooks`` audio rows; returns
+    the manifests' glob."""
     rng = np.random.default_rng(seed)
     lengths = list(rng.integers(*long_frames, n_long, endpoint=True)) + list(
         rng.integers(*short_frames, n_short, endpoint=True))
-    audio = {f"a{i}": rng.integers(0, audio_card, (8, n)).astype(np.int16)
+    audio = {f"a{i}": rng.integers(0, audio_card, (codebooks, n)).astype(np.int16)
              for i, n in enumerate(lengths)}
     text = {f"t{i}": rng.integers(0, vocab, (int(n),)).astype(np.int32)
             for i, n in enumerate(rng.integers(*text_frames, n_text, endpoint=True))}
@@ -2136,14 +2197,14 @@ def write_training_data(root, seed: int, long_frames: tuple[int, int], n_long: i
     return str(root / "*.json")
 
 
-def expected_k6(steps: list, n_layer: int, dtype=torch.bfloat16) -> dict:
+def expected_k6(steps: list, n_layer: int, dtype=torch.bfloat16, head_dim: int = 64) -> dict:
     """K6 launches of a training run under the trainer's default remat: on
     each step whose bucket length qualifies, the forward twice per layer
     (the backward recomputes each block) and the backward once."""
     from rstnet_tpu_torch.ops.flash_attention import flash_qualifies
 
     n = sum(flash_qualifies(s["seq_len"], None, None, True) for s in steps)
-    fwd, bwd = _k6_names(dtype)
+    fwd, bwd = _k6_names(dtype, head_dim)
     return {fwd: 2 * n_layer * n, bwd: n_layer * n}
 
 
@@ -2154,11 +2215,16 @@ SMALL_LM = dict(name="smoke-small", block_size=1024, vocab_size=512, padded_voca
                 rope_adjustments=[8.0, 1.0, 4.0, 256], context=256)
 
 
-def check_small_training_slice(seed: int) -> dict:
-    """A small SpeechTextLM (2 layers, head dim 64, a 256 window) trained in
-    float32 by the trainer on the card and on the CPU: one epoch, then a
-    resumed second; bucket 512 (``--max_length 511``) and smaller ones.
-    Returns the card run's launches (the float32 kernels of K6)."""
+# the same at head dim 128 (2 heads of 128): K6's float32 kernels at D=128
+SMALL_LM_D128 = dict(SMALL_LM, name="smoke-small-d128", n_embd=256, intermediate_size=512)
+
+
+def check_small_training_slice(seed: int, lm: dict = SMALL_LM) -> dict:
+    """A small SpeechTextLM (``lm``: 2 layers, a 256 window; head dim 64,
+    or 128 for ``SMALL_LM_D128``) trained in float32 by the trainer on the
+    card and on the CPU: one epoch, then a resumed second; bucket 512
+    (``--max_length 511``) and smaller ones. Returns the card run's
+    launches (the float32 kernels of K6 at the head dim)."""
     import tempfile
 
     from rstnet_tpu_torch.models.config import write_flat_yaml
@@ -2166,7 +2232,7 @@ def check_small_training_slice(seed: int) -> dict:
 
     root = Path(tempfile.mkdtemp(prefix="smoke_small_train_"))
     try:
-        write_flat_yaml(root / "model.yaml", SMALL_LM)
+        write_flat_yaml(root / "model.yaml", lm)
         data = write_training_data(root, seed, (487, 510), 6, (100, 300), 6, (20, 120), 6,
                                    audio_card=60, vocab=500)
         runs = {}
@@ -2192,7 +2258,7 @@ def check_small_training_slice(seed: int) -> dict:
                                      "resume from the first epoch's checkpoint")
             runs[device] = (first["steps"] + resumed["steps"], counts)
         (steps_c, counts_c), (steps_g, counts_g) = runs["cpu"], runs["cuda"]
-        want = expected_k6(steps_g, SMALL_LM["n_layer"], torch.float32)
+        want = expected_k6(steps_g, lm["n_layer"], torch.float32, lm["n_embd"] // lm["n_head"])
         lengths = sorted({s["seq_len"] for s in steps_g})
         if not any(n % 512 == 0 for n in lengths) or all(n % 512 == 0 for n in lengths):
             raise AssertionError(f"small training slice buckets {lengths}: need both a 512 "
@@ -2213,7 +2279,8 @@ def check_small_training_slice(seed: int) -> dict:
                 worst["acc"] = max(worst["acc"], abs(sc[key] - sg[key]))
             if not math.isfinite(sg["loss"]):
                 raise AssertionError("non-finite loss on the card")
-        log(f"small training slice (2 epochs, 2nd resumed), card vs CPU over {len(steps_g)} "
+        log(f"small training slice (head dim {lm['n_embd'] // lm['n_head']}, 2 epochs, 2nd "
+            f"resumed), card vs CPU over {len(steps_g)} "
             f"steps, buckets {lengths}: losses max rel err {worst['loss']:.3e} (limit "
             f"{TRAIN_LOSS_RTOL}), accuracies max abs err {worst['acc']:.3e} (limit "
             f"{TRAIN_ACC_ATOL}); card K6 launches {got}, CPU none; losses "
@@ -2766,6 +2833,238 @@ def run_train_from_litgpt(seed: int, card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- LM fine-tuning: the flagship Qwen2.5-7B over an int8 base, Moshi 7B LoRA ----
+
+PEFT_STEPS = 3  # train steps of each fine-tuning path (and of its resumed epoch)
+QWEN_CONFIG = "configs/qwen_7b_speech.yaml"
+MOSHI_MAX_LENGTH = 511  # Moshi's buckets: up to 512 (its attention holds [B, H, T, T])
+
+
+@contextlib.contextmanager
+def held_model(module):
+    """The model that ``module.build_model`` builds, while inside: the
+    trainer's own construction, read after a run."""
+    real, held = module.build_model, {}
+
+    def build(*args, **kwargs):
+        held["model"] = real(*args, **kwargs)
+        return held["model"]
+
+    module.build_model = build
+    try:
+        yield held
+    finally:
+        module.build_model = real
+
+
+def _peft_readings(path: str, model, steps: list, peak: float, wall: float, card: str) -> dict:
+    """Log a fine-tuning run's steps, step time, device and host peaks and
+    the frozen and trainable bytes (``bytes_table``); returns the bytes."""
+    from rstnet_tpu_torch.training.flagship8b import bytes_table
+
+    params = dict(model.named_parameters())
+    frozen = bytes_table({n: p for n, p in params.items() if not p.requires_grad})
+    trainable = bytes_table({n: p for n, p in params.items() if p.requires_grad})
+    for st in steps:
+        log(f"  {path} step: epoch {st['epoch']} B={st['batch_size']} T={st['seq_len']} loss "
+            f"{st['loss']:.4f} (audio {st['loss_audio']:.4f}, text {st['loss_text']:.4f}), "
+            f"{st['step_time'] * 1e3:.1f} ms (host clock)")
+    steady = [st["step_time"] for st in steps[1:]]
+    log(f"{path}: {len(steps)} steps, steady step time "
+        f"{statistics.median(steady) * 1e3 if steady else float('nan'):.1f} ms median (host "
+        f"clock, after the first step), {wall:.1f} s wall (builds included), device peak "
+        f"{peak:.2f} GiB, host peak RSS {host_peak_gib():.2f} GiB; frozen {frozen}, trainable "
+        f"{trainable} [{card}]")
+    return {"frozen": frozen, "trainable": trainable}
+
+
+def run_train_qwen7b_peft(seed: int, card: str) -> dict:
+    """Path ``train_qwen7b_peft``: the trainer CLI on the flagship speech
+    config (``configs/qwen_7b_speech.yaml``: Qwen2.5-7B at full width and
+    depth, head dim 128 over 4 KV heads, a 152064 vocab) with LoRA r 16 on
+    q/k/v, the backbone frozen in int8 (``--base_int8``), bf16, the T=1024
+    bucket, ``PEFT_STEPS`` steps of an epoch and as many of a second epoch
+    resumed from the first one's checkpoint. Weights are drawn on the card
+    (``--init_on_device``). Finite losses; K6 at head dim 128 on every
+    1024-bucket step (``expected_k6``) and no other counted kernel; the
+    checkpoint holds the trainable parameters only (LoRA factors and the
+    codecformer side, no int8 leaf)."""
+    import tempfile
+
+    from rstnet_tpu_torch.models.config import Config
+    from rstnet_tpu_torch.models.lora import is_lora_path
+    from rstnet_tpu_torch.training import trainer
+
+    cfg = Config.from_file(QWEN_CONFIG)
+    root = Path(tempfile.mkdtemp(prefix="smoke_qwen_peft_"))
+    _check_disk(root, 8 * 2**30, "train_qwen7b_peft")  # two ~1 GB trainable-only checkpoints
+    try:
+        data = write_full_training_data(root, seed, PEFT_STEPS)
+
+        def argv(epochs: int) -> list[str]:
+            return ["--train_data_jsons", data, "--model_config", QWEN_CONFIG, "--exp_dir",
+                    str(root / "exp"), "--lora_r", "16", "--lora_alpha", "32", "--base_int8",
+                    "true", "--max_length", "1023", "--batch_scale", "2500", "--dtype",
+                    "bfloat16", "--n_epoch", str(epochs), "--minibatch_debug", str(PEFT_STEPS),
+                    "--print_freq", "1", "--seed", str(seed), "--device", "cuda",
+                    "--init_on_device", "true"]
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with held_model(trainer) as held:
+            first = trainer.main(argv(1))
+        _peft_readings("train_qwen7b_peft", held.pop("model"), first["steps"],
+                       torch.cuda.max_memory_allocated() / 2**30, time.perf_counter() - t0, card)
+        ckpt = Path(first["checkpoints"][-1]["path"])
+        saved = torch.load(ckpt / "state.pt", map_location="cpu", weights_only=True, mmap=True)
+        names = set(saved["params"])
+        if (not names or any(t.dtype == torch.int8 for t in saved["params"].values())
+                or not any(is_lora_path(n) for n in names)
+                or not all(is_lora_path(n) or n.split(".")[0] in trainer.SPEECH_LORA_TRAINABLE
+                           for n in names)):
+            raise AssertionError(f"train_qwen7b_peft checkpoint holds {len(names)} tensors, "
+                                 "not the trainable parameters alone")
+        size = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+        del saved
+        gc.collect()
+        torch.cuda.empty_cache()
+        second = trainer.main(argv(2))  # resumes from ep1's trainable-only checkpoint
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        steps = first["steps"] + second["steps"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"train_qwen7b_peft: epoch checkpoint {size / 2**30:.3f} GiB ({len(names)} trainable "
+            f"tensors), saved in {first['checkpoints'][-1]['seconds']:.1f} s; resumed into "
+            f"epoch 2 for {len(second['steps'])} steps; device peak over both runs {peak:.2f} "
+            f"GiB, {wall:.1f} s wall [{card}]")
+        if (len(first["steps"]) != PEFT_STEPS or {st["epoch"] for st in second["steps"]} != {2}
+                or not (root / "exp" / "ep2.checkpoint").is_dir()):
+            raise AssertionError("train_qwen7b_peft did not train, save and resume")
+        if not all(math.isfinite(st[k]) for st in steps for k in ("loss", "loss_audio",
+                                                                  "loss_text")):
+            raise AssertionError(f"non-finite loss: {[st['loss'] for st in steps]}")
+        if not any(st["seq_len"] == 1024 for st in steps):
+            raise AssertionError("train_qwen7b_peft: no step on the 1024 bucket, K6 never ran")
+        want = expected_k6(steps, cfg.n_layer, head_dim=cfg.head_size)
+        log(f"train_qwen7b_peft launches {counts}, expected {want} (head dim {cfg.head_size})")
+        if {k: counts[k] for k in want} != want or any(
+                v for k, v in counts.items() if k not in want):
+            raise AssertionError(f"train_qwen7b_peft launches {counts}, expected {want}")
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_train_moshi7b_lora(seed: int, card: str) -> dict:
+    """Path ``train_moshi7b_lora``: the trainer CLI with ``--model_family
+    moshi`` at Moshi 7B's widths (dim 4096 x 32 layers, 32 heads, 16 audio
+    codebooks, dep_q 8, card 2048, depformer 1024 x 6 with a 4224 FFN), LoRA
+    r 16 on the temporal transformer (its base frozen, the depformer side
+    trained whole), bf16, ``PEFT_STEPS`` steps on buckets up to 512, weights
+    drawn on the card. Finite losses; no counted kernel (the Moshi forward
+    takes the masked attention, as in JAX)."""
+    import tempfile
+
+    from rstnet_tpu_torch.training import trainer
+
+    root = Path(tempfile.mkdtemp(prefix="smoke_moshi_lora_"))
+    _check_disk(root, 24 * 2**30, "train_moshi7b_lora")  # a ~11 GB checkpoint
+    try:
+        data = write_training_data(root, seed, (400, 511), 2 * PEFT_STEPS, (200, 300), 4,
+                                   (100, 300), 2 * PEFT_STEPS, audio_card=2048, vocab=32000,
+                                   codebooks=16)
+        argv = ["--model_family", "moshi", "--train_data_jsons", data, "--exp_dir",
+                str(root / "exp"), "--moshi_dim", "4096", "--moshi_num_layers", "32",
+                "--moshi_num_heads", "32", "--n_q", "16", "--dep_q", "8", "--audio_card", "2048",
+                "--parallel_number", "17", "--codecformer_dim", "1024", "--codecformer_heads",
+                "16", "--codecformer_layers", "6", "--codecformer_dim_feedforward", "4224",
+                "--lora_r", "16", "--lora_alpha", "32", "--dtype", "bfloat16", "--max_length",
+                str(MOSHI_MAX_LENGTH), "--batch_scale", "1024", "--n_epoch", "1",
+                "--minibatch_debug", str(PEFT_STEPS), "--print_freq", "1", "--seed", str(seed),
+                "--device", "cuda", "--init_on_device", "true"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with held_model(trainer) as held:
+            out = trainer.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        steps = out["steps"]
+        _peft_readings("train_moshi7b_lora", held.pop("model"), steps,
+                       torch.cuda.max_memory_allocated() / 2**30, wall, card)
+        if len(steps) != PEFT_STEPS or not all(
+                math.isfinite(st[k]) for st in steps for k in ("loss", "loss_audio", "loss_text")):
+            raise AssertionError(f"train_moshi7b_lora steps {[st['loss'] for st in steps]}")
+        if any(counts.values()):
+            raise AssertionError(f"train_moshi7b_lora launched {counts}: the Moshi training "
+                                 "forward runs no counted kernel")
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# phase moe_small: logits against the CPU to this fraction of their scale, and
+# the gradients of the layer-0 router and experts to this fraction of each
+# leaf's largest magnitude (float32 on both sides, matmuls in full float32:
+# sums in another order)
+MOE_LOGIT_TOL = 1e-4
+MOE_GRAD_TOL = 1e-3
+
+
+def check_moe_small(seed: int, card: str) -> dict:
+    """Phase ``moe_small``: a Mixtral-8x7B-width backbone (dim 4096, 32 heads
+    over 8, 8 experts of 14336, top 2), cut to 2 layers (the full model does
+    not fit one card in bf16), float32, drawn on the card; a forward and a
+    backward on 2 x 16 tokens against the same weights on the CPU."""
+    import copy
+
+    from rstnet_tpu_torch.models.backbone import Backbone
+    from rstnet_tpu_torch.models.config import Config
+
+    cfg = Config.from_name("Mixtral-8x7B-v0.1", n_layer=2)
+    g = torch.Generator(device="cuda").manual_seed(seed + 14)
+    reset_counts()
+    t0 = time.perf_counter()
+    model = Backbone(cfg, device="cuda", dtype=torch.float32, generator=g)
+    cpu = copy.deepcopy(model).cpu()
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 16)))
+    outs = {}
+    for name, m in (("cuda", model), ("cpu", cpu)):
+        for p in m.parameters():
+            p.requires_grad_(True)
+        logits = m.forward_tokens(tokens.to(next(m.parameters()).device))
+        torch.tanh(logits.float()).sum().backward()
+        blk = m.blocks[0].mlp
+        outs[name] = [t.detach().float().cpu() for t in (
+            logits, blk.gate.weight.grad, blk.experts.fc_1.weight.grad,
+            blk.experts.proj.weight.grad)]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    errs = []
+    for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
+        err = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        errs.append(err)
+        if not (torch.isfinite(a).all() and err <= (MOE_LOGIT_TOL if i == 0 else MOE_GRAD_TOL)):
+            raise AssertionError(f"moe_small output {i} disagrees with the CPU: {err:.3e}")
+    n = sum(p.numel() for p in model.parameters())
+    log(f"moe_small: Mixtral-8x7B width, 2 layers, {n / 1e9:.2f} B float32 params, forward + "
+        f"backward on 2 x 16 tokens, card vs CPU: logits {errs[0]:.3e} of their scale (limit "
+        f"{MOE_LOGIT_TOL}), router / expert fc_1 / expert proj gradients {errs[1]:.3e} / "
+        f"{errs[2]:.3e} / {errs[3]:.3e} (limit {MOE_GRAD_TOL}); {time.perf_counter() - t0:.1f} "
+        f"s [{card}]")
+    if any(counts.values()):
+        raise AssertionError(f"moe_small launched {counts}")
+    del model, cpu, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def compare_trees(trees: list[str], seed: int, out: str) -> int:
     """K4 over float32 weights (``check_k4_k5``'s ``gating_ffn_f32_weights``
     entry) in several checkouts of the port, one process each, in the order
@@ -2856,6 +3155,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     with phase("small training slice"):
         paths["small_train_step_f32"] = check_small_training_slice(args.seed)
+        paths["small_train_step_f32_d128"] = check_small_training_slice(args.seed, SMALL_LM_D128)
     with phase("full models"):
         mimi, lm_gen = build_full_models(args.seed)
     n, ticks = args.frames, args.frames
@@ -2987,6 +3287,16 @@ def run_from_checkpoints(args, card: str, kernels: list, paths: dict, graphs: di
         gc.collect()
         torch.cuda.empty_cache()
         paths["train_from_litgpt"] = run_train_from_litgpt(args.seed, card)
+    with phase("qwen7b peft"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["train_qwen7b_peft"] = run_train_qwen7b_peft(args.seed, card)
+    with phase("moshi7b lora"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["train_moshi7b_lora"] = run_train_moshi7b_lora(args.seed, card)
+    with phase("moe small"):
+        paths["moe_small"] = check_moe_small(args.seed, card)
     for k in kernels:
         # a graph path's are its device launches: its eager warm-up call's
         # and its replays' (graph_launches)

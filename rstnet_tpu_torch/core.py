@@ -28,10 +28,12 @@ def new_param(data: torch.Tensor) -> nn.Parameter:
 
 
 def default_generator(generator: torch.Generator | None, device) -> torch.Generator:
-    """The caller's generator, or a fresh one seeded 0 on ``device``."""
+    """The caller's generator, or a fresh one seeded 0 on ``device`` (on the
+    CPU for a ``meta`` build, which draws nothing)."""
     if generator is not None:
         return generator
-    return torch.Generator(device=torch.device(device or "cpu")).manual_seed(0)
+    device = torch.device(device or "cpu")
+    return torch.Generator(device="cpu" if device.type == "meta" else device).manual_seed(0)
 
 
 def uniform(shape, bound: float, generator, device=None, dtype=torch.float32):
@@ -52,6 +54,45 @@ def container(**params: torch.Tensor) -> nn.Module:
     for name, value in params.items():
         m.register_parameter(name, new_param(value))
     return m
+
+
+def fold_in(seed: int, i: int) -> int:
+    """A new 63-bit seed from ``seed`` and ``i`` (splitmix64 of their mix):
+    the port's counterpart of ``jax.random.fold_in``, for seeding one
+    ``torch.Generator`` per dropout site. It gives other bits than JAX."""
+    z = (seed * 0x9E3779B97F4A7C15 + i + 1) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return (z ^ (z >> 31)) >> 1
+
+
+def lora_dropout(x: torch.Tensor, drop) -> torch.Tensor:
+    """Dropout on a LoRA branch input (counterpart of the JAX function; the
+    reference's ``LoRALinear`` drops x before the A matrix). ``drop`` is a
+    ``(rate, torch.Generator)`` pair on x's device, or None: None or rate 0
+    is the identity. Inverted dropout: kept elements are divided by the keep
+    rate in x's dtype, so eval needs no rescale."""
+    if drop is None or drop[0] == 0.0:
+        return x
+    rate, generator = drop
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def fold_drop(drop, i: int):
+    """Site ``i`` under a model's ``(rate, seed)`` dropout pair (``jax.random.fold_in``
+    of the JAX key), or None."""
+    return None if drop is None else (drop[0], fold_in(drop[1], i))
+
+
+def dropout_pair(drop, device):
+    """A ``(rate, seed)`` pair as :func:`lora_dropout`'s ``(rate,
+    torch.Generator)`` on ``device``, or None. The generator is made from the
+    seed at each use, so a recomputed block (remat) draws the same masks."""
+    if drop is None:
+        return None
+    return drop[0], torch.Generator(device=device).manual_seed(drop[1])
 
 
 def _to_torch(a) -> torch.Tensor:

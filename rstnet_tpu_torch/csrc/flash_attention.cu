@@ -10,7 +10,9 @@
 // head count, and query head h reads KV head h / (H / Hkv) (GQA inside the
 // kernels: nothing is repeated in memory); key j is visible to query i iff
 // 0 <= i - j < window (window = context if context < T, else T). dK and dV
-// come out at the KV heads, summed over each group inside the kernel.
+// come out at the KV heads, summed over each group inside the kernel. Head
+// dims 64 and 128, every kernel a template on D (the text below is D = 64's
+// design; D = 128's changes follow it, "At head dim 128").
 //
 // What bounds it on the H100: operations. At the training shape (B=4, 32
 // query heads over 8 KV heads, T=1024, D=64, causal) there are 67.2 M
@@ -116,6 +118,25 @@
 //    16 KB halves: 225 KB. Two writer warps (as many as the slots).
 //    Registers a consumer thread: dK and dV 64, S^T and dP^T 64, then P^T's
 //    parts 32 and the dQ half 32.
+//
+// At head dim 128 a tile is two 64-column chunks (each D = 64's swizzled
+// layout, loaded as its own TMA box), so every operand is still a chunk, and
+// the accumulators are kept at D = 64's register count (ptxas holds every
+// thread within 168):
+// - forwards: key tiles of 64 (not 128) keys, O as two 64-column
+//   accumulators; bf16: Q double-buffered 64 KB + 4 stages of K and V 128
+//   KB; float32: two stages of K's and V's planes (128 KB) and Q's planes
+//   in shared memory (64 KB, split by the pre-pass, loaded per work tile)
+//   instead of registers.
+// - bf16 backward: an item takes 64 of the 128 columns of dQ, dK and dV
+//   (items per key tile doubled; S^T and dP^T contract over all 128, so
+//   each is computed once per half); 2 ring stages and 3 dQ slots: 216 KB.
+//   dQ's turn counters are per (head, query tile, half).
+// - float32 backward: items of 64 keys, both consumer warpgroups on the
+//   same keys, each on its own 64 columns (S^T and dP^T once per
+//   warpgroup), one ring stage: 226 KB.
+// Correct first: these cost twice the products of S and dP in the
+// backwards (PERF.md §6 has the times).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -127,7 +148,12 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 64;  // head dim
+// Head dims: 64 and 128. A tile of R rows and D columns lives in shared
+// memory as D / 64 chunks of [R][64] bf16, each a run of 128-byte swizzle
+// rows (one TMA box of 64 columns each): chunk c of a tile at base p starts
+// at p + c R 64. Every wgmma operand below is one chunk or a 64-row slice
+// of one, so D = 128 reuses D = 64's descriptors chunk by chunk.
+constexpr int kChunk = 64;  // columns of a chunk
 
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
@@ -194,7 +220,7 @@ __device__ __forceinline__ long long global_ns() {
 // Hopper kernels (bf16): TMA, mbarriers and wgmma.
 // ---------------------------------------------------------------------------
 
-constexpr int kRowBytes = kD * 2;       // one 64-wide bf16 row: 128 B, one 128-byte swizzle row
+constexpr int kRowBytes = kChunk * 2;   // one 64-wide bf16 row: 128 B, one 128-byte swizzle row
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kConsumers = 256;         // two consumer warpgroups
@@ -235,15 +261,22 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// TMA: a [rows, 64] box of a 2-D bf16 tensor map at (0, row) into shared
+// TMA: a [rows, 64] box of a 2-D bf16 tensor map at (col, row) into shared
 // memory, completing on `bar`.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int row) {
+                                         int row, int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
       : "memory");
+}
+// A [Rows, D] tile at `row` as its D / 64 chunks (the map's box is [Rows, 64]).
+template <int D, int Rows>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int row) {
+#pragma unroll
+  for (int c = 0; c < D / kChunk; ++c) tma_load(dst + c * Rows * kChunk, map, bar, row, c * kChunk);
 }
 // TMA bulk copy of contiguous bytes (16-byte aligned, a multiple of 16).
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
@@ -376,6 +409,13 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
 }
 
+// d (+)= A B over N columns of B (64 or 128), both from shared memory.
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
+  if constexpr (N == 128) wgmma_ss_n128<TA, TB>(d, a, b, acc);
+  else wgmma_ss_n64<TA, TB>(d, a, b, acc);
+}
+
 // d += A B, m64n64k16, A from registers (the accumulator layout, as bf16
 // pairs), B from shared memory; TB: 1 for an MN-major B.
 template <int TB>
@@ -424,19 +464,24 @@ __device__ __forceinline__ bool sees(int i, int j, int window) {
 // ---- forward --------------------------------------------------------------
 
 constexpr int kFwdRows = 128;   // query rows of a work tile: 64 per consumer warpgroup
-constexpr int kFwdKeys = 128;   // keys of a K/V tile
 constexpr int kFwdStages = 4;
+// keys of a K/V tile: 128 at D = 64; 64 at D = 128, which keeps the
+// consumer's O (64 registers), S (32) and P (16 + 16) within 168 registers
+template <int D>
+constexpr int kFwdKeys = D == 64 ? 128 : 64;
 
+template <int D>
 struct FwdSmem {
-  bf16 q[2][kFwdRows * kD];  // double-buffered: the next tile's Q loads during this one
-  bf16 k[kFwdStages][kFwdKeys * kD];
-  bf16 v[kFwdStages][kFwdKeys * kD];
+  bf16 q[2][kFwdRows * D];  // double-buffered: the next tile's Q loads during this one
+  bf16 k[kFwdStages][kFwdKeys<D> * D];
+  bf16 v[kFwdStages][kFwdKeys<D> * D];
   // K and V are separate rings: S needs only K, and K's slot frees up as
   // soon as S is done
   uint64_t q_full[2], q_empty[2], k_full[kFwdStages], k_empty[kFwdStages], v_full[kFwdStages],
       v_empty[kFwdStages];
 };
-constexpr int kFwdSmemBytes = sizeof(FwdSmem) + 1024;  // + alignment slack
+template <int D>
+constexpr int kFwdSmemBytes = sizeof(FwdSmem<D>) + 1024;  // + alignment slack
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   const uintptr_t a = (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023);
@@ -472,7 +517,8 @@ struct FwdWork {
 // One step of the online softmax over a 64-row score tile of R / 2 columns,
 // in base 2 (q is pre-scaled, so log2(e) is the only factor): masks when
 // asked, updates the running max m and sum l, returns each row's rescale
-// factor for O in alpha, and leaves the tile's unnormalized P in sc.
+// factor for O in alpha, and leaves the tile's unnormalized P in sc. A row
+// that sees nothing of the tile (-inf everywhere) keeps its m and gets P = 0.
 template <int R>
 __device__ __forceinline__ void softmax_scores(float (&sc)[R], float (&m)[2], float (&l)[2],
                                                float (&alpha)[2], bool masked, int row0, int k0,
@@ -501,24 +547,47 @@ __device__ __forceinline__ void softmax_scores(float (&sc)[R], float (&m)[2], fl
   }
 }
 
-// softmax_scores over a 64 x 128 tile, with P as bf16 A operands.
-__device__ __forceinline__ void softmax_step(float (&sc)[64], float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], uint32_t (&p)[8][4], bool masked,
-                                             int row0, int k0, int window) {
-  softmax_scores(sc, m, l, alpha, masked, row0, k0, window);
-  acc_to_a<64>(p, sc);
+// O (D / 64 accumulators of 64 x 64) divided by the row sums, into o, and
+// the rows' log-sum-exp into lse.
+template <int D, typename Out>
+__device__ __forceinline__ void store_o(const float (&acc)[D / kChunk][32], const float (&m)[2],
+                                        const float (&l)[2], Out* __restrict__ o,
+                                        float* __restrict__ lse, int bh, int seq, int row0) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float total = quad_sum(l[r]);
+    const float inv = 1.f / total;
+    const int row = row0 + acc_row(2 * r);
+    Out* orow = o + (static_cast<size_t>(bh) * seq + row) * D;
+#pragma unroll
+    for (int c = 0; c < D / kChunk; ++c)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        store2(orow + c * kChunk + acc_col(4 * e), acc[c][4 * e + 2 * r] * inv,
+               acc[c][4 * e + 2 * r + 1] * inv);
+    if (threadIdx.x % 4 == 0)
+      lse[static_cast<size_t>(bh) * seq + row] = (m[r] + log2f(total)) * kLn2;
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void fence_acc(float (&acc)[C][32]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) fence_regs(acc[c]);
 }
 
 // Persistent, one block per SM. Warps 0-7: two consumer warpgroups, 64
 // query rows of the work tile each (232 registers a thread); warp 8: the
 // producer, one thread of which issues every TMA load (Q per work tile, K/V
 // per key tile); warps 9-11 only give their registers away.
+template <int D>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-                float* __restrict__ lse, FwdWork<kFwdKeys> wk) {
+                float* __restrict__ lse, FwdWork<kFwdKeys<D>> wk) {
+  constexpr int Keys = kFwdKeys<D>, NC = D / kChunk;
   extern __shared__ unsigned char smem_raw[];
-  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(align1024(smem_raw));
+  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(align1024(smem_raw));
   const int seq = wk.seq;
   if (threadIdx.x == 0) {
     for (int b = 0; b < 2; ++b) {
@@ -542,17 +611,17 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     for (int n = 0, w = wk.tile(0); w < wk.count(); w = wk.tile(++n)) {
       const int qb = n & 1, bh = wk.bh(w), kv_row = (bh / wk.group) * seq, j_lo = wk.j_lo(w);
       mbar_wait(&sm.q_empty[qb], ((n >> 1) & 1) ^ 1);
-      mbar_expect_tx(&sm.q_full[qb], kFwdRows * kRowBytes);
-      tma_load(sm.q[qb], &tq, &sm.q_full[qb], bh * seq + wk.qt(w) * kFwdRows);
+      mbar_expect_tx(&sm.q_full[qb], kFwdRows * D * 2);
+      tma_tile<D, kFwdRows>(sm.q[qb], &tq, &sm.q_full[qb], bh * seq + wk.qt(w) * kFwdRows);
       for (int t = 0; t < wk.n_tiles(w); ++t, ++slot) {
-        const int s = slot % kFwdStages, row = kv_row + (j_lo + t) * kFwdKeys;
+        const int s = slot % kFwdStages, row = kv_row + (j_lo + t) * Keys;
         const uint32_t phase = ((slot / kFwdStages) & 1) ^ 1;
         mbar_wait(&sm.k_empty[s], phase);
-        mbar_expect_tx(&sm.k_full[s], kFwdKeys * kRowBytes);
-        tma_load(sm.k[s], &tk, &sm.k_full[s], row);
+        mbar_expect_tx(&sm.k_full[s], Keys * D * 2);
+        tma_tile<D, Keys>(sm.k[s], &tk, &sm.k_full[s], row);
         mbar_wait(&sm.v_empty[s], phase);
-        mbar_expect_tx(&sm.v_full[s], kFwdKeys * kRowBytes);
-        tma_load(sm.v[s], &tv, &sm.v_full[s], row);
+        mbar_expect_tx(&sm.v_full[s], Keys * D * 2);
+        tma_tile<D, Keys>(sm.v[s], &tv, &sm.v_full[s], row);
       }
     }
     return;
@@ -565,22 +634,28 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const int qb = n & 1, bh = wk.bh(w), j_lo = wk.j_lo(w), n_tiles = wk.n_tiles(w);
     const int row0 = wk.qt(w) * kFwdRows + wg * 64;  // this warpgroup's first query row
     // only the diagonal tile and the window's edge tile are masked
-    auto masked = [&](int k0) { return k0 + kFwdKeys - 1 > row0 || row0 + 63 - k0 >= wk.window; };
-    float acc[32], sc[64], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
-    uint32_t p[8][4], pn[8][4];
+    auto masked = [&](int k0) { return k0 + Keys - 1 > row0 || row0 + 63 - k0 >= wk.window; };
+    float acc[NC][32], sc[Keys / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    uint32_t p[Keys / 16][4], pn[Keys / 16][4];
 #pragma unroll
-    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
     mbar_wait(&sm.q_full[qb], (n >> 1) & 1);
-    const uint64_t dq = desc_k(sm.q[qb] + wg * 64 * kD);
+    const bf16* q_rows = sm.q[qb] + wg * 64 * kChunk;  // this warpgroup's rows of chunk 0
     auto issue_s = [&](int s) {  // sc = Q K^T for the K tile in stage s
 #pragma unroll
-      for (int e = 0; e < 64; ++e) sc[e] = 0.f;
+      for (int e = 0; e < Keys / 2; ++e) sc[e] = 0.f;
       fence_regs(sc);
       wg_fence();
-      const uint64_t dk = desc_k(sm.k[s]);
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-        wgmma_ss_n128<0, 0>(sc, desc_add(dq, 32 * kk), desc_add(dk, 32 * kk), kk > 0);
+      for (int c = 0; c < NC; ++c) {
+        const uint64_t dq = desc_k(q_rows + c * kFwdRows * kChunk);
+        const uint64_t dk = desc_k(sm.k[s] + c * Keys * kChunk);
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 16; ++kk)
+          wgmma_ss<Keys, 0, 0>(sc, desc_add(dq, 32 * kk), desc_add(dk, 32 * kk), c + kk > 0);
+      }
       wg_commit();
     };
 
@@ -589,20 +664,24 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     wg_wait0();
     fence_regs(sc);
     mbar_arrive(&sm.k_empty[slot % kFwdStages]);
-    softmax_step(sc, m, l, alpha, p, masked(j_lo * kFwdKeys), row0, j_lo * kFwdKeys, wk.window);
+    softmax_scores(sc, m, l, alpha, masked(j_lo * Keys), row0, j_lo * Keys, wk.window);
+    acc_to_a<Keys / 2>(p, sc);
     // Tile t: S of tile t + 1 goes to the tensor cores ahead of P V of tile
     // t, and its softmax runs while P V does; O is rescaled once P V is done.
     // The last tile's P V follows the loop, so the loop body has no branch
     // (ptxas then sees that the wait of one group retires S).
     auto issue_pv = [&](int s) {  // acc += P V for the V tile in stage s
       mbar_wait(&sm.v_full[s], (slot / kFwdStages) & 1);
-      fence_regs(acc);
+      fence_acc(acc);
       fence_regs(p);
       wg_fence();
-      const uint64_t dv = desc_mn(sm.v[s]);
 #pragma unroll
-      for (int kk = 0; kk < kFwdKeys / 16; ++kk)
-        wgmma_rs_n64<1>(acc, p[kk], desc_add(dv, kk * 16 * kRowBytes));
+      for (int c = 0; c < NC; ++c) {
+        const uint64_t dv = desc_mn(sm.v[s] + c * Keys * kChunk);
+#pragma unroll
+        for (int kk = 0; kk < Keys / 16; ++kk)
+          wgmma_rs_n64<1>(acc[c], p[kk], desc_add(dv, kk * 16 * kRowBytes));
+      }
       wg_commit();
     };
     for (int t = 0; t + 1 < n_tiles; ++t, ++slot) {
@@ -613,39 +692,30 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       wg_wait1();
       fence_regs(sc);
       mbar_arrive(&sm.k_empty[s1]);
-      const int k1 = (j_lo + t + 1) * kFwdKeys;
-      softmax_step(sc, m, l, alpha, pn, masked(k1), row0, k1, wk.window);
+      const int k1 = (j_lo + t + 1) * Keys;
+      softmax_scores(sc, m, l, alpha, masked(k1), row0, k1, wk.window);
+      acc_to_a<Keys / 2>(pn, sc);
       wg_wait0();
-      fence_regs(acc);
+      fence_acc(acc);
       fence_regs(p);
       mbar_arrive(&sm.v_empty[s]);
 #pragma unroll
-      for (int e = 0; e < 32; ++e) acc[e] *= alpha[(e >> 1) & 1];
+      for (int c = 0; c < NC; ++c)
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+        for (int e = 0; e < 32; ++e) acc[c][e] *= alpha[(e >> 1) & 1];
+#pragma unroll
+      for (int kk = 0; kk < Keys / 16; ++kk)
 #pragma unroll
         for (int i = 0; i < 4; ++i) p[kk][i] = pn[kk][i];
     }
     issue_pv(slot % kFwdStages);
     wg_wait0();
-    fence_regs(acc);
+    fence_acc(acc);
     fence_regs(p);
     mbar_arrive(&sm.v_empty[slot % kFwdStages]);
     ++slot;
     mbar_arrive(&sm.q_empty[qb]);
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float total = quad_sum(l[r]);
-      const float inv = 1.f / total;
-      const int row = row0 + acc_row(2 * r);
-      bf16* orow = o + (static_cast<size_t>(bh) * seq + row) * kD;
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        store2(orow + acc_col(4 * c), acc[4 * c + 2 * r] * inv, acc[4 * c + 2 * r + 1] * inv);
-      if (threadIdx.x % 4 == 0)
-        lse[static_cast<size_t>(bh) * seq + row] = (m[r] + log2f(total)) * kLn2;
-    }
+    store_o<D>(acc, m, l, o, lse, bh, seq, row0);
   }
 }
 
@@ -653,20 +723,24 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 
 // delta = rowsum(dO * O) in float32, 8 threads a row (part of the backward:
 // its main kernel reads delta through the TMA ring).
+template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                 float* __restrict__ delta) {
   const size_t row = static_cast<size_t>(blockIdx.x) * 32 + threadIdx.x / 8;
   const int part = threadIdx.x % 8;
-  const uint4 a = __ldg(reinterpret_cast<const uint4*>(o + row * kD) + part);
-  const uint4 b = __ldg(reinterpret_cast<const uint4*>(dout + row * kD) + part);
-  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
-  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
   float sum = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 fx = __bfloat1622float2(x[i]), fy = __bfloat1622float2(y[i]);
-    sum += fx.x * fy.x + fx.y * fy.y;
+  for (int u = 0; u < D / 64; ++u) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(o + row * D) + part + 8 * u);
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(dout + row * D) + part + 8 * u);
+    const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 fx = __bfloat1622float2(x[i]), fy = __bfloat1622float2(y[i]);
+      sum += fx.x * fy.x + fx.y * fy.y;
+    }
   }
   sum += __shfl_xor_sync(0xffffffffu, sum, 1);
   sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -674,28 +748,34 @@ flash_bwd_delta(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   if (part == 0) delta[row] = sum;
 }
 
-constexpr int kBwdKeys = 128;  // keys of a work item: 64 per consumer warpgroup
+constexpr int kBwdKeys = 128;  // keys of a bf16 work item: 64 per consumer warpgroup
 constexpr int kBwdRows = 64;   // query rows of a ring tile
-constexpr int kBwdStages = 4;
 constexpr int kDqWriters = 96;  // warps 9-11, each taking every third pair's dQ partial
-constexpr int kDqSlots = 4;     // dQ partials staged between the consumers and the writers
 constexpr int kBwdThreads = kConsumers + 32 + kDqWriters;  // 384: three warpgroups
-constexpr int kDqStride = kD + 8;  // floats per row of a staged dQ partial (fewer bank conflicts)
+constexpr int kDqStride = kChunk + 8;  // floats per row of a staged dQ partial (fewer bank conflicts)
+// bf16 ring stages and staged dQ partials: at D = 128 K and V (64 KB) and a
+// ring stage (32 KB) are twice D = 64's, and 2 stages with 3 slots fit
+template <int D>
+constexpr int kBwdStages = D == 64 ? 4 : 2;
+template <int D>
+constexpr int kDqSlots = D == 64 ? 4 : 3;
 
+template <int D>
 struct BwdSmem {
-  bf16 k[kBwdKeys * kD];
-  bf16 v[kBwdKeys * kD];
-  bf16 dst[2][kBwdKeys * kD];  // dS^T of the last two pairs: [key][query], swizzled
-  bf16 q[kBwdStages][kBwdRows * kD];
-  bf16 dout[kBwdStages][kBwdRows * kD];
-  float lse[kBwdStages][kBwdRows];
-  float delta[kBwdStages][kBwdRows];
-  float dqs[kDqSlots][kBwdRows * kDqStride];  // 64 x 64 dQ partials for the writers
-  uint64_t full[kBwdStages], empty[kBwdStages], kv_full, kv_empty, dq_full[kDqSlots],
-      dq_empty[kDqSlots];
+  bf16 k[kBwdKeys * D];
+  bf16 v[kBwdKeys * D];
+  bf16 dst[2][kBwdKeys * kBwdRows];  // dS^T of the last two pairs: [key][query], swizzled
+  bf16 q[kBwdStages<D>][kBwdRows * D];
+  bf16 dout[kBwdStages<D>][kBwdRows * D];
+  float lse[kBwdStages<D>][kBwdRows];
+  float delta[kBwdStages<D>][kBwdRows];
+  float dqs[kDqSlots<D>][kBwdRows * kDqStride];  // 64 x 64 dQ partials for the writers
+  uint64_t full[kBwdStages<D>], empty[kBwdStages<D>], kv_full, kv_empty, dq_full[kDqSlots<D>],
+      dq_empty[kDqSlots<D>];
   int item;
 };
-constexpr int kBwdSmemBytes = sizeof(BwdSmem) + 1024;
+template <int D>
+constexpr int kBwdSmemBytes = sizeof(BwdSmem<D>) + 1024;
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
@@ -706,27 +786,35 @@ __device__ __forceinline__ void add_release(int* p, int v) {
   asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
-// The work items' geometry. Item n is key tile j = n / (B Hkv) of
-// (batch, KV head) n % (B Hkv): j-major, so the longest items (small j
-// under a causal mask) come first and every item comes after the items it
-// waits on (the same (batch, KV head) at smaller j).
+// The work items' geometry. Item n is key tile j = n / (B Hkv Parts) of
+// (batch, KV head) n % (B Hkv Parts) / Parts, for the 64 columns n % Parts
+// of dQ, dK and dV (Parts = 2: the bf16 kernel at D = 128, whose items each
+// take half of the head dim; else 1): j-major, so the longest items (small
+// j under a causal mask) come first and every item comes after the items it
+// waits on (the same (batch, KV head, part) at smaller j). Keys: the keys of
+// a work item.
+template <int Keys, int Parts>
 struct BwdGeom {
+  static constexpr int kParts = Parts;
   int batch_kv, group, seq, window, n_items;  // batch_kv = B Hkv, group = H / Hkv
+  __device__ int j(int item) const { return item / (batch_kv * Parts); }
+  __device__ int bg(int item) const { return item % (batch_kv * Parts) / Parts; }
+  __device__ int part(int item) const { return item % Parts; }
   __device__ int q_tiles() const { return seq / kBwdRows; }
   // query tiles [i_lo, i_hi] that see a key of tile j
-  __device__ int i_lo(int j) const { return j * kBwdKeys / kBwdRows; }
+  __device__ int i_lo(int j) const { return j * Keys / kBwdRows; }
   __device__ int i_hi(int j) const {
-    return min(q_tiles() - 1, (j * kBwdKeys + kBwdKeys - 1 + window - 1) / kBwdRows);
+    return min(q_tiles() - 1, (j * Keys + Keys - 1 + window - 1) / kBwdRows);
   }
   // key tiles [j_lo, j_hi] that query tile i sees: the dQ contributors
-  __device__ int j_lo(int i) const { return max(0, i * kBwdRows - window + 1) / kBwdKeys; }
-  __device__ int j_hi(int i) const { return (i * kBwdRows + kBwdRows - 1) / kBwdKeys; }
+  __device__ int j_lo(int i) const { return max(0, i * kBwdRows - window + 1) / Keys; }
+  __device__ int j_hi(int i) const { return (i * kBwdRows + kBwdRows - 1) / Keys; }
 };
 
 // Offset (floats) of element (r, c) of an unpadded 64 x 64 float32 tile
 // whose 8-float chunks are XORed with r % 8 (spreads a column's rows over
 // the banks).
-__device__ __forceinline__ int dqs_offset(int r, int c) { return r * kD + (c ^ ((r & 7) << 3)); }
+__device__ __forceinline__ int dqs_offset(int r, int c) { return r * kChunk + (c ^ ((r & 7) << 3)); }
 
 // The dQ writers of the backward (Writers warps from warp 9). Writer warp wk
 // takes pairs wk, wk + Writers, ... of the block's sequence, so Writers
@@ -736,12 +824,15 @@ __device__ __forceinline__ int dqs_offset(int r, int c) { return r * kD + (c ^ (
 // block's items are done. Slots >= Writers: a writer's last pair must be
 // no older than the last use of the buffer it waits on, or its parity wait
 // could pass on that use's phase.
-// Halves == 2: a staged partial is two unpadded 64 x 64 halves (one per
-// consumer warpgroup, each over its 64 keys; dqs_offset), added half 0 then
-// half 1.
-template <int Slots, int Writers, int Halves, typename Smem, typename Out>
-__device__ __forceinline__ void write_dq(Smem& sm, const BwdGeom& geo, Out* __restrict__ dq,
+// Halves == 1: a staged partial is one padded 64 x 64 tile (the item's
+// part of the head dim). Halves == 2: two unpadded 64 x 64 halves (one per
+// consumer warpgroup; dqs_offset): at D = 64 each over its 64 keys, added
+// half 0 then half 1; at D = 128 each over all the item's keys for its 64
+// columns, side by side.
+template <int Slots, int Writers, int Halves, int D, typename Smem, typename Geo, typename Out>
+__device__ __forceinline__ void write_dq(Smem& sm, const Geo& geo, Out* __restrict__ dq,
                                          float* __restrict__ dq_acc, int* __restrict__ turns) {
+  constexpr int Cols = Halves == 2 && D == 128 ? 128 : 64;  // columns of a staged partial
   const int seq = geo.seq, group = geo.group;
   const int wk = (threadIdx.x - (kConsumers + 32)) / 32, lane = threadIdx.x % 32;
   int slot = 0;
@@ -750,15 +841,15 @@ __device__ __forceinline__ void write_dq(Smem& sm, const BwdGeom& geo, Out* __re
     const int item = sm.item;
     mbar_arrive(&sm.kv_empty);  // the writers read nothing else of the item's buffers
     if (item >= geo.n_items) return;
-    const int j = item / geo.batch_kv, h0 = (item % geo.batch_kv) * group;
+    const int j = geo.j(item), part = geo.part(item), h0 = geo.bg(item) * group;
     const int i_hi = geo.i_hi(j), n_pairs = group * (i_hi - geo.i_lo(j) + 1);
     for (int p = 0; p < n_pairs; ++p, ++slot) {
       if (slot % Writers != wk) continue;
       const int h = h0 + p % group, i = i_hi - p / group, b = slot % Slots;
-      // this item's turn for (b, h, i) is j - j_lo(i), in key-tile order
+      // this item's turn for (b, h, i, part) is j - j_lo(i), in key-tile order
       const int turn = j - geo.j_lo(i);
       const bool last = j == geo.j_hi(i);
-      int* counter = turns + static_cast<size_t>(h) * geo.q_tiles() + i;
+      int* counter = turns + (static_cast<size_t>(h) * geo.q_tiles() + i) * Geo::kParts + part;
       K6_WRITER_MARK(0);
       if (lane == 0) {
         const long long t0 = clock64();
@@ -769,31 +860,34 @@ __device__ __forceinline__ void write_dq(Smem& sm, const BwdGeom& geo, Out* __re
       K6_WRITER_MARK(1);
       mbar_wait(&sm.dq_full[b], (slot / Slots) & 1);
       K6_WRITER_MARK(2);
-      const size_t base = (static_cast<size_t>(h) * seq + i * kBwdRows) * kD;
-      constexpr int kChunk = 8, kVecs = kBwdRows * kD / 4;  // float4s a lane, a tile
+      const size_t base = (static_cast<size_t>(h) * seq + i * kBwdRows) * D + part * kChunk;
+      constexpr int kUnroll = 8, kVecs = kBwdRows * Cols / 4;  // float4s a lane, a tile
 #pragma unroll 1
-      for (int c0 = 0; c0 < kVecs; c0 += 32 * kChunk) {
-        float4 x[kChunk];
+      for (int c0 = 0; c0 < kVecs; c0 += 32 * kUnroll) {
+        float4 x[kUnroll];
 #pragma unroll
-        for (int n = 0; n < kChunk; ++n) {
-          const int idx = c0 + n * 32 + lane, r = idx / (kD / 4), c = (idx % (kD / 4)) * 4;
+        for (int n = 0; n < kUnroll; ++n) {
+          const int idx = c0 + n * 32 + lane, r = idx / (Cols / 4), c = (idx % (Cols / 4)) * 4;
           if constexpr (Halves == 1) {
             x[n] = *reinterpret_cast<const float4*>(&sm.dqs[b][r * kDqStride + c]);
-          } else {
+          } else if constexpr (Cols == 64) {
             const float4 u = *reinterpret_cast<const float4*>(&sm.dqs[b][0][dqs_offset(r, c)]);
             const float4 w = *reinterpret_cast<const float4*>(&sm.dqs[b][1][dqs_offset(r, c)]);
             x[n] = make_float4(u.x + w.x, u.y + w.y, u.z + w.z, u.w + w.w);
+          } else {
+            x[n] = *reinterpret_cast<const float4*>(
+                &sm.dqs[b][c / kChunk][dqs_offset(r, c % kChunk)]);
           }
           if (turn > 0) {
             const float4 y =
-                __ldcg(reinterpret_cast<const float4*>(dq_acc + base + r * kD + c));
+                __ldcg(reinterpret_cast<const float4*>(dq_acc + base + r * D + c));
             x[n] = make_float4(y.x + x[n].x, y.y + x[n].y, y.z + x[n].z, y.w + x[n].w);
           }
         }
 #pragma unroll
-        for (int n = 0; n < kChunk; ++n) {
+        for (int n = 0; n < kUnroll; ++n) {
           const int idx = c0 + n * 32 + lane;
-          const size_t off = base + (idx / (kD / 4)) * kD + (idx % (kD / 4)) * 4;
+          const size_t off = base + (idx / (Cols / 4)) * D + (idx % (Cols / 4)) * 4;
           if (last) {
             store2(dq + off, x[n].x, x[n].y);
             store2(dq + off + 2, x[n].z, x[n].w);
@@ -811,35 +905,40 @@ __device__ __forceinline__ void write_dq(Smem& sm, const BwdGeom& geo, Out* __re
 }
 
 // Persistent: each block takes work items from `work` until none are left.
-// An item (batch b, KV head g, key tile j) keeps K and V of its 128 keys in
-// shared memory and visits every (query head h of the group, query tile i)
-// pair that sees them: query tiles from the last down, the group's heads
-// inside. Under a causal mask that puts (h, i) at the same place in every
-// item that contributes to it, so the dQ turns of consecutive items follow
-// each other one handoff apart instead of piling up at the items' ends.
-// Warps 0-7 (two consumer warpgroups, 64 keys each) run the products; warp
-// 8 streams each pair's Q, dO, LSE and delta through a ring of kBwdStages
-// stages; warps 9-11 take the pairs' dQ partials from shared memory and add
-// them, in turn, into the float32 workspace, so the consumers never wait on
-// that global round trip.
+// An item (batch b, KV head g, key tile j, part) keeps K and V of its 128
+// keys in shared memory and visits every (query head h of the group, query
+// tile i) pair that sees them: query tiles from the last down, the group's
+// heads inside. Under a causal mask that puts (h, i) at the same place in
+// every item that contributes to it, so the dQ turns of consecutive items
+// follow each other one handoff apart instead of piling up at the items'
+// ends. Warps 0-7 (two consumer warpgroups, 64 keys each) run the
+// products; warp 8 streams each pair's Q, dO, LSE and delta through a ring
+// of kBwdStages stages; warps 9-11 take the pairs' dQ partials from shared
+// memory and add them, in turn, into the float32 workspace, so the
+// consumers never wait on that global round trip. At D = 128 an item takes
+// the 64 columns `part` of dK, dV and dQ (S^T and dP^T contract over the
+// whole head dim, so they are computed once for each part): the
+// accumulators stay D = 64's, within 168 registers.
+template <int D>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                 const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
                 float* __restrict__ dq_acc, int* __restrict__ turns, int* __restrict__ work,
-                BwdGeom geo) {
+                BwdGeom<kBwdKeys, D / kChunk> geo) {
+  constexpr int NC = D / kChunk, Stages = kBwdStages<D>, Slots = kDqSlots<D>;
   extern __shared__ unsigned char smem_raw[];
-  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(align1024(smem_raw));
+  BwdSmem<D>& sm = *reinterpret_cast<BwdSmem<D>*>(align1024(smem_raw));
   const int seq = geo.seq, group = geo.group;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kBwdStages; ++s) {
+    for (int s = 0; s < Stages; ++s) {
       mbar_init(&sm.full[s], 1);
       mbar_init(&sm.empty[s], kConsumers);
     }
     mbar_init(&sm.kv_full, 1);
     mbar_init(&sm.kv_empty, kConsumers + kDqWriters);
-    for (int b = 0; b < kDqSlots; ++b) {
+    for (int b = 0; b < Slots; ++b) {
       mbar_init(&sm.dq_full[b], kConsumers);
       mbar_init(&sm.dq_empty[b], 32);
     }
@@ -850,7 +949,7 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   if (threadIdx.x >= kConsumers) {  // warpgroup 2: the producer warp and the dQ writers
     regs_dec<80>();
     if (threadIdx.x >= kConsumers + 32) {  // dQ writers
-      write_dq<kDqSlots, kDqWriters / 32, 1>(sm, geo, dq, dq_acc, turns);
+      write_dq<Slots, kDqWriters / 32, 1, D>(sm, geo, dq, dq_acc, turns);
       return;
     }
 
@@ -865,27 +964,27 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         mbar_arrive(&sm.kv_full);  // no loads: the block stops
         return;
       }
-      const int j = item / geo.batch_kv, bg = item % geo.batch_kv;
+      const int j = geo.j(item), bg = geo.bg(item);
       const int h0 = bg * group;  // (b, g) -> the group's first query head, b H + g group
       const int i_hi = geo.i_hi(j), n_pairs = group * (i_hi - geo.i_lo(j) + 1);
       bool kv_loaded = false;
       for (int p = 0; p < n_pairs; ++p, ++slot) {
-        const int s = slot % kBwdStages;
+        const int s = slot % Stages;
         const int row = (h0 + p % group) * seq + (i_hi - p / group) * kBwdRows;
-        mbar_wait(&sm.empty[s], ((slot / kBwdStages) & 1) ^ 1);
-        mbar_expect_tx(&sm.full[s], 2 * kBwdRows * kRowBytes + 2 * kBwdRows * 4);
-        tma_load(sm.q[s], &tq, &sm.full[s], row);
-        tma_load(sm.dout[s], &tdo, &sm.full[s], row);
+        mbar_wait(&sm.empty[s], ((slot / Stages) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[s], 2 * kBwdRows * D * 2 + 2 * kBwdRows * 4);
+        tma_tile<D, kBwdRows>(sm.q[s], &tq, &sm.full[s], row);
+        tma_tile<D, kBwdRows>(sm.dout[s], &tdo, &sm.full[s], row);
         bulk_load(sm.lse[s], lse + row, kBwdRows * 4, &sm.full[s]);
         bulk_load(sm.delta[s], delta + row, kBwdRows * 4, &sm.full[s]);
         // K and V once the ring holds the item's first pairs (the buffers
         // free up only when the previous item is done)
-        if (!kv_loaded && (p == kBwdStages - 1 || p == n_pairs - 1)) {
+        if (!kv_loaded && (p == Stages - 1 || p == n_pairs - 1)) {
           mbar_wait(&sm.kv_empty, kv_phase ^ 1);
           sm.item = item;
-          mbar_expect_tx(&sm.kv_full, 2 * kBwdKeys * kRowBytes);
-          tma_load(sm.k, &tk, &sm.kv_full, bg * seq + j * kBwdKeys);
-          tma_load(sm.v, &tv, &sm.kv_full, bg * seq + j * kBwdKeys);
+          mbar_expect_tx(&sm.kv_full, 2 * kBwdKeys * D * 2);
+          tma_tile<D, kBwdKeys>(sm.k, &tk, &sm.kv_full, bg * seq + j * kBwdKeys);
+          tma_tile<D, kBwdKeys>(sm.v, &tv, &sm.kv_full, bg * seq + j * kBwdKeys);
           kv_loaded = true;
         }
       }
@@ -899,18 +998,20 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     mbar_wait(&sm.kv_full, kv_phase);
     const int item = sm.item;
     if (item >= geo.n_items) return;
-    const int j = item / geo.batch_kv, bg = item % geo.batch_kv;
+    const int j = geo.j(item), bg = geo.bg(item), part = geo.part(item);
     const int k0 = j * kBwdKeys + wg * 64;  // this warpgroup's first key
     const int i_hi = geo.i_hi(j), n_pairs = group * (i_hi - geo.i_lo(j) + 1);
     float dk_acc[32], dv_acc[32];
 #pragma unroll
     for (int e = 0; e < 32; ++e) dk_acc[e] = dv_acc[e] = 0.f;
-    const uint64_t d_k = desc_k(sm.k + wg * 64 * kD), d_v = desc_k(sm.v + wg * 64 * kD);
+    // this warpgroup's 64 rows of K and V (chunk 0; chunk c is c 128 64 on)
+    const bf16* const k_rows = sm.k + wg * 64 * kChunk;
+    const bf16* const v_rows = sm.v + wg * 64 * kChunk;
 
     for (int p = 0; p < n_pairs; ++p, ++slot) {
-      const int s = slot % kBwdStages;
+      const int s = slot % Stages;
       const int q0 = (i_hi - p / group) * kBwdRows;
-      mbar_wait(&sm.full[s], (slot / kBwdStages) & 1);
+      mbar_wait(&sm.full[s], (slot / Stages) & 1);
       // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries)
       float st[32], dpt[32];
 #pragma unroll
@@ -918,11 +1019,17 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       fence_regs(st);
       fence_regs(dpt);
       wg_fence();
-      const uint64_t d_q = desc_k(sm.q[s]), d_do = desc_k(sm.dout[s]);
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        wgmma_ss_n64<0, 0>(st, desc_add(d_k, 32 * kk), desc_add(d_q, 32 * kk), kk > 0);
-        wgmma_ss_n64<0, 0>(dpt, desc_add(d_v, 32 * kk), desc_add(d_do, 32 * kk), kk > 0);
+      for (int c = 0; c < NC; ++c) {
+        const uint64_t d_k = desc_k(k_rows + c * kBwdKeys * kChunk);
+        const uint64_t d_v = desc_k(v_rows + c * kBwdKeys * kChunk);
+        const uint64_t d_q = desc_k(sm.q[s] + c * kBwdRows * kChunk);
+        const uint64_t d_do = desc_k(sm.dout[s] + c * kBwdRows * kChunk);
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 16; ++kk) {
+          wgmma_ss_n64<0, 0>(st, desc_add(d_k, 32 * kk), desc_add(d_q, 32 * kk), c + kk > 0);
+          wgmma_ss_n64<0, 0>(dpt, desc_add(d_v, 32 * kk), desc_add(d_do, 32 * kk), c + kk > 0);
+        }
       }
       wg_commit();
       wg_wait0();
@@ -966,13 +1073,15 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(dst) +
                                      swizzle_offset(wg * 64 + acc_row(e), acc_col(e))) =
             a_ds[e / 8][(e % 8) / 2];
-      // dV += P^T dO, dK += dS^T Q: the group's sum, in registers
+      // dV += P^T dO, dK += dS^T Q over the item's columns: the group's sum,
+      // in registers
       fence_regs(dv_acc);
       fence_regs(dk_acc);
       fence_regs(a_p);
       fence_regs(a_ds);
       wg_fence();
-      const uint64_t m_do = desc_mn(sm.dout[s]), m_q = desc_mn(sm.q[s]);
+      const uint64_t m_do = desc_mn(sm.dout[s] + part * kBwdRows * kChunk);
+      const uint64_t m_q = desc_mn(sm.q[s] + part * kBwdRows * kChunk);
 #pragma unroll
       for (int kk = 0; kk < kBwdRows / 16; ++kk) {
         wgmma_rs_n64<1>(dv_acc, a_p[kk], desc_add(m_do, kk * 16 * kRowBytes));
@@ -980,8 +1089,8 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       }
       wg_commit();
       // dS^T to the async proxy and to the other warpgroup; then this
-      // warpgroup's half of the dQ partial (64 queries x 32 of the head dim)
-      // over all 128 keys: dS K[:, 32 wg : 32 wg + 32]
+      // warpgroup's half of the dQ partial (64 queries x 32 of the item's
+      // columns) over all 128 keys: dS K[:, 64 part + 32 wg : + 32]
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       named_sync(1, kConsumers);
       float dqp[16];
@@ -989,7 +1098,8 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       for (int e = 0; e < 16; ++e) dqp[e] = 0.f;
       fence_regs(dqp);
       wg_fence();
-      const uint64_t m_ds = desc_mn(dst), m_k = desc_add(desc_mn(sm.k), wg * 64);
+      const uint64_t m_ds = desc_mn(dst);
+      const uint64_t m_k = desc_add(desc_mn(sm.k + part * kBwdKeys * kChunk), wg * 64);
 #pragma unroll
       for (int kk = 0; kk < kBwdKeys / 16; ++kk)
         wgmma_ss_n32<1, 1>(dqp, desc_add(m_ds, kk * 16 * kRowBytes),
@@ -1002,19 +1112,21 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       fence_regs(a_p);
       fence_regs(a_ds);
       mbar_arrive(&sm.empty[s]);
-      // the partial to its writer warp, through one of kDqSlots buffers
-      const int b = slot % kDqSlots;
-      mbar_wait(&sm.dq_empty[b], ((slot / kDqSlots) & 1) ^ 1);
+      // the partial to its writer warp, through one of the staging slots
+      const int b = slot % Slots;
+      mbar_wait(&sm.dq_empty[b], ((slot / Slots) & 1) ^ 1);
 #pragma unroll
       for (int e = 0; e < 16; e += 2)
         *reinterpret_cast<float2*>(&sm.dqs[b][acc_row(e) * kDqStride + wg * 32 + acc_col(e)]) =
             make_float2(dqp[e], dqp[e + 1]);
       mbar_arrive(&sm.dq_full[b]);
     }
-    // dK, dV of this warpgroup's 64 keys, at the KV head's rows
+    // dK, dV of this warpgroup's 64 keys and the item's columns, at the KV
+    // head's rows
 #pragma unroll
     for (int e = 0; e < 32; e += 2) {
-      const size_t off = (static_cast<size_t>(bg) * seq + k0 + acc_row(e)) * kD + acc_col(e);
+      const size_t off =
+          (static_cast<size_t>(bg) * seq + k0 + acc_row(e)) * D + part * kChunk + acc_col(e);
       store2(dk + off, dk_acc[e], dk_acc[e + 1]);
       store2(dv + off, dv_acc[e], dv_acc[e + 1]);
     }
@@ -1069,9 +1181,9 @@ __device__ __forceinline__ void acc_to_a_split(uint32_t (&hi)[R / 8][4], uint32_
       split_pair_cut(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1], hi[kk][i], lo[kk][i]);
 }
 
-// A warpgroup's 64 x 64 block of a row-major float32 matrix at p, as the
-// A operands of four k16 steps over the 64 columns: pair i of step kk holds
-// row r + 8 (i & 1), columns 16 kk + 8 (i >> 1) + c, c + 1.
+// A warpgroup's 64 x 64 block of a row-major float32 [rows, 64] matrix at
+// p, as the A operands of four k16 steps over the 64 columns: pair i of
+// step kk holds row r + 8 (i & 1), columns 16 kk + 8 (i >> 1) + c, c + 1.
 __device__ __forceinline__ void load_a_f32(float2 (&x)[4][4], const float* __restrict__ p) {
   const int t = threadIdx.x % 128;
   const int r = (t / 32) * 16 + (t % 32) / 4, c = 2 * (t % 4);
@@ -1080,7 +1192,7 @@ __device__ __forceinline__ void load_a_f32(float2 (&x)[4][4], const float* __res
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       x[kk][i] = __ldg(reinterpret_cast<const float2*>(
-          p + (r + 8 * (i & 1)) * kD + 16 * kk + 8 * (i >> 1) + c));
+          p + (r + 8 * (i & 1)) * kChunk + 16 * kk + 8 * (i >> 1) + c));
 }
 __device__ __forceinline__ void split_a(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
                                         const float2 (&x)[4][4]) {
@@ -1090,12 +1202,18 @@ __device__ __forceinline__ void split_a(uint32_t (&hi)[4][4], uint32_t (&lo)[4][
     for (int i = 0; i < 4; ++i) split_pair(x[kk][i].x, x[kk][i].y, hi[kk][i], lo[kk][i]);
 }
 // The forward's pre-pass: k and v ([n] floats each) into the planes
-// [k hi, k lo, v hi, v lo] of n bf16 each, 8 elements a thread.
+// [k hi, k lo, v hi, v lo] of n bf16 each, then q ([nq] floats; D = 128
+// only, else nq = 0) into [q hi, q lo] of nq each, 8 elements a thread.
 __global__ void __launch_bounds__(256)
-flash_split_f32(const float* __restrict__ k, const float* __restrict__ v, bf16* __restrict__ planes,
-                long long n) {
+flash_split_f32(const float* __restrict__ k, const float* __restrict__ v,
+                const float* __restrict__ q, bf16* __restrict__ planes, long long n,
+                long long nq) {
   const long long i = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) * 8;
-  if (i >= 2 * n) return;
+  if (i >= 2 * n) {
+    const long long j = i - 2 * n;
+    if (j < nq) split8(q + j, planes + 4 * n + j, planes + 4 * n + nq + j);
+    return;
+  }
   const bool is_v = i >= n;
   const long long j = is_v ? i - n : i;
   bf16* hi = planes + (is_v ? 2 * n : 0) + j;
@@ -1103,53 +1221,76 @@ flash_split_f32(const float* __restrict__ k, const float* __restrict__ v, bf16* 
 }
 
 constexpr int kF32Keys = 64;   // keys of a float32 K/V tile
-constexpr int kF32Stages = 6;
-constexpr int kF32PlaneBytes = kF32Keys * kRowBytes;  // 8 KB
 
+// D = 64: six stages of K's and V's planes, Q split in each consumer's
+// registers. D = 128: two stages (64 KB each), and Q's planes in shared
+// memory, loaded by TMA per work tile (Q in registers would take 64 more
+// a thread).
+template <int D>
 struct FwdSmemF32 {
-  bf16 k[kF32Stages][2][kF32Keys * kD];  // [stage][hi, lo]
-  bf16 v[kF32Stages][2][kF32Keys * kD];
-  uint64_t k_full[kF32Stages], k_empty[kF32Stages], v_full[kF32Stages], v_empty[kF32Stages];
+  static constexpr int Stages = D == 64 ? 6 : 2;
+  static constexpr int QElems = D == 64 ? 8 : kFwdRows * D;
+  bf16 k[Stages][2][kF32Keys * D];  // [stage][hi, lo]
+  bf16 v[Stages][2][kF32Keys * D];
+  alignas(1024) bf16 q[2][QElems];  // [hi, lo] (D = 128)
+  uint64_t k_full[Stages], k_empty[Stages], v_full[Stages], v_empty[Stages], q_full, q_empty;
 };
-constexpr int kFwdF32SmemBytes = sizeof(FwdSmemF32) + 1024;
+template <int D>
+constexpr int kFwdF32SmemBytes = sizeof(FwdSmemF32<D>) + 1024;
 
 // flash_fwd_wgmma's schedule on split operands (header, item 5). tkv maps
 // the pre-pass's planes: K hi at row r, K lo at kv_rows + r, V hi at
-// 2 kv_rows + r, V lo at 3 kv_rows + r.
+// 2 kv_rows + r, V lo at 3 kv_rows + r; tq (D = 128) Q hi at row r and Q
+// lo at rows + r.
+template <int D>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap tkv,
-              float* __restrict__ o, float* __restrict__ lse, FwdWork<kF32Keys> wk, int kv_rows) {
+              const __grid_constant__ CUtensorMap tq, float* __restrict__ o,
+              float* __restrict__ lse, FwdWork<kF32Keys> wk, int kv_rows, int rows) {
+  using Smem = FwdSmemF32<D>;
+  constexpr int NC = D / kChunk, Stages = Smem::Stages;
+  constexpr bool kQSmem = D != 64;
+  constexpr int kPlane = kF32Keys * kChunk;  // elements of a chunk of a K/V plane tile
   extern __shared__ unsigned char smem_raw[];
-  FwdSmemF32& sm = *reinterpret_cast<FwdSmemF32*>(align1024(smem_raw));
+  Smem& sm = *reinterpret_cast<Smem*>(align1024(smem_raw));
   const int seq = wk.seq;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kF32Stages; ++s) {
+    for (int s = 0; s < Stages; ++s) {
       mbar_init(&sm.k_full[s], 1);
       mbar_init(&sm.k_empty[s], kConsumers);
       mbar_init(&sm.v_full[s], 1);
       mbar_init(&sm.v_empty[s], kConsumers);
     }
+    mbar_init(&sm.q_full, 1);
+    mbar_init(&sm.q_empty, kConsumers);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (threadIdx.x >= kConsumers) {  // producer warpgroup: one thread loads K and V
+  if (threadIdx.x >= kConsumers) {  // producer warpgroup: one thread loads K and V (and Q)
     regs_dec<40>();
     if (threadIdx.x != kConsumers) return;
     int slot = 0;
     for (int n = 0, w = wk.tile(0); w < wk.count(); w = wk.tile(++n)) {
       const int kv_row = (wk.bh(w) / wk.group) * seq, j_lo = wk.j_lo(w);
+      if constexpr (kQSmem) {
+        const int row = wk.bh(w) * seq + wk.qt(w) * kFwdRows;
+        mbar_wait(&sm.q_empty, (n & 1) ^ 1);
+        mbar_expect_tx(&sm.q_full, 2 * kFwdRows * D * 2);
+        tma_tile<D, kFwdRows>(sm.q[0], &tq, &sm.q_full, row);
+        tma_tile<D, kFwdRows>(sm.q[1], &tq, &sm.q_full, rows + row);
+      }
       for (int t = 0; t < wk.n_tiles(w); ++t, ++slot) {
-        const int s = slot % kF32Stages, row = kv_row + (j_lo + t) * kF32Keys;
-        const uint32_t phase = ((slot / kF32Stages) & 1) ^ 1;
+        const int s = slot % Stages, row = kv_row + (j_lo + t) * kF32Keys;
+        const uint32_t phase = ((slot / Stages) & 1) ^ 1;
         mbar_wait(&sm.k_empty[s], phase);
-        mbar_expect_tx(&sm.k_full[s], 2 * kF32PlaneBytes);
-        tma_load(sm.k[s][0], &tkv, &sm.k_full[s], row);
-        tma_load(sm.k[s][1], &tkv, &sm.k_full[s], kv_rows + row);
+        mbar_expect_tx(&sm.k_full[s], 2 * kF32Keys * D * 2);
+        tma_tile<D, kF32Keys>(sm.k[s][0], &tkv, &sm.k_full[s], row);
+        tma_tile<D, kF32Keys>(sm.k[s][1], &tkv, &sm.k_full[s], kv_rows + row);
         mbar_wait(&sm.v_empty[s], phase);
-        mbar_expect_tx(&sm.v_full[s], 2 * kF32PlaneBytes);
-        tma_load(sm.v[s][0], &tkv, &sm.v_full[s], 2 * kv_rows + row);
-        tma_load(sm.v[s][1], &tkv, &sm.v_full[s], 3 * kv_rows + row);
+        mbar_expect_tx(&sm.v_full[s], 2 * kF32Keys * D * 2);
+        tma_tile<D, kF32Keys>(sm.v[s][0], &tkv, &sm.v_full[s], 2 * kv_rows + row);
+        tma_tile<D, kF32Keys>(sm.v[s][1], &tkv, &sm.v_full[s], 3 * kv_rows + row);
       }
     }
     return;
@@ -1161,8 +1302,8 @@ flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap t
   // a key tile that none of this warpgroup's rows sees: wait for it and
   // release it
   auto pass = [&]() {
-    const int s = slot % kF32Stages;
-    const uint32_t parity = (slot / kF32Stages) & 1;
+    const int s = slot % Stages;
+    const uint32_t parity = (slot / Stages) & 1;
     mbar_wait(&sm.k_full[s], parity);
     mbar_arrive(&sm.k_empty[s]);
     mbar_wait(&sm.v_full[s], parity);
@@ -1175,13 +1316,17 @@ flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap t
     // this warpgroup's key tiles [own_lo, own_hi]: the last holds its diagonal
     const int own_lo = max(0, row0 - wk.window + 1) / kF32Keys, own_hi = row0 / kF32Keys;
     auto masked = [&](int k0) { return k0 + kF32Keys - 1 > row0 || row0 + 63 - k0 >= wk.window; };
-    float acc[32], sc[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    float acc[NC][32], sc[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
     uint32_t qh[4][4], ql[4][4], ph[4][4], pl[4][4], nh[4][4], nl[4][4];
 #pragma unroll
-    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
-    {
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+    if constexpr (kQSmem) {
+      mbar_wait(&sm.q_full, n & 1);
+    } else {
       float2 x[4][4];
-      load_a_f32(x, q + (static_cast<size_t>(bh) * seq + row0) * kD);
+      load_a_f32(x, q + (static_cast<size_t>(bh) * seq + row0) * D);
       split_a(qh, ql, x);
     }
     for (int j = j_lo; j < own_lo; ++j) pass();
@@ -1190,42 +1335,63 @@ flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap t
 #pragma unroll
       for (int e = 0; e < 32; ++e) sc[e] = 0.f;
       fence_regs(sc);
-      fence_regs(qh);
-      fence_regs(ql);
+      if constexpr (!kQSmem) {
+        fence_regs(qh);
+        fence_regs(ql);
+      }
       wg_fence();
-      const uint64_t dkh = desc_k(sm.k[s][0]), dkl = desc_k(sm.k[s][1]);
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        wgmma_rs_n64<0>(sc, qh[kk], desc_add(dkh, 32 * kk));
-        wgmma_rs_n64<0>(sc, qh[kk], desc_add(dkl, 32 * kk));
-        wgmma_rs_n64<0>(sc, ql[kk], desc_add(dkh, 32 * kk));
+      for (int c = 0; c < NC; ++c) {
+        const uint64_t dkh = desc_k(sm.k[s][0] + c * kPlane), dkl = desc_k(sm.k[s][1] + c * kPlane);
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 16; ++kk) {
+          if constexpr (kQSmem) {
+            const int at = c * kFwdRows * kChunk + wg * 64 * kChunk;
+            const uint64_t dqh = desc_k(sm.q[0] + at), dql = desc_k(sm.q[1] + at);
+            wgmma_ss_n64<0, 0>(sc, desc_add(dqh, 32 * kk), desc_add(dkh, 32 * kk), 1);
+            wgmma_ss_n64<0, 0>(sc, desc_add(dqh, 32 * kk), desc_add(dkl, 32 * kk), 1);
+            wgmma_ss_n64<0, 0>(sc, desc_add(dql, 32 * kk), desc_add(dkh, 32 * kk), 1);
+          } else {
+            wgmma_rs_n64<0>(sc, qh[kk], desc_add(dkh, 32 * kk));
+            wgmma_rs_n64<0>(sc, qh[kk], desc_add(dkl, 32 * kk));
+            wgmma_rs_n64<0>(sc, ql[kk], desc_add(dkh, 32 * kk));
+          }
+        }
       }
       wg_commit();
     };
     auto issue_pv = [&](int s) {  // acc += P V for the V tile in stage s
-      mbar_wait(&sm.v_full[s], (slot / kF32Stages) & 1);
-      fence_regs(acc);
+      mbar_wait(&sm.v_full[s], (slot / Stages) & 1);
+      fence_acc(acc);
       fence_regs(ph);
       fence_regs(pl);
       wg_fence();
-      const uint64_t dvh = desc_mn(sm.v[s][0]), dvl = desc_mn(sm.v[s][1]);
 #pragma unroll
-      for (int kk = 0; kk < kF32Keys / 16; ++kk) {
-        wgmma_rs_n64<1>(acc, ph[kk], desc_add(dvh, kk * 16 * kRowBytes));
-        wgmma_rs_n64<1>(acc, ph[kk], desc_add(dvl, kk * 16 * kRowBytes));
-        wgmma_rs_n64<1>(acc, pl[kk], desc_add(dvh, kk * 16 * kRowBytes));
+      for (int c = 0; c < NC; ++c) {
+        const uint64_t dvh = desc_mn(sm.v[s][0] + c * kPlane), dvl = desc_mn(sm.v[s][1] + c * kPlane);
+#pragma unroll
+        for (int kk = 0; kk < kF32Keys / 16; ++kk) {
+          wgmma_rs_n64<1>(acc[c], ph[kk], desc_add(dvh, kk * 16 * kRowBytes));
+          wgmma_rs_n64<1>(acc[c], ph[kk], desc_add(dvl, kk * 16 * kRowBytes));
+          wgmma_rs_n64<1>(acc[c], pl[kk], desc_add(dvh, kk * 16 * kRowBytes));
+        }
       }
       wg_commit();
     };
+    auto fence_q = [&]() {
+      if constexpr (!kQSmem) {
+        fence_regs(qh);
+        fence_regs(ql);
+      }
+    };
 
     {
-      const int s = slot % kF32Stages;
-      mbar_wait(&sm.k_full[s], (slot / kF32Stages) & 1);
+      const int s = slot % Stages;
+      mbar_wait(&sm.k_full[s], (slot / Stages) & 1);
       issue_s(s);
       wg_wait0();
       fence_regs(sc);
-      fence_regs(qh);
-      fence_regs(ql);
+      fence_q();
       mbar_arrive(&sm.k_empty[s]);
       softmax_scores(sc, m, l, alpha, masked(own_lo * kF32Keys), row0, own_lo * kF32Keys,
                      wk.window);
@@ -1233,25 +1399,26 @@ flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap t
     }
     // as flash_fwd_wgmma: S of tile j + 1 ahead of P V of tile j
     for (int j = own_lo; j < own_hi; ++j, ++slot) {
-      const int s = slot % kF32Stages, s1 = (slot + 1) % kF32Stages;
-      mbar_wait(&sm.k_full[s1], ((slot + 1) / kF32Stages) & 1);
+      const int s = slot % Stages, s1 = (slot + 1) % Stages;
+      mbar_wait(&sm.k_full[s1], ((slot + 1) / Stages) & 1);
       issue_s(s1);
       issue_pv(s);
       wg_wait1();
       fence_regs(sc);
-      fence_regs(qh);
-      fence_regs(ql);
+      fence_q();
       mbar_arrive(&sm.k_empty[s1]);
       const int k1 = (j + 1) * kF32Keys;
       softmax_scores(sc, m, l, alpha, masked(k1), row0, k1, wk.window);
       acc_to_a_split<32>(nh, nl, sc);
       wg_wait0();
-      fence_regs(acc);
+      fence_acc(acc);
       fence_regs(ph);
       fence_regs(pl);
       mbar_arrive(&sm.v_empty[s]);
 #pragma unroll
-      for (int e = 0; e < 32; ++e) acc[e] *= alpha[(e >> 1) & 1];
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[c][e] *= alpha[(e >> 1) & 1];
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -1260,50 +1427,40 @@ flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap t
           pl[kk][i] = nl[kk][i];
         }
     }
-    issue_pv(slot % kF32Stages);
+    if constexpr (kQSmem) mbar_arrive(&sm.q_empty);  // this warpgroup's last S is done
+    issue_pv(slot % Stages);
     wg_wait0();
-    fence_regs(acc);
+    fence_acc(acc);
     fence_regs(ph);
     fence_regs(pl);
-    mbar_arrive(&sm.v_empty[slot % kF32Stages]);
+    mbar_arrive(&sm.v_empty[slot % Stages]);
     ++slot;
     for (int j = own_hi + 1; j < j_end; ++j) pass();
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float total = quad_sum(l[r]);
-      const float inv = 1.f / total;
-      const int row = row0 + acc_row(2 * r);
-      float* orow = o + (static_cast<size_t>(bh) * seq + row) * kD;
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        store2(orow + acc_col(4 * c), acc[4 * c + 2 * r] * inv, acc[4 * c + 2 * r + 1] * inv);
-      if (threadIdx.x % 4 == 0)
-        lse[static_cast<size_t>(bh) * seq + row] = (m[r] + log2f(total)) * kLn2;
-    }
+    store_o<D>(acc, m, l, o, lse, bh, seq, row0);
   }
 }
 
 // The backward's pre-pass, one launch. Blocks [0, rows / 32): delta =
 // rowsum(dO * O) in float32 (8 threads a row, a fixed order) and the planes
 // of Q and dO; the rest: the planes of K and V. planes: [q hi, q lo, dO hi,
-// dO lo] of rows x 64 bf16 each, then [k hi, k lo, v hi, v lo] of
-// kv_rows x 64.
+// dO lo] of rows x D bf16 each, then [k hi, k lo, v hi, v lo] of
+// kv_rows x D.
+template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_prep_f32(const float* __restrict__ q, const float* __restrict__ o,
                    const float* __restrict__ dout, const float* __restrict__ k,
                    const float* __restrict__ v, float* __restrict__ delta,
                    bf16* __restrict__ planes, long long rows, long long kv_rows) {
-  const long long n = rows * kD, kv_n = kv_rows * kD;
+  const long long n = rows * D, kv_n = kv_rows * D;
   const long long row_blocks = rows / 32;
   if (blockIdx.x < row_blocks) {
     const long long row = static_cast<long long>(blockIdx.x) * 32 + threadIdx.x / 8;
-    const long long e = row * kD + (threadIdx.x % 8) * 8;
+    const long long e = row * D + (threadIdx.x % 8) * (D / 8);
     const float4* a = reinterpret_cast<const float4*>(o + e);
     const float4* b = reinterpret_cast<const float4*>(dout + e);
     float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < D / 32; ++i) {
       const float4 x = __ldg(a + i), y = __ldg(b + i);
       sum += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
     }
@@ -1311,8 +1468,11 @@ flash_bwd_prep_f32(const float* __restrict__ q, const float* __restrict__ o,
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     sum += __shfl_xor_sync(0xffffffffu, sum, 4);
     if (threadIdx.x % 8 == 0) delta[row] = sum;
-    split8(q + e, planes + e, planes + n + e);
-    split8(dout + e, planes + 2 * n + e, planes + 3 * n + e);
+#pragma unroll
+    for (int u = 0; u < D / 64; ++u) {
+      split8(q + e + 8 * u, planes + e + 8 * u, planes + n + e + 8 * u);
+      split8(dout + e + 8 * u, planes + 2 * n + e + 8 * u, planes + 3 * n + e + 8 * u);
+    }
     return;
   }
   const long long e = ((blockIdx.x - row_blocks) * 256 + threadIdx.x) * 8;
@@ -1321,47 +1481,57 @@ flash_bwd_prep_f32(const float* __restrict__ q, const float* __restrict__ o,
     split8(v + e - kv_n, planes + 4 * n + kv_n + e, planes + 4 * n + 2 * kv_n + e);
 }
 
-constexpr int kF32BwdStages = 2;
-constexpr int kF32DqSlots = 2;
 constexpr int kF32DqWriters = 2;  // warps 9 and 10 (warp 11 only gives its registers away)
+// D = 64: items of 128 keys, 64 a warpgroup, as flash_bwd_wgmma. D = 128:
+// items of 64 keys, both warpgroups on the same keys, each for its 64
+// columns of dK, dV and dQ (K's and V's planes for 128 keys would not fit
+// beside the ring): one ring stage (64 KB), 224 KB in all.
+template <int D>
+constexpr int kF32BwdKeys = D == 64 ? 128 : 64;
 
+template <int D>
 struct BwdSmemF32 {
-  bf16 k[2][kBwdKeys * kD];                // hi, lo
-  bf16 v[2][kBwdKeys * kD];
-  bf16 dst[2][kBwdKeys * kD];              // [hi, lo] of dS^T: [key][query], 64 keys a warpgroup
-  bf16 q[kF32BwdStages][2][kBwdRows * kD];  // [stage][hi, lo]
-  bf16 dout[kF32BwdStages][2][kBwdRows * kD];
-  float lse[kF32BwdStages][kBwdRows];
-  float delta[kF32BwdStages][kBwdRows];
-  float dqs[kF32DqSlots][2][kBwdRows * kD];  // dQ partials for the writers, a half a warpgroup
-  uint64_t full[kF32BwdStages], empty[kF32BwdStages], kv_full, kv_empty, dq_full[kF32DqSlots],
-      dq_empty[kF32DqSlots];
+  static constexpr int Stages = D == 64 ? 2 : 1, Slots = 2;
+  bf16 k[2][kF32BwdKeys<D> * D];                // hi, lo
+  bf16 v[2][kF32BwdKeys<D> * D];
+  bf16 dst[2][2 * 64 * kBwdRows];              // [hi, lo] of dS^T: [key][query], 64 keys a warpgroup
+  bf16 q[Stages][2][kBwdRows * D];             // [stage][hi, lo]
+  bf16 dout[Stages][2][kBwdRows * D];
+  float lse[Stages][kBwdRows];
+  float delta[Stages][kBwdRows];
+  float dqs[Slots][2][kBwdRows * kChunk];      // dQ partials for the writers, a half a warpgroup
+  uint64_t full[Stages], empty[Stages], kv_full, kv_empty, dq_full[Slots], dq_empty[Slots];
   int item;
 };
-constexpr int kBwdF32SmemBytes = sizeof(BwdSmemF32) + 1024;
+template <int D>
+constexpr int kBwdF32SmemBytes = sizeof(BwdSmemF32<D>) + 1024;
 
 // flash_bwd_wgmma's items, pairs and dQ order on split operands (header,
 // item 6). tq and tdo map the planes of Q and dO (lo at rows + r), tkv
 // those of K and V (K lo at kv_rows + r, V hi at 2 kv_rows + r, V lo at
 // 3 kv_rows + r).
+template <int D>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_f32(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
               const __grid_constant__ CUtensorMap tkv, const float* __restrict__ lse,
               const float* __restrict__ delta, float* __restrict__ dq, float* __restrict__ dk,
               float* __restrict__ dv,
               float* __restrict__ dq_acc, int* __restrict__ turns, int* __restrict__ work,
-              BwdGeom geo, int rows, int kv_rows) {
+              BwdGeom<kF32BwdKeys<D>, 1> geo, int rows, int kv_rows) {
+  using Smem = BwdSmemF32<D>;
+  constexpr int NC = D / kChunk, Keys = kF32BwdKeys<D>, Stages = Smem::Stages,
+                Slots = Smem::Slots;
   extern __shared__ unsigned char smem_raw[];
-  BwdSmemF32& sm = *reinterpret_cast<BwdSmemF32*>(align1024(smem_raw));
+  Smem& sm = *reinterpret_cast<Smem*>(align1024(smem_raw));
   const int seq = geo.seq, group = geo.group;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kF32BwdStages; ++s) {
+    for (int s = 0; s < Stages; ++s) {
       mbar_init(&sm.full[s], 1);
       mbar_init(&sm.empty[s], kConsumers);
     }
     mbar_init(&sm.kv_full, 1);
     mbar_init(&sm.kv_empty, kConsumers + 32 * kF32DqWriters);
-    for (int b = 0; b < kF32DqSlots; ++b) {
+    for (int b = 0; b < Slots; ++b) {
       mbar_init(&sm.dq_full[b], kConsumers);
       mbar_init(&sm.dq_empty[b], 32);
     }
@@ -1374,7 +1544,7 @@ flash_bwd_f32(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     regs_dec<80>();
     if (threadIdx.x >= kConsumers + 32) {
       if (threadIdx.x < kConsumers + 32 + 32 * kF32DqWriters)
-        write_dq<kF32DqSlots, kF32DqWriters, 2>(sm, geo, dq, dq_acc, turns);
+        write_dq<Slots, kF32DqWriters, 2, D>(sm, geo, dq, dq_acc, turns);
       return;
     }
     if (threadIdx.x != kConsumers) return;
@@ -1387,31 +1557,31 @@ flash_bwd_f32(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
         mbar_arrive(&sm.kv_full);  // no loads: the block stops
         return;
       }
-      const int j = item / geo.batch_kv, bg = item % geo.batch_kv;
+      const int j = geo.j(item), bg = geo.bg(item);
       const int h0 = bg * group;
       const int i_hi = geo.i_hi(j), n_pairs = group * (i_hi - geo.i_lo(j) + 1);
       bool kv_loaded = false;
       for (int p = 0; p < n_pairs; ++p, ++slot) {
-        const int s = slot % kF32BwdStages;
+        const int s = slot % Stages;
         const int row = (h0 + p % group) * seq + (i_hi - p / group) * kBwdRows;
-        mbar_wait(&sm.empty[s], ((slot / kF32BwdStages) & 1) ^ 1);
-        mbar_expect_tx(&sm.full[s], 4 * kBwdRows * kRowBytes + 2 * kBwdRows * 4);
-        tma_load(sm.q[s][0], &tq, &sm.full[s], row);
-        tma_load(sm.q[s][1], &tq, &sm.full[s], rows + row);
-        tma_load(sm.dout[s][0], &tdo, &sm.full[s], row);
-        tma_load(sm.dout[s][1], &tdo, &sm.full[s], rows + row);
+        mbar_wait(&sm.empty[s], ((slot / Stages) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[s], 4 * kBwdRows * D * 2 + 2 * kBwdRows * 4);
+        tma_tile<D, kBwdRows>(sm.q[s][0], &tq, &sm.full[s], row);
+        tma_tile<D, kBwdRows>(sm.q[s][1], &tq, &sm.full[s], rows + row);
+        tma_tile<D, kBwdRows>(sm.dout[s][0], &tdo, &sm.full[s], row);
+        tma_tile<D, kBwdRows>(sm.dout[s][1], &tdo, &sm.full[s], rows + row);
         bulk_load(sm.lse[s], lse + row, kBwdRows * 4, &sm.full[s]);
         bulk_load(sm.delta[s], delta + row, kBwdRows * 4, &sm.full[s]);
         // K's and V's planes once the ring holds the item's first pairs
-        if (!kv_loaded && (p == kF32BwdStages - 1 || p == n_pairs - 1)) {
-          const int r = bg * seq + j * kBwdKeys;
+        if (!kv_loaded && (p == Stages - 1 || p == n_pairs - 1)) {
+          const int r = bg * seq + j * Keys;
           mbar_wait(&sm.kv_empty, kv_phase ^ 1);
           sm.item = item;
-          mbar_expect_tx(&sm.kv_full, 4 * kBwdKeys * kRowBytes);
-          tma_load(sm.k[0], &tkv, &sm.kv_full, r);
-          tma_load(sm.k[1], &tkv, &sm.kv_full, kv_rows + r);
-          tma_load(sm.v[0], &tkv, &sm.kv_full, 2 * kv_rows + r);
-          tma_load(sm.v[1], &tkv, &sm.kv_full, 3 * kv_rows + r);
+          mbar_expect_tx(&sm.kv_full, 4 * Keys * D * 2);
+          tma_tile<D, Keys>(sm.k[0], &tkv, &sm.kv_full, r);
+          tma_tile<D, Keys>(sm.k[1], &tkv, &sm.kv_full, kv_rows + r);
+          tma_tile<D, Keys>(sm.v[0], &tkv, &sm.kv_full, 2 * kv_rows + r);
+          tma_tile<D, Keys>(sm.v[1], &tkv, &sm.kv_full, 3 * kv_rows + r);
           kv_loaded = true;
         }
       }
@@ -1419,13 +1589,15 @@ flash_bwd_f32(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   }
   regs_inc<208>();
 
-  // Each consumer warpgroup works on its own 64 keys from here on, with no
-  // barrier with the other: the two meet only at the ring's empty barriers
-  // and the staged dQ halves, so one's elementwise phase can run while the
-  // other's products do.
+  // Each consumer warpgroup works on its own 64 keys (D = 64) or its own 64
+  // columns (D = 128) from here on, with no barrier with the other: the two
+  // meet only at the ring's empty barriers and the staged dQ halves, so
+  // one's elementwise phase can run while the other's products do.
   const int wg = threadIdx.x / 128;
-  bf16* const dst_h = sm.dst[0] + wg * 64 * kD;  // this warpgroup's rows of dS^T
-  bf16* const dst_l = sm.dst[1] + wg * 64 * kD;
+  const int kw = D == 64 ? wg * 64 : 0;  // this warpgroup's first key in the item
+  const int cw = D == 64 ? 0 : wg;       // its chunk of dK, dV and dQ's columns
+  bf16* const dst_h = sm.dst[0] + wg * 64 * kBwdRows;  // this warpgroup's rows of dS^T
+  bf16* const dst_l = sm.dst[1] + wg * 64 * kBwdRows;
   int slot = 0;
   for (uint32_t kv_phase = 0;; kv_phase ^= 1) {
     mbar_wait(&sm.kv_full, kv_phase);
@@ -1434,20 +1606,18 @@ flash_bwd_f32(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       K6_SPAN_MARK(1);
       return;
     }
-    const int j = item / geo.batch_kv, bg = item % geo.batch_kv;
-    const int k0 = j * kBwdKeys + wg * 64;  // this warpgroup's first key
+    const int j = geo.j(item), bg = geo.bg(item);
+    const int k0 = j * Keys + kw;  // this warpgroup's first key
     const int i_hi = geo.i_hi(j), n_pairs = group * (i_hi - geo.i_lo(j) + 1);
     float dk_acc[32], dv_acc[32];
 #pragma unroll
     for (int e = 0; e < 32; ++e) dk_acc[e] = dv_acc[e] = 0.f;
-    const uint64_t d_kh = desc_k(sm.k[0] + wg * 64 * kD), d_kl = desc_k(sm.k[1] + wg * 64 * kD);
-    const uint64_t d_vh = desc_k(sm.v[0] + wg * 64 * kD), d_vl = desc_k(sm.v[1] + wg * 64 * kD);
 
     for (int p = 0; p < n_pairs; ++p, ++slot) {
-      const int s = slot % kF32BwdStages;
+      const int s = slot % Stages;
       const int q0 = (i_hi - p / group) * kBwdRows;
       K6_MARK(0);
-      mbar_wait(&sm.full[s], (slot / kF32BwdStages) & 1);
+      mbar_wait(&sm.full[s], (slot / Stages) & 1);
       K6_MARK(1);
       // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries), three products each
       float st[32], dpt[32];
@@ -1456,16 +1626,23 @@ flash_bwd_f32(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       fence_regs(st);
       fence_regs(dpt);
       wg_fence();
-      const uint64_t d_qh = desc_k(sm.q[s][0]), d_ql = desc_k(sm.q[s][1]);
-      const uint64_t d_doh = desc_k(sm.dout[s][0]), d_dol = desc_k(sm.dout[s][1]);
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        wgmma_ss_n64<0, 0>(st, desc_add(d_kh, 32 * kk), desc_add(d_qh, 32 * kk), 1);
-        wgmma_ss_n64<0, 0>(st, desc_add(d_kh, 32 * kk), desc_add(d_ql, 32 * kk), 1);
-        wgmma_ss_n64<0, 0>(st, desc_add(d_kl, 32 * kk), desc_add(d_qh, 32 * kk), 1);
-        wgmma_ss_n64<0, 0>(dpt, desc_add(d_vh, 32 * kk), desc_add(d_doh, 32 * kk), 1);
-        wgmma_ss_n64<0, 0>(dpt, desc_add(d_vh, 32 * kk), desc_add(d_dol, 32 * kk), 1);
-        wgmma_ss_n64<0, 0>(dpt, desc_add(d_vl, 32 * kk), desc_add(d_doh, 32 * kk), 1);
+      for (int c = 0; c < NC; ++c) {
+        const int at = c * Keys * kChunk + kw * kChunk;  // this warpgroup's rows of chunk c
+        const uint64_t d_kh = desc_k(sm.k[0] + at), d_kl = desc_k(sm.k[1] + at);
+        const uint64_t d_vh = desc_k(sm.v[0] + at), d_vl = desc_k(sm.v[1] + at);
+        const int aq = c * kBwdRows * kChunk;
+        const uint64_t d_qh = desc_k(sm.q[s][0] + aq), d_ql = desc_k(sm.q[s][1] + aq);
+        const uint64_t d_doh = desc_k(sm.dout[s][0] + aq), d_dol = desc_k(sm.dout[s][1] + aq);
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 16; ++kk) {
+          wgmma_ss_n64<0, 0>(st, desc_add(d_kh, 32 * kk), desc_add(d_qh, 32 * kk), 1);
+          wgmma_ss_n64<0, 0>(st, desc_add(d_kh, 32 * kk), desc_add(d_ql, 32 * kk), 1);
+          wgmma_ss_n64<0, 0>(st, desc_add(d_kl, 32 * kk), desc_add(d_qh, 32 * kk), 1);
+          wgmma_ss_n64<0, 0>(dpt, desc_add(d_vh, 32 * kk), desc_add(d_doh, 32 * kk), 1);
+          wgmma_ss_n64<0, 0>(dpt, desc_add(d_vh, 32 * kk), desc_add(d_dol, 32 * kk), 1);
+          wgmma_ss_n64<0, 0>(dpt, desc_add(d_vl, 32 * kk), desc_add(d_doh, 32 * kk), 1);
+        }
       }
       wg_commit();
       wg_wait0();
@@ -1519,11 +1696,13 @@ flash_bwd_f32(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       fence_regs(ph);
       fence_regs(pl);
       wg_fence();
-      const uint64_t m_doh = desc_mn(sm.dout[s][0]), m_dol = desc_mn(sm.dout[s][1]);
-      const uint64_t m_qh = desc_mn(sm.q[s][0]), m_ql = desc_mn(sm.q[s][1]);
+      const int ac = cw * kBwdRows * kChunk;  // the warpgroup's chunk of Q and dO
+      const uint64_t m_doh = desc_mn(sm.dout[s][0] + ac), m_dol = desc_mn(sm.dout[s][1] + ac);
+      const uint64_t m_qh = desc_mn(sm.q[s][0] + ac), m_ql = desc_mn(sm.q[s][1] + ac);
       const uint64_t a_dsh = desc_k(dst_h), a_dsl = desc_k(dst_l);
       const uint64_t m_dsh = desc_mn(dst_h), m_dsl = desc_mn(dst_l);
-      const uint64_t m_kh = desc_mn(sm.k[0] + wg * 64 * kD), m_kl = desc_mn(sm.k[1] + wg * 64 * kD);
+      const int ak = cw * Keys * kChunk + kw * kChunk;  // its keys' rows of its chunk of K
+      const uint64_t m_kh = desc_mn(sm.k[0] + ak), m_kl = desc_mn(sm.k[1] + ak);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const uint32_t at = kk * 16 * kRowBytes;
@@ -1546,9 +1725,9 @@ flash_bwd_f32(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       fence_regs(pl);
       mbar_arrive(&sm.empty[s]);
       K6_MARK(5);
-      // the half partial to the writers, through one of kF32DqSlots buffers
-      const int b = slot % kF32DqSlots;
-      mbar_wait(&sm.dq_empty[b], ((slot / kF32DqSlots) & 1) ^ 1);
+      // the half partial to the writers, through one of the staging slots
+      const int b = slot % Slots;
+      mbar_wait(&sm.dq_empty[b], ((slot / Slots) & 1) ^ 1);
       K6_MARK(6);
 #pragma unroll
       for (int e = 0; e < 32; e += 2)
@@ -1557,10 +1736,11 @@ flash_bwd_f32(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       mbar_arrive(&sm.dq_full[b]);
       K6_MARK(7);
     }
-    // dK, dV of this warpgroup's 64 keys, at the KV head's rows
+    // dK, dV of this warpgroup's keys and columns, at the KV head's rows
 #pragma unroll
     for (int e = 0; e < 32; e += 2) {
-      const size_t off = (static_cast<size_t>(bg) * seq + k0 + acc_row(e)) * kD + acc_col(e);
+      const size_t off =
+          (static_cast<size_t>(bg) * seq + k0 + acc_row(e)) * D + cw * kChunk + acc_col(e);
       store2(dk + off, dk_acc[e], dk_acc[e + 1]);
       store2(dv + off, dv_acc[e], dv_acc[e + 1]);
     }
@@ -1585,6 +1765,7 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 constexpr int kErrNoEncode = 10001;  // libcuda has no cuTensorMapEncodeTiled
 constexpr int kErrEncode = 10002;    // it refused a tensor map
+constexpr int kErrHeadDim = 10003;   // a head dim other than 64 and 128
 
 EncodeTiled encode_tiled() {
   static const EncodeTiled fn = [] {
@@ -1599,13 +1780,15 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A [rows, 64] bf16 tensor read in boxes of box_rows rows, 128-byte swizzle.
+// A [rows, D] bf16 tensor read in boxes of box_rows rows and 64 columns,
+// 128-byte swizzle.
+template <int D>
 int make_map(CUtensorMap* map, const void* base, long long rows, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kErrNoEncode;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(kRowBytes)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kD), static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D * 2)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kChunk), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -1620,150 +1803,190 @@ int sm_count() {
   return n > 0 ? n : 1;
 }
 
+template <typename Work>
+Work fwd_work(int batch, int heads, int kv_heads, int seq, int window) {
+  Work wk;
+  wk.bh_count = batch * heads;
+  wk.n_qt = seq / kFwdRows;
+  wk.seq = seq;
+  wk.window = window;
+  wk.group = heads / kv_heads;
+  return wk;
+}
+
+template <typename Geo>
+Geo bwd_geo(int batch, int heads, int kv_heads, int seq, int window, int keys) {
+  Geo geo;
+  geo.batch_kv = batch * kv_heads;
+  geo.group = heads / kv_heads;
+  geo.seq = seq;
+  geo.window = window;
+  geo.n_items = geo.batch_kv * (seq / keys) * Geo::kParts;
+  return geo;
+}
+
+template <int D>
 int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
              int heads, int kv_heads, int seq, int window, cudaStream_t s) {
   CUtensorMap tq, tk, tv;
   const long long rows = static_cast<long long>(batch) * heads * seq;
   const long long kv_rows = static_cast<long long>(batch) * kv_heads * seq;
-  if (int err = make_map(&tq, q, rows, kFwdRows)) return err;
-  if (int err = make_map(&tk, k, kv_rows, kFwdKeys)) return err;
-  if (int err = make_map(&tv, v, kv_rows, kFwdKeys)) return err;
-  if (int err = set_smem(flash_fwd_wgmma, kFwdSmemBytes)) return err;
-  FwdWork<kFwdKeys> wk;
-  wk.bh_count = batch * heads;
-  wk.n_qt = seq / kFwdRows;
-  wk.seq = seq;
-  wk.window = window;
-  wk.group = heads / kv_heads;
-  flash_fwd_wgmma<<<min(wk.bh_count * wk.n_qt, sm_count()), kWsThreads, kFwdSmemBytes, s>>>(
+  if (int err = make_map<D>(&tq, q, rows, kFwdRows)) return err;
+  if (int err = make_map<D>(&tk, k, kv_rows, kFwdKeys<D>)) return err;
+  if (int err = make_map<D>(&tv, v, kv_rows, kFwdKeys<D>)) return err;
+  if (int err = set_smem(flash_fwd_wgmma<D>, kFwdSmemBytes<D>)) return err;
+  const auto wk = fwd_work<FwdWork<kFwdKeys<D>>>(batch, heads, kv_heads, seq, window);
+  flash_fwd_wgmma<D><<<min(wk.bh_count * wk.n_qt, sm_count()), kWsThreads, kFwdSmemBytes<D>, s>>>(
       tq, tk, tv, static_cast<bf16*>(o), lse, wk);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
 int bwd_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout,
              const float* lse, float* delta, void* dq, void* dk, void* dv, float* dq_acc,
              int* counters, int batch, int heads, int kv_heads, int seq, int window,
              cudaStream_t s) {
+  using Geo = BwdGeom<kBwdKeys, D / kChunk>;
   const long long rows = static_cast<long long>(batch) * heads * seq;
   const long long kv_rows = static_cast<long long>(batch) * kv_heads * seq;
-  flash_bwd_delta<<<static_cast<unsigned>(rows / 32), 256, 0, s>>>(
+  flash_bwd_delta<D><<<static_cast<unsigned>(rows / 32), 256, 0, s>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta);
   if (int err = static_cast<int>(cudaGetLastError())) return err;
   CUtensorMap tq, tdo, tk, tv;
-  if (int err = make_map(&tq, q, rows, kBwdRows)) return err;
-  if (int err = make_map(&tdo, dout, rows, kBwdRows)) return err;
-  if (int err = make_map(&tk, k, kv_rows, kBwdKeys)) return err;
-  if (int err = make_map(&tv, v, kv_rows, kBwdKeys)) return err;
-  if (int err = set_smem(flash_bwd_wgmma, kBwdSmemBytes)) return err;
-  BwdGeom geo;
-  geo.batch_kv = batch * kv_heads;
-  geo.group = heads / kv_heads;
-  geo.seq = seq;
-  geo.window = window;
-  geo.n_items = geo.batch_kv * (seq / kBwdKeys);
+  if (int err = make_map<D>(&tq, q, rows, kBwdRows)) return err;
+  if (int err = make_map<D>(&tdo, dout, rows, kBwdRows)) return err;
+  if (int err = make_map<D>(&tk, k, kv_rows, kBwdKeys)) return err;
+  if (int err = make_map<D>(&tv, v, kv_rows, kBwdKeys)) return err;
+  if (int err = set_smem(flash_bwd_wgmma<D>, kBwdSmemBytes<D>)) return err;
+  const Geo geo = bwd_geo<Geo>(batch, heads, kv_heads, seq, window, kBwdKeys);
   int* turns = counters;
-  int* work = counters + static_cast<size_t>(batch) * heads * (seq / kBwdRows);
-  flash_bwd_wgmma<<<min(geo.n_items, sm_count()), kBwdThreads, kBwdSmemBytes, s>>>(
+  int* work = counters + static_cast<size_t>(batch) * heads * (seq / kBwdRows) * Geo::kParts;
+  flash_bwd_wgmma<D><<<min(geo.n_items, sm_count()), kBwdThreads, kBwdSmemBytes<D>, s>>>(
       tq, tdo, tk, tv, lse, delta, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), dq_acc, turns, work, geo);
   return static_cast<int>(cudaGetLastError());
 }
 
-
+template <int D>
 int fwd_f32(const float* q, const float* k, const float* v, float* o, float* lse, bf16* planes,
             int batch, int heads, int kv_heads, int seq, int window, cudaStream_t s) {
-  const long long kv_rows = static_cast<long long>(batch) * kv_heads * seq, n = kv_rows * kD;
-  flash_split_f32<<<static_cast<unsigned>((2 * n / 8 + 255) / 256), 256, 0, s>>>(k, v, planes, n);
+  const long long rows = static_cast<long long>(batch) * heads * seq;
+  const long long kv_rows = static_cast<long long>(batch) * kv_heads * seq, n = kv_rows * D;
+  const long long nq = D == 64 ? 0 : rows * D;  // Q's planes, D = 128 only
+  flash_split_f32<<<static_cast<unsigned>(((2 * n + nq) / 8 + 255) / 256), 256, 0, s>>>(
+      k, v, q, planes, n, nq);
   if (int err = static_cast<int>(cudaGetLastError())) return err;
-  CUtensorMap tkv;
-  if (int err = make_map(&tkv, planes, 4 * kv_rows, kF32Keys)) return err;
-  if (int err = set_smem(flash_fwd_f32, kFwdF32SmemBytes)) return err;
-  FwdWork<kF32Keys> wk;
-  wk.bh_count = batch * heads;
-  wk.n_qt = seq / kFwdRows;
-  wk.seq = seq;
-  wk.window = window;
-  wk.group = heads / kv_heads;
-  flash_fwd_f32<<<min(wk.bh_count * wk.n_qt, sm_count()), kWsThreads, kFwdF32SmemBytes, s>>>(
-      q, tkv, o, lse, wk, static_cast<int>(kv_rows));
+  CUtensorMap tkv, tq = {};
+  if (int err = make_map<D>(&tkv, planes, 4 * kv_rows, kF32Keys)) return err;
+  if (D != 64)
+    if (int err = make_map<D>(&tq, planes + 4 * n, 2 * rows, kFwdRows)) return err;
+  if (int err = set_smem(flash_fwd_f32<D>, kFwdF32SmemBytes<D>)) return err;
+  const auto wk = fwd_work<FwdWork<kF32Keys>>(batch, heads, kv_heads, seq, window);
+  flash_fwd_f32<D><<<min(wk.bh_count * wk.n_qt, sm_count()), kWsThreads, kFwdF32SmemBytes<D>,
+                     s>>>(q, tkv, tq, o, lse, wk, static_cast<int>(kv_rows),
+                          static_cast<int>(rows));
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
 int bwd_f32(const float* q, const float* k, const float* v, const float* o, const float* dout,
             const float* lse, float* delta, float* dq, float* dk, float* dv, float* dq_acc,
             int* counters, bf16* planes, int batch, int heads, int kv_heads, int seq, int window,
             cudaStream_t s) {
+  using Geo = BwdGeom<kF32BwdKeys<D>, 1>;
   const long long rows = static_cast<long long>(batch) * heads * seq;
   const long long kv_rows = static_cast<long long>(batch) * kv_heads * seq;
-  const long long blocks = rows / 32 + (2 * kv_rows * kD / 8 + 255) / 256;
-  flash_bwd_prep_f32<<<static_cast<unsigned>(blocks), 256, 0, s>>>(q, o, dout, k, v, delta,
-                                                                   planes, rows, kv_rows);
+  const long long blocks = rows / 32 + (2 * kv_rows * D / 8 + 255) / 256;
+  flash_bwd_prep_f32<D><<<static_cast<unsigned>(blocks), 256, 0, s>>>(q, o, dout, k, v, delta,
+                                                                      planes, rows, kv_rows);
   if (int err = static_cast<int>(cudaGetLastError())) return err;
   CUtensorMap tq, tdo, tkv;
-  if (int err = make_map(&tq, planes, 2 * rows, kBwdRows)) return err;
-  if (int err = make_map(&tdo, planes + 2 * rows * kD, 2 * rows, kBwdRows)) return err;
-  if (int err = make_map(&tkv, planes + 4 * rows * kD, 4 * kv_rows, kBwdKeys)) return err;
-  if (int err = set_smem(flash_bwd_f32, kBwdF32SmemBytes)) return err;
-  BwdGeom geo;
-  geo.batch_kv = batch * kv_heads;
-  geo.group = heads / kv_heads;
-  geo.seq = seq;
-  geo.window = window;
-  geo.n_items = geo.batch_kv * (seq / kBwdKeys);
+  if (int err = make_map<D>(&tq, planes, 2 * rows, kBwdRows)) return err;
+  if (int err = make_map<D>(&tdo, planes + 2 * rows * D, 2 * rows, kBwdRows)) return err;
+  if (int err = make_map<D>(&tkv, planes + 4 * rows * D, 4 * kv_rows, kF32BwdKeys<D>)) return err;
+  if (int err = set_smem(flash_bwd_f32<D>, kBwdF32SmemBytes<D>)) return err;
+  const Geo geo = bwd_geo<Geo>(batch, heads, kv_heads, seq, window, kF32BwdKeys<D>);
   int* turns = counters;
   int* work = counters + static_cast<size_t>(batch) * heads * (seq / kBwdRows);
-  flash_bwd_f32<<<min(geo.n_items, sm_count()), kBwdThreads, kBwdF32SmemBytes, s>>>(
+  flash_bwd_f32<D><<<min(geo.n_items, sm_count()), kBwdThreads, kBwdF32SmemBytes<D>, s>>>(
       tq, tdo, tkv, lse, delta, dq, dk, dv, dq_acc, turns, work, geo, static_cast<int>(rows),
       static_cast<int>(kv_rows));
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int fwd_any(const void* q, const void* k, const void* v, void* o, float* lse, void* planes,
+            int batch, int heads, int kv_heads, int seq, int window, int is_f32, cudaStream_t s) {
+  if (is_f32)
+    return fwd_f32<D>(static_cast<const float*>(q), static_cast<const float*>(k),
+                      static_cast<const float*>(v), static_cast<float*>(o), lse,
+                      static_cast<bf16*>(planes), batch, heads, kv_heads, seq, window, s);
+  return fwd_bf16<D>(q, k, v, o, lse, batch, heads, kv_heads, seq, window, s);
+}
+
+template <int D>
+int bwd_any(const void* q, const void* k, const void* v, const void* o, const void* dout,
+            const float* lse, float* delta, void* dq, void* dk, void* dv, float* dq_acc,
+            int* counters, void* planes, int batch, int heads, int kv_heads, int seq, int window,
+            int is_f32, cudaStream_t s) {
+  if (is_f32)
+    return bwd_f32<D>(static_cast<const float*>(q), static_cast<const float*>(k),
+                      static_cast<const float*>(v), static_cast<const float*>(o),
+                      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq),
+                      static_cast<float*>(dk), static_cast<float*>(dv), dq_acc, counters,
+                      static_cast<bf16*>(planes), batch, heads, kv_heads, seq, window, s);
+  return bwd_bf16<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, dq_acc, counters, batch, heads,
+                     kv_heads, seq, window, s);
+}
+
 }  // namespace
 
 // Shapes (row-major, contiguous, 16-byte aligned): q, o, dout, dq
-// [batch, heads, seq, 64]; k, v, dk, dv [batch, kv_heads, seq, 64], all bf16
-// (is_f32 == 0) or all float32; lse, delta [batch, heads, seq] float32. q is
-// pre-scaled; query head h reads KV head h / (heads / kv_heads). seq a
-// multiple of 128, 1 <= window, heads a multiple of kv_heads. Each returns 0
-// or the first error: a cudaError_t after a launch, kErrNoEncode or
-// kErrEncode from a tensor map.
+// [batch, heads, seq, head_dim]; k, v, dk, dv [batch, kv_heads, seq,
+// head_dim], all bf16 (is_f32 == 0) or all float32; lse, delta
+// [batch, heads, seq] float32. head_dim 64 or 128. q is pre-scaled; query
+// head h reads KV head h / (heads / kv_heads). seq a multiple of 128,
+// 1 <= window, heads a multiple of kv_heads. Each returns 0 or the first
+// error: a cudaError_t after a launch, kErrNoEncode or kErrEncode from a
+// tensor map, kErrHeadDim.
 
-// float32: planes is bf16 scratch of 4 * batch * kv_heads * seq * 64
-// elements (the split K and V); bf16 takes none.
+// float32: planes is bf16 scratch of 4 * batch * kv_heads * seq * head_dim
+// elements (the split K and V), plus 2 * batch * heads * seq * head_dim at
+// head dim 128 (the split Q); bf16 takes none.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, void* planes, int batch, int heads, int kv_heads,
-                                   int seq, int window, int is_f32, void* stream) {
+                                   int seq, int window, int head_dim, int is_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (is_f32)
-    return fwd_f32(static_cast<const float*>(q), static_cast<const float*>(k),
-                   static_cast<const float*>(v), static_cast<float*>(o), l,
-                   static_cast<bf16*>(planes), batch, heads, kv_heads, seq, window, s);
-  return fwd_bf16(q, k, v, o, l, batch, heads, kv_heads, seq, window, s);
+  if (head_dim == 64)
+    return fwd_any<64>(q, k, v, o, l, planes, batch, heads, kv_heads, seq, window, is_f32, s);
+  if (head_dim == 128)
+    return fwd_any<128>(q, k, v, o, l, planes, batch, heads, kv_heads, seq, window, is_f32, s);
+  return kErrHeadDim;
 }
 
 // Writes delta, dq, dk and dv. dq_acc is float32 scratch shaped like q, and
-// counters int32 [batch * heads * seq / 64 + 1], all zero (the caller's
-// torch.zeros). float32: planes is bf16 scratch of
-// 4 * (heads + kv_heads) * batch * seq * 64 elements (the split Q, dO, K
-// and V); bf16 takes none.
+// counters int32 [batch * heads * seq / 64 * head_dim / 64 + 1], all zero
+// (the caller's torch.zeros). float32: planes is bf16 scratch of
+// 4 * (heads + kv_heads) * batch * seq * head_dim elements (the split Q,
+// dO, K and V); bf16 takes none.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, void* dq_acc, void* counters, void* planes,
                                    int batch, int heads, int kv_heads, int seq, int window,
-                                   int is_f32, void* stream) {
+                                   int head_dim, int is_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
-  if (is_f32)
-    return bwd_f32(static_cast<const float*>(q), static_cast<const float*>(k),
-                   static_cast<const float*>(v), static_cast<const float*>(o),
-                   static_cast<const float*>(dout), l, d, static_cast<float*>(dq),
-                   static_cast<float*>(dk), static_cast<float*>(dv), static_cast<float*>(dq_acc),
-                   static_cast<int*>(counters), static_cast<bf16*>(planes), batch, heads,
-                   kv_heads, seq, window, s);
-  return bwd_bf16(q, k, v, o, dout, l, d, dq, dk, dv, static_cast<float*>(dq_acc),
-                  static_cast<int*>(counters), batch, heads, kv_heads, seq, window, s);
+  float* acc = static_cast<float*>(dq_acc);
+  int* c = static_cast<int*>(counters);
+  if (head_dim == 64)
+    return bwd_any<64>(q, k, v, o, dout, l, d, dq, dk, dv, acc, c, planes, batch, heads,
+                       kv_heads, seq, window, is_f32, s);
+  if (head_dim == 128)
+    return bwd_any<128>(q, k, v, o, dout, l, d, dq, dk, dv, acc, c, planes, batch, heads,
+                        kv_heads, seq, window, is_f32, s);
+  return kErrHeadDim;
 }
 
 #ifdef RSTNET_K6_MARKS

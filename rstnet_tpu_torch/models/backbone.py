@@ -30,11 +30,23 @@ the weights through the tensor cores for all N rows) and its plain version on
 the CPU. They keep the gate, value and hidden in float32 where the JAX
 ``_mlp`` rounds them to the activation dtype (see ``ops/cuda_ffn.py``).
 
-int8 serving (``quantize_backbone_int8``, in place): a linear's ``weight``
-becomes ``w_int8`` and ``scale``, the JAX dict's names; ``linear``
-dequantizes in x's dtype, as JAX does.
+int8 (``quantize_backbone_int8``, in place): a linear's ``weight`` becomes
+``w_int8`` and ``scale``, the JAX dict's names; ``linear`` dequantizes in
+x's dtype, as JAX does, through an autograd function that saves the codes
+and dequantizes again in the backward (a frozen int8 base under LoRA keeps
+no float copy of its weights for the backward).
 
-Not ported yet: MoE, LoRA and its dropout, sequence and pipeline parallelism.
+LoRA (``models/lora.py``): a linear's ``lora`` factors add ``(x A^T) B^T
+alpha / r`` after the base product; the packed ``attn`` takes q/k/v deltas
+(``lora_q``, ``lora_k``, ``lora_v``) from one dropped input. LoRA-branch
+dropout (``config.lora_dropout``) runs when the training forward is given a
+``dropout_rng`` (a CPU ``torch.Generator``): it draws a seed a layer and one
+for the head, and each dropout site seeds its own generator from them
+(``core.fold_drop``, ``core.dropout_pair``), so a recomputed block draws
+the same masks. MoE (``LLaMAMoE``): a router top-k, a float32 softmax over
+the k, and a dense combine over all experts, as in JAX.
+
+Not ported yet: sequence and pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -46,7 +58,16 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from rstnet_tpu_torch.core import container, default_generator, new_param, normal, uniform
+from rstnet_tpu_torch.core import (
+    container,
+    default_generator,
+    dropout_pair,
+    fold_drop,
+    lora_dropout,
+    new_param,
+    normal,
+    uniform,
+)
 from rstnet_tpu_torch.models.config import Config, rope_extra_config
 from rstnet_tpu_torch.modules.transformer import quantize_weight_int8
 from rstnet_tpu_torch.ops.attention import ring_kv_buffers, ring_kv_update
@@ -58,13 +79,36 @@ STACKED = ("blocks",)
 _FLOAT = (torch.float32, torch.bfloat16)
 
 
-def linear(p: nn.Module, x: torch.Tensor) -> torch.Tensor:
+class _Int8Matmul(torch.autograd.Function):
+    """``x (w_int8 scale)^T`` with the weight dequantized in x's dtype;
+    the backward dequantizes it again instead of keeping the forward's copy
+    (the codes and scales are frozen: no gradient for them)."""
+
+    @staticmethod
+    def forward(ctx, x, w_int8, scale):
+        ctx.save_for_backward(w_int8, scale)
+        return x @ (w_int8 * scale.to(x.dtype)[:, None]).T
+
+    @staticmethod
+    def backward(ctx, dy):
+        w_int8, scale = ctx.saved_tensors
+        dx = dy @ (w_int8 * scale.to(dy.dtype)[:, None]) if ctx.needs_input_grad[0] else None
+        return dx, None, None
+
+
+def linear(p: nn.Module, x: torch.Tensor, scaling: float = 1.0, drop=None) -> torch.Tensor:
     """``x W^T (+ b)`` with the weight taken in x's dtype; an int8 linear
-    (``w_int8`` and a per-row ``scale``) dequantizes in x's dtype first."""
+    (``w_int8`` and a per-row ``scale``) dequantizes in x's dtype first. A
+    ``lora`` factor module adds ``(x_d A^T) B^T scaling``, x_d the input
+    after LoRA-branch dropout (``drop``: a ``(rate, seed)`` pair or None)."""
     if "w_int8" in p._parameters:
-        y = x @ (p.w_int8 * p.scale.to(x.dtype)[:, None]).T
+        y = _Int8Matmul.apply(x, p.w_int8, p.scale)
     else:
         y = x @ p.weight.T.to(x.dtype)
+    lora = p._modules.get("lora")
+    if lora is not None:
+        xd = lora_dropout(x, dropout_pair(drop, x.device))
+        y = y + (xd @ lora.A.T.to(x.dtype)) @ lora.B.T.to(x.dtype) * scaling
     if "bias" in p._parameters:
         y = y + p.bias.to(x.dtype)
     return y
@@ -144,6 +188,13 @@ class Block(nn.Module):
             mlp.fc_1 = _linear(cfg.intermediate_size, cfg.n_embd, cfg.bias, g, device, dtype)
             mlp.fc_2 = _linear(cfg.intermediate_size, cfg.n_embd, cfg.bias, g, device, dtype)
             mlp.proj = _linear(cfg.n_embd, cfg.intermediate_size, cfg.bias, g, device, dtype)
+        elif cfg.mlp_class_name == "LLaMAMoE":
+            E, H, C = cfg.n_expert, cfg.intermediate_size, cfg.n_embd
+            mlp.gate = _linear(E, C, False, g, device, dtype)
+            mlp.experts = nn.Module()  # [E, ...] stacks, as the JAX vmap builds them
+            mlp.experts.fc_1 = container(weight=uniform((E, H, C), C**-0.5, g, device, dtype))
+            mlp.experts.fc_2 = container(weight=uniform((E, H, C), C**-0.5, g, device, dtype))
+            mlp.experts.proj = container(weight=uniform((E, C, H), H**-0.5, g, device, dtype))
         else:
             raise NotImplementedError(f"{cfg.mlp_class_name} is not ported yet")
         self.mlp = mlp
@@ -161,8 +212,6 @@ class Backbone(nn.Module):
     def __init__(self, config: Config, *, device=None, dtype=torch.float32, generator=None):
         super().__init__()
         cfg = self.config = config
-        if cfg.n_expert or cfg.lora_r:
-            raise NotImplementedError("MoE and LoRA backbones are not ported yet")
         g = default_generator(generator, device)
         self.blocks = nn.ModuleList(Block(cfg, g, device, dtype) for _ in range(cfg.n_layer))
         self.wte = new_param(normal((cfg.padded_vocab_size, cfg.n_embd), g, device, dtype) * 0.02)
@@ -190,15 +239,39 @@ class Backbone(nn.Module):
 
     # -- attention ------------------------------------------------------------
 
-    def _qkv(self, block: Block, x: torch.Tensor):
+    @property
+    def lora_scaling(self) -> float:
+        cfg = self.cfg
+        return cfg.lora_alpha / cfg.lora_r if cfg.lora_r else 1.0
+
+    def _qkv(self, block: Block, x: torch.Tensor, drop=None):
         cfg = self.cfg
         B, T, _ = x.shape
+        scaling = self.lora_scaling
         q_per_kv = cfg.n_head // cfg.n_query_groups
-        qkv = linear(block.attn, x).reshape(B, T, cfg.n_query_groups, q_per_kv + 2, cfg.head_size)
+        qkv = linear(block.attn, x, scaling, drop)
+        qkv = qkv.reshape(B, T, cfg.n_query_groups, q_per_kv + 2, cfg.head_size)
         qkv = qkv.permute(0, 2, 3, 1, 4)  # [B, G, q_per_kv + 2, T, hs]
         q = qkv[:, :, :q_per_kv].reshape(B, cfg.n_head, T, cfg.head_size)
         k = qkv[:, :, q_per_kv].reshape(B, cfg.n_query_groups, T, cfg.head_size)
         v = qkv[:, :, q_per_kv + 1].reshape(B, cfg.n_query_groups, T, cfg.head_size)
+        factors = block.attn._modules
+        if not any(f"lora_{n}" in factors for n in "qkv"):
+            return q, k, v
+        # one dropped input for q, k and v (the reference's LoRAQKVLinear
+        # feeds the packed A from a single dropout)
+        xd = lora_dropout(x, dropout_pair(drop, x.device))
+
+        def delta(lp, heads):
+            d = (xd @ lp.A.T.to(x.dtype)) @ lp.B.T.to(x.dtype) * scaling
+            return d.reshape(B, T, heads, cfg.head_size).transpose(1, 2)
+
+        if "lora_q" in factors:
+            q = q + delta(factors["lora_q"], cfg.n_head)
+        if "lora_k" in factors:
+            k = k + delta(factors["lora_k"], cfg.n_query_groups)
+        if "lora_v" in factors:
+            v = v + delta(factors["lora_v"], cfg.n_query_groups)
         return q, k, v
 
     def _rope_qk(self, q, k, cos, sin):
@@ -250,8 +323,9 @@ class Backbone(nn.Module):
 
     def _fused_mlp(self, mlp: nn.Module, x: torch.Tensor) -> torch.Tensor | None:
         """The decode MLP through K4 (float weights) or K5 (int8 weights)
-        when it lies in their envelope, else None. The choice depends on the
-        config, shapes and dtypes only, never on the device."""
+        when it lies in their envelope (no bias, no LoRA factors), else None.
+        The choice depends on the config, shapes and dtypes only, never on
+        the device."""
         if self.cfg.mlp_class_name != "LLaMAMLP":
             return None
         B, T, C = x.shape
@@ -259,7 +333,7 @@ class Backbone(nn.Module):
         int8 = ["w_int8" in p._parameters for p in lins]
         H = (lins[0].w_int8 if int8[0] else lins[0].weight).shape[0]
         if (B * T > FFN_MAX_ROWS or C % 128 or H % 128 or x.dtype not in _FLOAT
-                or any("bias" in p._parameters for p in lins)):
+                or any("bias" in p._parameters or "lora" in p._modules for p in lins)):
             return None
         rows = x.reshape(B * T, C)
         if all(int8):
@@ -270,31 +344,58 @@ class Backbone(nn.Module):
             out = gating_ffn(rows, *(p.weight for p in lins))
         return out.reshape(B, T, C)
 
-    def _mlp(self, mlp: nn.Module, x: torch.Tensor, decode: bool = False) -> torch.Tensor:
+    def _mlp(self, mlp: nn.Module, x: torch.Tensor, decode: bool = False,
+             drop=None) -> torch.Tensor:
         """The block's MLP; ``decode`` (the streaming step) tries the fused
-        kernels first."""
+        kernels first. ``drop``: the MLP's LoRA-dropout pair (sub-site i of
+        it for its i-th linear)."""
         cfg = self.cfg
         if decode:
             out = self._fused_mlp(mlp, x)
             if out is not None:
                 return out
+        if cfg.mlp_class_name == "LLaMAMoE":
+            return self._moe(mlp, x)
+        scaling = self.lora_scaling
+
+        def lin(p, h, i):
+            return linear(p, h, scaling, fold_drop(drop, i))
+
         approx = "tanh" if cfg.gelu_approximate != "none" else "none"
         if cfg.mlp_class_name == "GptNeoxMLP":
-            return linear(mlp.proj, F.gelu(linear(mlp.fc, x), approximate=approx))
+            return lin(mlp.proj, F.gelu(lin(mlp.fc, x, 0), approximate=approx), 1)
         if cfg.mlp_class_name == "LLaMAMLP":
-            h = F.silu(linear(mlp.fc_1, x)) * linear(mlp.fc_2, x)
+            h = F.silu(lin(mlp.fc_1, x, 0)) * lin(mlp.fc_2, x, 1)
         else:  # GemmaMLP
-            h = F.gelu(linear(mlp.fc_1, x), approximate=approx) * linear(mlp.fc_2, x)
-        return linear(mlp.proj, h)
+            h = F.gelu(lin(mlp.fc_1, x, 0), approximate=approx) * lin(mlp.fc_2, x, 1)
+        return lin(mlp.proj, h, 2)
+
+    def _moe(self, mlp: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """Dense top-k mixture of experts (``LLaMAMoE``): the router's top k
+        logits, a float32 softmax over them, and every expert's gated MLP
+        combined by a dense ``[N, E]`` weight matrix, as in JAX."""
+        cfg = self.cfg
+        B, T, C = x.shape
+        flat = x.reshape(-1, C)
+        probs, indices = torch.topk(linear(mlp.gate, flat), cfg.n_expert_per_token)
+        probs = torch.softmax(probs.float(), dim=-1).to(x.dtype)
+        combine = (F.one_hot(indices, cfg.n_expert).to(x.dtype) * probs[..., None]).sum(1)
+        e = mlp.experts
+        h1 = torch.einsum("nd,eid->nei", flat, e.fc_1.weight.to(x.dtype))
+        h2 = torch.einsum("nd,eid->nei", flat, e.fc_2.weight.to(x.dtype))
+        y = torch.einsum("nei,edi->ned", F.silu(h1) * h2, e.proj.weight.to(x.dtype))
+        return torch.einsum("ned,ne->nd", y, combine).reshape(B, T, C)
 
     def _block(self, block: Block, x, cos, sin, pos, window: int, kv_cache: dict | None = None,
-               offset: int = 0, min_pos=None) -> torch.Tensor:
+               offset: int = 0, min_pos=None, drop=None) -> torch.Tensor:
         """One block; with ``kv_cache`` (the streaming step) the new keys and
-        values go into the layer's ring in place and attention reads it."""
+        values go into the layer's ring in place and attention reads it.
+        ``drop``: the layer's LoRA-dropout ``(rate, seed)`` pair, or None;
+        sites 0, 1 and 2 are attention's input, the projection and the MLP."""
         cfg = self.cfg
         B, T, _ = x.shape
         x_normed = norm_apply(cfg, block.norm_1, x)
-        q, k, v = self._qkv(block, x_normed)
+        q, k, v = self._qkv(block, x_normed, fold_drop(drop, 0))
         q, k = self._rope_qk(q, k, cos, sin)
         pos_k, kv_scales = pos, (None, None)
         if kv_cache is not None:
@@ -304,15 +405,15 @@ class Backbone(nn.Module):
         y = self._attention(q, k, v, pos, pos_k, window, allow_flash=kv_cache is None,
                             min_pos=min_pos, kv_scales=kv_scales)
         y = y.transpose(1, 2).reshape(B, T, cfg.head_size * cfg.n_head)
-        attn_out = linear(block.proj, y)
+        attn_out = linear(block.proj, y, self.lora_scaling, fold_drop(drop, 1))
         if cfg.post_attention_norm:
             attn_out = norm_apply(cfg, block.post_attention_norm, attn_out)
-        decode = kv_cache is not None
+        decode, mlp_drop = kv_cache is not None, fold_drop(drop, 2)
         if cfg.parallel_residual:
             mlp_in = x_normed if cfg.shared_attention_norm else norm_apply(cfg, block.norm_2, x)
-            return self._mlp(block.mlp, mlp_in, decode) + attn_out + x
+            return self._mlp(block.mlp, mlp_in, decode, mlp_drop) + attn_out + x
         x = attn_out + x
-        h = self._mlp(block.mlp, norm_apply(cfg, block.norm_2, x), decode)
+        h = self._mlp(block.mlp, norm_apply(cfg, block.norm_2, x), decode, mlp_drop)
         if cfg.post_mlp_norm:
             h = norm_apply(cfg, block.post_mlp_norm, h)
         return h + x
@@ -325,23 +426,38 @@ class Backbone(nn.Module):
             x = x * torch.tensor(self.cfg.n_embd**0.5, dtype=x.dtype)
         return x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Offline forward over embeddings: [B, T, D] -> [B, T, D] (post ln_f)."""
+    def _dropout(self, dropout_rng: torch.Generator | None, n: int) -> list:
+        """n ``(rate, seed)`` LoRA-dropout pairs drawn from ``dropout_rng``,
+        or n Nones when dropout is off (no generator, no LoRA, or rate 0)."""
+        cfg = self.cfg
+        if dropout_rng is None or cfg.lora_r <= 0 or cfg.lora_dropout <= 0.0:
+            return [None] * n
+        seeds = torch.randint(0, 2**62, (n,), generator=dropout_rng).tolist()
+        return [(cfg.lora_dropout, seed) for seed in seeds]
+
+    def forward(self, x: torch.Tensor, dropout_rng: torch.Generator | None = None
+                ) -> torch.Tensor:
+        """Offline forward over embeddings: [B, T, D] -> [B, T, D] (post
+        ln_f). ``dropout_rng`` (a CPU generator) turns on LoRA-branch dropout
+        for training forwards; None is deterministic."""
         T = x.shape[1]
         positions = torch.arange(T, device=x.device)
         cos, sin = self.rope(positions)
         cos, sin = cos.to(x.dtype), sin.to(x.dtype)
         remat = self.cfg.remat and torch.is_grad_enabled()
-        for block, window in zip(self.blocks, self.layer_windows()):
+        drops = self._dropout(dropout_rng, self.cfg.n_layer)
+        for block, window, drop in zip(self.blocks, self.layer_windows(), drops):
             if remat:
-                x = checkpoint(self._block, block, x, cos, sin, positions, window,
-                               use_reentrant=False)
+                x = checkpoint(self._block, block, x, cos, sin, positions, window, None, 0,
+                               None, drop, use_reentrant=False)
             else:
-                x = self._block(block, x, cos, sin, positions, window)
+                x = self._block(block, x, cos, sin, positions, window, drop=drop)
         return norm_apply(self.cfg, self.ln_f, x)
 
-    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        out = linear(self.lm_head, hidden)
+    def logits(self, hidden: torch.Tensor, dropout_rng: torch.Generator | None = None
+               ) -> torch.Tensor:
+        (drop,) = self._dropout(dropout_rng, 1)
+        out = linear(self.lm_head, hidden, self.lora_scaling, drop)
         if self.cfg.final_logit_softcapping is not None:
             cap = self.cfg.final_logit_softcapping
             out = torch.tanh(out / cap) * cap

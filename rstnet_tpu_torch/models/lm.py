@@ -168,10 +168,12 @@ class SpeechTextLM(nn.Module):
 
     # -- training forward ---------------------------------------------------------
 
-    def forward_global(self, sequence: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """[B, 1 + n_q, T] -> (transformer_out [B, T, D], text_logits [B, T, V])."""
-        hidden = self.backbone(self.fuse_embeddings(sequence))
-        return hidden, self.backbone.logits(hidden)
+    def forward_global(self, sequence: torch.Tensor, dropout_rng: torch.Generator | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        """[B, 1 + n_q, T] -> (transformer_out [B, T, D], text_logits [B, T, V]).
+        ``dropout_rng`` (a CPU generator) turns on LoRA-branch dropout."""
+        hidden = self.backbone(self.fuse_embeddings(sequence), dropout_rng)
+        return hidden, self.backbone.logits(hidden, dropout_rng)
 
     def _codecformer_in_weight(self, dtype) -> torch.Tensor:
         w = resolve_weight(self.codecformer_in, dtype)
@@ -201,7 +203,8 @@ class SpeechTextLM(nn.Module):
             logits = logits + self.audio_linears.bias.to(logits.dtype)
         return logits.reshape(B, T, cfg.dep_q, cfg.audio_card)
 
-    def forward(self, sequence: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, sequence: torch.Tensor, dropout_rng: torch.Generator | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
         """Training forward: sequence [B, 1 + n_q, S] (text row 0, audio rows
         1..n_q) -> (audio_logits [B, S, dep_q, card], text_logits [B, S, V]).
         With ``config.remat`` the codecformer forward is checkpointed whole,
@@ -211,7 +214,7 @@ class SpeechTextLM(nn.Module):
             raise ValueError(f"sequence has {K} rows, expected {self.num_codebooks}")
         start = self.initial_frame(B, sequence.device).to(sequence.dtype)
         transformer_out, text_logits = self.forward_global(
-            torch.cat([start, sequence[:, :, :-1]], dim=2))
+            torch.cat([start, sequence[:, :, :-1]], dim=2), dropout_rng)
         args = (sequence[:, 0, :], sequence[:, 1:self.config.dep_q + 1, :], transformer_out)
         if self.config.remat and torch.is_grad_enabled():
             audio_logits = checkpoint(self.forward_local, *args, use_reentrant=False)

@@ -6,8 +6,15 @@ n_q audio streams with per-codebook embeddings, and a depformer (1024 x 6
 layers, weights per step over dep_q codebooks, per-codebook ``depformer_in``
 views) with per-codebook output heads. It exposes the step protocol that
 ``LMGen`` drives: ``initial_frame``, ``step_global``, ``codecformer_inputs``,
-``codecformer_step_embedding``, ``step_codecformer``. The training forwards
-(``forward_text``, ``forward_local``, ``__call__``) are not ported yet.
+``codecformer_step_embedding``, ``step_codecformer``; and the training
+forwards: ``forward_text`` (the temporal transformer over the fused
+embeddings, with LoRA-branch dropout at ``lora_dropout`` when given a
+``dropout_rng``), ``forward_local`` (the teacher-forced depformer) and
+``forward`` (both, over the sequence shifted by the initial frame).
+``remat`` checkpoints each temporal layer in training forwards (the
+trainer's ``--remat``; the JAX model has no such field, and its values are
+the same either way): without it, Moshi 7B's activations at B=8, T=512 do
+not fit beside its weights on one 80 GB card.
 
 For int8 serving (``serving/server.py::quantize_for_serving``) the
 transformers' weights, ``depformer_in``, ``linears.weight`` and
@@ -40,8 +47,8 @@ class MoshiLMModel(nn.Module):
                  depformer_dim: int = 1024, depformer_dim_feedforward: int | None = None,
                  depformer_num_heads: int = 16, depformer_num_layers: int = 6,
                  depformer_multi_linear: bool = True, depformer_weights_per_step: bool = True,
-                 depformer_pos_emb: str = "none",
-                 *, device=None, dtype=torch.float32, generator=None):
+                 depformer_pos_emb: str = "none", lora_dropout: float = 0.0,
+                 remat: bool = False, *, device=None, dtype=torch.float32, generator=None):
         super().__init__()
         if len(delays) != n_q + 1:
             raise ValueError(f"{len(delays)} delays for {n_q + 1} streams")
@@ -62,7 +69,7 @@ class MoshiLMModel(nn.Module):
             d_model=d, num_heads=num_heads, num_layers=num_layers,
             dim_feedforward=int(hidden_scale * d), causal=causal, context=context,
             gating=gating, norm=norm, positional_embedding=positional_embedding,
-            max_period=max_period, **kw)
+            max_period=max_period, lora_dropout=lora_dropout, remat=remat, **kw)
         self.out_norm = Norm(norm, d, device=device, dtype=dtype)
         self.depformer_in = new_param(uniform(
             (dep_q if depformer_multi_linear else 1, dd, d), 1 / math.sqrt(d), g, device, dtype))
@@ -142,6 +149,50 @@ class MoshiLMModel(nn.Module):
         bias = self.text_linear._parameters.get("bias")
         return logits if bias is None else logits + bias.to(logits.dtype)
 
+    # -- training forwards -------------------------------------------------------
+
+    def forward_text(self, sequence: torch.Tensor, dropout_rng: torch.Generator | None = None):
+        """Offline temporal forward: [B, 1+n_q, T] -> (hidden, text logits).
+        ``dropout_rng`` (a CPU generator) turns on LoRA-branch dropout."""
+        hidden = self.transformer(self.fuse_embeddings(sequence), dropout_rng=dropout_rng)
+        hidden = self.out_norm(hidden)
+        return hidden, self._text_logits(hidden)
+
+    def _dep_in(self, hidden: torch.Tensor, cb_index: int) -> torch.Tensor:
+        """Codebook ``cb_index``'s ``depformer_in`` view of the hidden state."""
+        idx = cb_index if self.depformer_multi_linear else 0
+        return hidden @ resolve_weight(self.depformer_in[idx], hidden.dtype).T
+
+    def forward_local(self, text_tokens: torch.Tensor, audio_targets: torch.Tensor,
+                      hidden: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced depformer: text_tokens [B, T], audio_targets
+        [B, dep_q, T], hidden [B, T, dim] -> audio logits [B, T, dep_q, card]."""
+        B, T, _ = hidden.shape
+        dep_in = torch.einsum("btd,kcd->btkc", hidden, self.codecformer_weights(hidden.dtype))
+        prev = [scaled_embedding(self.depformer_text_emb, text_tokens)]
+        for k in range(self.dep_q - 1):
+            prev.append(scaled_embedding(self.depformer_emb[k], audio_targets[:, k, :]))
+        x = (dep_in + torch.stack(prev, dim=2)).reshape(B * T, self.dep_q, self.depformer_dim)
+        out = self.depformer(x)
+        logits = torch.einsum("nkc,kvc->nkv", out, resolve_weight(self.linears.weight, out.dtype))
+        bias = self.linears._parameters.get("bias")
+        if bias is not None:
+            logits = logits + bias.to(logits.dtype)
+        return logits.reshape(B, T, self.dep_q, self.card)
+
+    def forward(self, sequence: torch.Tensor, dropout_rng: torch.Generator | None = None):
+        """Training forward: [B, 1+n_q, S] -> (audio logits [B, S, dep_q,
+        card], text logits [B, S, text vocab])."""
+        B, K, S = sequence.shape
+        if K != self.num_codebooks:
+            raise ValueError(f"sequence has {K} rows, expected {self.num_codebooks}")
+        start = self.initial_frame(B, sequence.device).to(sequence.dtype)
+        hidden, text_logits = self.forward_text(torch.cat([start, sequence[:, :, :-1]], dim=2),
+                                                dropout_rng)
+        audio_logits = self.forward_local(sequence[:, 0, :], sequence[:, 1:self.dep_q + 1, :],
+                                          hidden)
+        return audio_logits, text_logits
+
     # -- streaming protocol -----------------------------------------------------
 
     def init_state(self, batch_size: int, dtype=torch.bfloat16, device=None,
@@ -170,10 +221,12 @@ class MoshiLMModel(nn.Module):
     def codecformer_inputs(self, hidden: torch.Tensor) -> torch.Tensor:
         """All dep_q per-codebook ``depformer_in`` views of the backbone
         output in one matmul: [B, T, D] -> [B, dep_q, T, C]."""
-        w = resolve_weight(self.depformer_in, hidden.dtype)
-        if not self.depformer_multi_linear:
-            w = w.expand(self.dep_q, -1, -1)
-        return torch.einsum("btd,kcd->bktc", hidden, w)
+        return torch.einsum("btd,kcd->bktc", hidden, self.codecformer_weights(hidden.dtype))
+
+    def codecformer_weights(self, dtype) -> torch.Tensor:
+        """``depformer_in`` in ``dtype``, one [C, D] view a codebook."""
+        w = resolve_weight(self.depformer_in, dtype)
+        return w if self.depformer_multi_linear else w.expand(self.dep_q, -1, -1)
 
     def codecformer_step_embedding(self, cb_index: int, prev_token: torch.Tensor) -> torch.Tensor:
         """Previous-token embedding for micro-step ``cb_index``."""
@@ -186,8 +239,7 @@ class MoshiLMModel(nn.Module):
         """One depformer micro-step -> ([B, 1, card] logits, state).
         ``dep_in``: this step's [B, 1, C] view from ``codecformer_inputs``."""
         if dep_in is None:
-            idx = cb_index if self.depformer_multi_linear else 0
-            dep_in = hidden @ resolve_weight(self.depformer_in[idx], hidden.dtype).T
+            dep_in = self._dep_in(hidden, cb_index)
         x = dep_in + self.codecformer_step_embedding(cb_index, prev_token)
         out, cf_state = self.depformer.step(cf_state, x)
         # the step's head only: the same values as resolving the whole stack

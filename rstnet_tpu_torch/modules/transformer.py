@@ -18,6 +18,12 @@ the card, its plain version on CPU tensors. The JAX package gates that
 branch behind ``RSTNET_PALLAS_FFN=1``; the port takes it whenever the shapes
 allow.
 
+LoRA (``models/lora.py::init_lora_streaming_transformer``): ``layers.lora_in_proj``
+and ``layers.lora_out_proj`` factor modules add low-rank branches to the
+packed input and the output projections; the offline forward takes a
+``dropout_rng`` (a CPU generator) for LoRA-branch dropout at
+``lora_dropout``, one seed a layer, as in JAX.
+
 Serving weights may be weight-only int8 (``quantize_transformer_int8``, in
 place): an :class:`Int8Weight` in a parameter's place, whose ``state_dict``
 keys are the JAX dict's paths (``...in_proj.w_int8``, ``...in_proj.scale``).
@@ -34,7 +40,14 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from rstnet_tpu_torch.core import default_generator, new_param, uniform
+from rstnet_tpu_torch.core import (
+    default_generator,
+    dropout_pair,
+    fold_drop,
+    lora_dropout,
+    new_param,
+    uniform,
+)
 from rstnet_tpu_torch.ops.attention import (
     masked_attention,
     multi_linear,
@@ -187,6 +200,7 @@ class StreamingTransformer(nn.Module):
                  positional_embedding: str = "sin", max_period: float = 10_000.0,
                  positional_scale: float = 1.0, layer_scale: float | None = None,
                  weights_per_step: int = 0, activation: str = "gelu", remat: bool = False,
+                 lora_dropout: float = 0.0,
                  *, device=None, dtype=torch.float32, generator=None):
         super().__init__()
         if d_model % num_heads:
@@ -203,6 +217,7 @@ class StreamingTransformer(nn.Module):
         self.activation = activation
         # training forwards checkpoint each layer (recomputed in backward)
         self.remat = remat
+        self.lora_dropout = lora_dropout  # LoRA-branch dropout rate (training forwards)
 
         g = default_generator(generator, device)
         d, L, mult = d_model, num_layers, max(1, weights_per_step)
@@ -246,23 +261,33 @@ class StreamingTransformer(nn.Module):
 
     # -- layer body ---------------------------------------------------------
 
-    def _project_qkv(self, i: int, x: torch.Tensor, offset: int):
+    def _lora(self, i: int, name: str, x: torch.Tensor, drop=None):
+        """Layer i's low-rank branch on projection ``name`` (``lora_in_proj``
+        or ``lora_out_proj``), or 0 without one; ``drop``: a ``(rate, seed)``
+        dropout pair for its input, or None."""
+        lp = self.layers._modules.get(f"lora_{name}")
+        if lp is None:
+            return 0.0
+        xd = lora_dropout(x, dropout_pair(drop, x.device))
+        return (xd @ lp.A[i].T.to(x.dtype)) @ lp.B[i].T.to(x.dtype) * lp.scaling[i].to(x.dtype)
+
+    def _project_qkv(self, i: int, x: torch.Tensor, offset: int, drop=None):
         B, T, d = x.shape
         w_in = resolve_weight(self.layers.in_proj[i], x.dtype)
         if self.weights_per_step:
             projected = multi_linear(w_in.reshape(self.weights_per_step, 3 * d, d), x, offset)
         else:
-            projected = x @ w_in.T
+            projected = x @ w_in.T + self._lora(i, "in_proj", x, drop)
         # (p h d) packing with p=3 -> [3, B, H, T, Dh]
         proj = projected.reshape(B, T, 3, self.num_heads, self.head_dim).permute(2, 0, 3, 1, 4)
         return proj[0], proj[1], proj[2]
 
-    def _out_proj(self, i: int, x: torch.Tensor, offset: int) -> torch.Tensor:
+    def _out_proj(self, i: int, x: torch.Tensor, offset: int, drop=None) -> torch.Tensor:
         w_out = resolve_weight(self.layers.out_proj[i], x.dtype)
         if self.weights_per_step:
             w = w_out.reshape(self.weights_per_step, self.d_model, self.d_model)
             return multi_linear(w, x, offset)
-        return x @ w_out.T
+        return x @ w_out.T + self._lora(i, "out_proj", x, drop)
 
     def _ffn(self, i: int, x: torch.Tensor, offset: int) -> torch.Tensor:
         layers = self.layers
@@ -299,9 +324,9 @@ class StreamingTransformer(nn.Module):
         return x + update
 
     def _attn(self, i: int, x: torch.Tensor, offset: int, kv_cache: dict | None,
-              min_pos: torch.Tensor | None = None) -> torch.Tensor:
+              min_pos: torch.Tensor | None = None, drop=None) -> torch.Tensor:
         h = self.layers.norm1(x, i)
-        q, k, v = self._project_qkv(i, h, offset)
+        q, k, v = self._project_qkv(i, h, offset, fold_drop(drop, 0))
         B, T = x.shape[:2]
         if self.positional_embedding in ("rope", "sin_rope"):
             q, k = apply_rope_interleaved(q, k, offset, self.max_period)
@@ -318,13 +343,13 @@ class StreamingTransformer(nn.Module):
                                     k_scale=kv_cache.get("k_scale"),
                                     v_scale=kv_cache.get("v_scale"))
         attn = attn.transpose(1, 2).reshape(B, T, self.d_model)
-        update = self._out_proj(i, attn, offset)
+        update = self._out_proj(i, attn, offset, fold_drop(drop, 1))
         if self.has_layer_scale:
             update = self.layers.layer_scale_1(update, i)
         return x + update
 
-    def _layer(self, i, x, offset, kv_cache, min_pos=None):
-        x = self._attn(i, x, offset, kv_cache, min_pos)
+    def _layer(self, i, x, offset, kv_cache, min_pos=None, drop=None):
+        x = self._attn(i, x, offset, kv_cache, min_pos, drop)
         return self._ffn(i, x, offset)
 
     def _add_sin(self, x: torch.Tensor, offset: int) -> torch.Tensor:
@@ -336,16 +361,23 @@ class StreamingTransformer(nn.Module):
 
     # -- offline ------------------------------------------------------------
 
-    def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, offset: int = 0,
+                dropout_rng: torch.Generator | None = None) -> torch.Tensor:
         """Offline forward, [B, T, C] -> [B, T, C] (full causal mask); with
-        ``remat`` and autograd on, each layer is checkpointed."""
+        ``remat`` and autograd on, each layer is checkpointed. ``dropout_rng``
+        (a CPU generator) turns on LoRA-branch dropout at ``lora_dropout``."""
         x = self._add_sin(x, offset)
         remat = self.remat and torch.is_grad_enabled()
+        drops = [None] * self.num_layers
+        if dropout_rng is not None and self.lora_dropout > 0.0:
+            seeds = torch.randint(0, 2**62, (self.num_layers,), generator=dropout_rng).tolist()
+            drops = [(self.lora_dropout, seed) for seed in seeds]
         for i in range(self.num_layers):
             if remat:
-                x = checkpoint(self._layer, i, x, offset, None, use_reentrant=False)
+                x = checkpoint(self._layer, i, x, offset, None, None, drops[i],
+                               use_reentrant=False)
             else:
-                x = self._layer(i, x, offset, None)
+                x = self._layer(i, x, offset, None, drop=drops[i])
         return x
 
     # -- streaming ----------------------------------------------------------

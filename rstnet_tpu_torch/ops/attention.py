@@ -135,6 +135,24 @@ def masked_attention(
     return out.reshape(B, H, Tq, D)
 
 
+def prefix_lm_mask(loss_mask: torch.Tensor, prefix_lm: bool = True) -> torch.Tensor:
+    """Attention mask from a loss mask (counterpart of the JAX function;
+    the reference's ``train_utils.py``): ``loss_mask`` [B, T] bool marks one
+    contiguous target segment; the prefix attends bidirectionally (with
+    ``prefix_lm``), targets are causal over prefix and targets, and padding
+    after the segment is never seen as a key. Padding queries still attend
+    causally (the loss mask drops their outputs). Returns [B, T, T] bool."""
+    B, T = loss_mask.shape
+    axis = torch.arange(T, device=loss_mask.device)
+    big = 1 << 30
+    start = torch.where(loss_mask, axis[None, :], big).amin(1)
+    end = torch.where(loss_mask, axis[None, :], -big).amax(1)
+    mask = (axis[:, None] >= axis[None, :])[None].expand(B, T, T)
+    if prefix_lm:
+        mask = mask | (start[:, None, None] > axis[None, None, :])
+    return mask & ~(end[:, None, None] < axis[None, None, :])
+
+
 def multi_linear(weight: torch.Tensor, x: torch.Tensor, offset: int) -> torch.Tensor:
     """Per-time-step linear: weight [S, out, in]; x [B, T, in]; step t uses
     ``weight[offset + t]`` (clipped to the last step, as the JAX gather)."""

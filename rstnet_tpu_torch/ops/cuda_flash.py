@@ -3,7 +3,8 @@
 (counterpart of the splash kernel behind
 ``rstnet_tpu/ops/flash_attention.py::flash_attention`` and its VJP).
 
-Every function here takes q pre-scaled in its own dtype, ``[B, H, T, D]``,
+Every function here takes q pre-scaled in its own dtype, ``[B, H, T, D]``
+(D = 64 or 128 for the kernels; the plain versions take any D),
 and k, v at their own head count, ``[B, Hkv, T, D]`` with ``H % Hkv == 0``:
 query head h reads KV head ``h // (H // Hkv)`` (GQA inside the kernels;
 the plain versions repeat K/V). Key j is visible to query i iff
@@ -20,8 +21,9 @@ delta). float32 runs them on split operands: a pre-pass writes bf16 planes
 hi = bf16(x) and lo = bf16(x - hi) of K and V (forward) or of Q, dO, K and
 V (backward, with delta) into scratch that the wrapper allocates, and every
 product is hi.hi + hi.lo + lo.hi (:func:`split_hi_lo_reference` is the
-split's plain version). The wrappers count the two dtypes apart
-(``launches`` and ``launches_f32``).
+split's plain version). The wrappers count the two dtypes and the two head
+dims apart: ``launches`` and ``launches_f32`` at D = 64,
+``launches_d128`` and ``launches_f32_d128`` at D = 128 (:data:`COUNTERS`).
 :func:`flash_attention_kernel` is the autograd function over the two, the
 route of the backbone's training forwards.
 """
@@ -32,7 +34,7 @@ import torch
 
 from rstnet_tpu_torch.ops import cuda_lib
 
-HEAD_DIM = 64  # the kernels' head dim
+HEAD_DIMS = (64, 128)  # the kernels' head dims
 SEQ_TILE = 128  # T must be a multiple
 TILE = 64  # rows of a tile of the per-tile error measure
 DQ_TILE = 64  # query rows of a dQ turn counter of the backward
@@ -111,10 +113,10 @@ def _check_cuda_operands(window: int, q: torch.Tensor, q_like=(), kv=()) -> tupl
         raise ValueError(f"q, k, v must be [B, H, T, D] / [B, Hkv, T, D], got {tuple(q.shape)}")
     B, H, T, D = q.shape
     Hkv = kv[0].shape[1]
-    if (D != HEAD_DIM or T % SEQ_TILE or T < SEQ_TILE or window < 1 or Hkv < 1 or H % Hkv
+    if (D not in HEAD_DIMS or T % SEQ_TILE or T < SEQ_TILE or window < 1 or Hkv < 1 or H % Hkv
             or B * H > 65535):
         raise ValueError(f"outside the flash kernels' envelope: B={B} H={H} Hkv={Hkv} T={T} "
-                         f"D={D} window={window} (D == {HEAD_DIM}, T a multiple of {SEQ_TILE}, "
+                         f"D={D} window={window} (D in {HEAD_DIMS}, T a multiple of {SEQ_TILE}, "
                          "H a multiple of Hkv)")
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash kernels take float32 or bfloat16, got {q.dtype}")
@@ -143,11 +145,14 @@ def _device_check(q: torch.Tensor, name: str) -> None:
         raise NotImplementedError(f"{name} has no kernel for {q.device}")
 
 
+# a wrapper's launch counters: (dtype, head dim) -> attribute
+COUNTERS = {(torch.bfloat16, 64): "launches", (torch.float32, 64): "launches_f32",
+            (torch.bfloat16, 128): "launches_d128", (torch.float32, 128): "launches_f32_d128"}
+
+
 def _count(fn, q: torch.Tensor) -> None:
-    if q.dtype == torch.float32:
-        fn.launches_f32 += 1
-    else:
-        fn.launches += 1
+    attr = COUNTERS[q.dtype, q.shape[3]]
+    setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def flash_attention_fwd(q, k, v, window: int):
@@ -159,12 +164,14 @@ def flash_attention_fwd(q, k, v, window: int):
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     f32 = q.dtype == torch.float32
-    # float32: K's and V's hi and lo planes
-    planes = torch.empty(4 * k.numel(), dtype=torch.bfloat16, device=q.device) if f32 else None
+    D = q.shape[3]
+    # float32: K's and V's hi and lo planes, and Q's at head dim 128
+    n_planes = 4 * k.numel() + (2 * q.numel() if D == 128 else 0)
+    planes = torch.empty(n_planes, dtype=torch.bfloat16, device=q.device) if f32 else None
     with torch.cuda.device(q.device):
         status = cuda_lib.kernel_library().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            planes.data_ptr() if f32 else None, B, H, Hkv, T, window, int(f32), _stream())
+            planes.data_ptr() if f32 else None, B, H, Hkv, T, window, D, int(f32), _stream())
     cuda_lib.check(status, "flash_attention_fwd")
     _count(flash_attention_fwd, q)
     return o, lse
@@ -184,8 +191,11 @@ def flash_attention_bwd(q, k, v, o, do, lse, window: int):
     delta = torch.empty_like(lse)
     f32 = q.dtype == torch.float32
     dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    # one turn counter per (batch, head, query tile), then the work counter
-    counters = torch.zeros(B * H * (T // DQ_TILE) + 1, dtype=torch.int32, device=q.device)
+    # one turn counter per (batch, head, query tile, 64 columns of the head
+    # dim), then the work counter
+    D = q.shape[3]
+    counters = torch.zeros(B * H * (T // DQ_TILE) * (D // 64) + 1, dtype=torch.int32,
+                           device=q.device)
     # float32: the hi and lo planes of Q, dO, K and V
     planes = (torch.empty(4 * (q.numel() + k.numel()), dtype=torch.bfloat16, device=q.device)
               if f32 else None)
@@ -194,15 +204,16 @@ def flash_attention_bwd(q, k, v, o, do, lse, window: int):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dq_acc.data_ptr(), counters.data_ptr(), planes.data_ptr() if f32 else None, B, H,
-            Hkv, T, window, int(f32), _stream())
+            Hkv, T, window, D, int(f32), _stream())
     cuda_lib.check(status, "flash_attention_bwd")
     _count(flash_attention_bwd, q)
     return dq, dk, dv, delta
 
 
-# kernel launches (bf16 inputs, float32 inputs); reset freely by callers
-flash_attention_fwd.launches = flash_attention_fwd.launches_f32 = 0
-flash_attention_bwd.launches = flash_attention_bwd.launches_f32 = 0
+# kernel launches by dtype and head dim (COUNTERS); reset freely by callers
+for _fn in (flash_attention_fwd, flash_attention_bwd):
+    for _attr in COUNTERS.values():
+        setattr(_fn, _attr, 0)
 
 
 class _FlashAttention(torch.autograd.Function):

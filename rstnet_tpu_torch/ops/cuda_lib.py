@@ -41,8 +41,8 @@ SIGNATURES = {
     "gating_ffn_step": ([_P] * 6 + [_I] * 7 + [_P], _I),
     "gating_ffn": ([_P] * 6 + [_I] * 6 + [_P], _I),
     "gating_ffn_int8": ([_P] * 9 + [_I] * 5 + [_P], _I),
-    "flash_attention_fwd": ([_P] * 6 + [_I] * 6 + [_P], _I),
-    "flash_attention_bwd": ([_P] * 13 + [_I] * 6 + [_P], _I),
+    "flash_attention_fwd": ([_P] * 6 + [_I] * 7 + [_P], _I),
+    "flash_attention_bwd": ([_P] * 13 + [_I] * 7 + [_P], _I),
 }
 
 

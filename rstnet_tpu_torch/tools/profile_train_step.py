@@ -109,13 +109,14 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats()
     step()  # warm-up
     for fn in K6:
-        fn.launches = fn.launches_f32 = 0
+        for attr in cuda_flash.COUNTERS.values():
+            setattr(fn, attr, 0)
     times = []
     for _ in range(STEPS):
         t0 = time.perf_counter()
         step()
         times.append((time.perf_counter() - t0) * 1000)
-    k6 = [(fn.launches + fn.launches_f32) / STEPS for fn in K6]
+    k6 = [sum(getattr(fn, a) for a in cuda_flash.COUNTERS.values()) / STEPS for fn in K6]
     stages: dict = {}
     for _ in range(STEPS):
         step(stages)

@@ -3,8 +3,12 @@
 
 A checkpoint is a directory ``<exp_dir>/ep{E}[-iter{I}].checkpoint`` holding
 ``state.pt`` (the model's ``state_dict``, the optimizer state and the step)
-and ``extras.json`` (the reporter). Resume finds the newest one, and old ones
-are rotated away, as in JAX. ``restore_checkpoint(..., partial=True)`` is
+and ``extras.json`` (the reporter). A state with ``"trainable_only"`` (the
+PEFT run over a frozen base) saves and restores only its trainable
+parameters, as the JAX trainer's partitioned state holds only the trainable
+tree: the frozen base comes from the run's own construction (seed or
+``--checkpoint_path``). Resume finds the newest one, and old ones are
+rotated away, as in JAX. ``restore_checkpoint(..., partial=True)`` is
 the inference CLIs' params-only load: it maps the file (``mmap``) and reads
 only the params, so the optimizer moments of a large checkpoint are never
 read. ``save_model`` is the weights-only export (a directory with
@@ -28,6 +32,17 @@ def _ckpt_dir(path: str | Path) -> Path:
     return Path(path).absolute()
 
 
+def state_params(state: dict, keep_vars: bool = False) -> dict[str, torch.Tensor]:
+    """The parameters a checkpoint of ``state`` holds: the model's
+    ``state_dict``, or its trainable parameters alone under
+    ``"trainable_only"``."""
+    model = state["model"]
+    if state.get("trainable_only"):
+        return {n: p if keep_vars else p.detach() for n, p in model.named_parameters()
+                if p.requires_grad}
+    return model.state_dict(keep_vars=keep_vars)
+
+
 def save_checkpoint(path: str | Path, state: dict, extras: Optional[dict[str, Any]] = None,
                     keep_last: Optional[int] = None) -> None:
     """Save a train state ``{"model", "opt_state", "step"}`` and json extras."""
@@ -38,7 +53,7 @@ def save_checkpoint(path: str | Path, state: dict, extras: Optional[dict[str, An
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir(parents=True)
     # no transient accumulator (``micro``, the parameters' ``.grad``)
-    torch.save({"params": state["model"].state_dict(), "opt_state": state["opt_state"],
+    torch.save({"params": state_params(state), "opt_state": state["opt_state"],
                 "step": state["step"]}, tmp / "state.pt")
     if extras:
         (tmp / "extras.json").write_text(json.dumps(extras))
@@ -80,7 +95,7 @@ def restore_checkpoint(path: str | Path, target_state: dict, partial: bool = Fal
         model.load_state_dict({k: v.to(own[k].device) for k, v in saved["params"].items()},
                               assign=True)
     else:
-        _copy_into(target_state["model"].state_dict(keep_vars=True), saved["params"], "params")
+        _copy_into(state_params(target_state, keep_vars=True), saved["params"], "params")
         _copy_into(target_state["opt_state"], saved["opt_state"], "opt_state")
         target_state["step"] = saved["step"]
     extras = {}

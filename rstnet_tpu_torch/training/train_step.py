@@ -20,7 +20,19 @@ scalars do. Gradients accumulate in the parameter's dtype (``p.grad``).
 
 The train state is ``{"model", "opt_state", "step"}`` (plus ``"micro"``
 under cross-batch accumulation); the model's parameters are updated in
-place. The partitioned PEFT step waits for LoRA.
+place. The trainable set is ``requires_grad``: every floating parameter, or
+what a mask names (``init_train_state(..., trainable_mask)``). The
+partitioned PEFT step (:func:`partition_params`, :func:`make_peft_train_step`)
+is the same step over a model whose frozen side (an int8 base among them)
+has ``requires_grad`` off: autograd never differentiates it, so no frozen
+gradient exists even for a moment, and the optimizer state covers only the
+trainable set. ``"trainable_only"`` in the state makes checkpoints hold only
+the trainable parameters.
+
+LoRA-branch dropout (``dropout_seed``): each step's forward gets a CPU
+``torch.Generator`` seeded ``fold_in(seed, step)`` (and ``fold_in`` of that
+with the microbatch index under accumulation), as JAX folds the step into
+its key; a resumed run draws the same masks.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from rstnet_tpu_torch.core import fold_in
 from rstnet_tpu_torch.losses.ce import cross_entropy_and_accuracy
 
 TEXT_PAD_TOKEN = 128003
@@ -41,16 +54,18 @@ ACOUSTIC_PAD_TOKEN = 2049
 def make_loss_fn(model: nn.Module, audio_loss_weights: Optional[tuple[float, ...]] = None,
                  text_loss_weight: float = 1.0, audio_ignore_id: int = ACOUSTIC_PAD_TOKEN,
                  text_ignore_id: int = TEXT_PAD_TOKEN) -> Callable:
-    """``loss_fn(batch) -> (loss, metrics)`` over ``batch = {"tokens": [B,
-    1 + n_q, S] int, "masks": [B, 1 + n_q, S] float}`` on the model's device."""
+    """``loss_fn(batch, dropout_rng=None) -> (loss, metrics)`` over ``batch =
+    {"tokens": [B, 1 + n_q, S] int, "masks": [B, 1 + n_q, S] float}`` on the
+    model's device; ``dropout_rng`` goes to the model (LoRA-branch dropout)."""
     dep_q = model.config.dep_q
     if audio_loss_weights is None:
         audio_loss_weights = (2.0,) + (1.0,) * (dep_q - 1)
 
-    def loss_fn(batch: dict) -> tuple[torch.Tensor, dict]:
+    def loss_fn(batch: dict, dropout_rng: torch.Generator | None = None
+                ) -> tuple[torch.Tensor, dict]:
         seqs = batch["tokens"]
         masks = batch["masks"].float()
-        audio_logits, text_logits = model(seqs)
+        audio_logits, text_logits = model(seqs, dropout_rng=dropout_rng)
         loss_audio, m_audio = cross_entropy_and_accuracy(
             audio_logits, seqs[:, 1:dep_q + 1], masks[:, 1:dep_q + 1], audio_loss_weights,
             (audio_ignore_id,) * dep_q)
@@ -139,13 +154,53 @@ def trainable_params(model: nn.Module) -> dict[str, torch.Tensor]:
     return {n: p for n, p in model.named_parameters() if p.requires_grad}
 
 
-def init_train_state(model: nn.Module, tx: OptaxAdamW) -> dict:
+def init_train_state(model: nn.Module, tx: OptaxAdamW,
+                     trainable_mask: Optional[dict[str, bool]] = None) -> dict:
     """Make every floating parameter trainable (the port builds them for
-    inference, without autograd) and set up the optimizer state."""
-    for p in model.parameters():
-        if p.is_floating_point():
-            p.requires_grad_(True)
+    inference, without autograd), or those that ``trainable_mask`` ({name:
+    bool}) marks and no other, and set up the optimizer state over them."""
+    if trainable_mask is not None:
+        partition_params(model, trainable_mask)
+    else:
+        for p in model.parameters():
+            p.requires_grad_(p.is_floating_point())
     return {"model": model, "opt_state": tx.init(trainable_params(model)), "step": 0}
+
+
+def partition_params(model: nn.Module, trainable_mask: dict[str, bool]
+                     ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """Split the model's parameters along ``trainable_mask`` ({name: bool},
+    every parameter named) into (trainable, frozen) ``{name: tensor}``
+    dicts, turning ``requires_grad`` on for the first and off for the
+    second, so a backward never computes a frozen gradient. Frozen
+    parameters may be int8 (``quantize_backbone_int8``); a trainable one
+    must be floating."""
+    named = dict(model.named_parameters())
+    if set(named) != set(trainable_mask):
+        raise KeyError(f"mask and parameters differ: {sorted(set(named) ^ set(trainable_mask))}")
+    trainable, frozen = {}, {}
+    for name, p in named.items():
+        if trainable_mask[name] and not p.is_floating_point():
+            raise TypeError(f"{name} is {p.dtype}: only floating parameters can train")
+        p.requires_grad_(trainable_mask[name])
+        (trainable if trainable_mask[name] else frozen)[name] = p
+    return trainable, frozen
+
+
+def combine_params(trainable: dict[str, torch.Tensor], frozen: dict[str, torch.Tensor]
+                   ) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`partition_params`: one ``{name: tensor}`` dict."""
+    return {**frozen, **trainable}
+
+
+def step_generator(seed: Optional[int], step: int, micro: Optional[int] = None
+                   ) -> Optional[torch.Generator]:
+    """The dropout generator of ``step`` (and microbatch ``micro``), or
+    None without a seed."""
+    if seed is None:
+        return None
+    s = fold_in(seed, step)
+    return torch.Generator().manual_seed(s if micro is None else fold_in(s, micro))
 
 
 def _detached(metrics: dict) -> dict:
@@ -158,10 +213,12 @@ def _grads(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     return {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in params.items()}
 
 
-def make_train_step(loss_fn: Callable, tx: OptaxAdamW, grad_accum: int = 1) -> Callable:
+def make_train_step(loss_fn: Callable, tx: OptaxAdamW, grad_accum: int = 1,
+                    dropout_seed: Optional[int] = None) -> Callable:
     """``step(state, batch) -> (state, metrics)``. With ``grad_accum > 1``
     the batch carries a leading microbatch axis ``[A, B, ...]``; gradients
-    and metrics are summed over it and divided by A (the JAX scan)."""
+    and metrics are summed over it and divided by A (the JAX scan).
+    ``dropout_seed`` (not None) gives the forwards their dropout generator."""
 
     def step_fn(state: dict, batch: dict) -> tuple[dict, dict]:
         params = trainable_params(state["model"])
@@ -170,14 +227,15 @@ def make_train_step(loss_fn: Callable, tx: OptaxAdamW, grad_accum: int = 1) -> C
         if grad_accum > 1:
             msum = None
             for a in range(grad_accum):
-                loss, metrics = loss_fn({k: v[a] for k, v in batch.items()})
+                loss, metrics = loss_fn({k: v[a] for k, v in batch.items()},
+                                        step_generator(dropout_seed, state["step"], a))
                 loss.backward()
                 metrics = _detached(metrics)
                 msum = metrics if msum is None else {k: msum[k] + metrics[k] for k in msum}
             grads = {n: g / grad_accum for n, g in _grads(params).items()}
             metrics = {k: v / grad_accum for k, v in msum.items()}
         else:
-            loss, metrics = loss_fn(batch)
+            loss, metrics = loss_fn(batch, step_generator(dropout_seed, state["step"]))
             loss.backward()
             grads = _grads(params)
             metrics = _detached(metrics)
@@ -190,7 +248,25 @@ def make_train_step(loss_fn: Callable, tx: OptaxAdamW, grad_accum: int = 1) -> C
     return step_fn
 
 
-def make_grad_accum_steps(loss_fn: Callable, tx: OptaxAdamW) -> tuple[Callable, Callable]:
+def make_peft_train_step(loss_fn: Callable, tx: OptaxAdamW, grad_accum: int = 1,
+                         dropout_seed: Optional[int] = None) -> Callable:
+    """The train step over a partitioned model: ``step(state, frozen,
+    batch) -> (state, metrics)``, ``frozen`` the second dict of
+    :func:`partition_params`. The frozen parameters live in the model with
+    ``requires_grad`` off, so :func:`make_train_step`'s step differentiates
+    and updates only the trainable ones; this checks that first."""
+    step = make_train_step(loss_fn, tx, grad_accum, dropout_seed)
+
+    def peft_step(state: dict, frozen: dict[str, torch.Tensor], batch: dict):
+        if any(p.requires_grad for p in frozen.values()):
+            raise ValueError("a frozen parameter requires grad: partition the model first")
+        return step(state, batch)
+
+    return peft_step
+
+
+def make_grad_accum_steps(loss_fn: Callable, tx: OptaxAdamW,
+                          dropout_seed: Optional[int] = None) -> tuple[Callable, Callable]:
     """Cross-batch accumulation, ``(accum_step, apply_step)``:
     ``accum_step(state, batch)`` adds the batch's gradients into the
     parameters' ``.grad`` (param dtype) and counts it in ``state["micro"]``;
@@ -198,9 +274,10 @@ def make_grad_accum_steps(loss_fn: Callable, tx: OptaxAdamW) -> tuple[Callable, 
     accumulator is not checkpointed: a resume restarts the window."""
 
     def accum_step(state: dict, batch: dict) -> tuple[dict, dict]:
-        loss, metrics = loss_fn(batch)
+        micro = state.get("micro", 0)
+        loss, metrics = loss_fn(batch, step_generator(dropout_seed, state["step"], micro))
         loss.backward()
-        state["micro"] = state.get("micro", 0) + 1
+        state["micro"] = micro + 1
         return state, _detached(metrics)
 
     def apply_step(state: dict) -> dict:

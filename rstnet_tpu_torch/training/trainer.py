@@ -1,8 +1,11 @@
-"""Speech-text LM trainer CLI, one GPU, full parameters (counterpart of
+"""Speech-text LM trainer CLI, one GPU (counterpart of
 ``rstnet_tpu/training/trainer.py``):
 
     python -m rstnet_tpu_torch.training.trainer --model_config configs/llama_1b_speech.yaml \\
         --train_data_jsons 'data/*.json' --max_length 1023 [--device cpu] ...
+    python -m rstnet_tpu_torch.training.trainer --model_config configs/qwen_7b_speech.yaml \\
+        --lora_r 16 --lora_alpha 32 --base_int8 true --max_length 1023 ...
+    python -m rstnet_tpu_torch.training.trainer --model_family moshi --lora_r 16 ...
 
 It takes the JAX CLI's flags and defaults (``utils/arguments.py``) plus
 ``--device`` (``cuda`` unless ``cpu`` is given). Per epoch, as in JAX: train
@@ -11,7 +14,9 @@ checkpoint (and intra-epoch ones every ``--save_interval`` steps); a rerun
 resumes from the newest checkpoint in ``--exp_dir``.
 
 Weights are drawn from ``1337 + --seed`` on the CPU, in the training dtype,
-and then moved to the device, so every device starts from the same weights.
+and then moved to the device, so every device starts from the same weights;
+``--init_on_device`` draws them on the device instead (other values, for
+the 7B models, whose CPU draw takes minutes).
 Training forwards take the flash kernel K6 when ``--flash_attention`` (the
 default) and the device is CUDA, and a batch's bucket length qualifies
 (a multiple of 512: ``--max_length 1023`` gives a top bucket of 1024; the
@@ -20,12 +25,26 @@ default ``--max_length 1000`` gives none).
 ``--checkpoint_path`` loads a litgpt checkpoint (``lit_model.pth`` or
 ``.safetensors``, ``models/convert.py``) into the backbone, cast to the run's
 dtype, as the JAX trainer does; the codecformer and the embeddings keep
-their seeded weights.
+their seeded weights. With ``--model_family moshi`` it loads a Moshi
+checkpoint into the whole model (``convert_moshi_lm``), cast to the run's
+dtype.
 
-Refused, each with the item that ports it (``ROADMAP.md``): LoRA
-(``--lora_r > 0``) and ``--base_int8``, the Moshi family's training forwards
-(with or without ``--checkpoint_path``), and any mesh axis above 1
-(parallelism).
+``--model_family moshi`` trains the pure Moshi RQ-Transformer
+(``models/moshi_lm.py``), full parameters or, with ``--lora_r > 0``, LoRA
+on the temporal transformer with the depformer side trained whole;
+``--remat`` checkpoints its temporal layers (the JAX trainer does not: the
+values are the same, the memory is what lets Moshi 7B train on one card).
+``--lora_r > 0`` on the speech LM attaches LoRA to the backbone
+(``models/lora.py``, factors from seed 7 as in JAX) and trains the factors
+and the codecformer side; ``--base_int8`` then quantizes the frozen backbone
+to int8 (``quantize_backbone_int8``) and trains through the partitioned
+step, whose checkpoints hold only the trainable parameters.
+``--lora_dropout`` drops the LoRA branches' inputs, seeded from ``--seed``
+and the step.
+
+Refused as the JAX trainer refuses: ``--base_int8`` without LoRA, with the
+Moshi family, or with ``--grad_accum > 1``. Refused here alone: any mesh
+axis above 1 (parallelism, ``ROADMAP.md`` queue 1, item 10).
 
 ``main`` returns the train steps' records (one dict a step: epoch, batch
 shape, metrics, lr, step time) and the saved checkpoints with their save
@@ -42,13 +61,22 @@ import time
 
 import numpy as np
 import torch
+from torch import nn
 
 from rstnet_tpu_torch.data.collate import SpecialTokens
 from rstnet_tpu_torch.data.dataloader import build_data_iterator, find_data_jsons
 from rstnet_tpu_torch.data.task_definition import load_data_for_all_tasks
 from rstnet_tpu_torch.data.tokenizers.abs_tokenizer import AbsTokenizer
+from rstnet_tpu_torch.models.backbone import quantize_backbone_int8
 from rstnet_tpu_torch.models.config import Config, write_flat_yaml
 from rstnet_tpu_torch.models.lm import SpeechTextLM
+from rstnet_tpu_torch.models.lora import (
+    attach_lora,
+    init_lora,
+    init_lora_streaming_transformer,
+    lora_trainable_mask,
+)
+from rstnet_tpu_torch.models.moshi_lm import MoshiLMModel
 from rstnet_tpu_torch.training.checkpoint import maybe_resume, save_checkpoint
 from rstnet_tpu_torch.training.schedulers import warmup_lr
 from rstnet_tpu_torch.training.train_step import (
@@ -57,7 +85,9 @@ from rstnet_tpu_torch.training.train_step import (
     make_grad_accum_steps,
     make_loss_fn,
     make_optimizer,
+    make_peft_train_step,
     make_train_step,
+    partition_params,
 )
 from rstnet_tpu_torch.utils.arguments import get_args
 from rstnet_tpu_torch.utils.reporter import Reporter
@@ -74,16 +104,30 @@ def setup_logging(exp_dir: str) -> None:
     )
 
 
-def refuse_unported(args) -> None:
-    """SystemExit for what this trainer does not port yet."""
+# the trees that train whole beside the LoRA factors, as in the JAX trainer:
+# the speech LM's codecformer side, and the Moshi depformer side
+SPEECH_LORA_TRAINABLE = ("codecformer", "input_emb", "codecformer_text_emb", "codecformer_emb",
+                         "codecformer_in", "audio_linears")
+MOSHI_LORA_TRAINABLE = ("depformer", "depformer_in", "depformer_emb", "depformer_text_emb",
+                        "linears", "emb", "text_emb", "text_linear", "out_norm")
+
+
+def refuse_invalid(args) -> None:
+    """SystemExit for the flag combinations the JAX trainer refuses."""
     if not 0.0 <= args.lora_dropout < 1.0:
         raise SystemExit(f"--lora_dropout must be in [0, 1), got {args.lora_dropout}")
-    if args.lora_r > 0 or args.base_int8:
-        raise SystemExit("--lora_r > 0 and --base_int8 (LoRA fine-tuning) are not ported to "
-                         "rstnet_tpu_torch yet (ROADMAP.md queue 1, LoRA/PEFT item)")
-    if args.model_family == "moshi":
-        raise SystemExit("--model_family moshi: the Moshi training forwards are not ported to "
-                         "rstnet_tpu_torch yet (ROADMAP.md queue 1, item 7)")
+    if args.base_int8 and args.lora_r <= 0:
+        raise SystemExit("--base_int8 requires --lora_r > 0 (it freezes the backbone; "
+                         "something must remain trainable)")
+    if args.base_int8 and args.model_family == "moshi":
+        raise SystemExit("--base_int8 is wired for the backbone model family")
+    if args.base_int8 and args.grad_accum > 1:
+        raise SystemExit("--base_int8 does not support --grad_accum yet (the cross-batch "
+                         "accumulator is unpartitioned)")
+
+
+def refuse_unported(args) -> None:
+    """SystemExit for what this trainer does not port yet: parallelism."""
     axes = {"dp": args.dp, "fsdp": args.fsdp, "tensor": args.tensor, "seq": args.seq,
             "pipe": args.pipe, "expert": args.expert}
     wide = {k: v for k, v in axes.items() if v > 1}
@@ -100,12 +144,32 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def build_model(args, device: torch.device, dtype: torch.dtype) -> SpeechTextLM:
+def build_model(args, device: torch.device, dtype: torch.dtype) -> nn.Module:
+    """The model of ``--model_family``, drawn from ``1337 + --seed`` in
+    ``dtype`` on the CPU and moved to ``device``, or drawn on ``device``
+    itself under ``--init_on_device``."""
+    at = device if args.init_on_device else torch.device("cpu")
+    g = torch.Generator(device=at).manual_seed(1337 + args.seed)
+    if args.model_family == "moshi":
+        # the pure Moshi RQ-Transformer; kyutai weights load via convert_moshi_lm
+        return MoshiLMModel(
+            delays=(0,) * (args.n_q + 1), n_q=args.n_q, dep_q=args.dep_q, card=args.audio_card,
+            text_card=args.moshi_text_card, dim=args.moshi_dim,
+            num_heads=args.moshi_num_heads, num_layers=args.moshi_num_layers,
+            depformer_dim=args.codecformer_dim, depformer_num_heads=args.codecformer_heads,
+            depformer_num_layers=args.codecformer_layers,
+            depformer_dim_feedforward=args.codecformer_dim_feedforward,
+            lora_dropout=args.lora_dropout if args.lora_r > 0 else 0.0, remat=args.remat,
+            device=at, dtype=dtype, generator=g).to(device)
     overrides = dict(
         audio_card=args.audio_card, n_q=args.n_q, dep_q=args.dep_q,
         codecformer_dim=args.codecformer_dim, codecformer_heads=args.codecformer_heads,
         codecformer_layers=args.codecformer_layers,
         codecformer_dim_feedforward=args.codecformer_dim_feedforward,
+        lora_r=args.lora_r, lora_alpha=args.lora_alpha, lora_dropout=args.lora_dropout,
+        lora_query=args.lora_query, lora_key=args.lora_key, lora_value=args.lora_value,
+        lora_projection=args.lora_projection, lora_mlp=args.lora_mlp,
+        lora_head=args.lora_head,
         use_flash_attention=args.flash_attention and device.type == "cuda",
         remat=args.remat,
     )
@@ -115,8 +179,47 @@ def build_model(args, device: torch.device, dtype: torch.dtype) -> SpeechTextLM:
         cfg = Config.from_name(args.model_name, **overrides)
     else:
         raise ValueError("need --model_config or --model_name")
-    g = torch.Generator().manual_seed(1337 + args.seed)
-    return SpeechTextLM(cfg, dtype=dtype, generator=g).to(device)
+    return SpeechTextLM(cfg, device=at, dtype=dtype, generator=g).to(device)
+
+
+def load_pretrained(args, model: nn.Module, dtype: torch.dtype) -> None:
+    """``--checkpoint_path`` into the model in place, cast to ``dtype``: a
+    Moshi checkpoint into the whole Moshi model, a litgpt one into the
+    speech LM's backbone."""
+    from rstnet_tpu_torch.models.convert import (
+        convert_moshi_lm,
+        load_backbone,
+        load_converted,
+        load_torch_state_dict,
+    )
+
+    if args.model_family == "moshi":
+        load_converted(convert_moshi_lm(load_torch_state_dict(args.checkpoint_path), model),
+                       model, dtype=dtype)
+    else:
+        load_backbone(args.checkpoint_path, model.backbone, dtype=dtype)
+
+
+def attach_adapters(args, model: nn.Module, dtype: torch.dtype) -> dict[str, bool]:
+    """LoRA factors (from seed 7, as in JAX) on the Moshi temporal
+    transformer or the speech LM's backbone, the backbone quantized to int8
+    under ``--base_int8``; returns the trainable mask: the factors and the
+    trees that train whole (``*_LORA_TRAINABLE``)."""
+    device = next(model.parameters()).device
+    g = torch.Generator().manual_seed(7)
+    if args.model_family == "moshi":
+        overlay = init_lora_streaming_transformer(model.transformer, g, args.lora_r,
+                                                  args.lora_alpha, dtype)
+        target, whole = model.transformer, MOSHI_LORA_TRAINABLE
+    else:
+        overlay = init_lora(model.config, g, dtype)
+        target, whole = model.backbone, SPEECH_LORA_TRAINABLE
+    attach_lora(target, {k: v.to(device) for k, v in overlay.items()})
+    if args.base_int8:
+        # the LoRA factors stay float: the walk swaps only each linear's weight
+        quantize_backbone_int8(model.backbone)
+    mask = lora_trainable_mask(model)
+    return {name: train or name.split(".")[0] in whole for name, train in mask.items()}
 
 
 class StoredTokens(AbsTokenizer):
@@ -155,6 +258,7 @@ def synchronize(device: torch.device) -> None:
 
 def main(argv=None) -> dict:
     args = get_args(argv)
+    refuse_invalid(args)
     refuse_unported(args)
     device = resolve_device(args.device)
     os.makedirs(args.exp_dir, exist_ok=True)
@@ -163,17 +267,20 @@ def main(argv=None) -> dict:
     torch.manual_seed(args.seed)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     model = build_model(args, device, dtype)
+    moshi = args.model_family == "moshi"
     if args.checkpoint_path:
-        from rstnet_tpu_torch.models.convert import load_backbone
-
-        load_backbone(args.checkpoint_path, model.backbone, dtype=dtype)
+        load_pretrained(args, model, dtype)
         logging.info(f"loaded pretrained weights from {args.checkpoint_path}")
     # the resolved model config (CLI overrides included) for later reuse
-    write_flat_yaml(f"{args.exp_dir}/config.yaml", dataclasses.asdict(model.config))
+    if not moshi:
+        write_flat_yaml(f"{args.exp_dir}/config.yaml", dataclasses.asdict(model.config))
     write_flat_yaml(f"{args.exp_dir}/train_args.yaml", vars(args))
+    trainable_mask = attach_adapters(args, model, dtype) if args.lora_r > 0 else None
     n_params = sum(p.numel() for p in model.parameters())
-    logging.info(f"SpeechTextLM {model.config.name}: {n_params / 1e9:.3f} B params, {dtype}, "
-                 f"on {device}, flash attention {model.config.use_flash_attention}")
+    logging.info(f"{type(model).__name__} {'moshi' if moshi else model.config.name}: "
+                 f"{n_params / 1e9:.3f} B params, {dtype}, on {device}, LoRA r {args.lora_r}, "
+                 f"int8 base {args.base_int8}, flash attention "
+                 f"{not moshi and model.config.use_flash_attention}")
 
     special = SpecialTokens(
         text_empty=args.text_empty_token, text_pad=args.text_pad_token,
@@ -202,16 +309,28 @@ def main(argv=None) -> dict:
     loss_fn = make_loss_fn(model, audio_ignore_id=args.acoustic_pad_token,
                            text_ignore_id=args.text_pad_token)
     reporter = Reporter()
-    state = init_train_state(model, tx)
+    state = init_train_state(model, tx, trainable_mask)
+    if args.base_int8:
+        # the partitioned PEFT state: checkpoints hold only the trainable
+        # parameters (the reference's lora_filter shape)
+        _, frozen = partition_params(model, trainable_mask)
+        state["trainable_only"] = True
     state, extras, resumed = maybe_resume(args.exp_dir, state)
     if resumed is not None and "reporter" in extras:
         reporter.load_state_dict(extras["reporter"])
         logging.info(f"resumed from {resumed} at epoch {reporter.get_epoch()}")
+    dropout_seed = args.seed if args.lora_r > 0 and args.lora_dropout > 0.0 else None
     accum_step = apply_step = None
     if args.grad_accum > 1:
-        accum_step, apply_step = make_grad_accum_steps(loss_fn, tx)
+        accum_step, apply_step = make_grad_accum_steps(loss_fn, tx, dropout_seed=dropout_seed)
         state["micro"] = 0
-    train_step = make_train_step(loss_fn, tx)
+    if args.base_int8:
+        peft_step = make_peft_train_step(loss_fn, tx, dropout_seed=dropout_seed)
+
+        def train_step(s, b):
+            return peft_step(s, frozen, b)
+    else:
+        train_step = make_train_step(loss_fn, tx, dropout_seed=dropout_seed)
     eval_step = make_eval_step(loss_fn)
 
     steps, saved = [], []

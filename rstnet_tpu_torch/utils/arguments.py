@@ -106,6 +106,9 @@ def get_parser() -> argparse.ArgumentParser:
     # device (the port's own flag): a CUDA device unless the CPU is asked for
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on: cuda (default), cuda:N or cpu")
+    p.add_argument("--init_on_device", type=str2bool, default=False,
+                   help="draw the initial weights on --device instead of the CPU (a 7B "
+                        "model in seconds; other values than the CPU's draw from the seed)")
     # experiment
     p.add_argument("--exp_dir", type=str, default="exp/run")
     p.add_argument("--print_freq", type=int, default=100)

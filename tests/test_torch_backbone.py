@@ -153,5 +153,11 @@ def test_bridge_round_trip_is_exact():
 @pytest.mark.parametrize("over", [dict(mlp_class_name="LLaMAMoE", n_expert=4,
                                        n_expert_per_token=2), dict(lora_r=2)])
 def test_unported_options_raise(over):
+    """MoE and LoRA configs, refused until they were ported, build and run
+    (their parity with JAX: ``tests/test_torch_lora.py``); an MLP class the
+    port does not know still raises."""
+    bb = Backbone(Config(**dict(TINY, **over)))
+    with torch.no_grad():
+        assert torch.isfinite(bb.forward_tokens(torch.zeros((1, 4), dtype=torch.long))).all()
     with pytest.raises(NotImplementedError):
-        Backbone(Config(**dict(TINY, **over)))
+        Backbone(Config(**{**TINY, **over, "mlp_class_name": "NoSuchMLP"}))

@@ -475,18 +475,18 @@ def test_batcher_fetch_paths_on_card_match_depth1(cuda, monkeypatch, depth, pool
 K6_TOL = {torch.bfloat16: (1e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
 
 
-def _k6_inputs(gen, B, H, Hkv, T, dtype):
-    q, do = (torch.randn((B, H, T, 64), device="cuda", generator=gen).to(dtype) for _ in range(2))
-    k, v = (torch.randn((B, Hkv, T, 64), device="cuda", generator=gen).to(dtype) for _ in range(2))
-    return (q * 0.125).to(dtype), k, v, do  # q pre-scaled, as the route passes it
+def _k6_inputs(gen, B, H, Hkv, T, dtype, D=64):
+    q, do = (torch.randn((B, H, T, D), device="cuda", generator=gen).to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, Hkv, T, D), device="cuda", generator=gen).to(dtype) for _ in range(2))
+    return (q * D**-0.5).to(dtype), k, v, do  # q pre-scaled, as the route passes it
 
 
-def _k6_case(gen, B, H, Hkv, T, dtype, window):
+def _k6_case(gen, B, H, Hkv, T, dtype, window, D=64):
     from rstnet_tpu_torch.ops import cuda_flash as cf
 
-    q, k, v, do = _k6_inputs(gen, B, H, Hkv, T, dtype)
+    q, k, v, do = _k6_inputs(gen, B, H, Hkv, T, dtype, D)
     fns = (cf.flash_attention_fwd, cf.flash_attention_bwd)
-    attr = "launches_f32" if dtype == torch.float32 else "launches"
+    attr = cf.COUNTERS[dtype, D]
     counts = [getattr(f, attr) for f in fns]
     o, lse = cf.flash_attention_fwd(q, k, v, window)
     dq, dk, dv, delta = cf.flash_attention_bwd(q, k, v, o, do, lse, window)
@@ -508,9 +508,10 @@ def _k6_case(gen, B, H, Hkv, T, dtype, window):
 @pytest.mark.parametrize("T,window", [(128, 128), (128, 100), (512, 512), (512, 100),
                                       (1024, 256), (1024, 1024)])
 @pytest.mark.parametrize("heads", [(4, 4), (4, 1)])
-def test_flash_kernels_match_plain(cuda, dtype, T, window, heads):
-    """H = Hkv, and H = 4 Hkv (GQA inside the kernels)."""
-    _k6_case(cuda, 1, *heads, T, dtype, window)
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernels_match_plain(cuda, dtype, T, window, heads, D):
+    """H = Hkv, and H = 4 Hkv (GQA inside the kernels), at both head dims."""
+    _k6_case(cuda, 1, *heads, T, dtype, window, D)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -524,23 +525,34 @@ def test_flash_kernels_at_training_shapes(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads", [(28, 4), (32, 8)])
+def test_flash_kernels_at_head_dim_128(cuda, dtype, heads):
+    """Head dim 128 at B=4, T=1024: Qwen2.5-7B's 28 query heads over 4 KV
+    heads (GQA 7:1) and Llama-3.1-8B's 32 over 8, causal and local (256)."""
+    for window in (1024, 256):
+        _k6_case(cuda, 4, *heads, 1024, dtype, window, 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_kernels_smallest_grid(cuda, dtype):
     """B=1, T=128: one work item, one forward tile (the ordered dQ must not
     wait on itself); H=Hkv=1, and four query heads over one KV head under a
     window (the float32 forward's warpgroups pass over the key tile their
     rows do not see)."""
-    _k6_case(cuda, 1, 1, 1, 128, dtype, 128)
-    _k6_case(cuda, 1, 4, 1, 128, dtype, 100)
+    for D in (64, 128):
+        _k6_case(cuda, 1, 1, 1, 128, dtype, 128, D)
+        _k6_case(cuda, 1, 4, 1, 128, dtype, 100, D)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("window", [1024, 256])
-def test_flash_backward_is_bit_identical_across_calls(cuda, window, dtype):
+@pytest.mark.parametrize("D,heads", [(64, (32, 8)), (128, (28, 4))])
+def test_flash_backward_is_bit_identical_across_calls(cuda, window, dtype, D, heads):
     """dQ is summed in a fixed order (no atomics): two calls agree bit for
     bit."""
     from rstnet_tpu_torch.ops import cuda_flash as cf
 
-    q, k, v, do = _k6_inputs(cuda, 2, 32, 8, 1024, dtype)
+    q, k, v, do = _k6_inputs(cuda, 2, *heads, 1024, dtype, D)
     o, lse = cf.flash_attention_fwd(q, k, v, window)
     first = cf.flash_attention_bwd(q, k, v, o, do, lse, window)
     second = cf.flash_attention_bwd(q, k, v, o, do, lse, window)
@@ -573,9 +585,10 @@ def test_flash_kernels_refuse_outside_envelope(cuda):
     def zeros(*shape):
         return torch.zeros(shape, device="cuda", dtype=torch.bfloat16)
 
-    x = zeros(1, 2, 128, 32)
-    with pytest.raises(ValueError):
-        flash_attention_fwd(x, x, x, 128)  # head dim 32
+    for D in (32, 96):
+        x = zeros(1, 2, 128, D)
+        with pytest.raises(ValueError):
+            flash_attention_fwd(x, x, x, 128)  # head dims other than 64 and 128
     for T in (100, 64):  # T not a multiple of 128
         y = zeros(1, 2, T, 64)
         with pytest.raises(ValueError):

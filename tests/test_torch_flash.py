@@ -312,3 +312,40 @@ def test_split_scheme_gradients_match_jax_grad(context):
     for got, w in zip((dq, dk, dv), want):
         assert max(cuda_flash.relative_error_by_tile(got, torch.from_numpy(np.asarray(w)))) \
             <= SPLIT_TOL
+
+
+@pytest.mark.parametrize("context,heads", [(None, (7, 1)), (256, (4, 2))])
+def test_head_dim_128_matches_splash_and_jax_grad(context, heads):
+    """Head dim 128 (the flagship's Qwen2.5-7B: GQA 7:1): the route's
+    forward against splash in interpret mode, and its gradients (the plain
+    backward on the CPU) against ``jax.grad`` of the masked reference."""
+    H, Hkv = heads
+    q, k, v, do = _inputs(7, 1, H, Hkv, 512, D=128)
+    scale = 1.0 / math.sqrt(128)
+    want = np.asarray(jax_flash.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                                context, scale, interpret=True))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = flash_attention(*leaves, context, scale)
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=SPLASH_TOL, rtol=SPLASH_TOL)
+
+    def loss(q, k, v):
+        return jnp.sum(_jax_masked(q, k, v, context, scale) * do)
+
+    want_grads = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    got_grads = torch.autograd.grad(got, leaves, torch.from_numpy(do))
+    assert got_grads[1].shape == (1, Hkv, 512, 128)
+    for g, w in zip(got_grads, want_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+def test_wrappers_refuse_other_head_dims():
+    """The kernels take head dims 64 and 128 only: any other D is refused
+    on a CUDA tensor before anything launches, never sent to the plain
+    version (the envelope check, reached here without a card)."""
+    for D in (96, 32, 256):
+        x = torch.zeros((1, 2, 128, D))
+        with pytest.raises(ValueError, match="envelope"):
+            cuda_flash._check_cuda_operands(128, x, kv=(x, x))
+    for D in cuda_flash.HEAD_DIMS:
+        x = torch.zeros((1, 2, 128, D))
+        assert cuda_flash._check_cuda_operands(128, x, kv=(x, x)) == (1, 2, 2, 128)

@@ -65,3 +65,12 @@ def test_scan_covers_the_checkpoint_slice():
                    "data/tokenizers/mimi_tokenizer.py", "tools/offline_tokenization.py",
                    "tools/scp_tools.py", "utils/audio.py"):
         assert f"rstnet_tpu_torch/{module}" in scanned, module
+
+
+def test_scan_covers_the_fine_tuning_slice():
+    """The scan reaches every module of LM fine-tuning: LoRA, the PEFT
+    step, the Moshi training forwards, flagship8b."""
+    scanned = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("models/lora.py", "training/flagship8b.py", "models/moshi_lm.py",
+                   "modules/transformer.py", "ops/attention.py", "core.py"):
+        assert f"rstnet_tpu_torch/{module}" in scanned, module

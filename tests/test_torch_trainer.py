@@ -80,10 +80,13 @@ def test_data_batches_equal_jax(tmp_path):
         theirs.sampler.refresh()
 
 
-@pytest.mark.parametrize("flags", [("--lora_r", "2"), ("--base_int8", "true"),
-                                   ("--model_family", "moshi"), ("--fsdp", "2"), ("--seq", "2"),
-                                   ("--dp", "2")])
+@pytest.mark.parametrize("flags", [
+    ("--base_int8", "true", "--lora_r", "2", "--grad_accum", "2"), ("--base_int8", "true"),
+    ("--base_int8", "true", "--lora_r", "2", "--model_family", "moshi"), ("--fsdp", "2"),
+    ("--seq", "2"), ("--dp", "2")])
 def test_trainer_refuses_what_is_not_ported(tmp_path, flags):
+    """The JAX trainer's refusals (``--base_int8`` without LoRA, with the
+    Moshi family or with ``--grad_accum > 1``) and any mesh axis above 1."""
     from rstnet_tpu_torch.training import trainer
 
     with pytest.raises(SystemExit):

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--frames N] [--sessions N]
     python3 chip_smoke.py --trees DIR,DIR [--out F.json]
+    python3 chip_smoke.py --codec-only
 
 The second form times K4 over float32 weights in each checkout in turn
 (``compare_trees``) and runs nothing else.
@@ -28,7 +29,18 @@ Phases (each prints its findings; any failure exits non-zero):
    kept across calls and with every level divided on every call (the call
    site before), and path ``codec_encode``: ``MimiModel.encode`` over 8
    seeded clips of 40.96 s (K3's tiled path at 4096 rows), held to the same
-   encode through K3's plain version;
+   encode through K3's plain version; then codec training: K3 at the
+   trainable quantizer's shapes (D=64, K=2048, Q 1 and 7, N=152 on the
+   tiled path and N=50 on the split path; entry ``codec_train`` of K3's
+   kernels line), path ``small_codec_train`` (``CODEC_SMALL``: 2 G/D steps
+   through ``codec_trainer.make_steps`` on the card and on the CPU from the
+   same weights, data, teacher features and draws; losses and EMA buffers
+   compared) and path ``codec_train_mimi24k`` (``codec_trainer.main`` on
+   ``egs/codec/mimi24k.yaml`` at full width over seeded pseudo-speech
+   wavs, 3 steps and 2 resumed, the validation step, ``codec_infer`` and
+   ``compute_metrics``; step times, device peak, K3 launches asserted, one
+   G+D step profiled). ``--codec-only`` runs K3's checks and these two
+   paths alone and prints no result line;
 5. full slices, on one build of Mimi 24 kHz (f32) + Moshi 7B (bf16) with
    seeded random weights: the solo frame through
    ``ServerState.handle_frame_array``, then ``SessionBatcher.step_once``
@@ -245,6 +257,35 @@ FLAGSHIP = dict(name="graft-entry", block_size=4096, vocab_size=128000, padded_v
                 mlp_class_name="LLaMAMLP", intermediate_size=8192, context=3000, audio_card=2048,
                 codecformer_dim=1024, n_q=8, dep_q=8, codecformer_heads=16, codecformer_layers=6,
                 codecformer_dim_feedforward=1024)
+# the small codec phase, card against CPU from the same weights, data, teacher
+# features and draws, float32 (TF32 off): each G/D loss item within 1e-3 of
+# its size (convolutions, FFTs and reductions in other orders over two steps,
+# the second after an AdamW update whose g / |g| turns rounding noise of a
+# near-zero gradient into a full lr step); each EMA buffer, over its largest
+# magnitude, within 1e-5 after the first G step (the same codewords' residual
+# sums, the latent's float32 rounding) and within 1e-3 after the second,
+# whose forward runs on parameters that one AdamW update may have moved
+# apart by up to 2 lr an element where the gradient was ~0 (the first card
+# runs read 8.0e-5 there, 1.1e-4 absolute)
+CODEC_LOSS_RTOL = 1e-3
+CODEC_BUFFER_RTOL = (1e-5, 1e-3)
+CODEC_SMALL = {
+    "generator": {"name": "MimiCodec", "config": {
+        "sample_rate": 24000, "n_filters": 8, "encoder_rates": [4, 5, 6, 8], "latent_dim": 64,
+        "codebook_size": 256, "codebook_dim": 16, "rvq_layers": 4, "num_heads": 2,
+        "num_layers": 2, "context": 50, "dim_feedforward": 128, "semantic_feature_dim": 32,
+        "target_frame_rate": 12.5}},
+    "d_list": ["mfd"],
+    "mfd": {"config": {"hop_lengths": [32, 64], "hidden_channels": [32, 64], "domain": "double",
+                       "mel_scale": True, "sample_rate": 24000}},
+    "optimizer": {"g": {"config": {"lr": 2.0e-4, "betas": [0.8, 0.99], "eps": 1.0e-6}},
+                  "d": {"config": {"lr": 2.0e-4, "betas": [0.8, 0.99], "eps": 1.0e-6}}},
+    "seed": 2333,
+}
+CODEC_CONFIG = "egs/codec/mimi24k.yaml"
+CODEC_STEPS, CODEC_RESUMED_STEPS = 3, 2  # G/D steps of codec_train_mimi24k, then resumed
+# codec_train_mimi24k's corpus: seeded pseudo-speech clips (train, then validation)
+CODEC_TRAIN_CLIPS, CODEC_CLIP_SECONDS, CODEC_VALID_CLIPS = 8, 4.0, 2
 # NVIDIA H100 SXM data sheet: HBM bandwidth and dense peak rates (at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
@@ -803,9 +844,56 @@ def check_k3(g, card: str, sessions: int) -> dict:
             if Q == 7 and N == 4096:
                 tiled_4096 = {"ms": times["tiled"], "plain_ms": plain,
                               "bound_ms": bounds["tiled"][0], "bound_by": bounds["tiled"][1]}
+    codec_train, codec_err = check_k3_codec_shapes(g, card)
     return {"name": "rvq_encode", "route": "cuda", "source": "rstnet_tpu_torch/csrc/rvq_encode.cu",
-            "replaces": "rstnet_tpu/ops/pallas_rvq.py:67", "max_abs_err": err, **result,
-            "library_ms": None, "tiled_4096": tiled_4096}
+            "replaces": "rstnet_tpu/ops/pallas_rvq.py:67", "max_abs_err": max(err, codec_err),
+            **result, "library_ms": None, "tiled_4096": tiled_4096, "codec_train": codec_train}
+
+
+# the trainable quantizer's sweep: D=64, K=2048, rvq_first Q=1 and rvq_rest
+# Q=7, at one training step's rows (batch 4 x 38 frames: the tiled path) and
+# one 4 s clip's of codec_infer (50 frames: the split path)
+K3_CODEC_SHAPES = [(Q, N) for N in (152, 50) for Q in (1, 7)]
+
+
+def check_k3_codec_shapes(g, card: str) -> tuple[dict, float]:
+    """K3 at ``K3_CODEC_SHAPES`` through the wrapper (the path it takes),
+    each held to ``rvq_encode_reference`` by the near-tie rule and two calls
+    compared bit for bit, with device, plain and bound times. -> ({"Q{Q}_
+    N{N}": entry}, the largest quantized-sum error of agreeing rows)."""
+    from rstnet_tpu_torch.ops import cuda_rvq
+    from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode, rvq_encode_reference
+
+    D, K = 64, 2048
+    books = torch.randn((7, K, D), device="cuda", generator=g)
+    out, err = {}, 0.0
+    for Q, N in K3_CODEC_SHAPES:
+        cbs = books[:Q].contiguous()
+        x = torch.randn((N, D), device="cuda", generator=g)
+        codes_k, quant_k = rvq_encode(x, cbs)
+        codes_2, quant_2 = rvq_encode(x, cbs)
+        if not (torch.equal(codes_k, codes_2) and torch.equal(quant_k, quant_2)):
+            raise AssertionError(f"K3 D=64 Q={Q} N={N}: two calls differ")
+        codes_r, quant_r = rvq_encode_reference(x, cbs)
+        ties, other, agree = _k3_mismatches(x, cbs, codes_k, codes_r)
+        qerr = (quant_k[agree] - quant_r[agree]).abs().max().item() if agree.any() else 0.0
+        err = max(err, qerr)
+        if other or qerr > K3_QUANT_ATOL:
+            raise AssertionError(f"K3 D=64 disagrees with rvq_encode_reference at Q={Q} N={N}: "
+                                 f"{other} rows, quant err {qerr:.3e}")
+        path = "split" if N <= cuda_rvq.SPLIT_MAX_ROWS else "tiled"
+        ms = time_ms(lambda: rvq_encode(x, cbs), 30)
+        plain = time_ms(lambda: rvq_encode_reference(x, cbs), 20)
+        n_bytes = 4 * (N * D + Q * K * D + N * Q + N * D)
+        products = 2 * N * Q * K * D
+        b_ms, b_by = (bound(n_bytes, products, "f32") if path == "split"
+                      else bound(n_bytes, 3 * products, "tf32"))
+        out[f"Q{Q}_N{N}"] = {"path": path, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                             "bound_by": b_by}
+        log(f"K3 D=64 K=2048 Q={Q} N={N}: {path} {ms:.4f} ms (bound {b_ms:.4f}, {b_by}); plain "
+            f"{plain:.4f} ms; {int(agree.sum())}/{N} rows with equal codes, {ties} near-tie; two "
+            f"calls bit-identical [{card}]")
+    return out, err
 
 
 def _all_levels_embedding(self, levels=None):
@@ -3104,6 +3192,204 @@ def compare_trees(trees: list[str], seed: int, out: str) -> int:
     return 0
 
 
+def _codec_items(items: dict) -> dict:
+    return {k: float(v) for k, v in items.items()}
+
+
+def check_small_codec_training(seed: int, card: str) -> dict:
+    """``CODEC_SMALL`` (Mimi's rates and losses at small widths, MFD over
+    two scales) trained for 2 G/D steps through ``codec_trainer.make_steps``
+    on the card and on the CPU from the same weights, batches (2 x 1 s of
+    seeded pseudo-speech), seeded teacher features (so ``map_semantic`` and
+    the distillation loss run) and draws (a CPU generator each, same seed):
+    every loss item and the EMA buffers compared. Returns the card run's
+    launches (K3: 2 a G step, D=16 over 26 rows, the split path)."""
+    import copy
+
+    from rstnet_tpu_torch.data.synth_speech import synth_corpus
+    from rstnet_tpu_torch.training import codec_trainer as ct
+
+    audio = torch.from_numpy(synth_corpus(seed, 4, seconds=1.0)).view(2, 2, 1, 24000)
+    feats = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(2, 2, 50, 32)).astype(np.float32))
+    model, discs, loss_cfg = ct.build_from_config(CODEC_SMALL)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        g, d = copy.deepcopy(model).to(device), copy.deepcopy(discs).to(device)
+        conf = CODEC_SMALL["optimizer"]["g"]["config"]
+        g_tx, d_tx = ct.make_tx(conf, 0.999, 100), ct.make_tx(conf, 0.999, 100)
+        g_step, d_step, evaluate = ct.make_steps(g, d, loss_cfg, g_tx, d_tx)
+        state = {"opt_state": {"g": g_tx.init(dict(g.named_parameters())),
+                               "d": d_tx.init(dict(d.named_parameters()))}}
+        generator = torch.Generator().manual_seed(seed)
+        reset_counts()
+        steps, buffers = [], []
+        for i in range(2):
+            a = audio[i].to(device)
+            rec, gi = g_step(state, a, feats[i].to(device), generator, use_adv=i > 0)
+            buffers.append({n: b.to("cpu", copy=True) for n, b in g.named_buffers()})
+            steps.append(_codec_items({**gi, **d_step(state, a, rec)}))
+        evaluation = _codec_items(evaluate(audio[0].to(device)))
+        runs[device] = (steps, buffers, read_counts(), evaluation)
+    (steps_c, bufs_c, _, ev_c), (steps_g, bufs_g, counts_g, ev_g) = runs["cpu"], runs["cuda"]
+    loss_err = max(abs(sg[k] - sc[k]) / max(abs(sc[k]), 1e-6)
+                   for sc, sg in zip(steps_c, steps_g) for k in sc)
+    loss_err = max(loss_err, max(abs(ev_g[k] - ev_c[k]) / max(abs(ev_c[k]), 1e-6) for k in ev_c))
+    buf_err = [max((bg[n] - bc[n]).abs().max().item() / bc[n].abs().max().item() for n in bc)
+               for bc, bg in zip(bufs_c, bufs_g)]
+    none = dict.fromkeys(_counters(), 0)
+    want = {**none, "rvq_encode": 2 * 2 + 2}  # 2 G steps and the evaluation
+    log(f"small codec training (CODEC_SMALL, 2 G/D steps and an evaluation), card vs CPU: "
+        f"loss items max rel err {loss_err:.3e} (limit {CODEC_LOSS_RTOL}), EMA buffers' max abs "
+        f"err over the buffer's largest magnitude after each G step {buf_err[0]:.3e}, "
+        f"{buf_err[1]:.3e} (limits {CODEC_BUFFER_RTOL}); distillation loss "
+        f"{steps_g[0]['codec_loss']:.5f}, {steps_g[1]['codec_loss']:.5f}; card K3 launches "
+        f"{counts_g['rvq_encode']} [{card}]")
+    if any(not math.isfinite(v) for st in steps_g for v in st.values()):
+        raise AssertionError("small codec training: a non-finite loss on the card")
+    if steps_g[0]["codec_loss"] == 0.0:
+        raise AssertionError("small codec training: the distillation loss did not run")
+    if loss_err > CODEC_LOSS_RTOL or any(e > t for e, t in zip(buf_err, CODEC_BUFFER_RTOL)):
+        raise AssertionError("small codec training on the card disagrees with the CPU")
+    if counts_g != want:
+        raise AssertionError(f"small codec training launched {counts_g}, expected {want}")
+    return counts_g
+
+
+def _top_kernels(events, n: int = 6) -> str:
+    by_name: dict = {}
+    for e in events:
+        short = re.sub(r"<.*", "", e.name)[:60]
+        by_name[short] = by_name.get(short, 0.0) + e.time_range.elapsed_us() / 1000
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
+    return ", ".join(f"{k} {v:.2f} ms" for k, v in top)
+
+
+def run_codec_train_mimi24k(seed: int, card: str) -> dict:
+    """Path ``codec_train_mimi24k``: ``codec_trainer.main`` on
+    ``CODEC_CONFIG`` at its full widths (batch 4 x 72000 samples) over
+    ``CODEC_TRAIN_CLIPS`` seeded pseudo-speech clips of 4 s written as wavs
+    under a temporary directory: ``CODEC_STEPS`` steps, then a rerun that
+    resumes from its checkpoint for ``CODEC_RESUMED_STEPS`` more; the
+    validation step on a batch; then ``codec_infer`` over
+    ``CODEC_VALID_CLIPS`` clips (N=50 a K3 call: the split path) and
+    ``compute_metrics`` on what it wrote. K3 launches asserted: 2 a G step,
+    2 for the validation, 2 a clip. Then one more G+D step under
+    ``torch.profiler``: device busy and the largest kernels. Prints the step
+    times and the device peak."""
+    import tempfile
+
+    from rstnet_tpu_torch.data.synth_speech import synth_corpus
+    from rstnet_tpu_torch.evalsuite import compute_metrics
+    from rstnet_tpu_torch.inference import codec_infer
+    from rstnet_tpu_torch.tools.profile_frame import _union_us, device_trace
+    from rstnet_tpu_torch.training import codec_trainer as ct
+    from rstnet_tpu_torch.utils import yaml_subset
+    from rstnet_tpu_torch.utils.audio import write_wav
+
+    root = Path(tempfile.mkdtemp(prefix="smoke_codec_train_"))
+    try:
+        _check_disk(root, 4 * 2**30, "codec_train_mimi24k")
+        clips = synth_corpus(seed, CODEC_TRAIN_CLIPS + CODEC_VALID_CLIPS, CODEC_CLIP_SECONDS)
+        paths = []
+        for i, clip in enumerate(clips):
+            paths.append(str(root / f"clip{i}.wav"))
+            write_wav(paths[-1], clip, 24000)
+        (root / "train.scp").write_text("\n".join(paths[:CODEC_TRAIN_CLIPS]))
+        (root / "valid.scp").write_text("\n".join(paths[CODEC_TRAIN_CLIPS:]))
+        args = ["--config", CODEC_CONFIG, "--exp_dir", str(root / "exp"), "--train_scp",
+                str(root / "train.scp"), "--semantic_teacher", "none", "--device", "cuda"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        first = ct.main(args + ["--max_steps", str(CODEC_STEPS)])
+        t_first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        second = ct.main(args + ["--max_steps", str(CODEC_STEPS + CODEC_RESUMED_STEPS)])
+        t_second = time.perf_counter() - t0
+        steps = first["steps"] + second["steps"]
+        if [s["step"] for s in steps] != list(range(1, CODEC_STEPS + CODEC_RESUMED_STEPS + 1)):
+            raise AssertionError(f"codec_train_mimi24k: steps {[s['step'] for s in steps]}: the "
+                                 "rerun did not resume at the first run's last step")
+        if not all(math.isfinite(s["g_loss"]) and math.isfinite(s["d_loss"]) for s in steps):
+            raise AssertionError("codec_train_mimi24k: a non-finite G or D loss")
+        state = second["state"]
+        g, d = state["model"]["g"], state["model"]["d"]
+        valid = torch.from_numpy(np.stack([c[:72000] for c in clips[-CODEC_VALID_CLIPS:]]))
+        ev = _codec_items(ct.evaluate(g, valid.view(CODEC_VALID_CLIPS, 1, -1).cuda()))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        n_clips = codec_infer.main(["--config", CODEC_CONFIG, "--checkpoint_dir",
+                                    str(root / "exp"), "--scp", str(root / "valid.scp"),
+                                    "--out_dir", str(root / "recon"), "--device", "cuda"])
+        t_infer = time.perf_counter() - t0
+        counts = read_counts()
+        t0 = time.perf_counter()
+        report = compute_metrics.main(["--ref_dir", str(root / "recon/ref"), "--deg_dir",
+                                       str(root / "recon/deg"), "--output",
+                                       str(root / "metrics.json")])
+        t_metrics = time.perf_counter() - t0
+        n_steps = len(steps)
+        want = {**dict.fromkeys(_counters(), 0), "rvq_encode": 2 * n_steps + 2 + 2 * n_clips}
+        if counts != want:
+            raise AssertionError(f"codec_train_mimi24k launched {counts}, expected {want}")
+        if report["n"] != CODEC_VALID_CLIPS or not all(
+                math.isfinite(report["mean"][k]) for k in ("si_snr", "mel_ssim", "mcd", "ms_stft")):
+            raise AssertionError(f"codec_train_mimi24k: compute_metrics gave {report['mean']}")
+        # one more G+D step, profiled (it trains on: the state is the run's)
+        cfg = yaml_subset.load(CODEC_CONFIG)
+        loss_cfg = ct.generator_loss_config(cfg)
+        conf = cfg["optimizer"]["g"]["config"]
+        tx = ct.make_tx(conf, 0.999, CODEC_TRAIN_CLIPS // 4)
+        g_step, d_step, _ = ct.make_steps(g, d, loss_cfg, tx, tx)
+        batch = torch.from_numpy(np.stack([c[:72000] for c in clips[:4]])).view(4, 1, -1).cuda()
+        generator = torch.Generator().manual_seed(seed)
+
+        def step():
+            rec, _ = g_step(state, batch, None, generator, use_adv=True)
+            d_step(state, batch, rec)
+
+        step()
+        torch.cuda.synchronize()
+        events, wall_us = device_trace(step, attempts=4)
+        busy = _union_us([(e.time_range.start, e.time_range.end) for e in events]) / 1000
+        k3 = sum(e.time_range.elapsed_us() for e in events if "rvq_" in e.name
+                 or "codeword_sq_norms" in e.name) / 1000
+        times = [s["seconds"] * 1000 for s in steps]
+        log(f"codec_train_mimi24k ({CODEC_CONFIG}: G {sum(p.numel() for p in g.parameters())} "
+            f"and MFD {sum(p.numel() for p in d.parameters())} parameters, batch 4 x 72000): "
+            f"{CODEC_STEPS} steps in {t_first:.1f} s, resumed for {CODEC_RESUMED_STEPS} in "
+            f"{t_second:.1f} s; step times " + ", ".join(f"{t:.1f}" for t in times)
+            + f" ms (host clock, data included); median after the first "
+            f"{statistics.median(times[1:]):.1f} ms; device peak {peak:.2f} GiB; losses g "
+            + ", ".join(f"{s['g_loss']:.4f}" for s in steps) + "; d "
+            + ", ".join(f"{s['d_loss']:.4f}" for s in steps)
+            + f"; validation {ev}; codec_infer {n_clips} clips in {t_infer:.1f} s; "
+            f"compute_metrics in {t_metrics:.1f} s: {report['mean']}; K3 launches "
+            f"{counts['rvq_encode']} [{card}]")
+        log(f"codec_train_mimi24k profiled G+D step: device busy {busy:.3f} ms of "
+            f"{wall_us / 1000:.3f} ms wall ({100 * busy * 1000 / wall_us:.1f} %), "
+            f"{len(events)} device events, K3 {k3:.4f} ms; largest: {_top_kernels(events)} "
+            f"[{card}]")
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_codec_phases(args, card: str, paths: dict) -> None:
+    with phase("small codec training"):
+        paths["small_codec_train"] = check_small_codec_training(args.seed, card)
+    with phase("codec training"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["codec_train_mimi24k"] = run_codec_train_mimi24k(args.seed, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3116,6 +3402,9 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default="", help="with --trees: the times as JSON")
     parser.add_argument("--k4-f32-out", default="",
                         help="run only K4 over float32 weights and write its entry here as JSON")
+    parser.add_argument("--codec-only", action="store_true",
+                        help="run only K3's checks and the codec training phases, and print "
+                        "their findings (no result line)")
     args = parser.parse_args(argv)
     if args.trees:
         return compare_trees(args.trees.split(","), args.seed, args.out)
@@ -3127,6 +3416,17 @@ def main(argv=None) -> int:
         Path(args.k4_f32_out).write_text(json.dumps(entry))
         return 0
     t_start = time.perf_counter()
+    if args.codec_only:
+        card = phase_environment()
+        phase_build()
+        g = torch.Generator(device="cuda").manual_seed(args.seed)
+        k3 = check_k3(g, card, args.sessions)
+        paths = {}
+        run_codec_phases(args, card, paths)
+        k3["launches_by_path"] = {p: counts["rvq_encode"] for p, counts in paths.items()}
+        log(json.dumps({"kernels": [k3]}))
+        log(f"chip_smoke --codec-only: {time.perf_counter() - t_start:.1f} s wall")
+        return 0
 
     with phase("environment"):
         card = phase_environment()
@@ -3153,6 +3453,7 @@ def main(argv=None) -> int:
         del mimi
         gc.collect()
         torch.cuda.empty_cache()
+    run_codec_phases(args, card, paths)
     with phase("small training slice"):
         paths["small_train_step_f32"] = check_small_training_slice(args.seed)
         paths["small_train_step_f32_d128"] = check_small_training_slice(args.seed, SMALL_LM_D128)

@@ -146,13 +146,19 @@ def stack_layers(flat: dict[str, np.ndarray], stacked=()) -> dict[str, np.ndarra
     return out
 
 
-def from_jax_params(flat: dict, module: nn.Module, stacked=()) -> nn.Module:
+def from_jax_params(flat: dict, module: nn.Module, stacked=(), buffers: dict | None = None
+                    ) -> nn.Module:
     """Load ``{dotted JAX path: numpy array or tensor}`` into ``module`` in
     place.
 
     Keys, shapes and dtypes must match the module's ``state_dict()`` exactly
     (after splitting the ``stacked`` prefixes per layer); bf16 arrays are
-    carried bit for bit."""
+    carried bit for bit. ``buffers``: the flat tree of a JAX module's
+    non-trainable state (the codec's EMA codebook statistics), which the
+    port keeps as buffers of the same module, named by the same paths.
+    Leaves that are not arrays (``None``, static entries of a JAX tree) are
+    skipped."""
+    flat = {k: v for k, v in {**flat, **(buffers or {})}.items() if v is not None}
     flat = unstack_layers(flat, stacked)
     own = module.state_dict()
     missing = sorted(set(own) - set(flat))
@@ -181,8 +187,16 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def to_numpy(module: nn.Module, stacked=()) -> dict[str, np.ndarray]:
+def to_numpy(module: nn.Module, stacked=(), part: str = "all") -> dict[str, np.ndarray]:
     """``state_dict()`` as numpy arrays keyed by dotted JAX path (bf16 arrays
-    as ``ml_dtypes.bfloat16``, bit for bit; ``stacked`` prefixes restacked)."""
-    return stack_layers({name: tensor_to_numpy(t) for name, t in module.state_dict().items()},
-                        stacked)
+    as ``ml_dtypes.bfloat16``, bit for bit; ``stacked`` prefixes restacked).
+    ``part``: "all", "params" (the parameters only) or "buffers" (the
+    buffers only: the JAX buffer tree)."""
+    if part not in ("all", "params", "buffers"):
+        raise ValueError(f"unknown part {part!r}")
+    names = None
+    if part != "all":
+        named = module.named_parameters() if part == "params" else module.named_buffers()
+        names = {n for n, _ in named}
+    return stack_layers({name: tensor_to_numpy(t) for name, t in module.state_dict().items()
+                         if names is None or name in names}, stacked)

@@ -118,6 +118,53 @@ def test_rvq_kernel_all_nan_row_gets_code_zero(cuda, monkeypatch, path):
     assert codes[3].tolist() == [0] * 7
 
 
+@pytest.mark.parametrize("path", list(RVQ_PATHS) + ["wrapper"])
+@pytest.mark.parametrize("Q", [1, 7])
+@pytest.mark.parametrize("N", [50, 152])
+def test_rvq_kernel_at_codec_training_shapes(cuda, monkeypatch, path, Q, N):
+    """The trainable quantizer's sweep (D=64, K=2048; rvq_first Q=1, rvq_rest
+    Q=7): N=152 rows a training step at batch 4 x 72000 samples (the wrapper
+    takes the tiled path), N=50 a 4 s clip of codec_infer (the split path)."""
+    from rstnet_tpu_torch.ops import cuda_rvq
+    from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode, rvq_encode_reference
+
+    if path != "wrapper":
+        if N > 64 and path == "split":
+            pytest.skip("the split path takes up to 64 rows")
+        monkeypatch.setattr(cuda_rvq, "SPLIT_MAX_ROWS", RVQ_PATHS[path])
+    books = torch.randn((Q, 2048, 64), device="cuda", generator=cuda)
+    x = torch.randn((N, 64), device="cuda", generator=cuda)
+    (c1, q1), (c2, q2) = rvq_encode(x, books), rvq_encode(x, books)
+    assert torch.equal(c1, c2) and torch.equal(q1, q2)
+    _rvq_agree(c1, q1, *rvq_encode_reference(x, books))
+
+
+def test_trainable_rvq_on_card_matches_cpu(cuda):
+    """TrainableSplitRVQ at mimi24k's widths (512 -> 64, 2048 codes, 1 + 7
+    levels) over one training step's latents (4 x 38 frames): two K3
+    launches; codes, outputs and EMA buffers equal to the CPU's (the
+    plain version) up to near-ties and float32 rounding; the same draws."""
+    from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode
+    from rstnet_tpu_torch.quantization.trainable import TrainableSplitRVQ
+
+    cpu = TrainableSplitRVQ(input_dimension=512, dimension=64, bins=2048, n_q=8,
+                            generator=torch.Generator().manual_seed(0))
+    card = TrainableSplitRVQ(input_dimension=512, dimension=64, bins=2048, n_q=8,
+                             generator=torch.Generator().manual_seed(0)).cuda()
+    x = torch.randn((4, 38, 512), generator=torch.Generator().manual_seed(1))
+    before = rvq_encode.launches
+    out_c, codes_c, commit_c, _ = cpu(x, generator=torch.Generator().manual_seed(2))
+    out_g, codes_g, commit_g, _ = card(x.cuda(), generator=torch.Generator().manual_seed(2))
+    assert rvq_encode.launches == before + 2
+    agree = (codes_g.cpu() == codes_c).all(-1)
+    assert agree.float().mean() >= 0.99
+    torch.testing.assert_close(out_g.cpu()[agree], out_c[agree], rtol=1e-5, atol=1e-5)
+    if bool(agree.all()):
+        torch.testing.assert_close(commit_g.cpu(), commit_c, rtol=1e-5, atol=1e-6)
+        for name, buf in cpu.named_buffers():
+            torch.testing.assert_close(card.get_buffer(name).cpu(), buf, rtol=1e-5, atol=1e-5)
+
+
 def test_rvq_split_call_is_one_device_kernel(cuda):
     """A call up to SPLIT_MAX_ROWS rows is one cooperative launch: the
     profiler sees exactly one device event (the scratch is set once, on the

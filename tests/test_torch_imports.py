@@ -74,3 +74,17 @@ def test_scan_covers_the_fine_tuning_slice():
     for module in ("models/lora.py", "training/flagship8b.py", "models/moshi_lm.py",
                    "modules/transformer.py", "ops/attention.py", "core.py"):
         assert f"rstnet_tpu_torch/{module}" in scanned, module
+
+
+def test_scan_covers_the_codec_training_slice():
+    """The scan reaches every module of codec training, its round trip and
+    its metrics."""
+    scanned = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("ops/stft.py", "ops/pqmf.py", "losses/gan.py", "losses/enh.py",
+                   "quantization/base.py", "quantization/codebook.py",
+                   "quantization/trainable.py", "models/mimi_train.py",
+                   "models/discriminators.py", "data/synth_speech.py", "data/codec_dataset.py",
+                   "data/semantic_features.py", "training/codec_trainer.py",
+                   "inference/codec_infer.py", "evalsuite/metrics.py",
+                   "evalsuite/compute_metrics.py", "utils/yaml_subset.py"):
+        assert f"rstnet_tpu_torch/{module}" in scanned, module

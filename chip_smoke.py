@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed N] [--frames N] [--sessions N]
     python3 chip_smoke.py --trees DIR,DIR [--out F.json]
     python3 chip_smoke.py --codec-only
+    python3 chip_smoke.py --ssl-only
 
 The second form times K4 over float32 weights in each checkout in turn
 (``compare_trees``) and runs nothing else.
@@ -142,7 +143,22 @@ Phases (each prints its findings; any failure exits non-zero):
    graph replays against the eager runs, as in phase 5: the flagship's
    ``LMGen.step`` at B=1 in bf16 (path ``speech_frame_graph``, a
    ``CapturedStep``) and the batched speech tick at 16 sessions (path
-   ``speech_batched_tick_16_graph``).
+   ``speech_batched_tick_16_graph``);
+8. last, the GLM-4-Voice SSL stack, which reaches no counted kernel (each
+   path asserts so), its seeded weights written in the upstream directory
+   layouts by ``tools/upstream_layout.py`` under a temporary directory and
+   loaded back: path ``small_ssl`` (the encoder, the flow's conformer,
+   U-Net and solver, and HiFT at small widths, card against CPU on the same
+   weights and draws), ``ssl_tokenize_glm4v`` (the GLM-4-Voice tokenizer
+   at its widths through ``offline_tokenization --mode ssl`` over 63 s of
+   seeded pseudo-speech, twice; tokens against a CPU run on a 5 s clip
+   beyond near-ties), ``ssl_decode_glm4v`` (the decoder at its widths: 250
+   tokens offline and 100 streamed) and ``ssl_resynth`` (the CLI on the
+   shard and an scp round trip with ``--stream``); each CLI starts with
+   TF32 allowed and must turn it off; wall, device busy, peak memory,
+   audio seconds a second or real-time factor, on a ``{"ssl_paths":
+   ...}`` line. ``--ssl-only`` runs these four alone and prints no result
+   line.
 
 Every phase prints its wall time.
 
@@ -3379,6 +3395,500 @@ def run_codec_train_mimi24k(seed: int, card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- GLM-4-Voice SSL stack ------------------------------------------------------------
+
+# ssl_tokenize_glm4v's clips (s): one with a full 30 s chunk and a partial
+# one, the clip held to the CPU, one more; > 60 s in all
+SSL_CLIP_SECONDS = (37.0, 5.0, 21.0)
+# card vs CPU tokens: compared where the CPU's best and second-best codeword
+# distances are further apart than this fraction of the best (the rest are
+# near-ties that float32 sums in another order may flip, and are counted)
+SSL_TIE_RTOL = 1e-4
+# ssl_decode_glm4v: offline tokens (20 s: 1722 mel frames, 440832 samples)
+# and streamed tokens (10 blocks of the conformer's grid width, 10)
+SSL_DECODE_TOKENS, SSL_STREAM_TOKENS = 250, 100
+# the stream's device busy is read over a traced run of its first 2 blocks,
+# against that run's own wall: the 100 tokens' ~213 k device events lose
+# their end marker in torch.profiler (4 windows in a row on the H100)
+SSL_STREAM_TRACE_TOKENS = 20
+# small_ssl, card vs CPU on the same weights and draws: the flow's mel and
+# HiFT's wav and source (float32 throughout; sums in another order)
+SSL_MEL_TOL, SSL_WAV_TOL = 1e-3, 1e-4
+SMALL_SSL_HIFT_FRAMES = 40  # HiFT's short signal: 10240 samples
+# HiFT's source of a voiced f0 over that short signal: its top harmonic's
+# phase cumsum reaches ~500 cycles, where float32 steps by 2**-15, so two
+# summation orders may sit a few steps apart (~1e-4 cycles): ~1e-4 in each
+# harmonic's 0.1 sin, summed through the 9-input linear and tanh
+SSL_SOURCE_TOL = 1e-3
+
+
+def ssl_clips(seed: int) -> list:
+    """Seeded pseudo-speech at 24 kHz (``data/synth_speech.py``), resampled
+    to 16 kHz, one clip a ``SSL_CLIP_SECONDS`` entry."""
+    from rstnet_tpu_torch.data.synth_speech import synth_pseudo_speech
+    from rstnet_tpu_torch.utils.audio import resample_linear
+
+    rng = np.random.RandomState(seed + 16)
+    return [resample_linear(synth_pseudo_speech(rng, s)[None], 24000, 16000)[0]
+            for s in SSL_CLIP_SECONDS]
+
+
+def cpu_tokens_and_gaps(model, wav: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``SSLTokenizer.tokenize``'s ids of one chunk (< 30 s) from ``model``
+    on its device, and each token's gap: (second-best - best distance) /
+    |best|."""
+    from rstnet_tpu_torch.models.whisper_vq import codeword_distances, log_mel_spectrogram
+
+    stride = 2 * model.config.pooling_kernel_size * 160
+    device = model.codebook.device
+    seg = np.pad(wav, (0, (-len(wav)) % stride))
+    mel = log_mel_spectrogram(torch.from_numpy(seg).to(device), model.config.n_mels)
+    mask = (torch.arange(mel.shape[1], device=device) < -(-len(wav) // 160)).float()[None]
+    with torch.no_grad():
+        h, tok_mask = model.hidden(mel[None], mask)
+        d = codeword_distances(h[0], model.codebook)
+        best2 = d.topk(2, dim=-1, largest=False).values
+        valid = tok_mask[0] > 0.5
+        ids = d.argmin(dim=-1)[valid]
+        gap = ((best2[:, 1] - best2[:, 0]) / best2[:, 0].abs())[valid]
+    return ids.cpu().numpy(), gap.cpu().numpy()
+
+
+def _no_launches(path: str, counts: dict) -> None:
+    """The SSL stack reaches no counted kernel (no TPU kernel is on its path)."""
+    if any(counts.values()):
+        raise AssertionError(f"{path} launched counted kernels: {counts}")
+
+
+def run_cli_fp32(main, argv: list, name: str) -> None:
+    """``main(argv)`` started with TF32 allowed for matmuls and convolutions
+    (cuDNN's default); it must turn both off, as the reference runs float32."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        main(argv)
+    finally:
+        left_on = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    if any(left_on):
+        raise AssertionError(f"{name} left TF32 on (matmul, cuDNN): {left_on}")
+
+
+def _busy_ms(fn, confirm: bool = True) -> tuple[float, float, int]:
+    """(device busy ms, wall ms, device events) of one ``fn()`` under
+    ``tools/profile_frame.py::device_trace``. Windows of ~2 x 10^4 events
+    and more lost their last ~40 records, end marker included, in most
+    windows on the H100; without ``confirm``, the first window that holds
+    both markers counts, out of up to 8."""
+    from rstnet_tpu_torch.tools.profile_frame import _union_us, device_trace
+
+    events, wall_us = device_trace(fn, attempts=4 if confirm else 8, confirm=confirm)
+    busy = _union_us([(e.time_range.start, e.time_range.end) for e in events]) / 1000
+    return busy, wall_us / 1000, len(events)
+
+
+def check_small_ssl(seed: int, card: str) -> dict:
+    """Path ``small_ssl``: the encoder, the flow (conformer, one U-Net call,
+    the solver through ``GLM4VFlow.inference``) and HiFT at small widths, on
+    the card and on the CPU from the same weights and draws (CPU
+    generators, the same seed on each side): tokens equal where the CPU's
+    gap exceeds ``SSL_TIE_RTOL``, mel within ``SSL_MEL_TOL``, HiFT's wav and
+    source over a short signal (``SMALL_SSL_HIFT_FRAMES`` frames) within
+    ``SSL_WAV_TOL``, and its source of a voiced f0 there within
+    ``SSL_SOURCE_TOL`` (the float32 phase cumsum has barely drifted)."""
+    import copy
+
+    from rstnet_tpu_torch.models.glm4v_flow import (
+        ConformerConfig,
+        GLM4VFlow,
+        GLM4VFlowConfig,
+        UNetConfig,
+        cfm_solve,
+    )
+    from rstnet_tpu_torch.models.hift import HiFTConfig, HiFTGenerator, generator_draws
+    from rstnet_tpu_torch.models.whisper_vq import WhisperVQConfig, WhisperVQEncoder
+
+    reset_counts()
+    g = torch.Generator().manual_seed(seed)
+    enc = WhisperVQEncoder(WhisperVQConfig(
+        d_model=256, num_heads=4, ffn_dim=1024, num_layers=2, pooling_position=2,
+        quantize_position=2, quantize_vocab_size=1024), generator=g)
+    wav = ssl_clips(seed)[1]
+    ids_c, gap = cpu_tokens_and_gaps(enc, wav)
+    ids_g, _ = cpu_tokens_and_gaps(copy.deepcopy(enc).cuda(), wav)
+    far = gap > SSL_TIE_RTOL
+    tok_diff = int(((ids_c != ids_g) & far).sum())
+    fcfg = GLM4VFlowConfig(
+        vocab_size=512, input_size=128, spk_embed_dim=192,
+        encoder=ConformerConfig(input_size=128, output_size=128, attention_heads=4,
+                                linear_units=256, num_blocks=2),
+        unet=UNetConfig(channels=(64, 64), attention_head_dim=16, n_blocks=1,
+                        num_mid_blocks=2, num_heads=4))
+    flow = GLM4VFlow(fcfg, generator=g)
+    hcfg = HiFTConfig(base_channels=64, f0_cond_channels=64)
+    hift = HiFTGenerator(hcfg, generator=g)
+    rng = np.random.default_rng(seed)
+    token = torch.from_numpy(rng.integers(0, 512, (1, 40)))
+    T_mel = fcfg.mel_len(40)
+    x = torch.from_numpy(rng.standard_normal((2, 40, 128)).astype(np.float32))
+    pad = torch.ones(2, 40, dtype=torch.bool)
+    unet_in = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((2, T_mel, 80), (2, T_mel, 80), (2, 80), (2, T_mel, 80))]
+    mel_in = torch.from_numpy(2 * rng.standard_normal(
+        (1, SMALL_SSL_HIFT_FRAMES, 80)).astype(np.float32))
+    z = generator_draws(torch.Generator().manual_seed(seed), "cpu")("z", (1, T_mel, 80))
+    out = {}
+    for device in ("cpu", "cuda"):
+        f, h = copy.deepcopy(flow).to(device), copy.deepcopy(hift).to(device)
+        draw = generator_draws(torch.Generator().manual_seed(seed), device)
+        with torch.no_grad():
+            conf = f.encoder(x.to(device), pad.to(device))
+            xu, mu, spk, cond = (t.to(device) for t in unet_in)
+            v = f.unet(xu, torch.ones(2, T_mel, device=device), mu,
+                       torch.tensor(0.4, device=device), spk, cond)
+        mel = f.inference(token.to(device), z.to(device))
+        wav_h, src = h.inference(mel_in.to(device), draw=draw)
+        out[device] = [t.cpu() for t in (conf, v, mel, wav_h, src)]
+    # the solve's estimator as a CUDA graph (the card's default) against eager
+    xu, mu, spk, cond = (t.cuda() for t in unet_in)
+    with torch.no_grad():
+        solves = [cfm_solve(f.unet, xu, mu, torch.ones(2, T_mel, device="cuda"), spk, cond,
+                            cuda_graph=graph) for graph in (True, False)]
+    graph_err = (solves[0] - solves[1]).abs().max().item()
+    errs = [(a - b).abs().max().item() for a, b in zip(out["cpu"], out["cuda"])]
+    errs.append(source_drift(h, voiced_f0(SMALL_SSL_HIFT_FRAMES))[0])  # voiced, short
+    counts = read_counts()
+    log(f"small_ssl, card vs CPU: encoder (d 256, 2 layers, 1024 codes) {len(ids_c)} tokens, "
+        f"{int((~far).sum())} within the {SSL_TIE_RTOL} gap, {tok_diff} differ beyond it; "
+        f"conformer max abs err {errs[0]:.3e}, one U-Net call {errs[1]:.3e}, flow mel (10 "
+        f"Euler steps, the U-Net as a CUDA graph) {errs[2]:.3e} (limit {SSL_MEL_TOL}); a solve "
+        f"over the U-Net's inputs as a graph against eager on the card {graph_err:.3e}; HiFT over "
+        f"{SMALL_SSL_HIFT_FRAMES} frames ({src.shape[1]} samples): wav {errs[3]:.3e}, source "
+        f"{errs[4]:.3e} (limit {SSL_WAV_TOL}), the source of a voiced 80-200 Hz f0 "
+        f"{errs[5]:.3e} (limit {SSL_SOURCE_TOL}) [{card}]")
+    if (tok_diff or max(*errs[:3], graph_err) > SSL_MEL_TOL or max(errs[3:5]) > SSL_WAV_TOL
+            or errs[5] > SSL_SOURCE_TOL):
+        raise AssertionError("small_ssl: the card disagrees with the CPU")
+    if not all(torch.isfinite(t).all() for t in out["cuda"]) or not out["cuda"][3].abs().max():
+        raise AssertionError("small_ssl: a non-finite or silent output on the card")
+    _no_launches("small_ssl", counts)
+    return {"token_diff": tok_diff, "near_ties": int((~far).sum()), "max_abs_err": errs,
+            "graph_vs_eager": graph_err}
+
+
+def run_ssl_tokenize(root: Path, seed: int, card: str) -> dict:
+    """Path ``ssl_tokenize_glm4v``: the GLM-4-Voice tokenizer at its widths
+    (``WhisperVQConfig()``), seeded on the card, written as a
+    ``glm-4-voice-tokenizer`` directory and loaded back by
+    ``offline_tokenization --mode ssl --device cuda`` over an scp of
+    ``SSL_CLIP_SECONDS`` clips, twice: the shards equal bit for bit, each
+    clip's count ceil(samples / 1280) a 30 s chunk. Then ``tokenize`` alone
+    on the loaded model: wall, device busy, peak, audio seconds a second.
+    Then the 5 s clip on the CPU from the same directory: equal tokens
+    wherever the CPU's gap exceeds ``SSL_TIE_RTOL``."""
+    from rstnet_tpu_torch.data.tokenizers.ssl_tokenizer import SSLTokenizer
+    from rstnet_tpu_torch.models.whisper_vq import (
+        WhisperVQConfig,
+        WhisperVQEncoder,
+        load_glm4v_encoder,
+    )
+    from rstnet_tpu_torch.tools import offline_tokenization
+    from rstnet_tpu_torch.tools.scp_tools import write_scp
+    from rstnet_tpu_torch.tools.upstream_layout import write_glm4v_tokenizer
+    from rstnet_tpu_torch.utils.audio import read_wav, write_wav
+
+    _check_disk(root, 4 * 2**30, "ssl_tokenize_glm4v")
+    model = WhisperVQEncoder(WhisperVQConfig(), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(seed))
+    n_params = sum(p.numel() for p in model.parameters())
+    t0 = time.perf_counter()
+    tok_dir = write_glm4v_tokenizer(root / "glm-4-voice-tokenizer", model)
+    t_write = time.perf_counter() - t0
+    del model
+    entries = []
+    for i, clip in enumerate(ssl_clips(seed)):
+        entries.append((f"clip{i}", str(root / f"clip{i}.wav")))
+        write_wav(entries[-1][1], clip, 16000)
+    write_scp(str(root / "ssl.scp"), entries)
+    clips = [read_wav(path)[0][0] for _, path in entries]  # as the tool reads them
+    argv = ["--scp", str(root / "ssl.scp"), "--mode", "ssl", "--ssl-checkpoint", str(tok_dir),
+            "--device", "cuda", "--output"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    walls = []
+    for run in (1, 2):
+        t0 = time.perf_counter()
+        run_cli_fp32(offline_tokenization.main, argv + [str(root / f"ssl{run}.npz")],
+                     "offline_tokenization --mode ssl")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = read_counts()
+    shards = [np.load(root / f"ssl{run}.npz") for run in (1, 2)]
+    for (utt, _), clip in zip(entries, clips):
+        n = len(clip)
+        want = sum(-(-min(30 * 16000, n - off) // 1280) for off in range(0, n, 30 * 16000))
+        a, b = shards[0][utt], shards[1][utt]
+        if a.shape != (1, want) or a.dtype != np.int32 or not np.array_equal(a, b):
+            raise AssertionError(f"ssl_tokenize_glm4v: {utt} gave {a.shape} {a.dtype} (want "
+                                 f"(1, {want}) int32), equal across runs: {np.array_equal(a, b)}")
+    tok = SSLTokenizer(checkpoint=str(tok_dir), device="cuda")
+    audio_s = sum(len(c) for c in clips) / 16000
+
+    def tokenize_all():
+        return [tok.tokenize(c) for c in clips]
+
+    tokenize_all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = tokenize_all()
+    torch.cuda.synchronize()
+    t_tok = time.perf_counter() - t0
+    busy, wall_ms, n_events = _busy_ms(tokenize_all)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if any(not np.array_equal(a, shards[1][u][0]) for a, (u, _) in zip(again, entries)):
+        raise AssertionError("ssl_tokenize_glm4v: SSLTokenizer.tokenize differs from the shard")
+    t0 = time.perf_counter()
+    cpu = load_glm4v_encoder(str(tok_dir), device="cpu")
+    ids_cpu, gap = cpu_tokens_and_gaps(cpu, clips[1])
+    t_cpu = time.perf_counter() - t0
+    del cpu
+    card_ids = shards[1]["clip1"][0]
+    far = gap > SSL_TIE_RTOL
+    differ = int(((card_ids != ids_cpu) & far).sum())
+    reading = {"params": n_params, "audio_s": audio_s, "cli_wall_s": walls,
+               "tokenize_wall_s": t_tok, "audio_s_per_s": audio_s / t_tok,
+               "busy_ms": busy, "trace_wall_ms": wall_ms, "device_events": n_events,
+               "peak_gib": peak, "cpu_tokens": len(ids_cpu), "near_ties": int((~far).sum()),
+               "differ_beyond_gap": differ, "min_gap": float(gap.min())}
+    log(f"ssl_tokenize_glm4v (WhisperVQConfig(): {n_params} parameters; written in "
+        f"{t_write:.1f} s): offline_tokenization --mode ssl over {len(clips)} clips "
+        f"({'+'.join(f'{s:g}' for s in SSL_CLIP_SECONDS)} s) in {walls[0]:.2f} s and "
+        f"{walls[1]:.2f} s wall (load included), shards equal bit for bit, counts "
+        + ", ".join(f"{u} {shards[1][u].shape[1]}" for u, _ in entries)
+        + f"; tokenize alone {t_tok:.3f} s, {audio_s / t_tok:.1f} s of audio a second; "
+        f"device busy {busy:.2f} of {wall_ms:.2f} ms ({100 * busy / wall_ms:.1f} %, "
+        f"{n_events} device events); device peak {peak:.2f} GiB [{card}]")
+    log(f"ssl_tokenize_glm4v vs the CPU on the 5 s clip ({t_cpu:.1f} s on the CPU): "
+        f"{len(ids_cpu)} tokens, {int((~far).sum())} within the {SSL_TIE_RTOL} gap (smallest "
+        f"gap {gap.min():.2e}), {differ} differ beyond it; launches {counts}")
+    if differ:
+        raise AssertionError("ssl_tokenize_glm4v: the card's tokens differ from the CPU's")
+    _no_launches("ssl_tokenize_glm4v", counts)
+    return {**reading, "shard": str(root / "ssl2.npz"), "tokenizer": str(tok_dir),
+            "scp": entries}
+
+
+def run_ssl_decode(root: Path, seed: int, card: str) -> dict:
+    """Path ``ssl_decode_glm4v``: the glm-4-voice-decoder at its widths
+    (``GLM4VFlowConfig()``, ``ConformerConfig()``, ``UNetConfig()``,
+    ``HiFTConfig()``), seeded on the card, written as ``config.yaml`` +
+    ``flow.pt`` + ``hift.pt`` (HiFT weight-normed) and loaded back; then
+    ``offline_inference`` of ``SSL_DECODE_TOKENS`` tokens (exactly
+    mel_len x 256 samples) and ``stream_inference`` of ``SSL_STREAM_TOKENS``
+    (within the per-seam source-cache trim), each finite, non-silent, within
+    +-0.99 and equal bit for bit under the same seed; wall, device busy,
+    peak and real-time factor. Then HiFT's source of a voiced f0 contour
+    (:func:`voiced_f0`) over the full 440832 samples on the card and on the
+    CPU: the float32 phase cumsum's drift, reported."""
+    from rstnet_tpu_torch.models.glm4v_decoder import load_glm4v_decoder
+    from rstnet_tpu_torch.models.glm4v_flow import GLM4VFlow
+    from rstnet_tpu_torch.models.hift import HiFTGenerator
+    from rstnet_tpu_torch.tools.upstream_layout import write_glm4v_decoder
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    flow, hift = GLM4VFlow(device="cuda", generator=g), HiFTGenerator(device="cuda", generator=g)
+    n_params = (sum(p.numel() for p in flow.parameters()),
+                sum(p.numel() for p in hift.parameters()))
+    dec_dir = write_glm4v_decoder(root / "glm-4-voice-decoder", flow, hift)
+    del flow, hift
+    t0 = time.perf_counter()
+    dec = load_glm4v_decoder(str(dec_dir), device="cuda")
+    t_load = time.perf_counter() - t0
+    cfg, up, sr = dec.flow.config, dec.hift.config.total_upsample, dec.hift.config.sampling_rate
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                                   (1, SSL_DECODE_TOKENS)))
+    stream_tokens = tokens[:, :SSL_STREAM_TOKENS]
+    gen = functools.partial(torch.Generator().manual_seed, seed)
+
+    def offline():
+        return dec.offline_inference(tokens, generator=gen())
+
+    def stream(n_tok=SSL_STREAM_TOKENS):
+        return dec.stream_inference(stream_tokens[:, :n_tok], generator=gen())
+
+    dec.offline_inference(tokens[:, :20])  # warm-up at another length
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    readings = {}
+    wavs = {}
+    for name, fn, n_tok, traced in (
+            ("offline", offline, SSL_DECODE_TOKENS, offline),
+            ("stream", stream, SSL_STREAM_TOKENS,
+             functools.partial(stream, SSL_STREAM_TRACE_TOKENS))):
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wavs.setdefault(name, []).append(fn())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        busy, wall_ms, n_events = _busy_ms(traced, confirm=False)
+        w = wavs[name][0]
+        audio_s = w.shape[1] / sr
+        n_traced = n_tok if traced is fn else SSL_STREAM_TRACE_TOKENS
+        # busy is read against the traced run's own wall, never the timed runs'
+        readings[name] = {"tokens": n_tok, "samples": w.shape[1], "wall_s": times,
+                          "rtf": times[1] / audio_s,
+                          "trace": {"tokens": n_traced, "busy_ms": busy, "wall_ms": wall_ms,
+                                    "device_events": n_events}}
+        expect = cfg.mel_len(n_tok) * up
+        n_blocks = -(-n_tok // cfg.encoder.block_size)
+        bad = []
+        if name == "offline" and w.shape != (1, expect):
+            bad.append(f"{tuple(w.shape)} samples, not (1, {expect})")
+        if name == "stream" and abs(w.shape[1] - expect) > dec.source_cache_len * n_blocks:
+            bad.append(f"{w.shape[1]} samples, not {expect} within "
+                       f"{dec.source_cache_len * n_blocks}")
+        peak_abs = w.abs().max().item()
+        if not torch.isfinite(w).all() or not 0 < peak_abs <= 0.99:
+            bad.append(f"finite {bool(torch.isfinite(w).all())}, max |wav| {peak_abs}")
+        if not torch.equal(wavs[name][0], wavs[name][1]):
+            bad.append("two runs under one seed differ")
+        readings[name]["max_abs"] = peak_abs
+        log(f"ssl_decode_glm4v {name}: {n_tok} tokens -> {w.shape[1]} samples "
+            f"({audio_s:.2f} s) in {times[0]:.3f} s, then {times[1]:.3f} s wall; real-time "
+            f"factor {times[1] / audio_s:.4f}; a traced run of {n_traced} tokens: device busy "
+            f"{busy:.2f} of its {wall_ms:.2f} ms wall ({100 * busy / wall_ms:.1f} %, "
+            f"{n_events} device events); max |wav| {peak_abs:.4f} [{card}]")
+        if bad:
+            raise AssertionError(f"ssl_decode_glm4v {name}: " + "; ".join(bad))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = read_counts()
+    frames = cfg.mel_len(SSL_DECODE_TOKENS)
+    drift, phase_drift, where = source_drift(dec.hift, voiced_f0(frames))
+    head = source_drift(dec.hift, voiced_f0(frames)[:, :SMALL_SSL_HIFT_FRAMES])[0]
+    log(f"ssl_decode_glm4v ({n_params[0]} flow and {n_params[1]} HiFT parameters, loaded in "
+        f"{t_load:.1f} s): device peak {peak:.2f} GiB; HiFT's source (no draws) of a voiced "
+        f"80-200 Hz f0 over {frames * up} samples, card vs CPU: max abs diff {drift:.3e} (at "
+        f"the sample {where}; the top harmonic's cumsum % 1 {phase_drift:.3e} cycles apart), "
+        f"over its first {SMALL_SSL_HIFT_FRAMES * up} samples {head:.3e}: the float32 phase "
+        f"cumsum in another order; launches {counts} [{card}]")
+    _no_launches("ssl_decode_glm4v", counts)
+    return {"params": n_params, "load_s": t_load, "peak_gib": peak, **readings,
+            "source_drift_max": drift, "phase_drift_cycles": phase_drift,
+            "source_drift_head": head, "decoder": str(dec_dir)}
+
+
+def voiced_f0(frames: int) -> torch.Tensor:
+    """``[1, frames]`` an f0 contour of 80-200 Hz (voiced throughout): the
+    random weights' F0 predictor gives near 0 Hz, below the voiced
+    threshold, where the phase never reaches the source."""
+    t = torch.arange(frames, dtype=torch.float32) / frames
+    return (140.0 + 60.0 * torch.sin(2 * math.pi * 3 * t))[None]
+
+
+def source_drift(hift, f0: torch.Tensor) -> tuple[float, float, int]:
+    """HiFT's deterministic source of ``f0`` on the card against the CPU:
+    (max abs diff of the source, max abs diff of the top harmonic's phase
+    ``cumsum % 1`` in cycles, the sample where the source differs most)."""
+    import copy
+
+    cpu = copy.deepcopy(hift).cpu()
+    with torch.no_grad():
+        src = [m.source(f0.to(dev))[0, :, 0].cpu() for m, dev in ((hift, "cuda"), (cpu, "cpu"))]
+    rad = f0.repeat_interleave(hift.config.total_upsample, dim=-1) * (
+        hift.config.nb_harmonics + 1) / hift.config.sampling_rate
+    phase = [torch.remainder(torch.cumsum(rad.to(dev), dim=-1), 1.0).cpu()
+             for dev in ("cuda", "cpu")]
+    d = (phase[0] - phase[1]).abs()
+    d = torch.minimum(d, 1.0 - d)  # across the wrap at 1
+    diff = (src[0] - src[1]).abs()
+    return diff.max().item(), d.max().item(), int(diff.argmax())
+
+
+def run_ssl_resynth(root: Path, tok: dict, dec: dict, card: str) -> dict:
+    """Path ``ssl_resynth``: the CLI on ``ssl_tokenize_glm4v``'s shard
+    (``--tokens``, offline: each wav exactly mel_len(T) x 256 samples), then
+    ``--scp --stream`` on the 5 s clip (tokenize + streaming decode: within
+    the per-seam trim); every wav at 22.05 kHz."""
+    import wave
+
+    from rstnet_tpu_torch.models.glm4v_flow import GLM4VFlowConfig
+    from rstnet_tpu_torch.tools import ssl_resynth
+    from rstnet_tpu_torch.tools.scp_tools import write_scp
+
+    cfg = GLM4VFlowConfig()
+    shard = np.load(tok["shard"])
+    reset_counts()
+    t0 = time.perf_counter()
+    run_cli_fp32(ssl_resynth.main, ["--tokens", tok["shard"], "--decoder-checkpoint",
+                                    dec["decoder"], "--out_dir", str(root / "resynth"),
+                                    "--device", "cuda"], "ssl_resynth --tokens")
+    t_tokens = time.perf_counter() - t0
+    write_scp(str(root / "one.scp"), [tok["scp"][1]])
+    t0 = time.perf_counter()
+    run_cli_fp32(ssl_resynth.main, ["--scp", str(root / "one.scp"), "--ssl-checkpoint",
+                                    tok["tokenizer"], "--decoder-checkpoint", dec["decoder"],
+                                    "--out_dir", str(root / "resynth_stream"), "--stream",
+                                    "--device", "cuda"], "ssl_resynth --scp --stream")
+    t_scp = time.perf_counter() - t0
+    counts = read_counts()
+    lengths, audio_s = {}, 0.0
+    for utt in shard.files:
+        with wave.open(str(root / "resynth" / f"{utt}.wav")) as f:
+            rate, n = f.getframerate(), f.getnframes()
+        want = cfg.mel_len(shard[utt].shape[1]) * 256
+        lengths[utt] = n
+        audio_s += n / 22050
+        if rate != 22050 or n != want:
+            raise AssertionError(f"ssl_resynth: {utt}.wav has {n} samples at {rate} Hz, not "
+                                 f"{want} at 22050")
+    utt = tok["scp"][1][0]
+    n_tok = shard[utt].shape[1]
+    with wave.open(str(root / "resynth_stream" / f"{utt}.wav")) as f:
+        rate, n = f.getframerate(), f.getnframes()
+    want, n_blocks = cfg.mel_len(n_tok) * 256, -(-n_tok // cfg.encoder.block_size)
+    trim = 256 * n_blocks  # the source cache (1 mel frame) a seam
+    if rate != 22050 or abs(n - want) > trim:
+        raise AssertionError(f"ssl_resynth --stream: {utt}.wav has {n} samples at {rate} Hz, "
+                             f"not {want} within {trim}")
+    log(f"ssl_resynth: --tokens over {len(shard.files)} utterances ({audio_s:.1f} s of audio, "
+        f"decoder load included) in {t_tokens:.2f} s wall, lengths {lengths}; --scp --stream "
+        f"on {utt} ({n_tok} tokens -> {n} samples, {n_blocks} blocks; both loads included) in "
+        f"{t_scp:.2f} s wall; launches {counts} [{card}]")
+    _no_launches("ssl_resynth", counts)
+    return {"tokens_wall_s": t_tokens, "audio_s": audio_s, "scp_stream_wall_s": t_scp}
+
+
+def run_ssl_phases(args, card: str) -> dict:
+    """The GLM-4-Voice paths; their checkpoints under a temporary directory
+    removed at the end. Returns each path's readings."""
+    out = {}
+    with phase("small ssl"):
+        out["small_ssl"] = check_small_ssl(args.seed, card)
+    root = Path(tempfile.mkdtemp(prefix="smoke_ssl_"))
+    try:
+        with phase("ssl tokenize"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            tok = run_ssl_tokenize(root, args.seed, card)
+        with phase("ssl decode"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            dec = run_ssl_decode(root, args.seed, card)
+        with phase("ssl resynth"):
+            out["ssl_resynth"] = run_ssl_resynth(root, tok, dec, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["ssl_tokenize_glm4v"] = {k: v for k, v in tok.items()
+                                 if k not in ("shard", "tokenizer", "scp")}
+    out["ssl_decode_glm4v"] = {k: v for k, v in dec.items() if k != "decoder"}
+    return out
+
+
 def run_codec_phases(args, card: str, paths: dict) -> None:
     with phase("small codec training"):
         paths["small_codec_train"] = check_small_codec_training(args.seed, card)
@@ -3405,6 +3915,9 @@ def main(argv=None) -> int:
     parser.add_argument("--codec-only", action="store_true",
                         help="run only K3's checks and the codec training phases, and print "
                         "their findings (no result line)")
+    parser.add_argument("--ssl-only", action="store_true",
+                        help="run only the GLM-4-Voice SSL paths, and print their findings "
+                        "(no result line)")
     args = parser.parse_args(argv)
     if args.trees:
         return compare_trees(args.trees.split(","), args.seed, args.out)
@@ -3416,6 +3929,11 @@ def main(argv=None) -> int:
         Path(args.k4_f32_out).write_text(json.dumps(entry))
         return 0
     t_start = time.perf_counter()
+    if args.ssl_only:
+        card = phase_environment()
+        log(json.dumps({"ssl_paths": run_ssl_phases(args, card)}))
+        log(f"chip_smoke --ssl-only: {time.perf_counter() - t_start:.1f} s wall")
+        return 0
     if args.codec_only:
         card = phase_environment()
         phase_build()
@@ -3598,6 +4116,8 @@ def run_from_checkpoints(args, card: str, kernels: list, paths: dict, graphs: di
         paths["train_moshi7b_lora"] = run_train_moshi7b_lora(args.seed, card)
     with phase("moe small"):
         paths["moe_small"] = check_moe_small(args.seed, card)
+    # last, so that every earlier path runs as it did before the SSL paths
+    log(json.dumps({"ssl_paths": run_ssl_phases(args, card)}))
     for k in kernels:
         # a graph path's are its device launches: its eager warm-up call's
         # and its replays' (graph_launches)

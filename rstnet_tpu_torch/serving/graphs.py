@@ -84,6 +84,22 @@ def weights_key(*modules: torch.nn.Module) -> tuple:
             tuple(p._version for m in modules for p in m.parameters()))
 
 
+# cuBLAS keeps a workspace for every stream it has run on until the process
+# ends, so steps made anew for every call share one capture stream a device
+# (a new stream a call held ~1 GiB once the pool's 32 streams had each run one)
+_CAPTURE_STREAMS: dict = {}
+
+
+def capture_stream(device) -> torch.cuda.Stream:
+    """The side stream that short-lived :class:`CapturedStep` s of ``device``
+    share (pass it as ``stream``)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(device=index)
+    return _CAPTURE_STREAMS[index]
+
+
 class CapturedStep:
     """``fn(state, *inputs)`` as a CUDA graph over static buffers."""
 

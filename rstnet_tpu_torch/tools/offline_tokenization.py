@@ -9,12 +9,12 @@ word-aligned frames from whisperX segment jsons), and save one .npz shard —
 the storage format the training data layer consumes.
 
     python -m rstnet_tpu_torch.tools.offline_tokenization --scp wav.scp \
-        --output audio.npz [--mode audio|text|aligned_text|duplex] \
-        [--mimi-checkpoint M] [--tokenizer-dir D] [--device cpu]
+        --output audio.npz [--mode audio|ssl|text|aligned_text|duplex] \
+        [--mimi-checkpoint M] [--ssl-checkpoint S] [--tokenizer-dir D] [--device cpu]
 
-Mimi runs on ``--device`` (``cuda`` unless ``cpu`` is given). ``--mode ssl``
-(WhisperVQ semantic tokens) is not ported yet and exits naming its
-``ROADMAP.md`` item.
+Mimi and the WhisperVQ tokenizer (``--mode ssl``: 12.5 Hz GLM-4-Voice
+semantic tokens, ``[1, T]`` a shard entry) run on ``--device`` (``cuda``
+unless ``cpu`` is given), in float32 with TF32 off, as the reference runs.
 """
 
 from __future__ import annotations
@@ -58,6 +58,26 @@ def tokenize_audio_scp(scp: str, out: str, checkpoint: str = "", device: str = "
             logging.warning(f"skipping {utt}: {e}")
             continue
         data[utt] = tok.tokenize(wav[0], sr)
+    _ensure_parent(out)
+    np.savez(out, **data)
+    return len(data)
+
+
+def tokenize_ssl_scp(scp: str, out: str, checkpoint: str, device: str = "cuda") -> int:
+    """wav.scp -> 12.5 Hz WhisperVQ semantic tokens, ``[1, T]`` int32 an
+    utterance (the reference's ``offline_codec_tokenization.py``
+    tokenizer=ssl)."""
+    from rstnet_tpu_torch.data.tokenizers.ssl_tokenizer import SSLTokenizer
+
+    tok = SSLTokenizer(checkpoint=checkpoint, device=device)
+    data = {}
+    for utt, path in _wav_entries(scp):
+        try:
+            wav, sr = read_wav(path)
+        except Exception as e:  # noqa: BLE001
+            logging.warning(f"skipping {utt}: {e}")
+            continue
+        data[utt] = tok.tokenize(wav[0], sr)[None]  # [1, T] single codebook
     _ensure_parent(out)
     np.savez(out, **data)
     return len(data)
@@ -300,7 +320,7 @@ def main(argv=None) -> None:
                         choices=["audio", "ssl", "text", "aligned_text", "duplex"])
     parser.add_argument("--mimi-checkpoint", default="")
     parser.add_argument("--ssl-checkpoint", default="",
-                        help="GLM-4-Voice tokenizer checkpoint dir (mode=ssl, not ported)")
+                        help="GLM-4-Voice tokenizer checkpoint dir (mode=ssl)")
     parser.add_argument("--tokenizer-dir", default="",
                         help="text tokenizer dir (modes text/aligned_text; "
                              "enables word-aligned text row 0 in mode duplex)")
@@ -309,14 +329,18 @@ def main(argv=None) -> None:
                              "duplex text alignment (reference "
                              "--input-text-file format)")
     parser.add_argument("--device", default="cuda",
-                        help="torch device for Mimi: cuda (default), cuda:N or cpu")
+                        help="torch device for Mimi and WhisperVQ: cuda (default), cuda:N or cpu")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, force=True)
     if not args.scp and not (args.mode == "duplex" and args.sessions):
         parser.error("--scp is required (or --sessions with --mode duplex)")
-    if args.mode == "ssl":
-        raise SystemExit("--mode ssl: the WhisperVQ semantic tokenizer is not ported to "
-                         "rstnet_tpu_torch yet (ROADMAP.md queue 1, item 11)")
+    if args.mode in ("audio", "ssl", "duplex"):
+        import torch
+
+        if torch.device(args.device).type == "cuda":
+            # the reference precision: true fp32 matmuls and convolutions
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
     if args.mode == "duplex":
         if args.sessions:
             n = tokenize_duplex_sessions(
@@ -330,6 +354,8 @@ def main(argv=None) -> None:
             )
     elif args.mode == "audio":
         n = tokenize_audio_scp(args.scp, args.output, args.mimi_checkpoint, args.device)
+    elif args.mode == "ssl":
+        n = tokenize_ssl_scp(args.scp, args.output, args.ssl_checkpoint, args.device)
     elif args.mode == "text":
         n = tokenize_text_scp(args.scp, args.output, args.tokenizer_dir)
     else:

@@ -1,14 +1,23 @@
 """A reader for the YAML subset of the repository's nested configs
-(``egs/codec/mimi24k.yaml`` and the configs ``yaml.safe_dump`` writes for
-the tests), so the port needs no YAML package.
+(``egs/codec/mimi24k.yaml``, the configs ``yaml.safe_dump`` writes for the
+tests, and GLM-4-Voice's hyperpyyaml ``config.yaml``), so the port needs no
+YAML package.
 
 It reads block mappings (nested by indentation), block sequences of
 scalars or flow values, flow mappings and flow lists (``{lr: 2.0e-4,
 betas: [0.8, 0.99]}``), quoted and plain scalars, and ``#`` comments. Plain
 scalars resolve as ``yaml.safe_load`` resolves them (YAML 1.1: ``yes`` and
-``on`` are true, ``2.0e-4`` is a float but ``1e-4`` a string). Anything else
-(anchors, aliases, tags, block scalars, documents, sequences of mappings)
-raises ``ValueError``.
+``on`` are true, ``2.0e-4`` is a float but ``1e-4`` a string).
+
+Three hyperpyyaml tags are read, on a block mapping's value or a block
+sequence's item, as the JAX decoder's loader maps them, and nothing is
+run: ``!new:pkg.Class`` on a mapping (indented below, or a flow mapping)
+gives ``{"_class": "pkg.Class", **mapping}``, on anything else
+``{"_class": "pkg.Class"}``; ``!name:x`` gives the string ``x`` (a value
+under it is read and dropped); ``!ref <k>`` gives the scalar text
+``<k>``. Anything else (other tags such as ``!apply:``, tags inside flow
+collections, anchors, aliases, block scalars, documents, sequences of
+mappings) raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -149,9 +158,44 @@ class _Flow:
 
 def _value(text: str) -> Any:
     text = text.strip()
+    tag = _tag(text)
+    if tag is not None:
+        return _tagged(*tag)
     if text[:1] in ("{", "["):
         return _Flow(text).parse()
     return _scalar(text)
+
+
+_TAG = re.compile(r"!(new:|name:|ref(?=\s|$))(\S*)\s*(.*)$")
+
+
+def _tag(text: str):
+    """(kind, suffix, the text after the tag) of a hyperpyyaml tag starting
+    ``text``, or None when it starts with none."""
+    if not text.startswith("!"):
+        return None
+    m = _TAG.match(text)
+    if m is None:
+        raise ValueError(f"unsupported YAML tag: {text!r}")
+    return m.group(1).rstrip(":"), m.group(2), m.group(3)
+
+
+def _tagged(kind: str, suffix: str, rest: str, block: Any = None) -> Any:
+    """The value of a tagged node: ``rest`` the text after the tag on its
+    line, ``block`` the indented value below it (None when there is none)."""
+    if kind == "name":
+        return suffix
+    if kind == "ref":
+        if block is not None:
+            raise ValueError(f"!ref on a collection: {block!r}")
+        if rest[:1] in ("'", '"'):
+            value, end = _quoted(rest, 0)
+            if rest[end:].strip():
+                raise ValueError(f"text after a quoted scalar: {rest!r}")
+            return value
+        return rest
+    value = _value(rest) if rest else block
+    return {**value, "_class": suffix} if isinstance(value, dict) else {"_class": suffix}
 
 
 def _strip_comment(line: str) -> str:
@@ -214,7 +258,15 @@ def _block(lines: list, i: int, indent: int) -> tuple[Any, int]:
         if key in out:
             raise ValueError(f"line {n}: duplicate key {key!r}")
         i += 1
-        if rest.strip():
+        tag = _tag(rest.strip())
+        if tag is not None and not tag[2]:
+            block = None
+            if i < len(lines) and lines[i][0] > indent:
+                block, i = _block(lines, i, lines[i][0])
+            elif i < len(lines) and lines[i][0] == indent and lines[i][1].startswith("- "):
+                block, i = _sequence(lines, i, indent)
+            out[key] = _tagged(*tag, block)
+        elif rest.strip():
             out[key] = _value(rest)
         elif i < len(lines) and lines[i][0] > indent:
             out[key], i = _block(lines, i, lines[i][0])

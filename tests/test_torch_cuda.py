@@ -864,3 +864,42 @@ def test_k1_over_float32_weights_in_graphs(cuda):
     assert graph.graphs()["frame"].captures == 2
     torch.testing.assert_close(depformer_kernel_operands(lm)["in_proj"],
                                lm.depformer.layers.in_proj.to(torch.bfloat16), rtol=0, atol=0)
+
+
+def test_glm4v_flow_cuda_graph_matches_eager_and_cpu(cuda):
+    """The flow's Euler solve with its U-Net as a CUDA graph (the card's
+    default) against the same solve eager on the card (1e-5: the same
+    kernels, the first call on the capture stream), and the whole
+    ``GLM4VFlow.inference`` on the card against the CPU (1e-3,
+    ``chip_smoke.SSL_MEL_TOL``) and bit for bit across two calls."""
+    import copy
+
+    from rstnet_tpu_torch.models.glm4v_flow import (
+        ConformerConfig,
+        GLM4VFlow,
+        GLM4VFlowConfig,
+        UNetConfig,
+        cfm_solve,
+    )
+
+    cfg = GLM4VFlowConfig(
+        vocab_size=64, input_size=32, encoder=ConformerConfig(
+            input_size=32, output_size=32, attention_heads=2, linear_units=64, num_blocks=1),
+        unet=UNetConfig(channels=(32, 32), attention_head_dim=16, n_blocks=1, num_mid_blocks=1,
+                        num_heads=2), n_timesteps=4)
+    flow = GLM4VFlow(cfg, generator=torch.Generator().manual_seed(0))
+    token = torch.randint(0, 64, (1, 13), generator=torch.Generator().manual_seed(1))
+    T = cfg.mel_len(13)
+    z = torch.randn(1, T, 80, generator=torch.Generator().manual_seed(2))
+    want = flow.inference(token, z)
+    card = copy.deepcopy(flow).cuda()
+    graphed = card.inference(token.cuda(), z.cuda())
+    assert torch.equal(graphed, card.inference(token.cuda(), z.cuda()))
+    assert (graphed.cpu() - want).abs().max().item() <= 1e-3
+    g = torch.Generator().manual_seed(3)
+    z, mu, cond = (torch.randn(1, T, 80, generator=g).cuda() for _ in range(3))
+    spks, mask = torch.randn(1, 80, generator=g).cuda(), torch.ones(1, T, device="cuda")
+    with torch.no_grad():
+        solves = [cfm_solve(card.unet, z, mu, mask, spks, cond, n_timesteps=4, cuda_graph=graph)
+                  for graph in (True, False)]
+    assert (solves[0] - solves[1]).abs().max().item() <= 1e-5

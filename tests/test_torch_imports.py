@@ -88,3 +88,14 @@ def test_scan_covers_the_codec_training_slice():
                    "inference/codec_infer.py", "evalsuite/metrics.py",
                    "evalsuite/compute_metrics.py", "utils/yaml_subset.py"):
         assert f"rstnet_tpu_torch/{module}" in scanned, module
+
+
+def test_scan_covers_the_ssl_slice():
+    """The scan reaches every module of the GLM-4-Voice SSL stack: the
+    WhisperVQ tokenizer, the flow + HiFT decoder and their tools."""
+    scanned = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("models/whisper_vq.py", "models/glm4v_flow.py", "models/hift.py",
+                   "models/glm4v_decoder.py", "data/tokenizers/ssl_tokenizer.py",
+                   "tools/ssl_resynth.py", "tools/offline_tokenization.py",
+                   "tools/upstream_layout.py", "utils/yaml_subset.py", "ops/stft.py"):
+        assert f"rstnet_tpu_torch/{module}" in scanned, module

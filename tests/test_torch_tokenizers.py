@@ -242,11 +242,19 @@ def test_offline_text_tokenization_matches_jax(tmp_path, monkeypatch):
 
 
 def test_offline_ssl_mode_names_its_item(tmp_path):
+    """``--mode ssl`` is ported (``tests/test_torch_whisper_vq.py`` holds its
+    shards to JAX's): without ``--ssl-checkpoint`` it raises as the JAX tool
+    does, naming the checkpoint it needs."""
+    from rstnet_tpu.tools.offline_tokenization import main as jax_main
     from rstnet_tpu_torch.tools import offline_tokenization as tot
 
-    with pytest.raises(SystemExit, match="item 11"):
-        tot.main(["--scp", str(tmp_path / "x.scp"), "--output", str(tmp_path / "o.npz"),
-                  "--mode", "ssl"])
+    (tmp_path / "x.scp").write_text("")
+    argv = ["--scp", str(tmp_path / "x.scp"), "--output", str(tmp_path / "o.npz"),
+            "--mode", "ssl"]
+    with pytest.raises(RuntimeError, match="GLM-4-Voice tokenizer checkpoint"):
+        tot.main([*argv, "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="GLM-4-Voice tokenizer checkpoint"):
+        jax_main(argv)
 
 
 def _duplex_inputs(tmp_path, sr=24000):

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --trees DIR,DIR [--out F.json]
     python3 chip_smoke.py --codec-only
     python3 chip_smoke.py --ssl-only
+    python3 chip_smoke.py --prep-only
 
 The second form times K4 over float32 weights in each checkout in turn
 (``compare_trees``) and runs nothing else.
@@ -158,7 +159,34 @@ Phases (each prints its findings; any failure exits non-zero):
    TF32 allowed and must turn it off; wall, device busy, peak memory,
    audio seconds a second or real-time factor, on a ``{"ssl_paths":
    ...}`` line. ``--ssl-only`` runs these four alone and prints no result
-   line.
+   line;
+9. last of all, the data-prep slice: the recipes below, then, on Mimi
+   24 kHz + Moshi 7B built again (greedy), path ``duplex_ws_solo`` (a
+   ``ServerState`` served by ``build_app`` on a localhost port,
+   ``serving.client.main --in-wav --codec pcm16`` over 4 s of seeded audio;
+   frames back, text and audio held to ``handle_frame_array`` on the same
+   frames after a reset, no catch-up scan, K1 and K3) and
+   ``duplex_ws_batched_16`` (``build_batched_app`` over a 16-slot
+   ``SessionBatcher``, ``client.load_test`` from 16 sockets at the 80 ms
+   cadence; K2 and K3); their launches are the frame or tick graph's
+   replays during the run times one replay's kernels. The recipes run
+   over 4 seeded raw recordings of ~40 s at 44.1 kHz stereo: path
+   ``recipe_pretraining`` (stages 1-3 of ``egs/pretraining/run.sh`` as
+   ``python -m`` subprocesses: ``pipeline.main``, ``scp_tools split`` and
+   ``run_jobs --jobs 2`` of ``offline_tokenization --mode audio``,
+   ``create_data_json``; the shards equal an in-process tokenization whose
+   K3 launches are counted; stages 4-5 in this process through the same
+   ``main``s: the trainer on ``configs/llama_1b_speech.yaml`` cut to 2
+   layers for 2 steps, K6 as its buckets imply, and ``lm_eval``) and
+   ``recipe_moshi_ft`` (``pipeline.main`` with diarization, denoise,
+   super-resolution and sessions; ``--mode duplex`` over the sessions;
+   ``create_data_json --task moshi_ft``; 2 trainer steps at
+   ``--parallel_number 17 --n_q 16``). Their readings go on a
+   ``{"prep_paths": ...}`` line. ``--prep-only`` runs these four alone and
+   prints no result line. Phase 4's ``codec_train_mimi24k`` also asserts
+   that the codec trainer read every batch through the native loader
+   (``WaveDataset.load_batch``), whose first batch equals the per-item
+   path's bit for bit.
 
 Every phase prints its wall time.
 
@@ -168,7 +196,8 @@ The line before the last is the card's ``nvidia-smi`` name and power limit
 again, before it a ``{"kernels": [...]}`` JSON line (a graph path's
 launches of one replay under ``replay_launches_by_path``, and under
 ``launches_by_path`` its device launches over the run), before that the
-graph paths' readings as ``{"graph_paths": ...}``, and the last line is
+graph paths' readings as ``{"graph_paths": ...}`` (and before that the
+``{"ssl_paths": ...}`` and ``{"prep_paths": ...}`` lines), and the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result. Imports nothing of JAX.
 """
@@ -3281,6 +3310,45 @@ def _top_kernels(events, n: int = 6) -> str:
     return ", ".join(f"{k} {v:.2f} ms" for k, v in top)
 
 
+def check_native_batches(scp: str, *runs: dict) -> str:
+    """The codec trainer's batches came through the native loader
+    (``WaveDataset.load_batch``) in each of ``runs`` (``codec_trainer.main``'s
+    returns), and the first batch of an iterator set up as the trainer's
+    equals the per-item path's bit for bit. Returns a summary."""
+    from rstnet_tpu_torch import native
+    from rstnet_tpu_torch.data.codec_dataset import WaveDataset, WaveIterator
+    from rstnet_tpu_torch.utils import yaml_subset
+
+    if not native.available():
+        raise AssertionError("codec_train_mimi24k: the native C++ loader did not build (g++)")
+    counts = [(r["train_iter"].fast_batches, r["train_iter"].item_batches) for r in runs]
+    if any(fast == 0 or items for fast, items in counts):
+        raise AssertionError(f"codec_train_mimi24k: (load_batch, per-item) batches {counts}: "
+                             "the trainer did not read through the native fast path")
+    cfg = yaml_subset.load(CODEC_CONFIG)
+    kw = dict(segment_size=cfg.get("segment_size", 72000), sampling_rate=24000, split=True,
+              audio_norm_scale=cfg.get("audio_norm_scale", 1.0))
+    it = WaveIterator(WaveDataset(scp, **kw), cfg.get("batch_size", 4), shuffle=True)
+    t0 = time.perf_counter()
+    batches = iter(it)
+    b24, b16 = next(batches)
+    t_fast = time.perf_counter() - t0
+    batches.close()  # the prefetch thread may have read the next batch too
+    ref = WaveDataset(scp, **kw)
+    t0 = time.perf_counter()
+    items = [ref[i] for i in it._order()[: len(b24)]]
+    t_items = time.perf_counter() - t0
+    same = (np.array_equal(b24, np.stack([a for a, _ in items]))
+            and np.array_equal(b16, np.stack([b for _, b in items])))
+    if not it.fast_batches or it.item_batches or not same:
+        raise AssertionError(f"codec_train_mimi24k: first batch through load_batch "
+                             f"({it.fast_batches}, {it.item_batches}), equal to the per-item "
+                             f"path: {same}")
+    return (f"batches through load_batch {counts} (load_batch, per-item); first batch equal to "
+            f"the per-item path bit for bit (load_batch {t_fast * 1e3:.1f} ms with the "
+            f"iterator's start, per-item {t_items * 1e3:.1f} ms, host clock)")
+
+
 def run_codec_train_mimi24k(seed: int, card: str) -> dict:
     """Path ``codec_train_mimi24k``: ``codec_trainer.main`` on
     ``CODEC_CONFIG`` at its full widths (batch 4 x 72000 samples) over
@@ -3325,6 +3393,7 @@ def run_codec_train_mimi24k(seed: int, card: str) -> dict:
         t0 = time.perf_counter()
         second = ct.main(args + ["--max_steps", str(CODEC_STEPS + CODEC_RESUMED_STEPS)])
         t_second = time.perf_counter() - t0
+        native_batches = check_native_batches(str(root / "train.scp"), first, second)
         steps = first["steps"] + second["steps"]
         if [s["step"] for s in steps] != list(range(1, CODEC_STEPS + CODEC_RESUMED_STEPS + 1)):
             raise AssertionError(f"codec_train_mimi24k: steps {[s['step'] for s in steps]}: the "
@@ -3385,7 +3454,7 @@ def run_codec_train_mimi24k(seed: int, card: str) -> dict:
             + ", ".join(f"{s['d_loss']:.4f}" for s in steps)
             + f"; validation {ev}; codec_infer {n_clips} clips in {t_infer:.1f} s; "
             f"compute_metrics in {t_metrics:.1f} s: {report['mean']}; K3 launches "
-            f"{counts['rvq_encode']} [{card}]")
+            f"{counts['rvq_encode']}; {native_batches} [{card}]")
         log(f"codec_train_mimi24k profiled G+D step: device busy {busy:.3f} ms of "
             f"{wall_us / 1000:.3f} ms wall ({100 * busy * 1000 / wall_us:.1f} %), "
             f"{len(events)} device events, K3 {k3:.4f} ms; largest: {_top_kernels(events)} "
@@ -3889,6 +3958,526 @@ def run_ssl_phases(args, card: str) -> dict:
     return out
 
 
+# -- the data-prep slice: the duplex client over a socket, the recipes ---------------
+
+WS_SECONDS = 4.0  # the seeded wav of duplex_ws_solo and each load_test session
+WS_SESSIONS = 16
+PCM16_STEP = 1 / 32768
+RECIPE_CLIPS, RECIPE_CLIP_SECONDS, RECIPE_SR = 4, 40.0, 44100  # raw recordings, stereo
+RECIPE_LAYERS = 2  # the trainer's depth cut (configs/llama_1b_speech.yaml has 16)
+RECIPE_STEPS = 2  # trainer steps: one batch an epoch (--minibatch_debug 1), 2 epochs
+
+
+def _stats(url: str) -> dict:
+    """``/api/stats`` of the server behind chat ``url`` (localhost)."""
+    import urllib.request
+
+    stats_url = url.replace("ws://", "http://").replace("/api/chat", "/api/stats")
+    with urllib.request.urlopen(stats_url, timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def run_duplex_ws_solo(mimi, lm_gen, seed: int, card: str) -> tuple[dict, dict]:
+    """Path ``duplex_ws_solo``: Mimi 24 kHz + Moshi 7B (greedy) in a
+    ``ServerState`` served by ``serving.server.build_app`` on a localhost
+    port (``serve_in_thread``), warmed (its frame and scan captured as CUDA
+    graphs) before ``serving.client.main`` streams a seeded ``WS_SECONDS``
+    wav over it with ``--codec pcm16``. Audio frames received must be the
+    frames sent less ``max_delay``; the text and audio equal (audio within
+    one PCM16 step) the same PCM16 frames through ``handle_frame_array``
+    after a ``reset``; no catch-up scan may run (the client sends a frame a
+    message, so none is due). Launches (``graph_launches``): the host
+    counters over the client's run (the steps were captured before it) and
+    the frame graph's replays in it times one replay's kernels (K1, K3).
+    Returns (launches, readings)."""
+    from rstnet_tpu_torch.serving import client
+    from rstnet_tpu_torch.serving.server import (
+        TEXT_SKIP_IDS,
+        ServerState,
+        build_app,
+        serve_in_thread,
+    )
+    from rstnet_tpu_torch.utils.audio import float_to_pcm16, pcm16_to_float, write_wav
+
+    greedy = dataclasses.replace(lm_gen, use_sampling=False)
+    root = Path(tempfile.mkdtemp(prefix="smoke_ws_"))
+    try:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        state = ServerState(mimi, greedy, seed=seed)
+        state.warmup()
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+        scans = []
+        inner = state.handle_frames_array
+        state.handle_frames_array = lambda pcm: scans.append(pcm.shape[-1]) or inner(pcm)
+        wav = _signal(seed + 31, int(WS_SECONDS * 24000), 180.0)
+        write_wav(str(root / "in.wav"), wav, 24000)
+        fstep = state.graphs()["frame"]
+        before = fstep.replays
+        reset_counts()
+        with serve_in_thread(build_app(state)) as url:
+            t0 = time.perf_counter()
+            audio, text = client.main(["--url", url, "--in-wav", str(root / "in.wav"), "--codec",
+                                       "pcm16", "--out-wav", str(root / "out.wav")])
+            t_client = time.perf_counter() - t0
+            stats = _stats(url)
+        host = read_counts()
+        replays = fstep.replays - before
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the same frames, as the server got them, after a reset
+        state.handle_frames_array = inner
+        fs = state.frame_size
+        pcm = np.pad(wav, (0, (-len(wav)) % fs)).reshape(-1, fs)
+        state.reset()
+        want_audio, want_text = [], []
+        for x in pcm:
+            a, tok = state.handle_frame_array(pcm16_to_float(float_to_pcm16(x)))
+            if a is not None:
+                want_audio.append(pcm16_to_float(float_to_pcm16(a)))
+                if tok not in TEXT_SKIP_IDS:
+                    want_text.append(str(tok))
+        per_replay = replay_launches(lambda: state._run(pcm[-1], 0))
+        launches = graph_launches(host, per_replay, replays, captures=0)
+        n_sent, max_delay = len(pcm), greedy.max_delay
+        n_recv = len(audio) // fs
+        err = (float(np.abs(audio - np.concatenate(want_audio)).max())
+               if len(audio) == len(want_audio) * fs else float("inf"))
+        log(f"duplex_ws_solo: client.main streamed {n_sent} frames over ws://127.0.0.1 "
+            f"(pcm16) in {t_client:.2f} s wall and received {n_recv} audio frames "
+            f"(max_delay {max_delay}), {len(text)} text characters; audio max |socket - "
+            f"handle_frame_array| {err:.3g} (one PCM16 step {PCM16_STEP:.3g}); catch-up scans "
+            f"{len(scans)}; frame graph replays {replays}, host launches "
+            f"{ {k: v for k, v in host.items() if v} }, one replay {per_replay}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }; /api/stats p50 {stats.get('p50_ms')} "
+            f"ms, p99 {stats.get('p99_ms')} ms over {stats.get('n_frames')} frames (server "
+            f"host clock, the frame's handling); warmed up in {t_warm:.1f} s; peak memory "
+            f"{peak:.1f} GiB [{card}]")
+        if n_recv != n_sent - max_delay:
+            raise AssertionError(f"duplex_ws_solo: {n_recv} audio frames received, expected "
+                                 f"{n_sent} - {max_delay}")
+        if text != "".join(want_text):
+            raise AssertionError(f"duplex_ws_solo: text {text!r} over the socket, "
+                                 f"{''.join(want_text)!r} from handle_frame_array")
+        if not err <= PCM16_STEP:
+            raise AssertionError(f"duplex_ws_solo: audio differs from handle_frame_array by "
+                                 f"{err}, more than one PCM16 step")
+        if scans:
+            raise AssertionError(f"duplex_ws_solo: {len(scans)} catch-up scans ran; the "
+                                 "comparison holds only for single frames")
+        if not (launches["depformer_step"] > 0 and launches["rvq_encode"] > 0):
+            raise AssertionError(f"duplex_ws_solo: launches {launches}: K1 and K3 must run")
+        readings = {"frames_sent": n_sent, "frames_recv": n_recv, "max_delay": max_delay,
+                    "client_wall_s": t_client, "p50_ms": stats.get("p50_ms"),
+                    "p99_ms": stats.get("p99_ms"), "n_frames": stats.get("n_frames"),
+                    "audio_max_err": err, "text_chars": len(text), "scans": len(scans),
+                    "replays": replays, "peak_gib": peak, "card": card}
+        del state, fstep
+        return launches, readings
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_duplex_ws_batched(mimi, lm_gen, seed: int, sessions: int, card: str) -> tuple[dict, dict]:
+    """Path ``duplex_ws_batched_16``: ``build_batched_app`` over a
+    ``SessionBatcher`` of ``sessions`` slots (the same model, bf16 LM
+    state, greedy; pipeline depth and wire as ``build_server`` picks them),
+    warmed (its tick captured) before ``client.load_test(url, sessions,
+    seconds=WS_SECONDS, real_time=True, codec="pcm16")`` drives it from as
+    many concurrent sockets. Every session must receive at least
+    ``n_frames - max_delay`` frames; K2 and K3 must run. Launches as in
+    ``run_duplex_ws_solo``, over the tick graph's replays. Prints each session's first-frame time and frames, and the
+    tick and delivery tails of ``/api/stats``. Returns (launches, readings)."""
+    import asyncio
+
+    from rstnet_tpu_torch.serving import client
+    from rstnet_tpu_torch.serving.batcher import SessionBatcher, auto_pipeline_depth
+    from rstnet_tpu_torch.serving.server import build_batched_app, serve_in_thread
+
+    greedy = dataclasses.replace(lm_gen, use_sampling=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    depth = auto_pipeline_depth(device=torch.device("cuda"))
+    batcher = SessionBatcher(mimi, greedy, max_sessions=sessions, dtype=torch.bfloat16,
+                             pipeline_depth=depth, wire_dtype="int16" if depth > 1 else "float32",
+                             seed=seed)
+    batcher.warmup()
+    t_warm = time.perf_counter() - t0
+    before = batcher._graph.replays
+    n_frames = int(WS_SECONDS / 0.08)
+    reset_counts()
+    with serve_in_thread(build_batched_app(batcher)) as url:
+        t0 = time.perf_counter()
+        stats = asyncio.run(client.load_test(url, sessions, seconds=WS_SECONDS, real_time=True,
+                                             codec="pcm16"))
+        t_client = time.perf_counter() - t0
+        server = _stats(url)
+    host = read_counts()
+    replays = batcher._graph.replays - before
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    zero = np.zeros((sessions, 1, batcher.frame_size), np.float32)
+    per_replay = replay_launches(lambda: batcher._tick(zero))
+    launches = graph_launches(host, per_replay, replays, captures=0)
+    recv = [s["frames_recv"] for s in stats]
+    first = [s["first_frame_ms"] for s in stats]
+    log(f"duplex_ws_batched_{sessions}: client.load_test, {sessions} sockets x {n_frames} "
+        f"frames at the 80 ms cadence (pcm16), {t_client:.2f} s wall; frames received "
+        f"{recv} (max_delay {greedy.max_delay}); first frame ms {first} (client clock, from "
+        f"the handshake); tick p50 {server.get('p50_ms')} ms, p99 {server.get('p99_ms')} ms "
+        f"over {server.get('n_frames')} ticks, delivery p50 "
+        f"{server.get('delivery', {}).get('p50_ms')} ms, p99 "
+        f"{server.get('delivery', {}).get('p99_ms')} ms (server host clock); pipeline depth "
+        f"{depth}; tick graph replays {replays}, one replay {per_replay}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; warmed up in {t_warm:.1f} s; peak "
+        f"memory {peak:.1f} GiB [{card}]")
+    short = [i for i, n in enumerate(recv) if n < n_frames - greedy.max_delay]
+    if len(stats) != sessions or short:
+        raise AssertionError(f"duplex_ws_batched_{sessions}: sessions {short} received fewer "
+                             f"than {n_frames} - {greedy.max_delay} frames: {recv}")
+    if not (launches["gating_ffn_step"] > 0 and launches["rvq_encode"] > 0):
+        raise AssertionError(f"duplex_ws_batched_{sessions}: launches {launches}: K2 and K3 "
+                             "must run")
+    readings = {"sessions": sessions, "frames_sent": n_frames, "frames_recv": recv,
+                "first_frame_ms": first, "tick_p50_ms": server.get("p50_ms"),
+                "tick_p99_ms": server.get("p99_ms"), "ticks": server.get("n_frames"),
+                "delivery_p50_ms": server.get("delivery", {}).get("p50_ms"),
+                "delivery_p99_ms": server.get("delivery", {}).get("p99_ms"),
+                "pipeline_depth": depth, "client_wall_s": t_client, "replays": replays,
+                "peak_gib": peak, "card": card}
+    if batcher._pool is not None:
+        batcher._pool.shutdown(wait=True)
+    del batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, readings
+
+
+def _run_stage(name: str, argv: list, walls: dict, log_dir: Path) -> None:
+    """One recipe stage as a subprocess from the checkout's root: it must
+    exit 0; its output goes to ``log_dir``."""
+    t0 = time.perf_counter()
+    out = log_dir / f"{name}.log"
+    with open(out, "w") as f:
+        rc = subprocess.run([sys.executable, *argv], stdout=f, stderr=subprocess.STDOUT,
+                            cwd=Path(__file__).resolve().parent, timeout=600).returncode
+    walls[name] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"stage {name} exited {rc}: {' '.join(argv)}\n"
+                             + out.read_text()[-3000:])
+
+
+def write_raw_recordings(root: Path, seed: int) -> str:
+    """``RECIPE_CLIPS`` raw recordings of about ``RECIPE_CLIP_SECONDS`` s at
+    ``RECIPE_SR`` Hz stereo: seeded pseudo-speech turns between pauses of
+    0.5-1.5 s, the right channel a quieter copy with its own noise. Returns
+    the wav.scp."""
+    from rstnet_tpu_torch.data.synth_speech import synth_pseudo_speech
+    from rstnet_tpu_torch.tools.scp_tools import write_scp
+    from rstnet_tpu_torch.utils.audio import write_wav
+
+    rng = np.random.RandomState(seed)
+    entries = []
+    for i in range(RECIPE_CLIPS):
+        parts, total = [], 0.0
+        while total < RECIPE_CLIP_SECONDS:
+            turn = float(rng.uniform(4.0, 12.0))
+            pause = float(rng.uniform(0.5, 1.5))
+            parts += [synth_pseudo_speech(rng, turn, RECIPE_SR),
+                      np.zeros(int(pause * RECIPE_SR), np.float32)]
+            total += turn + pause
+        left = np.concatenate(parts)
+        right = 0.7 * left + 0.0005 * rng.standard_normal(len(left)).astype(np.float32)
+        path = root / f"raw{i}.wav"
+        write_wav(str(path), np.stack([left, right]), RECIPE_SR)
+        entries.append((f"rec{i}", str(path)))
+    write_scp(str(root / "raw_wav.scp"), entries)
+    return str(root / "raw_wav.scp")
+
+
+def _cut_config(root: Path, layers: int) -> str:
+    """``configs/llama_1b_speech.yaml`` at its widths with ``n_layer``
+    cut to ``layers``."""
+    text = Path("configs/llama_1b_speech.yaml").read_text()
+    cut = re.sub(r"(?m)^n_layer: \d+$", f"n_layer: {layers}", text)
+    if cut == text:
+        raise AssertionError("configs/llama_1b_speech.yaml has no n_layer line to cut")
+    path = root / "llama_1b_speech_cut.yaml"
+    path.write_text(cut)
+    return str(path)
+
+
+def _shard_equal(a: str, b: dict, what: str) -> int:
+    got = np.load(a)
+    if sorted(got.files) != sorted(b):
+        raise AssertionError(f"{what}: keys {sorted(got.files)} vs {sorted(b)}")
+    for k in got.files:
+        if not np.array_equal(got[k], b[k]):
+            raise AssertionError(f"{what}: codes of {k} differ from the in-process run")
+    return len(got.files)
+
+
+def run_recipe_pretraining(root: Path, raw_scp: str, seed: int, card: str) -> tuple[dict, dict]:
+    """Path ``recipe_pretraining``: stages 1-5 of ``egs/pretraining/run.sh``
+    through the port's entry points. Stages 1-3 as subprocesses (``python
+    -m``): ``pipeline.main`` on the raw recordings; ``scp_tools split`` into
+    2 and ``run_jobs --jobs 2`` of ``offline_tokenization --mode audio`` (the
+    seeded Mimi 24 kHz at full width on the card, one process a job);
+    ``create_data_json --task audio_only`` a shard. Stages 4-5 in this
+    process, through the same ``main`` functions, so their launches are
+    counted: the trainer on ``configs/llama_1b_speech.yaml`` at full width
+    cut to ``RECIPE_LAYERS`` layers, ``RECIPE_STEPS`` steps, then
+    ``lm_eval`` on its checkpoint. The shards' codes must equal an
+    in-process ``tokenize_audio_scp`` of the same scps (K3 counted), and
+    K6's launches what the trainer's buckets imply. Returns (launches,
+    readings)."""
+    from rstnet_tpu_torch.evalsuite import lm_eval
+    from rstnet_tpu_torch.tools.offline_tokenization import tokenize_audio_scp
+    from rstnet_tpu_torch.tools.scp_tools import read_scp
+    from rstnet_tpu_torch.training import trainer
+
+    data, exp, logs = root / "pretraining", root / "exp_pretraining", root / "logs_pretraining"
+    logs.mkdir(parents=True)
+    walls = {}
+    m = "rstnet_tpu_torch"
+    _run_stage("1_pipeline", ["-m", f"{m}.pipeline.main", "--scp", raw_scp, "--out_dir",
+                              str(data / "segments")], walls, logs)
+    _run_stage("2_split", ["-m", f"{m}.tools.scp_tools", "split", str(data / "segments/wav.scp"),
+                           "2", str(data / "split/wav.JOB.scp")], walls, logs)
+    _run_stage("2_tokenize", ["-m", f"{m}.tools.run_jobs", "--jobs", "2", "--log",
+                              str(data / "log/tok.JOB.log"), "--", sys.executable, "-m",
+                              f"{m}.tools.offline_tokenization", "--scp",
+                              str(data / "split/wav.JOB.scp"), "--output",
+                              str(data / "tokens/audio.JOB.npz"), "--mode", "audio"], walls, logs)
+    for job in (1, 2):
+        _run_stage(f"3_json_{job}", ["-m", f"{m}.tools.create_data_json", "--task", "audio_only",
+                                     "--audio_seq", str(data / f"tokens/audio.{job}.npz"),
+                                     "--output", str(data / f"jsons/audio_{job}.json")],
+                   walls, logs)
+    segments = json.loads((data / "segments/segments.json").read_text())
+    seg_seconds = sum(s["duration"] for s in segments)
+    # the shards against an in-process run of the same scps (K3 counted)
+    reset_counts()
+    t0 = time.perf_counter()
+    n_utts = 0
+    for job in (1, 2):
+        tokenize_audio_scp(str(data / f"split/wav.{job}.scp"), str(root / f"ref.{job}.npz"),
+                           device="cuda")
+        ref = np.load(root / f"ref.{job}.npz")
+        n_utts += _shard_equal(str(data / f"tokens/audio.{job}.npz"),
+                               {k: ref[k] for k in ref.files}, f"recipe_pretraining shard {job}")
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    tok_counts = read_counts()
+    if n_utts != len(read_scp(str(data / "segments/wav.scp"))) or not tok_counts["rvq_encode"]:
+        raise AssertionError(f"recipe_pretraining: {n_utts} utterances tokenized, K3 launches "
+                             f"{tok_counts['rvq_encode']}")
+    # stage 4: the trainer (recipe flags, 2 steps), then stage 5
+    cfg = _cut_config(root, RECIPE_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = trainer.main(["--train_data_jsons", str(data / "jsons/*.json"), "--valid_data_jsons",
+                        str(data / "jsons/audio_1.json"), "--model_config", cfg, "--exp_dir",
+                        str(exp), "--batch_scale", "2500", "--n_epoch", str(RECIPE_STEPS),
+                        "--minibatch_debug", "1", "--print_freq", "1",
+                        "--seed", str(seed), "--device", "cuda", "--init_on_device", "true"])
+    walls["4_train"] = time.perf_counter() - t0
+    train_counts = read_counts()
+    steps = out["steps"]
+    want_k6 = expected_k6(steps, RECIPE_LAYERS)
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    reset_counts()
+    t0 = time.perf_counter()
+    report = lm_eval.main(["--checkpoint_dir", str(exp), "--data_jsons",
+                           str(data / "jsons/audio_1.json"), "--output", str(exp / "ppl.json"),
+                           "--device", "cuda"])
+    walls["5_lm_eval"] = time.perf_counter() - t0
+    eval_counts = read_counts()
+    buckets = [(s["batch_size"], s["seq_len"]) for s in steps]
+    log(f"recipe_pretraining: {RECIPE_CLIPS} raw recordings of ~{RECIPE_CLIP_SECONDS:.0f} s at "
+        f"{RECIPE_SR} Hz stereo -> {len(segments)} segments ({seg_seconds:.1f} s) -> 2 shards "
+        f"of {n_utts} utterances, codes equal to the in-process tokenization ({t_ref:.1f} s, "
+        f"K3 launches {tok_counts['rvq_encode']}); trainer ({RECIPE_LAYERS} of 16 layers, full "
+        f"width) {len(steps)} steps, buckets {buckets}, losses "
+        f"{[round(s['loss'], 4) for s in steps]}, launches "
+        f"{ {k: v for k, v in train_counts.items() if v} } (K6 expected {want_k6}), peak "
+        f"{train_peak:.1f} GiB; lm_eval ppl audio {report['ppl_audio']:.3f}, text "
+        f"{report['ppl_text']:.3f} over {report['n_batches']} batches, launches "
+        f"{ {k: v for k, v in eval_counts.items() if v} }; stage walls "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + f" [{card}]")
+    if len(steps) != RECIPE_STEPS or not all(math.isfinite(s["loss"]) for s in steps):
+        raise AssertionError(f"recipe_pretraining: {len(steps)} trainer steps, losses "
+                             f"{[s['loss'] for s in steps]}")
+    if {k: train_counts[k] for k in want_k6} != want_k6 or any(
+            v for k, v in train_counts.items() if k not in want_k6):
+        raise AssertionError(f"recipe_pretraining: trainer launches {train_counts}, expected "
+                             f"{want_k6}")
+    if not all(math.isfinite(report[k]) for k in ("ppl_audio", "ppl_text")):
+        raise AssertionError(f"recipe_pretraining: lm_eval report {report}")
+    launches = {k: tok_counts[k] + train_counts[k] + eval_counts[k] for k in tok_counts}
+    return launches, {"segments": len(segments), "segment_seconds": seg_seconds,
+                      "utterances": n_utts, "steps": len(steps), "buckets": buckets,
+                      "losses": [s["loss"] for s in steps], "ppl_audio": report["ppl_audio"],
+                      "stage_walls_s": walls, "tokenize_in_process_s": t_ref,
+                      "train_peak_gib": train_peak, "card": card}
+
+
+def run_recipe_moshi_ft(root: Path, raw_scp: str, seed: int, card: str) -> tuple[dict, dict]:
+    """Path ``recipe_moshi_ft``: stages 1-2 of ``egs/moshi_ft/run.sh`` as
+    subprocesses, then its trainer in this process: ``pipeline.main`` with
+    diarization, denoise and super-resolution on and ``merge_sessions``
+    (without pyannote or DeepFilterNet, the JAX package's single-speaker
+    and passthrough routes), ``offline_tokenization --sessions ... --mode
+    duplex`` (the seeded Mimi on the card), ``create_data_json --task
+    moshi_ft``, and ``RECIPE_STEPS`` trainer steps at ``--parallel_number
+    17 --n_q 16`` on the cut config. The shard's codes must equal an
+    in-process ``tokenize_duplex_sessions`` of the same sessions (K3
+    counted). Returns (launches, readings)."""
+    from rstnet_tpu_torch.tools.offline_tokenization import tokenize_duplex_sessions
+    from rstnet_tpu_torch.training import trainer
+
+    data, exp, logs = root / "moshi_ft", root / "exp_moshi_ft", root / "logs_moshi_ft"
+    logs.mkdir(parents=True)
+    data.mkdir(exist_ok=True)
+    (data / "pipeline.json").write_text(json.dumps({
+        "use_diarization": True, "use_denoise": True, "use_super_resolution": True,
+        "use_asr": False, "merge_sessions": True, "session_chunk_s": 60.0}))
+    walls = {}
+    m = "rstnet_tpu_torch"
+    _run_stage("1_pipeline", ["-m", f"{m}.pipeline.main", "--scp", raw_scp, "--out_dir",
+                              str(data / "segments"), "--config", str(data / "pipeline.json")],
+               walls, logs)
+    routes = (logs / "1_pipeline.log").read_text()
+    _run_stage("2_tokenize", ["-m", f"{m}.tools.offline_tokenization", "--sessions",
+                              str(data / "segments/sessions.json"), "--output",
+                              str(data / "tokens/audio.1.npz"), "--mode", "duplex"], walls, logs)
+    _run_stage("2_json", ["-m", f"{m}.tools.create_data_json", "--task", "moshi_ft",
+                          "--audio_seq", str(data / "tokens/audio.1.npz"), "--output",
+                          str(data / "jsons/moshi_1.json")], walls, logs)
+    sessions = json.loads((data / "segments/sessions.json").read_text())
+    reset_counts()
+    t0 = time.perf_counter()
+    tokenize_duplex_sessions(str(data / "segments/sessions.json"), str(root / "ref_duplex.npz"),
+                             device="cuda")
+    ref = np.load(root / "ref_duplex.npz")
+    n_grids = _shard_equal(str(data / "tokens/audio.1.npz"), {k: ref[k] for k in ref.files},
+                           "recipe_moshi_ft shard")
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    tok_counts = read_counts()
+    shapes = sorted({ref[k].shape[0] for k in ref.files})
+    if shapes != [17] or not tok_counts["rvq_encode"]:
+        raise AssertionError(f"recipe_moshi_ft: grid rows {shapes}, K3 launches "
+                             f"{tok_counts['rvq_encode']}")
+    cfg = _cut_config(root, RECIPE_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = trainer.main(["--train_data_jsons", str(data / "jsons/*.json"), "--valid_data_jsons",
+                        str(data / "jsons/moshi_1.json"), "--model_config", cfg,
+                        "--parallel_number", "17", "--n_q", "16", "--exp_dir", str(exp),
+                        "--n_epoch", str(RECIPE_STEPS), "--minibatch_debug", "1",
+                        "--print_freq", "1", "--seed", str(seed), "--device", "cuda",
+                        "--init_on_device", "true"])
+    walls["3_train"] = time.perf_counter() - t0
+    train_counts = read_counts()
+    steps = out["steps"]
+    want_k6 = expected_k6(steps, RECIPE_LAYERS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    buckets = [(s["batch_size"], s["seq_len"]) for s in steps]
+    single = "diarization skipped" in routes and "DeepFilterNet not available" in routes
+    log(f"recipe_moshi_ft: pipeline with diarization, denoise and super-resolution on "
+        f"(no pyannote, no DeepFilterNet here: the single-speaker track and the denoise "
+        f"passthrough, super-resolution by the linear resampler; routes seen in the log: "
+        f"{single}) -> {len(sessions)} sessions -> {n_grids} grids of 17 rows, codes equal to "
+        f"the in-process tokenization ({t_ref:.1f} s, K3 launches {tok_counts['rvq_encode']}); "
+        f"trainer (--parallel_number 17 --n_q 16, {RECIPE_LAYERS} of 16 layers) "
+        f"{len(steps)} steps, buckets {buckets}, losses {[round(s['loss'], 4) for s in steps]}, "
+        f"launches { {k: v for k, v in train_counts.items() if v} } (K6 expected {want_k6}), "
+        f"peak {peak:.1f} GiB; stage walls "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + f" [{card}]")
+    if not single:
+        raise AssertionError("recipe_moshi_ft: the pipeline log does not show the "
+                             "single-speaker and passthrough routes")
+    if len(steps) != RECIPE_STEPS or not all(math.isfinite(s["loss"]) for s in steps):
+        raise AssertionError(f"recipe_moshi_ft: {len(steps)} trainer steps, losses "
+                             f"{[s['loss'] for s in steps]}")
+    if {k: train_counts[k] for k in want_k6} != want_k6 or any(
+            v for k, v in train_counts.items() if k not in want_k6):
+        raise AssertionError(f"recipe_moshi_ft: trainer launches {train_counts}, expected "
+                             f"{want_k6}")
+    launches = {k: tok_counts[k] + train_counts[k] for k in tok_counts}
+    return launches, {"sessions": len(sessions), "grids": n_grids, "steps": len(steps),
+                      "buckets": buckets, "losses": [s["loss"] for s in steps],
+                      "stage_walls_s": walls, "tokenize_in_process_s": t_ref,
+                      "train_peak_gib": peak, "routes": "single-speaker, denoise passthrough, "
+                      "linear super-resolution", "card": card}
+
+
+def run_recipe_paths(seed: int, card: str, paths: dict) -> dict:
+    """Both recipes over one set of raw recordings under a temporary
+    directory removed at the end; ``paths`` gets their launches. Returns
+    their readings."""
+    from rstnet_tpu_torch import native
+
+    if not native.available():
+        raise AssertionError("the native C++ loader did not build (g++)")
+    root = Path(tempfile.mkdtemp(prefix="smoke_recipes_"))
+    out = {}
+    try:
+        raw_scp = write_raw_recordings(root, seed)
+        with phase("recipe pretraining"):
+            paths["recipe_pretraining"], out["recipe_pretraining"] = run_recipe_pretraining(
+                root, raw_scp, seed, card)
+        with phase("recipe moshi_ft"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            paths["recipe_moshi_ft"], out["recipe_moshi_ft"] = run_recipe_moshi_ft(
+                root, raw_scp, seed, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def run_prep_phases(args, card: str, paths: dict) -> dict:
+    """The recipes, then the socket paths on Mimi + Moshi 7B built again
+    (in under a second on the card): served, the frames run on the
+    server's thread and the ticks on an executor's, and cuBLAS keeps a
+    workspace for each thread it ran on (64 MiB for the two), which would
+    raise every later path's peak. ``paths`` gets their launches. Returns
+    their readings."""
+    out = run_recipe_paths(args.seed, card, paths)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("full models (socket paths)"):
+        mimi, lm_gen = build_full_models(args.seed)
+    out.update(run_ws_paths(mimi, lm_gen, args.seed, card, paths))
+    return out
+
+
+def run_ws_paths(mimi, lm_gen, seed: int, card: str, paths: dict) -> dict:
+    """The two socket paths on the built Mimi + Moshi 7B; ``paths`` gets
+    their launches. Returns their readings."""
+    out = {}
+    with phase("duplex ws solo"):
+        paths["duplex_ws_solo"], out["duplex_ws_solo"] = run_duplex_ws_solo(
+            mimi, lm_gen, seed, card)
+    with phase("duplex ws batched"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        name = f"duplex_ws_batched_{WS_SESSIONS}"
+        paths[name], out[name] = run_duplex_ws_batched(mimi, lm_gen, seed, WS_SESSIONS, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_codec_phases(args, card: str, paths: dict) -> None:
     with phase("small codec training"):
         paths["small_codec_train"] = check_small_codec_training(args.seed, card)
@@ -3918,6 +4507,10 @@ def main(argv=None) -> int:
     parser.add_argument("--ssl-only", action="store_true",
                         help="run only the GLM-4-Voice SSL paths, and print their findings "
                         "(no result line)")
+    parser.add_argument("--prep-only", action="store_true",
+                        help="run only the data-prep paths (the duplex client over a socket, "
+                        "solo and batched, and the pretraining and moshi_ft recipes), and print "
+                        "their findings (no result line)")
     args = parser.parse_args(argv)
     if args.trees:
         return compare_trees(args.trees.split(","), args.seed, args.out)
@@ -3933,6 +4526,15 @@ def main(argv=None) -> int:
         card = phase_environment()
         log(json.dumps({"ssl_paths": run_ssl_phases(args, card)}))
         log(f"chip_smoke --ssl-only: {time.perf_counter() - t_start:.1f} s wall")
+        return 0
+    if args.prep_only:
+        card = phase_environment()
+        phase_build()
+        paths = {}
+        log(json.dumps({"prep_paths": run_prep_phases(args, card, paths)}))
+        log(json.dumps({"launches_by_path": {p: {k: v for k, v in c.items() if v}
+                                             for p, c in paths.items()}}))
+        log(f"chip_smoke --prep-only: {time.perf_counter() - t_start:.1f} s wall")
         return 0
     if args.codec_only:
         card = phase_environment()
@@ -4118,6 +4720,8 @@ def run_from_checkpoints(args, card: str, kernels: list, paths: dict, graphs: di
         paths["moe_small"] = check_moe_small(args.seed, card)
     # last, so that every earlier path runs as it did before the SSL paths
     log(json.dumps({"ssl_paths": run_ssl_phases(args, card)}))
+    # after every earlier path, so that each runs as it did before them
+    log(json.dumps({"prep_paths": run_prep_phases(args, card, paths)}))
     for k in kernels:
         # a graph path's are its device launches: its eager warm-up call's
         # and its replays' (graph_launches)

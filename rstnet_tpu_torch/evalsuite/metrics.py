@@ -158,10 +158,20 @@ def visqol_score(ref_path: str, deg_path: str, binary: str = "visqol"):
 
 
 def dnsmos_score(deg: np.ndarray, sr: int = 16000, model_path: str = "", session=None):
-    """DNSMOS OVRL score. None without a model, as in JAX; the scorer itself
-    (``pipeline/onnx_models.py``) is ``ROADMAP.md`` item 13's, so a model or
-    a session raises until it is ported."""
-    if session is None and not model_path:
+    """DNSMOS OVRL score (compute_dnsmos.sh); None if the model (and
+    onnxruntime) are unavailable. ``session`` injects a prebuilt or stub ONNX
+    session (``pipeline/onnx_models.py::DNSMOS``)."""
+    from rstnet_tpu_torch.pipeline.onnx_models import DNSMOS
+
+    if session is None:
+        if not model_path:
+            return None
+        try:
+            import onnxruntime  # noqa: F401
+        except ImportError:
+            return None
+    try:
+        model = DNSMOS(model_path=model_path, session=session)
+    except RuntimeError:
         return None
-    raise NotImplementedError("dnsmos_score: the DNSMOS scorer (pipeline/onnx_models.py) is "
-                              "not ported yet, ROADMAP.md queue 1, item 13")
+    return float(model.score(deg, sr)["OVRL"])

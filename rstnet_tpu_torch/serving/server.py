@@ -36,16 +36,22 @@ K/V as int8. One difference: the JAX server returns from its ``--tiny``
 branch before its int8 block, so there the weight options do nothing on the
 tiny pair, while the port applies them to whichever pair it builds. As in
 JAX, ``--tiny`` ignores the checkpoint and tokenizer options.
+
+``serve_in_thread(app)`` serves an app from a background thread on a local
+port, for a client in the same process (``serving/client.py``: its
+``stream_file``, ``load_test`` and ``main`` run their own event loop).
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
 import json
 import logging
 import os
+import threading
 import time
 from typing import Optional
 
@@ -462,6 +468,43 @@ def build_batched_app(batcher):
 
     app.on_startup.append(start_clock)
     return app
+
+
+@contextlib.contextmanager
+def serve_in_thread(app, host: str = "127.0.0.1", port: int = 0):
+    """Serve ``app`` on ``host``:``port`` (0: a free port) from an event loop
+    on a background thread; yields the ``ws://`` URL of its chat endpoint.
+    The app's startup hooks (the batched clock) run on that loop; the server
+    and the loop stop on exit."""
+    from aiohttp import web
+
+    loop = asyncio.new_event_loop()
+    runner = web.AppRunner(app)
+    try:
+        loop.run_until_complete(runner.setup())
+        loop.run_until_complete(web.TCPSite(runner, host, port).start())
+    except BaseException:
+        loop.run_until_complete(runner.cleanup())
+        loop.close()
+        raise
+    bound = runner.addresses[0][1]
+    thread = threading.Thread(target=loop.run_forever, name="serve_in_thread", daemon=True)
+    thread.start()
+    async def shutdown():
+        await runner.cleanup()
+        # the batched clock's task and any handler still running
+        tasks = [t for t in asyncio.all_tasks() if t is not asyncio.current_task()]
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+
+    try:
+        yield f"ws://{host}:{bound}/api/chat"
+    finally:
+        asyncio.run_coroutine_threadsafe(shutdown(), loop).result(timeout=60)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=60)
+        loop.close()
 
 
 @torch.no_grad()

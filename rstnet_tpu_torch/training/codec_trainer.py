@@ -30,8 +30,10 @@ both optimizer states and the step; they rotate (``num_ckpt_keep``) and a
 rerun resumes from the newest. ``--dp`` > 1 exits: parallelism is
 ``ROADMAP.md`` queue 1, item 10.
 
-``main`` returns ``{"state", "steps", "checkpoints"}``: the train state,
-one record a step (the losses, lr, step time) and the saved checkpoints.
+``main`` returns ``{"state", "steps", "checkpoints", "train_iter"}``: the
+train state, one record a step (the losses, lr, step time), the saved
+checkpoints and the training ``WaveIterator`` (None without
+``--train_scp``), whose counters say how its batches were read.
 """
 
 from __future__ import annotations
@@ -295,7 +297,7 @@ def main(argv=None) -> dict:
     steps, saved = [], []
     if train_iter is None:
         logging.warning("no --train_scp given; initialized model only")
-        return {"state": state, "steps": steps, "checkpoints": saved}
+        return {"state": state, "steps": steps, "checkpoints": saved, "train_iter": train_iter}
 
     def save(epoch):
         path = f"{args.exp_dir}/ep{epoch}-iter{global_steps}.checkpoint"
@@ -343,9 +345,10 @@ def main(argv=None) -> dict:
                     logging.info("max_steps reached")
                     if not saved or not saved[-1].endswith(f"-iter{global_steps}.checkpoint"):
                         save(epoch)
-                    return {"state": state, "steps": steps, "checkpoints": saved}
+                    return {"state": state, "steps": steps, "checkpoints": saved,
+                            "train_iter": train_iter}
         logging.info(reporter.log_message())
-    return {"state": state, "steps": steps, "checkpoints": saved}
+    return {"state": state, "steps": steps, "checkpoints": saved, "train_iter": train_iter}
 
 
 if __name__ == "__main__":

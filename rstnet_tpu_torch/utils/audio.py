@@ -2,10 +2,11 @@
 of ``rstnet_tpu/utils/audio.py``).
 
 Data prep and the CLIs only need 16-bit PCM wav read/write and simple
-resampling, which the stdlib ``wave`` module plus numpy cover. The JAX
-package first tries its native C++ loader; this copy always takes the
-``wave`` path, which gives the same samples. ``plot_spectrogram`` draws the
-hifigan-style log-mel spectrogram, computed here in numpy.
+resampling, which the stdlib ``wave`` module plus numpy cover. As in the
+JAX package, ``read_wav`` and ``resample_linear`` first try the native C++
+loader (``rstnet_tpu_torch/native``) and fall back to those paths where it
+cannot be built. ``plot_spectrogram`` draws the hifigan-style log-mel
+spectrogram, computed here in numpy.
 """
 
 from __future__ import annotations
@@ -16,7 +17,18 @@ import numpy as np
 
 
 def read_wav(path: str) -> tuple[np.ndarray, int]:
-    """-> (float32 [channels, T] in [-1, 1], sample_rate)."""
+    """-> (float32 [channels, T] in [-1, 1], sample_rate).
+
+    Uses the native C++ loader (``rstnet_tpu_torch.native``) when available;
+    falls back to the stdlib wave module."""
+    try:
+        from rstnet_tpu_torch import native
+
+        out = native.read_wav(path)
+        if out is not None:
+            return out
+    except Exception:  # noqa: BLE001
+        pass
     with wave.open(path, "rb") as f:
         sr = f.getframerate()
         n = f.getnframes()
@@ -51,6 +63,14 @@ def resample_linear(wav: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
     """Linear-interpolation resampler; wav [channels, T]."""
     if sr_in == sr_out:
         return wav
+    try:
+        from rstnet_tpu_torch import native
+
+        out = native.resample_linear(wav, sr_in, sr_out)
+        if out is not None:
+            return out
+    except Exception:  # noqa: BLE001
+        pass
     n_out = int(round(wav.shape[-1] * sr_out / sr_in))
     x_old = np.linspace(0.0, 1.0, wav.shape[-1], endpoint=False)
     x_new = np.linspace(0.0, 1.0, n_out, endpoint=False)

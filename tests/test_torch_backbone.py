@@ -9,6 +9,8 @@ scale. The flash route on the CPU (the kernels' plain versions) against the
 JAX masked path: 1e-4 (q is scaled before the product there, after it
 here)."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import dataclasses
 
 import jax

@@ -12,6 +12,8 @@ bf16 weights over a float32 ring: 2e-2 of the output scale (bf16 products
 round in other places in XLA:CPU and ATen). int8 codes and scales are
 compared bit for bit."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import dataclasses
 
 import jax

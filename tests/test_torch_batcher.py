@@ -14,6 +14,8 @@ Everything is float32 and greedy. Tolerances: codes and tokens equal;
 audio within 1e-5 (float32 rounding in other summation orders; the
 measured gap is ~1e-7)."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import asyncio
 import json
 

@@ -8,6 +8,8 @@ trained model from them and reports finite CE and perplexity; ``infer_cli``
 slices each prefix (no length filter) and writes one [1 + n_q, T] grid per
 example."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import json
 
 import numpy as np

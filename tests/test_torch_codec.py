@@ -6,6 +6,8 @@ Tolerances: float32 paths agree to float32 rounding compounded over the
 network's depth, so 1e-4 for single modules and 1e-3 for whole codecs.
 Codes are integers and must be equal."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import jax
 import jax.numpy as jnp
 import numpy as np

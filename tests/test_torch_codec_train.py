@@ -22,6 +22,8 @@ written, in brackets):
   seen).
 """
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import dataclasses
 
 import jax

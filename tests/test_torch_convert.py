@@ -11,6 +11,8 @@ of the converted models are held to the float32 tolerance of the port's
 other parity tests (1e-5 here, small modules), and greedy tokens must be
 equal."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,6 +1,8 @@
 """The PyTorch port's scaffold: the numpy param bridge, param-tree naming
 against the JAX pytrees, and that the port never imports JAX."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import os
 import subprocess
 import sys

@@ -15,6 +15,8 @@ step (2**-7 relative) for bf16 outputs; K3 codes equal on 99 % of the rows
 (the rest near-ties of the two summation orders), quantized sums of agreeing
 rows to float32 rounding, exact ties to the lower index."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import pytest
 import torch
 

@@ -7,6 +7,8 @@ interpret-mode test: GEMV inputs are rounded to bf16 (normalized
 activations, attention output, gated hidden), and one bf16 ulp of
 difference there moves the float32 outputs by that much."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,8 @@ math summed in another order. bf16 outputs: one bf16 step, 2**-7 relative
 (plus 1e-5 absolute), since two float32 sums that differ in the last bits
 can round to neighbouring bf16 values."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import jax
 import jax.numpy as jnp
 import numpy as np

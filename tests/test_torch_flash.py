@@ -14,6 +14,8 @@ emulated in plain PyTorch and held to JAX within SPLIT_TOL of each 64-row
 tile's scale, the card's limit for those kernels. Inputs come from numpy
 with a seed."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import math
 
 import jax

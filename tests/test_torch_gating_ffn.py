@@ -19,6 +19,8 @@ within the card tolerances (``chip_smoke.K2_TOL``): float32 outputs 1e-4
 relative + 1e-5 absolute, bf16 outputs one bf16 step; so is the rounding of
 its float32-weight route (weights split into bf16 hi + lo in registers)."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import jax
 import jax.numpy as jnp
 import numpy as np

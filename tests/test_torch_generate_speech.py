@@ -8,6 +8,8 @@ port's seeded init (mirrors) or from the JAX init through the bridge
 (parity). Greedy tokens are compared exactly; the soak's hidden state to
 1e-5, as the JAX test holds it."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import copy
 
 import jax

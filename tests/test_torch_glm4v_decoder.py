@@ -17,6 +17,8 @@ config text and the YAML reader's hyperpyyaml tags are held to the JAX
 loader (PyYAML) on the same text.
 """
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import dataclasses
 
 import jax

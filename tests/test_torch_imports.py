@@ -3,6 +3,8 @@
 module of it that imports no JAX. Checked on the source (AST), so a lazy
 import inside a function counts too."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import ast
 from pathlib import Path
 
@@ -99,3 +101,16 @@ def test_scan_covers_the_ssl_slice():
                    "tools/ssl_resynth.py", "tools/offline_tokenization.py",
                    "tools/upstream_layout.py", "utils/yaml_subset.py", "ops/stft.py"):
         assert f"rstnet_tpu_torch/{module}" in scanned, module
+
+
+def test_scan_covers_the_data_prep_slice():
+    """The scan reaches every module of the data-prep slice: the pipeline,
+    the native loader's wrapper, the duplex client and the recipe tools."""
+    scanned = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("pipeline/__init__.py", "pipeline/vad.py", "pipeline/filters.py",
+                   "pipeline/diarize.py", "pipeline/onnx_models.py", "pipeline/adapters.py",
+                   "pipeline/main.py", "native/__init__.py", "serving/client.py",
+                   "tools/run_jobs.py", "tools/create_data_json.py", "utils/audio.py",
+                   "data/codec_dataset.py", "evalsuite/metrics.py"):
+        assert f"rstnet_tpu_torch/{module}" in scanned, module
+    assert (ROOT / "rstnet_tpu_torch/native/rstnet_native.cpp").exists()

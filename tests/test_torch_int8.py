@@ -16,6 +16,8 @@ matmuls summed in another order, so an int8 K/V code may differ by one at
 a rounding boundary. The batched tick is float32: tokens equal, audio
 within 1e-5, as in ``test_torch_batcher.py``."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import copy
 
 import jax

@@ -10,6 +10,8 @@ leaf's largest magnitude; a merged forward 2e-5, as the JAX test holds its
 own. JAX's dropout bits cannot be drawn in torch: dropout parity feeds both
 sides JAX's mask, and the rest is checked by its statistics."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import jax
 import jax.numpy as jnp
 import numpy as np

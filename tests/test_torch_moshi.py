@@ -9,6 +9,8 @@ are held to 2e-2 of the logit scale (max(1, max |logit|)), hidden states to
 2e-2, and audio from identical codes to 1e-3. Greedy tokens must be equal
 wherever the reference's top-2 margin exceeds twice that tolerance."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import jax
 import jax.numpy as jnp
 import numpy as np

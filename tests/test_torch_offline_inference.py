@@ -3,6 +3,8 @@
 token to the JAX ``OfflineInference`` in float32 (teacher-forced metrics to
 1e-5 relative: the same float32 math in another summation order)."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import jax
 import jax.numpy as jnp
 import numpy as np

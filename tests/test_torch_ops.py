@@ -6,6 +6,8 @@ Tolerances: float32 ops that run the same arithmetic in another library
 (XLA:CPU vs ATen) agree to a few float32 ulps, so 1e-5 (relative and
 absolute) unless a test states otherwise; integer outputs must be equal."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,8 @@ farthest the updates could move them (the sum of the learning rates): every
 element within 5 % of it, as ``tests/test_torch_train_step.py`` holds the
 full step."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 
 import jax
 import jax.numpy as jnp

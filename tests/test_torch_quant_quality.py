@@ -9,6 +9,8 @@ K4's plain version). Samples differ from JAX's (the two generators draw
 other numbers), so the port's samples are held to themselves: the same seed
 gives the same samples."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import copy
 
 import jax

@@ -11,6 +11,8 @@ tokens and ``valid`` exact; audio within 1e-5, as the JAX test holds a scan
 against single frames (a chunk's convolutions sum in another order than
 single frames' do)."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import jax
 import jax.numpy as jnp
 import numpy as np

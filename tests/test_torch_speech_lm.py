@@ -9,6 +9,8 @@ order; observed ~6e-7); streamed logits against the training forward to
 3e-5, as the JAX test holds them; the loss and its metrics to 1e-6
 relative; int8 trees bit for bit."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import dataclasses
 
 import jax

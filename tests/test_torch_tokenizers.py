@@ -9,6 +9,8 @@ tokenization tests mirror ``tests/test_tools_pipeline.py`` and hold each
 ``.npz`` shard of the port's tool to the JAX tool's on the same inputs,
 with the same stand-in Mimi (``_FakeMimiTok``) where the JAX tests use it."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import asyncio
 import json
 

@@ -12,6 +12,8 @@ summation-order error of g (seen: g = 1.758e-8 vs 1.794e-8 on a leaf whose
 largest gradient is 0.115, steps 0.637 vs 0.642 lr): about one element in
 1e4 lands ~1 % of a step apart."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,8 @@ The data modules are copies, so their batches must equal the JAX package's
 exactly; the config reader must give the JAX ``Config`` of every YAML file
 in ``configs/``."""
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import dataclasses
 import os
 from pathlib import Path

@@ -10,6 +10,8 @@ JAX's weights are jittered (zero biases and unit norms would hide a
 misplaced one) and its codebook rows drawn at one norm, so the ids vary.
 """
 
+import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
+
 import dataclasses
 import json
 

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --codec-only
     python3 chip_smoke.py --ssl-only
     python3 chip_smoke.py --prep-only
+    python3 chip_smoke.py --parallel-only
 
 The second form times K4 over float32 weights in each checkout in turn
 (``compare_trees``) and runs nothing else.
@@ -186,7 +187,31 @@ Phases (each prints its findings; any failure exits non-zero):
    prints no result line. Phase 4's ``codec_train_mimi24k`` also asserts
    that the codec trainer read every batch through the native loader
    (``WaveDataset.load_batch``), whose first batch equals the per-item
-   path's bit for bit.
+   path's bit for bit;
+10. after the data-prep slice, parallel training (``rstnet_tpu_torch/
+   parallel``) as two ranks on the one card: each a process of this script
+   (``--rank-job``) joined through a ``file://`` store in a temporary
+   directory and over gloo (NCCL refuses two ranks on one device), joined
+   with a time limit (``RANK_TIMEOUT_S``); a rank that fails or hangs fails
+   the run. First a probe: each collective once on CUDA tensors over gloo
+   (``PROBED_COLLECTIVES``, send/recv last: it may abort the process) and
+   NCCL's answer to two ranks on the device, every answer word for word,
+   with the mesh axes each leaves to this card, on a ``{"parallel_probe":
+   ...}`` line. Then path ``train_dp2_llama1b``: ``trainer.main --dp 2`` on
+   ``configs/llama_1b_speech.yaml`` at full width (bf16, remat), global
+   batch B=4 x T=1024 (2 rows a rank), ``DP2_STEPS`` steps, against one
+   process on the same global batches (``DP2_*`` tolerances): each rank's
+   K6 launches asserted, the losses and every parameter held to the one
+   process and the ranks' parameters to each other; step times, the
+   gradient all-reduce's time a step, rank 0's step under
+   ``tools/profile_frame.py::device_trace`` and both ranks' peaks. And path
+   ``codec_train_dp2``: ``codec_trainer.main --dp 2`` on ``CODEC_CONFIG``
+   at full width, batch 4 (2 a rank), ``CODEC_DP2_STEPS`` steps, against
+   ``--dp 1`` on the same clips and draws (``CODEC_DP2_*``): K3 launches,
+   G/D parameters and EMA buffers. Their readings go on a
+   ``{"parallel_paths": ...}`` line; their launches (both ranks') join the
+   kernels line. ``--parallel-only`` runs this phase alone and prints no
+   result line.
 
 Every phase prints its wall time.
 
@@ -197,7 +222,8 @@ again, before it a ``{"kernels": [...]}`` JSON line (a graph path's
 launches of one replay under ``replay_launches_by_path``, and under
 ``launches_by_path`` its device launches over the run), before that the
 graph paths' readings as ``{"graph_paths": ...}`` (and before that the
-``{"ssl_paths": ...}`` and ``{"prep_paths": ...}`` lines), and the last line is
+``{"ssl_paths": ...}``, ``{"prep_paths": ...}`` and ``{"parallel_paths":
+...}`` lines), and the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result. Imports nothing of JAX.
 """
@@ -2912,8 +2938,8 @@ def run_train_from_litgpt(seed: int, card: str) -> dict:
                                          "after the cast")
             return out
 
-        def device_batch(b, device):
-            out = real_batch(b, device)
+        def device_batch(b, device, *mesh_args):
+            out = real_batch(b, device, *mesh_args)
             held.setdefault("batch", {k: v.clone() for k, v in out.items()})
             return out
 
@@ -4489,6 +4515,621 @@ def run_codec_phases(args, card: str, paths: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# -- parallel training (two ranks on the one card) ---------------------------------
+
+# the collectives probed on CUDA tensors over gloo, in this order; send/recv
+# last (on the H100 host it aborts the sending process)
+PROBED_COLLECTIVES = ("all_reduce", "all_reduce_max", "broadcast", "all_gather_into_tensor",
+                      "all_gather", "reduce_scatter_tensor", "send_recv", "batch_isend_irecv")
+# what each mesh axis needs beyond all-reduce and broadcast
+AXIS_COLLECTIVES = {"data": ("all_reduce", "broadcast"),
+                    "fsdp": ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce"),
+                    "tensor": ("all_reduce", "all_gather"),
+                    "expert": ("all_reduce", "all_gather_into_tensor"),
+                    "seq": ("batch_isend_irecv", "all_reduce"),
+                    "pipe": ("send_recv", "all_reduce")}
+RANK_TIMEOUT_S = 420  # a rank that runs longer fails the path (and every rank is killed)
+# train_dp2_llama1b: the full training slice's model, data and bucket, global
+# batch B=4 x T=1024 (2 rows a rank), 3 steps at a learning rate that moves
+# bf16 weights (1e-3 peak at the first step, Noam decay after)
+DP2_STEPS = 3
+DP2_LR_FLAGS = ["--global_learning_rate", "1e-3", "--warmup_steps", "1",
+                "--init_on_device", "true"]  # the card draws the 2.01 B weights in a second
+# train_dp2_llama1b against one process on the same global batches, bf16:
+# the losses are float32 sums of the same tokens; the two ranks' GEMMs run at
+# 2048 rows where one process runs 4096, so their bf16 outputs may round to
+# neighbouring values (~2**-8 relative of a logit) - each step's loss within
+# 1e-2 relative. The parameters after the steps: each rank's bf16 gradient
+# of its rows, summed in bf16 by the all-reduce, against one bf16 gradient of
+# all rows - a relative difference of ~2**-8 that Adam's g / sqrt(v) keeps
+# (the first step's update is exactly lr x sign(g)); an element whose
+# gradient is near 0 may take another sign (up to 2 lr a step), and the
+# final bf16 rounding of the weight may land on the neighbouring value. So:
+# every element within 2 x the sum of the lrs plus one bf16 ulp of it, and
+# 99 % of them within one ulp plus 5 % of that sum
+DP2_LOSS_RTOL = 1e-2
+DP2_PARAM_SHARE = 0.99
+# codec_train_dp2: codec_train_mimi24k's config and clips, batch 4 (2 a
+# rank), 2 steps, float32 with TF32 off, against --dp 1 on the same batches
+# and draws. Each step's G and D loss within CODEC_DP2_LOSS_RTOL: the same
+# float32 sums over the batch taken in two halves (cuDNN may also pick
+# another algorithm at batch 2); the second step's loss is taken after an
+# update. The G and D optimizers' first moments, a decayed sum of both
+# steps' all-reduced gradients: over all of G (and of D) the norm of the
+# difference within CODEC_DP2_MU_RTOL of the norm (a rank that kept its
+# own half of the gradient is off by a share of the whole). Not per tensor:
+# a sum over 4 x 72000 samples that cancels to a small gradient keeps the
+# rounding of its terms (the first encoder conv's largest moment, 4.7e-6,
+# took a 1.6e-8 difference on the card, 3.3e-3 of it; its CPU counterpart
+# 3.5e-5), so each tensor's worst is reported only. The parameters: an AdamW step moves an element by about lr
+# whatever its gradient, and turns rounding noise on a near-zero gradient
+# into up to a whole lr, so a bound on every element cannot tell a right
+# update from none; instead CODEC_DP2_PARAM_SHARE of the elements within
+# 1e-6 of their size plus 5 % of the lr sum (the rest agree to rounding),
+# every element within 2 x the lr sum plus that, and the same test of the
+# initial weights against the --dp 1 run's final ones must fail (the
+# no-update control). Each EMA buffer over its largest magnitude within
+# 1e-3 (CODEC_BUFFER_RTOL's after a second step)
+CODEC_DP2_STEPS = 2
+CODEC_DP2_LOSS_RTOL = 1e-4
+CODEC_DP2_MU_RTOL = 1e-3
+CODEC_DP2_PARAM_SHARE = 0.99
+CODEC_DP2_PARAM_RTOL = 1e-6
+CODEC_DP2_BUFFER_RTOL = 1e-3
+
+
+def start_ranks(job: dict, world: int = 2) -> tuple:
+    """Start ``job`` on ``world`` ranks of this card: each a process of
+    this script (``--rank-job``) that joins a gloo group through a
+    ``file://`` store in a temporary directory. Returns a handle for
+    :func:`join_ranks`."""
+    root = Path(tempfile.mkdtemp(prefix="smoke_ranks_"))
+    (root / "job.json").write_text(json.dumps(job))
+    procs = []
+    for r in range(world):
+        out = open(root / f"rank{r}.log", "wb")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank-job", str(root),
+             "--rank", str(r), "--world", str(world)],
+            cwd=Path(__file__).resolve().parent, stdout=out, stderr=subprocess.STDOUT), out))
+    return job, root, procs
+
+
+def join_ranks(handle: tuple, timeout: float = RANK_TIMEOUT_S, must_pass: bool = True) -> list:
+    """Join the ranks of :func:`start_ranks` within ``timeout``; a rank
+    that fails or hangs fails the run (``must_pass``) and every rank is
+    killed. Returns (exit code, result or None, output tail) by rank."""
+    job, root, procs = handle
+    try:
+        deadline = time.monotonic() + timeout
+        for p, _ in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+        for p, out in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+        got = []
+        for r, (p, _) in enumerate(procs):
+            res = root / f"result{r}.json"
+            tail = (root / f"rank{r}.log").read_text(errors="replace")[-4000:]
+            got.append((p.returncode, json.loads(res.read_text()) if res.exists() else None,
+                        tail))
+        if must_pass and any(rc != 0 for rc, _, _ in got):
+            raise AssertionError(f"{job['kind']}: ranks exited {[rc for rc, _, _ in got]} "
+                                 f"({timeout:.0f} s limit):\n" + "\n".join(
+                                     f"--- rank {r}:\n{tail}" for r, (_, _, tail) in
+                                     enumerate(got)))
+        return got
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def spawn_ranks(job: dict, world: int = 2, timeout: float = RANK_TIMEOUT_S,
+                must_pass: bool = True) -> list:
+    """:func:`start_ranks` then :func:`join_ranks`."""
+    return join_ranks(start_ranks(job, world), timeout, must_pass)
+
+
+def run_rank_job(root: str, rank: int, world: int) -> int:
+    """One rank of ``spawn_ranks``: join the group and run the job."""
+    job = json.loads((Path(root) / "job.json").read_text())
+    result_path = Path(root) / f"result{rank}.json"
+    if job["kind"] == "probe_nccl":
+        return rank_probe_nccl(root, rank, world, result_path)
+    from rstnet_tpu_torch.parallel.mesh import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_environment sets it
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(f"file://{root}/store", rank=rank, world_size=world,
+                           device_type="cuda", timeout_s=RANK_TIMEOUT_S)
+    import torch.distributed as dist
+
+    log(f"rank {rank}: backend {dist.get_backend()}, device {torch.cuda.current_device()}")
+    fn = {"probe_gloo": rank_probe_gloo, "train_dp2": rank_train_dp2,
+          "codec_dp2": rank_codec_dp2}[job["kind"]]
+    fn(job, rank, world, result_path)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def rank_probe_gloo(job: dict, rank: int, world: int, result_path: Path) -> None:
+    """Each collective once on CUDA tensors; the results are written after
+    each, so a collective that aborts the process leaves the earlier ones."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    out = {}
+
+    def p2p():
+        if rank == 0:
+            dist.send(torch.ones(4, device=dev), 1)
+        else:
+            dist.recv(torch.empty(4, device=dev), 0)
+
+    def batch_p2p():
+        ops = [dist.P2POp(dist.isend, torch.ones(4, device=dev), (rank + 1) % world),
+               dist.P2POp(dist.irecv, torch.empty(4, device=dev), (rank - 1) % world)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(torch.full((4,), rank + 1.0, device=dev)),
+        "all_reduce_max": lambda: dist.all_reduce(torch.ones(4, device=dev),
+                                                  op=dist.ReduceOp.MAX),
+        "broadcast": lambda: dist.broadcast(torch.ones(4, device=dev), 0),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * world, device=dev), torch.ones(4, device=dev)),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty(4, device=dev) for _ in range(world)], torch.ones(4, device=dev)),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device=dev), torch.ones(4 * world, device=dev)),
+        "send_recv": p2p, "batch_isend_irecv": batch_p2p,
+    }
+    for name in PROBED_COLLECTIVES:
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 - a probe reports what the backend says
+            out[name] = f"{type(e).__name__}: {e}"
+        result_path.write_text(json.dumps(out))
+
+
+def rank_probe_nccl(root: str, rank: int, world: int, result_path: Path) -> int:
+    """Whether NCCL takes two ranks on one device: its answer, word for word."""
+    import datetime
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{root}/store_nccl", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=60),
+                                device_id=torch.device("cuda", 0))
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        answer = f"ok: all_reduce gave {x.tolist()}"
+        dist.destroy_process_group()
+    except Exception as e:  # noqa: BLE001 - a probe reports what the backend says
+        answer = f"{type(e).__name__}: {e}"
+    result_path.write_text(json.dumps({"nccl_all_reduce": answer}))
+    return 0
+
+
+def probe_collectives(card: str) -> dict:
+    """Which collectives gloo runs on CUDA tensors of the one card, and
+    whether NCCL takes two ranks on it; printed on a line of its own, any
+    error word for word, with the axes each answer leaves to this card."""
+    handles = start_ranks({"kind": "probe_gloo"}), start_ranks({"kind": "probe_nccl"})
+    gloo, nccl = (join_ranks(h, timeout=120, must_pass=False) for h in handles)
+    answers = {}
+    for name in PROBED_COLLECTIVES:
+        per_rank = [(res or {}).get(name) for _, res, _ in gloo]
+        answers[name] = (per_rank[0] if len(set(per_rank)) == 1 and per_rank[0] else
+                         {f"rank{r}": a or "not reached (the rank exited before it)"
+                          for r, a in enumerate(per_rank)})
+    exits = [rc for rc, _, _ in gloo]
+    if any(exits):
+        answers["exit_codes"] = exits
+        answers["last_output"] = {f"rank{r}": tail.strip().splitlines()[-3:]
+                                  for r, (rc, _, tail) in enumerate(gloo) if rc}
+    ok = {n for n, a in answers.items() if a == "ok"}
+    axes = {ax: "runs" if all(c in ok for c in need) else
+            "not on this card (" + ", ".join(c for c in need if c not in ok) + " refused)"
+            for ax, need in AXIS_COLLECTIVES.items()}
+    probe = {"gloo_cuda": answers,
+             "nccl_two_ranks_one_card": [(res or {}).get("nccl_all_reduce", "no answer")
+                                         for _, res, _ in nccl],
+             "axes": axes, "card": card}
+    log(json.dumps({"parallel_probe": probe}))
+    if axes["data"] != "runs":
+        raise AssertionError(f"gloo refuses the data axis' collectives on CUDA tensors: {probe}")
+    return probe
+
+
+def _rss_gib() -> float:
+    """This process's resident host memory now."""
+    return int(Path("/proc/self/statm").read_text().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+
+def _param_sums(model) -> list:
+    """Per parameter, its float64 sum and sum of squares: equal on two ranks
+    only if the ranks' parameters are."""
+    with torch.no_grad():
+        return [[float(p.double().sum()), float(p.double().square().sum())]
+                for p in model.parameters()]
+
+
+def rank_train_dp2(job: dict, rank: int, world: int, result_path: Path) -> None:
+    """``trainer.main`` at ``--dp 2``: K6 launches, step times, the gradient
+    all-reduce's time a step (host clock around it, the device synced), one
+    step of rank 0 under ``device_trace``, the peak and the parameters'
+    sums."""
+    from rstnet_tpu_torch.tools.profile_frame import NoDeviceEvents, _union_us, device_trace
+    from rstnet_tpu_torch.training import train_step as ts
+    from rstnet_tpu_torch.training import trainer
+
+    reduce_s, traced, models = [], {}, []
+    real_reduce = ts.MeshSync.reduce
+
+    def timed_reduce(self, grads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_reduce(self, grads)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+
+    real_make = trainer.make_train_step
+
+    def make(loss_fn, tx, **kw):
+        step = real_make(loss_fn, tx, **kw)
+        n = [0]
+
+        def run(state, batch):
+            n[0] += 1
+            models[:] = [state["model"]]
+            if rank != 0 or n[0] != job["profiled_step"]:
+                return step(state, batch)
+            holder = {}
+
+            def once():
+                holder["out"] = step(state, batch)
+
+            try:
+                events, wall_us = device_trace(once, attempts=1, confirm=False)
+                copies = [e for e in events if "Memcpy" in e.name or "memcpy" in e.name]
+                traced.update(
+                    wall_ms=wall_us / 1e3, events=len(events),
+                    busy_ms=_union_us([(e.time_range.start, e.time_range.end)
+                                       for e in events]) / 1e3,
+                    copies=len(copies),
+                    copy_ms=sum(e.time_range.elapsed_us() for e in copies) / 1e3)
+            except NoDeviceEvents as e:
+                traced["not_measured"] = f"the profiler window lost its markers: {e}"
+                if "out" not in holder:
+                    raise
+            return holder["out"]
+
+        return run
+
+    ts.MeshSync.reduce = timed_reduce
+    trainer.make_train_step = make
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = trainer.main(job["argv"])
+    wall = time.perf_counter() - t0
+    result_path.write_text(json.dumps({
+        "steps": out["steps"], "counts": read_counts(), "reduce_s": reduce_s, "wall_s": wall,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "traced": traced,
+        "checkpoint": out["checkpoints"][-1]["path"], "sums": _param_sums(models[0])}))
+
+
+def rank_codec_dp2(job: dict, rank: int, world: int, result_path: Path) -> None:
+    """``codec_trainer.main`` at ``--dp 2``: K3 launches, step times, the
+    peak and the G/D parameters' and buffers' sums."""
+    from rstnet_tpu_torch.training import codec_trainer as ct
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = ct.main(job["argv"])
+    gan = out["state"]["model"]
+    with torch.no_grad():
+        sums = _param_sums(gan) + [[float(b.double().sum())] for b in gan.buffers()]
+    result_path.write_text(json.dumps({
+        "steps": out["steps"], "counts": read_counts(), "sums": sums,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "checkpoint": out["checkpoints"][-1]}))
+
+
+def _compare_bf16_params(got: dict, want: dict, lr_sum: float) -> dict:
+    """Element statistics of two parameter dicts (bf16) on the card, against
+    ``DP2``'s bound: every element within 2 x ``lr_sum`` + one bf16 ulp of
+    it, ``DP2_PARAM_SHARE`` of them within one ulp + 5 % of ``lr_sum``."""
+    n = close = over = 0
+    worst = 0.0
+    for name, w in want.items():
+        a, b = got[name].cuda().float(), w.cuda().float()
+        ulp = torch.clamp(b.abs(), min=2.0**-126) * 2.0**-7
+        d = (a - b).abs()
+        n += d.numel()
+        close += int((d <= ulp + 0.05 * lr_sum).sum())
+        over += int((d > ulp + 2 * lr_sum).sum())
+        worst = max(worst, float(d.max()))
+    return {"elements": n, "share_close": close / n, "over_bound": over, "max_abs": worst}
+
+
+def run_train_dp2(seed: int, card: str) -> tuple[dict, dict]:
+    """Path ``train_dp2_llama1b``: ``trainer.main`` as two processes on the
+    card, ``--dp 2``, ``configs/llama_1b_speech.yaml`` at full width (bf16,
+    remat), global batch B=4 x T=1024, ``DP2_STEPS`` steps; each rank's K6
+    launches asserted; the losses and every parameter after the steps held
+    to one process on the same global batches (``DP2_*``), and the two
+    ranks' parameters to each other. Returns (both ranks' launches summed,
+    the readings)."""
+    from rstnet_tpu_torch.models.config import Config
+    from rstnet_tpu_torch.training import trainer
+    from rstnet_tpu_torch.training.schedulers import warmup_lr
+
+    cfg = Config.from_file("configs/llama_1b_speech.yaml")
+    root = Path(tempfile.mkdtemp(prefix="smoke_dp2_"))
+    try:
+        _check_disk(root, 16 * 2**30, "train_dp2_llama1b")
+        # two long utterances and two texts of ~575 fill each batch of 2500
+        # tokens (+ the mixing slack); the last utterance's batch is left out
+        data = write_training_data(root, seed, (951, 1023), 2 * DP2_STEPS + 1, (430, 470), 0,
+                                   (570, 580), 2 * DP2_STEPS, audio_card=2048, vocab=128000)
+
+        def argv(tag):
+            return full_train_args(data, root / tag, "bfloat16", DP2_STEPS, seed) + DP2_LR_FLAGS
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        one = trainer.main(argv("one"))
+        one_wall = time.perf_counter() - t0
+        ckpt = Path(one["checkpoints"][-1]["path"])
+        saved = torch.load(ckpt / "state.pt", map_location="cpu", weights_only=True, mmap=True)
+        want = {k: v.clone() for k, v in saved["params"].items()}
+        del saved
+        shutil.rmtree(root / "one", ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks({"kind": "train_dp2", "argv": argv("dp2") + ["--dp", "2"],
+                             "profiled_step": DP2_STEPS})
+        dp2_wall = time.perf_counter() - t0
+        res = [r for _, r, _ in ranks]
+        for r, got in enumerate(res):
+            steps = got["steps"]
+            if [(s["batch_size"], s["seq_len"]) for s in steps] != [
+                    (s["batch_size"], s["seq_len"]) for s in one["steps"]]:
+                raise AssertionError(f"rank {r} batches {steps} differ from one process's")
+            shapes = [(s["batch_size"], s["seq_len"]) for s in steps]
+            if shapes != [(4, 1024)] * DP2_STEPS:
+                raise AssertionError(f"train_dp2_llama1b batches {shapes}: expected B=4 x T=1024")
+            expected = expected_k6(steps, cfg.n_layer)
+            counts = {k: v for k, v in got["counts"].items() if v}
+            if counts != expected:
+                raise AssertionError(f"rank {r} launched {counts}, expected {expected}")
+            for a, b in zip(steps, one["steps"]):
+                if abs(a["loss"] - b["loss"]) > DP2_LOSS_RTOL * abs(b["loss"]):
+                    raise AssertionError(f"rank {r} step losses {[s['loss'] for s in steps]}, "
+                                         f"one process {[s['loss'] for s in one['steps']]}")
+        if res[0]["sums"] != res[1]["sums"]:
+            raise AssertionError("the two ranks' parameters differ after the steps")
+        got_params = torch.load(Path(res[0]["checkpoint"]) / "state.pt", map_location="cpu",
+                                weights_only=True, mmap=True)["params"]
+        schedule = warmup_lr(1e-3, 1)
+        lr_sum = float(sum(schedule(i) for i in range(DP2_STEPS)))
+        stats = _compare_bf16_params(got_params, want, lr_sum)
+        del got_params, want
+        if stats["over_bound"] or stats["share_close"] < DP2_PARAM_SHARE:
+            raise AssertionError(f"train_dp2_llama1b parameters against one process: {stats}")
+        counts = {k: res[0]["counts"][k] + res[1]["counts"][k] for k in res[0]["counts"]}
+        step_ms = [[round(s["step_time"] * 1e3, 1) for s in g["steps"]] for g in res]
+        share = [sum(g["reduce_s"][1:]) / sum(s["step_time"] for s in g["steps"][1:])
+                 for g in res]
+        reading = {
+            "one_process_step_ms": [round(s["step_time"] * 1e3, 1) for s in one["steps"]],
+            "dp2_step_ms_by_rank": step_ms, "allreduce_ms_by_rank":
+                [[round(t * 1e3, 1) for t in g["reduce_s"]] for g in res],
+            "allreduce_share_after_first": share, "peak_gib_by_rank":
+                [round(g["peak_gib"], 2) for g in res], "rank0_traced_step": res[0]["traced"],
+            "losses_dp2": [s["loss"] for s in res[0]["steps"]],
+            "losses_one": [s["loss"] for s in one["steps"]], "params": stats,
+            "lr_sum": lr_sum, "one_process_wall_s": round(one_wall, 1),
+            "dp2_wall_s": round(dp2_wall, 1), "card": card}
+        log(f"train_dp2_llama1b: 2 ranks x B=2 x T=1024 (global B=4) on one card over gloo; "
+            f"step ms by rank {step_ms} against one process "
+            f"{reading['one_process_step_ms']} (host clock, first step included); gradient "
+            f"all-reduce {reading['allreduce_ms_by_rank']} ms, "
+            f"{[round(100 * x, 1) for x in share]} % of the steps after the first; peaks "
+            f"{reading['peak_gib_by_rank']} GiB; losses {reading['losses_dp2']} vs "
+            f"{reading['losses_one']}; parameters {stats}; rank 0's traced step "
+            f"{res[0]['traced']}; K6 {counts} [{card}]")
+        return counts, reading
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _compare_f32_params(got: dict, want: dict, lr_sums: dict) -> dict:
+    """Element statistics of two float32 parameter dicts against
+    ``CODEC_DP2``'s test (``lr_sums``: the lr sum by name)."""
+    n = close = over = 0
+    worst = 0.0
+    for name, w in want.items():
+        a, b = got[name].double(), w.double()
+        d = (a - b).abs()
+        near = CODEC_DP2_PARAM_RTOL * b.abs() + 0.05 * lr_sums[name]
+        n += d.numel()
+        close += int((d <= near).sum())
+        over += int((d > near + 2 * lr_sums[name]).sum())
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    return {"elements": n, "share_close": close / n, "over_bound": over, "max_abs": worst}
+
+
+def run_codec_dp2(seed: int, card: str) -> tuple[dict, dict]:
+    """Path ``codec_train_dp2``: ``codec_trainer.main`` on ``CODEC_CONFIG``
+    at full width, ``--dp 2`` as two processes on the card, batch 4 (2 a
+    rank), ``CODEC_DP2_STEPS`` steps, against ``--dp 1`` in this process on
+    the same clips, teacher features (none) and draws: K3 launches asserted
+    (2 a G step a rank), the steps' G and D losses, the optimizers' first
+    moments, the G/D parameters and the EMA buffers held to ``--dp 1``
+    (``CODEC_DP2_*``), with the initial weights as the no-update control.
+    Returns (both ranks' launches summed, the readings)."""
+    from rstnet_tpu_torch.data.synth_speech import synth_corpus
+    from rstnet_tpu_torch.training import codec_trainer as ct
+    from rstnet_tpu_torch.utils import yaml_subset
+    from rstnet_tpu_torch.utils.audio import write_wav
+
+    root = Path(tempfile.mkdtemp(prefix="smoke_codec_dp2_"))
+    try:
+        paths = []
+        for i, clip in enumerate(synth_corpus(seed, CODEC_TRAIN_CLIPS, CODEC_CLIP_SECONDS)):
+            paths.append(str(root / f"clip{i}.wav"))
+            write_wav(paths[-1], clip, 24000)
+        (root / "train.scp").write_text("\n".join(paths))
+
+        def argv(tag, dp):
+            return ["--config", CODEC_CONFIG, "--exp_dir", str(root / tag), "--train_scp",
+                    str(root / "train.scp"), "--semantic_teacher", "none", "--device", "cuda",
+                    "--max_steps", str(CODEC_DP2_STEPS), "--dp", str(dp)]
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        one = ct.main(argv("one", 1))
+        one_wall = time.perf_counter() - t0
+        gan = one["state"]["model"]
+        want = {k: v.detach().cpu() for k, v in gan.state_dict().items()}
+        buffers = {n for n, _ in gan.named_buffers()}
+        want_mu = {w: {k: v.detach().cpu() for k, v in one["state"]["opt_state"][w]["mu"].items()}
+                   for w in ("g", "d")}
+        del one["state"], gan
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks({"kind": "codec_dp2", "argv": argv("dp2", 2)})
+        dp2_wall = time.perf_counter() - t0
+        res = [r for _, r, _ in ranks]
+        for r, got in enumerate(res):
+            counts = {k: v for k, v in got["counts"].items() if v}
+            if counts != {"rvq_encode": 2 * CODEC_DP2_STEPS}:
+                raise AssertionError(f"codec_train_dp2 rank {r} launched {counts}")
+            for key in ("g_loss", "d_loss"):
+                a, b = [s[key] for s in got["steps"]], [s[key] for s in one["steps"]]
+                if len(a) != CODEC_DP2_STEPS or len(b) != CODEC_DP2_STEPS or any(
+                        abs(x - y) > CODEC_DP2_LOSS_RTOL * abs(y) for x, y in zip(a, b)):
+                    raise AssertionError(f"codec_train_dp2 rank {r} {key} {a}, --dp 1 {b}")
+        if res[0]["sums"] != res[1]["sums"]:
+            raise AssertionError("codec_train_dp2: the two ranks' states differ")
+        saved = torch.load(Path(res[0]["checkpoint"]) / "state.pt", map_location="cpu",
+                           weights_only=True)
+        cfg = yaml_subset.load(CODEC_CONFIG)
+        lrs = {w: float(cfg["optimizer"][w]["config"]["lr"]) for w in ("g", "d")}
+        mu_rel, worst_mu = {}, {}
+        for w in ("g", "d"):
+            got_mu = saved["opt_state"][w]["mu"]
+            if set(got_mu) != set(want_mu[w]):
+                raise AssertionError(f"codec_train_dp2 {w} moments: keys differ")
+            diff_sq = ref_sq = 0.0
+            for name, m in want_mu[w].items():
+                d = got_mu[name].double() - m.double()
+                diff_sq += float((d * d).sum())
+                ref_sq += float((m.double() ** 2).sum())
+                if m.numel():
+                    worst_mu[f"{w}.{name}"] = d.abs().max().item() / max(m.abs().max().item(),
+                                                                          1e-30)
+            mu_rel[w] = math.sqrt(diff_sq / max(ref_sq, 1e-300))
+        worst_buf = {}
+        for name in buffers:
+            w = want[name]
+            d = (saved["params"][name].double() - w.double()).abs().max().item() if w.numel() \
+                else 0.0
+            worst_buf[name] = d / (max(w.abs().max().item(), 1e-30) if w.numel() else 1e-30)
+        params = {k: v for k, v in want.items() if k not in buffers}
+        lr_sums = {k: lrs["g" if k.startswith("g.") else "d"] * CODEC_DP2_STEPS for k in params}
+        stats = _compare_f32_params(saved["params"], params, lr_sums)
+        model, discs, _ = ct.build_from_config(cfg)  # the initial weights, drawn on the CPU
+        initial = {f"g.{k}": v for k, v in model.state_dict().items()}
+        initial.update({f"d.{k}": v for k, v in discs.state_dict().items()})
+        control = _compare_f32_params(initial, params, lr_sums)
+        del model, discs, initial
+        worst_t = max(worst_mu, key=worst_mu.get)
+        log(f"codec_train_dp2 against --dp 1: first moments' difference over their norm "
+            f"{mu_rel} (limit {CODEC_DP2_MU_RTOL}), worst tensor {worst_t} "
+            f"{worst_mu[worst_t]:.3g} of its largest; parameters {stats}; initial weights "
+            f"(no-update control) {control}; worst buffer {max(worst_buf.values()):.3g} of its "
+            f"size (limit {CODEC_DP2_BUFFER_RTOL})")
+        if any(v > CODEC_DP2_MU_RTOL for v in mu_rel.values()):
+            raise AssertionError(f"codec_train_dp2 first moments against --dp 1: {mu_rel}")
+        bad = {k: v for k, v in worst_buf.items() if v > CODEC_DP2_BUFFER_RTOL}
+        if bad:
+            raise AssertionError(f"codec_train_dp2 buffers against --dp 1: {bad}")
+        if stats["over_bound"] or stats["share_close"] < CODEC_DP2_PARAM_SHARE:
+            raise AssertionError(f"codec_train_dp2 parameters against --dp 1: {stats}")
+        if control["share_close"] >= CODEC_DP2_PARAM_SHARE:
+            raise AssertionError(f"codec_train_dp2: the initial weights pass the parameter test "
+                                 f"against the trained ones ({control}): it cannot see an update")
+        counts = {k: res[0]["counts"][k] + res[1]["counts"][k] for k in res[0]["counts"]}
+        reading = {
+            "one_process_step_ms": [round(s["seconds"] * 1e3, 1) for s in one["steps"]],
+            "dp2_step_ms_by_rank": [[round(s["seconds"] * 1e3, 1) for s in g["steps"]]
+                                    for g in res],
+            "peak_gib_by_rank": [round(g["peak_gib"], 2) for g in res],
+            **{f"{k}_{tag}": [s[k] for s in steps] for k in ("g_loss", "d_loss")
+               for tag, steps in (("dp2", res[0]["steps"]), ("one", one["steps"]))},
+            "params": stats, "no_update_control": control, "mu_norm_rel_diff": mu_rel,
+            "max_mu_tensor_rel_diff": worst_mu[worst_t],
+            "max_buffer_rel_diff": max(worst_buf.values()),
+            "one_process_wall_s": round(one_wall, 1), "dp2_wall_s": round(dp2_wall, 1),
+            "card": card}
+        log(f"codec_train_dp2 ({CODEC_CONFIG}, batch 4 = 2 ranks x 2): step ms by rank "
+            f"{reading['dp2_step_ms_by_rank']} against one process "
+            f"{reading['one_process_step_ms']} (host clock, data included); peaks "
+            f"{reading['peak_gib_by_rank']} GiB; g losses {reading['g_loss_dp2']} vs "
+            f"{reading['g_loss_one']}, d losses {reading['d_loss_dp2']} vs "
+            f"{reading['d_loss_one']}; first moments {mu_rel} of their norm; parameters "
+            f"{stats}, the initial weights (no-update control) {control}; buffers "
+            f"{reading['max_buffer_rel_diff']:.3g} of their size; K3 "
+            f"{counts['rvq_encode']} launches [{card}]")
+        return counts, reading
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_parallel_phases(args, card: str, paths: dict) -> dict:
+    """The probe, then the two data-parallel paths; ``paths`` gets their
+    launches (both ranks'). Returns the readings."""
+    out = {}
+    gc.collect()
+    # the earlier paths leave tens of GiB of freed host heap in this
+    # process (checkpoint_solo_frame's peak RSS is ~54 GiB): hand it back
+    # before the ranks stage their gradients and checkpoints in host memory
+    import ctypes
+
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+    log(f"parallel: host RSS {_rss_gib():.1f} GiB before the ranks start")
+    with phase("parallel probe"):
+        out["probe"] = probe_collectives(card)
+    with phase("train dp2 llama1b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["train_dp2_llama1b"], out["train_dp2_llama1b"] = run_train_dp2(args.seed, card)
+    with phase("codec train dp2"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["codec_train_dp2"], out["codec_train_dp2"] = run_codec_dp2(args.seed, card)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4511,7 +5152,16 @@ def main(argv=None) -> int:
                         help="run only the data-prep paths (the duplex client over a socket, "
                         "solo and batched, and the pretraining and moshi_ft recipes), and print "
                         "their findings (no result line)")
+    parser.add_argument("--parallel-only", action="store_true",
+                        help="run only the parallel phase (the probe of gloo and NCCL on the "
+                        "card, paths train_dp2_llama1b and codec_train_dp2), and print their "
+                        "findings (no result line)")
+    parser.add_argument("--rank-job", default="", help=argparse.SUPPRESS)
+    parser.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.rank_job:
+        return run_rank_job(args.rank_job, args.rank, args.world)
     if args.trees:
         return compare_trees(args.trees.split(","), args.seed, args.out)
     if args.k4_f32_out:
@@ -4535,6 +5185,15 @@ def main(argv=None) -> int:
         log(json.dumps({"launches_by_path": {p: {k: v for k, v in c.items() if v}
                                              for p, c in paths.items()}}))
         log(f"chip_smoke --prep-only: {time.perf_counter() - t_start:.1f} s wall")
+        return 0
+    if args.parallel_only:
+        card = phase_environment()
+        phase_build()
+        paths = {}
+        log(json.dumps({"parallel_paths": run_parallel_phases(args, card, paths)}))
+        log(json.dumps({"launches_by_path": {p: {k: v for k, v in c.items() if v}
+                                             for p, c in paths.items()}}))
+        log(f"chip_smoke --parallel-only: {time.perf_counter() - t_start:.1f} s wall")
         return 0
     if args.codec_only:
         card = phase_environment()
@@ -4722,6 +5381,8 @@ def run_from_checkpoints(args, card: str, kernels: list, paths: dict, graphs: di
     log(json.dumps({"ssl_paths": run_ssl_phases(args, card)}))
     # after every earlier path, so that each runs as it did before them
     log(json.dumps({"prep_paths": run_prep_phases(args, card, paths)}))
+    # last: two ranks on the card, after every earlier path's peak
+    log(json.dumps({"parallel_paths": run_parallel_phases(args, card, paths)}))
     for k in kernels:
         # a graph path's are its device launches: its eager warm-up call's
         # and its replays' (graph_launches)

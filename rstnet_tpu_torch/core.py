@@ -76,8 +76,30 @@ def lora_dropout(x: torch.Tensor, drop) -> torch.Tensor:
         return x
     rate, generator = drop
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = _whole_batch_rand(x, generator) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _whole_batch_rand(x: torch.Tensor, generator) -> torch.Tensor:
+    """``torch.rand`` of x's shape; where the ambient mesh splits the batch
+    (rows over ``data`` x ``fsdp``, dim 1 of a 3+-dim x over ``seq``), this
+    rank's part of the draw over the whole batch, so that its mask is the
+    one-process mask's rows. (A pipeline's microbatches each draw their own.)"""
+    from rstnet_tpu_torch.parallel.mesh import current_mesh
+
+    mesh = current_mesh()
+    if mesh is None or mesh.world == 1:
+        return torch.rand(x.shape, generator=generator, device=x.device)
+    n_rows, n_seq = mesh.size("data") * mesh.size("fsdp"), mesh.size("seq")
+    row = mesh.coord("data") * mesh.size("fsdp") + mesh.coord("fsdp")
+    n_seq = n_seq if x.dim() >= 3 else 1
+    shape = (x.shape[0] * n_rows, *((x.shape[1] * n_seq,) if x.dim() >= 2 else ()),
+             *x.shape[2:])
+    whole = torch.rand(shape, generator=generator, device=x.device)
+    part = whole.narrow(0, row * x.shape[0], x.shape[0])
+    if n_seq > 1:
+        part = part.narrow(1, mesh.coord("seq") * x.shape[1], x.shape[1])
+    return part
 
 
 def fold_drop(drop, i: int):

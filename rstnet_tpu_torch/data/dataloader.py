@@ -4,10 +4,10 @@
 Length pre-scan, length filtering, token-budget batching with text-only
 examples mixed into every batch, hour-weighted task rebalancing, and a
 sampler that chunk-shuffles the length-sorted batches locally and shuffles
-them globally with a per-epoch seed. Across processes the JAX package pads
-every host to the same batch count; one process needs no padding, so
-``_allreduce_max_hosts`` is the identity here (multi-process training is a
-later item).
+them globally with a per-epoch seed. Across processes every one is padded
+to the largest batch count (``_allreduce_max_hosts``, a MAX all-reduce over
+the default process group), so all of them step the same number of
+batches; the JAX package pads its hosts the same way.
 """
 
 from __future__ import annotations
@@ -18,6 +18,9 @@ import queue
 import random
 import threading
 from typing import Iterator, Optional
+
+import torch
+import torch.distributed as dist
 
 from rstnet_tpu_torch.data.collate import Collator, SpecialTokens, find_length_of
 from rstnet_tpu_torch.data.task_definition import load_data_for_all_tasks
@@ -136,9 +139,16 @@ def rebalance_data(
     return out
 
 
-def _allreduce_max_hosts(value: int) -> int:
-    """The largest batch count over processes: one process, its own."""
-    return value
+def _allreduce_max_hosts(value: int, group=None) -> int:
+    """The largest batch count over the processes of ``group`` (the default
+    process group); one process: its own."""
+    if not dist.is_available() or not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return value
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+    t = torch.tensor([value], dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return int(t.item())
 
 
 class SyncSampler:

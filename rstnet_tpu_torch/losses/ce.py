@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from rstnet_tpu_torch.parallel.comm import all_reduce_, reduce_from
+
 CHUNK_ELEMENTS = 1 << 26  # float32 elements of one chunk of rows (256 MiB)
 
 
@@ -53,10 +55,15 @@ class _TargetNLL(torch.autograd.Function):
 
 
 def cross_entropy_and_accuracy(logits: torch.Tensor, targets: torch.Tensor, masks: torch.Tensor,
-                               loss_weights: tuple[float, ...], ignore_ids: tuple[int, ...]
-                               ) -> tuple[torch.Tensor, dict]:
+                               loss_weights: tuple[float, ...], ignore_ids: tuple[int, ...],
+                               groups=None) -> tuple[torch.Tensor, dict]:
     """logits [B, T, K, V]; targets and masks [B, K, T] (stream-major, as the
-    collated grids). Returns (scalar loss, metrics)."""
+    collated grids). Returns (scalar loss, metrics). ``groups``: the process
+    groups that split the batch (``parallel/mesh.py::batch_groups``); every
+    sum and count is then summed over them, so each rank computes the loss
+    of the whole batch (a mean of the ranks' means would weigh their tokens
+    wrongly whenever their masks differ), and its gradient is the rank's
+    share of the whole one."""
     B, T, K, V = logits.shape
     if tuple(targets.shape) != (B, K, T) or tuple(masks.shape) != (B, K, T):
         raise ValueError(f"targets {tuple(targets.shape)} and masks {tuple(masks.shape)} "
@@ -72,10 +79,18 @@ def cross_entropy_and_accuracy(logits: torch.Tensor, targets: torch.Tensor, mask
     seen, target = (msk != 0).float(), (msk == 1).float()
     correct = (logits.argmax(-1) == tgt).float()
     num_tokens, num_target = seen.sum((0, 1)), target.sum((0, 1))  # [K]
-    loss = (nll.sum((0, 1)) / num_tokens.clamp_min(1.0) * lw).sum()
+    nll_sum = nll.sum((0, 1))
+    hits_all, hits_target = (correct * seen).sum(), (correct * target).sum()
+    if groups:
+        nll_sum = reduce_from(nll_sum, groups)
+        num_tokens, num_target, hits_all, hits_target = all_reduce_(
+            torch.stack([*num_tokens, *num_target, hits_all, hits_target]), groups
+        ).split([K, K, 1, 1])
+        hits_all, hits_target = hits_all[0], hits_target[0]
+    loss = (nll_sum / num_tokens.clamp_min(1.0) * lw).sum()
     metrics = {
-        "acc_all": (correct * seen).sum() / num_tokens.sum().clamp_min(1.0),
-        "acc_target": (correct * target).sum() / num_target.sum().clamp_min(1.0),
+        "acc_all": hits_all / num_tokens.sum().clamp_min(1.0),
+        "acc_target": hits_target / num_target.sum().clamp_min(1.0),
         "loss": loss,
     }
     return loss, metrics

@@ -3,6 +3,10 @@
 and D losses, single- and multi-resolution STFT losses, and the
 GeneratorSTFTLoss composition (adversarial, feature match, mel, full-band
 and PQMF sub-band multi-resolution STFT, time-domain L1).
+
+Every mean and norm over the batch is ``parallel/comm.py``'s
+``batch_mean``/``batch_norm``: ``torch.mean``/``vector_norm`` in one
+process, the whole batch's value on every rank under data parallelism.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 
 from rstnet_tpu_torch.ops.pqmf import pqmf_analysis
 from rstnet_tpu_torch.ops.stft import magnitude, mel_spectrogram
+from rstnet_tpu_torch.parallel.comm import batch_mean, batch_norm
 
 
 def feature_match_loss(real_fmaps, fake_fmaps) -> torch.Tensor:
@@ -22,7 +27,7 @@ def feature_match_loss(real_fmaps, fake_fmaps) -> torch.Tensor:
     for rf, ff in zip(real_fmaps, fake_fmaps):
         pairs = zip(rf, ff) if isinstance(rf, (list, tuple)) else ((rf, ff),)
         for r, f in pairs:
-            loss = loss + torch.mean(torch.abs(f.float() - r.float().detach()))
+            loss = loss + batch_mean(torch.abs(f.float() - r.float().detach()))
             n += 1
     return loss / max(n, 1)
 
@@ -31,14 +36,14 @@ def mse_g_loss(fake_scores) -> torch.Tensor:
     """Least-squares generator loss, summed over heads."""
     loss = 0.0
     for s in fake_scores:
-        loss = loss + torch.mean(torch.square(1.0 - s.float()))
+        loss = loss + batch_mean(torch.square(1.0 - s.float()))
     return loss
 
 
 def hinge_g_loss(fake_scores) -> torch.Tensor:
     loss = 0.0
     for s in fake_scores:
-        loss = loss - torch.mean(s.float())
+        loss = loss - batch_mean(s.float())
     return loss
 
 
@@ -46,14 +51,14 @@ def mse_d_loss(real_scores, fake_scores) -> torch.Tensor:
     """Least-squares discriminator loss summed over heads."""
     loss = 0.0
     for r, f in zip(real_scores, fake_scores):
-        loss = loss + torch.mean(torch.square(r.float() - 1.0)) + torch.mean(torch.square(f.float()))
+        loss = loss + batch_mean(torch.square(r.float() - 1.0)) + batch_mean(torch.square(f.float()))
     return loss
 
 
 def hinge_d_loss(real_scores, fake_scores) -> torch.Tensor:
     loss = 0.0
     for r, f in zip(real_scores, fake_scores):
-        loss = loss + torch.mean(torch.relu(1.0 - r)) + torch.mean(torch.relu(1.0 + f))
+        loss = loss + batch_mean(torch.relu(1.0 - r)) + batch_mean(torch.relu(1.0 + f))
     return loss
 
 
@@ -62,8 +67,8 @@ def stft_loss(x: torch.Tensor, y: torch.Tensor, fft_size: int, hop_size: int, wi
     """(spectral convergence, log-STFT magnitude L1) at one resolution."""
     mx = magnitude(x, fft_size, hop_size, win_size)
     my = magnitude(y, fft_size, hop_size, win_size)
-    sc = torch.linalg.vector_norm(my - mx) / torch.clamp(torch.linalg.vector_norm(my), min=1e-8)
-    mag = torch.mean(torch.abs(torch.log(my) - torch.log(mx)))
+    sc = batch_norm(my - mx) / torch.clamp(batch_norm(my), min=1e-8)
+    mag = batch_mean(torch.abs(torch.log(my) - torch.log(mx)))
     return sc, mag
 
 
@@ -124,14 +129,14 @@ def generator_loss(cfg: GeneratorLossConfig, targets: torch.Tensor, outputs: tor
                 g_loss = g_loss + fm * cfg.feat_match_loss_weight
                 items[f"G_fm_{name}"] = fm
     if cfg.use_wav_loss:
-        wav = torch.mean(torch.abs(outputs - targets.detach()))
+        wav = batch_mean(torch.abs(outputs - targets.detach()))
         g_loss = g_loss + wav * cfg.wav_loss_weight
         items["G_wav_loss"] = wav
     if cfg.use_mel_loss:
         mel_kw = dict(cfg.mel_kwargs)
         mel_out = mel_spectrogram(outputs[:, 0], **mel_kw)
         mel_tgt = mel_spectrogram(targets[:, 0], **mel_kw)
-        mel = torch.mean(torch.abs(mel_out - mel_tgt.detach()))
+        mel = batch_mean(torch.abs(mel_out - mel_tgt.detach()))
         g_loss = g_loss + mel * cfg.mel_loss_weight
         items["G_mel_loss"] = mel
     if cfg.use_full_stft_loss:

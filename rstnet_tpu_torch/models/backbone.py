@@ -46,7 +46,24 @@ for the head, and each dropout site seeds its own generator from them
 the same masks. MoE (``LLaMAMoE``): a router top-k, a float32 softmax over
 the k, and a dense combine over all experts, as in JAX.
 
-Not ported yet: sequence and pipeline parallelism.
+Under an ambient mesh (``parallel/mesh.py::set_mesh``) and a model placed by
+``parallel/sharding.py::shard_params``, the training forward routes as the
+JAX one does:
+
+* ``seq`` > 1: this rank holds a time slice; positions start at its offset
+  and attention is ``ops/context_parallel.py`` (a ring of K/V blocks, GQA
+  heads repeated first), ahead of K6.
+* ``pipe`` > 1 with the blocks held by stages: the layer loop is the GPipe
+  schedule of ``parallel/pipeline.py`` over ``pipeline_microbatches`` (one
+  microbatch when the rows do not divide: the plain loop, run stage by
+  stage), each layer's body checkpointed under ``remat``.
+* ``tensor`` > 1: attention and the MLP run Megatron-style on the local
+  shards (column-parallel QKV and up-projections, row-parallel output
+  projections, one all-reduce a sublayer); q/k/v reach K6 as plain local
+  tensors of whole heads. Every other sharded weight is gathered where it
+  is used.
+* ``expert`` > 1: each rank runs its experts of the ``[E, ...]`` stacks and
+  the mixture is summed over the ``expert`` axis.
 """
 
 from __future__ import annotations
@@ -71,9 +88,20 @@ from rstnet_tpu_torch.core import (
 from rstnet_tpu_torch.models.config import Config, rope_extra_config
 from rstnet_tpu_torch.modules.transformer import quantize_weight_int8
 from rstnet_tpu_torch.ops.attention import ring_kv_buffers, ring_kv_update
+from rstnet_tpu_torch.ops.context_parallel import context_parallel_attention
 from rstnet_tpu_torch.ops.cuda_ffn import FFN_MAX_ROWS, gating_ffn, gating_ffn_int8
 from rstnet_tpu_torch.ops.flash_attention import flash_attention, flash_qualifies
 from rstnet_tpu_torch.ops.rope import apply_rope_halved, build_rope_cache
+from rstnet_tpu_torch.parallel.comm import (
+    chunk_of,
+    copy_to,
+    gather_dim,
+    gather_replicated,
+    reduce_from,
+)
+from rstnet_tpu_torch.parallel.mesh import current_mesh
+from rstnet_tpu_torch.parallel.pipeline import spmd_pipeline
+from rstnet_tpu_torch.parallel.sharding import dense, is_dtensor, local
 
 STACKED = ("blocks",)
 _FLOAT = (torch.float32, torch.bfloat16)
@@ -104,13 +132,52 @@ def linear(p: nn.Module, x: torch.Tensor, scaling: float = 1.0, drop=None) -> to
     if "w_int8" in p._parameters:
         y = _Int8Matmul.apply(x, p.w_int8, p.scale)
     else:
-        y = x @ p.weight.T.to(x.dtype)
+        y = x @ dense(p.weight).T.to(x.dtype)
     lora = p._modules.get("lora")
     if lora is not None:
         xd = lora_dropout(x, dropout_pair(drop, x.device))
-        y = y + (xd @ lora.A.T.to(x.dtype)) @ lora.B.T.to(x.dtype) * scaling
+        y = y + (xd @ dense(lora.A).T.to(x.dtype)) @ dense(lora.B).T.to(x.dtype) * scaling
     if "bias" in p._parameters:
-        y = y + p.bias.to(x.dtype)
+        y = y + dense(p.bias).to(x.dtype)
+    return y
+
+
+def _tp_sharded(*linears: nn.Module) -> bool:
+    """Whether every one of the linears has a tensor-sharded float weight
+    (the Megatron path; an int8 or indivisible weight stays whole)."""
+    return all(is_dtensor(p._parameters.get("weight")) for p in linears)
+
+
+def column_linear(p: nn.Module, x: torch.Tensor, tp, scaling: float = 1.0, drop=None
+                  ) -> torch.Tensor:
+    """Column-parallel ``linear``: x whole (it entered through ``copy_to``),
+    this rank's output features out. The replicated bias and LoRA A go
+    through ``copy_to`` as well, so their gradients are summed over the
+    ranks' partial ones; LoRA B is sharded with the weight's rows."""
+    y = x @ local(p.weight).T.to(x.dtype)
+    lora = p._modules.get("lora")
+    if lora is not None:
+        xd = lora_dropout(x, dropout_pair(drop, x.device))
+        a = copy_to(dense(lora.A), tp)
+        y = y + (xd @ a.T.to(x.dtype)) @ local(lora.B).T.to(x.dtype) * scaling
+    if "bias" in p._parameters:
+        y = y + chunk_of(copy_to(dense(p.bias), tp), 0, tp).to(x.dtype)
+    return y
+
+
+def row_linear(p: nn.Module, x: torch.Tensor, tp, scaling: float = 1.0, drop=None
+               ) -> torch.Tensor:
+    """Row-parallel ``linear``: this rank's input features in, the whole
+    output out (the partial products summed over ``tp``). A LoRA branch
+    runs on the whole input, gathered: the same on every rank."""
+    y = reduce_from(x @ local(p.weight).T.to(x.dtype), tp)
+    lora = p._modules.get("lora")
+    if lora is not None:
+        x_all = gather_replicated(x, -1, tp)
+        xd = lora_dropout(x_all, dropout_pair(drop, x.device))
+        y = y + (xd @ dense(lora.A).T.to(x.dtype)) @ dense(lora.B).T.to(x.dtype) * scaling
+    if "bias" in p._parameters:
+        y = y + dense(p.bias).to(x.dtype)
     return y
 
 
@@ -229,6 +296,13 @@ class Backbone(nn.Module):
                                 condense_ratio=cfg.rope_condense_ratio,
                                 extra_config=rope_extra_config(cfg), positions=positions.float())
 
+    def layers(self) -> list[tuple[int, Block]]:
+        """(layer index, block) of the blocks this rank holds: all of them,
+        or a pipeline stage's (``backbone.blocks`` keyed by layer index)."""
+        if isinstance(self.blocks, nn.ModuleDict):
+            return sorted((int(i), b) for i, b in self.blocks.items())
+        return list(enumerate(self.blocks))
+
     def layer_windows(self) -> list[int]:
         """Per-layer sliding window (0 = none; config.context still applies)."""
         cfg = self.cfg
@@ -244,17 +318,34 @@ class Backbone(nn.Module):
         cfg = self.cfg
         return cfg.lora_alpha / cfg.lora_r if cfg.lora_r else 1.0
 
-    def _qkv(self, block: Block, x: torch.Tensor, drop=None):
+    def _qkv(self, block: Block, x: torch.Tensor, drop=None, tp=None):
+        """q [B, H, T, hs], k and v [B, G, T, hs]. Under ``tp`` (x entered
+        through ``copy_to``) the heads are this rank's: the fused weight is
+        split along its output rows, G/T whole groups a rank when T divides
+        G; otherwise the rows are gathered and every rank holds all heads."""
         cfg = self.cfg
         B, T, _ = x.shape
         scaling = self.lora_scaling
         q_per_kv = cfg.n_head // cfg.n_query_groups
-        qkv = linear(block.attn, x, scaling, drop)
-        qkv = qkv.reshape(B, T, cfg.n_query_groups, q_per_kv + 2, cfg.head_size)
+        G, split = cfg.n_query_groups, False
+        if tp is None:
+            qkv = linear(block.attn, x, scaling, drop)
+        else:
+            qkv = column_linear(block.attn, x, tp, scaling, drop)
+            n_tp = torch.distributed.get_world_size(tp)
+            split = G % n_tp == 0
+            if split:
+                G = G // n_tp
+            else:
+                # the split cuts a head group: every rank takes all heads
+                # (gathered; the gradient sums the ranks' parts)
+                qkv = gather_dim(qkv, -1, tp)
+        H = G * q_per_kv
+        qkv = qkv.reshape(B, T, G, q_per_kv + 2, cfg.head_size)
         qkv = qkv.permute(0, 2, 3, 1, 4)  # [B, G, q_per_kv + 2, T, hs]
-        q = qkv[:, :, :q_per_kv].reshape(B, cfg.n_head, T, cfg.head_size)
-        k = qkv[:, :, q_per_kv].reshape(B, cfg.n_query_groups, T, cfg.head_size)
-        v = qkv[:, :, q_per_kv + 1].reshape(B, cfg.n_query_groups, T, cfg.head_size)
+        q = qkv[:, :, :q_per_kv].reshape(B, H, T, cfg.head_size)
+        k = qkv[:, :, q_per_kv].reshape(B, G, T, cfg.head_size)
+        v = qkv[:, :, q_per_kv + 1].reshape(B, G, T, cfg.head_size)
         factors = block.attn._modules
         if not any(f"lora_{n}" in factors for n in "qkv"):
             return q, k, v
@@ -262,16 +353,25 @@ class Backbone(nn.Module):
         # feeds the packed A from a single dropout)
         xd = lora_dropout(x, dropout_pair(drop, x.device))
 
+        def factor(t, rows: bool):
+            if tp is None:
+                return dense(t)
+            if not rows:
+                return copy_to(dense(t), tp)  # A: the ranks' gradients summed
+            if split:
+                return local(t)
+            return gather_dim(local(t), 0, tp) if is_dtensor(t) else copy_to(t, tp)
+
         def delta(lp, heads):
-            d = (xd @ lp.A.T.to(x.dtype)) @ lp.B.T.to(x.dtype) * scaling
-            return d.reshape(B, T, heads, cfg.head_size).transpose(1, 2)
+            d = (xd @ factor(lp.A, False).T.to(x.dtype)) @ factor(lp.B, True).T.to(x.dtype)
+            return (d * scaling).reshape(B, T, heads, cfg.head_size).transpose(1, 2)
 
         if "lora_q" in factors:
-            q = q + delta(factors["lora_q"], cfg.n_head)
+            q = q + delta(factors["lora_q"], H)
         if "lora_k" in factors:
-            k = k + delta(factors["lora_k"], cfg.n_query_groups)
+            k = k + delta(factors["lora_k"], G)
         if "lora_v" in factors:
-            v = v + delta(factors["lora_v"], cfg.n_query_groups)
+            v = v + delta(factors["lora_v"], G)
         return q, k, v
 
     def _rope_qk(self, q, k, cos, sin):
@@ -290,6 +390,22 @@ class Backbone(nn.Module):
         the weights in q's dtype (V), as in JAX."""
         cfg = self.cfg
         scale = 1.0 / math.sqrt(cfg.attention_scores_scalar or cfg.head_size)
+        mesh = current_mesh()
+        if allow_flash and mesh is not None and mesh.size("seq") > 1:
+            # this rank holds a time slice: the ring is the only attention
+            # that sees the whole sequence (JAX, whose activations stay
+            # global, routes by the flag and keeps the pipeline dense only
+            # because shard_maps do not nest)
+            if not cfg.sequence_parallel:
+                raise ValueError(f"the mesh splits the sequence over seq={mesh.size('seq')} "
+                                 "but config.sequence_parallel is off")
+            if k.shape[1] != q.shape[1]:
+                rep = q.shape[1] // k.shape[1]
+                k = k.repeat_interleave(rep, dim=1)
+                v = v.repeat_interleave(rep, dim=1)
+            return context_parallel_attention(q, k, v, context=cfg.context, scale=scale,
+                                              softcap=cfg.attention_logit_softcapping,
+                                              window=window, group=mesh.group("seq"))
         if allow_flash and cfg.sliding_window_size is None and flash_qualifies(
                 q.shape[2], cfg.context, cfg.attention_logit_softcapping,
                 cfg.use_flash_attention):
@@ -357,9 +473,16 @@ class Backbone(nn.Module):
         if cfg.mlp_class_name == "LLaMAMoE":
             return self._moe(mlp, x)
         scaling = self.lora_scaling
+        ups = (mlp.fc,) if cfg.mlp_class_name == "GptNeoxMLP" else (mlp.fc_1, mlp.fc_2)
+        tp = None if decode else self._tp_group(*ups, mlp.proj)
+        if tp is not None:
+            x = copy_to(x, tp)
 
         def lin(p, h, i):
-            return linear(p, h, scaling, fold_drop(drop, i))
+            if tp is None:
+                return linear(p, h, scaling, fold_drop(drop, i))
+            par = row_linear if p is mlp.proj else column_linear
+            return par(p, h, tp, scaling, fold_drop(drop, i))
 
         approx = "tanh" if cfg.gelu_approximate != "none" else "none"
         if cfg.mlp_class_name == "GptNeoxMLP":
@@ -369,6 +492,33 @@ class Backbone(nn.Module):
         else:  # GemmaMLP
             h = F.gelu(lin(mlp.fc_1, x, 0), approximate=approx) * lin(mlp.fc_2, x, 1)
         return lin(mlp.proj, h, 2)
+
+    def _tp_group(self, *linears: nn.Module):
+        """The ambient mesh's ``tensor`` group when it is > 1 and the given
+        linears are tensor-sharded (the Megatron path), else None."""
+        mesh = current_mesh()
+        if mesh is None or mesh.size("tensor") <= 1 or not _tp_sharded(*linears):
+            return None
+        return mesh.group("tensor")
+
+    def _expert_weights(self, e: nn.Module, dtype) -> tuple[list[torch.Tensor], int, object]:
+        """(fc_1, fc_2, proj stacks of the experts this rank runs, the index
+        of its first expert, the ``expert`` group or None). A stack sharded on
+        ``tensor`` too is gathered over ``tensor`` (the mixture is the same
+        on every tensor rank)."""
+        mesh = current_mesh()
+        ws = [e.fc_1.weight, e.fc_2.weight, e.proj.weight]
+        on_expert = is_dtensor(ws[0]) and "expert" in ws[0].device_mesh.mesh_dim_names
+        if mesh is None or mesh.size("expert") <= 1 or not on_expert:
+            return [dense(w).to(dtype) for w in ws], 0, None
+        from torch.distributed.tensor import Replicate, Shard
+
+        out = []
+        for w in ws:
+            if w.device_mesh.ndim > 1:  # [expert, tensor]
+                w = w.redistribute(w.device_mesh, [Shard(0), Replicate()])
+            out.append(w.to_local().to(dtype))
+        return out, mesh.coord("expert") * out[0].shape[0], mesh.group("expert")
 
     def _moe(self, mlp: nn.Module, x: torch.Tensor) -> torch.Tensor:
         """Dense top-k mixture of experts (``LLaMAMoE``): the router's top k
@@ -380,11 +530,14 @@ class Backbone(nn.Module):
         probs, indices = torch.topk(linear(mlp.gate, flat), cfg.n_expert_per_token)
         probs = torch.softmax(probs.float(), dim=-1).to(x.dtype)
         combine = (F.one_hot(indices, cfg.n_expert).to(x.dtype) * probs[..., None]).sum(1)
-        e = mlp.experts
-        h1 = torch.einsum("nd,eid->nei", flat, e.fc_1.weight.to(x.dtype))
-        h2 = torch.einsum("nd,eid->nei", flat, e.fc_2.weight.to(x.dtype))
-        y = torch.einsum("nei,edi->ned", F.silu(h1) * h2, e.proj.weight.to(x.dtype))
-        return torch.einsum("ned,ne->nd", y, combine).reshape(B, T, C)
+        (w1, w2, w3), first, ep = self._expert_weights(mlp.experts, x.dtype)
+        # under ``expert`` each rank mixes its experts; the partial mixtures
+        # are summed, and the inputs' gradients summed back
+        flat, combine = copy_to(flat, ep), copy_to(combine, ep)[:, first:first + w1.shape[0]]
+        h1 = torch.einsum("nd,eid->nei", flat, w1)
+        h2 = torch.einsum("nd,eid->nei", flat, w2)
+        y = torch.einsum("nei,edi->ned", F.silu(h1) * h2, w3)
+        return reduce_from(torch.einsum("ned,ne->nd", y, combine), ep).reshape(B, T, C)
 
     def _block(self, block: Block, x, cos, sin, pos, window: int, kv_cache: dict | None = None,
                offset: int = 0, min_pos=None, drop=None) -> torch.Tensor:
@@ -395,7 +548,8 @@ class Backbone(nn.Module):
         cfg = self.cfg
         B, T, _ = x.shape
         x_normed = norm_apply(cfg, block.norm_1, x)
-        q, k, v = self._qkv(block, x_normed, fold_drop(drop, 0))
+        tp = None if kv_cache is not None else self._tp_group(block.attn, block.proj)
+        q, k, v = self._qkv(block, copy_to(x_normed, tp), fold_drop(drop, 0), tp)
         q, k = self._rope_qk(q, k, cos, sin)
         pos_k, kv_scales = pos, (None, None)
         if kv_cache is not None:
@@ -404,8 +558,13 @@ class Backbone(nn.Module):
             kv_scales = (kv_cache.get("k_scale"), kv_cache.get("v_scale"))
         y = self._attention(q, k, v, pos, pos_k, window, allow_flash=kv_cache is None,
                             min_pos=min_pos, kv_scales=kv_scales)
-        y = y.transpose(1, 2).reshape(B, T, cfg.head_size * cfg.n_head)
-        attn_out = linear(block.proj, y, self.lora_scaling, fold_drop(drop, 1))
+        y = y.transpose(1, 2).reshape(B, T, cfg.head_size * q.shape[1])
+        if tp is None:
+            attn_out = linear(block.proj, y, self.lora_scaling, fold_drop(drop, 1))
+        else:
+            if q.shape[1] == cfg.n_head:  # all heads on every rank: keep this rank's
+                y = chunk_of(y, -1, tp)
+            attn_out = row_linear(block.proj, y, tp, self.lora_scaling, fold_drop(drop, 1))
         if cfg.post_attention_norm:
             attn_out = norm_apply(cfg, block.post_attention_norm, attn_out)
         decode, mlp_drop = kv_cache is not None, fold_drop(drop, 2)
@@ -421,7 +580,7 @@ class Backbone(nn.Module):
     # -- forward ------------------------------------------------------------------
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.wte[tokens]
+        x = dense(self.wte)[tokens]
         if self.cfg.scale_embeddings:
             x = x * torch.tensor(self.cfg.n_embd**0.5, dtype=x.dtype)
         return x
@@ -440,19 +599,40 @@ class Backbone(nn.Module):
         """Offline forward over embeddings: [B, T, D] -> [B, T, D] (post
         ln_f). ``dropout_rng`` (a CPU generator) turns on LoRA-branch dropout
         for training forwards; None is deterministic."""
+        cfg = self.cfg
         T = x.shape[1]
-        positions = torch.arange(T, device=x.device)
+        mesh = current_mesh()
+        # under ``seq`` this rank's slice starts at its offset
+        start = mesh.coord("seq") * T if mesh is not None and mesh.size("seq") > 1 else 0
+        positions = torch.arange(T, device=x.device) + start
         cos, sin = self.rope(positions)
         cos, sin = cos.to(x.dtype), sin.to(x.dtype)
-        remat = self.cfg.remat and torch.is_grad_enabled()
-        drops = self._dropout(dropout_rng, self.cfg.n_layer)
-        for block, window, drop in zip(self.blocks, self.layer_windows(), drops):
+        remat = cfg.remat and torch.is_grad_enabled()
+        drops = self._dropout(dropout_rng, cfg.n_layer)
+        windows = self.layer_windows()
+
+        def body(h, layer):
+            block, window, drop = layer
             if remat:
-                x = checkpoint(self._block, block, x, cos, sin, positions, window, None, 0,
-                               None, drop, use_reentrant=False)
-            else:
-                x = self._block(block, x, cos, sin, positions, window, drop=drop)
-        return norm_apply(self.cfg, self.ln_f, x)
+                return checkpoint(self._block, block, h, cos, sin, positions, window, None, 0,
+                                  None, drop, use_reentrant=False)
+            return self._block(block, h, cos, sin, positions, window, drop=drop)
+
+        layers = [(block, windows[i], drops[i]) for i, block in self.layers()]
+        if isinstance(self.blocks, nn.ModuleDict) and mesh is not None and mesh.size("pipe") > 1:
+            # the blocks are held by stages: the layer loop is the pipeline
+            # (one microbatch when the rows do not divide, which is the
+            # plain loop run stage by stage)
+            n_pipe = mesh.size("pipe")
+            n_micro = cfg.pipeline_microbatches or n_pipe
+            if not cfg.pipeline_parallel or x.shape[0] % n_micro:
+                n_micro = 1
+            x = spmd_pipeline(body, x, layers, n_stages=n_pipe, n_micro=n_micro,
+                              group=mesh.group("pipe"))
+        else:
+            for layer in layers:
+                x = body(x, layer)
+        return norm_apply(cfg, self.ln_f, x)
 
     def logits(self, hidden: torch.Tensor, dropout_rng: torch.Generator | None = None
                ) -> torch.Tensor:
@@ -502,7 +682,9 @@ class Backbone(nn.Module):
         positions = torch.arange(T, device=x.device) + offset
         cos, sin = self.rope(positions)
         cos, sin = cos.to(x.dtype), sin.to(x.dtype)
-        for i, (block, window) in enumerate(zip(self.blocks, self.layer_windows())):
+        windows = self.layer_windows()
+        for i, block in self.layers():
+            window = windows[i]
             layer_kv = kv[i] if unstacked else {name: buf[i] for name, buf in kv.items()}
             x = self._block(block, x, cos, sin, positions, window, layer_kv, offset, min_pos)
         return norm_apply(cfg, self.ln_f, x), {"kv": kv, "offset": offset + T}

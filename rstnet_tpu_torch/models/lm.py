@@ -33,6 +33,9 @@ from rstnet_tpu_torch.modules.transformer import (
     quantize_transformer_int8,
     resolve_weight,
 )
+from rstnet_tpu_torch.ops.context_parallel import shift
+from rstnet_tpu_torch.parallel.mesh import current_mesh
+from rstnet_tpu_torch.parallel.sharding import dense
 
 ZERO_TOKEN_ID = -1
 UNGENERATED_TOKEN_ID = -2
@@ -52,6 +55,7 @@ def scaled_embedding(table: torch.Tensor, tokens: torch.Tensor, zero_idx: int = 
     clipped into the table, as the JAX gather does; ``norm`` ({weight,
     bias}, optional) is a post-embedding layer norm applied before the mask."""
     is_zero = tokens == zero_idx
+    table = dense(table)
     y = table[tokens.long().clamp(0, table.shape[0] - 1)]
     if norm is not None:
         y = _emb_layer_norm(y, norm["weight"], norm["bias"])
@@ -152,7 +156,7 @@ class SpeechTextLM(nn.Module):
         cfg = self.config
         card1 = cfg.audio_card + 1
         audio = sequence[:, 1:, :]
-        flat = self.input_emb.reshape(cfg.n_q * card1, cfg.n_embd)
+        flat = dense(self.input_emb).reshape(cfg.n_q * card1, cfg.n_embd)
         idx = audio.long().clamp(0, cfg.audio_card) + (
             torch.arange(cfg.n_q, device=audio.device)[None, :, None] * card1)
         emb = flat[idx]  # [B, n_q, T, D]
@@ -176,7 +180,7 @@ class SpeechTextLM(nn.Module):
         return hidden, self.backbone.logits(hidden, dropout_rng)
 
     def _codecformer_in_weight(self, dtype) -> torch.Tensor:
-        w = resolve_weight(self.codecformer_in, dtype)
+        w = resolve_weight(dense(self.codecformer_in), dtype)
         if w.shape[0] == 1 and self.config.dep_q > 1:
             w = w.expand(self.config.dep_q, *w.shape[1:])
         return w
@@ -192,13 +196,14 @@ class SpeechTextLM(nn.Module):
                               self._codecformer_in_weight(transformer_out.dtype))
         prev = [scaled_embedding(self.codecformer_text_emb, text_tokens,
                                  norm=self._norm("codecformer_text_emb_norm"))]
+        codecformer_emb = dense(self.codecformer_emb)
         for k in range(cfg.dep_q - 1):
-            prev.append(scaled_embedding(self.codecformer_emb[k], audio_targets[:, k, :],
+            prev.append(scaled_embedding(codecformer_emb[k], audio_targets[:, k, :],
                                          norm=self._norm("codecformer_emb_norm", k)))
         x = (dep_in + torch.stack(prev, dim=2)).reshape(B * T, cfg.dep_q, cfg.codecformer_dim)
         out = self.codecformer(x)  # [B*T, dep_q, C]
         logits = torch.einsum("nkc,kvc->nkv", out,
-                              resolve_weight(self.audio_linears.weight, out.dtype))
+                              resolve_weight(dense(self.audio_linears.weight), out.dtype))
         if "bias" in self.audio_linears._parameters:
             logits = logits + self.audio_linears.bias.to(logits.dtype)
         return logits.reshape(B, T, cfg.dep_q, cfg.audio_card)
@@ -213,6 +218,12 @@ class SpeechTextLM(nn.Module):
         if K != self.num_codebooks:
             raise ValueError(f"sequence has {K} rows, expected {self.num_codebooks}")
         start = self.initial_frame(B, sequence.device).to(sequence.dtype)
+        mesh = current_mesh()
+        if mesh is not None and mesh.size("seq") > 1:
+            # this rank's time slice: the frame before it is the last frame
+            # of the rank to its left (the start frame on the first rank)
+            prev = shift(sequence[:, :, -1:], mesh.group("seq"), 1)
+            start = start if mesh.coord("seq") == 0 else prev
         transformer_out, text_logits = self.forward_global(
             torch.cat([start, sequence[:, :, :-1]], dim=2), dropout_rng)
         args = (sequence[:, 0, :], sequence[:, 1:self.config.dep_q + 1, :], transformer_out)

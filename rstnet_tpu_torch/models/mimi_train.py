@@ -28,6 +28,7 @@ from rstnet_tpu_torch.core import container, default_generator, uniform
 from rstnet_tpu_torch.modules.resample import ConvDownsample1d, ConvTrUpsample1d
 from rstnet_tpu_torch.modules.seanet import SEANetDecoder, SEANetEncoder
 from rstnet_tpu_torch.modules.transformer import ProjectedTransformer, StreamingTransformer
+from rstnet_tpu_torch.parallel.comm import batch_rows
 from rstnet_tpu_torch.quantization.trainable import TrainableSplitRVQ
 
 
@@ -142,7 +143,10 @@ class TrainableMimiCodec(nn.Module):
             z, sem, generator, update=update_codebooks, dead_indices=draws.get("dead"))
         keep = draws.get("keep")
         if keep is None and generator is not None and self.bypass_rate > 0:
-            keep = torch.rand((audio.shape[0],), generator=generator) >= self.bypass_rate
+            # drawn over the whole batch (data parallel: every rank alike)
+            n, first = batch_rows(audio.shape[0])
+            keep = (torch.rand((n,), generator=generator) >= self.bypass_rate)[
+                first:first + audio.shape[0]]
         if keep is not None:
             keep = torch.as_tensor(keep, dtype=torch.bool).to(z.device)
             zq = torch.where(keep[:, None, None], zq, z)

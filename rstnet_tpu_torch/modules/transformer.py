@@ -58,6 +58,7 @@ from rstnet_tpu_torch.ops.cuda_ffn import clamp_step, gating_ffn_step
 from rstnet_tpu_torch.ops.gating import ActivationGating, gated_ffn, get_activation
 from rstnet_tpu_torch.ops.norms import LayerScale, Norm
 from rstnet_tpu_torch.ops.rope import apply_rope_interleaved
+from rstnet_tpu_torch.parallel.sharding import dense
 
 
 def create_sin_embedding(positions: torch.Tensor, dim: int, max_period: float = 10_000.0
@@ -269,7 +270,8 @@ class StreamingTransformer(nn.Module):
         if lp is None:
             return 0.0
         xd = lora_dropout(x, dropout_pair(drop, x.device))
-        return (xd @ lp.A[i].T.to(x.dtype)) @ lp.B[i].T.to(x.dtype) * lp.scaling[i].to(x.dtype)
+        a, b = dense(lp.A)[i], dense(lp.B)[i]
+        return (xd @ a.T.to(x.dtype)) @ b.T.to(x.dtype) * lp.scaling[i].to(x.dtype)
 
     def _project_qkv(self, i: int, x: torch.Tensor, offset: int, drop=None):
         B, T, d = x.shape

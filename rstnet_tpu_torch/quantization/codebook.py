@@ -10,9 +10,10 @@ write the buffers in place, where the JAX functions return new ones; they
 take an unstacked codebook. Random choices come from a ``torch.Generator``
 (on the CPU; the indices are moved to the samples' device), or are given
 as ``indices`` (a JAX key's draws, in the parity tests). The EMA sums are
-one-hot products, which add in a fixed order on every device. Syncing the
-statistics across data-parallel replicas (``axis_name`` in JAX) is
-``ROADMAP.md`` item 10's.
+one-hot products, which add in a fixed order on every device. Under data
+parallelism ``ema_update`` sums the batch statistics over the replicas
+first (JAX's ``psum`` over ``axis_name``): a process group, or the name of
+an axis of the ambient mesh (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from torch import nn
 
 from rstnet_tpu_torch.core import new_param
 from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode
+from rstnet_tpu_torch.parallel.comm import all_reduce_
+from rstnet_tpu_torch.parallel.mesh import current_mesh
 
 
 class EuclideanCodebook(nn.Module):
@@ -81,15 +84,17 @@ class EuclideanCodebook(nn.Module):
 
     @torch.no_grad()
     def ema_update(self, x: torch.Tensor, codes: torch.Tensor,
-                   axis_name: str | None = None) -> dict:
+                   axis_name: str | None = None, group=None) -> dict:
         """One EMA step of the buffers from the vectors ``x [N, D]``
-        assigned to ``codes [N]``; returns ``{"rvq_entropy": ...}``."""
+        assigned to ``codes [N]``; returns ``{"rvq_entropy": ...}``. With a
+        ``group`` (or ``axis_name``, an axis of the ambient mesh) the usage
+        and the sums are summed over it first."""
         self._unstacked("ema_update")
-        refuse_axis_name(axis_name)
+        groups = [group] if group is not None else axis_groups(axis_name)
         one_hot = torch.nn.functional.one_hot(codes.long().reshape(-1),
                                               self.codebook_size).float()
-        usage = one_hot.sum(0)
-        embed_sum = one_hot.T @ x.reshape(-1, self.dim).float()
+        usage = all_reduce_(one_hot.sum(0), groups)
+        embed_sum = all_reduce_(one_hot.T @ x.reshape(-1, self.dim).float(), groups)
         d = self.decay
         self.cluster_usage.copy_(self.cluster_usage * d + usage * (1 - d))
         self.embedding_sum.copy_(self.embedding_sum * d + embed_sum * (1 - d))
@@ -127,11 +132,13 @@ class EuclideanCodebook(nn.Module):
         self.initialized.fill_(1.0)
 
 
-def refuse_axis_name(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"axis_name={axis_name!r}: syncing codebook statistics across replicas is "
-            "parallelism, ROADMAP.md queue 1, item 10")
+def axis_groups(axis_name: str | None) -> list:
+    """The ambient mesh's group of ``axis_name`` (none without a name, a
+    mesh, or when the axis is 1)."""
+    mesh = current_mesh()
+    if axis_name is None or mesh is None or mesh.group(axis_name) is None:
+        return []
+    return [mesh.group(axis_name)]
 
 
 def normalized_entropy(usage: torch.Tensor, size: int) -> torch.Tensor:

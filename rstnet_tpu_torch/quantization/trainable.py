@@ -27,12 +27,15 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from rstnet_tpu_torch.core import default_generator, new_param, normal, uniform
 from rstnet_tpu_torch.ops.cuda_rvq import rvq_encode
-from rstnet_tpu_torch.quantization.codebook import refuse_axis_name, sample_indices
+from rstnet_tpu_torch.parallel.comm import all_reduce_, batch_mean, gather_dim
+from rstnet_tpu_torch.parallel.mesh import batch_groups
+from rstnet_tpu_torch.quantization.codebook import axis_groups, sample_indices
 
 
 class TrainableResidualVQ(nn.Module):
@@ -74,8 +77,11 @@ class TrainableResidualVQ(nn.Module):
         """x: [B, T, dim] -> (quantized [B, T, dim] with straight-through
         gradients, codes [B, T, Q] int32, commitment loss). ``update``
         writes the EMA buffers; with a ``generator`` (or ``dead_indices``,
-        [Q, K] rows) it also replaces dead codes."""
-        refuse_axis_name(axis_name)
+        [Q, K] rows) it also replaces dead codes. The EMA statistics are
+        summed over ``axis_name`` (an axis of the ambient mesh), or without
+        one over the ambient mesh's batch axes: the whole batch's, as the
+        one-process update sees them."""
+        groups = axis_groups(axis_name) if axis_name is not None else batch_groups()
         B, T, _ = x.shape
         h = self._project_in(x)
         embeds = self.embed()
@@ -87,32 +93,42 @@ class TrainableResidualVQ(nn.Module):
         inputs = []  # each level's residual, the rows it searched
         for q in range(self.num_quantizers):
             quant = embeds[q][codes[:, q].long()].reshape(B, T, self.codebook_dim)
-            commit = commit + torch.mean(torch.square(residual - quant))
+            commit = commit + batch_mean(torch.square(residual - quant))
             total = total + (residual + (quant - residual).detach())
             inputs.append(residual.detach().reshape(-1, self.codebook_dim).float())
             residual = residual - quant
         if update:
-            self._ema_update(codes, inputs, generator, dead_indices)
+            self._ema_update(codes, inputs, generator, dead_indices, groups)
         out = self._project_out(total)
         return out, codes.reshape(B, T, self.num_quantizers), commit / self.num_quantizers
 
     @torch.no_grad()
-    def _ema_update(self, codes, inputs, generator, dead_indices) -> None:
+    def _ema_update(self, codes, inputs, generator, dead_indices, groups=()) -> None:
+        """The EMA step; under ``groups`` (one batch group: the rows split
+        in rank order) the counts and sums are all-reduced, the dead-code
+        rows are drawn over every rank's rows alike and gathered."""
+        if len(groups) > 1:
+            raise ValueError("the codebook EMA splits its rows over one batch group")
+        group = groups[0] if groups else None
+        n_ranks = dist.get_world_size(group) if group is not None else 1
         d = self.decay
         sizes, avgs = [], []
         for q, r_flat in enumerate(inputs):
             one_hot = F.one_hot(codes[:, q].long(), self.codebook_size).float()
-            size = self.cluster_size[q] * d + one_hot.sum(0) * (1 - d)
-            avg = self.embed_avg[q] * d + (one_hot.T @ r_flat).to(self.embed_avg.dtype) * (1 - d)
+            counts = all_reduce_(one_hot.sum(0), groups)
+            sums = all_reduce_(one_hot.T @ r_flat, groups)
+            size = self.cluster_size[q] * d + counts * (1 - d)
+            avg = self.embed_avg[q] * d + sums.to(self.embed_avg.dtype) * (1 - d)
             if generator is not None or dead_indices is not None:
                 # a dead code takes a random vector of this level's residual
                 # inputs: deeper levels see residuals of much smaller norm
                 th = self.threshold_ema_dead_code
                 dead = size < th
-                rows = sample_indices(r_flat.shape[0], self.codebook_size, generator,
+                rows = sample_indices(r_flat.shape[0] * n_ranks, self.codebook_size, generator,
                                       None if dead_indices is None else dead_indices[q],
                                       r_flat.device)
-                avg = torch.where(dead[:, None], r_flat[rows].to(avg.dtype) * th, avg)
+                picked = gather_dim(r_flat, 0, group)[rows]
+                avg = torch.where(dead[:, None], picked.to(avg.dtype) * th, avg)
                 size = torch.where(dead, torch.full_like(size, th), size)
             sizes.append(size)
             avgs.append(avg)
@@ -154,7 +170,7 @@ class TrainableSplitRVQ(nn.Module):
         a, b = feature[:, :n].float(), target[:, :n].float()
         num = (a * b).sum(1)
         den = torch.linalg.vector_norm(a, dim=1) * torch.linalg.vector_norm(b, dim=1) + 1e-8
-        return -torch.mean(F.logsigmoid(num / den))
+        return -batch_mean(F.logsigmoid(num / den))
 
     def forward(self, x: torch.Tensor, semantic_features: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None, update: bool = True,

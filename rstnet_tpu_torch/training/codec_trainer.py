@@ -1,4 +1,4 @@
-"""Codec GAN trainer CLI, one GPU (counterpart of
+"""Codec GAN trainer CLI (counterpart of
 ``rstnet_tpu/training/codec_trainer.py``):
 
     python -m rstnet_tpu_torch.training.codec_trainer --config egs/codec/mimi24k.yaml \\
@@ -27,8 +27,19 @@ is float32), and the quantizer's nearest-codeword sweep is K3.
 Checkpoints (``training/checkpoint.py``) hold ``{"g": ..., "d": ...}``:
 the codec's parameters and EMA buffers and the discriminators' parameters,
 both optimizer states and the step; they rotate (``num_ckpt_keep``) and a
-rerun resumes from the newest. ``--dp`` > 1 exits: parallelism is
-``ROADMAP.md`` queue 1, item 10.
+rerun resumes from the newest.
+
+``--dp N`` trains data-parallel over N ranks (``--dp -1``: all of them),
+as the JAX CLI does: one process a rank (``torchrun``, or a caller that
+joined the default process group first), the G and D states replicated
+(every rank draws the same weights), each global batch split on its rows
+(``batch_size`` divisible by N, JAX's error otherwise). Every loss is the
+whole batch's on every rank (``parallel/comm.py::batch_mean``), the
+gradients are summed over the ranks (bucketed all-reduce), the EMA
+codebook statistics are summed before each update, and the draws (bypass
+mask, dead-code rows) are taken over the whole batch on every rank alike:
+a step equals the ``--dp 1`` step on the same batch. Rank 0 writes the
+checkpoints.
 
 ``main`` returns ``{"state", "steps", "checkpoints", "train_iter"}``: the
 train state, one record a step (the losses, lr, step time), the saved
@@ -43,6 +54,7 @@ import functools
 import logging
 import os
 import time
+from typing import Optional
 
 import torch
 from torch import nn
@@ -57,9 +69,19 @@ from rstnet_tpu_torch.losses.gan import (
 )
 from rstnet_tpu_torch.models.discriminators import DISCRIMINATORS
 from rstnet_tpu_torch.models.mimi_train import TrainableMimiCodec
+from rstnet_tpu_torch.parallel.comm import batch_mean
+from rstnet_tpu_torch.parallel.mesh import (
+    Mesh,
+    initialize_distributed,
+    local_device,
+    make_mesh,
+    set_mesh,
+    world_size,
+)
+from rstnet_tpu_torch.parallel.sharding import batch_slice
 from rstnet_tpu_torch.training.checkpoint import maybe_resume, save_checkpoint
 from rstnet_tpu_torch.training.schedulers import exponential_decay_lr
-from rstnet_tpu_torch.training.train_step import OptaxAdamW
+from rstnet_tpu_torch.training.train_step import OptaxAdamW, mesh_sync
 from rstnet_tpu_torch.utils import yaml_subset
 from rstnet_tpu_torch.utils.reporter import Reporter
 
@@ -153,7 +175,10 @@ def _update(tx: OptaxAdamW, loss: torch.Tensor, params: dict, opt_state: dict) -
     grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     grads = {n: g if g is not None else torch.zeros_like(p)
              for (n, p), g in zip(params.items(), grads)}
-    tx.update(grads, opt_state, params)
+    sync = mesh_sync()
+    if sync is not None:
+        sync.reduce(grads)
+    tx.update(grads, opt_state, params, sync)
 
 
 def make_steps(model: TrainableMimiCodec, discs: nn.ModuleDict, g_loss_cfg: GeneratorLossConfig,
@@ -206,7 +231,7 @@ def evaluate(model: TrainableMimiCodec, audio: torch.Tensor) -> dict:
     zq = model.quantizer(z, update=False)[0]
     rec = model.decode_from_latent(zq)[..., : audio.shape[-1]]
     sc, mag = multi_resolution_stft_loss(rec[:, 0], audio[:, 0])
-    return {"valid_sc": sc, "valid_mag": mag, "valid_l1": torch.mean(torch.abs(rec - audio))}
+    return {"valid_sc": sc, "valid_mag": mag, "valid_l1": batch_mean(torch.abs(rec - audio))}
 
 
 def resolve_device(name: str) -> torch.device:
@@ -215,16 +240,31 @@ def resolve_device(name: str) -> torch.device:
         if not torch.cuda.is_available():
             raise SystemExit(f"--device {name}: torch sees no CUDA device "
                              "(pass --device cpu to train on the CPU)")
+        if device.index is None and world_size() > 1:
+            device = local_device("cuda")
         # the reference trains in float32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return device
 
 
-def refuse_unported(args) -> None:
-    if args.dp != 1:
-        raise SystemExit(f"--dp {args.dp}: rstnet_tpu_torch trains on one device; "
-                         "parallelism is ROADMAP.md queue 1, item 10")
+def data_mesh(args, cfg: dict, device: torch.device) -> Optional[Mesh]:
+    """The ``--dp`` mesh on ``device``'s type (None for one rank), with the
+    JAX CLI's checks."""
+    if args.dp == -1:
+        args.dp = world_size()
+    if args.dp <= 1:
+        return None
+    if cfg.get("batch_size", 4) % args.dp:
+        raise ValueError(f"batch_size {cfg.get('batch_size', 4)} not divisible by --dp {args.dp}")
+    mesh = make_mesh({"data": args.dp}, device_type=device.type)
+    logging.info(f"codec trainer mesh: {mesh.shape}")
+    return mesh
+
+
+def _rows(x, mesh: Optional[Mesh]):
+    """This rank's rows of a global batch (numpy)."""
+    return x if mesh is None else batch_slice(mesh, {"x": x})["x"]
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -238,19 +278,25 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--semantic_checkpoint", default="")
     parser.add_argument("--max_steps", type=int, default=-1)
     parser.add_argument("--dp", type=int, default=1,
-                        help="data-parallel devices; only 1 is ported (ROADMAP.md item 10)")
+                        help="data-parallel ranks (-1 = all of them)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return parser
 
 
 def main(argv=None) -> dict:
     args = get_parser().parse_args(argv)
-    refuse_unported(args)
+    initialize_distributed(device_type=torch.device(args.device).type)
     device = resolve_device(args.device)
     cfg = yaml_subset.load(args.config)
     os.makedirs(args.exp_dir, exist_ok=True)
     logging.basicConfig(level=logging.INFO, force=True)
+    mesh = data_mesh(args, cfg, device)
+    with set_mesh(mesh):
+        return train(args, cfg, device, mesh)
 
+
+def train(args, cfg: dict, device: torch.device, mesh: Optional[Mesh]) -> dict:
+    """The training run of :func:`main` (under the ambient ``mesh``)."""
     model, discs, g_loss_cfg = build_from_config(cfg, device)
     seed = cfg.get("seed", 2333)
     generator = torch.Generator().manual_seed(seed + 100)
@@ -316,6 +362,7 @@ def main(argv=None) -> dict:
         with reporter.observe("train") as sub:
             for audio_24k, audio_16k in train_iter:
                 t0 = time.perf_counter()
+                audio_24k, audio_16k = _rows(audio_24k, mesh), _rows(audio_16k, mesh)
                 features = (None if args.semantic_teacher == "none"
                             else torch.from_numpy(teacher.extract(audio_16k)).to(device))
                 audio = torch.from_numpy(audio_24k).to(device)
@@ -337,7 +384,7 @@ def main(argv=None) -> dict:
                         and global_steps % cfg.get("validation_interval", 5000) == 0):
                     with reporter.observe("valid") as vsub:
                         for v24, _ in valid_iter:
-                            m = eval_step(torch.from_numpy(v24).to(device))
+                            m = eval_step(torch.from_numpy(_rows(v24, mesh)).to(device))
                             vsub.register({k: float(v) for k, v in m.items()})
                             vsub.next()
                     logging.info(reporter.log_message())

@@ -13,9 +13,15 @@ dtypes, no storage) through the same steps as a real build: init, LoRA
 attached, the backbone quantized. :func:`materialize_random` then fills it
 leaf by leaf on the target device from a seeded ``torch.Generator``, so the
 bf16 base tree (16 GB) is never held: each int8 leaf is born int8. Step time
-and memory depend only on shapes and dtypes, not values. The JAX function's
-mesh and sharding arguments are not ported (one device; parallelism is a
-later item).
+and memory depend only on shapes and dtypes, not values.
+
+``build_peft_8b(..., mesh=)`` is the multi-rank path, as JAX's: the meta model
+is placed by ``parallel/sharding.py::shard_params`` (``spec_for`` of every
+leaf) before any storage exists, and each leaf is then drawn whole, one at a
+time, and only this rank's shard of it kept: the values equal the
+one-device build's, and a rank never holds more than its shards and one
+leaf. ``shard_bytes(infer_param_placements(mesh, model), ...)`` is the
+per-rank budget of a mesh, from the shapes alone.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ from rstnet_tpu_torch.models.backbone import quantize_backbone_int8
 from rstnet_tpu_torch.models.config import Config
 from rstnet_tpu_torch.models.lm import SpeechTextLM
 from rstnet_tpu_torch.models.lora import attach_lora, init_lora, lora_trainable_mask
+from rstnet_tpu_torch.parallel.mesh import Mesh
+from rstnet_tpu_torch.parallel.sharding import local, local_shard, shard_params
 from rstnet_tpu_torch.training.train_step import partition_params
 
 
@@ -105,12 +113,43 @@ def bytes_table(params: dict[str, torch.Tensor]) -> dict:
             **{f"{k}_gb": round(v / 2**30, 3) for k, v in by.items()}}
 
 
+@torch.no_grad()
+def materialize_sharded(model: nn.Module, generator: torch.Generator, device) -> nn.Module:
+    """:func:`materialize_random` for a meta model placed by
+    ``shard_params``: storage for this rank's shards only, each leaf drawn
+    whole in the one-device order (the blocks of other pipeline stages
+    too, to keep the draws aligned) and its local shard kept."""
+    layout = model._shard_layout
+    model.to_empty(device=device)
+    own = dict(model.named_parameters())
+    for name, shape in layout.shapes.items():
+        dtype = layout.dtypes[name]
+        if dtype == torch.int8:
+            t = torch.randint(-128, 128, shape, generator=generator, device=device,
+                              dtype=torch.int8)
+        elif not dtype.is_floating_point:
+            t = torch.zeros(shape, dtype=dtype, device=device)
+        else:
+            t = torch.empty(shape, dtype=dtype, device=device)
+            t.normal_(0.0, 0.02, generator=generator)
+        if name in own:
+            local(own[name]).copy_(local_shard(t, layout.placements[name].spec, layout.mesh))
+    return model
+
+
 def build_peft_8b(generator: torch.Generator, cfg: Optional[Config] = None,
-                  base_int8: bool = True, dtype=torch.bfloat16, device="cuda"):
+                  base_int8: bool = True, dtype=torch.bfloat16, device="cuda",
+                  mesh: Optional[Mesh] = None):
     """(model, trainable, frozen, mask) materialized with random values on
     ``device``, the frozen backbone already int8 under ``base_int8``, and
-    ``requires_grad`` set along the mask."""
+    ``requires_grad`` set along the mask. With a ``mesh`` every leaf is
+    placed by ``spec_for`` as it is created (this rank's shards only)."""
     model, mask = abstract_peft_8b(cfg, base_int8, dtype)
-    materialize_random(model, generator, device)
+    if mesh is None or mesh.world == 1:
+        materialize_random(model, generator, device)
+    else:
+        shard_params(mesh, model)
+        materialize_sharded(model, generator, device)
+        mask = {n: v for n, v in mask.items() if n in dict(model.named_parameters())}
     trainable, frozen = partition_params(model, mask)
     return model, trainable, frozen, mask

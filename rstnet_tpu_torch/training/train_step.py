@@ -33,19 +33,34 @@ LoRA-branch dropout (``dropout_seed``): each step's forward gets a CPU
 ``torch.Generator`` seeded ``fold_in(seed, step)`` (and ``fold_in`` of that
 with the microbatch index under accumulation), as JAX folds the step into
 its key; a resumed run draws the same masks.
+
+Under an ambient mesh (``parallel/mesh.py::set_mesh``) one step equals the
+one-process step on the global batch, each rank given its part
+(``parallel/sharding.py::batch_slice``): the loss's sums and token counts are
+summed over the batch axes (``losses/ce.py``), so every rank computes the
+global loss and its gradients are its share; :class:`MeshSync` sums them
+over the batch axes (``data``, ``seq``, and ``fsdp`` where FSDP2 does not
+already reduce-scatter them) in buckets, takes the clip's norm over every
+shard once, and makes ``skip_nonfinite``'s decision the same on every rank.
+The optimizer works on each parameter's local shard.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from rstnet_tpu_torch.core import fold_in
 from rstnet_tpu_torch.losses.ce import cross_entropy_and_accuracy
+from rstnet_tpu_torch.parallel.comm import all_reduce_, all_reduce_buckets
+from rstnet_tpu_torch.parallel.mesh import BATCH_AXES, Mesh, batch_groups, current_mesh
+from rstnet_tpu_torch.parallel.sharding import local
 
 TEXT_PAD_TOKEN = 128003
 ACOUSTIC_PAD_TOKEN = 2049
@@ -65,13 +80,14 @@ def make_loss_fn(model: nn.Module, audio_loss_weights: Optional[tuple[float, ...
                 ) -> tuple[torch.Tensor, dict]:
         seqs = batch["tokens"]
         masks = batch["masks"].float()
+        groups = batch_groups()
         audio_logits, text_logits = model(seqs, dropout_rng=dropout_rng)
         loss_audio, m_audio = cross_entropy_and_accuracy(
             audio_logits, seqs[:, 1:dep_q + 1], masks[:, 1:dep_q + 1], audio_loss_weights,
-            (audio_ignore_id,) * dep_q)
+            (audio_ignore_id,) * dep_q, groups)
         loss_text, m_text = cross_entropy_and_accuracy(
             text_logits[:, :, None, :], seqs[:, 0:1], masks[:, 0:1], (text_loss_weight,),
-            (text_ignore_id,))
+            (text_ignore_id,), groups)
         loss = loss_audio + loss_text
         return loss, {
             "loss": loss, "loss_audio": loss_audio, "loss_text": loss_text,
@@ -105,24 +121,35 @@ class OptaxAdamW:
         self.grad_clip, self.skip_nonfinite = grad_clip, skip_nonfinite
 
     def init(self, params: dict[str, torch.Tensor]) -> dict:
+        """Zero moments shaped as each parameter's local shard."""
         return {"count": 0, "notfinite_count": 0, "total_notfinite": 0, "last_finite": True,
-                "mu": {n: torch.zeros_like(p) for n, p in params.items()},
-                "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
+                "mu": {n: torch.zeros_like(local(p)) for n, p in params.items()},
+                "nu": {n: torch.zeros_like(local(p)) for n, p in params.items()}}
 
     @torch.no_grad()
     def update(self, grads: dict[str, torch.Tensor], state: dict,
-               params: dict[str, torch.Tensor]) -> dict:
+               params: dict[str, torch.Tensor], sync: Optional["MeshSync"] = None) -> dict:
         """Apply one update to ``params`` in place; returns ``state``, also
-        updated in place."""
+        updated in place. Parameters and gradients may be sharded: the
+        update runs on their local shards, and ``sync`` (a mesh's) gives the
+        global norm and finite check."""
+        params = {n: local(p) for n, p in params.items()}
+        grads = {n: local(g) for n, g in grads.items()}
         if self.skip_nonfinite > 0:
-            finite = bool(torch.stack([torch.isfinite(g).all() for g in grads.values()]).all())
+            if sync is None:
+                finite = bool(torch.stack([torch.isfinite(g).all() for g in grads.values()]).all())
+            else:
+                finite = sync.all_finite(grads)
             state["notfinite_count"] = 0 if finite else state["notfinite_count"] + 1
             state["total_notfinite"] += 0 if finite else 1
             state["last_finite"] = finite
             if not finite and state["notfinite_count"] <= self.skip_nonfinite:
                 return state  # rejected: zero updates, inner state unchanged
         if self.grad_clip is not None:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+            if sync is None:
+                norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+            else:
+                norm = sync.global_norm(grads)
             if not bool(norm < self.grad_clip):
                 grads = {n: (g / norm.to(g.dtype)) * _const(self.grad_clip, g)
                          for n, g in grads.items()}
@@ -139,6 +166,65 @@ class OptaxAdamW:
             p.copy_((p + _const(step_size, u) * u).to(p.dtype))
         state["count"] = count
         return state
+
+
+class MeshSync:
+    """The gradient collectives of one step on ``mesh`` for ``model``
+    (placed by ``shard_params``, or replicated everywhere without it)."""
+
+    def __init__(self, mesh: Mesh, model: Optional[nn.Module] = None):
+        self.mesh = mesh
+        layout = getattr(model, "_shard_layout", None)
+        self.placements = layout.placements if layout is not None else {}
+        self.fsdp = layout.fsdp if layout is not None else set()
+
+    def _axes(self, name: str) -> tuple:
+        pl = self.placements.get(name)
+        return pl.axes() if pl is not None else ()
+
+    def reduce(self, grads: dict[str, torch.Tensor]) -> None:
+        """Sum each gradient (its local shard, in place) over the batch axes
+        its parameter is replicated on, in buckets a set of axes. FSDP2's
+        reduce-scatter averages over ``fsdp`` (gloo takes no pre-scaled
+        sum), so its shards are scaled back to the sum."""
+        by_axes: dict = {}
+        for name, g in grads.items():
+            fsdp = name in self.fsdp
+            axes = tuple(a for a in BATCH_AXES if self.mesh.size(a) > 1
+                         and not (a == "fsdp" and fsdp))
+            by_axes.setdefault((axes, fsdp), []).append(local(g))
+        for (axes, fsdp), ts in by_axes.items():
+            all_reduce_buckets(ts, [self.mesh.group(a) for a in axes],
+                               scale=float(self.mesh.size("fsdp")) if fsdp else None)
+
+    def _copies(self, name: str) -> int:
+        """How many ranks hold the same shard of ``name``."""
+        pl = self.placements.get(name)
+        held = math.prod(self.mesh.size(a) for a in self._axes(name))
+        if pl is not None and pl.stage is not None:
+            held *= self.mesh.size("pipe")
+        return self.mesh.world // held
+
+    def global_norm(self, grads: dict[str, torch.Tensor]) -> torch.Tensor:
+        """The norm of the whole gradient: each shard's squares counted once
+        (divided by its copies), summed over all ranks."""
+        sq = torch.stack([torch.sum(g.float() * g.float()) / self._copies(n)
+                          for n, g in grads.items()]).sum().reshape(1)
+        return torch.sqrt(all_reduce_(sq, dist.group.WORLD))[0]
+
+    def all_finite(self, grads: dict[str, torch.Tensor]) -> bool:
+        """Whether every rank's gradients are finite (one decision for all)."""
+        bad = torch.stack([~torch.isfinite(g).all() for g in grads.values()]).any()
+        return not bool(all_reduce_(bad.float().reshape(1), dist.group.WORLD,
+                                    dist.ReduceOp.MAX)[0] > 0)
+
+
+def mesh_sync(model: Optional[nn.Module] = None) -> Optional[MeshSync]:
+    """The ambient mesh's :class:`MeshSync` for ``model`` (placed by
+    ``shard_params``, or None: every parameter replicated), or None on one
+    rank."""
+    mesh = current_mesh()
+    return MeshSync(mesh, model) if mesh is not None and mesh.world > 1 else None
 
 
 def make_optimizer(learning_rate_schedule, betas: tuple[float, float] = (0.9, 0.95),
@@ -239,7 +325,10 @@ def make_train_step(loss_fn: Callable, tx: OptaxAdamW, grad_accum: int = 1,
             loss.backward()
             grads = _grads(params)
             metrics = _detached(metrics)
-        tx.update(grads, state["opt_state"], params)
+        sync = mesh_sync(state["model"])
+        if sync is not None:
+            sync.reduce(grads)
+        tx.update(grads, state["opt_state"], params, sync)
         for p in params.values():
             p.grad = None
         state["step"] += 1
@@ -283,9 +372,13 @@ def make_grad_accum_steps(loss_fn: Callable, tx: OptaxAdamW,
     def apply_step(state: dict) -> dict:
         params = trainable_params(state["model"])
         n = max(state.get("micro", 0), 1)
-        grads = {name: g / torch.tensor(float(n), dtype=torch.float32, device=g.device)
-                 for name, g in _grads(params).items()}
-        tx.update(grads, state["opt_state"], params)
+        grads = _grads(params)
+        sync = mesh_sync(state["model"])
+        if sync is not None:
+            sync.reduce(grads)
+        grads = {name: local(g) / torch.tensor(float(n), dtype=torch.float32, device=g.device)
+                 for name, g in grads.items()}
+        tx.update(grads, state["opt_state"], params, sync)
         for p in params.values():
             p.grad = None
         state["step"] += 1

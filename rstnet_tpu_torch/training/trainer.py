@@ -1,4 +1,4 @@
-"""Speech-text LM trainer CLI, one GPU (counterpart of
+"""Speech-text LM trainer CLI (counterpart of
 ``rstnet_tpu/training/trainer.py``):
 
     python -m rstnet_tpu_torch.training.trainer --model_config configs/llama_1b_speech.yaml \\
@@ -43,8 +43,25 @@ step, whose checkpoints hold only the trainable parameters.
 and the step.
 
 Refused as the JAX trainer refuses: ``--base_int8`` without LoRA, with the
-Moshi family, or with ``--grad_accum > 1``. Refused here alone: any mesh
-axis above 1 (parallelism, ``ROADMAP.md`` queue 1, item 10).
+Moshi family, or with ``--grad_accum > 1``; ``--seq``/``--pipe`` > 1 with the
+Moshi family.
+
+Parallel training (``parallel/``): one process a device, started by
+``torchrun`` (``RANK``/``WORLD_SIZE``/``MASTER_ADDR``) or by a caller that
+joined the default process group first (``initialize_distributed``). The
+mesh flags are the JAX trainer's: ``--dp/--fsdp/--tensor/--seq/--pipe/
+--expert`` (``--dp -1`` absorbs the ranks the other axes leave), their
+product the rank count (JAX's ``make_mesh`` error otherwise); ``--seq`` and
+``--pipe`` turn on the config's ``sequence_parallel``/``pipeline_parallel``
+and ``--pipeline_microbatches`` sets the schedule's microbatches. Every rank
+draws the same weights, ``shard_params`` places them, and each step every
+rank of a host reads the host's batch from the data iterator (its ``rank`` is
+the host's index, as JAX passes ``jax.process_index()``; the hosts read their
+shards of the manifests), pads its rows to a power-of-two multiple of the
+host's share of ``data x fsdp`` and its time axis to a multiple of ``seq``
+(zero loss mask), and takes its part (``batch_slice``). Rank 0
+writes the configs and the checkpoints (gathered whole) and logs to
+``logs/rank0.log``; rank r logs to ``logs/rank{r}.log``.
 
 ``main`` returns the train steps' records (one dict a step: epoch, batch
 shape, metrics, lr, step time) and the saved checkpoints with their save
@@ -58,6 +75,7 @@ import logging
 import os
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -77,6 +95,17 @@ from rstnet_tpu_torch.models.lora import (
     lora_trainable_mask,
 )
 from rstnet_tpu_torch.models.moshi_lm import MoshiLMModel
+from rstnet_tpu_torch.parallel.mesh import (
+    Mesh,
+    host_index,
+    initialize_distributed,
+    local_device,
+    make_mesh,
+    set_mesh,
+    world_rank,
+    world_size,
+)
+from rstnet_tpu_torch.parallel.sharding import batch_slice, shard_params
 from rstnet_tpu_torch.training.checkpoint import maybe_resume, save_checkpoint
 from rstnet_tpu_torch.training.schedulers import warmup_lr
 from rstnet_tpu_torch.training.train_step import (
@@ -93,14 +122,15 @@ from rstnet_tpu_torch.utils.arguments import get_args
 from rstnet_tpu_torch.utils.reporter import Reporter
 
 
-def setup_logging(exp_dir: str) -> None:
+def setup_logging(exp_dir: str, rank: int = 0) -> None:
     os.makedirs(f"{exp_dir}/logs", exist_ok=True)
+    handlers: list = [logging.FileHandler(f"{exp_dir}/logs/rank{rank}.log")]
+    if rank == 0:
+        handlers.append(logging.StreamHandler(sys.stdout))
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s [%(filename)s:%(lineno)d] %(message)s",
-        handlers=[logging.FileHandler(f"{exp_dir}/logs/rank0.log"),
-                  logging.StreamHandler(sys.stdout)],
-        force=True,
+        handlers=handlers, force=True,
     )
 
 
@@ -126,14 +156,30 @@ def refuse_invalid(args) -> None:
                          "accumulator is unpartitioned)")
 
 
-def refuse_unported(args) -> None:
-    """SystemExit for what this trainer does not port yet: parallelism."""
-    axes = {"dp": args.dp, "fsdp": args.fsdp, "tensor": args.tensor, "seq": args.seq,
-            "pipe": args.pipe, "expert": args.expert}
-    wide = {k: v for k, v in axes.items() if v > 1}
-    if wide:
-        raise SystemExit(f"mesh axes > 1 ({wide}): rstnet_tpu_torch trains on one device; "
-                         "parallelism is ROADMAP.md queue 1, item 10")
+def build_mesh(args, device: torch.device) -> Mesh:
+    """The JAX trainer's mesh over the ranks, on ``device``'s type: ``--dp
+    -1`` (or 0) absorbs the ranks the other axes leave."""
+    denom = args.fsdp * args.tensor * args.seq * args.expert * args.pipe
+    dp = args.dp if args.dp > 0 else max(1, world_size() // denom)
+    return make_mesh({"data": dp, "pipe": args.pipe, "seq": args.seq, "fsdp": args.fsdp,
+                      "expert": args.expert, "tensor": args.tensor}, device_type=device.type)
+
+
+def apply_mesh_flags(args, model: nn.Module) -> None:
+    """The config's parallel behaviour flags from ``--seq``/``--pipe``/
+    ``--pipeline_microbatches``, as the JAX trainer sets them (the parameters
+    are unchanged)."""
+    if args.seq <= 1 and args.pipe <= 1:
+        return
+    if args.model_family == "moshi":
+        raise SystemExit("--seq/--pipe > 1 require a backbone model family (context/pipeline "
+                         "parallelism is wired into the litgpt backbone)")
+    cfg = model.config
+    cfg = dataclasses.replace(
+        cfg, sequence_parallel=cfg.sequence_parallel or args.seq > 1,
+        pipeline_parallel=cfg.pipeline_parallel or args.pipe > 1,
+        pipeline_microbatches=args.pipeline_microbatches or cfg.pipeline_microbatches)
+    model.config = model.backbone.config = cfg
 
 
 def resolve_device(name: str) -> torch.device:
@@ -141,6 +187,8 @@ def resolve_device(name: str) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name}: torch sees no CUDA device "
                          "(pass --device cpu to train on the CPU)")
+    if device.type == "cuda" and device.index is None and world_size() > 1:
+        device = local_device("cuda")
     return device
 
 
@@ -235,20 +283,31 @@ def build_tokenizers(args) -> dict:
     return {}
 
 
-def device_batch(b: dict, device: torch.device) -> dict:
-    """Batch rows padded (zero loss mask) to the next power of two, as the
-    JAX trainer pads to a power-of-two multiple of its data axes (one here)."""
+def device_batch(b: dict, device: torch.device, mesh: Optional[Mesh] = None,
+                 hosts: int = 1) -> dict:
+    """This rank's part of its host's batch, on ``device``: the rows padded
+    (zero loss mask) to a power-of-two multiple of the host's share of
+    ``data x fsdp``, as the JAX trainer pads, and the time axis to a
+    multiple of ``seq`` (causal: steps after the last change nothing before
+    them)."""
     tokens, masks = b["tokens"], b["masks"]
     B = tokens.shape[0]
-    target = 1
+    target = 1 if mesh is None else mesh.size("data") * mesh.size("fsdp") // hosts
     while target < B:
         target *= 2
     if target > B:
         rem = target - B
         tokens = np.concatenate([tokens, np.repeat(tokens[-1:], rem, 0)], 0)
         masks = np.concatenate([masks, np.zeros((rem,) + masks.shape[1:], masks.dtype)], 0)
-    return {"tokens": torch.from_numpy(tokens).to(device),
-            "masks": torch.from_numpy(masks).to(device, torch.float32)}
+    n_seq = 1 if mesh is None else mesh.size("seq")
+    if tokens.shape[-1] % n_seq:
+        rem = n_seq - tokens.shape[-1] % n_seq
+        tokens = np.concatenate([tokens, np.repeat(tokens[..., -1:], rem, -1)], -1)
+        masks = np.concatenate([masks, np.zeros(masks.shape[:-1] + (rem,), masks.dtype)], -1)
+    part = batch_slice(mesh, {"tokens": tokens, "masks": masks}, hosts=hosts)
+    return {"tokens": torch.from_numpy(np.ascontiguousarray(part["tokens"])).to(device),
+            "masks": torch.from_numpy(np.ascontiguousarray(part["masks"])).to(
+                device, torch.float32)}
 
 
 def synchronize(device: torch.device) -> None:
@@ -259,28 +318,38 @@ def synchronize(device: torch.device) -> None:
 def main(argv=None) -> dict:
     args = get_args(argv)
     refuse_invalid(args)
-    refuse_unported(args)
+    initialize_distributed(device_type=torch.device(args.device).type)
     device = resolve_device(args.device)
+    rank = world_rank()
     os.makedirs(args.exp_dir, exist_ok=True)
-    setup_logging(args.exp_dir)
+    setup_logging(args.exp_dir, rank)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    mesh = build_mesh(args, device)
     model = build_model(args, device, dtype)
     moshi = args.model_family == "moshi"
     if args.checkpoint_path:
         load_pretrained(args, model, dtype)
         logging.info(f"loaded pretrained weights from {args.checkpoint_path}")
     # the resolved model config (CLI overrides included) for later reuse
-    if not moshi:
-        write_flat_yaml(f"{args.exp_dir}/config.yaml", dataclasses.asdict(model.config))
-    write_flat_yaml(f"{args.exp_dir}/train_args.yaml", vars(args))
+    if rank == 0:
+        if not moshi:
+            write_flat_yaml(f"{args.exp_dir}/config.yaml", dataclasses.asdict(model.config))
+        write_flat_yaml(f"{args.exp_dir}/train_args.yaml", vars(args))
+    apply_mesh_flags(args, model)
     trainable_mask = attach_adapters(args, model, dtype) if args.lora_r > 0 else None
     n_params = sum(p.numel() for p in model.parameters())
     logging.info(f"{type(model).__name__} {'moshi' if moshi else model.config.name}: "
                  f"{n_params / 1e9:.3f} B params, {dtype}, on {device}, LoRA r {args.lora_r}, "
                  f"int8 base {args.base_int8}, flash attention "
                  f"{not moshi and model.config.use_flash_attention}")
+    logging.info(f"mesh: {mesh.shape} over {mesh.world} ranks")
+    shard_params(mesh, model)
+    if trainable_mask is not None:
+        # a pipeline stage holds its own blocks only
+        own = dict(model.named_parameters())
+        trainable_mask = {n: v for n, v in trainable_mask.items() if n in own}
 
     special = SpecialTokens(
         text_empty=args.text_empty_token, text_pad=args.text_pad_token,
@@ -289,15 +358,18 @@ def main(argv=None) -> dict:
         semantic_pad=args.semantic_pad_token, acoustic_pad=args.acoustic_pad_token,
     )
     tokenizers = build_tokenizers(args)
+    # the ranks of a host read one stream (the JAX package's process); each
+    # takes its part of every batch
+    host, n_hosts = host_index()
     iters = {}
     for name, jsons in (("train", args.train_data_jsons), ("valid", args.valid_data_jsons)):
         if not jsons:
             continue
-        data, text = load_data_for_all_tasks(find_data_jsons(jsons))
+        data, text = load_data_for_all_tasks(find_data_jsons(jsons, host, n_hosts))
         iters[name] = build_data_iterator(
             data, text, tokenizers, batch_scale=args.batch_scale, max_length=args.max_length,
             min_length=args.min_length, parallel_number=args.parallel_number, seed=args.seed,
-            minibatch_debug=args.minibatch_debug, is_train=name == "train", rank=0,
+            minibatch_debug=args.minibatch_debug, is_train=name == "train", rank=host,
             special=special, rebalance_alpha=args.rebalance_alpha if name == "train" else 0.0,
         )
     train_iter, valid_iter = iters.get("train"), iters.get("valid")
@@ -341,44 +413,48 @@ def main(argv=None) -> dict:
                         keep_last=args.keep_last_ckpt)
         saved.append({"path": path, "seconds": time.perf_counter() - t0})
 
-    for ep in range(reporter.get_epoch() + 1, args.n_epoch + 1):
-        reporter.set_epoch(ep)
-        with reporter.observe("train") as sub:
+    with set_mesh(mesh):
+        for ep in range(reporter.get_epoch() + 1, args.n_epoch + 1):
+            reporter.set_epoch(ep)
+            with reporter.observe("train") as sub:
+                if train_iter is not None:
+                    batches = sub.measure_iter_time(train_iter, "iter_time")
+                    for b_idx, batch in enumerate(batches, 1):
+                        shape = {"batch_size": batch["tokens"].shape[0],
+                                 "seq_len": batch["tokens"].shape[2]}
+                        sub.register(shape)
+                        t0 = time.perf_counter()
+                        with sub.measure_time("step_time"):
+                            part = device_batch(batch, device, mesh, n_hosts)
+                            if accum_step is not None:
+                                state, metrics = accum_step(state, part)
+                                if b_idx % args.grad_accum == 0:
+                                    state = apply_step(state)
+                            else:
+                                state, metrics = train_step(state, part)
+                            synchronize(device)
+                        step_time = time.perf_counter() - t0
+                        metrics = {k: float(v) for k, v in metrics.items()}
+                        lr = float(schedule(int(state["step"]) - 1))
+                        sub.register({**metrics, "lr": lr})
+                        sub.next()
+                        steps.append({"epoch": ep, **shape, **metrics, "lr": lr,
+                                      "step_time": step_time})
+                        if b_idx % args.print_freq == 0:
+                            logging.info(sub.log_message(-args.print_freq))
+                        if args.save_interval > 0 and b_idx % args.save_interval == 0:
+                            save(f"{args.exp_dir}/ep{ep}-iter{b_idx}.checkpoint")
             if train_iter is not None:
-                for b_idx, batch in enumerate(sub.measure_iter_time(train_iter, "iter_time"), 1):
-                    shape = {"batch_size": batch["tokens"].shape[0],
-                             "seq_len": batch["tokens"].shape[2]}
-                    sub.register(shape)
-                    t0 = time.perf_counter()
-                    with sub.measure_time("step_time"):
-                        if accum_step is not None:
-                            state, metrics = accum_step(state, device_batch(batch, device))
-                            if b_idx % args.grad_accum == 0:
-                                state = apply_step(state)
-                        else:
-                            state, metrics = train_step(state, device_batch(batch, device))
-                        synchronize(device)
-                    step_time = time.perf_counter() - t0
-                    metrics = {k: float(v) for k, v in metrics.items()}
-                    lr = float(schedule(int(state["step"]) - 1))
-                    sub.register({**metrics, "lr": lr})
-                    sub.next()
-                    steps.append({"epoch": ep, **shape, **metrics, "lr": lr,
-                                  "step_time": step_time})
-                    if b_idx % args.print_freq == 0:
-                        logging.info(sub.log_message(-args.print_freq))
-                    if args.save_interval > 0 and b_idx % args.save_interval == 0:
-                        save(f"{args.exp_dir}/ep{ep}-iter{b_idx}.checkpoint")
-        if train_iter is not None:
-            train_iter.sampler.refresh()
-        with reporter.observe("valid") as sub:
-            if valid_iter is not None:
-                for batch in sub.measure_iter_time(valid_iter, "iter_time"):
-                    metrics = eval_step(device_batch(batch, device))
-                    sub.register({k: float(v) for k, v in metrics.items()})
-                    sub.next()
-        logging.info(reporter.log_message())
-        save(f"{args.exp_dir}/ep{ep}.checkpoint")
+                train_iter.sampler.refresh()
+            with reporter.observe("valid") as sub:
+                if valid_iter is not None:
+                    for batch in sub.measure_iter_time(valid_iter, "iter_time"):
+                        metrics = eval_step(device_batch(batch, device, mesh, n_hosts))
+                        sub.register({k: float(v) for k, v in metrics.items()})
+                        sub.next()
+            logging.info(reporter.log_message())
+            save(f"{args.exp_dir}/ep{ep}.checkpoint")
+
     return {"steps": steps, "checkpoints": saved}
 
 

@@ -162,8 +162,13 @@ def test_codebook_ema_replace_and_kmeans_match_jax():
     before = _np(fresh.embedding_sum).copy()
     fresh.kmeans_init(torch.from_numpy(samples), num_iters=5, indices=draws)
     np.testing.assert_array_equal(_np(fresh.embedding_sum), before)  # initialized: kept
-    with pytest.raises(NotImplementedError, match="item 10"):
-        fresh.ema_update(torch.from_numpy(x), codes_t, axis_name="data")
+    # JAX's axis_name psums over a mesh axis; in one process (no mesh) the
+    # data axis is 1 and the update is the one without it
+    named, plain = TC(8, 16), TC(8, 16)
+    named.ema_update(torch.from_numpy(x), codes_t, axis_name="data")
+    plain.ema_update(torch.from_numpy(x), codes_t)
+    np.testing.assert_array_equal(_np(named.cluster_usage), _np(plain.cluster_usage))
+    np.testing.assert_array_equal(_np(named.embedding_sum), _np(plain.embedding_sum))
 
 
 # -- the trainable RVQ -----------------------------------------------------------
@@ -520,6 +525,90 @@ def test_codec_trainer_end_to_end_and_resume(tmp_path):
     assert latest_checkpoint(tmp_path / "exp").name == "ep0-iter4.checkpoint"
     # the resumed lr continues the schedule (2 steps an epoch)
     np.testing.assert_allclose(second["steps"][0]["lr"], 1e-4 * 0.999 ** (2 / 2), rtol=1e-6)
-    with pytest.raises(SystemExit, match="item 10"):
+    # one process: a 2-rank mesh is JAX's make_mesh error, a batch that
+    # does not split is JAX's divisibility error
+    with pytest.raises(ValueError, match="covers 2 devices but 1 are visible"):
         codec_trainer.main(argv + ["--dp", "2"])
+    with pytest.raises(ValueError, match="not divisible by --dp 3"):
+        codec_trainer.main(argv + ["--dp", "3"])
     assert codec_trainer.get_parser().parse_args(["--config", "c"]).device == "cuda"
+
+
+# -- data parallelism (``--dp``) --------------------------------------------------
+
+
+# ``--dp 2`` against ``--dp 1``, float32: each loss is the same sum over
+# the batch taken in two halves (~1e-7 apart); the first moments are
+# gradients summed over the ranks in another order, the second step's taken
+# at parameters that differ where Adam turned that rounding on a near-zero
+# gradient into part of an lr step (up to 3.5e-5 of a tensor's largest
+# magnitude measured). A rank that kept its own half of the gradient is off
+# by a share of the whole.
+CODEC_DP_LOSS_RTOL = 1e-5
+CODEC_DP_MU_RTOL = 1e-3
+
+
+@pytest.fixture(scope="module")
+def dp_ranks(tmp_path_factory):
+    """``--dp 2`` on 2 gloo ranks (one torch thread each, one start for
+    both tests), the ``--dp 1`` run in this process; and the EMA update
+    over the data group, each rank given half of the rows."""
+    from rstnet_tpu.quantization.codebook import EuclideanCodebook as JC
+    from tests.torch_parallel_ranks import job_codec_train, run_ranks
+
+    tmp = tmp_path_factory.mktemp("dp")
+    scp = _write_corpus(tmp, n_wavs=8)
+    cfg = tmp / "config.yaml"
+    cfg.write_text(yaml.safe_dump(tiny_config(batch_size=4)))
+
+    def argv(tag, dp):
+        return ["--config", str(cfg), "--exp_dir", str(tmp / f"exp_{tag}"), "--train_scp",
+                str(scp), "--semantic_teacher", "none", "--device", "cpu", "--max_steps", "2",
+                "--dp", str(dp)]
+
+    cb = JC(dim=8, codebook_size=16)
+    params = cb.init(jax.random.PRNGKey(0))
+    params["embedding_sum"] = jax.random.normal(jax.random.PRNGKey(1), (16, 8))
+    x = jax.random.normal(jax.random.PRNGKey(2), (32, 8))
+    codes = cb.quantize(params, x)
+    ema = {"x": np.array(x), "codes": np.array(codes),
+           "embedding_sum": np.array(params["embedding_sum"])}
+    ref, _ = cb.ema_update(params, x, codes)
+    ranks = run_ranks(tmp, 2, "codec_suite", argv=argv("dp2", 2), ema=ema)
+    return {"dp1": job_codec_train(argv("dp1", 1)), "ranks": ranks,
+            "ema_ref": {k: np.asarray(ref[k]) for k in ("cluster_usage", "embedding_sum")}}
+
+
+def test_codec_trainer_mesh_invariance(dp_ranks):
+    """``--dp 2`` matches the ``--dp 1`` run on the same batches and draws:
+    G and D parameters and the EMA codebook buffers after 2 steps, on both
+    ranks (JAX's tolerance, 5e-3). At lr 1e-4 two Adam steps move an element
+    by about 2e-4 whatever its gradient, so that cannot see the gradient:
+    the steps' G and D losses (the second taken after an update) and the
+    G and D optimizers' first moments, a decayed sum of both steps'
+    all-reduced gradients, are held to the ``--dp 1`` run's too
+    (``CODEC_DP_*``)."""
+    ref = dp_ranks["dp1"]
+    for r in dp_ranks["ranks"]:
+        for part in ("g_mu", "d_mu"):
+            got = r["codec"][part]
+            assert set(got) == set(ref[part])
+            for k, want in ref[part].items():
+                scale = float(np.max(np.abs(want))) if want.size else 0.0
+                worst = float(np.max(np.abs(got[k] - want))) if want.size else 0.0
+                assert worst <= CODEC_DP_MU_RTOL * scale, (part, k, worst, scale)
+        np.testing.assert_allclose(r["codec"]["losses"], ref["losses"], rtol=CODEC_DP_LOSS_RTOL)
+        for part in ("g_params", "g_buffers", "d_params"):
+            got = r["codec"][part]
+            assert set(got) == set(ref[part])
+            worst = max(float(np.max(np.abs(got[k] - ref[part][k]))) if got[k].size else 0.0
+                        for k in got)
+            assert worst < 5e-3, (part, worst)
+
+
+def test_vq_ema_allreduce_matches_global(dp_ranks):
+    """``ema_update(axis_name="data")`` over 2 ranks, each with half of the
+    rows, equals the JAX update over all of them."""
+    for r in dp_ranks["ranks"]:
+        for k, want in dp_ranks["ema_ref"].items():
+            np.testing.assert_allclose(r["ema"][k], want, rtol=1e-5, atol=1e-5)

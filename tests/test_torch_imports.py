@@ -114,3 +114,17 @@ def test_scan_covers_the_data_prep_slice():
                    "data/codec_dataset.py", "evalsuite/metrics.py"):
         assert f"rstnet_tpu_torch/{module}" in scanned, module
     assert (ROOT / "rstnet_tpu_torch/native/rstnet_native.cpp").exists()
+
+
+def test_scan_covers_the_parallel_slice():
+    """The scan reaches every module of the parallel-training slice, and the
+    test ranks' module (which the parallel tests start as processes) imports
+    no JAX either."""
+    scanned = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py",
+                   "parallel/pipeline.py", "parallel/comm.py", "ops/context_parallel.py",
+                   "training/train_step.py", "training/trainer.py", "training/codec_trainer.py",
+                   "training/checkpoint.py", "training/flagship8b.py", "data/dataloader.py",
+                   "quantization/codebook.py", "quantization/trainable.py"):
+        assert f"rstnet_tpu_torch/{module}" in scanned, module
+    assert not _imported_roots(ROOT / "tests" / "torch_parallel_ranks.py") & set(FORBIDDEN)

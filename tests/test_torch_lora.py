@@ -438,3 +438,27 @@ def test_build_peft_8b_materializes_leaf_by_leaf():
     assert abs(a.float().std().item() - 0.02) < 0.005
     for (n, p), q in zip(model.named_parameters(), runs[1][0].parameters()):
         assert torch.equal(p, q), n
+
+
+def test_8b_fsdp_sharding_math():
+    """The fsdp mesh divides the 8B PEFT state (JAX
+    ``test_8b_fsdp_sharding_math``): a rank's bytes of parameters plus
+    Adam's two moments over the trainable ones are within twice the ideal
+    whole / 8 and under 4 GiB, and the int8 QKV stack is split 8 ways. From
+    the shapes alone (the meta model)."""
+    from rstnet_tpu_torch.parallel.sharding import infer_param_placements, shard_bytes
+    from rstnet_tpu_torch.training.flagship8b import abstract_peft_8b
+
+    mesh = {"data": 1, "fsdp": 8, "tensor": 1}
+    model, mask = abstract_peft_8b()
+    placements = infer_param_placements(mesh, model)
+    params = dict(model.named_parameters())
+    trainable = {n: p for n, p in params.items() if mask[n]}
+    frozen = {n: p for n, p in params.items() if not mask[n]}
+    per_rank = shard_bytes(placements, frozen, mesh) + 3 * shard_bytes(placements, trainable, mesh)
+    full = sum(p.numel() * p.element_size() for p in params.values())
+    assert per_rank < full / 8 * 2, (per_rank / 2**30, full / 2**30)
+    assert per_rank / 2**30 < 4.0
+    qkv = "backbone.blocks.0.attn.w_int8"
+    assert params[qkv].dtype == torch.int8 and "fsdp" in placements[qkv].spec
+    assert shard_bytes(placements, {qkv: params[qkv]}, mesh) == params[qkv].numel() // 8

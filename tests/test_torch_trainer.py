@@ -88,9 +88,16 @@ def test_data_batches_equal_jax(tmp_path):
     ("--seq", "2"), ("--dp", "2")])
 def test_trainer_refuses_what_is_not_ported(tmp_path, flags):
     """The JAX trainer's refusals (``--base_int8`` without LoRA, with the
-    Moshi family or with ``--grad_accum > 1``) and any mesh axis above 1."""
+    Moshi family or with ``--grad_accum > 1``), and a mesh larger than the
+    ranks running: one process here, so ``--fsdp 2``, ``--seq 2`` and
+    ``--dp 2`` raise JAX's ``make_mesh`` error (the mesh covers 2 devices,
+    1 is visible)."""
     from rstnet_tpu_torch.training import trainer
 
+    if flags[0] in ("--fsdp", "--seq", "--dp"):
+        with pytest.raises(ValueError, match="covers 2 devices but 1 are visible"):
+            trainer.main(_cpu_args(tmp_path, tmp_path / "exp", flags))
+        return
     with pytest.raises(SystemExit):
         trainer.main(_cpu_args(tmp_path, tmp_path / "exp", flags))
 
@@ -228,3 +235,76 @@ def test_profile_train_step_runs_on_the_cpu(tmp_path):
     assert (result["batch"], result["seq"], result["step_ms"]["n"]) == (4, 1024, 5)
     assert set(result["stage_ms"]) == {"forward", "backward", "optimizer", "step"}
     assert not any(result["k6_launches_per_step"].values())
+
+
+# the first moments after the run's steps, float32 (up to 0.12 here): the
+# same gradient sums taken in another order (over ranks and time slices),
+# and later steps' gradients at parameters that differ by that rounding
+# (2e-8 apart measured)
+MU_ATOL = 1e-6
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory):
+    """8 gloo ranks (one torch thread each, one start for both tests): the
+    elastic checkpoint reshard, and ``trainer.main`` on a data x fsdp x seq
+    mesh beside the same run in this process."""
+    from rstnet_tpu_torch.training import trainer
+    from tests.test_torch_speech_lm import CFG, lm_pair
+    from tests.torch_parallel_ranks import job_trainer, run_ranks
+
+    tmp = tmp_path_factory.mktemp("mesh")
+    _write_synthetic(tmp)
+    _, params, _ = lm_pair()
+    from rstnet_tpu.core import flatten_dict
+
+    flat = {k: np.array(v) for k, v in flatten_dict(params)}
+    mesh_flags = ("--dp", "-1", "--fsdp", "2", "--seq", "2")
+    ranks = run_ranks(tmp, 8, "suite", parts={
+        "reshard": ("reshard", dict(cfg=CFG, flat=flat, path=str(tmp / "ep1.checkpoint"),
+                                    mesh_a={"data": 2, "fsdp": 2, "tensor": 2},
+                                    mesh_b={"fsdp": 4, "tensor": 2})),
+        "trainer": ("trainer", dict(argv=_cpu_args(tmp, tmp / "exp_mesh", mesh_flags))),
+    }, timeout=240)
+    one = job_trainer(_cpu_args(tmp, tmp / "exp_one"))
+    assert trainer  # imported for the rank side's module path
+    return {"ranks": ranks, "flat": flat, "one": one}
+
+
+def test_checkpoint_elastic_reshard(mesh_ranks):
+    """A checkpoint saved under one mesh (data 2, fsdp 2, tensor 2) restores
+    under another (fsdp 4, tensor 2) with identical values, each rank
+    holding its new shards (JAX ``test_checkpoint_elastic_reshard``)."""
+    got = mesh_ranks["ranks"][0]["reshard"]
+    want = mesh_ranks["flat"]  # the JAX tree, blocks stacked
+    assert set(got["params"]) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got["params"][k], v)
+    # wte [V, C] is split on tensor (rows) and fsdp (columns) on both meshes
+    (va, ca), (vb, cb) = got["shapes"]["a"], got["shapes"]["b"]
+    assert va == vb and ca == 2 * cb
+
+
+def test_trainer_on_a_mesh_matches_one_process(mesh_ranks):
+    """``trainer.main`` with ``--dp -1 --fsdp 2 --seq 2`` on 8 ranks (dp
+    absorbs 2) trains as the one-process run: every step's loss within
+    1e-3 and the last checkpoint's parameters within 5e-3 (JAX's mesh
+    tolerances), the same on every rank. Those cannot see a wrong gradient
+    (an Adam step moves an element by about lr whatever its gradient), so
+    the checkpoint's first moments, a decayed sum of the steps' reduced
+    gradients, are held to the one-process run's within ``MU_ATOL``."""
+    one = mesh_ranks["one"]
+    for r in mesh_ranks["ranks"]:
+        got = r["trainer"]
+        assert len(got["steps"]) == len(one["steps"]) > 0
+        for a, b in zip(got["steps"], one["steps"]):
+            assert (a["batch_size"], a["seq_len"]) == (b["batch_size"], b["seq_len"])
+            assert abs(a["loss"] - b["loss"]) < 1e-3, (a["loss"], b["loss"])
+    params = mesh_ranks["ranks"][0]["trainer"]["params"]
+    assert set(params) == set(one["params"])
+    worst = max(float(np.max(np.abs(params[k] - one["params"][k]))) for k in params)
+    assert worst < 5e-3, worst
+    mu = mesh_ranks["ranks"][0]["trainer"]["mu"]
+    assert set(mu) == set(one["mu"])
+    worst = max(float(np.max(np.abs(mu[k] - one["mu"][k]))) for k in mu)
+    assert worst < MU_ATOL, worst

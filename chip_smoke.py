@@ -7,6 +7,7 @@
     python3 chip_smoke.py --ssl-only
     python3 chip_smoke.py --prep-only
     python3 chip_smoke.py --parallel-only
+    python3 chip_smoke.py --k6-only
 
 The second form times K4 over float32 weights in each checkout in turn
 (``compare_trees``) and runs nothing else.
@@ -433,7 +434,7 @@ def phase_build() -> None:
     path, out = cuda_lib.build()
     log(f"built {path.name} in {time.perf_counter() - t0:.1f} s")
     for line in out.splitlines():
-        if "Used" in line or "Compiling entry" in line:
+        if "Used" in line or "Compiling entry" in line or "spill" in line:
             log("  ptxas:", line.split("ptxas info    :")[-1].strip())
     cuda_lib.kernel_library()
 
@@ -5156,6 +5157,9 @@ def main(argv=None) -> int:
                         help="run only the parallel phase (the probe of gloo and NCCL on the "
                         "card, paths train_dp2_llama1b and codec_train_dp2), and print their "
                         "findings (no result line)")
+    parser.add_argument("--k6-only", action="store_true",
+                        help="run only K6's checks and times (every head dim and dtype), and "
+                        "print their kernels entries (no result line)")
     parser.add_argument("--rank-job", default="", help=argparse.SUPPRESS)
     parser.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
     parser.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
@@ -5172,6 +5176,13 @@ def main(argv=None) -> int:
         Path(args.k4_f32_out).write_text(json.dumps(entry))
         return 0
     t_start = time.perf_counter()
+    if args.k6_only:
+        card = phase_environment()
+        phase_build()
+        g = torch.Generator(device="cuda").manual_seed(args.seed)
+        log(json.dumps({"kernels": check_k6(g, card)}))
+        log(f"chip_smoke --k6-only: {time.perf_counter() - t_start:.1f} s wall")
+        return 0
     if args.ssl_only:
         card = phase_environment()
         log(json.dumps({"ssl_paths": run_ssl_phases(args, card)}))

@@ -11,8 +11,9 @@
 // kernels: nothing is repeated in memory); key j is visible to query i iff
 // 0 <= i - j < window (window = context if context < T, else T). dK and dV
 // come out at the KV heads, summed over each group inside the kernel. Head
-// dims 64 and 128, every kernel a template on D (the text below is D = 64's
-// design; D = 128's changes follow it, "At head dim 128").
+// dims 64 and 128: every kernel a template on D but the bf16 backward at
+// 128, flash_bwd_wgmma_d128 (the text below is D = 64's design; D = 128's
+// follows it, "At head dim 128").
 //
 // What bounds it on the H100: operations. At the training shape (B=4, 32
 // query heads over 8 KV heads, T=1024, D=64, causal) there are 67.2 M
@@ -77,9 +78,16 @@
 // 64-row tile's scale, where a bf16-only product reads ~2e-3). bf16 wgmma and not TF32: TF32 wgmma takes K-major operands
 // only, and the products need MN-major B operands (V in P V, dO in
 // dV += P^T dO, Q in dK += dS^T Q, K in dQ = dS K), which only 16-bit
-// wgmma reads from shared memory. ptxas allocates every thread within the
-// launch's 168 registers, whatever setmaxnreg grants: the layouts below
-// keep the consumers there without spilling.
+// wgmma reads from shared memory. The float32 kernels keep the consumers
+// within the launch's 168 registers a thread (the layouts below). Above it,
+// setmaxnreg's grant does reach ptxas (nvcc 12.9; tools/k6_registers.py: a
+// consumer loop holding 192 accumulator floats after setmaxnreg.inc 240
+// compiles to registers up to R215 with no spill, and to 380 spill stores
+// without the grant), but not where a trap can be reached after the grant:
+// with a __trap() (or asm trap) in its consumers' mbarrier waits,
+// flash_bwd_wgmma_d128 spilled 1.8 KB and ptxas serialized its wgmma
+// ("insufficient register resources"); with trap-free waits it spills
+// nothing (ptxas -v, as chip_smoke.py's build prints it).
 // 4. flash_split_f32: the pre-pass of the forward, K and V into bf16 hi and
 //    lo planes ([rows, 64] each, taken by TMA with the 128-byte swizzle as
 //    the bf16 tiles are); memory-bound, 8 bytes read and 8 written an
@@ -120,23 +128,56 @@
 //    parts 32 and the dQ half 32.
 //
 // At head dim 128 a tile is two 64-column chunks (each D = 64's swizzled
-// layout, loaded as its own TMA box), so every operand is still a chunk, and
-// the accumulators are kept at D = 64's register count (ptxas holds every
-// thread within 168):
-// - forwards: key tiles of 64 (not 128) keys, O as two 64-column
-//   accumulators; bf16: Q double-buffered 64 KB + 4 stages of K and V 128
-//   KB; float32: two stages of K's and V's planes (128 KB) and Q's planes
+// layout, loaded as its own TMA box), so every operand is a chunk or, as
+// an MN-major B operand of 128 columns, two chunks kMnLbo apart (LBO steps
+// between 64-wide chunks).
+// - bf16 forward (flash_fwd_wgmma<128>): D = 64's schedule with 128-key
+//   tiles, the consumers at 240 registers a thread (O 64, S 64, P and the
+//   next tile's P 32 each), the producer's warpgroup at 24; P V one
+//   m64n128 product per k16 step over both chunks of V. K and V rings of 2
+//   stages (32 KB a tile) beside Q double-buffered (64 KB): 193 KB. Half the
+//   online-softmax rescales, mbarrier round trips and wgmma issue groups of
+//   64-key tiles.
+// - bf16 backward (flash_bwd_wgmma_d128): items of 128 keys with all 128
+//   columns, so S^T and dP^T are formed once for each (key tile, query
+//   tile) pair: each consumer warpgroup owns 64 keys, with dK and dV as
+//   64 x 128 accumulators (128 registers; the consumers at 240 a thread,
+//   warpgroup 2 at 24). A pair: S^T and dP^T (64 x 64 over 128 columns)
+//   in two commit groups, P^T formed while dP^T is on the tensor cores;
+//   dV += P^T dO issued while dS^T is formed; dS^T into the warpgroup's
+//   rows (double-buffered); dK += dS^T Q; then, both warpgroups' rows in,
+//   each warpgroup's 64 columns of dQ over the item's 128 keys, added onto
+//   the running float32 sum of dQ in a staging slot. The two dQ writer
+//   warps move whole 64 x 128 sums by TMA: in key-tile order behind the
+//   turn counters, a writer loads the sum from dq_acc into its slot (none
+//   at turn 0), the consumers add onto it, and the writer stores it back
+//   (or, at the last turn, converts it into dq); the consumers never wait
+//   on a global round trip unless a turn is late. No floating-point
+//   atomics: each element of dQ is one chain of adds in key-tile order,
+//   bit-identical from call to call. When the longest item holds more than
+//   1.5 times an SM's share of the pairs (Qwen2.5-7B's 7:1 groups at B=4,
+//   T=1024: 128 items of up to 112 pairs for 132 SMs), the first
+//   group / 2 key tiles' items each take half of the group's heads
+//   (BwdGeom128), and the halves' dK and dV meet in float32
+//   (bwd_d128_combine). 225 KB of shared memory (BwdSmem128). The
+//   consumers' waits do not trap (mbar_spin, above); the producer's and
+//   the writers' do, and every consumer wait is in a cycle with one of
+//   theirs. tools/k6_phase_marks.py --dtype bf16 splits a pair's time by
+//   phase: a pair takes ~6800 cycles, of which its products would need
+//   ~2450 at the tensor cores' peak; the rest is the elementwise phase,
+//   the waits on the products and the dQ slot's loads and stores, both
+//   warpgroups in step (PERF.md §6).
+// - float32 forward: key tiles of 64 keys, O as two 64-column
+//   accumulators; two stages of K's and V's planes (128 KB) and Q's planes
 //   in shared memory (64 KB, split by the pre-pass, loaded per work tile)
 //   instead of registers.
-// - bf16 backward: an item takes 64 of the 128 columns of dQ, dK and dV
-//   (items per key tile doubled; S^T and dP^T contract over all 128, so
-//   each is computed once per half); 2 ring stages and 3 dQ slots: 216 KB.
-//   dQ's turn counters are per (head, query tile, half).
 // - float32 backward: items of 64 keys, both consumer warpgroups on the
 //   same keys, each on its own 64 columns (S^T and dP^T once per
 //   warpgroup), one ring stage: 226 KB.
-// Correct first: these cost twice the products of S and dP in the
-// backwards (PERF.md §6 has the times).
+// Times at B=4, T=1024, causal, on an H100 80GB HBM3 at 700 W (PERF.md §6,
+// chip_smoke.py): bf16 forward Qwen 28/4 0.074 ms and Llama-8B 32/8 0.084
+// (SDPA 0.073, 0.082); bf16 backward 0.35 and 0.34-0.41 ms across calls
+// (SDPA 0.285, 0.320; bounds 0.076, 0.087 by operations).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -171,17 +212,21 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Phase marks of the float32 backward (a build with RSTNET_K6_MARKS
-// defined: tools/k6_phase_marks.py). Thread 0 of each consumer warpgroup
-// writes its SM's clock64 at 8 points of each of the block's first
-// kMarkPairs pairs, k6_marks[block][warpgroup][pair][8]: [0] before the
-// ring's full wait, [1] after it, [2] S^T and dP^T done, [3] P^T's parts
-// formed, [4] dS^T's parts written and synced, [5] dV, dK, dQ done, [6] a
-// staging slot free, [7] the dQ half staged. Lane 0 of each dQ writer at 4
-// points of its pairs, k6_writer_marks[block][pair][4]: [0] before its turn,
-// [1] its turn, [2] both halves staged, [3] added and stored. Thread 0:
-// k6_span_marks[block] = {clock64 at start, at end, global timer (ns) at
-// start, at end}.
+// Phase marks of the float32 backward and of the bf16 backward at head dim
+// 128 (a build with RSTNET_K6_MARKS defined: tools/k6_phase_marks.py).
+// Thread 0 of each consumer warpgroup writes its SM's clock64 at 8 points
+// of each of the block's first kMarkPairs pairs,
+// k6_marks[block][warpgroup][pair][8]: [0] before the ring's full wait, [1]
+// after it; float32: [2] S^T and dP^T done, [3] P^T's parts formed, [4]
+// dS^T's parts written and synced, [5] dV, dK, dQ done, [6] a staging slot
+// free, [7] the dQ half staged; bf16 at 128: [2] S^T done, [3] dS^T written
+// (P^T formed, dV issued, dP^T done), [4] dK issued, both warpgroups' dS^T
+// in and the dQ slot loaded, [5] dV, dK and dQ done, [6] dQ in the slot,
+// [7] handed to the writer. Lane 0 of each dQ writer at 4 points of its
+// pairs, k6_writer_marks[block][pair][4]: [0] before its turn, [1] its turn
+// (and, at 128, the sum's load issued), [2] the consumers' parts in, [3]
+// added and stored. Thread 0: k6_span_marks[block] = {clock64 at start, at
+// end, global timer (ns) at start, at end}.
 #ifdef RSTNET_K6_MARKS
 constexpr int kMarkBlocks = 132, kMarkPairs = 160;
 __device__ long long k6_marks[kMarkBlocks * 2 * kMarkPairs * 8];
@@ -199,7 +244,7 @@ __device__ __forceinline__ long long global_ns() {
   } while (0)
 #define K6_WRITER_MARK(n)                                                                   \
   do {                                                                                      \
-    if (Halves == 2 && lane == 0 && slot < kMarkPairs && blockIdx.x < kMarkBlocks)         \
+    if (lane == 0 && slot < kMarkPairs && blockIdx.x < kMarkBlocks)                         \
       k6_writer_marks[(blockIdx.x * kMarkPairs + slot) * 4 + (n)] = clock64();              \
   } while (0)
 #define K6_SPAN_MARK(i)                                                                     \
@@ -258,6 +303,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const long long t0 = clock64();
   while (!mbar_try_wait(bar, parity)) {
     if (clock64() - t0 > kHangCycles) __trap();
+  }
+}
+// The same without the trap, for consumers above the launch's register
+// share: a trap reachable after setmaxnreg.inc holds ptxas's allocation there
+// to about 184 registers (flash_bwd_wgmma_d128 spilled 1.8 KB around its
+// waits; header, "At head dim 128"). Each of their waits is in a cycle with
+// a wait of the producer or a dQ writer, which traps.
+__device__ __forceinline__ void mbar_spin(uint64_t* bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
   }
 }
 
@@ -409,6 +463,26 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
 }
 
+// d (+)= A B, m64n128k16, A and B from shared memory (descriptors), into an
+// accumulator kept as two 64-column halves (d[c]: columns [64 c, 64 c + 64)
+// in D = 64's layout); TA / TB: 1 for an MN-major operand.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[2][32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[0][4]), "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]),
+        "+f"(d[0][8]), "+f"(d[0][9]), "+f"(d[0][10]), "+f"(d[0][11]), "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]), "+f"(d[0][15]),
+        "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]), "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]),
+        "+f"(d[0][24]), "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]), "+f"(d[0][28]), "+f"(d[0][29]), "+f"(d[0][30]), "+f"(d[0][31]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]),
+        "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]), "+f"(d[1][12]), "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]),
+        "+f"(d[1][16]), "+f"(d[1][17]), "+f"(d[1][18]), "+f"(d[1][19]), "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]), "+f"(d[1][23]),
+        "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]), "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31])
+      : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+}
+
 // d (+)= A B over N columns of B (64 or 128), both from shared memory.
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
@@ -428,6 +502,26 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+}
+
+// d += A B, m64n128k16, A from registers (the accumulator layout, as bf16
+// pairs), B from shared memory; TB: 1 for an MN-major B. d[c] holds the
+// accumulator's columns [64 c, 64 c + 64) in D = 64's layout.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[2][32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[0][4]), "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]),
+        "+f"(d[0][8]), "+f"(d[0][9]), "+f"(d[0][10]), "+f"(d[0][11]), "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]), "+f"(d[0][15]),
+        "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]), "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]),
+        "+f"(d[0][24]), "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]), "+f"(d[0][28]), "+f"(d[0][29]), "+f"(d[0][30]), "+f"(d[0][31]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]),
+        "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]), "+f"(d[1][12]), "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]),
+        "+f"(d[1][16]), "+f"(d[1][17]), "+f"(d[1][18]), "+f"(d[1][19]), "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]), "+f"(d[1][23]),
+        "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]), "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
 }
 
@@ -456,6 +550,7 @@ __device__ __forceinline__ int acc_col(int e) {
   return (e >> 2) * 8 + 2 * (threadIdx.x % 4) + (e & 1);
 }
 
+
 __device__ __forceinline__ bool sees(int i, int j, int window) {
   const int d = i - j;
   return d >= 0 && d < window;
@@ -464,21 +559,24 @@ __device__ __forceinline__ bool sees(int i, int j, int window) {
 // ---- forward --------------------------------------------------------------
 
 constexpr int kFwdRows = 128;   // query rows of a work tile: 64 per consumer warpgroup
-constexpr int kFwdStages = 4;
-// keys of a K/V tile: 128 at D = 64; 64 at D = 128, which keeps the
-// consumer's O (64 registers), S (32) and P (16 + 16) within 168 registers
+// keys of a K/V tile: 128 at both head dims (at D = 128 the consumer holds
+// O 64 registers, S 64 and P twice 32, above the launch's 168: see the
+// registers of setmaxnreg in the header)
 template <int D>
-constexpr int kFwdKeys = D == 64 ? 128 : 64;
+constexpr int kFwdKeys = 128;
+// stages of the K and V rings: 16 KB a tile at D = 64, 32 KB at D = 128
+template <int D>
+constexpr int kFwdStages = D == 64 ? 4 : 2;
 
 template <int D>
 struct FwdSmem {
   bf16 q[2][kFwdRows * D];  // double-buffered: the next tile's Q loads during this one
-  bf16 k[kFwdStages][kFwdKeys<D> * D];
-  bf16 v[kFwdStages][kFwdKeys<D> * D];
+  bf16 k[kFwdStages<D>][kFwdKeys<D> * D];
+  bf16 v[kFwdStages<D>][kFwdKeys<D> * D];
   // K and V are separate rings: S needs only K, and K's slot frees up as
   // soon as S is done
-  uint64_t q_full[2], q_empty[2], k_full[kFwdStages], k_empty[kFwdStages], v_full[kFwdStages],
-      v_empty[kFwdStages];
+  uint64_t q_full[2], q_empty[2], k_full[kFwdStages<D>], k_empty[kFwdStages<D>],
+      v_full[kFwdStages<D>], v_empty[kFwdStages<D>];
 };
 template <int D>
 constexpr int kFwdSmemBytes = sizeof(FwdSmem<D>) + 1024;  // + alignment slack
@@ -577,15 +675,16 @@ __device__ __forceinline__ void fence_acc(float (&acc)[C][32]) {
 }
 
 // Persistent, one block per SM. Warps 0-7: two consumer warpgroups, 64
-// query rows of the work tile each (232 registers a thread); warp 8: the
-// producer, one thread of which issues every TMA load (Q per work tile, K/V
-// per key tile); warps 9-11 only give their registers away.
+// query rows of the work tile each (232 registers a thread at D = 64, 240
+// at D = 128); warp 8: the producer, one thread of which issues every TMA
+// load (Q per work tile, K/V per key tile); warps 9-11 only give their
+// registers away.
 template <int D>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
                 float* __restrict__ lse, FwdWork<kFwdKeys<D>> wk) {
-  constexpr int Keys = kFwdKeys<D>, NC = D / kChunk;
+  constexpr int Keys = kFwdKeys<D>, NC = D / kChunk, Stages = kFwdStages<D>;
   extern __shared__ unsigned char smem_raw[];
   FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(align1024(smem_raw));
   const int seq = wk.seq;
@@ -594,7 +693,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       mbar_init(&sm.q_full[b], 1);
       mbar_init(&sm.q_empty[b], kConsumers);
     }
-    for (int s = 0; s < kFwdStages; ++s) {
+    for (int s = 0; s < Stages; ++s) {
       mbar_init(&sm.k_full[s], 1);
       mbar_init(&sm.k_empty[s], kConsumers);
       mbar_init(&sm.v_full[s], 1);
@@ -605,7 +704,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {  // producer warpgroup: one thread loads
-    regs_dec<40>();
+    regs_dec<D == 64 ? 40 : 24>();
     if (threadIdx.x != kConsumers) return;
     int slot = 0;
     for (int n = 0, w = wk.tile(0); w < wk.count(); w = wk.tile(++n)) {
@@ -614,8 +713,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       mbar_expect_tx(&sm.q_full[qb], kFwdRows * D * 2);
       tma_tile<D, kFwdRows>(sm.q[qb], &tq, &sm.q_full[qb], bh * seq + wk.qt(w) * kFwdRows);
       for (int t = 0; t < wk.n_tiles(w); ++t, ++slot) {
-        const int s = slot % kFwdStages, row = kv_row + (j_lo + t) * Keys;
-        const uint32_t phase = ((slot / kFwdStages) & 1) ^ 1;
+        const int s = slot % Stages, row = kv_row + (j_lo + t) * Keys;
+        const uint32_t phase = ((slot / Stages) & 1) ^ 1;
         mbar_wait(&sm.k_empty[s], phase);
         mbar_expect_tx(&sm.k_full[s], Keys * D * 2);
         tma_tile<D, Keys>(sm.k[s], &tk, &sm.k_full[s], row);
@@ -626,7 +725,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     }
     return;
   }
-  regs_inc<232>();
+  regs_inc<D == 64 ? 232 : 240>();
 
   const int wg = threadIdx.x / 128;
   int slot = 0;
@@ -659,11 +758,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       wg_commit();
     };
 
-    mbar_wait(&sm.k_full[slot % kFwdStages], (slot / kFwdStages) & 1);
-    issue_s(slot % kFwdStages);
+    mbar_wait(&sm.k_full[slot % Stages], (slot / Stages) & 1);
+    issue_s(slot % Stages);
     wg_wait0();
     fence_regs(sc);
-    mbar_arrive(&sm.k_empty[slot % kFwdStages]);
+    mbar_arrive(&sm.k_empty[slot % Stages]);
     softmax_scores(sc, m, l, alpha, masked(j_lo * Keys), row0, j_lo * Keys, wk.window);
     acc_to_a<Keys / 2>(p, sc);
     // Tile t: S of tile t + 1 goes to the tensor cores ahead of P V of tile
@@ -671,22 +770,26 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     // The last tile's P V follows the loop, so the loop body has no branch
     // (ptxas then sees that the wait of one group retires S).
     auto issue_pv = [&](int s) {  // acc += P V for the V tile in stage s
-      mbar_wait(&sm.v_full[s], (slot / kFwdStages) & 1);
+      mbar_wait(&sm.v_full[s], (slot / Stages) & 1);
       fence_acc(acc);
       fence_regs(p);
       wg_fence();
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const uint64_t dv = desc_mn(sm.v[s] + c * Keys * kChunk);
+      if constexpr (NC == 2) {  // both column chunks of V in one product per k16 step
+        const uint64_t dv = make_desc(sm.v[s], Keys * kRowBytes, kMnSbo);
 #pragma unroll
         for (int kk = 0; kk < Keys / 16; ++kk)
-          wgmma_rs_n64<1>(acc[c], p[kk], desc_add(dv, kk * 16 * kRowBytes));
+          wgmma_rs_n128<1>(acc, p[kk], desc_add(dv, kk * 16 * kRowBytes));
+      } else {
+        const uint64_t dv = desc_mn(sm.v[s]);
+#pragma unroll
+        for (int kk = 0; kk < Keys / 16; ++kk)
+          wgmma_rs_n64<1>(acc[0], p[kk], desc_add(dv, kk * 16 * kRowBytes));
       }
       wg_commit();
     };
     for (int t = 0; t + 1 < n_tiles; ++t, ++slot) {
-      const int s = slot % kFwdStages, s1 = (slot + 1) % kFwdStages;
-      mbar_wait(&sm.k_full[s1], ((slot + 1) / kFwdStages) & 1);
+      const int s = slot % Stages, s1 = (slot + 1) % Stages;
+      mbar_wait(&sm.k_full[s1], ((slot + 1) / Stages) & 1);
       issue_s(s1);
       issue_pv(s);
       wg_wait1();
@@ -708,11 +811,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 #pragma unroll
         for (int i = 0; i < 4; ++i) p[kk][i] = pn[kk][i];
     }
-    issue_pv(slot % kFwdStages);
+    issue_pv(slot % Stages);
     wg_wait0();
     fence_acc(acc);
     fence_regs(p);
-    mbar_arrive(&sm.v_empty[slot % kFwdStages]);
+    mbar_arrive(&sm.v_empty[slot % Stages]);
     ++slot;
     mbar_arrive(&sm.q_empty[qb]);
     store_o<D>(acc, m, l, o, lse, bh, seq, row0);
@@ -753,29 +856,48 @@ constexpr int kBwdRows = 64;   // query rows of a ring tile
 constexpr int kDqWriters = 96;  // warps 9-11, each taking every third pair's dQ partial
 constexpr int kBwdThreads = kConsumers + 32 + kDqWriters;  // 384: three warpgroups
 constexpr int kDqStride = kChunk + 8;  // floats per row of a staged dQ partial (fewer bank conflicts)
-// bf16 ring stages and staged dQ partials: at D = 128 K and V (64 KB) and a
-// ring stage (32 KB) are twice D = 64's, and 2 stages with 3 slots fit
-template <int D>
-constexpr int kBwdStages = D == 64 ? 4 : 2;
-template <int D>
-constexpr int kDqSlots = D == 64 ? 4 : 3;
+constexpr int kBwdStages = 4;  // D = 64: ring stages
+constexpr int kDqSlots = 4;    // D = 64: staged dQ partials
 
-template <int D>
+// D = 64 (D = 128 has BwdSmem128)
 struct BwdSmem {
-  bf16 k[kBwdKeys * D];
-  bf16 v[kBwdKeys * D];
+  bf16 k[kBwdKeys * 64];
+  bf16 v[kBwdKeys * 64];
   bf16 dst[2][kBwdKeys * kBwdRows];  // dS^T of the last two pairs: [key][query], swizzled
-  bf16 q[kBwdStages<D>][kBwdRows * D];
-  bf16 dout[kBwdStages<D>][kBwdRows * D];
-  float lse[kBwdStages<D>][kBwdRows];
-  float delta[kBwdStages<D>][kBwdRows];
-  float dqs[kDqSlots<D>][kBwdRows * kDqStride];  // 64 x 64 dQ partials for the writers
-  uint64_t full[kBwdStages<D>], empty[kBwdStages<D>], kv_full, kv_empty, dq_full[kDqSlots<D>],
-      dq_empty[kDqSlots<D>];
+  bf16 q[kBwdStages][kBwdRows * 64];
+  bf16 dout[kBwdStages][kBwdRows * 64];
+  float lse[kBwdStages][kBwdRows];
+  float delta[kBwdStages][kBwdRows];
+  float dqs[kDqSlots][kBwdRows * kDqStride];  // 64 x 64 dQ partials for the writers
+  uint64_t full[kBwdStages], empty[kBwdStages], kv_full, kv_empty, dq_full[kDqSlots],
+      dq_empty[kDqSlots];
   int item;
 };
-template <int D>
-constexpr int kBwdSmemBytes = sizeof(BwdSmem<D>) + 1024;
+
+constexpr int kBwdSmemBytes = sizeof(BwdSmem) + 1024;
+
+// D = 128: K and V of the item's 128 keys (all 128 columns), dS^T of the
+// last two pairs ([key][query]: each consumer warpgroup writes its 64 keys'
+// rows and reads all 128), 2 ring stages of Q, dO, LSE and delta, and 2 dQ
+// staging slots, each a 64 x 128 float32 running sum in TMA's layout
+// (dq_slot_offset): 225 KB.
+constexpr int kBwd128Stages = 2, kBwd128Slots = 2;
+constexpr int kBwd128Writers = 2;  // warps 9 and 10, one a slot
+struct BwdSmem128 {
+  bf16 k[kBwdKeys * 128];
+  bf16 v[kBwdKeys * 128];
+  bf16 dst[2][kBwdKeys * kBwdRows];
+  bf16 q[kBwd128Stages][kBwdRows * 128];
+  bf16 dout[kBwd128Stages][kBwdRows * 128];
+  float dqs[kBwd128Slots][kBwdRows * 128];
+  float lse[kBwd128Stages][kBwdRows];
+  float delta[kBwd128Stages][kBwdRows];
+  uint64_t full[kBwd128Stages], empty[kBwd128Stages], kv_full, kv_empty,
+      dq_loaded[kBwd128Slots], dq_full[kBwd128Slots];
+  int item;
+  int second[2];  // a split item's consumer warpgroup finished after its other half's
+};
+constexpr int kBwd128SmemBytes = sizeof(BwdSmem128) + 1024;
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
@@ -786,20 +908,15 @@ __device__ __forceinline__ void add_release(int* p, int v) {
   asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
-// The work items' geometry. Item n is key tile j = n / (B Hkv Parts) of
-// (batch, KV head) n % (B Hkv Parts) / Parts, for the 64 columns n % Parts
-// of dQ, dK and dV (Parts = 2: the bf16 kernel at D = 128, whose items each
-// take half of the head dim; else 1): j-major, so the longest items (small
-// j under a causal mask) come first and every item comes after the items it
-// waits on (the same (batch, KV head, part) at smaller j). Keys: the keys of
-// a work item.
-template <int Keys, int Parts>
+// The work items' geometry. Item n is key tile j = n / (B Hkv) of (batch,
+// KV head) n % (B Hkv): j-major, so the longest items (small j under a
+// causal mask) come first and every item comes after the items it waits on
+// (the same (batch, KV head) at smaller j). Keys: the keys of a work item.
+template <int Keys>
 struct BwdGeom {
-  static constexpr int kParts = Parts;
   int batch_kv, group, seq, window, n_items;  // batch_kv = B Hkv, group = H / Hkv
-  __device__ int j(int item) const { return item / (batch_kv * Parts); }
-  __device__ int bg(int item) const { return item % (batch_kv * Parts) / Parts; }
-  __device__ int part(int item) const { return item % Parts; }
+  __device__ int j(int item) const { return item / batch_kv; }
+  __device__ int bg(int item) const { return item % batch_kv; }
   __device__ int q_tiles() const { return seq / kBwdRows; }
   // query tiles [i_lo, i_hi] that see a key of tile j
   __device__ int i_lo(int j) const { return j * Keys / kBwdRows; }
@@ -809,6 +926,32 @@ struct BwdGeom {
   // key tiles [j_lo, j_hi] that query tile i sees: the dQ contributors
   __device__ int j_lo(int i) const { return max(0, i * kBwdRows - window + 1) / Keys; }
   __device__ int j_hi(int i) const { return (i * kBwdRows + kBwdRows - 1) / Keys; }
+};
+
+// flash_bwd_wgmma_d128's items. When the key tiles alone give too few items
+// to fill the card (Qwen2.5-7B at B=4, T=1024: 128 items of up to 112
+// pairs for 132 SMs), each item of the first split_j key tiles (the longest
+// under a causal mask) takes half of its group's query heads: item n <
+// n_split() is (j, bg, half n % 2); the rest are whole groups, j-major as
+// before. The two halves' dK and dV meet in float32 (bwd_d128_combine).
+// Split when the longest item holds more than 1.5 times an SM's share of
+// the pairs (bwd_bf16).
+struct BwdGeom128 : BwdGeom<kBwdKeys> {
+  int split_j;
+  __device__ int n_split() const { return split_j * batch_kv * 2; }
+  __device__ int j(int item) const {
+    return item < n_split() ? item / (2 * batch_kv) : split_j + (item - n_split()) / batch_kv;
+  }
+  __device__ int bg(int item) const {
+    return item < n_split() ? item % (2 * batch_kv) / 2 : (item - n_split()) % batch_kv;
+  }
+  __device__ int half(int item) const { return item < n_split() ? item % 2 : -1; }
+  // the item's query heads: [h_lo, h_lo + heads) of the group
+  __device__ int h_lo(int item) const { return half(item) == 1 ? (group + 1) / 2 : 0; }
+  __device__ int heads(int item) const {
+    const int h = half(item);
+    return h < 0 ? group : h == 0 ? (group + 1) / 2 : group / 2;
+  }
 };
 
 // Offset (floats) of element (r, c) of an unpadded 64 x 64 float32 tile
@@ -824,11 +967,11 @@ __device__ __forceinline__ int dqs_offset(int r, int c) { return r * kChunk + (c
 // block's items are done. Slots >= Writers: a writer's last pair must be
 // no older than the last use of the buffer it waits on, or its parity wait
 // could pass on that use's phase.
-// Halves == 1: a staged partial is one padded 64 x 64 tile (the item's
-// part of the head dim). Halves == 2: two unpadded 64 x 64 halves (one per
-// consumer warpgroup; dqs_offset): at D = 64 each over its 64 keys, added
-// half 0 then half 1; at D = 128 each over all the item's keys for its 64
-// columns, side by side.
+// Halves == 1: a staged partial is one padded 64 x 64 tile (D = 64).
+// Halves == 2: two unpadded 64 x 64 halves (one per consumer warpgroup;
+// dqs_offset): at D = 64 each over its 64 keys, added half 0 then half 1;
+// at D = 128 each over all the item's keys for its 64 columns, side by
+// side.
 template <int Slots, int Writers, int Halves, int D, typename Smem, typename Geo, typename Out>
 __device__ __forceinline__ void write_dq(Smem& sm, const Geo& geo, Out* __restrict__ dq,
                                          float* __restrict__ dq_acc, int* __restrict__ turns) {
@@ -841,15 +984,15 @@ __device__ __forceinline__ void write_dq(Smem& sm, const Geo& geo, Out* __restri
     const int item = sm.item;
     mbar_arrive(&sm.kv_empty);  // the writers read nothing else of the item's buffers
     if (item >= geo.n_items) return;
-    const int j = geo.j(item), part = geo.part(item), h0 = geo.bg(item) * group;
+    const int j = geo.j(item), h0 = geo.bg(item) * group;
     const int i_hi = geo.i_hi(j), n_pairs = group * (i_hi - geo.i_lo(j) + 1);
     for (int p = 0; p < n_pairs; ++p, ++slot) {
       if (slot % Writers != wk) continue;
       const int h = h0 + p % group, i = i_hi - p / group, b = slot % Slots;
-      // this item's turn for (b, h, i, part) is j - j_lo(i), in key-tile order
+      // this item's turn for (b, h, i) is j - j_lo(i), in key-tile order
       const int turn = j - geo.j_lo(i);
       const bool last = j == geo.j_hi(i);
-      int* counter = turns + (static_cast<size_t>(h) * geo.q_tiles() + i) * Geo::kParts + part;
+      int* counter = turns + static_cast<size_t>(h) * geo.q_tiles() + i;
       K6_WRITER_MARK(0);
       if (lane == 0) {
         const long long t0 = clock64();
@@ -860,7 +1003,7 @@ __device__ __forceinline__ void write_dq(Smem& sm, const Geo& geo, Out* __restri
       K6_WRITER_MARK(1);
       mbar_wait(&sm.dq_full[b], (slot / Slots) & 1);
       K6_WRITER_MARK(2);
-      const size_t base = (static_cast<size_t>(h) * seq + i * kBwdRows) * D + part * kChunk;
+      const size_t base = (static_cast<size_t>(h) * seq + i * kBwdRows) * D;
       constexpr int kUnroll = 8, kVecs = kBwdRows * Cols / 4;  // float4s a lane, a tile
 #pragma unroll 1
       for (int c0 = 0; c0 < kVecs; c0 += 32 * kUnroll) {
@@ -905,20 +1048,18 @@ __device__ __forceinline__ void write_dq(Smem& sm, const Geo& geo, Out* __restri
 }
 
 // Persistent: each block takes work items from `work` until none are left.
-// An item (batch b, KV head g, key tile j, part) keeps K and V of its 128
-// keys in shared memory and visits every (query head h of the group, query
-// tile i) pair that sees them: query tiles from the last down, the group's
-// heads inside. Under a causal mask that puts (h, i) at the same place in
-// every item that contributes to it, so the dQ turns of consecutive items
-// follow each other one handoff apart instead of piling up at the items'
-// ends. Warps 0-7 (two consumer warpgroups, 64 keys each) run the
-// products; warp 8 streams each pair's Q, dO, LSE and delta through a ring
-// of kBwdStages stages; warps 9-11 take the pairs' dQ partials from shared
-// memory and add them, in turn, into the float32 workspace, so the
-// consumers never wait on that global round trip. At D = 128 an item takes
-// the 64 columns `part` of dK, dV and dQ (S^T and dP^T contract over the
-// whole head dim, so they are computed once for each part): the
-// accumulators stay D = 64's, within 168 registers.
+// An item (batch b, KV head g, key tile j) keeps K and V of its 128 keys in
+// shared memory and visits every (query head h of the group, query tile i)
+// pair that sees them: query tiles from the last down, the group's heads
+// inside. Under a causal mask that puts (h, i) at the same place in every
+// item that contributes to it, so the dQ turns of consecutive items follow
+// each other one handoff apart instead of piling up at the items' ends.
+// Warps 0-7 (two consumer warpgroups, 64 keys each) run the products; warp
+// 8 streams each pair's Q, dO, LSE and delta through a ring of kBwdStages
+// stages; warps 9-11 take the pairs' dQ partials from shared memory and add
+// them, in turn, into the float32 workspace, so the consumers never wait on
+// that global round trip. This is D = 64's kernel; D = 128 has its own,
+// flash_bwd_wgmma_d128, below.
 template <int D>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
@@ -926,10 +1067,11 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
                 float* __restrict__ dq_acc, int* __restrict__ turns, int* __restrict__ work,
-                BwdGeom<kBwdKeys, D / kChunk> geo) {
-  constexpr int NC = D / kChunk, Stages = kBwdStages<D>, Slots = kDqSlots<D>;
+                BwdGeom<kBwdKeys> geo) {
+  static_assert(D == 64, "head dim 128 is flash_bwd_wgmma_d128");
+  constexpr int NC = D / kChunk, Stages = kBwdStages, Slots = kDqSlots;
   extern __shared__ unsigned char smem_raw[];
-  BwdSmem<D>& sm = *reinterpret_cast<BwdSmem<D>*>(align1024(smem_raw));
+  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(align1024(smem_raw));
   const int seq = geo.seq, group = geo.group;
   if (threadIdx.x == 0) {
     for (int s = 0; s < Stages; ++s) {
@@ -998,7 +1140,7 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     mbar_wait(&sm.kv_full, kv_phase);
     const int item = sm.item;
     if (item >= geo.n_items) return;
-    const int j = geo.j(item), bg = geo.bg(item), part = geo.part(item);
+    const int j = geo.j(item), bg = geo.bg(item);
     const int k0 = j * kBwdKeys + wg * 64;  // this warpgroup's first key
     const int i_hi = geo.i_hi(j), n_pairs = group * (i_hi - geo.i_lo(j) + 1);
     float dk_acc[32], dv_acc[32];
@@ -1073,15 +1215,14 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(dst) +
                                      swizzle_offset(wg * 64 + acc_row(e), acc_col(e))) =
             a_ds[e / 8][(e % 8) / 2];
-      // dV += P^T dO, dK += dS^T Q over the item's columns: the group's sum,
-      // in registers
+      // dV += P^T dO, dK += dS^T Q: the group's sum, in registers
       fence_regs(dv_acc);
       fence_regs(dk_acc);
       fence_regs(a_p);
       fence_regs(a_ds);
       wg_fence();
-      const uint64_t m_do = desc_mn(sm.dout[s] + part * kBwdRows * kChunk);
-      const uint64_t m_q = desc_mn(sm.q[s] + part * kBwdRows * kChunk);
+      const uint64_t m_do = desc_mn(sm.dout[s]);
+      const uint64_t m_q = desc_mn(sm.q[s]);
 #pragma unroll
       for (int kk = 0; kk < kBwdRows / 16; ++kk) {
         wgmma_rs_n64<1>(dv_acc, a_p[kk], desc_add(m_do, kk * 16 * kRowBytes));
@@ -1089,8 +1230,8 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       }
       wg_commit();
       // dS^T to the async proxy and to the other warpgroup; then this
-      // warpgroup's half of the dQ partial (64 queries x 32 of the item's
-      // columns) over all 128 keys: dS K[:, 64 part + 32 wg : + 32]
+      // warpgroup's half of the dQ partial (64 queries x 32 columns) over
+      // all 128 keys: dS K[:, 32 wg : + 32]
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       named_sync(1, kConsumers);
       float dqp[16];
@@ -1099,7 +1240,7 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       fence_regs(dqp);
       wg_fence();
       const uint64_t m_ds = desc_mn(dst);
-      const uint64_t m_k = desc_add(desc_mn(sm.k + part * kBwdKeys * kChunk), wg * 64);
+      const uint64_t m_k = desc_add(desc_mn(sm.k), wg * 64);
 #pragma unroll
       for (int kk = 0; kk < kBwdKeys / 16; ++kk)
         wgmma_ss_n32<1, 1>(dqp, desc_add(m_ds, kk * 16 * kRowBytes),
@@ -1121,14 +1262,431 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
             make_float2(dqp[e], dqp[e + 1]);
       mbar_arrive(&sm.dq_full[b]);
     }
-    // dK, dV of this warpgroup's 64 keys and the item's columns, at the KV
-    // head's rows
+    // dK, dV of this warpgroup's 64 keys, at the KV head's rows
 #pragma unroll
     for (int e = 0; e < 32; e += 2) {
-      const size_t off =
-          (static_cast<size_t>(bg) * seq + k0 + acc_row(e)) * D + part * kChunk + acc_col(e);
+      const size_t off = (static_cast<size_t>(bg) * seq + k0 + acc_row(e)) * D + acc_col(e);
       store2(dk + off, dk_acc[e], dk_acc[e + 1]);
       store2(dv + off, dv_acc[e], dv_acc[e + 1]);
+    }
+    mbar_arrive(&sm.kv_empty);
+  }
+}
+
+// TMA: a box of a 2-D tensor map at (col, row) from shared memory back to
+// global memory, in the thread's bulk async-group.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int row,
+                                          int col) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(col), "r"(row)
+               : "memory");
+}
+// Until the thread's bulk async-groups have completed (their writes done).
+__device__ __forceinline__ void bulk_commit_wait() {
+  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// Offset (floats) of element (r, c) of a 64 x 128 float32 tile as TMA lays
+// out four [64, 32] boxes with the 128-byte swizzle (box c / 32; the 16-byte
+// chunk index XORed with r % 8).
+__device__ __forceinline__ int dq_slot_offset(int r, int c) {
+  return (c >> 5) * (kBwdRows * 32) + r * 32 + ((((c & 31) >> 2) ^ (r & 7)) << 2) + (c & 3);
+}
+
+// The dQ writers of flash_bwd_wgmma_d128 (warps 9 and 10). Writer w owns
+// staging slot w and takes the block's pairs w, w + 2, ... For each, once
+// the pair's (b, h, i) turn has come (acquire), lane 0 loads the running
+// float32 sum of dQ from dq_acc into the slot by TMA (at turn 0 there is
+// none: the consumers start from zero), completing dq_loaded; the consumers
+// add their partials onto it in the slot (each warpgroup its 64 columns)
+// and signal dq_full; then lane 0 stores the slot to dq_acc
+// by TMA and releases the next turn, or, at the last turn, the warp writes
+// the sum to dq in bf16. The slot is free again once dq_loaded has been
+// signalled for its next pair, so the consumers never wait on a global
+// round trip unless a turn is late.
+__device__ __forceinline__ void write_dq128(BwdSmem128& sm, const BwdGeom128& geo,
+                                            const CUtensorMap* tdq, bf16* __restrict__ dq,
+                                            int* __restrict__ turns) {
+  const int seq = geo.seq, group = geo.group;
+  const int w = (threadIdx.x - (kConsumers + 32)) / 32, lane = threadIdx.x % 32;
+  float* const sum = sm.dqs[w];
+  int slot = 0;
+  for (uint32_t kv_phase = 0;; kv_phase ^= 1) {
+    mbar_wait(&sm.kv_full, kv_phase);
+    const int item = sm.item;
+    mbar_arrive(&sm.kv_empty);  // the writers read nothing else of the item's buffers
+    if (item >= geo.n_items) return;
+    const int j = geo.j(item), h0 = geo.bg(item) * group + geo.h_lo(item), nh = geo.heads(item);
+    const int i_hi = geo.i_hi(j), n_pairs = nh * (i_hi - geo.i_lo(j) + 1);
+    for (int p = 0; p < n_pairs; ++p, ++slot) {
+      if (slot % kBwd128Slots != w) continue;
+      const int h = h0 + p % nh, i = i_hi - p / nh;
+      const int turn = j - geo.j_lo(i);  // key-tile order
+      const bool last = j == geo.j_hi(i);
+      const int row = h * seq + i * kBwdRows;
+      int* counter = turns + static_cast<size_t>(h) * geo.q_tiles() + i;
+      K6_WRITER_MARK(0);
+      if (lane == 0) {
+        if (turn > 0) {
+          const long long t0 = clock64();
+          while (ld_acquire(counter) < turn)
+            if (clock64() - t0 > kHangCycles) __trap();
+          asm volatile("fence.proxy.async.global;" ::: "memory");
+          mbar_expect_tx(&sm.dq_loaded[w], kBwdRows * 128 * 4);
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            tma_load(sum + c * kBwdRows * 32, tdq, &sm.dq_loaded[w], row, 32 * c);
+        } else {
+          mbar_arrive(&sm.dq_loaded[w]);
+        }
+      }
+      K6_WRITER_MARK(1);
+      mbar_wait(&sm.dq_full[w], (slot / kBwd128Slots) & 1);
+      K6_WRITER_MARK(2);
+      if (last) {  // the sum in bf16, a row's 32 16-byte chunks a step
+#pragma unroll 4
+        for (int r = 0; r < kBwdRows; ++r) {
+          const float4 x = *reinterpret_cast<const float4*>(sum + dq_slot_offset(r, 4 * lane));
+          bf16* out = dq + (static_cast<size_t>(row) + r) * 128 + 4 * lane;
+          store2(out, x.x, x.y);
+          store2(out + 2, x.z, x.w);
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // before the next TMA load
+        __syncwarp();
+      } else if (lane == 0) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) tma_store(tdq, sum + c * kBwdRows * 32, row, 32 * c);
+        bulk_commit_wait();
+        asm volatile("fence.proxy.async.global;" ::: "memory");
+        add_release(counter, 1);
+      }
+      __syncwarp();
+      K6_WRITER_MARK(3);
+    }
+  }
+}
+
+// The two halves of a split item (BwdGeom128) meet in float32, each
+// consumer warpgroup's 64 keys apart: the half that finishes first (an
+// atomic count) stores its dK and dV sums (64 keys x 128 columns each) and
+// releases a flag; the second waits for that flag, which the first raises
+// without waiting on anything, adds the two sums (a + b: the order does
+// not matter) and returns true: it writes dK and dV. The float32 sums of
+// pair k = j B Hkv + b Hkv + g go where dQ never does: rows 0-127 of
+// flattened query heads 2k and 2k + 1 of the dQ workspace (query tiles 0
+// and 1 have one dQ contributor, key tile 0, which writes dq itself);
+// split_j <= group / 2 keeps 2k + 1 < B H.
+__device__ __forceinline__ bool bwd_d128_combine(BwdSmem128& sm, float (&dk_acc)[2][32],
+                                                 float (&dv_acc)[2][32],
+                                                 float* __restrict__ halves,
+                                                 int* __restrict__ flags, int k, int wg,
+                                                 int seq) {
+  float* const dk_sum = halves + static_cast<size_t>(2 * k) * seq * 128;
+  float* const dv_sum = halves + static_cast<size_t>(2 * k + 1) * seq * 128;
+  int* const arrivals = flags + 4 * k + 2 * wg;
+  int* const ready = arrivals + 1;
+  if (threadIdx.x % 128 == 0) {
+    int old;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;" : "=r"(old) : "l"(arrivals) : "memory");
+    sm.second[wg] = old;
+    if (old == 1)
+      while (ld_acquire(ready) == 0) {
+      }
+  }
+  named_sync(2 + wg, 128);
+  const bool second = sm.second[wg] == 1;
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const size_t off = static_cast<size_t>(wg * 64 + acc_row(e)) * 128 + c * kChunk + acc_col(e);
+      if (!second) {
+        __stcg(reinterpret_cast<float2*>(dk_sum + off), make_float2(dk_acc[c][e], dk_acc[c][e + 1]));
+        __stcg(reinterpret_cast<float2*>(dv_sum + off), make_float2(dv_acc[c][e], dv_acc[c][e + 1]));
+      } else {
+        const float2 x = __ldcg(reinterpret_cast<const float2*>(dk_sum + off));
+        const float2 y = __ldcg(reinterpret_cast<const float2*>(dv_sum + off));
+        dk_acc[c][e] += x.x;
+        dk_acc[c][e + 1] += x.y;
+        dv_acc[c][e] += y.x;
+        dv_acc[c][e + 1] += y.y;
+      }
+    }
+  if (!second) {
+    __threadfence();
+    named_sync(2 + wg, 128);
+    if (threadIdx.x % 128 == 0) add_release(ready, 1);
+  }
+  return second;
+}
+
+// Head dim 128 (header, "At head dim 128"). An item is (batch b, KV head g,
+// key tile j of 128 keys) with all 128 columns, as at D = 64: each consumer
+// warpgroup owns 64 of the keys and, per (head, query tile) pair, computes
+// S^T and dP^T (64 keys x 64 queries, over all 128 columns) once, then
+// dV += P^T dO and dK += dS^T Q over all 128 columns (two 64 x 128
+// accumulators: 128 registers a thread) and its 64 columns of the dQ
+// partial over the item's 128 keys, dS K[:, 64 wg : + 64], which it adds
+// onto the running sum in a staging slot. dQ reads both warpgroups' rows of
+// dS^T, so the two meet at a named barrier once a pair. The consumers run
+// at 240 registers a thread (setmaxnreg: the launch gives 168), warpgroup 2
+// at 24: the producer thread and two dQ writer warps (write_dq128), which
+// move the sums by TMA.
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_wgmma_d128(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dq,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int* __restrict__ turns,
+                     int* __restrict__ work, float* __restrict__ halves,
+                     int* __restrict__ half_flags, BwdGeom128 geo) {
+  constexpr int D = 128, NC = 2, Stages = kBwd128Stages, Slots = kBwd128Slots;
+  extern __shared__ unsigned char smem_raw[];
+  BwdSmem128& sm = *reinterpret_cast<BwdSmem128*>(align1024(smem_raw));
+  const int seq = geo.seq, group = geo.group;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Stages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers);
+    }
+    mbar_init(&sm.kv_full, 1);
+    mbar_init(&sm.kv_empty, kConsumers + 32 * kBwd128Writers);
+    for (int b = 0; b < Slots; ++b) {
+      mbar_init(&sm.dq_loaded[b], 1);
+      mbar_init(&sm.dq_full[b], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  K6_SPAN_MARK(0);
+
+  if (threadIdx.x >= kConsumers) {  // warpgroup 2: the producer warp and the dQ writers
+    regs_dec<24>();
+    if (threadIdx.x >= kConsumers + 32) {
+      if (threadIdx.x < kConsumers + 32 + 32 * kBwd128Writers)
+        write_dq128(sm, geo, &tdq, dq, turns);
+      return;
+    }
+    if (threadIdx.x != kConsumers) return;
+    int slot = 0;
+    for (uint32_t kv_phase = 0;; kv_phase ^= 1) {
+      const int item = atomicAdd(work, 1);
+      if (item >= geo.n_items) {
+        mbar_wait(&sm.kv_empty, kv_phase ^ 1);
+        sm.item = item;
+        mbar_arrive(&sm.kv_full);  // no loads: the block stops
+        return;
+      }
+      const int j = geo.j(item), bg = geo.bg(item);
+      const int h0 = bg * group + geo.h_lo(item), nh = geo.heads(item);
+      const int i_hi = geo.i_hi(j), n_pairs = nh * (i_hi - geo.i_lo(j) + 1);
+      bool kv_loaded = false;
+      for (int p = 0; p < n_pairs; ++p, ++slot) {
+        const int s = slot % Stages;
+        const int row = (h0 + p % nh) * seq + (i_hi - p / nh) * kBwdRows;
+        mbar_wait(&sm.empty[s], ((slot / Stages) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[s], 2 * kBwdRows * D * 2 + 2 * kBwdRows * 4);
+        tma_tile<D, kBwdRows>(sm.q[s], &tq, &sm.full[s], row);
+        tma_tile<D, kBwdRows>(sm.dout[s], &tdo, &sm.full[s], row);
+        bulk_load(sm.lse[s], lse + row, kBwdRows * 4, &sm.full[s]);
+        bulk_load(sm.delta[s], delta + row, kBwdRows * 4, &sm.full[s]);
+        // K and V once the ring holds the item's first pairs
+        if (!kv_loaded && (p == Stages - 1 || p == n_pairs - 1)) {
+          mbar_wait(&sm.kv_empty, kv_phase ^ 1);
+          sm.item = item;
+          mbar_expect_tx(&sm.kv_full, 2 * kBwdKeys * D * 2);
+          tma_tile<D, kBwdKeys>(sm.k, &tk, &sm.kv_full, bg * seq + j * kBwdKeys);
+          tma_tile<D, kBwdKeys>(sm.v, &tv, &sm.kv_full, bg * seq + j * kBwdKeys);
+          kv_loaded = true;
+        }
+      }
+    }
+  }
+  regs_inc<240>();
+
+  const int wg = threadIdx.x / 128;
+  // this warpgroup's 64 rows of K and V (chunk 0; chunk c is c 128 64 on)
+  const bf16* const k_rows = sm.k + wg * 64 * kChunk;
+  const bf16* const v_rows = sm.v + wg * 64 * kChunk;
+  int slot = 0;
+  for (uint32_t kv_phase = 0;; kv_phase ^= 1) {
+    mbar_spin(&sm.kv_full, kv_phase);
+    const int item = sm.item;
+    if (item >= geo.n_items) {
+      K6_SPAN_MARK(1);
+      return;
+    }
+    const int j = geo.j(item), bg = geo.bg(item), nh = geo.heads(item);
+    const int k0 = j * kBwdKeys + wg * 64;  // this warpgroup's first key
+    const int i_hi = geo.i_hi(j), n_pairs = nh * (i_hi - geo.i_lo(j) + 1);
+    float dk_acc[2][32], dv_acc[2][32];  // [column chunk][D = 64's accumulator]
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dk_acc[c][e] = dv_acc[c][e] = 0.f;
+
+    for (int p = 0; p < n_pairs; ++p, ++slot) {
+      const int s = slot % Stages, b = slot % Slots;
+      const int i = i_hi - p / nh, q0 = i * kBwdRows;
+      K6_MARK(0);
+      mbar_spin(&sm.full[s], (slot / Stages) & 1);
+      K6_MARK(1);
+      // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries, over 128 columns),
+      // two commit groups: P^T is formed while dP^T is still on the tensor cores
+      float st[32], dpt[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) st[e] = dpt[e] = 0.f;
+      fence_regs(st);
+      fence_regs(dpt);
+      wg_fence();
+      {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const uint64_t d_k = desc_k(k_rows + c * kBwdKeys * kChunk);
+          const uint64_t d_q = desc_k(sm.q[s] + c * kBwdRows * kChunk);
+#pragma unroll
+          for (int kk = 0; kk < kChunk / 16; ++kk)
+            wgmma_ss_n64<0, 0>(st, desc_add(d_k, 32 * kk), desc_add(d_q, 32 * kk), c + kk > 0);
+        }
+        wg_commit();
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const uint64_t d_v = desc_k(v_rows + c * kBwdKeys * kChunk);
+          const uint64_t d_do = desc_k(sm.dout[s] + c * kBwdRows * kChunk);
+#pragma unroll
+          for (int kk = 0; kk < kChunk / 16; ++kk)
+            wgmma_ss_n64<0, 0>(dpt, desc_add(d_v, 32 * kk), desc_add(d_do, 32 * kk), c + kk > 0);
+        }
+        wg_commit();
+      }
+      wg_wait1();
+      fence_regs(st);
+      K6_MARK(2);
+      // P^T = exp2(S^T log2(e) - lse log2(e)), as at D = 64; columns are
+      // queries: column c's lse, read for its two elements
+      const bool masked = k0 + 63 > q0 || q0 + kBwdRows - 1 - k0 >= geo.window;
+#pragma unroll
+      for (int c = 0; c < 16; c += 2) {  // columns c and c + 1 are adjacent
+        const int e0 = (c >> 1) * 4, col = acc_col(e0);
+        const float2 l = *reinterpret_cast<const float2*>(&sm.lse[s][col]);
+        const float l2[2] = {l.x * kLog2e, l.y * kLog2e};
+#pragma unroll
+        for (int e = e0; e < e0 + 4; ++e)
+          st[e] = !masked || sees(q0 + col + (e & 1), k0 + acc_row(e), geo.window)
+                      ? fast_exp2(fmaf(st[e], kLog2e, -l2[e & 1])) : 0.f;
+      }
+      // dV += P^T dO over all 128 columns (P^T from registers; dO an
+      // MN-major B operand of 128 columns, its two chunks kMnLbo apart),
+      // on the tensor cores while dS^T is formed
+      uint32_t a_p[4][4];
+      acc_to_a<32>(a_p, st);
+      fence_regs(dv_acc[0]);
+      fence_regs(dv_acc[1]);
+      fence_regs(a_p);
+      wg_fence();
+      {
+        const uint64_t m_do = desc_mn(sm.dout[s]);
+#pragma unroll
+        for (int kk = 0; kk < kBwdRows / 16; ++kk)
+          wgmma_rs_n128<1>(dv_acc, a_p[kk], desc_add(m_do, kk * 16 * kRowBytes));
+      }
+      wg_commit();
+      wg_wait1();  // dP^T
+      fence_regs(dpt);
+      // dS^T = P^T (dP^T - delta), into this warpgroup's rows of shared
+      // memory, for dK (a K-major A operand) and both warpgroups' dQ
+      // (MN-major); two buffers: the other warpgroup may still read the last
+      // pair's
+      bf16* const dst = sm.dst[slot & 1] + wg * 64 * kChunk;
+#pragma unroll
+      for (int c = 0; c < 16; c += 2) {
+        const int e0 = (c >> 1) * 4;
+        const float2 d = *reinterpret_cast<const float2*>(&sm.delta[s][acc_col(e0)]);
+#pragma unroll
+        for (int e = e0; e < e0 + 4; ++e) dpt[e] = st[e] * (dpt[e] - ((e & 1) ? d.y : d.x));
+      }
+#pragma unroll
+      for (int e = 0; e < 32; e += 2)
+        *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(dst) +
+                                     swizzle_offset(acc_row(e), acc_col(e))) =
+            pack_bf16(dpt[e], dpt[e + 1]);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // to the async proxy
+      named_sync(2 + wg, 128);  // this warpgroup's rows are in
+      K6_MARK(3);
+      // dK += dS^T Q over all 128 columns (its own rows of dS^T): with dV,
+      // the group's sums, in registers
+      fence_regs(dk_acc[0]);
+      fence_regs(dk_acc[1]);
+      wg_fence();
+      {
+        const uint64_t m_q = desc_mn(sm.q[s]), a_ds = desc_k(dst);
+#pragma unroll
+        for (int kk = 0; kk < kBwdRows / 16; ++kk)
+          wgmma_ss_n128<0, 1>(dk_acc, desc_add(a_ds, 32 * kk),
+                              desc_add(m_q, kk * 16 * kRowBytes), 1);
+      }
+      wg_commit();
+      named_sync(1, kConsumers);  // both warpgroups' rows are in, for dQ
+      // dQ: this warpgroup's 64 columns of the partial over the item's 128
+      // keys, dS K[:, 64 wg : + 64], onto the slot's running sum, once the
+      // writer has loaded it or, at the pair's first turn, freed the slot
+      mbar_spin(&sm.dq_loaded[b], (slot / Slots) & 1);
+      K6_MARK(4);
+      float* const sum = sm.dqs[b];
+      float dqp[32];
+      const bool zero = j == geo.j_lo(i);  // the slot holds no sum yet
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const float2 x = zero ? make_float2(0.f, 0.f)
+                              : *reinterpret_cast<const float2*>(
+                                    sum + dq_slot_offset(acc_row(e), wg * kChunk + acc_col(e)));
+        dqp[e] = x.x;
+        dqp[e + 1] = x.y;
+      }
+      fence_regs(dqp);
+      wg_fence();
+      {
+        const uint64_t m_ds = desc_mn(sm.dst[slot & 1]);
+        const uint64_t m_k = desc_mn(sm.k + wg * kBwdKeys * kChunk);
+#pragma unroll
+        for (int kk = 0; kk < kBwdKeys / 16; ++kk)
+          wgmma_ss_n64<1, 1>(dqp, desc_add(m_ds, kk * 16 * kRowBytes),
+                             desc_add(m_k, kk * 16 * kRowBytes), 1);
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(dqp);
+      fence_regs(dv_acc[0]);
+      fence_regs(dv_acc[1]);
+      fence_regs(dk_acc[0]);
+      fence_regs(dk_acc[1]);
+      fence_regs(a_p);
+      mbar_arrive(&sm.empty[s]);
+      K6_MARK(5);
+#pragma unroll
+      for (int e = 0; e < 32; e += 2)
+        *reinterpret_cast<float2*>(sum + dq_slot_offset(acc_row(e), wg * kChunk + acc_col(e))) =
+            make_float2(dqp[e], dqp[e + 1]);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // to the writer's TMA store
+      K6_MARK(6);
+      mbar_arrive(&sm.dq_full[b]);
+      K6_MARK(7);
+    }
+    // dK, dV of this warpgroup's 64 keys, all 128 columns, at the KV head's
+    // rows; a half item's through its other half first
+    if (geo.half(item) < 0 ||
+        bwd_d128_combine(sm, dk_acc, dv_acc, halves, half_flags, j * geo.batch_kv + bg, wg, seq)) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; e += 2) {
+          const size_t off =
+              (static_cast<size_t>(bg) * seq + k0 + acc_row(e)) * D + c * kChunk + acc_col(e);
+          store2(dk + off, dk_acc[c][e], dk_acc[c][e + 1]);
+          store2(dv + off, dv_acc[c][e], dv_acc[c][e + 1]);
+        }
     }
     mbar_arrive(&sm.kv_empty);
   }
@@ -1517,7 +2075,7 @@ flash_bwd_f32(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
               const float* __restrict__ delta, float* __restrict__ dq, float* __restrict__ dk,
               float* __restrict__ dv,
               float* __restrict__ dq_acc, int* __restrict__ turns, int* __restrict__ work,
-              BwdGeom<kF32BwdKeys<D>, 1> geo, int rows, int kv_rows) {
+              BwdGeom<kF32BwdKeys<D>> geo, int rows, int kv_rows) {
   using Smem = BwdSmemF32<D>;
   constexpr int NC = D / kChunk, Keys = kF32BwdKeys<D>, Stages = Smem::Stages,
                 Slots = Smem::Slots;
@@ -1821,7 +2379,7 @@ Geo bwd_geo(int batch, int heads, int kv_heads, int seq, int window, int keys) {
   geo.group = heads / kv_heads;
   geo.seq = seq;
   geo.window = window;
-  geo.n_items = geo.batch_kv * (seq / keys) * Geo::kParts;
+  geo.n_items = geo.batch_kv * (seq / keys);
   return geo;
 }
 
@@ -1841,12 +2399,27 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// dq_acc as float32 [rows, 128], read and written in boxes of [64, 32] with
+// the 128-byte swizzle (flash_bwd_wgmma_d128's dQ slots).
+int make_map_dq(CUtensorMap* map, float* base, long long rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kErrNoEncode;
+  const cuuint64_t dims[2] = {128, static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {128 * 4};
+  const cuuint32_t box[2] = {32, kBwdRows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 0 : kErrEncode;
+}
+
 template <int D>
 int bwd_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout,
              const float* lse, float* delta, void* dq, void* dk, void* dv, float* dq_acc,
              int* counters, int batch, int heads, int kv_heads, int seq, int window,
              cudaStream_t s) {
-  using Geo = BwdGeom<kBwdKeys, D / kChunk>;
+  using Geo = BwdGeom<kBwdKeys>;
   const long long rows = static_cast<long long>(batch) * heads * seq;
   const long long kv_rows = static_cast<long long>(batch) * kv_heads * seq;
   flash_bwd_delta<D><<<static_cast<unsigned>(rows / 32), 256, 0, s>>>(
@@ -1857,13 +2430,37 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o, const v
   if (int err = make_map<D>(&tdo, dout, rows, kBwdRows)) return err;
   if (int err = make_map<D>(&tk, k, kv_rows, kBwdKeys)) return err;
   if (int err = make_map<D>(&tv, v, kv_rows, kBwdKeys)) return err;
-  if (int err = set_smem(flash_bwd_wgmma<D>, kBwdSmemBytes<D>)) return err;
   const Geo geo = bwd_geo<Geo>(batch, heads, kv_heads, seq, window, kBwdKeys);
   int* turns = counters;
-  int* work = counters + static_cast<size_t>(batch) * heads * (seq / kBwdRows) * Geo::kParts;
-  flash_bwd_wgmma<D><<<min(geo.n_items, sm_count()), kBwdThreads, kBwdSmemBytes<D>, s>>>(
-      tq, tdo, tk, tv, lse, delta, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), dq_acc, turns, work, geo);
+  int* work = counters + static_cast<size_t>(batch) * heads * (seq / kBwdRows);
+  const int blocks = min(geo.n_items, sm_count());
+  if constexpr (D == 64) {
+    if (int err = set_smem(flash_bwd_wgmma<D>, kBwdSmemBytes)) return err;
+    flash_bwd_wgmma<D><<<blocks, kBwdThreads, kBwdSmemBytes, s>>>(
+        tq, tdo, tk, tv, lse, delta, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), dq_acc, turns, work, geo);
+  } else {
+    CUtensorMap tdq;
+    if (int err = make_map_dq(&tdq, dq_acc, rows)) return err;
+    if (int err = set_smem(flash_bwd_wgmma_d128, kBwd128SmemBytes)) return err;
+    // split the first key tiles' items by heads when the longest item holds
+    // more than 1.5 times an SM's share of the pairs
+    BwdGeom128 geo128;
+    static_cast<Geo&>(geo128) = geo;
+    const int tiles = seq / kBwdKeys, group = heads / kv_heads, q_tiles = seq / kBwdRows;
+    long long pairs = 0;
+    for (int j = 0; j < tiles; ++j)
+      pairs += min(q_tiles - 1, (j * kBwdKeys + kBwdKeys - 1 + window - 1) / kBwdRows) -
+               j * kBwdKeys / kBwdRows + 1;
+    const long long longest = min(q_tiles - 1, (kBwdKeys - 1 + window - 1) / kBwdRows) + 1;
+    geo128.split_j = 2 * longest * sm_count() > 3 * pairs * geo.batch_kv ? min(group / 2, tiles) : 0;
+    geo128.n_items = geo.batch_kv * (tiles + geo128.split_j);
+    // the halves' flags after the work counter (the counters hold two a
+    // query tile at head dim 128)
+    flash_bwd_wgmma_d128<<<min(geo128.n_items, sm_count()), kBwdThreads, kBwd128SmemBytes, s>>>(
+        tq, tdo, tk, tv, tdq, lse, delta, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), turns, work, dq_acc, work + 1, geo128);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1893,7 +2490,7 @@ int bwd_f32(const float* q, const float* k, const float* v, const float* o, cons
             const float* lse, float* delta, float* dq, float* dk, float* dv, float* dq_acc,
             int* counters, bf16* planes, int batch, int heads, int kv_heads, int seq, int window,
             cudaStream_t s) {
-  using Geo = BwdGeom<kF32BwdKeys<D>, 1>;
+  using Geo = BwdGeom<kF32BwdKeys<D>>;
   const long long rows = static_cast<long long>(batch) * heads * seq;
   const long long kv_rows = static_cast<long long>(batch) * kv_heads * seq;
   const long long blocks = rows / 32 + (2 * kv_rows * D / 8 + 255) / 256;

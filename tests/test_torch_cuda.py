@@ -15,10 +15,14 @@ step (2**-7 relative) for bf16 outputs; K3 codes equal on 99 % of the rows
 (the rest near-ties of the two summation orders), quantized sums of agreeing
 rows to float32 rounding, exact ties to the lower index."""
 
-import tests.test_torch_threads  # noqa: F401 - first: one torch CPU thread a process
-
-import pytest
 import torch
+
+try:  # first: one torch CPU thread a process
+    import tests.test_torch_threads  # noqa: F401
+except ModuleNotFoundError:  # a `tests` package of another project on the path shadows this one
+    torch.set_num_threads(1)
+
+import pytest  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -577,8 +581,11 @@ def test_flash_kernels_at_training_shapes(cuda, dtype):
 @pytest.mark.parametrize("heads", [(28, 4), (32, 8)])
 def test_flash_kernels_at_head_dim_128(cuda, dtype, heads):
     """Head dim 128 at B=4, T=1024: Qwen2.5-7B's 28 query heads over 4 KV
-    heads (GQA 7:1) and Llama-3.1-8B's 32 over 8, causal and local (256)."""
-    for window in (1024, 256):
+    heads (GQA 7:1) and Llama-3.1-8B's 32 over 8, causal and local (256);
+    bf16 also under windows whose edge falls inside a 128-key tile (100,
+    192)."""
+    windows = (1024, 256, 100, 192) if dtype == torch.bfloat16 else (1024, 256)
+    for window in windows:
         _k6_case(cuda, 4, *heads, 1024, dtype, window, 128)
 
 
@@ -591,14 +598,22 @@ def test_flash_kernels_smallest_grid(cuda, dtype):
     for D in (64, 128):
         _k6_case(cuda, 1, 1, 1, 128, dtype, 128, D)
         _k6_case(cuda, 1, 4, 1, 128, dtype, 100, D)
+    if dtype == torch.bfloat16:
+        # head dim 128 at T=128 and T=384 (fewer work items than SMs, an odd
+        # count of 128-key tiles), GQA 7:1 and 1:1, causal and windowed
+        for T in (128, 384):
+            for H, Hkv in ((7, 1), (1, 1)):
+                for window in (T, 100, 192):
+                    _k6_case(cuda, 1, H, Hkv, T, dtype, window, 128)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("window", [1024, 256])
-@pytest.mark.parametrize("D,heads", [(64, (32, 8)), (128, (28, 4))])
+@pytest.mark.parametrize("window", [1024, 256, 100, 192])
+@pytest.mark.parametrize("D,heads", [(64, (32, 8)), (128, (28, 4)), (128, (7, 1)),
+                                     (128, (4, 4))])
 def test_flash_backward_is_bit_identical_across_calls(cuda, window, dtype, D, heads):
     """dQ is summed in a fixed order (no atomics): two calls agree bit for
-    bit."""
+    bit (head dim 128 also at GQA 7:1 over one KV head and at 1:1)."""
     from rstnet_tpu_torch.ops import cuda_flash as cf
 
     q, k, v, do = _k6_inputs(cuda, 2, *heads, 1024, dtype, D)

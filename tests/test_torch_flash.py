@@ -351,3 +351,62 @@ def test_wrappers_refuse_other_head_dims():
     for D in cuda_flash.HEAD_DIMS:
         x = torch.zeros((1, 2, 128, D))
         assert cuda_flash._check_cuda_operands(128, x, kv=(x, x)) == (1, 2, 2, 128)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _d128_backward_scheme(q, k, v, do, window):
+    """The bf16 backward at head dim 128 (``flash_bwd_wgmma<128>``) in plain
+    PyTorch, on bf16 values held in float32 (q pre-scaled, K/V at their own
+    heads): O as the forward kernel hands it over (P rounded to bf16 before
+    P V, O rounded to bf16); delta = rowsum(dO * O) and the products S^T,
+    dP^T in float32; P^T and dS^T rounded to bf16 before the products that
+    read them; dV and dK summed over the group in float32 and rounded; the
+    dQ partials dS K over each 128-key tile summed in float32 in key-tile
+    order, then rounded. -> (dq, dk, dv)."""
+    kr, vr = cuda_flash.repeat_kv(q, k, v)
+    s = cuda_flash.masked_logits(q, kr, window)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    o = _bf16(_bf16(torch.softmax(s, dim=-1)) @ vr)
+    delta = (do * o).sum(-1, keepdim=True)
+    p = torch.exp(s - lse)
+    ds = p * (do @ vr.transpose(-1, -2) - delta)
+    p16, ds16 = _bf16(p), _bf16(ds)
+    B, H, T, D = q.shape
+    Hkv = k.shape[1]
+    dv = (p16.transpose(-1, -2) @ do).reshape(B, Hkv, H // Hkv, T, D).sum(2)
+    dk = (ds16.transpose(-1, -2) @ q).reshape(B, Hkv, H // Hkv, T, D).sum(2)
+    keys = cuda_flash.SEQ_TILE  # a work item's key tile
+    dq = torch.zeros_like(q)
+    for j in range(T // keys):
+        tile = slice(j * keys, (j + 1) * keys)
+        dq = dq + ds16[..., tile] @ kr[..., tile, :]
+    return _bf16(dq), _bf16(dk), _bf16(dv)
+
+
+@pytest.mark.parametrize("context", [None, 100])
+def test_head_dim_128_bf16_backward_scheme_matches_splash_grad(context):
+    """The bf16 backward's arithmetic at head dim 128, emulated in plain
+    PyTorch (``_d128_backward_scheme``), against ``jax.grad`` of jax's
+    splash kernel in interpret mode, T=512, GQA 7:1, causal and window 100,
+    within 1e-2 of every 64-row tile's scale (cuda_flash.relative_error_by_tile,
+    the card's limit for the bf16 kernels). Each pair's S^T and dP^T are
+    formed once over all 128 columns; the design rounds exactly where the
+    earlier design's column-half items did (P^T and dS^T to bf16 before the
+    products, dQ's float32 partials over 128-key tiles summed in key-tile
+    order), so the emulation is that of both."""
+    q, k, v, do = _inputs(19, 1, 7, 1, 512, D=128)
+    q, k, v, do = (_bf16(torch.from_numpy(a)) for a in (q * 128**-0.5, k, v, do))
+    window = attention_window(512, context)
+    got = _d128_backward_scheme(q, k, v, do, window)
+
+    def loss(q, k, v):
+        return jnp.sum(jax_flash.flash_attention(q, k, v, context, 1.0, interpret=True)
+                       * jnp.asarray(do.numpy()))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert max(cuda_flash.relative_error_by_tile(g, torch.from_numpy(np.array(w)))) <= 1e-2

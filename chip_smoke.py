@@ -3038,6 +3038,32 @@ def _peft_readings(path: str, model, steps: list, peak: float, wall: float, card
     return {"frozen": frozen, "trainable": trainable}
 
 
+def qwen_peft_argv(data: str, exp: Path, dtype: str, epochs: int, seed: int) -> list[str]:
+    """The trainer's flags of the Qwen2.5-7B fine-tuning paths: LoRA r 16 on
+    q/k/v over an int8 frozen backbone, the T=1024 bucket, ``PEFT_STEPS``
+    steps an epoch, weights drawn on the card."""
+    return ["--train_data_jsons", data, "--model_config", QWEN_CONFIG, "--exp_dir", str(exp),
+            "--lora_r", "16", "--lora_alpha", "32", "--base_int8", "true", "--max_length",
+            "1023", "--batch_scale", "2500", "--dtype", dtype, "--n_epoch", str(epochs),
+            "--minibatch_debug", str(PEFT_STEPS), "--print_freq", "1", "--seed", str(seed),
+            "--device", "cuda", "--init_on_device", "true"]
+
+
+def _check_peft_launches(path: str, steps: list, counts: dict, n_layer: int, dtype,
+                         head_dim: int) -> None:
+    """Finite losses, a step on the 1024 bucket, and exactly K6's expected
+    launches (``expected_k6``) with no other counted kernel."""
+    if not all(math.isfinite(st[k]) for st in steps for k in ("loss", "loss_audio",
+                                                              "loss_text")):
+        raise AssertionError(f"{path}: non-finite loss: {[st['loss'] for st in steps]}")
+    if not any(st["seq_len"] == 1024 for st in steps):
+        raise AssertionError(f"{path}: no step on the 1024 bucket, K6 never ran")
+    want = expected_k6(steps, n_layer, dtype, head_dim)
+    log(f"{path} launches {counts}, expected {want} (head dim {head_dim})")
+    if {k: counts[k] for k in want} != want or any(v for k, v in counts.items() if k not in want):
+        raise AssertionError(f"{path} launches {counts}, expected {want}")
+
+
 def run_train_qwen7b_peft(seed: int, card: str) -> dict:
     """Path ``train_qwen7b_peft``: the trainer CLI on the flagship speech
     config (``configs/qwen_7b_speech.yaml``: Qwen2.5-7B at full width and
@@ -3062,12 +3088,7 @@ def run_train_qwen7b_peft(seed: int, card: str) -> dict:
         data = write_full_training_data(root, seed, PEFT_STEPS)
 
         def argv(epochs: int) -> list[str]:
-            return ["--train_data_jsons", data, "--model_config", QWEN_CONFIG, "--exp_dir",
-                    str(root / "exp"), "--lora_r", "16", "--lora_alpha", "32", "--base_int8",
-                    "true", "--max_length", "1023", "--batch_scale", "2500", "--dtype",
-                    "bfloat16", "--n_epoch", str(epochs), "--minibatch_debug", str(PEFT_STEPS),
-                    "--print_freq", "1", "--seed", str(seed), "--device", "cuda",
-                    "--init_on_device", "true"]
+            return qwen_peft_argv(data, root / "exp", "bfloat16", epochs, seed)
 
         gc.collect()
         torch.cuda.empty_cache()
@@ -3103,16 +3124,46 @@ def run_train_qwen7b_peft(seed: int, card: str) -> dict:
         if (len(first["steps"]) != PEFT_STEPS or {st["epoch"] for st in second["steps"]} != {2}
                 or not (root / "exp" / "ep2.checkpoint").is_dir()):
             raise AssertionError("train_qwen7b_peft did not train, save and resume")
-        if not all(math.isfinite(st[k]) for st in steps for k in ("loss", "loss_audio",
-                                                                  "loss_text")):
-            raise AssertionError(f"non-finite loss: {[st['loss'] for st in steps]}")
-        if not any(st["seq_len"] == 1024 for st in steps):
-            raise AssertionError("train_qwen7b_peft: no step on the 1024 bucket, K6 never ran")
-        want = expected_k6(steps, cfg.n_layer, head_dim=cfg.head_size)
-        log(f"train_qwen7b_peft launches {counts}, expected {want} (head dim {cfg.head_size})")
-        if {k: counts[k] for k in want} != want or any(
-                v for k, v in counts.items() if k not in want):
-            raise AssertionError(f"train_qwen7b_peft launches {counts}, expected {want}")
+        _check_peft_launches("train_qwen7b_peft", steps, counts, cfg.n_layer, torch.bfloat16,
+                             cfg.head_size)
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_train_qwen7b_peft_f32(seed: int, card: str) -> dict:
+    """Path ``train_qwen7b_peft_f32``: ``train_qwen7b_peft``'s fine-tune
+    (Qwen2.5-7B at full width and depth, LoRA r 16 on q/k/v over an int8
+    frozen backbone, the T=1024 bucket, weights drawn on the card) in
+    float32 (``--dtype float32``: K6's float32 kernels at head dim 128, 28
+    query heads over 4 KV heads), ``PEFT_STEPS`` steps of one epoch (the
+    bf16 path proves the resume). Finite losses; K6 on every 1024-bucket
+    step (``expected_k6``) and no other counted kernel."""
+    import tempfile
+
+    from rstnet_tpu_torch.models.config import Config
+    from rstnet_tpu_torch.training import trainer
+
+    cfg = Config.from_file(QWEN_CONFIG)
+    root = Path(tempfile.mkdtemp(prefix="smoke_qwen_peft_f32_"))
+    _check_disk(root, 8 * 2**30, "train_qwen7b_peft_f32")  # a ~2 GB trainable-only checkpoint
+    try:
+        data = write_full_training_data(root, seed, PEFT_STEPS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with held_model(trainer) as held:
+            run = trainer.main(qwen_peft_argv(data, root / "exp", "float32", 1, seed))
+        counts = read_counts()
+        _peft_readings("train_qwen7b_peft_f32", held.pop("model"), run["steps"],
+                       torch.cuda.max_memory_allocated() / 2**30, time.perf_counter() - t0, card)
+        if len(run["steps"]) != PEFT_STEPS:
+            raise AssertionError(f"train_qwen7b_peft_f32 ran {len(run['steps'])} steps, "
+                                 f"not {PEFT_STEPS}")
+        _check_peft_launches("train_qwen7b_peft_f32", run["steps"], counts, cfg.n_layer,
+                             torch.float32, cfg.head_size)
         return counts
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5382,6 +5433,10 @@ def run_from_checkpoints(args, card: str, kernels: list, paths: dict, graphs: di
         gc.collect()
         torch.cuda.empty_cache()
         paths["train_qwen7b_peft"] = run_train_qwen7b_peft(args.seed, card)
+    with phase("qwen7b peft float32"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["train_qwen7b_peft_f32"] = run_train_qwen7b_peft_f32(args.seed, card)
     with phase("moshi7b lora"):
         gc.collect()
         torch.cuda.empty_cache()

@@ -11,9 +11,9 @@
 // kernels: nothing is repeated in memory); key j is visible to query i iff
 // 0 <= i - j < window (window = context if context < T, else T). dK and dV
 // come out at the KV heads, summed over each group inside the kernel. Head
-// dims 64 and 128: every kernel a template on D but the bf16 backward at
-// 128, flash_bwd_wgmma_d128 (the text below is D = 64's design; D = 128's
-// follows it, "At head dim 128").
+// dims 64 and 128: every kernel a template on D but the backwards at 128,
+// flash_bwd_wgmma_d128 (bf16) and flash_bwd_f32_d128 (float32) (the text
+// below is D = 64's design; D = 128's follows it, "At head dim 128").
 //
 // What bounds it on the H100: operations. At the training shape (B=4, 32
 // query heads over 8 KV heads, T=1024, D=64, causal) there are 67.2 M
@@ -89,11 +89,12 @@
 // ("insufficient register resources"); with trap-free waits it spills
 // nothing (ptxas -v, as chip_smoke.py's build prints it).
 // 4. flash_split_f32: the pre-pass of the forward, K and V into bf16 hi and
-//    lo planes ([rows, 64] each, taken by TMA with the 128-byte swizzle as
-//    the bf16 tiles are); memory-bound, 8 bytes read and 8 written an
-//    element. flash_bwd_prep_f32: the backward's pre-pass, delta and the
-//    planes of Q, dO, K and V in one launch.
-// 5. flash_fwd_f32: flash_fwd_wgmma's schedule over 128-row query tiles,
+//    lo planes ([rows, D] each, taken by TMA in 64-column boxes with the
+//    128-byte swizzle as the bf16 tiles are); memory-bound, 8 bytes read and
+//    8 written an element. flash_bwd_prep_f32: the backward's pre-pass,
+//    delta and the planes of Q, dO, K and V in one launch.
+// 5. flash_fwd_f32 (D = 64 here; D = 128 below): flash_fwd_wgmma's
+//    schedule over 128-row query tiles,
 //    with 64-key K/V tiles: Q is split in each consumer's registers (an A
 //    operand, loaded once per work tile), S = Q K^T reads K's two planes,
 //    P is split in registers after the online softmax, and O += P V reads
@@ -104,7 +105,8 @@
 //    V (hi, lo) tiles of 64 keys, 8 KB a plane: 6 x 32 KB = 192 KB; Q takes
 //    none. Registers a consumer thread: O 32, S 32, Q's parts 32, P's parts
 //    32 and the next tile's 32.
-// 6. flash_bwd_f32: flash_bwd_wgmma's items, pairs and dQ order, with the
+// 6. flash_bwd_f32 (D = 64; D = 128 is flash_bwd_f32_d128, below):
+//    flash_bwd_wgmma's items, pairs and dQ order, with the
 //    two consumer warpgroups decoupled: each computes, for its own 64 keys,
 //    S^T and dP^T (all operands' planes from shared memory), P^T and dS^T,
 //    dV += P^T dO (P^T's parts from registers), dK += dS^T Q and its half
@@ -167,13 +169,43 @@
 //   ~2450 at the tensor cores' peak; the rest is the elementwise phase,
 //   the waits on the products and the dQ slot's loads and stores, both
 //   warpgroups in step (PERF.md §6).
-// - float32 forward: key tiles of 64 keys, O as two 64-column
-//   accumulators; two stages of K's and V's planes (128 KB) and Q's planes
-//   in shared memory (64 KB, split by the pre-pass, loaded per work tile)
-//   instead of registers.
-// - float32 backward: items of 64 keys, both consumer warpgroups on the
-//   same keys, each on its own 64 columns (S^T and dP^T once per
-//   warpgroup), one ring stage: 226 KB.
+// - float32 forward (flash_fwd_f32<128>): D = 64's schedule with key tiles
+//   of 64 keys and O as two 64-column accumulators; Q's parts over both
+//   column chunks stay in each consumer's registers, split once a work tile
+//   (no Q planes, no Q pre-pass, no per-tile Q load). Shared memory: three
+//   stages of K's and V's planes (64 KB a stage), 192 KB. Registers a
+//   consumer thread, at 240 (setmaxnreg; the producer's warpgroup at 24; the
+//   consumers' waits trap-free): O 64, Q's parts 64, S 32, P's parts 32. P
+//   is split once its tile's P V is done, not while it runs: the next
+//   tile's parts, 32 more, made ptxas serialize the products (C7513).
+// - float32 backward (flash_bwd_f32_d128): items of 64 keys with all 128
+//   columns (K's and V's planes for 128 keys would leave no room beside the
+//   ring). The two consumer warpgroups share each (head, query tile) pair,
+//   split by product, so that no product and no elementwise step runs
+//   twice: warpgroup 0 forms S^T = K Q^T, P^T (handed over in float32
+//   through shared memory), dV += P^T dO (P^T's parts from registers) and
+//   dK += dS^T Q; warpgroup 1 forms dP^T = V dO^T, dS^T (its parts in
+//   shared memory: dK's K-major A operand, dQ's MN-major one) and the dQ
+//   partial dS K. dK, dV and dQ are 64 x 128 accumulators (one m64n128
+//   product a k16 step: each A tile read once for all 128 columns). The
+//   warpgroups meet at three named barriers a pair: P^T in, dS^T in, dV
+//   and dK done. Each issues the next pair's first product behind its last
+//   ones and waits for it at the pair's end (no wgmma in flight across
+//   pairs; ptxas otherwise injects a wait, C7517). Warpgroup 1 stages the
+//   pair's 64 x 128 float32 dQ partial where Q's planes were in its ring
+//   stage; one writer warp moves it onto dq itself by TMA, in key-tile
+//   order behind the turn counters: a store at turn 0, a TMA reduction
+//   (float32 adds) after, so there is no dQ workspace, no last-turn
+//   conversion and no floating-point atomic, and every call is bit-
+//   identical. The writer frees the ring stage once its copy has read the
+//   partial. Shared memory: K's and V's planes 64 KB, two ring stages of
+//   Q's and dO's planes (64 KB each) with LSE and delta, a 32 KB exchange
+//   buffer (P^T 16 KB, dS^T's planes 16 KB): 225 KB. Registers a consumer
+//   thread, at 240 (trap-free waits; warpgroup 2 at 24): warpgroup 0 dV 64,
+//   dK 64, S^T 32, P^T's parts 32; warpgroup 1 the dQ partial 64, dP^T 32,
+//   dS^T's parts 32 (the two warpgroups run separate loops, so that each is
+//   allocated for its own). tools/k6_phase_marks.py --dtype f32 --head-dim
+//   128 splits a pair's time by phase.
 // Times at B=4, T=1024, causal, on an H100 80GB HBM3 at 700 W (PERF.md §6,
 // chip_smoke.py): bf16 forward Qwen 28/4 0.074 ms and Llama-8B 32/8 0.084
 // (SDPA 0.073, 0.082); bf16 backward 0.35 and 0.34-0.41 ms across calls
@@ -212,21 +244,27 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Phase marks of the float32 backward and of the bf16 backward at head dim
+// Phase marks of the float32 backwards and of the bf16 backward at head dim
 // 128 (a build with RSTNET_K6_MARKS defined: tools/k6_phase_marks.py).
 // Thread 0 of each consumer warpgroup writes its SM's clock64 at 8 points
 // of each of the block's first kMarkPairs pairs,
 // k6_marks[block][warpgroup][pair][8]: [0] before the ring's full wait, [1]
-// after it; float32: [2] S^T and dP^T done, [3] P^T's parts formed, [4]
-// dS^T's parts written and synced, [5] dV, dK, dQ done, [6] a staging slot
-// free, [7] the dQ half staged; bf16 at 128: [2] S^T done, [3] dS^T written
-// (P^T formed, dV issued, dP^T done), [4] dK issued, both warpgroups' dS^T
-// in and the dQ slot loaded, [5] dV, dK and dQ done, [6] dQ in the slot,
-// [7] handed to the writer. Lane 0 of each dQ writer at 4 points of its
-// pairs, k6_writer_marks[block][pair][4]: [0] before its turn, [1] its turn
-// (and, at 128, the sum's load issued), [2] the consumers' parts in, [3]
-// added and stored. Thread 0: k6_span_marks[block] = {clock64 at start, at
-// end, global timer (ns) at start, at end}.
+// after it; float32 at 64: [2] S^T and dP^T done, [3] P^T's parts formed,
+// [4] dS^T's parts written and synced, [5] dV, dK, dQ done, [6] a staging
+// slot free, [7] the dQ half staged; bf16 at 128: [2] S^T done, [3] dS^T
+// written (P^T formed, dV issued, dP^T done), [4] dK issued, both
+// warpgroups' dS^T in and the dQ slot loaded, [5] dV, dK and dQ done, [6]
+// dQ in the slot, [7] handed to the writer. float32 at 128 (the pair's
+// first product waited for at the previous pair's end): [0] the pair's
+// start, [1] P^T stored (warpgroup 0) or dS^T formed (1), [2] dS^T in, [3]
+// dK or dQ issued, [4] the next pair's first product issued, [5] the
+// pair's products done, [6] dV and dK done (warpgroup 1 waits), [7] the dQ
+// partial staged (1) and the next first product done. Lane 0 of each dQ
+// writer at 4 points of its pairs, k6_writer_marks[block][pair][4]: [0]
+// before its turn, [1] its turn (and, bf16 at 128, the sum's load issued),
+// [2] the consumers' parts in, [3] added and stored (float32 at 128: read
+// by its TMA). Thread 0: k6_span_marks[block] = {clock64 at start, at end,
+// global timer (ns) at start, at end}.
 #ifdef RSTNET_K6_MARKS
 constexpr int kMarkBlocks = 132, kMarkPairs = 160;
 __device__ long long k6_marks[kMarkBlocks * 2 * kMarkPairs * 8];
@@ -353,6 +391,11 @@ __device__ __forceinline__ void regs_inc() {
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+// Arrive at a named barrier without waiting: the writes before it are
+// visible to the threads that then complete it with named_sync.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // wgmma shared-memory descriptor for a tile whose rows are 128 bytes with
@@ -584,6 +627,11 @@ constexpr int kFwdSmemBytes = sizeof(FwdSmem<D>) + 1024;  // + alignment slack
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   const uintptr_t a = (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023);
   return reinterpret_cast<unsigned char*>(a);
+}
+// The same as an offset into the shared array itself, so that the compiler
+// keeps its address space (shared loads and stores instead of generic ones).
+__device__ __forceinline__ unsigned char* align1024_shared(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
 __device__ __forceinline__ void wg_wait1() {
@@ -967,15 +1015,14 @@ __device__ __forceinline__ int dqs_offset(int r, int c) { return r * kChunk + (c
 // block's items are done. Slots >= Writers: a writer's last pair must be
 // no older than the last use of the buffer it waits on, or its parity wait
 // could pass on that use's phase.
-// Halves == 1: a staged partial is one padded 64 x 64 tile (D = 64).
-// Halves == 2: two unpadded 64 x 64 halves (one per consumer warpgroup;
-// dqs_offset): at D = 64 each over its 64 keys, added half 0 then half 1;
-// at D = 128 each over all the item's keys for its 64 columns, side by
-// side.
+// Halves == 1: a staged partial is one padded 64 x 64 tile (bf16).
+// Halves == 2: two unpadded 64 x 64 halves (float32; one per consumer
+// warpgroup, each over its 64 keys; dqs_offset), added half 0 then half 1.
 template <int Slots, int Writers, int Halves, int D, typename Smem, typename Geo, typename Out>
 __device__ __forceinline__ void write_dq(Smem& sm, const Geo& geo, Out* __restrict__ dq,
                                          float* __restrict__ dq_acc, int* __restrict__ turns) {
-  constexpr int Cols = Halves == 2 && D == 128 ? 128 : 64;  // columns of a staged partial
+  static_assert(D == 64, "head dim 128 has write_dq128 and write_dq_f32_d128");
+  constexpr int Cols = 64;  // columns of a staged partial
   const int seq = geo.seq, group = geo.group;
   const int wk = (threadIdx.x - (kConsumers + 32)) / 32, lane = threadIdx.x % 32;
   int slot = 0;
@@ -1013,13 +1060,10 @@ __device__ __forceinline__ void write_dq(Smem& sm, const Geo& geo, Out* __restri
           const int idx = c0 + n * 32 + lane, r = idx / (Cols / 4), c = (idx % (Cols / 4)) * 4;
           if constexpr (Halves == 1) {
             x[n] = *reinterpret_cast<const float4*>(&sm.dqs[b][r * kDqStride + c]);
-          } else if constexpr (Cols == 64) {
+          } else {
             const float4 u = *reinterpret_cast<const float4*>(&sm.dqs[b][0][dqs_offset(r, c)]);
             const float4 w = *reinterpret_cast<const float4*>(&sm.dqs[b][1][dqs_offset(r, c)]);
             x[n] = make_float4(u.x + w.x, u.y + w.y, u.z + w.z, u.w + w.w);
-          } else {
-            x[n] = *reinterpret_cast<const float4*>(
-                &sm.dqs[b][c / kChunk][dqs_offset(r, c % kChunk)]);
           }
           if (turn > 0) {
             const float4 y =
@@ -1284,6 +1328,16 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* sr
 // Until the thread's bulk async-groups have completed (their writes done).
 __device__ __forceinline__ void bulk_commit_wait() {
   asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group 0;" ::: "memory");
+}
+// TMA: a box of a 2-D float32 tensor map at (col, row) added from shared
+// memory onto global memory, element by element, in the thread's bulk
+// async-group.
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, const void* src, int row,
+                                               int col) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group [%0, {%2, %3}], [%1];"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(col), "r"(row)
+      : "memory");
 }
 
 // Offset (floats) of element (r, c) of a 64 x 128 float32 tile as TMA lays
@@ -1739,9 +1793,11 @@ __device__ __forceinline__ void acc_to_a_split(uint32_t (&hi)[R / 8][4], uint32_
       split_pair_cut(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1], hi[kk][i], lo[kk][i]);
 }
 
-// A warpgroup's 64 x 64 block of a row-major float32 [rows, 64] matrix at
-// p, as the A operands of four k16 steps over the 64 columns: pair i of
-// step kk holds row r + 8 (i & 1), columns 16 kk + 8 (i >> 1) + c, c + 1.
+// A warpgroup's 64 x 64 block of a row-major float32 matrix at p whose rows
+// are Stride floats apart, as the A operands of four k16 steps over the 64
+// columns: pair i of step kk holds row r + 8 (i & 1), columns
+// 16 kk + 8 (i >> 1) + c, c + 1.
+template <int Stride = kChunk>
 __device__ __forceinline__ void load_a_f32(float2 (&x)[4][4], const float* __restrict__ p) {
   const int t = threadIdx.x % 128;
   const int r = (t / 32) * 16 + (t % 32) / 4, c = 2 * (t % 4);
@@ -1750,9 +1806,9 @@ __device__ __forceinline__ void load_a_f32(float2 (&x)[4][4], const float* __res
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       x[kk][i] = __ldg(reinterpret_cast<const float2*>(
-          p + (r + 8 * (i & 1)) * kChunk + 16 * kk + 8 * (i >> 1) + c));
+          p + (r + 8 * (i & 1)) * Stride + 16 * kk + 8 * (i >> 1) + c));
 }
-__device__ __forceinline__ void split_a(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+__device__ __forceinline__ void split_a(uint32_t (*hi)[4], uint32_t (*lo)[4],
                                         const float2 (&x)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
@@ -1760,18 +1816,12 @@ __device__ __forceinline__ void split_a(uint32_t (&hi)[4][4], uint32_t (&lo)[4][
     for (int i = 0; i < 4; ++i) split_pair(x[kk][i].x, x[kk][i].y, hi[kk][i], lo[kk][i]);
 }
 // The forward's pre-pass: k and v ([n] floats each) into the planes
-// [k hi, k lo, v hi, v lo] of n bf16 each, then q ([nq] floats; D = 128
-// only, else nq = 0) into [q hi, q lo] of nq each, 8 elements a thread.
+// [k hi, k lo, v hi, v lo] of n bf16 each, 8 elements a thread.
 __global__ void __launch_bounds__(256)
 flash_split_f32(const float* __restrict__ k, const float* __restrict__ v,
-                const float* __restrict__ q, bf16* __restrict__ planes, long long n,
-                long long nq) {
+                bf16* __restrict__ planes, long long n) {
   const long long i = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) * 8;
-  if (i >= 2 * n) {
-    const long long j = i - 2 * n;
-    if (j < nq) split8(q + j, planes + 4 * n + j, planes + 4 * n + nq + j);
-    return;
-  }
+  if (i >= 2 * n) return;
   const bool is_v = i >= n;
   const long long j = is_v ? i - n : i;
   bf16* hi = planes + (is_v ? 2 * n : 0) + j;
@@ -1780,34 +1830,41 @@ flash_split_f32(const float* __restrict__ k, const float* __restrict__ v,
 
 constexpr int kF32Keys = 64;   // keys of a float32 K/V tile
 
-// D = 64: six stages of K's and V's planes, Q split in each consumer's
-// registers. D = 128: two stages (64 KB each), and Q's planes in shared
-// memory, loaded by TMA per work tile (Q in registers would take 64 more
-// a thread).
+// Stages of K's and V's planes, 32 KB a stage at D = 64 and 64 KB at
+// D = 128: 192 KB either way. Q takes none: it is split in each consumer's
+// registers.
 template <int D>
 struct FwdSmemF32 {
-  static constexpr int Stages = D == 64 ? 6 : 2;
-  static constexpr int QElems = D == 64 ? 8 : kFwdRows * D;
+  static constexpr int Stages = D == 64 ? 6 : 3;
   bf16 k[Stages][2][kF32Keys * D];  // [stage][hi, lo]
   bf16 v[Stages][2][kF32Keys * D];
-  alignas(1024) bf16 q[2][QElems];  // [hi, lo] (D = 128)
-  uint64_t k_full[Stages], k_empty[Stages], v_full[Stages], v_empty[Stages], q_full, q_empty;
+  uint64_t k_full[Stages], k_empty[Stages], v_full[Stages], v_empty[Stages];
 };
 template <int D>
 constexpr int kFwdF32SmemBytes = sizeof(FwdSmemF32<D>) + 1024;
 
+// A consumer's wait: with the trap (mbar_wait) within the launch's register
+// share, trap-free (mbar_spin) above it.
+template <bool Trap>
+__device__ __forceinline__ void consumer_wait(uint64_t* bar, uint32_t parity) {
+  if constexpr (Trap) mbar_wait(bar, parity);
+  else mbar_spin(bar, parity);
+}
+
 // flash_fwd_wgmma's schedule on split operands (header, item 5). tkv maps
 // the pre-pass's planes: K hi at row r, K lo at kv_rows + r, V hi at
-// 2 kv_rows + r, V lo at 3 kv_rows + r; tq (D = 128) Q hi at row r and Q
-// lo at rows + r.
+// 2 kv_rows + r, V lo at 3 kv_rows + r. D = 128's consumers hold Q's
+// parts over both column chunks (64 registers) at 240 registers a thread;
+// their waits do not trap (each is in a cycle with a wait of the producer,
+// which does).
 template <int D>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap tkv,
-              const __grid_constant__ CUtensorMap tq, float* __restrict__ o,
-              float* __restrict__ lse, FwdWork<kF32Keys> wk, int kv_rows, int rows) {
+              float* __restrict__ o, float* __restrict__ lse, FwdWork<kF32Keys> wk,
+              int kv_rows) {
   using Smem = FwdSmemF32<D>;
   constexpr int NC = D / kChunk, Stages = Smem::Stages;
-  constexpr bool kQSmem = D != 64;
+  constexpr bool kTrap = D == 64;
   constexpr int kPlane = kF32Keys * kChunk;  // elements of a chunk of a K/V plane tile
   extern __shared__ unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(align1024(smem_raw));
@@ -1819,25 +1876,16 @@ flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap t
       mbar_init(&sm.v_full[s], 1);
       mbar_init(&sm.v_empty[s], kConsumers);
     }
-    mbar_init(&sm.q_full, 1);
-    mbar_init(&sm.q_empty, kConsumers);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (threadIdx.x >= kConsumers) {  // producer warpgroup: one thread loads K and V (and Q)
-    regs_dec<40>();
+  if (threadIdx.x >= kConsumers) {  // producer warpgroup: one thread loads K and V
+    regs_dec<D == 64 ? 40 : 24>();
     if (threadIdx.x != kConsumers) return;
     int slot = 0;
     for (int n = 0, w = wk.tile(0); w < wk.count(); w = wk.tile(++n)) {
       const int kv_row = (wk.bh(w) / wk.group) * seq, j_lo = wk.j_lo(w);
-      if constexpr (kQSmem) {
-        const int row = wk.bh(w) * seq + wk.qt(w) * kFwdRows;
-        mbar_wait(&sm.q_empty, (n & 1) ^ 1);
-        mbar_expect_tx(&sm.q_full, 2 * kFwdRows * D * 2);
-        tma_tile<D, kFwdRows>(sm.q[0], &tq, &sm.q_full, row);
-        tma_tile<D, kFwdRows>(sm.q[1], &tq, &sm.q_full, rows + row);
-      }
       for (int t = 0; t < wk.n_tiles(w); ++t, ++slot) {
         const int s = slot % Stages, row = kv_row + (j_lo + t) * kF32Keys;
         const uint32_t phase = ((slot / Stages) & 1) ^ 1;
@@ -1853,7 +1901,7 @@ flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap t
     }
     return;
   }
-  regs_inc<232>();
+  regs_inc<D == 64 ? 232 : 240>();
 
   const int wg = threadIdx.x / 128;
   int slot = 0;
@@ -1862,9 +1910,9 @@ flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap t
   auto pass = [&]() {
     const int s = slot % Stages;
     const uint32_t parity = (slot / Stages) & 1;
-    mbar_wait(&sm.k_full[s], parity);
+    consumer_wait<kTrap>(&sm.k_full[s], parity);
     mbar_arrive(&sm.k_empty[s]);
-    mbar_wait(&sm.v_full[s], parity);
+    consumer_wait<kTrap>(&sm.v_full[s], parity);
     mbar_arrive(&sm.v_empty[s]);
     ++slot;
   };
@@ -1875,17 +1923,19 @@ flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap t
     const int own_lo = max(0, row0 - wk.window + 1) / kF32Keys, own_hi = row0 / kF32Keys;
     auto masked = [&](int k0) { return k0 + kF32Keys - 1 > row0 || row0 + 63 - k0 >= wk.window; };
     float acc[NC][32], sc[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
-    uint32_t qh[4][4], ql[4][4], ph[4][4], pl[4][4], nh[4][4], nl[4][4];
+    // Q's parts over the NC column chunks, k16 step kk of chunk c at 4 c + kk;
+    // D = 64 splits the next tile's P into nh and nl while P V runs, D = 128
+    // (Q's parts take 64 registers) once it is done
+    uint32_t qh[4 * NC][4], ql[4 * NC][4], ph[4][4], pl[4][4], nh[4][4], nl[4][4];
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
-    if constexpr (kQSmem) {
-      mbar_wait(&sm.q_full, n & 1);
-    } else {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
       float2 x[4][4];
-      load_a_f32(x, q + (static_cast<size_t>(bh) * seq + row0) * D);
-      split_a(qh, ql, x);
+      load_a_f32<D>(x, q + (static_cast<size_t>(bh) * seq + row0) * D + c * kChunk);
+      split_a(qh + 4 * c, ql + 4 * c, x);
     }
     for (int j = j_lo; j < own_lo; ++j) pass();
 
@@ -1893,33 +1943,23 @@ flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap t
 #pragma unroll
       for (int e = 0; e < 32; ++e) sc[e] = 0.f;
       fence_regs(sc);
-      if constexpr (!kQSmem) {
-        fence_regs(qh);
-        fence_regs(ql);
-      }
+      fence_regs(qh);
+      fence_regs(ql);
       wg_fence();
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const uint64_t dkh = desc_k(sm.k[s][0] + c * kPlane), dkl = desc_k(sm.k[s][1] + c * kPlane);
 #pragma unroll
         for (int kk = 0; kk < kChunk / 16; ++kk) {
-          if constexpr (kQSmem) {
-            const int at = c * kFwdRows * kChunk + wg * 64 * kChunk;
-            const uint64_t dqh = desc_k(sm.q[0] + at), dql = desc_k(sm.q[1] + at);
-            wgmma_ss_n64<0, 0>(sc, desc_add(dqh, 32 * kk), desc_add(dkh, 32 * kk), 1);
-            wgmma_ss_n64<0, 0>(sc, desc_add(dqh, 32 * kk), desc_add(dkl, 32 * kk), 1);
-            wgmma_ss_n64<0, 0>(sc, desc_add(dql, 32 * kk), desc_add(dkh, 32 * kk), 1);
-          } else {
-            wgmma_rs_n64<0>(sc, qh[kk], desc_add(dkh, 32 * kk));
-            wgmma_rs_n64<0>(sc, qh[kk], desc_add(dkl, 32 * kk));
-            wgmma_rs_n64<0>(sc, ql[kk], desc_add(dkh, 32 * kk));
-          }
+          wgmma_rs_n64<0>(sc, qh[4 * c + kk], desc_add(dkh, 32 * kk));
+          wgmma_rs_n64<0>(sc, qh[4 * c + kk], desc_add(dkl, 32 * kk));
+          wgmma_rs_n64<0>(sc, ql[4 * c + kk], desc_add(dkh, 32 * kk));
         }
       }
       wg_commit();
     };
     auto issue_pv = [&](int s) {  // acc += P V for the V tile in stage s
-      mbar_wait(&sm.v_full[s], (slot / Stages) & 1);
+      consumer_wait<kTrap>(&sm.v_full[s], (slot / Stages) & 1);
       fence_acc(acc);
       fence_regs(ph);
       fence_regs(pl);
@@ -1937,15 +1977,13 @@ flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap t
       wg_commit();
     };
     auto fence_q = [&]() {
-      if constexpr (!kQSmem) {
-        fence_regs(qh);
-        fence_regs(ql);
-      }
+      fence_regs(qh);
+      fence_regs(ql);
     };
 
     {
       const int s = slot % Stages;
-      mbar_wait(&sm.k_full[s], (slot / Stages) & 1);
+      consumer_wait<kTrap>(&sm.k_full[s], (slot / Stages) & 1);
       issue_s(s);
       wg_wait0();
       fence_regs(sc);
@@ -1958,7 +1996,7 @@ flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap t
     // as flash_fwd_wgmma: S of tile j + 1 ahead of P V of tile j
     for (int j = own_lo; j < own_hi; ++j, ++slot) {
       const int s = slot % Stages, s1 = (slot + 1) % Stages;
-      mbar_wait(&sm.k_full[s1], ((slot + 1) / Stages) & 1);
+      consumer_wait<kTrap>(&sm.k_full[s1], ((slot + 1) / Stages) & 1);
       issue_s(s1);
       issue_pv(s);
       wg_wait1();
@@ -1967,7 +2005,7 @@ flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap t
       mbar_arrive(&sm.k_empty[s1]);
       const int k1 = (j + 1) * kF32Keys;
       softmax_scores(sc, m, l, alpha, masked(k1), row0, k1, wk.window);
-      acc_to_a_split<32>(nh, nl, sc);
+      if constexpr (NC == 1) acc_to_a_split<32>(nh, nl, sc);
       wg_wait0();
       fence_acc(acc);
       fence_regs(ph);
@@ -1977,15 +2015,18 @@ flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap t
       for (int c = 0; c < NC; ++c)
 #pragma unroll
         for (int e = 0; e < 32; ++e) acc[c][e] *= alpha[(e >> 1) & 1];
+      if constexpr (NC == 1) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+        for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ph[kk][i] = nh[kk][i];
-          pl[kk][i] = nl[kk][i];
-        }
+          for (int i = 0; i < 4; ++i) {
+            ph[kk][i] = nh[kk][i];
+            pl[kk][i] = nl[kk][i];
+          }
+      } else {
+        acc_to_a_split<32>(ph, pl, sc);
+      }
     }
-    if constexpr (kQSmem) mbar_arrive(&sm.q_empty);  // this warpgroup's last S is done
     issue_pv(slot % Stages);
     wg_wait0();
     fence_acc(acc);
@@ -1998,11 +2039,28 @@ flash_fwd_f32(const float* __restrict__ q, const __grid_constant__ CUtensorMap t
   }
 }
 
-// The backward's pre-pass, one launch. Blocks [0, rows / 32): delta =
-// rowsum(dO * O) in float32 (8 threads a row, a fixed order) and the planes
-// of Q and dO; the rest: the planes of K and V. planes: [q hi, q lo, dO hi,
-// dO lo] of rows x D bf16 each, then [k hi, k lo, v hi, v lo] of
-// kv_rows x D.
+// Four consecutive floats as bf16 hi and lo at hi[0..4), lo[0..4).
+__device__ __forceinline__ void split4(const float4 a, bf16* __restrict__ hi,
+                                       bf16* __restrict__ lo) {
+  uint2 h, l;
+  split_pair(a.x, a.y, h.x, l.x);
+  split_pair(a.z, a.w, h.y, l.y);
+  *reinterpret_cast<uint2*>(hi) = h;
+  *reinterpret_cast<uint2*>(lo) = l;
+}
+
+// Rows of delta and of Q's and dO's planes a block of the backward's
+// pre-pass: 8 threads a row at D = 64, a warp a row at D = 128 (each lane
+// 16 bytes of a row: whole lines a warp; 8 threads a row of 128 columns
+// read 64-byte runs and took 0.18 ms at Qwen2.5-7B's training shape, twice
+// its bound).
+template <int D>
+constexpr int kPrepRows = D == 64 ? 32 : 8;
+
+// The backward's pre-pass, one launch. Blocks [0, rows / kPrepRows<D>):
+// delta = rowsum(dO * O) in float32 (a fixed order) and the planes of Q and
+// dO; the rest: the planes of K and V. planes: [q hi, q lo, dO hi, dO lo]
+// of rows x D bf16 each, then [k hi, k lo, v hi, v lo] of kv_rows x D.
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_prep_f32(const float* __restrict__ q, const float* __restrict__ o,
@@ -2010,26 +2068,39 @@ flash_bwd_prep_f32(const float* __restrict__ q, const float* __restrict__ o,
                    const float* __restrict__ v, float* __restrict__ delta,
                    bf16* __restrict__ planes, long long rows, long long kv_rows) {
   const long long n = rows * D, kv_n = kv_rows * D;
-  const long long row_blocks = rows / 32;
+  const long long row_blocks = rows / kPrepRows<D>;
   if (blockIdx.x < row_blocks) {
-    const long long row = static_cast<long long>(blockIdx.x) * 32 + threadIdx.x / 8;
-    const long long e = row * D + (threadIdx.x % 8) * (D / 8);
-    const float4* a = reinterpret_cast<const float4*>(o + e);
-    const float4* b = reinterpret_cast<const float4*>(dout + e);
-    float sum = 0.f;
+    if constexpr (D == 128) {
+      const long long row = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+      const long long e = row * D + 4 * (threadIdx.x % 32);
+      const float4 x = __ldg(reinterpret_cast<const float4*>(o + e));
+      const float4 y = __ldg(reinterpret_cast<const float4*>(dout + e));
+      float sum = x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
 #pragma unroll
-    for (int i = 0; i < D / 32; ++i) {
-      const float4 x = __ldg(a + i), y = __ldg(b + i);
-      sum += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-    if (threadIdx.x % 8 == 0) delta[row] = sum;
+      for (int m = 1; m < 32; m *= 2) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+      if (threadIdx.x % 32 == 0) delta[row] = sum;
+      split4(__ldg(reinterpret_cast<const float4*>(q + e)), planes + e, planes + n + e);
+      split4(y, planes + 2 * n + e, planes + 3 * n + e);
+    } else {
+      const long long row = static_cast<long long>(blockIdx.x) * 32 + threadIdx.x / 8;
+      const long long e = row * D + (threadIdx.x % 8) * (D / 8);
+      const float4* a = reinterpret_cast<const float4*>(o + e);
+      const float4* b = reinterpret_cast<const float4*>(dout + e);
+      float sum = 0.f;
 #pragma unroll
-    for (int u = 0; u < D / 64; ++u) {
-      split8(q + e + 8 * u, planes + e + 8 * u, planes + n + e + 8 * u);
-      split8(dout + e + 8 * u, planes + 2 * n + e + 8 * u, planes + 3 * n + e + 8 * u);
+      for (int i = 0; i < D / 32; ++i) {
+        const float4 x = __ldg(a + i), y = __ldg(b + i);
+        sum += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      if (threadIdx.x % 8 == 0) delta[row] = sum;
+#pragma unroll
+      for (int u = 0; u < D / 64; ++u) {
+        split8(q + e + 8 * u, planes + e + 8 * u, planes + n + e + 8 * u);
+        split8(dout + e + 8 * u, planes + 2 * n + e + 8 * u, planes + 3 * n + e + 8 * u);
+      }
     }
     return;
   }
@@ -2040,16 +2111,19 @@ flash_bwd_prep_f32(const float* __restrict__ q, const float* __restrict__ o,
 }
 
 constexpr int kF32DqWriters = 2;  // warps 9 and 10 (warp 11 only gives its registers away)
-// D = 64: items of 128 keys, 64 a warpgroup, as flash_bwd_wgmma. D = 128:
-// items of 64 keys, both warpgroups on the same keys, each for its 64
-// columns of dK, dV and dQ (K's and V's planes for 128 keys would not fit
-// beside the ring): one ring stage (64 KB), 224 KB in all.
+// Keys of a float32 backward item. D = 64 (flash_bwd_f32): 128, 64 a
+// warpgroup, as flash_bwd_wgmma. D = 128 (flash_bwd_f32_d128): 64 keys with
+// all 128 columns. K's and V's planes of 128 keys at D = 128 would take
+// 128 KB and leave room for one ring stage and no dQ staging; at 64 keys
+// they take 64 KB, beside two ring stages (128 KB) and a 32 KB exchange
+// buffer that carries P^T, dS^T and then the dQ partial: 225 KB.
 template <int D>
 constexpr int kF32BwdKeys = D == 64 ? 128 : 64;
 
+// D = 64 (flash_bwd_f32)
 template <int D>
 struct BwdSmemF32 {
-  static constexpr int Stages = D == 64 ? 2 : 1, Slots = 2;
+  static constexpr int Stages = 2, Slots = 2;
   bf16 k[2][kF32BwdKeys<D> * D];                // hi, lo
   bf16 v[2][kF32BwdKeys<D> * D];
   bf16 dst[2][2 * 64 * kBwdRows];              // [hi, lo] of dS^T: [key][query], 64 keys a warpgroup
@@ -2076,6 +2150,7 @@ flash_bwd_f32(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
               float* __restrict__ dv,
               float* __restrict__ dq_acc, int* __restrict__ turns, int* __restrict__ work,
               BwdGeom<kF32BwdKeys<D>> geo, int rows, int kv_rows) {
+  static_assert(D == 64, "head dim 128 is flash_bwd_f32_d128");
   using Smem = BwdSmemF32<D>;
   constexpr int NC = D / kChunk, Keys = kF32BwdKeys<D>, Stages = Smem::Stages,
                 Slots = Smem::Slots;
@@ -2306,6 +2381,426 @@ flash_bwd_f32(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   }
 }
 
+// flash_bwd_f32_d128's shared memory (header, "At head dim 128"): K's and V's
+// planes of the item's 64 keys (64 KB), two ring stages of Q's and dO's
+// planes (64 KB a stage) with LSE and delta, and a 32 KB exchange buffer for
+// P^T in float32 in the accumulator's thread order (16 KB, [e / 4][thread]
+// float4s) and dS^T's planes (8 KB each, swizzled [key][query]). A pair's
+// 64 x 128 float32 dQ partial goes, in TMA's layout (dq_slot_offset), where
+// Q's planes were in its ring stage, once its products are done; the dQ
+// writer frees the stage when its copy has read it. 225 KB.
+struct BwdSmemF32D128 {
+  static constexpr int Stages = 2;
+  bf16 k[2][kF32Keys * 128];  // [hi, lo]
+  bf16 v[2][kF32Keys * 128];
+  bf16 q[Stages][2][kBwdRows * 128];  // [stage][hi, lo], then the stage's dQ partial
+  bf16 dout[Stages][2][kBwdRows * 128];
+  float xch[kBwdRows * 128];
+  float lse[Stages][kBwdRows];
+  float delta[Stages][kBwdRows];
+  uint64_t full[Stages], empty[Stages], kv_full, kv_empty, dq_full[Stages];
+  int item;
+};
+constexpr int kBwdF32D128SmemBytes = sizeof(BwdSmemF32D128) + 1024;
+
+// flash_bwd_f32_d128's dQ writer (warp 9; lane 0 acts). For each pair of the
+// block, in the block's order: once the pair's (b, h, i) turn has come
+// (acquire) and the consumers have staged its dQ partial in its ring stage
+// (dq_full), it moves the partial onto dq by TMA, stored at turn 0 and added
+// after (a TMA reduction: float32 adds, element by element) in key-tile
+// order; it frees the ring stage (empty) as soon as the copy has read it,
+// and releases the next turn once the copy's writes are done. dq itself
+// holds the running sum: no workspace, no last-turn conversion.
+__device__ __forceinline__ void write_dq_f32_d128(BwdSmemF32D128& sm, const BwdGeom<kF32Keys>& geo,
+                                                  const CUtensorMap* tdq, int* __restrict__ turns) {
+  constexpr int Stages = BwdSmemF32D128::Stages;
+  const int seq = geo.seq, group = geo.group, lane = threadIdx.x % 32;
+  int slot = 0;
+  for (uint32_t kv_phase = 0;; kv_phase ^= 1) {
+    mbar_wait(&sm.kv_full, kv_phase);
+    const int item = sm.item;
+    mbar_arrive(&sm.kv_empty);  // the writer reads nothing else of the item's buffers
+    if (item >= geo.n_items) return;
+    const int j = geo.j(item), h0 = geo.bg(item) * group;
+    const int i_hi = geo.i_hi(j), n_pairs = group * (i_hi - geo.i_lo(j) + 1);
+    for (int p = 0; p < n_pairs; ++p, ++slot) {
+      if (lane == 0) {
+        const int h = h0 + p % group, i = i_hi - p / group, s = slot % Stages;
+        const int turn = j - geo.j_lo(i), row = h * seq + i * kBwdRows;
+        int* counter = turns + static_cast<size_t>(h) * geo.q_tiles() + i;
+        const float* const part = reinterpret_cast<const float*>(sm.q[s][0]);
+        K6_WRITER_MARK(0);
+        const long long t0 = clock64();
+        while (ld_acquire(counter) < turn)
+          if (clock64() - t0 > kHangCycles) __trap();
+        asm volatile("fence.proxy.async.global;" ::: "memory");
+        K6_WRITER_MARK(1);
+        mbar_wait(&sm.dq_full[s], (slot / Stages) & 1);
+        K6_WRITER_MARK(2);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (turn == 0) tma_store(tdq, part + c * kBwdRows * 32, row, 32 * c);
+          else tma_reduce_add(tdq, part + c * kBwdRows * 32, row, 32 * c);
+        }
+        asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;" ::: "memory");
+        mbar_arrive(&sm.empty[s]);
+        K6_WRITER_MARK(3);
+        asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+        asm volatile("fence.proxy.async.global;" ::: "memory");
+        add_release(counter, 1);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// Head dim 128, float32 (header, "At head dim 128"). An item is (batch b,
+// KV head g, key tile j of 64 keys) with all 128 columns; both consumer
+// warpgroups work on each (head, query tile) pair, split by product:
+// warpgroup 0 forms S^T = K Q^T, P^T, dV += P^T dO and dK += dS^T Q,
+// warpgroup 1 dP^T = V dO^T, dS^T (from warpgroup 0's P^T) and the dQ
+// partial dS K over the item's 64 keys, which it stages for the writer. No
+// product and no elementwise step runs twice. They meet at three named
+// barriers a pair: P^T in (1), dS^T in (2), dV and dK done (3). Each issues
+// the next pair's first product behind its last ones. The consumers run at
+// 240 registers a thread (their waits do not trap; each is in a cycle with a
+// wait of the producer or the writer, which trap), warpgroup 2 at 24: the
+// producer thread and the dQ writer warp (write_dq_f32_d128). tq and tdo
+// map the planes of Q and dO (lo at rows + r), tkv those of K and V (K lo
+// at kv_rows + r, V hi at 2 kv_rows + r, V lo at 3 kv_rows + r), tdq dq in
+// [64, 32] float32 boxes.
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_f32_d128(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tkv, const __grid_constant__ CUtensorMap tdq,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   float* __restrict__ dk, float* __restrict__ dv, int* __restrict__ turns,
+                   int* __restrict__ work, BwdGeom<kF32Keys> geo, int rows, int kv_rows) {
+  using Smem = BwdSmemF32D128;
+  constexpr int D = 128, Keys = kF32Keys, Stages = Smem::Stages;
+  constexpr int kPlane = 64 * kChunk;  // elements of a 64-row chunk of a plane tile
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(align1024_shared(smem_raw));
+  const int seq = geo.seq, group = geo.group;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Stages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 1);  // the writer, once its copy has read the stage's dQ partial
+      mbar_init(&sm.dq_full[s], 128);  // warpgroup 1 stages the dQ partial
+    }
+    mbar_init(&sm.kv_full, 1);
+    mbar_init(&sm.kv_empty, kConsumers + 32);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  K6_SPAN_MARK(0);
+
+  if (threadIdx.x >= kConsumers) {  // warpgroup 2: the producer thread and the dQ writer warp
+    regs_dec<24>();
+    if (threadIdx.x >= kConsumers + 32) {
+      if (threadIdx.x < kConsumers + 64) write_dq_f32_d128(sm, geo, &tdq, turns);
+      return;
+    }
+    if (threadIdx.x != kConsumers) return;
+    int slot = 0;
+    for (uint32_t kv_phase = 0;; kv_phase ^= 1) {
+      const int item = atomicAdd(work, 1);
+      if (item >= geo.n_items) {
+        mbar_wait(&sm.kv_empty, kv_phase ^ 1);
+        sm.item = item;
+        mbar_arrive(&sm.kv_full);  // no loads: the block stops
+        return;
+      }
+      const int j = geo.j(item), bg = geo.bg(item), h0 = bg * group;
+      const int i_hi = geo.i_hi(j), n_pairs = group * (i_hi - geo.i_lo(j) + 1);
+      bool kv_loaded = false;
+      for (int p = 0; p < n_pairs; ++p, ++slot) {
+        const int s = slot % Stages;
+        const int row = (h0 + p % group) * seq + (i_hi - p / group) * kBwdRows;
+        mbar_wait(&sm.empty[s], ((slot / Stages) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[s], 4 * kBwdRows * D * 2 + 2 * kBwdRows * 4);
+        tma_tile<D, kBwdRows>(sm.q[s][0], &tq, &sm.full[s], row);
+        tma_tile<D, kBwdRows>(sm.q[s][1], &tq, &sm.full[s], rows + row);
+        tma_tile<D, kBwdRows>(sm.dout[s][0], &tdo, &sm.full[s], row);
+        tma_tile<D, kBwdRows>(sm.dout[s][1], &tdo, &sm.full[s], rows + row);
+        bulk_load(sm.lse[s], lse + row, kBwdRows * 4, &sm.full[s]);
+        bulk_load(sm.delta[s], delta + row, kBwdRows * 4, &sm.full[s]);
+        // K's and V's planes once the ring holds the item's first pairs
+        if (!kv_loaded && (p == Stages - 1 || p == n_pairs - 1)) {
+          const int r = bg * seq + j * Keys;
+          mbar_wait(&sm.kv_empty, kv_phase ^ 1);
+          sm.item = item;
+          mbar_expect_tx(&sm.kv_full, 4 * Keys * D * 2);
+          tma_tile<D, Keys>(sm.k[0], &tkv, &sm.kv_full, r);
+          tma_tile<D, Keys>(sm.k[1], &tkv, &sm.kv_full, kv_rows + r);
+          tma_tile<D, Keys>(sm.v[0], &tkv, &sm.kv_full, 2 * kv_rows + r);
+          tma_tile<D, Keys>(sm.v[1], &tkv, &sm.kv_full, 3 * kv_rows + r);
+          kv_loaded = true;
+        }
+      }
+    }
+  }
+  regs_inc<240>();
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  float4* const pt = reinterpret_cast<float4*>(sm.xch);  // P^T: [e / 4][thread]
+  bf16* const ds_h = reinterpret_cast<bf16*>(sm.xch + 64 * 64);  // dS^T's planes
+  bf16* const ds_l = ds_h + 64 * 64;
+  // this warpgroup's first product: S^T = K Q^T (0) or dP^T = V dO^T (1)
+  const bf16* const a_h = wg == 0 ? sm.k[0] : sm.v[0];
+  const bf16* const a_l = wg == 0 ? sm.k[1] : sm.v[1];
+  float acc[32];  // S^T or dP^T (64 keys x 64 queries over all 128 columns)
+  int slot = 0;
+  auto issue_first = [&](int s) {  // three products a product, the pair in stage s
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    fence_regs(acc);
+    wg_fence();
+    const bf16* const b_h = wg == 0 ? sm.q[s][0] : sm.dout[s][0];
+    const bf16* const b_l = wg == 0 ? sm.q[s][1] : sm.dout[s][1];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const uint64_t dah = desc_k(a_h + c * kPlane), dal = desc_k(a_l + c * kPlane);
+      const uint64_t dbh = desc_k(b_h + c * kPlane), dbl = desc_k(b_l + c * kPlane);
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk) {
+        wgmma_ss_n64<0, 0>(acc, desc_add(dah, 32 * kk), desc_add(dbh, 32 * kk), 1);
+        wgmma_ss_n64<0, 0>(acc, desc_add(dah, 32 * kk), desc_add(dbl, 32 * kk), 1);
+        wgmma_ss_n64<0, 0>(acc, desc_add(dal, 32 * kk), desc_add(dbh, 32 * kk), 1);
+      }
+    }
+    wg_commit();
+  };
+  // The next pair's first product goes to the tensor cores behind this
+  // pair's last products, and is waited for at the pair's end: no wgmma is in
+  // flight across pairs. Returns once this pair's products are done.
+  auto issue_next_wait = [&](auto next) {
+    if constexpr (decltype(next)::value) {
+      const int s1 = (slot + 1) % Stages;
+      mbar_spin(&sm.full[s1], ((slot + 1) / Stages) & 1);
+      issue_first(s1);
+      K6_MARK(4);
+      wg_wait1();
+    } else {
+      K6_MARK(4);
+      wg_wait0();
+    }
+  };
+  for (uint32_t kv_phase = 0;; kv_phase ^= 1) {
+    mbar_spin(&sm.kv_full, kv_phase);
+    const int item = sm.item;
+    if (item >= geo.n_items) {
+      K6_SPAN_MARK(1);
+      return;
+    }
+    const int j = geo.j(item), bg = geo.bg(item), k0 = j * Keys;
+    const int i_hi = geo.i_hi(j), n_pairs = group * (i_hi - geo.i_lo(j) + 1);
+    mbar_spin(&sm.full[slot % Stages], (slot / Stages) & 1);
+    issue_first(slot % Stages);
+    wg_wait0();
+    fence_regs(acc);
+    // dK (warpgroup 1) or dV (warpgroup 0) of the item's 64 keys over all 128
+    // columns, at the KV head's rows
+    auto store_item = [&](float* __restrict__ out, const float (&a)[2][32]) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; e += 2) {
+          const size_t off =
+              (static_cast<size_t>(bg) * seq + k0 + acc_row(e)) * D + c * kChunk + acc_col(e);
+          store2(out + off, a[c][e], a[c][e + 1]);
+        }
+    };
+    if (wg == 0) {
+      // P^T, dV += P^T dO and dK += dS^T Q, over 128 columns
+      float dv_acc[2][32], dk_acc[2][32];
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dv_acc[c][e] = dk_acc[c][e] = 0.f;
+      auto pair = [&](int p, auto next) {
+        const int s = slot % Stages;
+        const int q0 = (i_hi - p / group) * kBwdRows;
+        K6_MARK(0);
+        // P^T = exp2(S^T log2(e) - lse log2(e)); columns are queries: column
+        // c's lse, for its two elements. Branch-free within a tile (a pair
+        // not seen gets exp2(-inf) = 0): a branch an element kept each
+        // exp2's latency apart, ~1400 cycles a pair.
+        const bool masked = k0 + 63 > q0 || q0 + kBwdRows - 1 - k0 >= geo.window;
+        float l2[16], pv[32];
+#pragma unroll
+        for (int c = 0; c < 16; ++c) l2[c] = sm.lse[s][acc_col((c >> 1) * 4 + (c & 1))] * kLog2e;
+        if (masked) {
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const float x = fmaf(acc[e], kLog2e, -l2[(e >> 2) * 2 + (e & 1)]);
+            pv[e] = fast_exp2(sees(q0 + acc_col(e), k0 + acc_row(e), geo.window) ? x : -INFINITY);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 32; ++e)
+            pv[e] = fast_exp2(fmaf(acc[e], kLog2e, -l2[(e >> 2) * 2 + (e & 1)]));
+        }
+#pragma unroll
+        for (int e = 0; e < 32; e += 4)
+          pt[(e / 4) * 128 + t] = make_float4(pv[e], pv[e + 1], pv[e + 2], pv[e + 3]);
+        named_arrive(1, kConsumers);  // P^T in, for warpgroup 1
+        K6_MARK(1);
+        // dV += P^T dO (P^T's parts from registers; dO an MN-major B operand
+        // of 128 columns, its two chunks kMnLbo apart), while warpgroup 1
+        // forms dS^T
+        uint32_t ph[4][4], pl[4][4];
+        acc_to_a_split<32>(ph, pl, pv);
+        fence_regs(dv_acc[0]);
+        fence_regs(dv_acc[1]);
+        fence_regs(ph);
+        fence_regs(pl);
+        wg_fence();
+        {
+          const uint64_t m_doh = desc_mn(sm.dout[s][0]), m_dol = desc_mn(sm.dout[s][1]);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t at = kk * 16 * kRowBytes;
+            wgmma_rs_n128<1>(dv_acc, ph[kk], desc_add(m_doh, at));
+            wgmma_rs_n128<1>(dv_acc, ph[kk], desc_add(m_dol, at));
+            wgmma_rs_n128<1>(dv_acc, pl[kk], desc_add(m_doh, at));
+          }
+        }
+        wg_commit();
+        named_sync(2, kConsumers);  // dS^T's planes are in
+        K6_MARK(2);
+        // dK += dS^T Q (dS^T a K-major A operand from its planes, Q an
+        // MN-major B operand of 128 columns)
+        fence_regs(dk_acc[0]);
+        fence_regs(dk_acc[1]);
+        wg_fence();
+        {
+          const uint64_t a_dsh = desc_k(ds_h), a_dsl = desc_k(ds_l);
+          const uint64_t m_qh = desc_mn(sm.q[s][0]), m_ql = desc_mn(sm.q[s][1]);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t at = kk * 16 * kRowBytes;
+            wgmma_ss_n128<0, 1>(dk_acc, desc_add(a_dsh, 32 * kk), desc_add(m_qh, at), 1);
+            wgmma_ss_n128<0, 1>(dk_acc, desc_add(a_dsh, 32 * kk), desc_add(m_ql, at), 1);
+            wgmma_ss_n128<0, 1>(dk_acc, desc_add(a_dsl, 32 * kk), desc_add(m_qh, at), 1);
+          }
+        }
+        wg_commit();
+        K6_MARK(3);
+        issue_next_wait(next);
+        fence_regs(dk_acc[0]);
+        fence_regs(dk_acc[1]);
+        fence_regs(dv_acc[0]);
+        fence_regs(dv_acc[1]);
+        fence_regs(ph);
+        fence_regs(pl);
+        K6_MARK(5);
+        named_arrive(3, kConsumers);  // dV and dK have read the stage and dS^T
+        K6_MARK(6);
+        wg_wait0();  // the next pair's S^T
+        fence_regs(acc);
+        K6_MARK(7);
+      };
+      for (int p = 0; p + 1 < n_pairs; ++p, ++slot) pair(p, Flag<true>());
+      pair(n_pairs - 1, Flag<false>());
+      ++slot;
+      store_item(dv, dv_acc);
+      store_item(dk, dk_acc);
+    } else {
+      // dS^T and the dQ partial dS K over 128 columns, which it stages
+      auto pair = [&](int p, auto next) {
+        const int s = slot % Stages;
+        K6_MARK(0);
+        // dP^T - delta while warpgroup 0 forms P^T
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          const int e0 = (c >> 1) * 4 + (c & 1);
+          const float dlt = sm.delta[s][acc_col(e0)];
+          acc[e0] -= dlt;
+          acc[e0 + 2] -= dlt;
+        }
+        named_sync(1, kConsumers);  // P^T is in
+        // dS^T = P^T (dP^T - delta)
+#pragma unroll
+        for (int e = 0; e < 32; e += 4) {
+          const float4 x = pt[(e / 4) * 128 + t];
+          acc[e] *= x.x;
+          acc[e + 1] *= x.y;
+          acc[e + 2] *= x.z;
+          acc[e + 3] *= x.w;
+        }
+        K6_MARK(1);
+        // its parts into the exchange buffer: dK's K-major A operand and
+        // dQ's MN-major one
+        {
+          uint32_t dh[4][4], dl[4][4];
+          acc_to_a_split<32>(dh, dl, acc);
+#pragma unroll
+          for (int e = 0; e < 32; e += 2) {
+            const uint32_t off = swizzle_offset(acc_row(e), acc_col(e));
+            *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(ds_h) + off) =
+                dh[e / 8][(e % 8) / 2];
+            *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(ds_l) + off) =
+                dl[e / 8][(e % 8) / 2];
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // to the async proxy
+        named_sync(2, kConsumers);  // both warpgroups' dS^T rows are in
+        K6_MARK(2);
+        // the dQ partial dS K (K an MN-major B operand of 128 columns)
+        float dq_acc[2][32];
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) dq_acc[c][e] = 0.f;
+        fence_regs(dq_acc[0]);
+        fence_regs(dq_acc[1]);
+        wg_fence();
+        {
+          const uint64_t m_dsh = desc_mn(ds_h), m_dsl = desc_mn(ds_l);
+          const uint64_t m_kh = desc_mn(sm.k[0]), m_kl = desc_mn(sm.k[1]);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t at = kk * 16 * kRowBytes;
+            wgmma_ss_n128<1, 1>(dq_acc, desc_add(m_dsh, at), desc_add(m_kh, at), 1);
+            wgmma_ss_n128<1, 1>(dq_acc, desc_add(m_dsh, at), desc_add(m_kl, at), 1);
+            wgmma_ss_n128<1, 1>(dq_acc, desc_add(m_dsl, at), desc_add(m_kh, at), 1);
+          }
+        }
+        wg_commit();
+        K6_MARK(3);
+        issue_next_wait(next);
+        fence_regs(dq_acc[0]);
+        fence_regs(dq_acc[1]);
+        K6_MARK(5);
+        named_sync(3, kConsumers);  // warpgroup 0's dV and dK have read the stage
+        K6_MARK(6);
+        // the dQ partial where Q's planes were, for the writer
+        float* const part = reinterpret_cast<float*>(sm.q[s][0]);
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int e = 0; e < 32; e += 2)
+            *reinterpret_cast<float2*>(part + dq_slot_offset(acc_row(e), c * kChunk + acc_col(e))) =
+                make_float2(dq_acc[c][e], dq_acc[c][e + 1]);
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // to the writer's TMA
+        mbar_arrive(&sm.dq_full[s]);
+        wg_wait0();  // the next pair's dP^T
+        fence_regs(acc);
+        K6_MARK(7);
+      };
+      for (int p = 0; p + 1 < n_pairs; ++p, ++slot) pair(p, Flag<true>());
+      pair(n_pairs - 1, Flag<false>());
+      ++slot;
+    }
+    mbar_arrive(&sm.kv_empty);
+  }
+}
+
 // ---- host ------------------------------------------------------------------
 
 template <typename K>
@@ -2467,21 +2962,15 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o, const v
 template <int D>
 int fwd_f32(const float* q, const float* k, const float* v, float* o, float* lse, bf16* planes,
             int batch, int heads, int kv_heads, int seq, int window, cudaStream_t s) {
-  const long long rows = static_cast<long long>(batch) * heads * seq;
   const long long kv_rows = static_cast<long long>(batch) * kv_heads * seq, n = kv_rows * D;
-  const long long nq = D == 64 ? 0 : rows * D;  // Q's planes, D = 128 only
-  flash_split_f32<<<static_cast<unsigned>(((2 * n + nq) / 8 + 255) / 256), 256, 0, s>>>(
-      k, v, q, planes, n, nq);
+  flash_split_f32<<<static_cast<unsigned>((2 * n / 8 + 255) / 256), 256, 0, s>>>(k, v, planes, n);
   if (int err = static_cast<int>(cudaGetLastError())) return err;
-  CUtensorMap tkv, tq = {};
+  CUtensorMap tkv;
   if (int err = make_map<D>(&tkv, planes, 4 * kv_rows, kF32Keys)) return err;
-  if (D != 64)
-    if (int err = make_map<D>(&tq, planes + 4 * n, 2 * rows, kFwdRows)) return err;
   if (int err = set_smem(flash_fwd_f32<D>, kFwdF32SmemBytes<D>)) return err;
   const auto wk = fwd_work<FwdWork<kF32Keys>>(batch, heads, kv_heads, seq, window);
   flash_fwd_f32<D><<<min(wk.bh_count * wk.n_qt, sm_count()), kWsThreads, kFwdF32SmemBytes<D>,
-                     s>>>(q, tkv, tq, o, lse, wk, static_cast<int>(kv_rows),
-                          static_cast<int>(rows));
+                     s>>>(q, tkv, o, lse, wk, static_cast<int>(kv_rows));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2493,7 +2982,7 @@ int bwd_f32(const float* q, const float* k, const float* v, const float* o, cons
   using Geo = BwdGeom<kF32BwdKeys<D>>;
   const long long rows = static_cast<long long>(batch) * heads * seq;
   const long long kv_rows = static_cast<long long>(batch) * kv_heads * seq;
-  const long long blocks = rows / 32 + (2 * kv_rows * D / 8 + 255) / 256;
+  const long long blocks = rows / kPrepRows<D> + (2 * kv_rows * D / 8 + 255) / 256;
   flash_bwd_prep_f32<D><<<static_cast<unsigned>(blocks), 256, 0, s>>>(q, o, dout, k, v, delta,
                                                                       planes, rows, kv_rows);
   if (int err = static_cast<int>(cudaGetLastError())) return err;
@@ -2501,13 +2990,22 @@ int bwd_f32(const float* q, const float* k, const float* v, const float* o, cons
   if (int err = make_map<D>(&tq, planes, 2 * rows, kBwdRows)) return err;
   if (int err = make_map<D>(&tdo, planes + 2 * rows * D, 2 * rows, kBwdRows)) return err;
   if (int err = make_map<D>(&tkv, planes + 4 * rows * D, 4 * kv_rows, kF32BwdKeys<D>)) return err;
-  if (int err = set_smem(flash_bwd_f32<D>, kBwdF32SmemBytes<D>)) return err;
   const Geo geo = bwd_geo<Geo>(batch, heads, kv_heads, seq, window, kF32BwdKeys<D>);
   int* turns = counters;
   int* work = counters + static_cast<size_t>(batch) * heads * (seq / kBwdRows);
-  flash_bwd_f32<D><<<min(geo.n_items, sm_count()), kBwdThreads, kBwdF32SmemBytes<D>, s>>>(
-      tq, tdo, tkv, lse, delta, dq, dk, dv, dq_acc, turns, work, geo, static_cast<int>(rows),
-      static_cast<int>(kv_rows));
+  if constexpr (D == 128) {  // dq holds dQ's running sum: no dq_acc
+    CUtensorMap tdq;
+    if (int err = make_map_dq(&tdq, dq, rows)) return err;
+    if (int err = set_smem(flash_bwd_f32_d128, kBwdF32D128SmemBytes)) return err;
+    flash_bwd_f32_d128<<<min(geo.n_items, sm_count()), kBwdThreads, kBwdF32D128SmemBytes, s>>>(
+        tq, tdo, tkv, tdq, lse, delta, dk, dv, turns, work, geo, static_cast<int>(rows),
+        static_cast<int>(kv_rows));
+  } else {
+    if (int err = set_smem(flash_bwd_f32<D>, kBwdF32SmemBytes<D>)) return err;
+    flash_bwd_f32<D><<<min(geo.n_items, sm_count()), kBwdThreads, kBwdF32SmemBytes<D>, s>>>(
+        tq, tdo, tkv, lse, delta, dq, dk, dv, dq_acc, turns, work, geo, static_cast<int>(rows),
+        static_cast<int>(kv_rows));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2548,8 +3046,7 @@ int bwd_any(const void* q, const void* k, const void* v, const void* o, const vo
 // tensor map, kErrHeadDim.
 
 // float32: planes is bf16 scratch of 4 * batch * kv_heads * seq * head_dim
-// elements (the split K and V), plus 2 * batch * heads * seq * head_dim at
-// head dim 128 (the split Q); bf16 takes none.
+// elements (the split K and V); bf16 takes none.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, void* planes, int batch, int heads, int kv_heads,
                                    int seq, int window, int head_dim, int is_f32, void* stream) {
@@ -2562,9 +3059,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   return kErrHeadDim;
 }
 
-// Writes delta, dq, dk and dv. dq_acc is float32 scratch shaped like q, and
-// counters int32 [batch * heads * seq / 64 * head_dim / 64 + 1], all zero
-// (the caller's torch.zeros). float32: planes is bf16 scratch of
+// Writes delta, dq, dk and dv. dq_acc is float32 scratch shaped like q
+// (unread, and may be null, for float32 at head dim 128, whose dq holds the
+// running sum), and counters int32 [batch * heads * seq / 64 * head_dim / 64
+// + 1], all zero (the caller's torch.zeros). float32: planes is bf16 scratch of
 // 4 * (heads + kv_heads) * batch * seq * head_dim elements (the split Q,
 // dO, K and V); bf16 takes none.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,

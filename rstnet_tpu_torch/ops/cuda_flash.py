@@ -165,9 +165,8 @@ def flash_attention_fwd(q, k, v, window: int):
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     f32 = q.dtype == torch.float32
     D = q.shape[3]
-    # float32: K's and V's hi and lo planes, and Q's at head dim 128
-    n_planes = 4 * k.numel() + (2 * q.numel() if D == 128 else 0)
-    planes = torch.empty(n_planes, dtype=torch.bfloat16, device=q.device) if f32 else None
+    # float32: K's and V's hi and lo planes (Q is split in the kernel's registers)
+    planes = torch.empty(4 * k.numel(), dtype=torch.bfloat16, device=q.device) if f32 else None
     with torch.cuda.device(q.device):
         status = cuda_lib.kernel_library().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
@@ -179,9 +178,9 @@ def flash_attention_fwd(q, k, v, window: int):
 
 def flash_attention_bwd(q, k, v, o, do, lse, window: int):
     """-> (dq in q's dtype, dk, dv at the KV heads in k's and v's dtype,
-    delta [B, H, T] float32). The kernel sums dQ in a float32 workspace
-    behind per-tile turn counters, both allocated here, as are float32's
-    planes."""
+    delta [B, H, T] float32). The kernel sums dQ in key-tile order behind
+    per-tile turn counters, in a float32 workspace (float32 at head dim 128:
+    in dq itself), both allocated here, as are float32's planes."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, do, lse, window)
     _device_check(q, "flash_attention_bwd")
@@ -190,10 +189,12 @@ def flash_attention_bwd(q, k, v, o, do, lse, window: int):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     f32 = q.dtype == torch.float32
-    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    D = q.shape[3]
+    # dQ's float32 running sum; float32 at head dim 128 keeps it in dq itself
+    dq_acc = (None if f32 and D == 128 else
+              torch.empty(q.shape, dtype=torch.float32, device=q.device))
     # one turn counter per (batch, head, query tile, 64 columns of the head
     # dim), then the work counter
-    D = q.shape[3]
     counters = torch.zeros(B * H * (T // DQ_TILE) * (D // 64) + 1, dtype=torch.int32,
                            device=q.device)
     # float32: the hi and lo planes of Q, dO, K and V
@@ -203,7 +204,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, window: int):
         status = cuda_lib.kernel_library().flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dq_acc.data_ptr(), counters.data_ptr(), planes.data_ptr() if f32 else None, B, H,
+            None if dq_acc is None else dq_acc.data_ptr(), counters.data_ptr(),
+            planes.data_ptr() if f32 else None, B, H,
             Hkv, T, window, D, int(f32), _stream())
     cuda_lib.check(status, "flash_attention_bwd")
     _count(flash_attention_bwd, q)

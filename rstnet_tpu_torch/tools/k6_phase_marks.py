@@ -6,18 +6,23 @@
 
 Copies ``csrc/flash_attention.cu`` into a build directory outside the
 package (``$TMPDIR``), compiles it with ``RSTNET_K6_MARKS`` defined, and
-runs one backward kernel (through the wrappers of ``ops/cuda_flash.py``) at
-a training shape on seeded random inputs, ``--calls`` times, reading the
-marks of the last call (see ``k6_marks`` in the source). Two kernels carry
-marks: the float32 backward (``flash_bwd_f32``, ``--dtype f32``, the
-default, at 32 query heads over 8 KV heads, T=1024, D=64) and the bf16
-backward at head dim 128 (``flash_bwd_wgmma_d128``, ``--dtype bf16
+runs its backward (called as ``ops/cuda_flash.py`` calls it, with the
+scratch that every design of the kernel reads) at a training shape on
+seeded random inputs, ``--calls`` times, reading the marks of the last call (see ``k6_marks`` in the source). Three kernels
+carry marks: the float32 backward at head dim 64 (``flash_bwd_f32``,
+``--dtype f32``, the default, at 32 query heads over 8 KV heads, T=1024),
+the float32 backward at head dim 128 (``flash_bwd_f32_d128``, ``--dtype f32
 --head-dim 128``, at Qwen2.5-7B's 28 query heads over 4 KV heads by
-default). ``--baseline FILE`` builds that file instead: a
-``flash_attention.cu`` of the earlier bf16 design at head dim 128 (items of
-64 columns, ``git show d4806ed:rstnet_tpu_torch/csrc/flash_attention.cu``),
-into whose bf16 backward the same eight marks are inserted first
-(``mark_column_half_bwd``).
+default) and the bf16 backward at head dim 128 (``flash_bwd_wgmma_d128``,
+``--dtype bf16``, the same heads). ``--baseline FILE`` builds that file
+instead, a ``flash_attention.cu`` of an earlier design: with ``--dtype
+bf16``, the bf16 design of items of 64 columns (``git show
+d4806ed:rstnet_tpu_torch/csrc/flash_attention.cu``), into whose bf16
+backward the same eight marks are inserted first
+(``mark_column_half_bwd``); with ``--dtype f32 --head-dim 128``, the float32
+design whose two warpgroups each formed S^T and dP^T for their own 64
+columns (``git show fce3b72:rstnet_tpu_torch/csrc/flash_attention.cu``),
+whose float32 backward carries its marks already.
 
 A pair is one (query head, 64-row query tile) visited by a work item.
 Printed for each consumer warpgroup of the block that ran the most pairs
@@ -53,6 +58,12 @@ MARK_BLOCKS, MARK_PAIRS = 132, 160  # as kMarkBlocks, kMarkPairs in the source
 PHASES = {
     "f32": ("ring wait", "S^T, dP^T products", "elementwise, P^T parts", "dS^T parts to smem",
             "dV, dK, dQ products", "slot wait", "stage dQ half"),
+    "f32 d128": ("P^T formed and stored (wg 0); dP^T - delta, P^T in, dS^T (wg 1)",
+                 "dV issued, dS^T in (wg 0); dS^T's parts stored, barrier (wg 1)",
+                 "dK issued (wg 0); dQ issued (wg 1)",
+                 "the next pair's ring wait and first product issued",
+                 "this pair's products done", "wg 1 waits for wg 0's dV and dK",
+                 "dQ partial staged (wg 1), the next first product done"),
     "bf16": ("ring wait", "S^T products", "P^T, dV issued, dS^T to smem",
              "dK issued, both dS^T in, dQ slot ready", "dQ product, all three done",
              "dQ into the slot", "hand-off"),
@@ -61,6 +72,7 @@ PHASES = {
                       "slot wait", "stage dQ partial"),
 }
 WRITER_SPANS = {"f32": ("turn wait", "partial wait", "add and store"),
+                "f32 d128": ("turn wait", "partial wait", "TMA read of the partial"),
                 "bf16": ("turn wait, sum loaded", "consumers' parts", "store"),
                 "bf16 baseline": ("turn wait", "partial wait", "add and store")}
 T = 1024
@@ -115,15 +127,19 @@ def mark_column_half_bwd(text: str) -> str:
     return text
 
 
-def build_marked(source: Path | None = None) -> ctypes.CDLL:
+def build_marked(source: Path | None = None, insert_marks: bool = True) -> ctypes.CDLL:
+    """The marked build of ``csrc/flash_attention.cu``, or of ``source``
+    (marks inserted first unless ``insert_marks`` is false)."""
     out = Path(os.environ.get("TMPDIR", tempfile.gettempdir())) / "rstnet_k6_marks"
     out.mkdir(parents=True, exist_ok=True)
     tag = "baseline" if source else "current"
     src = out / f"flash_attention_{tag}.cu"
     if source is None:
         shutil.copy(cuda_lib.SRC_DIR / "flash_attention.cu", src)
-    else:
+    elif insert_marks:
         src.write_text(mark_column_half_bwd(Path(source).read_text()))
+    else:
+        shutil.copy(source, src)
     lib = out / f"libk6_marks_{tag}.so"
     flags = [f for f in cuda_lib.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     subprocess.run([cuda_lib._nvcc(), *flags, "-DRSTNET_K6_MARKS", "-shared", "-o", str(lib),
@@ -137,22 +153,40 @@ def build_marked(source: Path | None = None) -> ctypes.CDLL:
     return dll
 
 
+def backward(dll, q, k, v, o, do, lse, window: int) -> None:
+    """One backward through ``dll`` with the scratch of every design, this
+    source's and the earlier ones: a float32 dQ workspace at each dtype and
+    head dim (float32 at head dim 128 no longer reads one), zeroed counters,
+    float32's planes."""
+    (B, H, T_, D), Hkv = q.shape, k.shape[1]
+    f32 = q.dtype == torch.float32
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    counters = torch.zeros(B * H * (T_ // cuda_flash.DQ_TILE) * (D // 64) + 1, dtype=torch.int32,
+                           device=q.device)
+    planes = (torch.empty(4 * (q.numel() + k.numel()), dtype=torch.bfloat16, device=q.device)
+              if f32 else None)
+    status = dll.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
+        counters.data_ptr(), planes.data_ptr() if f32 else None, B, H, Hkv, T_, window, D,
+        int(f32), torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(status, "flash_attention_bwd (marked)")
+
+
 def run(dll, B: int, heads: tuple, D: int, dtype, window: int, calls: int, g) -> tuple:
     """(consumer marks [blocks][2][pairs][8], writer marks [blocks][pairs][4],
-    spans [blocks][4]) of the last of ``calls`` backward calls."""
+    spans [blocks][4]) of the last of ``calls`` backward calls of the
+    marked build (the forward through the package's kernels)."""
     H, Hkv = heads
     q, do = (torch.randn((B, H, T, D), device="cuda", generator=g).to(dtype) for _ in range(2))
     k, v = (torch.randn((B, Hkv, T, D), device="cuda", generator=g).to(dtype) for _ in range(2))
     q = (q * D**-0.5).to(dtype)
-    library = cuda_lib.kernel_library
-    cuda_lib.kernel_library = lambda: dll  # the wrappers launch the marked build
-    try:
-        o, lse = cuda_flash.flash_attention_fwd(q, k, v, window)
-        for _ in range(calls):
-            cuda_flash.flash_attention_bwd(q, k, v, o, do, lse, window)
-        torch.cuda.synchronize()
-    finally:
-        cuda_lib.kernel_library = library
+    o, lse = cuda_flash.flash_attention_fwd(q, k, v, window)
+    for _ in range(calls):
+        backward(dll, q, k, v, o, do, lse, window)
+    torch.cuda.synchronize()
     marks = np.zeros((MARK_BLOCKS, 2, MARK_PAIRS, 8), dtype=np.int64)
     writer = np.zeros((MARK_BLOCKS, MARK_PAIRS, 4), dtype=np.int64)
     spans = np.zeros((MARK_BLOCKS, 4), dtype=np.int64)
@@ -206,7 +240,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--calls", type=int, default=3)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--baseline", default=None,
-                        help="build this flash_attention.cu of the column-half design instead")
+                        help="build this flash_attention.cu of an earlier design instead (bf16: "
+                        "the column-half design; f32 at head dim 128: the design of a warpgroup a "
+                        "column half)")
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
     D = args.head_dim or (64 if args.dtype == "f32" else 128)
@@ -216,12 +252,16 @@ def main(argv=None) -> dict:
     dtype = torch.float32 if args.dtype == "f32" else torch.bfloat16
     if not torch.cuda.is_available():
         raise SystemExit("k6_phase_marks needs a CUDA device")
-    dll = build_marked(args.baseline)
+    # the earlier float32 source carries its marks; the earlier bf16 one gets them
+    dll = build_marked(args.baseline, insert_marks=args.dtype == "bf16")
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     result = {"device": torch.cuda.get_device_name(0), "dtype": args.dtype, "head_dim": D,
               "heads": heads, "source": args.baseline or "csrc/flash_attention.cu", "cases": {}}
     for B in (int(v) for v in args.batch.split(",")):
-        kind = args.dtype + (" baseline" if args.baseline else "")
+        if args.dtype == "bf16":
+            kind = "bf16 baseline" if args.baseline else "bf16"
+        else:  # float32: the D = 64 kernel, or the earlier design at D = 128: the same marks
+            kind = "f32 d128" if D == 128 and not args.baseline else "f32"
         r = report(*run(dll, B, heads, D, dtype, args.window, args.calls, g), kind)
         result["cases"][f"B={B} window={args.window}"] = r
         us = lambda c: c / (r["sm_ghz"] * 1e3)  # noqa: E731

@@ -581,11 +581,9 @@ def test_flash_kernels_at_training_shapes(cuda, dtype):
 @pytest.mark.parametrize("heads", [(28, 4), (32, 8)])
 def test_flash_kernels_at_head_dim_128(cuda, dtype, heads):
     """Head dim 128 at B=4, T=1024: Qwen2.5-7B's 28 query heads over 4 KV
-    heads (GQA 7:1) and Llama-3.1-8B's 32 over 8, causal and local (256);
-    bf16 also under windows whose edge falls inside a 128-key tile (100,
-    192)."""
-    windows = (1024, 256, 100, 192) if dtype == torch.bfloat16 else (1024, 256)
-    for window in windows:
+    heads (GQA 7:1) and Llama-3.1-8B's 32 over 8, causal and local (256),
+    and under windows whose edge falls inside a key tile (100, 192)."""
+    for window in (1024, 256, 100, 192):
         _k6_case(cuda, 4, *heads, 1024, dtype, window, 128)
 
 
@@ -598,13 +596,13 @@ def test_flash_kernels_smallest_grid(cuda, dtype):
     for D in (64, 128):
         _k6_case(cuda, 1, 1, 1, 128, dtype, 128, D)
         _k6_case(cuda, 1, 4, 1, 128, dtype, 100, D)
-    if dtype == torch.bfloat16:
-        # head dim 128 at T=128 and T=384 (fewer work items than SMs, an odd
-        # count of 128-key tiles), GQA 7:1 and 1:1, causal and windowed
-        for T in (128, 384):
-            for H, Hkv in ((7, 1), (1, 1)):
-                for window in (T, 100, 192):
-                    _k6_case(cuda, 1, H, Hkv, T, dtype, window, 128)
+    # head dim 128 at T=128 and T=384 (fewer work items than SMs, an odd
+    # count of 128-key tiles, float32's 64-key items down to a pair a
+    # head), GQA 7:1 and 1:1, causal and windowed
+    for T in (128, 384):
+        for H, Hkv in ((7, 1), (1, 1)):
+            for window in (T, 100, 192):
+                _k6_case(cuda, 1, H, Hkv, T, dtype, window, 128)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

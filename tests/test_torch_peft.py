@@ -47,6 +47,8 @@ CFG = dict(
     codecformer_layers=2, codecformer_dim_feedforward=32,
     lora_r=4, lora_alpha=8, lora_mlp=True, lora_projection=True,
 )
+# the flagship's head dim, 128: two query heads over one KV head
+CFG_D128 = dict(CFG, name="peft-tiny-d128", n_embd=256, n_head=2, n_query_groups=1)
 
 
 def _flat(tree) -> dict:
@@ -60,18 +62,18 @@ def _jax_mask(params):
     return mask
 
 
-def peft_pair(int8: bool):
+def peft_pair(int8: bool, cfg: dict = CFG):
     """(JAX model, params, port model with the same values): LoRA on the
     backbone (B nonzero), and the backbone int8 when asked, on both sides;
     plus the port's trainable mask."""
-    jm = JaxLM(JaxConfig(**CFG))
+    jm = JaxLM(JaxConfig(**cfg))
     params = jm.init(jax.random.PRNGKey(0), jnp.float32)
     overlay = jlora.init_lora(jm.config, jax.random.PRNGKey(1), jnp.float32)
     overlay = jax.tree.map(lambda x: x + 0.05, overlay)  # B nonzero: the factors matter
     params["backbone"] = jlora.attach_lora(params["backbone"], overlay)
     if int8:
         params["backbone"] = jax_quantize(params["backbone"])
-    tm = SpeechTextLM(Config(**CFG))
+    tm = SpeechTextLM(Config(**cfg))
     lora.attach_lora(tm.backbone, lora.init_lora(tm.config))
     if int8:
         quantize_backbone_int8(tm.backbone)
@@ -121,12 +123,15 @@ def test_partition_combine_roundtrip():
         train_step.partition_params(tm, dict.fromkeys(mask, True))
 
 
-@pytest.mark.parametrize("int8", [False, True])
-def test_peft_step_matches_jax_peft_step(int8):
+@pytest.mark.parametrize("int8,cfg", [(False, CFG), (True, CFG), (True, CFG_D128)],
+                         ids=["False", "True", "d128"])
+def test_peft_step_matches_jax_peft_step(int8, cfg):
     """Two AdamW steps of the partitioned step (over an int8 frozen base, or
     a float one) against JAX's ``make_peft_train_step``: metrics, then the
-    trainable parameters; the frozen ones are untouched."""
-    jm, params, tm, mask = peft_pair(int8)
+    trainable parameters; the frozen ones are untouched. ``d128``: head dim
+    128 over one KV head (the float32 fine-tune of the flagship, whose
+    attention runs its plain version on the CPU)."""
+    jm, params, tm, mask = peft_pair(int8, cfg)
     kw = dict(weight_decay=1e-2, grad_clip=1.0)
     jtx = jts.make_optimizer(jax_sched.warmup_lr(1e-3, 2), **kw)
     ttx = train_step.make_optimizer(schedulers.warmup_lr(1e-3, 2), **kw)

@@ -209,10 +209,24 @@ Phases (each prints its findings; any failure exits non-zero):
    ``codec_train_dp2``: ``codec_trainer.main --dp 2`` on ``CODEC_CONFIG``
    at full width, batch 4 (2 a rank), ``CODEC_DP2_STEPS`` steps, against
    ``--dp 1`` on the same clips and draws (``CODEC_DP2_*``): K3 launches,
-   G/D parameters and EMA buffers. Their readings go on a
-   ``{"parallel_paths": ...}`` line; their launches (both ranks') join the
-   kernels line. ``--parallel-only`` runs this phase alone and prints no
-   result line.
+   G/D parameters and EMA buffers. Then K4 at a tensor-parallel rank's
+   MLP shard of the flagship (``check_k4_shard``: C=2048, H=4096, N 1 and
+   2, bf16 and float32 weights, a float32 partial out) against its plain
+   version, timed beside the eager three-call chain, and path
+   ``tp2_speech_frame``: the flagship at full width served as two ranks
+   over ``{"tensor": 2}`` (``LMGen.step`` on weights placed by
+   ``shard_params``, greedy): ``TP2_FRAMES`` float32 frames at B=1 (K1)
+   and at B=2 (K2), each rank's tokens equal to one process's frames from
+   the same weights on the card, and ``TP2_FRAMES`` bf16 frames at B=1
+   whose first frame's text logits lie within ``SLICE_LOGIT_TOL`` of one
+   process's (over their norm; the token agreement printed, not gated);
+   each rank's K4, K1 and K2 launches asserted, and no whole backbone
+   weight gathered after the first frame (``parallel/comm.py::
+   CollectiveLog``); frame p50/p99 beside the one-process frames, the
+   collectives' share of a frame and each rank's peak. Their readings go
+   on a ``{"parallel_paths": ...}`` line; their launches (both ranks')
+   join the kernels line. ``--parallel-only`` runs this phase alone and
+   prints no result line.
 
 Every phase prints its wall time.
 
@@ -1505,16 +1519,17 @@ def check_small_speech_slice(seed: int, n_frames: int = 8) -> None:
                                  "the CPU")
 
 
-def build_flagship(seed: int):
-    """The flagship in bf16 on the card from ``seed``, its codecformer's
-    gating padded to a multiple of 128 so that K1 takes its micro-steps."""
+def build_flagship(seed: int, dtype=torch.bfloat16):
+    """The flagship in ``dtype`` on the card from ``seed``, its
+    codecformer's gating padded to a multiple of 128 so that K1 takes its
+    micro-steps."""
     from rstnet_tpu_torch.models.config import Config
     from rstnet_tpu_torch.models.lm import SpeechTextLM
     from rstnet_tpu_torch.modules.transformer import pad_codecformer_gating
     from rstnet_tpu_torch.ops.cuda_depformer import depformer_kernel_operands
 
     t0 = time.perf_counter()
-    model = SpeechTextLM(Config(**FLAGSHIP), device="cuda", dtype=torch.bfloat16,
+    model = SpeechTextLM(Config(**FLAGSHIP), device="cuda", dtype=dtype,
                          generator=torch.Generator(device="cuda").manual_seed(seed))
     pad_codecformer_gating(model.codecformer)
     if depformer_kernel_operands(model) is None:
@@ -1522,7 +1537,8 @@ def build_flagship(seed: int):
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"flagship SpeechTextLM (Llama-3.2-1B backbone, codecformer 1024 x 6), "
-        f"{n_params / 1e9:.3f} B params, bf16, built in {time.perf_counter() - t0:.1f} s")
+        f"{n_params / 1e9:.3f} B params, {str(dtype)[6:]}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
     return model
 
 
@@ -4688,6 +4704,9 @@ def spawn_ranks(job: dict, world: int = 2, timeout: float = RANK_TIMEOUT_S,
 
 def run_rank_job(root: str, rank: int, world: int) -> int:
     """One rank of ``spawn_ranks``: join the group and run the job."""
+    import faulthandler
+
+    faulthandler.enable()  # a rank that crashes prints where
     job = json.loads((Path(root) / "job.json").read_text())
     result_path = Path(root) / f"result{rank}.json"
     if job["kind"] == "probe_nccl":
@@ -4702,7 +4721,7 @@ def run_rank_job(root: str, rank: int, world: int) -> int:
 
     log(f"rank {rank}: backend {dist.get_backend()}, device {torch.cuda.current_device()}")
     fn = {"probe_gloo": rank_probe_gloo, "train_dp2": rank_train_dp2,
-          "codec_dp2": rank_codec_dp2}[job["kind"]]
+          "codec_dp2": rank_codec_dp2, "tp2_frame": rank_tp2_frame}[job["kind"]]
     fn(job, rank, world, result_path)
     dist.barrier()
     dist.destroy_process_group()
@@ -5157,8 +5176,404 @@ def run_codec_dp2(seed: int, card: str) -> tuple[dict, dict]:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# K4 at a tensor-parallel rank's shard of the flagship's MLP (H = 8192 / 2)
+K4_SHARD_C, K4_SHARD_H, K4_SHARD_ROWS = 2048, 4096, (1, 2)
+# tp2_speech_frame: frames of each run, warm-up frames before a timed run
+# (from a state of their own), frames of the run that times the
+# collectives, and frames after the first under CollectiveLog
+TP2_FRAMES = 16
+TP2_WARMUP = 2
+TP2_SHARE_FRAMES = 8
+TP2_LOGGED_FRAMES = 2
+# float32 B=1: K1 reads its micro-step input in bf16 (its envelope), so the
+# ranks' backbone output, one process's to float32 rounding in another
+# summation order (within TP2_HIDDEN_RTOL of its largest magnitude), may
+# round an input element to the neighbouring bf16 value and flip an audio
+# token where one process's two best logits nearly tie: a flip passes only
+# at such a tie (its top-2 gap within TP2_TIE_RTOL of its best logit, the
+# rank's token the second), with every token before it equal; the frames
+# after it follow another history and are not compared
+TP2_HIDDEN_RTOL = 1e-5
+TP2_TIE_RTOL = 1e-3
+
+
+def check_k4_shard(seed: int, card: str) -> dict:
+    """K4 at a tensor-parallel rank's MLP shard of the flagship (``C =
+    K4_SHARD_C``, ``H = K4_SHARD_H``): ``fc_1``/``fc_2`` ``[H, C]`` and
+    ``proj`` ``[C, H]``, N in ``K4_SHARD_ROWS``, over bf16 weights with a
+    bf16 x (the bf16 frames) and float32 weights with a float32 x (the
+    float32 frames), the output a float32 partial (``out_dtype``, as
+    ``Backbone._fused_mlp`` takes it before the sum over ``tensor``);
+    against its plain version (``K2_TOL`` of float32), two calls compared
+    bit for bit, timed over three weight sets in turn beside its plain
+    version and the eager three-GEMM chain in x's dtype. By the kernels
+    line's entry name: every N's times and bound."""
+    import torch.nn.functional as F
+
+    from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn, gating_ffn_reference
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C, H, f32 = K4_SHARD_C, K4_SHARD_H, torch.float32
+    out = {}
+    for name, wtype in (("gating_ffn", torch.bfloat16), ("gating_ffn_f32_weights", f32)):
+        sets = [[((torch.rand(shape, device="cuda", generator=g) * 2 - 1)
+                  * shape[1]**-0.5).to(wtype) for shape in ((H, C), (H, C), (C, H))]
+                for _ in range(3)]
+        err, by_rows = 0.0, {}
+        for N in K4_SHARD_ROWS:
+            x = torch.randn((N, C), device="cuda", generator=g).to(wtype)
+            got = gating_ffn(x, *sets[0], out_dtype=f32)
+            again = gating_ffn(x, *sets[0], out_dtype=f32)
+            want = gating_ffn_reference(x, *sets[0], out_dtype=f32)
+            torch.cuda.synchronize()
+            rtol, atol = K2_TOL[f32]
+            diff = (got - want).abs()
+            bad = int((diff > atol + rtol * want.abs()).sum())
+            err = max(err, diff.max().item())
+            if bad or got.dtype != f32 or not torch.equal(got, again):
+                raise AssertionError(f"K4 shard {name} N={N}: {bad} elements outside rtol={rtol} "
+                                     f"atol={atol} (max err {diff.max().item():.3e}), dtype "
+                                     f"{got.dtype}, two calls equal: {torch.equal(got, again)}")
+            turn = iter(range(1 << 30))
+            ms = time_ms(lambda: gating_ffn(x, *sets[next(turn) % 3], out_dtype=f32), 60)
+            plain_ms = time_ms(lambda: gating_ffn_reference(x, *sets[next(turn) % 3], f32), 10)
+
+            def chain():
+                wg, wv, wo = sets[next(turn) % 3]
+                return (F.silu(x @ wg.T) * (x @ wv.T)) @ wo.T
+
+            chain_ms = time_ms(chain, 30)
+            wb, xb = sets[0][0].element_size(), x.element_size()
+            n_bytes = 3 * wb * H * C + N * C * xb + 4 * N * C
+            parts = 1 if wtype == torch.bfloat16 else 2
+            lo = int(wtype == f32)
+            bound_ms, bound_by = bound(
+                n_bytes, 2 * N * (2 * H * C * (parts + lo) + C * H * (2 + lo)), "bf16")
+            by_rows[str(N)] = {"ms": ms, "plain_ms": plain_ms, "three_gemm_ms": chain_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by,
+                               "weight_mb": 3 * wb * H * C / 1e6}
+            log(f"K4 shard shape {name} N={N} x {str(wtype)[6:]} (C={C}, H={H}, float32 "
+                f"partial out): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB), eager three-GEMM "
+                f"chain {chain_ms:.4f} ms; two calls bit-identical [{card}]")
+        out[name] = {"C": C, "H": H, "out_dtype": "float32", "max_abs_err": err,
+                     "by_rows": by_rows}
+        del sets
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp2_frames(gen, batch: int, n: int, ring_dtype, warmup: int = TP2_WARMUP) -> tuple:
+    """``n`` greedy frames of ``gen`` at ``batch`` from a fresh state, after
+    ``warmup`` frames from another: (each frame's tokens, its host ms with
+    a synchronize)."""
+    if warmup:
+        st = gen.init_state(batch, ring_dtype, device="cuda")
+        for _ in range(warmup):
+            gen.step(st, None)
+        del st
+    state = gen.init_state(batch, ring_dtype, device="cuda")
+    torch.cuda.synchronize()
+    tokens, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out, _, state = gen.step(state, None)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000)
+        tokens.append(out[:, :, 0].cpu().tolist())
+    return tokens, times
+
+
+@contextlib.contextmanager
+def recorded_steps(model, k1: bool = False):
+    """Each ``step_global`` call's (hidden, text logits) inside, float32 on
+    the CPU, under ``"steps"`` of the yielded dict; with ``k1``, each K1
+    micro-step's two best logits and their ids under ``"k1_top2"``. Every
+    record reads back: keep it off timed frames."""
+    import rstnet_tpu_torch.inference.generate as gmod
+
+    got, real, real_k1 = {"steps": [], "k1_top2": []}, model.step_global, gmod.depformer_step
+
+    def step_global(*a, **k):
+        hidden, logits, state = real(*a, **k)
+        got["steps"].append((hidden.float().cpu(), logits.float().cpu()))
+        return hidden, logits, state
+
+    def depformer_step(*a, **k):
+        logits, kc, vc = real_k1(*a, **k)
+        v, i = logits.float().topk(2, dim=-1)
+        got["k1_top2"].append((v[0].tolist(), i[0].tolist()))
+        return logits, kc, vc
+
+    model.step_global = step_global
+    if k1:
+        gmod.depformer_step = depformer_step
+    try:
+        yield got
+    finally:
+        del model.step_global
+        gmod.depformer_step = real_k1
+
+
+def tp2_b1_agreement(got: list, one: list, hidden: list, one_hidden: list, top2: list,
+                     rank: int) -> dict:
+    """A rank's float32 B=1 frames against one process's (``TP2_TIE_RTOL``
+    above): the frames equal before the first difference, and that
+    difference's step, codebook, gap and hidden-state error. Raises unless
+    the difference is a K1 near-tie."""
+    dep_q = FLAGSHIP["dep_q"]
+    for t, (a, b) in enumerate(zip(got, one)):
+        if a == b:
+            continue
+        (row, want), = zip(a, b)  # B=1
+        if row[0] != want[0]:
+            raise AssertionError(f"tp2_speech_frame rank {rank} float32 B=1 frame {t}: text "
+                                 f"token {row[0]}, one process {want[0]}")
+        k = next(j for j in range(1, len(row)) if row[j] != want[j]) - 1
+        s = t  # frame t holds step t's audio and step t - 1's text (the delays)
+        (v1, v2), (i1, i2) = top2[s * dep_q + k]
+        h, h1 = hidden[s], one_hidden[s]
+        h_err = float((h - h1).abs().max() / h1.abs().max())
+        flip = {"frame": t, "step": s, "codebook": k, "tokens": [row[k + 1], want[k + 1]],
+                "one_process_top2": [[v1, v2], [i1, i2]], "gap_rel": (v1 - v2) / abs(v1),
+                "hidden_rel_err": h_err}
+        if (h_err > TP2_HIDDEN_RTOL or (v1 - v2) > TP2_TIE_RTOL * abs(v1)
+                or [row[k + 1], want[k + 1]] != [i2, i1]):
+            raise AssertionError(f"tp2_speech_frame rank {rank} float32 B=1: tokens part at "
+                                 f"frame {t}, not at a K1 near-tie: {flip}")
+        return {"equal_frames": t, "flip": flip}
+    return {"equal_frames": len(one), "flip": None}
+
+
+def tp2_expected(n_layer: int, frames: dict) -> dict:
+    """A rank's launches of ``tp2_speech_frame`` from the frames each run
+    took (warm-ups included): K4 once a layer a frame (float32 weights in
+    the float32 runs), K1 once a codebook a frame at B=1, K2 once a
+    codebook a codecformer layer a frame at B=2."""
+    cf_layers, dep_q = FLAGSHIP["codecformer_layers"], FLAGSHIP["dep_q"]
+    none = dict.fromkeys(_counters(), 0)
+    return {**none, "gating_ffn_f32_weights": n_layer * (frames["f32_b1"] + frames["f32_b2"]),
+            "gating_ffn": n_layer * frames["bf16_b1"],
+            "depformer_step": dep_q * (frames["f32_b1"] + frames["bf16_b1"]),
+            "gating_ffn_step": dep_q * cf_layers * frames["f32_b2"]}
+
+
+def tp2_frame_budget(batch: int) -> int:
+    """Bytes a flagship frame may move over ``tensor`` = 2 after the first:
+    float32 sums of [B, C] (the embedding, and attention's and the MLP's
+    row-parallel outputs in every layer) and the gathered [B, V] logits (8
+    KV groups divide over 2 ranks: no QKV gather)."""
+    C, L, V = FLAGSHIP["n_embd"], FLAGSHIP["n_layer"], FLAGSHIP["padded_vocab_size"]
+    return 4 * batch * (C + 2 * L * C + V)
+
+
+def rank_tp2_frame(job: dict, rank: int, world: int, result_path: Path) -> None:
+    """One rank of ``tp2_speech_frame``: the flagship drawn on the card
+    from the seed (as one process draws it), placed by ``shard_params`` on
+    ``{"tensor": world}``, served by ``LMGen.step`` under ``set_mesh``:
+    float32 frames at B=1 (timed; then a run with every collective timed
+    between synchronizes, and frames after the first under
+    ``CollectiveLog``) and at B=2, then bf16 frames at B=1 (the first
+    frame's text logits against one process's)."""
+    import torch.distributed as dist
+
+    from rstnet_tpu_torch.inference.generate import LMGen
+    from rstnet_tpu_torch.parallel.comm import CollectiveLog
+    from rstnet_tpu_torch.parallel.mesh import make_mesh, set_mesh
+    from rstnet_tpu_torch.parallel.sharding import shard_params
+
+    # a CUDA device mesh: gloo's default would be the CPU, and DTensor.from_local
+    # moves a local shard to its mesh's device
+    mesh = make_mesh({"tensor": world}, device_type="cuda")
+    delays = (0,) + (1,) * FLAGSHIP["n_q"]
+    budget = {b: tp2_frame_budget(b) for b in (1, 2)}
+    out, frames = {}, {}
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    model = shard_params(mesh, build_flagship(job["seed"], torch.float32))
+    gen = LMGen(model, delays=delays, use_sampling=False)
+    log(f"rank {rank}: the float32 flagship placed on {mesh}")
+    with set_mesh(mesh):
+        out["f32_b1"] = tp2_frames(gen, 1, TP2_FRAMES, torch.float32)
+        with recorded_steps(model) as rec:
+            tokens, _ = tp2_frames(gen, 1, TP2_FRAMES, torch.float32, warmup=0)
+        if tokens != out["f32_b1"][0]:
+            raise AssertionError(f"rank {rank}: two float32 B=1 runs gave other tokens")
+        torch.save([h for h, _ in rec["steps"]], Path(job["root"]) / f"hidden{rank}.pt")
+        log(f"rank {rank}: float32 B=1 frames done")
+        # every collective between synchronizes, after a barrier: its own
+        # share of the frame, and the barrier's (the wait for the other rank)
+        coll_s, wait_s = [], []
+        real = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+        def timed(fn):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dist.barrier()
+                t1 = time.perf_counter()
+                r = fn(*a, **k)
+                torch.cuda.synchronize()
+                wait_s.append(t1 - t0)
+                coll_s.append(time.perf_counter() - t1)
+                return r
+            return run
+
+        for n, fn in real.items():
+            setattr(dist, n, timed(fn))
+        try:
+            _, share_ms = tp2_frames(gen, 1, TP2_SHARE_FRAMES, torch.float32, warmup=0)
+        finally:
+            for n, fn in real.items():
+                setattr(dist, n, fn)
+        out["collective_ms"] = sum(coll_s) * 1e3
+        out["barrier_ms"] = sum(wait_s) * 1e3
+        out["collectives"] = len(coll_s)
+        out["share_frames_ms"] = sum(share_ms)
+        # what a frame after the first moves
+        state = gen.init_state(1, torch.float32, device="cuda")
+        gen.step(state, None)
+        logged = []
+        for _ in range(TP2_LOGGED_FRAMES):
+            with CollectiveLog() as clog:
+                gen.step(state, None)
+            logged.append(clog.calls)
+        del state
+        moved = [sum(b for _, b in calls) for calls in logged]
+        ops = sorted({op for calls in logged for op, _ in calls})
+        out["frame_bytes"], out["frame_ops"] = moved, ops
+        if max(moved) > budget[1] or not set(ops) <= {"allreduce_", "allgather_"}:
+            raise AssertionError(f"rank {rank}: a frame after the first moved {moved} bytes "
+                                 f"by {ops}, over its sums and logits gather ({budget[1]})")
+        frames["f32_b1"] = (TP2_WARMUP + 2 * TP2_FRAMES + TP2_SHARE_FRAMES + 1
+                            + TP2_LOGGED_FRAMES)
+        out["f32_b2"] = tp2_frames(gen, 2, TP2_FRAMES, torch.float32)
+        frames["f32_b2"] = TP2_WARMUP + TP2_FRAMES
+        out["f32_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del gen, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = shard_params(mesh, build_flagship(job["seed"]))
+        gen = LMGen(model, delays=delays, use_sampling=False)
+        with recorded_steps(model) as rec:
+            out["bf16_b1"] = tp2_frames(gen, 1, TP2_FRAMES, torch.bfloat16, warmup=0)
+        frames["bf16_b1"] = TP2_FRAMES
+        want = torch.load(Path(job["root"]) / "bf16_logits.pt")
+        got = rec["steps"][0][1]
+        out["bf16_logit_rel_err"] = float(torch.linalg.vector_norm(got - want)
+                                          / torch.linalg.vector_norm(want))
+        out["bf16_warm"] = tp2_frames(gen, 1, TP2_FRAMES, torch.bfloat16)
+        frames["bf16_b1"] += TP2_WARMUP + TP2_FRAMES
+    out["counts"], out["expected"] = read_counts(), tp2_expected(FLAGSHIP["n_layer"], frames)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    result_path.write_text(json.dumps(out))
+
+
+def run_tp2_speech_frame(seed: int, card: str) -> tuple[dict, dict]:
+    """Path ``tp2_speech_frame``: one process's frames of the flagship
+    (float32 at B=1 and B=2, bf16 at B=1, greedy, timed), then the same as
+    two ranks over ``{"tensor": 2}`` (``rank_tp2_frame``), held to them.
+    Returns (both ranks' launches summed, the readings)."""
+    from rstnet_tpu_torch.inference.generate import LMGen
+
+    root = Path(tempfile.mkdtemp(prefix="smoke_tp2_"))
+    try:
+        delays = (0,) + (1,) * FLAGSHIP["n_q"]
+        one = {}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_flagship(seed, torch.float32)
+        gen = LMGen(model, delays=delays, use_sampling=False)
+        one["f32_b1"] = tp2_frames(gen, 1, TP2_FRAMES, torch.float32)
+        with recorded_steps(model, k1=True) as rec:
+            tokens, _ = tp2_frames(gen, 1, TP2_FRAMES, torch.float32, warmup=0)
+        if tokens != one["f32_b1"][0]:
+            raise AssertionError("tp2_speech_frame: two one-process float32 runs differ")
+        one_hidden, top2 = [h for h, _ in rec["steps"]], rec["k1_top2"]
+        one["f32_b2"] = tp2_frames(gen, 2, TP2_FRAMES, torch.float32)
+        one["f32_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del gen, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = build_flagship(seed)
+        gen = LMGen(model, delays=delays, use_sampling=False)
+        with recorded_steps(model) as rec:
+            one["bf16_b1"] = tp2_frames(gen, 1, TP2_FRAMES, torch.bfloat16, warmup=0)
+        one["bf16_warm"] = tp2_frames(gen, 1, TP2_FRAMES, torch.bfloat16)
+        torch.save(rec["steps"][0][1], root / "bf16_logits.pt")
+        del gen, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks({"kind": "tp2_frame", "seed": seed, "root": str(root)})
+        wall = time.perf_counter() - t0
+        res = [r for _, r, _ in ranks]
+        agree, b1 = [], []
+        for r, got in enumerate(res):
+            for t, (a, b) in enumerate(zip(got["f32_b2"][0], one["f32_b2"][0])):
+                if a != b:
+                    raise AssertionError(f"tp2_speech_frame rank {r} float32 B=2 frame {t}: "
+                                         f"tokens {a}, one process {b}")
+            b1.append(tp2_b1_agreement(got["f32_b1"][0], one["f32_b1"][0],
+                                       torch.load(root / f"hidden{r}.pt"), one_hidden, top2, r))
+            if got["bf16_logit_rel_err"] > SLICE_LOGIT_TOL:
+                raise AssertionError(f"tp2_speech_frame rank {r}: bf16 first-frame logits "
+                                     f"{got['bf16_logit_rel_err']:.3e} of their norm from one "
+                                     f"process's (> {SLICE_LOGIT_TOL})")
+            counts = {k: v for k, v in got["counts"].items() if v}
+            expected = {k: v for k, v in got["expected"].items() if v}
+            if counts != expected:
+                raise AssertionError(f"tp2_speech_frame rank {r}: launches {counts}, expected "
+                                     f"{expected}")
+            agree.append(sum(a == b for a, b in zip(got["bf16_b1"][0], one["bf16_b1"][0])))
+        counts = {k: res[0]["counts"][k] + res[1]["counts"][k] for k in res[0]["counts"]}
+
+        def pct(times):
+            ts = sorted(times)
+            return {"p50": ts[len(ts) // 2], "p99": ts[min(len(ts) - 1, int(0.99 * len(ts)))]}
+
+        reading = {
+            "one_process_ms": {run: pct(one[run][1]) for run in ("f32_b1", "f32_b2", "bf16_warm")},
+            "tp2_ms_by_rank": [{run: pct(g[run][1]) for run in ("f32_b1", "f32_b2", "bf16_warm")}
+                               for g in res],
+            "collective_share_by_rank": [g["collective_ms"] / g["share_frames_ms"] for g in res],
+            "barrier_share_by_rank": [g["barrier_ms"] / g["share_frames_ms"] for g in res],
+            "instrumented_frame_ms_by_rank": [g["share_frames_ms"] / TP2_SHARE_FRAMES
+                                              for g in res],
+            "collectives_a_frame": [g["collectives"] / TP2_SHARE_FRAMES for g in res],
+            "f32_b1_by_rank": b1,
+            "frame_bytes_by_rank": [g["frame_bytes"] for g in res],
+            "frame_budget_bytes": tp2_frame_budget(1),
+            "bf16_logit_rel_err_by_rank": [g["bf16_logit_rel_err"] for g in res],
+            "bf16_tokens_agree_frames": agree, "bf16_frames": TP2_FRAMES,
+            "peak_gib_by_rank": [round(g["peak_gib"], 2) for g in res],
+            "f32_peak_gib_by_rank": [round(g["f32_peak_gib"], 2) for g in res],
+            "one_process_f32_peak_gib": round(one["f32_peak_gib"], 2),
+            "ranks_wall_s": round(wall, 1), "card": card}
+        log(f"tp2_speech_frame: the flagship (full width) as 2 ranks over tensor=2 on one card "
+            f"(gloo); float32 tokens equal to one process's over {TP2_FRAMES} frames at B=2 "
+            f"on both ranks, at B=1 {b1}; frame ms (host clock, synchronized) one process "
+            f"{reading['one_process_ms']}, by rank {reading['tp2_ms_by_rank']}; collectives "
+            f"{reading['collectives_a_frame']} a frame, "
+            f"{[round(100 * x, 1) for x in reading['collective_share_by_rank']]} % of an "
+            f"instrumented float32 B=1 frame ({reading['instrumented_frame_ms_by_rank']} ms; "
+            f"each collective timed between synchronizes after a barrier, the barriers "
+            f"{[round(100 * x, 1) for x in reading['barrier_share_by_rank']]} %); bytes a "
+            f"frame after the "
+            f"first {reading['frame_bytes_by_rank']} (budget {reading['frame_budget_bytes']}); "
+            f"bf16 first-frame logits {reading['bf16_logit_rel_err_by_rank']} of their norm, "
+            f"tokens agree on {agree} of {TP2_FRAMES} frames; peaks "
+            f"{reading['peak_gib_by_rank']} GiB (float32 part {reading['f32_peak_gib_by_rank']}, "
+            f"one process {reading['one_process_f32_peak_gib']}); launches {counts} [{card}]")
+        return counts, reading
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def run_parallel_phases(args, card: str, paths: dict) -> dict:
-    """The probe, then the two data-parallel paths; ``paths`` gets their
+    """The probe, the two data-parallel paths, K4 at the tensor-parallel
+    shard shape and the tensor-parallel frame; ``paths`` gets the paths'
     launches (both ranks'). Returns the readings."""
     out = {}
     gc.collect()
@@ -5179,6 +5594,13 @@ def run_parallel_phases(args, card: str, paths: dict) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         paths["codec_train_dp2"], out["codec_train_dp2"] = run_codec_dp2(args.seed, card)
+    with phase("k4 shard shape"):
+        out["k4_shard_shape"] = check_k4_shard(args.seed, card)
+    with phase("tp2 speech frame"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["tp2_speech_frame"], out["tp2_speech_frame"] = run_tp2_speech_frame(args.seed,
+                                                                                   card)
     return out
 
 
@@ -5448,8 +5870,11 @@ def run_from_checkpoints(args, card: str, kernels: list, paths: dict, graphs: di
     # after every earlier path, so that each runs as it did before them
     log(json.dumps({"prep_paths": run_prep_phases(args, card, paths)}))
     # last: two ranks on the card, after every earlier path's peak
-    log(json.dumps({"parallel_paths": run_parallel_phases(args, card, paths)}))
+    parallel = run_parallel_phases(args, card, paths)
+    log(json.dumps({"parallel_paths": parallel}))
     for k in kernels:
+        if k["name"] in parallel["k4_shard_shape"]:
+            k["shard_shape"] = parallel["k4_shard_shape"][k["name"]]
         # a graph path's are its device launches: its eager warm-up call's
         # and its replays' (graph_launches)
         k["launches_by_path"] = {p: counts[k["name"]] for p, counts in paths.items()}

@@ -39,7 +39,9 @@
 //    stages stream in before it waits (griddepcontrol.wait) for the hidden:
 //    Wo does not depend on it.
 // 3. sum_down_splits: out = the partials added in split order (times K5's
-//    row scale), cast to x's dtype. No float atomics: two calls give
+//    row scale), cast to x's dtype (or kept in f32: out_f32, a
+//    tensor-parallel rank's partial of the down product, which the ranks
+//    sum in f32 before the one rounding). No float atomics: two calls give
 //    bit-identical results.
 // A block is one producer warp and two consumer warpgroups. The producer
 // keeps a ring of stages full with TMA tensor copies completing on
@@ -101,6 +103,15 @@ __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+// out[i] = v: f32 when out_f32, else in x's dtype X
+template <typename X>
+__device__ __forceinline__ void store_out(void* out, size_t i, float v, int out_f32) {
+  if (out_f32)
+    static_cast<float*>(out)[i] = v;
+  else
+    store(static_cast<X*>(out) + i, v);
+}
 
 // ---------------------------------------------------------------------------
 // CUDA-core kernels (C or H off the 128 grid)
@@ -283,7 +294,7 @@ core_gate_value(const X* __restrict__ x, const W* __restrict__ wg, const W* __re
 template <typename X, typename W, int NB>
 __global__ void __launch_bounds__(kCoreThreads)
 core_down(const float* __restrict__ hid, const W* __restrict__ wo, const float* __restrict__ os,
-          X* __restrict__ out, int N, int C, int H, int tile) {
+          void* __restrict__ out, int out_f32, int N, int C, int H, int tile) {
   extern __shared__ __align__(16) float hs[];  // [NB][tile]
   const int lane = threadIdx.x % 32;
   const int c = blockIdx.x * kCoreWarps + threadIdx.x / 32;
@@ -341,7 +352,7 @@ core_down(const float* __restrict__ hid, const W* __restrict__ wo, const float* 
       for (int n = 0; n < NB; ++n) {
         if (n < nb) {
           const float sum = warp_sum(acc[n]);
-          if (lane == 0) store(out + static_cast<size_t>(n0 + n) * C + c, sum);
+          if (lane == 0) store_out<X>(out, static_cast<size_t>(n0 + n) * C + c, sum, out_f32);
         }
       }
     }
@@ -358,8 +369,8 @@ int tile_columns(int width, int nb, int step) {
 
 template <int NB, typename X, typename W>
 int core_launch(const void* x, const void* wg, const void* wv, const void* wo, const float* gs,
-                const float* vs, const float* os, float* hid, void* out, int N, int C, int H,
-                cudaStream_t s) {
+                const float* vs, const float* os, float* hid, void* out, int out_f32, int N,
+                int C, int H, cudaStream_t s) {
   const int tile1 = tile_columns(C, NB, kChunk), tile2 = tile_columns(H, NB, steps_for(NB) * kChunk);
   const int smem1 = static_cast<int>(sizeof(float)) * NB * tile1;
   const int smem2 = static_cast<int>(sizeof(float)) * NB * tile2;
@@ -375,18 +386,19 @@ int core_launch(const void* x, const void* wg, const void* wv, const void* wo, c
       static_cast<const X*>(x), static_cast<const W*>(wg), static_cast<const W*>(wv), gs, vs,
       hid, N, C, H, tile1);
   core_down<X, W, NB><<<(C + kCoreWarps - 1) / kCoreWarps, kCoreThreads, smem2, s>>>(
-      hid, static_cast<const W*>(wo), os, static_cast<X*>(out), N, C, H, tile2);
+      hid, static_cast<const W*>(wo), os, out, out_f32, N, C, H, tile2);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The register chunk for N rows: 1 (single-row decode), 16, or 64.
 template <typename X, typename W>
 int core_run(const void* x, const void* wg, const void* wv, const void* wo, const float* gs,
-             const float* vs, const float* os, float* hid, void* out, int N, int C, int H,
-             cudaStream_t s) {
-  if (N == 1) return core_launch<1, X, W>(x, wg, wv, wo, gs, vs, os, hid, out, N, C, H, s);
-  if (N <= 16) return core_launch<16, X, W>(x, wg, wv, wo, gs, vs, os, hid, out, N, C, H, s);
-  return core_launch<64, X, W>(x, wg, wv, wo, gs, vs, os, hid, out, N, C, H, s);
+             const float* vs, const float* os, float* hid, void* out, int out_f32, int N, int C,
+             int H, cudaStream_t s) {
+  if (N == 1) return core_launch<1, X, W>(x, wg, wv, wo, gs, vs, os, hid, out, out_f32, N, C, H, s);
+  if (N <= 16)
+    return core_launch<16, X, W>(x, wg, wv, wo, gs, vs, os, hid, out, out_f32, N, C, H, s);
+  return core_launch<64, X, W>(x, wg, wv, wo, gs, vs, os, hid, out, out_f32, N, C, H, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -949,11 +961,11 @@ down_tc(const __grid_constant__ CUtensorMap wo_map, const __grid_constant__ CUte
 }
 
 // out[i] = the sum of partial[s, i] over the splits s in order, times the
-// output row's int8 scale (os, or null); i < N * C.
+// output row's int8 scale (os, or null), in X (f32 with out_f32); i < N * C.
 template <typename X>
 __global__ void __launch_bounds__(256)
 sum_down_splits(const float* __restrict__ partial, const float* __restrict__ os,
-                X* __restrict__ out, int splits, int N, int C) {
+                void* __restrict__ out, int out_f32, int splits, int N, int C) {
   dep_wait();
   const int n = N * C, i = blockIdx.x * 256 + threadIdx.x;
   if (i >= n) return;
@@ -961,7 +973,7 @@ sum_down_splits(const float* __restrict__ partial, const float* __restrict__ os,
 #pragma unroll 8
   for (int s = 0; s < splits; ++s) sum += __ldcg(partial + static_cast<size_t>(s) * n + i);
   if (os != nullptr) sum *= os[i % C];
-  store(out + i, sum);
+  store_out<X>(out, i, sum, out_f32);
 }
 
 // An f32 x as bf16 planes: hi[i] = bf16(x[i]), lo[i] = bf16(x[i] - hi[i]),
@@ -1115,8 +1127,8 @@ cudaError_t tc_chain(const CUtensorMap& wg_map, const CUtensorMap& wv_map,
 // C] f32.
 template <typename X, typename W>
 int tc_run(const void* x, const void* wg, const void* wv, const void* wo, const float* gs,
-           const float* vs, const float* os, float* scratch, void* out, int N, int C, int H,
-           int splits, cudaStream_t s) {
+           const float* vs, const float* os, float* scratch, void* out, int out_f32, int N, int C,
+           int H, int splits, cudaStream_t s) {
   bf16* hid = reinterpret_cast<bf16*>(scratch);
   bf16* xs = reinterpret_cast<bf16*>(scratch + static_cast<size_t>(N) * H);
   float* partial = scratch + static_cast<size_t>(N) * (H + C);
@@ -1154,7 +1166,7 @@ int tc_run(const void* x, const void* wg, const void* wv, const void* wo, const 
   }
   if (e == cudaSuccess)
     e = launch_pdl(sum_down_splits<X>, dim3((N * C + 255) / 256), 256, 0, s,
-                   static_cast<const float*>(partial), os, static_cast<X*>(out), splits, N, C);
+                   static_cast<const float*>(partial), os, out, out_f32, splits, N, C);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1171,33 +1183,35 @@ bool on_grid(int C, int H) { return C % 128 == 0 && H % 128 == 0; }
 // (clamped to [1, H / 128]; used with C, H multiples of 128, the
 // tensor-core route). The first kernel starts streaming the weights before
 // the kernel just ahead in the stream has finished: that kernel must not
-// have written them. Returns the cudaGetLastError() status after the
-// launches (or a tensor-map error, above 10000).
+// have written them. out_f32: out is f32 whatever x's dtype (a
+// tensor-parallel rank's partial, summed over the ranks before it is
+// rounded). Returns the cudaGetLastError() status after the launches (or a
+// tensor-map error, above 10000).
 extern "C" int gating_ffn(const void* x, const void* w_gate, const void* w_val, const void* w_out,
                           void* scratch, void* out, int N, int C, int H, int splits, int x_bf16,
-                          int w_bf16, void* stream) {
+                          int w_bf16, int out_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sf = static_cast<float*>(scratch);
   if (on_grid(C, H)) {
     if (w_bf16)
       return x_bf16 ? tc_run<bf16, bf16>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
-                                         out, N, C, H, splits, s)
+                                         out, out_f32, N, C, H, splits, s)
                     : tc_run<float, bf16>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
-                                          out, N, C, H, splits, s);
+                                          out, out_f32, N, C, H, splits, s);
     return x_bf16 ? tc_run<bf16, float>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
-                                        out, N, C, H, splits, s)
+                                        out, out_f32, N, C, H, splits, s)
                   : tc_run<float, float>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
-                                         out, N, C, H, splits, s);
+                                         out, out_f32, N, C, H, splits, s);
   }
   if (w_bf16)
     return x_bf16 ? core_run<bf16, bf16>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
-                                         out, N, C, H, s)
+                                         out, out_f32, N, C, H, s)
                   : core_run<float, bf16>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
-                                          out, N, C, H, s);
+                                          out, out_f32, N, C, H, s);
   return x_bf16 ? core_run<bf16, float>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
-                                        out, N, C, H, s)
+                                        out, out_f32, N, C, H, s)
                 : core_run<float, float>(x, w_gate, w_val, w_out, nullptr, nullptr, nullptr, sf,
-                                         out, N, C, H, s);
+                                         out, out_f32, N, C, H, s);
 }
 
 // K5. As K4 with int8 w_gate, w_val [H, C] and w_out [C, H] and their f32
@@ -1213,11 +1227,11 @@ extern "C" int gating_ffn_int8(const void* x, const void* w_gate, const void* ga
   const float* os = static_cast<const float*>(out_scale);
   float* sf = static_cast<float*>(scratch);
   if (on_grid(C, H)) {
-    return x_bf16 ? tc_run<bf16, int8_t>(x, w_gate, w_val, w_out, gs, vs, os, sf, out, N, C, H,
+    return x_bf16 ? tc_run<bf16, int8_t>(x, w_gate, w_val, w_out, gs, vs, os, sf, out, 0, N, C, H,
                                          splits, s)
-                  : tc_run<float, int8_t>(x, w_gate, w_val, w_out, gs, vs, os, sf, out, N, C, H,
+                  : tc_run<float, int8_t>(x, w_gate, w_val, w_out, gs, vs, os, sf, out, 0, N, C, H,
                                           splits, s);
   }
-  if (x_bf16) return core_run<bf16, int8_t>(x, w_gate, w_val, w_out, gs, vs, os, sf, out, N, C, H, s);
-  return core_run<float, int8_t>(x, w_gate, w_val, w_out, gs, vs, os, sf, out, N, C, H, s);
+  if (x_bf16) return core_run<bf16, int8_t>(x, w_gate, w_val, w_out, gs, vs, os, sf, out, 0, N, C, H, s);
+  return core_run<float, int8_t>(x, w_gate, w_val, w_out, gs, vs, os, sf, out, 0, N, C, H, s);
 }

@@ -18,6 +18,14 @@ K1's operands are taken from the weights at every frame, as JAX does, so an
 in-place change of the weights (padding, int8 quantization) reaches the
 kernel. ``step_scan`` runs N frames per call, as N ``step`` calls.
 
+Under ``parallel/mesh.py::set_mesh``, over a ``SpeechTextLM`` placed by
+``parallel/sharding.py::shard_params`` (``tensor`` > 1, with or without
+``fsdp``; ``data`` ranks serve alike), every rank runs the same frame: the
+backbone Megatron-style on its shards (``init_state``'s ring holds this
+rank's KV groups), the depth side and K1's operands over
+``serving_view``'s whole replica, and every rank samples the same tokens
+from the same gathered logits when the ranks pass generators of one seed.
+
 The frame reads nothing back to the host: the state's ``offset`` is a 0-dim
 device tensor, and the delays, the user-stream rows and the initial frame
 are device tensors built once per device and batch size. So a frame, or N
@@ -36,6 +44,7 @@ import torch
 from rstnet_tpu_torch.models.lm import UNGENERATED_TOKEN_ID
 from rstnet_tpu_torch.ops.cuda_depformer import depformer_kernel_operands, depformer_step
 from rstnet_tpu_torch.ops.sampling import sample_token
+from rstnet_tpu_torch.parallel.sharding import depth_side
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,10 +125,12 @@ class LMGen:
         state["age"][slots] = 0
         return state
 
+    @torch.no_grad()
     def step(self, state: dict, generator: torch.Generator | None,
              input_tokens: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor, dict]:
-        """One frame step, updating ``state`` in place.
+        """One frame step, updating ``state`` in place, outside autograd (a
+        placed model's text embedding and head then run on their shards).
 
         input_tokens: [B, num_user_streams, 1] (omit when no user streams).
         Returns (frame [B, dep_q+1, 1], valid [B] bool, state). A slot's frame
@@ -154,7 +165,7 @@ class LMGen:
 
         # 4. depformer micro-steps; the per-codebook input views are one matmul
         dep_ins = model.codecformer_inputs(hidden)  # [B, dep_q, 1, C]
-        ops = depformer_kernel_operands(model) if B == 1 else None
+        ops = depformer_kernel_operands(depth_side(model)) if B == 1 else None
         prev = text_token[:, None]
         audio_tokens = []
         if ops is not None:

@@ -64,6 +64,17 @@ JAX one does:
   is used.
 * ``expert`` > 1: each rank runs its experts of the ``[E, ...]`` stacks and
   the mixture is summed over the ``expert`` axis.
+
+The streaming ``step`` runs Megatron-style on the local shards too, under
+``tensor`` > 1 (the serving frame; see ``parallel/sharding.py::serving_view``):
+``init_state`` holds this rank's ``G/T`` KV groups when ``T`` divides ``G``
+(else all ``G``, the QKV output gathered as in training), QKV is
+column-parallel and writes the ring with its heads, ``proj`` is row-parallel,
+the decode MLP runs K4 on the local ``[H/T, C]``/``[C, H/T]`` shards into a
+float32 partial that is summed over ``tensor`` (one rounding to the
+activation dtype, as one process rounds), ``embed`` is vocab-parallel and
+``logits`` column-parallel with the row gathered for sampling. The only
+per-frame collectives are those sums and that gather.
 """
 
 from __future__ import annotations
@@ -98,10 +109,11 @@ from rstnet_tpu_torch.parallel.comm import (
     gather_dim,
     gather_replicated,
     reduce_from,
+    table_rows,
 )
 from rstnet_tpu_torch.parallel.mesh import current_mesh
 from rstnet_tpu_torch.parallel.pipeline import spmd_pipeline
-from rstnet_tpu_torch.parallel.sharding import dense, is_dtensor, local
+from rstnet_tpu_torch.parallel.sharding import dense, is_dtensor, local, row_split_group
 
 STACKED = ("blocks",)
 _FLOAT = (torch.float32, torch.bfloat16)
@@ -437,17 +449,20 @@ class Backbone(nn.Module):
 
     # -- block ------------------------------------------------------------------
 
-    def _fused_mlp(self, mlp: nn.Module, x: torch.Tensor) -> torch.Tensor | None:
+    def _fused_mlp(self, mlp: nn.Module, x: torch.Tensor, tp=None) -> torch.Tensor | None:
         """The decode MLP through K4 (float weights) or K5 (int8 weights)
         when it lies in their envelope (no bias, no LoRA factors), else None.
         The choice depends on the config, shapes and dtypes only, never on
-        the device."""
+        the device. Under ``tp`` K4 runs on this rank's shards (``fc_1`` and
+        ``fc_2`` ``[H/T, C]``, ``proj`` ``[C, H/T]``, the envelope read on
+        ``H/T``) into a float32 partial of the down product, summed over
+        ``tp`` and then rounded to x's dtype."""
         if self.cfg.mlp_class_name != "LLaMAMLP":
             return None
         B, T, C = x.shape
         lins = (mlp.fc_1, mlp.fc_2, mlp.proj)
         int8 = ["w_int8" in p._parameters for p in lins]
-        H = (lins[0].w_int8 if int8[0] else lins[0].weight).shape[0]
+        H = (lins[0].w_int8 if int8[0] else local(lins[0].weight)).shape[0]
         if (B * T > FFN_MAX_ROWS or C % 128 or H % 128 or x.dtype not in _FLOAT
                 or any("bias" in p._parameters or "lora" in p._modules for p in lins)):
             return None
@@ -456,6 +471,9 @@ class Backbone(nn.Module):
             out = gating_ffn_int8(rows, *(t for p in lins for t in (p.w_int8, p.scale)))
         elif any(int8) or any(p.weight.dtype not in _FLOAT for p in lins):
             return None
+        elif tp is not None:
+            part = gating_ffn(rows, *(local(p.weight) for p in lins), out_dtype=torch.float32)
+            out = reduce_from(part, tp).to(x.dtype)
         else:
             out = gating_ffn(rows, *(p.weight for p in lins))
         return out.reshape(B, T, C)
@@ -466,15 +484,15 @@ class Backbone(nn.Module):
         kernels first. ``drop``: the MLP's LoRA-dropout pair (sub-site i of
         it for its i-th linear)."""
         cfg = self.cfg
-        if decode:
-            out = self._fused_mlp(mlp, x)
-            if out is not None:
-                return out
         if cfg.mlp_class_name == "LLaMAMoE":
             return self._moe(mlp, x)
-        scaling = self.lora_scaling
         ups = (mlp.fc,) if cfg.mlp_class_name == "GptNeoxMLP" else (mlp.fc_1, mlp.fc_2)
-        tp = None if decode else self._tp_group(*ups, mlp.proj)
+        tp = self._tp_group(*ups, mlp.proj)
+        if decode:
+            out = self._fused_mlp(mlp, x, tp)
+            if out is not None:
+                return out
+        scaling = self.lora_scaling
         if tp is not None:
             x = copy_to(x, tp)
 
@@ -548,7 +566,7 @@ class Backbone(nn.Module):
         cfg = self.cfg
         B, T, _ = x.shape
         x_normed = norm_apply(cfg, block.norm_1, x)
-        tp = None if kv_cache is not None else self._tp_group(block.attn, block.proj)
+        tp = self._tp_group(block.attn, block.proj)
         q, k, v = self._qkv(block, copy_to(x_normed, tp), fold_drop(drop, 0), tp)
         q, k = self._rope_qk(q, k, cos, sin)
         pos_k, kv_scales = pos, (None, None)
@@ -580,7 +598,8 @@ class Backbone(nn.Module):
     # -- forward ------------------------------------------------------------------
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = dense(self.wte)[tokens]
+        """``wte`` rows of ``tokens`` (``parallel/comm.py::table_rows``)."""
+        x = table_rows(self.wte, tokens)
         if self.cfg.scale_embeddings:
             x = x * torch.tensor(self.cfg.n_embd**0.5, dtype=x.dtype)
         return x
@@ -636,8 +655,19 @@ class Backbone(nn.Module):
 
     def logits(self, hidden: torch.Tensor, dropout_rng: torch.Generator | None = None
                ) -> torch.Tensor:
+        """The text head. A ``lm_head`` split by rows over ``tensor`` (no
+        LoRA factors) runs column-parallel outside autograd (the serving
+        step): this rank's ``V/T`` logits, gathered into the whole row that
+        sampling needs; a training forward gathers the weight."""
         (drop,) = self._dropout(dropout_rng, 1)
-        out = linear(self.lm_head, hidden, self.lora_scaling, drop)
+        head = self.lm_head
+        group = row_split_group(head._parameters.get("weight"))
+        if group is not None and "lora" not in head._modules and not torch.is_grad_enabled():
+            out = gather_dim(hidden @ local(head.weight).T.to(hidden.dtype), -1, group)
+            if "bias" in head._parameters:
+                out = out + dense(head.bias).to(out.dtype)
+        else:
+            out = linear(head, hidden, self.lora_scaling, drop)
         if self.cfg.final_logit_softcapping is not None:
             cap = self.cfg.final_logit_softcapping
             out = torch.tanh(out / cap) * cap
@@ -656,13 +686,24 @@ class Backbone(nn.Module):
         cfg = self.cfg
         if cfg.context is None:
             raise ValueError("streaming needs config.context to bound the KV ring")
-        shape = (batch_size, cfg.n_query_groups, cfg.context + chunk_size - 1, cfg.head_size)
+        shape = (batch_size, self._ring_groups(), cfg.context + chunk_size - 1, cfg.head_size)
         if kv_unstacked:
             kv = [ring_kv_buffers(shape, dtype, device, kv_int8) for _ in range(cfg.n_layer)]
         else:
             kv = ring_kv_buffers((cfg.n_layer, *shape), dtype, device, kv_int8)
         # a device scalar: the step reads nothing back (CUDA-graph capturable)
         return {"kv": kv, "offset": torch.zeros((), dtype=torch.long, device=device)}
+
+    def _ring_groups(self) -> int:
+        """KV groups a ring holds on this rank: ``G/T`` under ``tensor`` =
+        T > 1 over sharded attention weights when T divides G, else G."""
+        G = self.cfg.n_query_groups
+        layers = self.layers()
+        tp = self._tp_group(layers[0][1].attn, layers[0][1].proj) if layers else None
+        if tp is None:
+            return G
+        n_tp = torch.distributed.get_world_size(tp)
+        return G // n_tp if G % n_tp == 0 else G
 
     def step(self, state: dict, x: torch.Tensor, min_pos: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, dict]:

@@ -14,6 +14,13 @@ quantizations (``quantize_for_serving``, ``quantize_dep_for_serving``,
 ``quantize_head_for_serving``) work in place on the model and leave weights
 that are already int8 as they are, so they compose in any order; their
 ``state_dict`` keys are the JAX trees' paths.
+
+On a model placed by ``parallel/sharding.py::shard_params`` over several
+ranks, the streaming pieces read the depth side (codecformer, its views,
+embeddings and heads) from ``serving_view``'s whole replica
+(``depth_side``), and the backbone's step, its text embedding
+(vocab-parallel) and its text head (column-parallel, the logits gathered)
+run on the local shards of its ``tensor``-sharded weights.
 """
 
 from __future__ import annotations
@@ -34,8 +41,9 @@ from rstnet_tpu_torch.modules.transformer import (
     resolve_weight,
 )
 from rstnet_tpu_torch.ops.context_parallel import shift
+from rstnet_tpu_torch.parallel.comm import table_rows
 from rstnet_tpu_torch.parallel.mesh import current_mesh
-from rstnet_tpu_torch.parallel.sharding import dense
+from rstnet_tpu_torch.parallel.sharding import dense, depth_side
 
 ZERO_TOKEN_ID = -1
 UNGENERATED_TOKEN_ID = -2
@@ -53,13 +61,26 @@ def scaled_embedding(table: torch.Tensor, tokens: torch.Tensor, zero_idx: int = 
                      norm: dict | None = None) -> torch.Tensor:
     """Embedding where ``zero_idx`` tokens give exactly 0. Indices are
     clipped into the table, as the JAX gather does; ``norm`` ({weight,
-    bias}, optional) is a post-embedding layer norm applied before the mask."""
+    bias}, optional) is a post-embedding layer norm applied before the mask.
+    A table split by rows over ``tensor`` (a ``DTensor``) is looked up
+    vocab-parallel outside autograd (the serving step), and gathered whole
+    in a training forward."""
     is_zero = tokens == zero_idx
-    table = dense(table)
-    y = table[tokens.long().clamp(0, table.shape[0] - 1)]
+    y = table_rows(table, tokens.long().clamp(0, table.shape[0] - 1))
     if norm is not None:
         y = _emb_layer_norm(y, norm["weight"], norm["bias"])
     return torch.where(is_zero[..., None], torch.zeros((), dtype=y.dtype, device=y.device), y)
+
+
+def _norm_of(src: nn.Module, name: str, index: int | None = None) -> dict | None:
+    """The ``{weight, bias}`` of ``src``'s embedding norm ``name`` (row
+    ``index`` of a stacked one), or None without it."""
+    p = getattr(src, name, None)
+    if p is None:
+        return None
+    if index is None:
+        return {"weight": p.weight, "bias": p.bias}
+    return {"weight": p.weight[index], "bias": p.bias[index]}
 
 
 class SpeechTextLM(nn.Module):
@@ -133,14 +154,6 @@ class SpeechTextLM(nn.Module):
     def num_codebooks(self) -> int:
         return self.config.n_q + 1
 
-    def _norm(self, name: str, index: int | None = None) -> dict | None:
-        p = getattr(self, name, None)
-        if p is None:
-            return None
-        if index is None:
-            return {"weight": p.weight, "bias": p.bias}
-        return {"weight": p.weight[index], "bias": p.bias[index]}
-
     # -- input fusion -----------------------------------------------------------
 
     def initial_frame(self, batch_size: int, device=None) -> torch.Tensor:
@@ -179,8 +192,8 @@ class SpeechTextLM(nn.Module):
         hidden = self.backbone(self.fuse_embeddings(sequence), dropout_rng)
         return hidden, self.backbone.logits(hidden, dropout_rng)
 
-    def _codecformer_in_weight(self, dtype) -> torch.Tensor:
-        w = resolve_weight(dense(self.codecformer_in), dtype)
+    def _codecformer_in_weight(self, dtype, src: nn.Module | None = None) -> torch.Tensor:
+        w = resolve_weight(dense((src or self).codecformer_in), dtype)
         if w.shape[0] == 1 and self.config.dep_q > 1:
             w = w.expand(self.config.dep_q, *w.shape[1:])
         return w
@@ -195,11 +208,11 @@ class SpeechTextLM(nn.Module):
         dep_in = torch.einsum("btd,kcd->btkc", transformer_out,
                               self._codecformer_in_weight(transformer_out.dtype))
         prev = [scaled_embedding(self.codecformer_text_emb, text_tokens,
-                                 norm=self._norm("codecformer_text_emb_norm"))]
+                                 norm=_norm_of(self, "codecformer_text_emb_norm"))]
         codecformer_emb = dense(self.codecformer_emb)
         for k in range(cfg.dep_q - 1):
             prev.append(scaled_embedding(codecformer_emb[k], audio_targets[:, k, :],
-                                         norm=self._norm("codecformer_emb_norm", k)))
+                                         norm=_norm_of(self, "codecformer_emb_norm", k)))
         x = (dep_in + torch.stack(prev, dim=2)).reshape(B * T, cfg.dep_q, cfg.codecformer_dim)
         out = self.codecformer(x)  # [B*T, dep_q, C]
         logits = torch.einsum("nkc,kvc->nkv", out,
@@ -244,13 +257,14 @@ class SpeechTextLM(nn.Module):
         """One temporal step: frame [B, 1 + n_q, 1] -> (hidden [B, 1, D],
         text_logits [B, 1, V], state). ``min_pos`` [B]: per-slot attention
         lookback floor (multi-session batched decode)."""
+        depth_side(self)  # a placed model: FSDP2 unsharded before the backbone reads it
         hidden, state = self.backbone.step(state, self.fuse_embeddings(frame), min_pos=min_pos)
         return hidden, self.backbone.logits(hidden), state
 
     def codecformer_inputs(self, transformer_out: torch.Tensor) -> torch.Tensor:
         """All dep_q per-codebook views of the backbone output in one matmul:
         [B, T, D] -> [B, dep_q, T, C]."""
-        w_in = self._codecformer_in_weight(transformer_out.dtype)
+        w_in = self._codecformer_in_weight(transformer_out.dtype, depth_side(self))
         return torch.einsum("btd,kcd->bktc", transformer_out, w_in)
 
     def step_codecformer(self, cf_state: dict, cb_index: int, prev_token: torch.Tensor,
@@ -258,26 +272,29 @@ class SpeechTextLM(nn.Module):
         """One depth step: prev_token [B, 1], transformer_out [B, 1, D] ->
         (logits [B, 1, card], cf_state). ``dep_in``: this step's [B, 1, C]
         view from ``codecformer_inputs``."""
+        depth = depth_side(self)
         if dep_in is None:
             k = cb_index if self.config.codecformer_multi_linear else 0
-            dep_in = transformer_out @ resolve_weight(self.codecformer_in[k],
+            dep_in = transformer_out @ resolve_weight(depth.codecformer_in[k],
                                                       transformer_out.dtype).T
         x = dep_in + self.codecformer_step_embedding(cb_index, prev_token)
-        out, cf_state = self.codecformer.step(cf_state, x)
+        out, cf_state = depth.codecformer.step(cf_state, x)
         # the step's head only: the same values as resolving the whole stack
-        logits = out @ resolve_weight(self.audio_linears.weight[cb_index], out.dtype).T
-        if "bias" in self.audio_linears._parameters:
-            logits = logits + self.audio_linears.bias[cb_index].to(logits.dtype)
+        heads = depth.audio_linears
+        logits = out @ resolve_weight(heads.weight[cb_index], out.dtype).T
+        if "bias" in heads._parameters:
+            logits = logits + heads.bias[cb_index].to(logits.dtype)
         return logits, cf_state
 
     def codecformer_step_embedding(self, cb_index: int, prev_token: torch.Tensor) -> torch.Tensor:
         """Previous-token embedding for micro-step ``cb_index``: step 0 embeds
         the text token, later steps the previous codebook's token."""
+        depth = depth_side(self)
         if cb_index == 0:
-            return scaled_embedding(self.codecformer_text_emb, prev_token,
-                                    norm=self._norm("codecformer_text_emb_norm"))
-        return scaled_embedding(self.codecformer_emb[cb_index - 1], prev_token,
-                                norm=self._norm("codecformer_emb_norm", cb_index - 1))
+            return scaled_embedding(depth.codecformer_text_emb, prev_token,
+                                    norm=_norm_of(depth, "codecformer_text_emb_norm"))
+        return scaled_embedding(depth.codecformer_emb[cb_index - 1], prev_token,
+                                norm=_norm_of(depth, "codecformer_emb_norm", cb_index - 1))
 
     def init_codecformer_state(self, batch_size: int, dtype=torch.bfloat16, device=None) -> dict:
         return self.codecformer.init_state(batch_size, dtype, device=device)

@@ -24,6 +24,11 @@ packed input and the output projections; the offline forward takes a
 ``dropout_rng`` (a CPU generator) for LoRA-branch dropout at
 ``lora_dropout``, one seed a layer, as in JAX.
 
+On a model placed over several ranks, ``step`` runs over
+``parallel/sharding.py::serving_view``'s replica, whose weights are whole
+plain tensors (K2 at B > 1 as on one process); ``resolve_weight`` refuses a
+``DTensor``.
+
 Serving weights may be weight-only int8 (``quantize_transformer_int8``, in
 place): an :class:`Int8Weight` in a parameter's place, whose ``state_dict``
 keys are the JAX dict's paths (``...in_proj.w_int8``, ``...in_proj.scale``).
@@ -58,7 +63,7 @@ from rstnet_tpu_torch.ops.cuda_ffn import clamp_step, gating_ffn_step
 from rstnet_tpu_torch.ops.gating import ActivationGating, gated_ffn, get_activation
 from rstnet_tpu_torch.ops.norms import LayerScale, Norm
 from rstnet_tpu_torch.ops.rope import apply_rope_interleaved
-from rstnet_tpu_torch.parallel.sharding import dense
+from rstnet_tpu_torch.parallel.sharding import dense, is_dtensor
 
 
 def create_sin_embedding(positions: torch.Tensor, dim: int, max_period: float = 10_000.0
@@ -129,7 +134,13 @@ def resolve_weight(w, dtype: torch.dtype) -> torch.Tensor:
     """The weight in the activation dtype. An int8 weight dequantizes as in
     JAX: the scale is rounded to ``dtype`` first, the product taken in it.
     One mixed-dtype multiply does it: the codes convert exactly to ``dtype``
-    inside the kernel, so no converted copy of the codes is written."""
+    inside the kernel, so no converted copy of the codes is written. A
+    sharded weight (``DTensor``) is refused: a serving step reads the depth
+    side from ``parallel/sharding.py::serving_view``'s whole replica, and a
+    training forward gathers it first."""
+    if is_dtensor(w):
+        raise TypeError("resolve_weight got a sharded DTensor: serve a placed model through "
+                        "parallel.sharding.depth_side (its whole replica), or gather it first")
     if is_int8(w):
         return w.w_int8 * w.scale.to(dtype)[..., None]
     return w.to(dtype)

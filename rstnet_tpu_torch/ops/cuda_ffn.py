@@ -178,13 +178,15 @@ def _ffn_scratch(x: torch.Tensor, C: int, H: int) -> tuple[torch.Tensor, int]:
 
 
 def gating_ffn_reference(x: torch.Tensor, w_gate: torch.Tensor, w_val: torch.Tensor,
-                         w_out: torch.Tensor) -> torch.Tensor:
+                         w_out: torch.Tensor, out_dtype: torch.dtype | None = None
+                         ) -> torch.Tensor:
     """Plain version of K4: x [N, C]; w_gate, w_val [H, C]; w_out [C, H]
-    -> [N, C] in x's dtype. The weights are taken in x's dtype, then widened
-    to float32 with x; sums and hidden in float32."""
+    -> [N, C] in ``out_dtype`` (x's dtype by default). The weights are
+    taken in x's dtype, then widened to float32 with x; sums and hidden in
+    float32."""
     xf = x.float()
     wg, wv, wo = (w.to(x.dtype).float() for w in (w_gate, w_val, w_out))
-    return ((F.silu(xf @ wg.T) * (xf @ wv.T)) @ wo.T).to(x.dtype)
+    return ((F.silu(xf @ wg.T) * (xf @ wv.T)) @ wo.T).to(out_dtype or x.dtype)
 
 
 def dequantize_rows(w_int8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -235,9 +237,11 @@ def _check_ffn_operands(name, x, weights, wtypes, scales=()):
 
 
 def gating_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_val: torch.Tensor,
-               w_out: torch.Tensor) -> torch.Tensor:
+               w_out: torch.Tensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """K4: fused ``(silu(x Wg^T) * (x Wv^T)) Wo^T`` for x [N, C] (float32 or
-    bf16) and float32 or bf16 weights -> [N, C] in x's dtype. Launches the
+    bf16) and float32 or bf16 weights -> [N, C] in ``out_dtype``: x's dtype
+    by default, or float32 (a tensor-parallel rank's partial of the down
+    product, summed over the ranks before its one rounding). Launches the
     kernel on a CUDA tensor (or raises), runs the plain version on a CPU
     tensor. Counts launches over bf16 weights in ``gating_ffn.launches``
     and over float32 weights in ``gating_ffn.launches_f32w``.
@@ -246,8 +250,11 @@ def gating_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_val: torch.Tensor,
     before the kernel launched just ahead of the call on the stream has
     finished (programmatic dependent launch), so that kernel must not have
     written them."""
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"gating_ffn writes x's dtype or float32, not {out_dtype}")
     if x.device.type == "cpu":
-        return gating_ffn_reference(x, w_gate, w_val, w_out)
+        return gating_ffn_reference(x, w_gate, w_val, w_out, out_dtype)
     if x.device.type != "cuda":
         raise NotImplementedError(f"gating_ffn has no kernel for {x.device}")
     weights = (w_gate, w_val, w_out)
@@ -255,13 +262,13 @@ def gating_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_val: torch.Tensor,
     N, C = x.shape
     H = w_gate.shape[0]
     w_bf16 = w_gate.dtype == torch.bfloat16
-    out = torch.empty_like(x)
+    out = torch.empty_like(x, dtype=out_dtype)
     with torch.cuda.device(x.device):
         scratch, splits = _ffn_scratch(x, C, H)
         status = cuda_lib.kernel_library().gating_ffn(
             x.data_ptr(), *(w.data_ptr() for w in weights), scratch.data_ptr(), out.data_ptr(),
             N, C, H, splits, int(x.dtype == torch.bfloat16), int(w_bf16),
-            torch.cuda.current_stream().cuda_stream)
+            int(out_dtype == torch.float32), torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(status, "gating_ffn")
     if w_bf16:
         gating_ffn.launches += 1

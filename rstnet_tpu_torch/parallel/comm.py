@@ -18,6 +18,13 @@ then it does nothing. Forward/backward pairs follow Megatron's ``f`` and
 :func:`batch_mean` and :func:`batch_norm` are a loss's reductions over the
 whole batch when the ambient mesh splits it.
 
+The tensor-parallel serving step (no autograd) takes its row-parallel sums
+through :func:`reduce_from`, the gather of its ``[B, 1, V/T]`` logits through
+:func:`gather_dim`, and its token embedding through :func:`table_rows`
+(:func:`vocab_parallel_embedding`). :class:`CollectiveLog` records the
+collectives that run inside it (their op and bytes), so a test or the card's
+smoke run can see that a frame gathered no whole weight.
+
 :func:`all_reduce_buckets` works in place without autograd: the bucketed
 all-reduce of a step's gradients.
 """
@@ -31,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from rstnet_tpu_torch.parallel.mesh import batch_groups
+from rstnet_tpu_torch.parallel.sharding import dense, local, row_split_group
 
 BUCKET_BYTES = 32 << 20
 
@@ -151,6 +159,75 @@ def batch_rows(n_local: int) -> tuple[int, int]:
     if len(groups) > 1:
         raise ValueError("whole-batch draws split the rows over one batch group")
     return n_local * dist.get_world_size(groups[0]), n_local * dist.get_rank(groups[0])
+
+
+@torch.no_grad()
+def vocab_parallel_embedding(local_table: torch.Tensor, tokens: torch.Tensor, group
+                             ) -> torch.Tensor:
+    """Rows of a table split by rows over ``group`` (this rank holds rows
+    ``[r n, (r + 1) n)``, ``n = local_table.shape[0]``): each rank looks up
+    the tokens that fall in its rows, writes zeros for the rest, and the
+    ranks' parts are summed. Exactly the whole table's lookup (one part is
+    non-zero). ``tokens`` lie in ``[0, n * ranks)``."""
+    n = local_table.shape[0]
+    idx = tokens - n * dist.get_rank(group)
+    inside = (idx >= 0) & (idx < n)
+    rows = local_table[idx.clamp(0, n - 1)]
+    rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                             device=rows.device))
+    return reduce_from(rows, group)
+
+
+def table_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``. A table split by rows over one mesh axis (a
+    ``DTensor``) is looked up vocab-parallel outside autograd (the serving
+    step), and gathered whole in a training forward (its gradient is this
+    rank's chunk)."""
+    group = row_split_group(table)
+    if group is not None and not torch.is_grad_enabled():
+        return vocab_parallel_embedding(local(table), idx, group)
+    return dense(table)[idx]
+
+
+class CollectiveLog:
+    """Records every collective that runs inside it, by op and bytes: an
+    all-reduce's tensor, an all-gather's gathered output, whatever calls
+    it (this module, ``DTensor.full_tensor``, FSDP2). A
+    ``TorchDispatchMode``: each op goes through Python while it is on, so
+    keep it off timed frames."""
+
+    _NAMESPACES = ("c10d", "_c10d_functional")
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+
+        log = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                name = func.__name__.split(".")[0]
+                if func.namespace in log._NAMESPACES and not name.startswith(
+                        ("wait", "_wrap")):
+                    log.calls.append((name, sum(t.numel() * t.element_size()
+                                                for t in tree_leaves(out)
+                                                if isinstance(t, torch.Tensor))))
+                return out
+
+        self.calls: list[tuple[str, int]] = []
+        self._mode = _Mode()
+
+    @property
+    def bytes(self) -> int:
+        return sum(b for _, b in self.calls)
+
+    def __enter__(self) -> "CollectiveLog":
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._mode.__exit__(*exc)
 
 
 def chunk_of(x: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -25,9 +25,31 @@ leaves whole on ``fsdp`` are FSDP2's ``ignored_params``, replicated, their
 gradients summed by ``training/train_step.py``.
 
 The backbone's attention and MLP run Megatron-style on the local shards
-(:func:`local`); every other tensor-sharded weight is gathered where it is
-used (:func:`dense`: the compute after it is the same on every rank, so its
-gradient is this rank's chunk).
+(:func:`local`). In a training forward every other tensor-sharded weight is
+gathered where it is used (:func:`dense`: the compute after it is the same
+on every rank, so its gradient is this rank's chunk).
+
+Serving (``LMGen`` over a placed ``SpeechTextLM`` under ``set_mesh``) reads
+the weights through :func:`serving_view`, whose contract is:
+
+* (a) under ``fsdp`` it unshards FSDP2 once (``FSDPModule.unshard``) and the
+  weights stay gathered while the model serves, so the step never meets an
+  ``fsdp`` shard. :func:`reshard` puts the shards back (and drops the view;
+  the next step unshards again);
+* (b) the backbone's tensor-sharded weights stay ``DTensor`` s: its
+  attention, MLP, ``wte`` (a vocab-parallel lookup) and ``lm_head``
+  (column-parallel, the logits gathered) run on the local shards, so the
+  only per-frame collectives are sums over ``tensor`` and that gather;
+* (c) the depth side (``DEPTH_SIDE``: the codecformer, its input views,
+  embeddings and norms, and ``audio_linears``) is gathered into whole plain
+  tensors held on every rank, once per weight version: a step that finds a
+  source tensor replaced or written in place gathers again. K1 takes the
+  whole depth transformer in one launch, and the column rule's split of
+  ``linear_in``'s gate-then-value rows has no Megatron split of K2's
+  per-step slices (the JAX package keeps it sharded under GSPMD).
+
+:func:`depth_side` is what the step reads the depth side from: the view's
+replica on a placed model over more than one rank, else the model itself.
 
 :func:`batch_slice` takes a rank's part of a global batch: rows over
 ``(data, fsdp)`` combined, the time axis over ``seq``.
@@ -35,6 +57,7 @@ gradient is this rank's chunk).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Any, Optional
@@ -259,6 +282,91 @@ def reshard(model: nn.Module) -> None:
     for m in model.modules():
         if isinstance(m, FSDPModule):
             m.reshard()
+    model.__dict__.pop("_serving_view", None)
+
+
+# a SpeechTextLM's depth side: what serving holds whole on every rank
+DEPTH_SIDE = ("codecformer", "audio_linears", "codecformer_in", "codecformer_text_emb",
+              "codecformer_emb", "codecformer_emb_norm", "codecformer_text_emb_norm")
+
+
+@dataclasses.dataclass
+class ServingView:
+    """What :func:`serving_view` made: the depth side's whole replica (a
+    module with the model's attribute names) and the (address, version) of
+    every source tensor it was gathered from."""
+
+    depth: nn.Module
+    sources: tuple
+
+
+def _sources(model: nn.Module) -> tuple:
+    return tuple((local(p).data_ptr(), local(p)._version)
+                 for name in DEPTH_SIDE if hasattr(model, name)
+                 for p in _params_of(getattr(model, name)))
+
+
+def _params_of(x) -> list:
+    return list(x.parameters()) if isinstance(x, nn.Module) else [x]
+
+
+def _gathered(w) -> torch.Tensor:
+    """A weight whole. A ``DTensor`` split over one mesh axis is gathered
+    by ``torch.distributed.all_gather`` (which gloo runs on CUDA tensors
+    too), any other by ``full_tensor``; a plain tensor is itself."""
+    if is_dtensor(w) and w.device_mesh.ndim == 1 and w.placements[0].is_shard():
+        from rstnet_tpu_torch.parallel.comm import gather_dim
+
+        return gather_dim(w.to_local(), w.placements[0].dim, w.device_mesh.get_group())
+    return dense(w)
+
+
+def _whole(x):
+    """A copy of module or parameter ``x`` over whole plain tensors: a
+    ``DTensor`` gathered, any other tensor shared."""
+    if not isinstance(x, nn.Module):
+        return nn.Parameter(_gathered(x.detach()), requires_grad=False)
+    out = copy.copy(x)
+    out._parameters = {k: None if p is None else _whole(p) for k, p in x._parameters.items()}
+    out._buffers = dict(x._buffers)
+    out._modules = {k: None if m is None else _whole(m) for k, m in x._modules.items()}
+    return out
+
+
+@torch.no_grad()
+def serving_view(model: nn.Module) -> ServingView:
+    """Prepare a model placed by :func:`shard_params` for streaming (the
+    module docstring's contract): unshard FSDP2 once, and return the depth
+    side's whole replica, gathered again only when a source changed. Every
+    rank must call it at the same point (it runs collectives when it
+    gathers)."""
+    view = model.__dict__.get("_serving_view")
+    sources = _sources(model)
+    if view is not None and view.sources == sources:
+        return view
+    from torch.distributed.fsdp import FSDPModule
+
+    fsdp = [m for m in model.modules() if isinstance(m, FSDPModule)]
+    for m in fsdp:
+        m.unshard()
+    if fsdp:
+        sources = _sources(model)  # the unsharded parameters
+    depth = nn.Module()
+    for name in DEPTH_SIDE:
+        if hasattr(model, name):
+            setattr(depth, name, _whole(getattr(model, name)))
+    view = model.__dict__["_serving_view"] = ServingView(depth, sources)
+    return view
+
+
+def depth_side(model: nn.Module) -> nn.Module:
+    """Where a serving step reads the depth side: :func:`serving_view`'s
+    replica when ``model`` is placed over more than one rank, else
+    ``model`` itself."""
+    layout = getattr(model, "_shard_layout", None)
+    if layout is None or layout.mesh.world == 1:
+        return model
+    return serving_view(model).depth
 
 
 def _owner(model: nn.Module, name: str) -> tuple[nn.Module, str]:
@@ -287,6 +395,16 @@ def dense(w):
 def local(w):
     """A weight's local shard (the tensor itself when it is not sharded)."""
     return w.to_local() if is_dtensor(w) else w
+
+
+def row_split_group(w):
+    """The process group of a ``DTensor`` weight split along dim 0 over one
+    mesh axis (a vocab-split table, a column-parallel head), else None."""
+    if not is_dtensor(w) or w.device_mesh.ndim != 1:
+        return None
+    from torch.distributed.tensor import Shard
+
+    return w.device_mesh.get_group() if tuple(w.placements) == (Shard(0),) else None
 
 
 def _row_group(mesh: Mesh, rank: int) -> int:

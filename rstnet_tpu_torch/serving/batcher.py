@@ -265,7 +265,8 @@ class SessionBatcher:
                 step, self._state, (torch.zeros(pcm_t.shape, dtype=pcm_t.dtype,
                                                 device=self.device),),
                 generators=(self.generator,),
-                key=lambda: weights_key(self.mimi, self.lm_gen.model), name="batched tick")
+                key=lambda: weights_key(self.mimi, self.lm_gen.model), name="batched tick",
+                modules=(self.mimi, self.lm_gen.model))
         # pageable memory: the copy returns once the source is staged
         self._graph.inputs[0].copy_(pcm_t, non_blocking=True)
         return self._graph()

@@ -23,6 +23,12 @@ so a graph never runs over weights that were replaced or written since.
 
 ``outputs`` are static: the next call overwrites them, so a caller copies
 out what it keeps before the next call on the same stream is issued.
+
+A model placed over several ranks (``DTensor`` or FSDP2 parameters) is
+refused by :func:`check_capturable`, which a ``CapturedStep`` runs over
+the ``modules`` it is given: its frame runs gloo collectives,
+which a CUDA graph cannot capture, and nothing falls back to eager
+unannounced. Such a frame runs eagerly (``LMGen.step``).
 """
 
 from __future__ import annotations
@@ -74,6 +80,23 @@ def copy_tree_(dst, src) -> None:
         d.copy_(s)
 
 
+def check_capturable(*modules: torch.nn.Module) -> None:
+    """Raise if a module holds parameters sharded over ranks (``DTensor`` s
+    or an FSDP2 unit): their collectives (gloo's) cannot be captured into a
+    CUDA graph, and a replay would skip them."""
+    from torch.distributed.fsdp import FSDPModule
+
+    from rstnet_tpu_torch.parallel.sharding import is_dtensor
+
+    for m in modules:
+        sharded = any(is_dtensor(p) for p in m.parameters())
+        if sharded or any(isinstance(sub, FSDPModule) for sub in m.modules()):
+            raise ValueError(
+                f"{type(m).__name__} is placed over several ranks (DTensor or FSDP2 "
+                "parameters): its frame runs gloo collectives, which a CUDA graph cannot "
+                "capture; run it eagerly (LMGen.step)")
+
+
 def weights_key(*modules: torch.nn.Module) -> tuple:
     """The addresses of every parameter and buffer of ``modules`` and the
     parameters' versions: it changes when a weight is replaced (padding,
@@ -101,11 +124,15 @@ def capture_stream(device) -> torch.cuda.Stream:
 
 
 class CapturedStep:
-    """``fn(state, *inputs)`` as a CUDA graph over static buffers."""
+    """``fn(state, *inputs)`` as a CUDA graph over static buffers.
+    ``modules``: the modules whose weights ``fn`` reads, refused when they
+    are sharded (:func:`check_capturable`)."""
 
     def __init__(self, fn: Callable, state, inputs: tuple = (), *, pool=None,
                  stream: Optional[torch.cuda.Stream] = None, generators: tuple = (),
-                 key: Optional[Callable[[], tuple]] = None, name: str = "step"):
+                 key: Optional[Callable[[], tuple]] = None, name: str = "step",
+                 modules: tuple = ()):
+        check_capturable(*modules)
         self.fn, self.state, self.inputs = fn, state, tuple(inputs)
         self.pool = pool if pool is not None else torch.cuda.graph_pool_handle()
         self.stream = stream if stream is not None else torch.cuda.Stream()

@@ -173,7 +173,8 @@ class ServerState:
         return CapturedStep(
             step, self._state, (pcm,), pool=first.pool if first else None,
             stream=first.stream if first else None, generators=(self.generator,),
-            key=lambda: weights_key(self.mimi, self.lm_gen.model), name=fn.__name__)
+            key=lambda: weights_key(self.mimi, self.lm_gen.model), name=fn.__name__,
+            modules=(self.mimi, self.lm_gen.model))
 
     def _run(self, pcm: np.ndarray, n_frames: int):
         """One frame (``n_frames`` 0) or a scan of ``n_frames``: (audio, out)

@@ -470,6 +470,26 @@ def test_gating_ffn_kernels_match_plain(cuda, N, x_dtype, C, H):
                    w[2][:100].contiguous())  # C % 8 != 0
 
 
+@pytest.mark.parametrize("N", [1, 2, 64])
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C,H", [(2048, 4096), (136, 392)], ids=["tp-shard", "off-grid"])
+def test_gating_ffn_float32_partial_matches_plain(cuda, N, w_dtype, C, H):
+    """K4 with a float32 output (a tensor-parallel rank's partial of the
+    down product) at the flagship's MLP shard over ``tensor`` = 2 and at a
+    width off the 128 grid, x in the weights' dtype: against its plain
+    version, two calls bit for bit."""
+    from rstnet_tpu_torch.ops.cuda_ffn import gating_ffn, gating_ffn_reference
+
+    w = [((torch.rand(shape, device="cuda", generator=cuda) * 2 - 1) * shape[1]**-0.5).to(w_dtype)
+         for shape in ((H, C), (H, C), (C, H))]
+    x = torch.randn((N, C), device="cuda", generator=cuda).to(w_dtype)
+    got = gating_ffn(x, *w, out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (N, C)
+    assert torch.equal(gating_ffn(x, *w, out_dtype=torch.float32), got)
+    torch.testing.assert_close(got, gating_ffn_reference(x, *w, out_dtype=torch.float32),
+                               rtol=1e-4, atol=1e-5)
+
+
 def _card_batcher(seed=0, **kwargs):
     from rstnet_tpu_torch.inference.generate import LMGen
     from rstnet_tpu_torch.serving.batcher import SessionBatcher

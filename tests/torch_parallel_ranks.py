@@ -321,6 +321,63 @@ def job_flagship_mesh(cfg_overrides: dict, seed: int, shape: dict) -> dict:
             "trainable": sorted(trainable), "frozen": sorted(frozen)}
 
 
+def job_tp_serving(cases: dict, batches=(2, 1), n_frames: int = 5) -> dict:
+    """Greedy ``LMGen`` frames of the LM placed on each case's mesh:
+    ``cases`` maps a name to ``(cfg, flat, mesh shape)``. For each case and
+    batch size: every frame's tokens, the backbone's hidden state and text
+    logits, the collectives of each frame (op, bytes), ``step_scan``'s
+    frames from a fresh state, the ring's shape, and what ``CapturedStep``
+    says of the placed model."""
+    import torch
+
+    from rstnet_tpu_torch.inference.generate import LMGen
+    from rstnet_tpu_torch.parallel.comm import CollectiveLog
+    from rstnet_tpu_torch.parallel.mesh import make_mesh, set_mesh
+    from rstnet_tpu_torch.parallel.sharding import shard_params
+    from rstnet_tpu_torch.serving.graphs import CapturedStep
+
+    out = {}
+    for name, (cfg, flat, shape) in cases.items():
+        mesh = make_mesh(shape)
+        model = shard_params(mesh, _lm(cfg, flat))
+        seen = []
+        real = model.step_global
+
+        def step_global(*a, _real=real, **k):
+            hidden, logits, state = _real(*a, **k)
+            seen.append((hidden.numpy().copy(), logits.numpy().copy()))
+            return hidden, logits, state
+
+        model.step_global = step_global
+        delays = (0,) + (1,) * model.config.n_q
+        gen = LMGen(model, delays=delays, use_sampling=False)
+        try:
+            CapturedStep(lambda st: (None, st), {}, modules=(model,))
+            refusal = None
+        except ValueError as e:
+            refusal = str(e)
+        with torch.no_grad(), set_mesh(mesh):
+            for B in batches:
+                seen.clear()
+                state = gen.init_state(B, torch.float32)
+                ring = tuple(state["lm"]["kv"]["k"].shape)
+                frames, collectives = [], []
+                for _ in range(n_frames):
+                    with CollectiveLog() as log:
+                        tokens, _, state = gen.step(state, None)
+                    frames.append(tokens.numpy().copy())
+                    collectives.append(log.calls)
+                hidden = [h for h, _ in seen]
+                logits = [lg for _, lg in seen]
+                scan, _, _ = gen.step_scan(gen.init_state(B, torch.float32), None,
+                                           n_frames=n_frames)
+                out[f"{name}-B{B}"] = {
+                    "frames": frames, "hidden": hidden, "logits": logits,
+                    "collectives": collectives, "scan": scan.numpy().copy(), "ring": ring,
+                    "refusal": refusal}
+    return out
+
+
 def job_codec_suite(argv: list, ema: dict) -> dict:
     return {"codec": job_codec_train(argv), "ema": job_ema(**ema)}
 
@@ -329,7 +386,7 @@ JOBS = {"train_step": job_train_step, "codec_train": job_codec_train,
         "mesh_shapes": job_mesh_shapes, "context_parallel": job_context_parallel,
         "moe_forward": job_moe_forward, "pipeline": job_pipeline, "reshard": job_reshard,
         "trainer": job_trainer, "codec_suite": job_codec_suite,
-        "flagship_mesh": job_flagship_mesh}
+        "flagship_mesh": job_flagship_mesh, "tp_serving": job_tp_serving}
 
 
 def job_suite(parts: dict) -> dict:
